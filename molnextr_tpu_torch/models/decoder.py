@@ -1,0 +1,225 @@
+"""Autoregressive transformer decoder.
+
+Port of ``molnextr_tpu/models/decoder.py::Decoder``: pre-norm layers of
+[LN -> masked self-attention -> +res], [LN -> cross-attention over the
+encoder memory], [pre-norm GELU FFN with its own residual], and a final
+LayerNorm (eps 1e-6 throughout).  Word embeddings are scaled by sqrt(dim)
+and summed with the sinusoidal table of length ``max_len + 8``.
+
+The flax layers are ``nn.scan``-stacked; here they are a ``ModuleList``
+(``weights.py`` unstacks the leading ``L`` axis).  Each attention keeps
+its q/k/v projections as one ``(D, 3D)`` Dense, the concatenation the JAX
+``project_qkv`` builds per step; cross attention uses its q and kv column
+blocks.
+
+Decode caches (``init_cache``): the self cache is ``(L, B, H, T, hd)`` with
+``T = max_len`` rounded up to a multiple of 128, int8 with per-token f32
+scales ``(L, B, H, T, 1)`` when ``kv_int8`` (the default) or in the model
+dtype; the cross cache is head-folded ``(L, B, M, H*hd)``, int8 with one
+scale per memory position when ``kv_int8``.  ``step`` writes the new K/V
+row into the cache **in place** and returns the same dict.  Unlike the JAX
+decode, which grows the self cache 128 -> T in phases, the port keeps one
+T-long buffer: K3 never reads past ``pos``, and masked positions contribute
+exactly 0 to the reference softmax, so the results are the same.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from molnextr_tpu_torch.config import DecoderConfig
+from molnextr_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from molnextr_tpu_torch.ops.decode_attention import (
+    cross_decode_attention_folded,
+    cross_decode_attention_folded_q8,
+    decode_attention_layered,
+    decode_attention_layered_q8,
+    quantize_per_token,
+)
+
+
+def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
+    pe = np.zeros((max_len, dim), dtype=np.float32)
+    position = np.arange(max_len)[:, None].astype(np.float32)
+    div = np.exp(np.arange(0, dim, 2).astype(np.float32) * -(np.log(10000.0) / dim))
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div)
+    return pe
+
+
+class MHA(nn.Module):
+    def __init__(self, heads: int, hidden: int):
+        super().__init__()
+        self.heads, self.hidden = heads, hidden
+        self.qkv = Dense(hidden, 3 * hidden)
+        self.out = Dense(hidden, hidden)
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) -> (B, H, T, hd)."""
+        b, t, _ = x.shape
+        return x.reshape(b, t, self.heads, self.hidden // self.heads).transpose(1, 2)
+
+    def project_q(self, x):
+        d = self.hidden
+        return x.to(self.qkv.kernel.dtype) @ self.qkv.kernel[:, :d] + self.qkv.bias[:d]
+
+    def project_kv(self, x):
+        d = self.hidden
+        y = x.to(self.qkv.kernel.dtype) @ self.qkv.kernel[:, d:] + self.qkv.bias[d:]
+        return y[..., :d], y[..., d:]
+
+    def attend(self, q, k, v, mask: Optional[torch.Tensor]):
+        """Teacher-forced attention; q/k/v (B, H, T, hd), mask True = masked."""
+        hd = self.hidden // self.heads
+        scores = (q @ k.transpose(-1, -2)) / torch.tensor(math.sqrt(hd), dtype=q.dtype)
+        if mask is not None:
+            scores = scores.masked_fill(mask, -1e9)
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        ctx = (probs @ v).transpose(1, 2)
+        return self.out(ctx.reshape(ctx.shape[0], ctx.shape[1], self.hidden))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, hidden: int, ffn: int):
+        super().__init__()
+        self.ln = LayerNorm(hidden, 1e-6)
+        self.w1 = Dense(hidden, ffn)
+        self.w2 = Dense(ffn, hidden)
+
+    def forward(self, x):
+        return self.w2(F.gelu(self.w1(self.ln(x)))) + x
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.ln1 = LayerNorm(d, 1e-6)
+        self.self_attn = MHA(cfg.attn_heads, d)
+        self.ln2 = LayerNorm(d, 1e-6)
+        self.cross_attn = MHA(cfg.attn_heads, d)
+        self.ffn = FeedForward(d, d * cfg.ffn_mult)
+
+    def forward(self, x, memory, self_mask):
+        d = self.self_attn.hidden
+        qkv = self.self_attn.qkv(self.ln1(x))
+        sa = self.self_attn
+        q = sa.attend(sa.split(qkv[..., :d]), sa.split(qkv[..., d:2 * d]),
+                      sa.split(qkv[..., 2 * d:]), self_mask) + x
+        ca = self.cross_attn
+        mk, mv = ca.project_kv(memory)
+        mid = ca.attend(ca.split(ca.project_q(self.ln2(q))), ca.split(mk), ca.split(mv), None)
+        return self.ffn(mid + q)
+
+    def cached_step(self, x, cache, layer: int, pos: int, int8: bool):
+        """One token (B, 1, D) against the caches; updates them in place."""
+        sa, ca = self.self_attn, self.cross_attn
+        b = x.shape[0]
+        d, h = sa.hidden, sa.heads
+        y = sa.qkv(self.ln1(x))[:, 0]  # (B, 3D)
+        # K3 takes contiguous operands; the column blocks of y are strided views
+        q, k_new, v_new = (t.reshape(b, h, d // h).contiguous() for t in y.split(d, dim=-1))
+        if int8:
+            k_q, k_s = quantize_per_token(k_new)
+            v_q, v_s = quantize_per_token(v_new)
+            cache["self_k"][layer, :, :, pos] = k_q
+            cache["self_k_scale"][layer, :, :, pos] = k_s
+            cache["self_v"][layer, :, :, pos] = v_q
+            cache["self_v_scale"][layer, :, :, pos] = v_s
+            ctx = decode_attention_layered_q8(
+                q, cache["self_k"], cache["self_k_scale"],
+                cache["self_v"], cache["self_v_scale"], pos, layer,
+            )
+        else:
+            cache["self_k"][layer, :, :, pos] = k_new
+            cache["self_v"][layer, :, :, pos] = v_new
+            ctx = decode_attention_layered(q, cache["self_k"], cache["self_v"], pos, layer)
+        q_res = sa.out(ctx.reshape(b, 1, d)) + x
+        qq = ca.project_q(self.ln2(q_res)).reshape(b, h, d // h)
+        if int8:
+            cross = cross_decode_attention_folded_q8(
+                qq, cache["mem_k"], cache["mem_k_scale"],
+                cache["mem_v"], cache["mem_v_scale"], layer, h,
+            )
+        else:
+            cross = cross_decode_attention_folded(qq, cache["mem_k"], cache["mem_v"], layer, h)
+        mid = ca.out(cross.reshape(b, 1, d))
+        return self.ffn(mid + q_res)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: DecoderConfig, vocab_size: int):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.embed = Embed(vocab_size, d)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_positions(cfg.max_len + 8, d)), persistent=False
+        )
+        self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.final_ln = LayerNorm(d, 1e-6)
+        self.output = Dense(d, vocab_size)
+
+    def embed_tokens(self, tokens: torch.Tensor, start_pos: int) -> torch.Tensor:
+        emb = self.embed(tokens)
+        emb = emb * torch.tensor(math.sqrt(self.cfg.hidden_size), dtype=emb.dtype)
+        pe = self.pe[start_pos : start_pos + tokens.shape[1]]
+        return emb + pe.to(emb.dtype)[None]
+
+    def forward(self, tokens, memory, pad_mask: Optional[torch.Tensor] = None):
+        """Teacher-forced: tokens (B, T), memory (B, M, D), pad_mask (B, T)
+        True at padding.  Returns final hidden states (B, T, D)."""
+        t = tokens.shape[1]
+        x = self.embed_tokens(tokens, 0)
+        mask = torch.triu(torch.ones(t, t, dtype=torch.bool, device=tokens.device), 1)[None, None]
+        if pad_mask is not None:
+            mask = mask | pad_mask[:, None, None, :]
+        for layer in self.layers:
+            x = layer(x, memory, mask)
+        return self.final_ln(x)
+
+    def init_cache(self, memory: torch.Tensor) -> Dict[str, torch.Tensor]:
+        c = self.cfg
+        b = memory.shape[0]
+        h = c.attn_heads
+        hd = c.hidden_size // h
+        kv = [layer.cross_attn.project_kv(memory) for layer in self.layers]
+        mem_k = torch.stack([k for k, _ in kv])  # (L, B, M, H*hd)
+        mem_v = torch.stack([v for _, v in kv])
+        t_cache = ((c.max_len + 127) // 128) * 128
+        shape = (c.num_layers, b, h, t_cache, hd)
+        dev = memory.device
+        if c.kv_int8:
+            mem_k, mem_k_scale = quantize_per_token(mem_k)
+            mem_v, mem_v_scale = quantize_per_token(mem_v)
+            return {
+                "self_k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "self_k_scale": torch.zeros(shape[:-1] + (1,), device=dev),
+                "self_v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "self_v_scale": torch.zeros(shape[:-1] + (1,), device=dev),
+                "mem_k": mem_k,
+                "mem_k_scale": mem_k_scale,
+                "mem_v": mem_v,
+                "mem_v_scale": mem_v_scale,
+            }
+        return {
+            "self_k": torch.zeros(shape, dtype=memory.dtype, device=dev),
+            "self_v": torch.zeros(shape, dtype=memory.dtype, device=dev),
+            "mem_k": mem_k,
+            "mem_v": mem_v,
+        }
+
+    def step(self, token: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor]):
+        """token (B,) at position ``pos`` -> final-LN hidden (B, D); the
+        cache is updated in place."""
+        x = self.embed_tokens(token[:, None], pos)
+        int8 = "self_k_scale" in cache
+        for i, layer in enumerate(self.layers):
+            x = layer.cached_step(x, cache, i, pos, int8)
+        return self.final_ln(x)[:, 0]

@@ -1,0 +1,197 @@
+"""Weight carry-over between the JAX package's parameter tree and the port.
+
+* :func:`load_flax_params` copies a flax parameter tree (numpy leaves, as
+  ``checkpoint.load_model`` returns it) into a port model.  The names map
+  one to one, with three layout changes: the ``nn.scan``-stacked decoder
+  layers (leading ``L`` axis) are unstacked into ``layers.<i>``; each
+  attention's separate ``q``/``k``/``v`` Dense layers are concatenated into
+  one ``(D, 3D)`` ``qkv`` Dense; the HWIO patch-embed kernel is flattened to
+  ``(p*p*3, C)``.  Flax ``Dense`` kernels are ``(in, out)`` in both.  The
+  training-only ``heatmap_head`` is skipped.
+* :func:`seeded_flax_params` makes a numpy tree with the names and shapes
+  of ``MolNexTRModel.init`` from a numpy ``RandomState``: normal * 0.02 for
+  kernels, embeddings and ``rel_bias``, ones for LayerNorm scales, zeros
+  for biases.  Both frameworks can then run the same full-width model
+  without JAX on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from molnextr_tpu_torch.config import Config
+from molnextr_tpu_torch.models.swin import effective_window
+
+SKIPPED = ("heatmap_head",)  # training-only head, not built by the port
+N_HEATMAP_OUT = 13  # presence + 11 element classes + "other"
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax parameter tree -> the port's state-dict names and layouts."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, np.ndarray] = {}
+    qkv: Dict[Tuple[str, str, str], Dict[str, np.ndarray]] = {}
+    for path, arr in _flatten(params).items():
+        parts = path.split("/")
+        if parts[0] in SKIPPED:
+            continue
+        if parts[0].startswith("decoders_"):
+            parts = ["decoders", parts[0][len("decoders_"):]] + parts[1:]
+        if parts[:3] == ["encoder", "patch_embed", "kernel"]:
+            arr = arr.reshape(-1, arr.shape[-1])
+        if len(parts) > 3 and parts[0] == "decoders" and parts[2] == "layers":
+            prefix, rest = ".".join(parts[:3]), parts[3:]
+            if rest[0] in ("self_attn", "cross_attn") and rest[1] in ("q", "k", "v"):
+                qkv.setdefault((prefix, rest[0], rest[2]), {})[rest[1]] = arr
+                continue
+            for i in range(arr.shape[0]):
+                out[".".join([prefix, str(i)] + rest)] = arr[i]
+            continue
+        out[".".join(parts)] = arr
+    for (prefix, attn, leaf), parts_qkv in qkv.items():
+        cat = np.concatenate([parts_qkv["q"], parts_qkv["k"], parts_qkv["v"]], axis=-1)
+        for i in range(cat.shape[0]):
+            out[f"{prefix}.{i}.{attn}.qkv.{leaf}"] = cat[i]
+    return out
+
+
+def load_flax_params(model: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
+    """Copy a flax parameter tree into ``model`` in place; every parameter
+    must be covered and every shape must match.  The tree's
+    ``heatmap_head`` (a training-only head the port does not build) is
+    skipped."""
+    sd = flax_to_state_dict(params)
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"parameter mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            arr = sd[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return model
+
+
+def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[int, ...]]:
+    """Flax path -> shape for every parameter ``MolNexTRModel.init`` makes."""
+    e, dcfg = cfg.encoder, cfg.decoder
+    if not e.name.startswith("swin"):
+        raise NotImplementedError(f"encoder {e.name}: only Swin is ported")
+    s: Dict[str, Tuple[int, ...]] = {}
+
+    def dense(path, din, dout, bias=True):
+        s[f"{path}/kernel"] = (din, dout)
+        if bias:
+            s[f"{path}/bias"] = (dout,)
+
+    def ln(path, dim):
+        s[f"{path}/scale"] = (dim,)
+        s[f"{path}/bias"] = (dim,)
+
+    p = e.patch_size
+    s["encoder/patch_embed/kernel"] = (p, p, 3, e.embed_dim)
+    s["encoder/patch_embed/bias"] = (e.embed_dim,)
+    if e.patch_norm:
+        ln("encoder/patch_norm", e.embed_dim)
+    res = (cfg.data.input_size // p,) * 2
+    dims = [int(e.embed_dim * 2 ** i) for i in range(len(e.depths))]
+    for stage, depth in enumerate(e.depths):
+        dim = dims[stage]
+        ws, _ = effective_window(e.window_size, res, 0)
+        for i in range(depth):
+            blk = f"encoder/stage{stage}_block{i}"
+            ln(f"{blk}/norm1", dim)
+            dense(f"{blk}/attn/qkv", dim, 3 * dim)
+            s[f"{blk}/attn/rel_bias"] = ((2 * ws - 1) ** 2, e.num_heads[stage])
+            dense(f"{blk}/attn/proj", dim, dim)
+            ln(f"{blk}/norm2", dim)
+            dense(f"{blk}/fc1", dim, int(dim * e.mlp_ratio))
+            dense(f"{blk}/fc2", int(dim * e.mlp_ratio), dim)
+        if stage < len(e.depths) - 1:
+            ln(f"encoder/merge{stage}/norm", 4 * dim)
+            dense(f"encoder/merge{stage}/reduction", 4 * dim, 2 * dim, bias=False)
+            res = (res[0] // 2, res[1] // 2)
+    ln("encoder/norm", dims[-1])
+    d = dcfg.hidden_size
+    dense("enc_trans", e.num_features, d)
+    if dcfg.enc_pos_emb:
+        s["enc_pos/embedding"] = (144, e.num_features)
+    L, f = dcfg.num_layers, d * dcfg.ffn_mult
+    coord_fmt = False
+    for fmt in cfg.data.formats:
+        if fmt == "edges":
+            continue
+        coord_fmt |= fmt in ("atomtok_coords", "chartok_coords")
+        dec = f"decoders_{fmt}"
+        s[f"{dec}/embed/embedding"] = (vocab_sizes[fmt], d)
+        for name in ("ln1", "ln2", "ffn/ln"):
+            s[f"{dec}/layers/{name}/scale"] = (L, d)
+            s[f"{dec}/layers/{name}/bias"] = (L, d)
+        for attn in ("self_attn", "cross_attn"):
+            for proj in ("q", "k", "v", "out"):
+                s[f"{dec}/layers/{attn}/{proj}/kernel"] = (L, d, d)
+                s[f"{dec}/layers/{attn}/{proj}/bias"] = (L, d)
+        s[f"{dec}/layers/ffn/w1/kernel"] = (L, d, f)
+        s[f"{dec}/layers/ffn/w1/bias"] = (L, f)
+        s[f"{dec}/layers/ffn/w2/kernel"] = (L, f, d)
+        s[f"{dec}/layers/ffn/w2/bias"] = (L, d)
+        ln(f"{dec}/final_ln", d)
+        dense(f"{dec}/output", d, vocab_sizes[fmt])
+    if "edges" in cfg.data.formats and coord_fmt:
+        dense("edges_head/mlp1_row", d, d)
+        dense("edges_head/mlp1_col", d, d, bias=False)
+        dense("edges_head/mlp2", d, 7)
+        if cfg.data.continuous_coords:
+            dense("edges_head/coords1", d, d)
+            dense("edges_head/coords2", d, 2)
+    if cfg.train.aux_heatmap_weight > 0:
+        fine = dims[1] if len(dims) > 1 else dims[0]
+        dense("heatmap_head/fine", fine, 128)
+        dense("heatmap_head/coarse", dims[-1], 128)
+        dense("heatmap_head/out", 128, N_HEATMAP_OUT)
+    return s
+
+
+def seeded_flax_params(cfg: Config, vocab_sizes: Dict[str, int], seed: int = 0) -> Dict[str, Any]:
+    """``{"params": tree}`` of float32 numpy arrays, drawn in sorted path
+    order from ``np.random.RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for path, shape in sorted(param_shapes(cfg, vocab_sizes).items()):
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf in ("kernel", "embedding", "rel_bias"):
+            flat[path] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        elif leaf == "scale":
+            flat[path] = np.ones(shape, np.float32)
+        else:
+            flat[path] = np.zeros(shape, np.float32)
+    return {"params": _unflatten(flat)}
