@@ -10,8 +10,8 @@ It builds the hand-written kernels of ``molnextr_tpu_torch/ops/csrc`` with
 failure:
 
 1. setup: the card, its power limit, compute capability 9.x, build seconds;
-2. kernels: K1/K2/K3 against their plain PyTorch versions at the main
-   path's full-width shapes, each error beside its tolerance;
+2. kernels: K1-K6 against their plain PyTorch versions at the full-width
+   shapes, in float32 and bf16, each error beside its tolerance;
 3. parity: ``Config()`` (Swin-B 384 + 6x256x8 decoder) in float32 with
    ``seeded_flax_params(seed=0)`` against the JAX package's memory bank and
    first greedy steps stored in ``molnextr_tpu_torch/fixtures``;
@@ -19,12 +19,18 @@ failure:
    weights, bf16, int8 KV cache) and its dense-cache form
    (``MOLNEXTR_KV_INT8=0``), each with the launch counters zeroed before
    and read after;
-5. demo: the trained demo bundle through the public API, hits against gold
+5. ops: the public ``molnextr_tpu_torch.ops`` entry points of K4-K6
+   (``cached_decode_attention``, ``cached_folded_attention``,
+   ``folded_decode_attention_bb``) over every position and layer of one
+   full-width bf16 decode, with the counters zeroed before and read after,
+   and their outputs at a few positions against the plain versions;
+6. demo: the trained demo bundle through the public API, hits against gold
    and agreement with the JAX package's SMILES, and ``get_predictions`` on
    a PNG file;
-6. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+7. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
-   launches beside its bound, its plain version and a library call.
+   launches (K3-K6: one 480-step decode) beside its bound, its plain
+   version and a library call.
 
 The last three lines are the kernels line, the card line and the device
 line.  ``--phases`` runs a subset (for development); the contract run uses
@@ -35,6 +41,7 @@ outside a checkout.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -42,7 +49,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "demo", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "timing")
+# the ops package exports the K4 function under its module's name
+DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # operations/s by type (bf16 on the tensor cores, float32 on the CUDA cores,
@@ -146,6 +155,11 @@ def k3_work(b, h, d, pos, es, q8):
     return b * h * ((pos + 1) * per_pos + 2 * d * es), 4 * b * h * (pos + 1) * d
 
 
+def folded_work(b, d_model, pos, es):
+    """K5/K6: q and out (B, D), K and V rows 0..pos of one layer."""
+    return b * ((pos + 1) * 2 * d_model * es + 2 * d_model * es), 4 * b * (pos + 1) * d_model
+
+
 class Bound:
     """Sums the least time of a run of calls: per call the larger of its
     bytes over HBM bandwidth and its operations over the type's peak."""
@@ -222,13 +236,25 @@ def cache_inputs(torch, gen, dtype, q8):
     return q, k.to(dtype), v.to(dtype)
 
 
+def folded_inputs(torch, gen, dtype):
+    """q (B, D) and a head-folded stacked cache (L, B, T, D), D = H * d."""
+    dm = DEC_H * DEC_D
+    q = torch.randn(BATCH, dm, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(DEC_L, BATCH, DEC_T, dm, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(DEC_L, BATCH, DEC_T, dm, generator=gen, device=DEVICE).to(dtype)
+    return q, k, v
+
+
 def phase_kernels(torch, results):
-    from molnextr_tpu_torch.ops import decode_attention as da
+    from molnextr_tpu_torch.ops import folded_attention as fa
     from molnextr_tpu_torch.ops import swin_fused as sf
 
+    da = importlib.import_module(DA_MODULE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {k: 0.0 for k in ("fused_window_attention", "fused_ln_mlp",
-                             "decode_attention_layered_q8", "decode_attention_layered")}
+                             "decode_attention_layered_q8", "decode_attention_layered",
+                             "decode_attention", "folded_decode_attention",
+                             "folded_decode_attention_bb")}
     log("phase kernels: each kernel against its plain version")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -269,7 +295,28 @@ def phase_kernels(torch, results):
                     errs[key] = max(errs[key], check_close(
                         f"K3 {'int8' if q8 else 'dense'} q {dn} pos {pos} layer {layer}",
                         got, want, torch, dtype))
+                    if not q8:  # K4 on the same layer as an unstacked cache
+                        q, kc, vc = ins
+                        got = da.decode_attention(q, kc[layer], vc[layer], pos)
+                        want = da.decode_attention_reference(q, kc[layer], vc[layer], pos)
+                        torch.cuda.synchronize()
+                        errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                            f"K4 {dn} pos {pos} layer {layer}", got, want, torch, dtype))
             del ins
+        ins = folded_inputs(torch, gen, dtype)
+        for pos in (0, 127, 128, 300, 479):
+            for layer in (0, 5):
+                want = fa.folded_decode_attention_reference(*ins, pos, layer, DEC_H)
+                runs = [("folded_decode_attention", "K5",
+                         fa.folded_decode_attention(*ins, pos, layer, DEC_H))]
+                for bb in (8, 4):
+                    runs.append(("folded_decode_attention_bb", f"K6 bb {bb}",
+                                 fa.folded_decode_attention_bb(*ins, pos, layer, DEC_H, bb=bb)))
+                torch.cuda.synchronize()
+                for key, label, got in runs:
+                    errs[key] = max(errs[key], check_close(
+                        f"{label} {dn} pos {pos} layer {layer}", got, want, torch, dtype))
+        del ins
     torch.cuda.empty_cache()
     results["max_abs_err"] = errs
 
@@ -391,6 +438,52 @@ def phase_paths(torch, results):
     results["paths"] = paths
 
 
+OPS_KERNELS = ("decode_attention", "folded_decode_attention", "folded_decode_attention_bb")
+
+
+def phase_ops(torch, results):
+    """The public ops entry points of K4-K6, which the JAX package gives
+    these kernels, over one full-width bf16 decode: every position of
+    every layer, a new query each step."""
+    from molnextr_tpu_torch import ops
+
+    log(f"phase ops: molnextr_tpu_torch.ops over {DEC_STEPS} positions x {DEC_L} layers, "
+        f"batch {BATCH}, bf16")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    _, kc, vc = cache_inputs(torch, gen, bf, False)  # (L, B, H, T, d)
+    _, kf, vf = folded_inputs(torch, gen, bf)  # (L, B, T, H * d)
+    qs = torch.randn(DEC_STEPS, BATCH, DEC_H, DEC_D, generator=gen, device=DEVICE).to(bf)
+    qf = qs.reshape(DEC_STEPS, BATCH, DEC_H * DEC_D)
+    kept = {(0, 0): None, (127, 5): None, (128, 3): None, (479, 5): None}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for pos in range(DEC_STEPS):
+        for layer in range(DEC_L):
+            outs = (ops.cached_decode_attention(qs[pos], kc[layer], vc[layer], pos),
+                    ops.cached_folded_attention(qf[pos], kf, vf, pos, layer, DEC_H),
+                    ops.folded_decode_attention_bb(qf[pos], kf, vf, pos, layer, DEC_H))
+            if (pos, layer) in kept:
+                kept[pos, layer] = outs
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    log(f"  {DEC_STEPS * DEC_L} steps x 3 calls in {time.perf_counter() - t0:.2f} s, "
+        f"launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        want = DEC_STEPS * DEC_L if name in OPS_KERNELS else 0
+        if n != want:
+            raise AssertionError(f"phase ops: {name} launched {n} times, expected {want}")
+    for (pos, layer), (k4, k5, k6) in kept.items():
+        want4 = ops.decode_attention_reference(qs[pos], kc[layer], vc[layer], pos)
+        want5 = ops.folded_decode_attention_reference(qf[pos], kf, vf, pos, layer, DEC_H)
+        check_close(f"K4 pos {pos} layer {layer}", k4, want4, torch, bf)
+        check_close(f"K5 pos {pos} layer {layer}", k5, want5, torch, bf)
+        check_close(f"K6 bb 8 pos {pos} layer {layer}", k6, want5, torch, bf)
+    results["ops"] = counts
+    del kc, vc, kf, vf, qs, kept
+    torch.cuda.empty_cache()
+
+
 def phase_demo(torch):
     import numpy as np
 
@@ -430,11 +523,12 @@ def phase_timing(torch, results, card):
     from molnextr_tpu_torch.decoding.greedy import greedy_decode
     from molnextr_tpu_torch.inference import InferenceEngine
     from molnextr_tpu_torch.models.model import MolNexTRModel
-    from molnextr_tpu_torch.ops import decode_attention as da
+    from molnextr_tpu_torch.ops import folded_attention as fa
     from molnextr_tpu_torch.ops import swin_fused as sf
     from molnextr_tpu_torch.tokenization import get_tokenizer
     from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
 
+    da = importlib.import_module(DA_MODULE)
     tm = Timer(torch)
     log(f"phase timing: Config() bf16, int8 KV cache, batch {BATCH}, {DEC_STEPS} forced decode steps")
     cfg = Config()
@@ -512,10 +606,24 @@ def phase_timing(torch, results, card):
     kern["fused_window_attention"] = dict(k1, library_ms=None)
     kern["fused_ln_mlp"] = dict(k2, library_ms=None)
 
-    # K3: every launch of one forced decode, pos 0..479 in each of 6 layers,
-    # timed from one CUDA graph per position so host launch overhead is left
-    # out (a graph of the whole decode would keep every call's temporaries)
+    # K3-K6: every launch of one forced decode, pos 0..479 in each of 6
+    # layers, timed from one CUDA graph per position so host launch overhead
+    # is left out (a graph of the whole decode would keep every call's
+    # temporaries)
     steps = range(DEC_STEPS)
+    t_idx = torch.arange(DEC_T, device=DEVICE)
+
+    def decode_ms(fn):
+        def per_step(pos):
+            for layer in range(DEC_L):
+                fn(pos, layer)
+
+        return sum(tm.ms(lambda p=p: per_step(p), reps=1, graph=True) for p in steps)
+
+    def sdpa(q, k, v, pos):  # q (B, H, 1, d), k/v (B, H, T, d): the library's prefix attention
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=(t_idx <= pos)[None, None, None])
+
     for q8, name in ((True, "decode_attention_layered_q8"), (False, "decode_attention_layered")):
         ins = cache_inputs(torch, gen, bf, q8)
         bound = Bound()
@@ -525,55 +633,73 @@ def phase_timing(torch, results, card):
             kfn, pfn = da.decode_attention_layered_q8, da.decode_attention_layered_q8_reference
         else:
             kfn, pfn = da.decode_attention_layered, da.decode_attention_layered_reference
-
-        def per_step(fn, pos):
-            for layer in range(DEC_L):
-                fn(*ins, pos, layer)
-
-        t_k = sum(tm.ms(lambda p=p: per_step(kfn, p), reps=1, graph=True) for p in steps)
-        t_p = sum(tm.ms(lambda p=p: per_step(pfn, p), reps=1, graph=True) for p in steps)
+        t_k = decode_ms(lambda p, l: kfn(*ins, p, l))
+        t_p = decode_ms(lambda p, l: pfn(*ins, p, l))
         lib = None
         if not q8:
             q, kc, vc = ins
-            t_idx = torch.arange(DEC_T, device=DEVICE)
-
-            def sdpa(pos):
-                mask = (t_idx <= pos)[None, None, None]
-                for layer in range(DEC_L):
-                    torch.nn.functional.scaled_dot_product_attention(
-                        q[:, :, None], kc[layer], vc[layer], attn_mask=mask)
-
-            lib = sum(tm.ms(lambda p=p: sdpa(p), reps=1, graph=True) for p in steps)
+            lib = decode_ms(lambda p, l: sdpa(q[:, :, None], kc[l], vc[l], p))
         kern[name] = {"ms": t_k, "plain_ms": t_p, "bound": bound, "library_ms": lib}
         log(f"    K3 {'int8' if q8 else 'dense'}: {t_k:.3f} ms per decode (plain {t_p:.3f} ms"
             + (f", SDPA {lib:.3f} ms" if lib is not None else "") + ")")
+        if not q8:
+            # K4 on each layer of the same cache, unstacked: the work, the
+            # plain version and the library call are K3-dense's
+            t_k = decode_ms(lambda p, l: da.decode_attention(q, kc[l], vc[l], p))
+            kern["decode_attention"] = dict(kern[name], ms=t_k)
+            log(f"    K4: {t_k:.3f} ms per decode (plain and SDPA as K3 dense)")
         del ins
+
+    qf, kf, vf = folded_inputs(torch, gen, bf)
+    bound = Bound()
+    for pos in steps:
+        bound.add(*folded_work(BATCH, DEC_H * DEC_D, pos, es), "bfloat16", DEC_L)
+    t5 = decode_ms(lambda p, l: fa.folded_decode_attention(qf, kf, vf, p, l, DEC_H))
+    t6 = decode_ms(lambda p, l: fa.folded_decode_attention_bb(qf, kf, vf, p, l, DEC_H))
+    t_p = decode_ms(lambda p, l: fa.folded_decode_attention_reference(qf, kf, vf, p, l, DEC_H))
+    qh = qf.view(BATCH, DEC_H, 1, DEC_D)
+    kh = kf.view(DEC_L, BATCH, DEC_T, DEC_H, DEC_D).transpose(2, 3)  # (L, B, H, T, d) views
+    vh = vf.view(DEC_L, BATCH, DEC_T, DEC_H, DEC_D).transpose(2, 3)
+    lib = decode_ms(lambda p, l: sdpa(qh, kh[l], vh[l], p))
+    kern["folded_decode_attention"] = {"ms": t5, "plain_ms": t_p, "bound": bound, "library_ms": lib}
+    kern["folded_decode_attention_bb"] = dict(kern["folded_decode_attention"], ms=t6)
+    log(f"    K5: {t5:.3f} ms per decode, K6 (bb 8): {t6:.3f} ms (plain {t_p:.3f} ms, "
+        f"SDPA on the (B, H, T, d) view {lib:.3f} ms)")
+    del qf, kf, vf, qh, kh, vh
     results["timing"] = kern
     log(f"  per-kernel times on {card}")
 
 
+# kernel -> (source, the JAX function it replaces, the run whose launches count)
 SOURCES = {
     "fused_window_attention": ("molnextr_tpu_torch/ops/csrc/swin_fused.cu",
-                               "molnextr_tpu/ops/swin_fused.py:127"),
+                               "molnextr_tpu/ops/swin_fused.py:127", "int8"),
     "fused_ln_mlp": ("molnextr_tpu_torch/ops/csrc/swin_fused.cu",
-                     "molnextr_tpu/ops/swin_fused.py:277"),
+                     "molnextr_tpu/ops/swin_fused.py:277", "int8"),
+    # the int8 form computes cached_decode_attention_layered_q8, XLA in the
+    # JAX package: the Pallas kernel at :177 is dense only
     "decode_attention_layered_q8": ("molnextr_tpu_torch/ops/csrc/decode_attention.cu",
-                                    "molnextr_tpu/ops/decode_attention.py:177"),
+                                    "molnextr_tpu/ops/decode_attention.py:361", "int8"),
     "decode_attention_layered": ("molnextr_tpu_torch/ops/csrc/decode_attention.cu",
-                                 "molnextr_tpu/ops/decode_attention.py:177"),
+                                 "molnextr_tpu/ops/decode_attention.py:177", "dense"),
+    "decode_attention": ("molnextr_tpu_torch/ops/csrc/decode_attention.cu",
+                         "molnextr_tpu/ops/decode_attention.py:83", "ops"),
+    "folded_decode_attention": ("molnextr_tpu_torch/ops/csrc/folded_attention.cu",
+                                "molnextr_tpu/ops/folded_attention.py:91", "ops"),
+    "folded_decode_attention_bb": ("molnextr_tpu_torch/ops/csrc/folded_attention.cu",
+                                   "molnextr_tpu/ops/folded_attention.py:214", "ops"),
 }
 
 
 def kernels_line(results):
-    paths = results.get("paths", {})
+    runs = dict(results.get("paths", {}), ops=results.get("ops", {}))
     timing = results.get("timing", {})
     out = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, replaces, run) in SOURCES.items():
         t = timing.get(name)
-        path = "dense" if name == "decode_attention_layered" else "int8"
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths.get(path, {}).get(name),
+            "launches": runs.get(run, {}).get(name),
             "max_abs_err": results.get("max_abs_err", {}).get(name),
             "ms": t and t["ms"], "plain_ms": t and t["plain_ms"],
             "bound_ms": t and t["bound"].ms, "bound_by": t and t["bound"].by,
@@ -627,6 +753,8 @@ def main() -> int:
         phase_parity(torch)
     if "paths" in phases:
         phase_paths(torch, results)
+    if "ops" in phases:
+        phase_ops(torch, results)
     if "demo" in phases:
         phase_demo(torch)
     if "timing" in phases:

@@ -2,45 +2,49 @@
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor goes to the plain version, a CUDA tensor launches the kernel (or
-raises).  ``LAUNCHES`` counts kernel launches per wrapper, so a run can show
-that its main path went through the kernels.
+raises).  The device thus does the job of the JAX package's ``use_pallas``,
+which has no counterpart here: the ``cached_*`` dispatchers launch the
+kernel for every CUDA tensor.  ``LAUNCHES`` counts kernel launches per
+wrapper, so a run can show that its path went through the kernels.
+
+The names below are those of ``molnextr_tpu.ops`` (without ``use_pallas``
+and the kernels' ``interpret`` argument), plus ``folded_decode_attention_bb``.
+``decode_attention`` names the K4 function, as in the JAX package: reach
+the module of that name through :func:`importlib.import_module`.
 """
 
-from typing import Dict
+from molnextr_tpu_torch.ops._launch import (
+    LAUNCHES,
+    dtype_code,
+    require_cuda,
+    reset_launch_counts,
+)
+from molnextr_tpu_torch.ops.decode_attention import (
+    cached_decode_attention,
+    cached_decode_attention_layered,
+    decode_attention,
+    decode_attention_layered,
+    decode_attention_reference,
+)
+from molnextr_tpu_torch.ops.folded_attention import (
+    cached_folded_attention,
+    folded_decode_attention,
+    folded_decode_attention_bb,
+    folded_decode_attention_reference,
+)
 
-LAUNCHES: Dict[str, int] = {
-    "fused_window_attention": 0,
-    "fused_ln_mlp": 0,
-    "decode_attention_layered_q8": 0,
-    "decode_attention_layered": 0,
-}
-
-
-def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-
-
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-
-
-def dtype_code(t) -> int:
-    """The kernels' dtype code for a float32 or bfloat16 tensor."""
-    try:
-        return DTYPE_CODES[str(t.dtype)]
-    except KeyError:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
-
-
-def require_cuda(name: str, *tensors) -> int:
-    """Check that every tensor is a contiguous CUDA tensor on the current
-    device; returns that device's current stream handle for the launch."""
-    import torch
-
-    dev = torch.device("cuda", torch.cuda.current_device())
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: every operand must be on {dev}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-    return torch.cuda.current_stream(dev).cuda_stream
+__all__ = [
+    "LAUNCHES",
+    "dtype_code",
+    "require_cuda",
+    "reset_launch_counts",
+    "cached_decode_attention",
+    "cached_decode_attention_layered",
+    "decode_attention",
+    "decode_attention_layered",
+    "decode_attention_reference",
+    "cached_folded_attention",
+    "folded_decode_attention",
+    "folded_decode_attention_bb",
+    "folded_decode_attention_reference",
+]

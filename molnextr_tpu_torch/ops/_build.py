@@ -37,6 +37,9 @@ SIGNATURES = {
     "decode_attention": {
         "mnx_decode_attention_layered": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
     },
+    "folded_attention": {
+        "mnx_folded_decode_attention": [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

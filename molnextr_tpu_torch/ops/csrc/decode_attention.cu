@@ -1,8 +1,13 @@
-// K3: single-query decode attention over the prefix 0..pos of one layer of
-// a stacked self-attention KV cache, hand-written for Hopper (sm_90a).
+// K3 and K4: single-query decode attention over the prefix 0..pos of one
+// layer of a stacked self-attention KV cache, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces molnextr_tpu/ops/decode_attention.py::decode_attention_layered
-// (Pallas kernel _kernel_layered).  Two cache forms, one template:
+// (K3, Pallas kernel _kernel_layered) and ::decode_attention (K4, Pallas
+// kernel _kernel, the same attention on an unstacked (B, H, T, d) cache,
+// which the wrapper passes as a one-layer stack).  The int8 form computes
+// ::cached_decode_attention_layered_q8, which the JAX package leaves to
+// XLA.  Two cache forms, one template:
 //   Q8:    int8 K/V (L, B, H, T, d) with f32 per-token scales (L, B, H, T, 1),
 //          the math of decode_attention_reference_q8:
 //            s_t = (q . k_t) * sk_t / sqrt(d),  p = softmax(s over t <= pos),
@@ -16,7 +21,9 @@
 // K and of V per (b, h) (twice that for bf16) plus the scales, and does
 // about 4 * (pos + 1) * d FLOPs on them, far below the tensor-core ridge.
 // At decode batch sizes the whole read is a few MB, so launch latency
-// dominates; this version keeps it to one launch per layer-step.
+// dominates; this version keeps it to one launch per layer-step.  The TPU
+// kernels keep p in float32 for the PV product; this one rounds p as the
+// references do, which the JAX package runs everywhere but on a TPU.
 // Design: one warp per (b, h).  Pass 1: lanes stride over positions, each
 // lane computes whole dot products and parks scores in shared memory
 // (4 bytes per position, 2 KB at T = 512); warp reductions give the max and

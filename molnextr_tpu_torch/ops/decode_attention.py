@@ -1,28 +1,35 @@
-"""K3 decode attention (wrapper and plain versions), int8 quantization, and
-the head-folded cross attention of one decode step.
+"""K3 and K4 decode attention (wrappers and plain versions), int8
+quantization, and the head-folded cross attention of one decode step.
 
 * :func:`decode_attention_layered` / :func:`decode_attention_layered_q8` —
-  single-query attention over positions ``0..pos`` of layer ``layer`` of a
-  stacked ``(L, B, H, T, d)`` self cache, dense or int8 with per-token f32
-  scales ``(L, B, H, T, 1)``.  Port of
+  K3: single-query attention over positions ``0..pos`` of layer ``layer``
+  of a stacked ``(L, B, H, T, d)`` self cache, dense or int8 with per-token
+  f32 scales ``(L, B, H, T, 1)``.  The dense form ports
   ``molnextr_tpu/ops/decode_attention.py::decode_attention_layered``; the
-  math is that of ``decode_attention_reference`` and
-  ``decode_attention_reference_q8`` of the JAX package.  On a CUDA tensor
-  they launch ``csrc/decode_attention.cu``; on a CPU tensor they run the
-  plain versions below.
+  int8 form computes ``cached_decode_attention_layered_q8``, which the JAX
+  package leaves to XLA.  The math is that of ``decode_attention_reference``
+  and ``decode_attention_reference_q8`` of the JAX package.
+* :func:`decode_attention` / :func:`cached_decode_attention` — K4: the same
+  attention on an unstacked ``(B, H, T, d)`` cache, port of
+  ``decode_attention.py::decode_attention``.  It launches K3's kernel on the
+  cache as a one-layer stack.
 * :func:`quantize_per_token` — symmetric int8, one scale per token.
 * :func:`cross_decode_attention_folded[_q8]` — cross attention against the
   head-folded ``(L, B, M, H*d)`` memory cache, in plain torch ops (the JAX
   package leaves it to XLA as well).
+
+On a CUDA tensor the kernel wrappers launch ``csrc/decode_attention.cu``; on
+a CPU tensor they run the plain versions below.
 """
 
 from __future__ import annotations
 
 import torch
 
-from molnextr_tpu_torch.ops import LAUNCHES, dtype_code, require_cuda
 from molnextr_tpu_torch.ops._build import check, load_library
+from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda
 
+CHUNK = 128  # the TPU kernels' cache chunk: K4 takes T in whole chunks
 NEG_INF = -1e30
 
 
@@ -121,6 +128,30 @@ def decode_attention_layered_q8(q, k_full, k_scale, v_full, v_scale, pos: int, l
     return _launch_k3(
         "decode_attention_layered_q8", q, k_full, v_full, k_scale, v_scale, pos, layer
     )
+
+
+# the JAX package's dispatcher picks the kernel by backend; here the
+# tensor's device does, for every T
+cached_decode_attention_layered = decode_attention_layered
+
+
+def cached_decode_attention(q, k, v, pos: int):
+    """K4 on a CUDA tensor for every T, the plain version on a CPU one.
+    q (B, H, d); k/v (B, H, T, d) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k, v, pos)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("decode_attention: cache must be in q's dtype")
+    # a one-layer stack of the cache: a free view, read at layer 0
+    return _launch_k3("decode_attention", q, k[None], v[None], None, None, pos, 0)
+
+
+def decode_attention(q, k, v, pos: int):
+    """K4: q (B, H, d); k/v (B, H, T, d) with T a multiple of 128, as the
+    TPU kernel takes it."""
+    if k.shape[2] % CHUNK:
+        raise ValueError(f"decode_attention: cache length {k.shape[2]} is not a multiple of {CHUNK}")
+    return cached_decode_attention(q, k, v, pos)
 
 
 # ---------------------------------------------------------------------------

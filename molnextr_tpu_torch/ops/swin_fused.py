@@ -28,8 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from molnextr_tpu_torch.ops import LAUNCHES, dtype_code, require_cuda
 from molnextr_tpu_torch.ops._build import check, load_library
+from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda
 
 LN_EPS = 1e-5
 MAX_WINDOW_TOKENS = 160  # the attention kernel keeps <= 5 keys per lane

@@ -5,6 +5,7 @@ entry points, and the rule that the port imports nothing of JAX.
 """
 
 import ast
+import importlib
 import json
 import os
 import subprocess
@@ -130,8 +131,10 @@ def test_kernel_wrappers_never_fall_back():
     """A wrapper takes its plain version only because its tensor lies on the
     CPU: a tensor anywhere else goes to the kernel, and here, with no card,
     the launch is refused instead of running the plain version."""
-    from molnextr_tpu_torch.ops import decode_attention as da
+    from molnextr_tpu_torch import ops
     from molnextr_tpu_torch.ops import swin_fused as sf
+
+    da = importlib.import_module("molnextr_tpu_torch.ops.decode_attention")
 
     def meta(*shape, dtype=torch.float32):
         return torch.zeros(*shape, dtype=dtype, device="meta")
@@ -148,6 +151,15 @@ def test_kernel_wrappers_never_fall_back():
         lambda: da.decode_attention_layered_q8(
             meta(1, 2, 16), meta(2, 1, 2, 128, 16, dtype=torch.int8), meta(2, 1, 2, 128, 1),
             meta(2, 1, 2, 128, 16, dtype=torch.int8), meta(2, 1, 2, 128, 1), 3, 1),
+        lambda: ops.decode_attention(meta(1, 2, 16), meta(1, 2, 128, 16), meta(1, 2, 128, 16), 3),
+        lambda: ops.cached_decode_attention(meta(1, 2, 16), meta(1, 2, 100, 16),
+                                            meta(1, 2, 100, 16), 3),
+        lambda: ops.folded_decode_attention(meta(2, 64), meta(2, 2, 128, 64),
+                                            meta(2, 2, 128, 64), 3, 1, 2),
+        lambda: ops.folded_decode_attention_bb(meta(2, 64), meta(2, 2, 128, 64),
+                                               meta(2, 2, 128, 64), 3, 1, 2, bb=2),
+        lambda: ops.cached_folded_attention(meta(2, 64), meta(2, 2, 100, 64),
+                                            meta(2, 2, 100, 64), 3, 1, 2),
     ]
     for call in calls:
         with pytest.raises((RuntimeError, AssertionError, ValueError)):

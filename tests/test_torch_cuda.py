@@ -10,21 +10,26 @@ This file imports neither JAX nor OpenCV, which the card's machine lacks
 ``chip_smoke.py`` runs the same comparisons at the full-width shapes.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from molnextr_tpu_torch import ops
 from molnextr_tpu_torch.config import Config, tiny_test_config
 from molnextr_tpu_torch.models.model import MolNexTRModel
 from molnextr_tpu_torch.models.swin import shift_attn_mask
 from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
-from molnextr_tpu_torch.ops import decode_attention as da
+from molnextr_tpu_torch.ops import folded_attention as fa
 from molnextr_tpu_torch.ops import swin_fused as sf
 from molnextr_tpu_torch.tokenization import get_tokenizer
 from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
+# the ops package exports the K4 function under its module's name
+da = importlib.import_module("molnextr_tpu_torch.ops.decode_attention")
 
 F32_TOL = 1e-4  # float32 kernel against float32 plain version: summation order only
 BF16_RTOL = 3e-2  # relative to the output's largest magnitude
@@ -106,6 +111,99 @@ def test_wrappers_raise_on_bad_operands(dev):
         da.decode_attention_layered(q.transpose(0, 1).contiguous().transpose(0, 1), k, k, 3, 0)
     with pytest.raises(TypeError):
         da.decode_attention_layered(q, k.half(), k.half(), 3, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unstacked_decode_attention_kernel(dev, dtype):
+    """K4 and its dispatcher (any T): one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(3, 4, 32, generator=g, device=dev).to(dtype)
+    for t in (256, 200):
+        k = torch.randn(3, 4, t, 32, generator=g, device=dev).to(dtype)
+        v = torch.randn(3, 4, t, 32, generator=g, device=dev).to(dtype)
+        fns = (da.decode_attention, ops.cached_decode_attention) if t % 128 == 0 else (
+            ops.cached_decode_attention,)
+        for pos in (0, 31, 127, 128, t - 1):
+            for fn in fns:
+                before = LAUNCHES["decode_attention"]
+                got = fn(q, k, v, pos)
+                assert LAUNCHES["decode_attention"] == before + 1
+                _close(got, da.decode_attention_reference(q, k, v, pos), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,hd,t", [
+    (4, 32, 256), (4, 64, 256), (4, 128, 256), (16, 32, 1024), (4, 32, 200),
+])
+def test_folded_attention_kernels(dev, dtype, heads, hd, t):
+    """K5, K6 (bb 8 and 4) and the dispatcher at every row width the kernel
+    takes (1, 2 and 4 16-byte vectors per lane; hd 128 in float32 is one
+    head per warp), a cache whose scores need more than 48 KB of shared
+    memory (16 heads x 1024 positions), and a length that only the
+    dispatcher takes."""
+    g = torch.Generator(device=dev).manual_seed(hd + t)
+    d = heads * hd
+    q = torch.randn(8, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 8, t, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 8, t, d, generator=g, device=dev).to(dtype)
+    calls = [("folded_decode_attention", lambda p, l: ops.cached_folded_attention(q, k, v, p, l, heads))]
+    if t % 128 == 0:
+        calls += [
+            ("folded_decode_attention", lambda p, l: fa.folded_decode_attention(q, k, v, p, l, heads)),
+            ("folded_decode_attention_bb", lambda p, l: fa.folded_decode_attention_bb(q, k, v, p, l, heads)),
+            ("folded_decode_attention_bb",
+             lambda p, l: fa.folded_decode_attention_bb(q, k, v, p, l, heads, bb=4)),
+        ]
+    for pos in (0, 5, 127, 128, t - 1):
+        for layer in (0, 1):
+            want = fa.folded_decode_attention_reference(q, k, v, pos, layer, heads)
+            for name, call in calls:
+                before = LAUNCHES[name]
+                got = call(pos, layer)
+                assert LAUNCHES[name] == before + 1
+                _close(got, want, dtype)
+
+
+def test_cuda_tensors_never_reach_plain_versions(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(da, "decode_attention_reference", refuse)
+    monkeypatch.setattr(fa, "folded_decode_attention_reference", refuse)
+    q = torch.randn(2, 4, 32, device=dev)
+    k = torch.randn(2, 4, 128, 32, device=dev)
+    ops.decode_attention(q, k, k, 5)
+    ops.cached_decode_attention(q, k, k, 5)
+    qf = torch.randn(8, 128, device=dev)
+    kf = torch.randn(2, 8, 128, 128, device=dev)
+    ops.folded_decode_attention(qf, kf, kf, 5, 1, 4)
+    ops.folded_decode_attention_bb(qf, kf, kf, 5, 1, 4)
+    ops.cached_folded_attention(qf, kf, kf, 5, 1, 4)
+    torch.cuda.synchronize()
+
+
+def test_new_wrappers_raise_on_bad_operands(dev):
+    q = torch.zeros(2, 4, 32, device=dev)
+    k = torch.zeros(2, 4, 200, 32, device=dev)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, 3)  # T not a multiple of 128
+    with pytest.raises(TypeError):
+        ops.cached_decode_attention(q, k.bfloat16(), k.bfloat16(), 3)
+    with pytest.raises(ValueError):
+        ops.cached_decode_attention(q, k, k, 200)  # pos past the cache
+    qf = torch.zeros(8, 128, device=dev)
+    kf = torch.zeros(2, 8, 128, 128, device=dev)
+    with pytest.raises(ValueError):
+        fa.folded_decode_attention_bb(qf, kf, kf, 3, 0, 4, bb=3)  # B % bb
+    with pytest.raises(ValueError):
+        fa.folded_decode_attention(qf, kf, kf, 3, 0, 8)  # hd 16
+    with pytest.raises(ValueError):
+        fa.folded_decode_attention(qf, kf[:, :, :100].contiguous(), kf[:, :, :100].contiguous(),
+                                   3, 0, 4)  # T not a multiple of 128
+    with pytest.raises(TypeError):
+        fa.folded_decode_attention(qf.half(), kf.half(), kf.half(), 3, 0, 4)
+    with pytest.raises(ValueError):
+        ops.cached_folded_attention(qf, kf.transpose(2, 3), kf, 3, 0, 4)  # not contiguous
 
 
 @pytest.mark.parametrize("kv_int8", [True, False])

@@ -18,12 +18,12 @@ import torch
 from molnextr_tpu.models.swin import shift_attn_mask as jax_shift_attn_mask
 from molnextr_tpu.ops import swin_fused as jsf
 from molnextr_tpu_torch.models.swin import shift_attn_mask
-from molnextr_tpu_torch.ops import decode_attention as tdec
 from molnextr_tpu_torch.ops import swin_fused as tsf
 
 torch.set_num_threads(2)
-# the package's __init__ re-exports a function under the module's name
+# both packages' __init__ re-export a function under the module's name
 jdec = importlib.import_module("molnextr_tpu.ops.decode_attention")
+tdec = importlib.import_module("molnextr_tpu_torch.ops.decode_attention")
 
 F32_TOL = 2e-5
 BF16_RTOL = 3e-2
@@ -175,6 +175,33 @@ def test_decode_attention_layered_dense_matches_jax(pos, layer):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 127, 128, 200])
+def test_decode_attention_unstacked_matches_jax(dtype, pos):
+    """K4 and its dispatcher against the JAX dispatcher, which returns
+    decode_attention_reference off a TPU: f32 to the order of the sums, bf16
+    within one bf16 rounding (1e-2 of the output's max)."""
+    q, k, v = _cache(300 + pos, L=1, b=4)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jdec.cached_decode_attention(
+        jnp.asarray(q, jd), jnp.asarray(k[0], jd), jnp.asarray(v[0], jd), jnp.asarray(pos))
+    want = np.asarray(want.astype(jnp.float32))
+    tol = F32_TOL if dtype == "float32" else 1e-2 * np.abs(want).max()
+    t = [torch.from_numpy(a).to(td) for a in (q, k[0], v[0])]
+    for fn in (tdec.decode_attention, tdec.cached_decode_attention):
+        got = fn(*t, pos)
+        assert got.dtype == td
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_decode_attention_unstacked_needs_whole_chunks():
+    q, k, v = (torch.from_numpy(a) for a in _cache(5, L=1, t=200))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tdec.decode_attention(q, k[0], v[0], 3)
+    want = tdec.decode_attention_reference(q, k[0], v[0], 150)
+    torch.testing.assert_close(tdec.cached_decode_attention(q, k[0], v[0], 150), want)
+
+
 @pytest.mark.parametrize("pos,layer", [(0, 1), (127, 0), (128, 1), (255, 0)])
 def test_decode_attention_layered_q8_matches_jax(pos, layer):
     q, k, v = _cache(100 + pos)
@@ -230,12 +257,17 @@ def test_cross_attention_matches_jax(int8):
 
 def test_cpu_tensors_take_plain_versions():
     """On CPU tensors the wrappers never launch: the counters stay put."""
-    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from molnextr_tpu_torch import ops
 
-    reset_launch_counts()
-    q, k, v = _cache(3, t=128)
-    tdec.decode_attention_layered(torch.from_numpy(q), torch.from_numpy(k),
-                                  torch.from_numpy(v), 5, 0)
+    ops.reset_launch_counts()
+    q, k, v = (torch.from_numpy(a) for a in _cache(3, t=128))
+    tdec.decode_attention_layered(q, k, v, 5, 0)
+    ops.decode_attention(q, k[0], v[0], 5)
+    ops.cached_decode_attention(q, k[0], v[0], 5)
+    qf, kf = q.reshape(3, -1), k.transpose(2, 3).reshape(2, 3, 128, -1)  # heads folded
+    ops.folded_decode_attention(qf, kf, kf, 5, 1, 4)
+    ops.folded_decode_attention_bb(qf, kf, kf, 5, 1, 4, bb=3)
+    ops.cached_folded_attention(qf, kf, kf, 5, 1, 4)
     args = _mlp_inputs(64, 16, 64, seed=1)
     tsf.fused_ln_mlp(*[torch.from_numpy(a) for a in args])
-    assert all(n == 0 for n in LAUNCHES.values())
+    assert all(n == 0 for n in ops.LAUNCHES.values())
