@@ -11,7 +11,9 @@ failure:
 
 1. setup: the card, its power limit, compute capability 9.x, build seconds;
 2. kernels: K1-K6 against their plain PyTorch versions at the full-width
-   shapes, in float32 and bf16, each error beside its tolerance;
+   shapes, in float32 and bf16, each error beside its tolerance; the
+   decode-attention kernels at positions on and beside the split plan's
+   slice boundaries, and K4 at head width 64;
 3. parity: ``Config()`` (Swin-B 384 + 6x256x8 decoder) in float32 with
    ``seeded_flax_params(seed=0)`` against the JAX package's memory bank and
    first greedy steps stored in ``molnextr_tpu_torch/fixtures``;
@@ -30,7 +32,11 @@ failure:
 7. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
-   version and a library call.
+   version and a library call, and K3-dense with its split forced to one
+   CTA per (b, h).
+
+The build's ``nvcc -Xptxas -v`` report (registers, spills) is logged per
+kernel.
 
 The last three lines are the kernels line, the card line and the device
 line.  ``--phases`` runs a subset (for development); the contract run uses
@@ -69,6 +75,11 @@ STAGES = ((96, 128, 4, 2), (48, 256, 8, 2), (24, 512, 16, 18), (12, 1024, 32, 2)
 WS = 12
 BATCH = 32
 DEC_L, DEC_H, DEC_T, DEC_D, DEC_STEPS = 6, 8, 512, 32, 480
+# positions checked in phase kernels: pos 0, pos below the cluster size (8
+# for K5/K6 at B 32, 2 for K3/K4 at B 32 x H 8), and pos on and either side
+# of slice boundaries of the split plan (ops/_launch.py::split_plan: cluster
+# slices of ceil((pos + 1) / cluster) positions each)
+CHECK_POS = (0, 3, 7, 8, 9, 63, 64, 65, 127, 128, 300, 479)
 TIMED_ITERS = 2  # after one warm-up iteration
 DEVICE = "cuda"
 
@@ -281,7 +292,7 @@ def phase_kernels(torch, results):
             del args, got, want
         for q8 in (True, False):
             ins = cache_inputs(torch, gen, dtype, q8)
-            for pos in (0, 127, 128, 300, 479):
+            for pos in CHECK_POS:
                 for layer in (0, 5):
                     if q8:
                         got = da.decode_attention_layered_q8(*ins, pos, layer)
@@ -303,8 +314,19 @@ def phase_kernels(torch, results):
                         errs["decode_attention"] = max(errs["decode_attention"], check_close(
                             f"K4 {dn} pos {pos} layer {layer}", got, want, torch, dtype))
             del ins
+        # K4 at head width 64
+        q = torch.randn(BATCH, DEC_H, 64, generator=gen, device=DEVICE).to(dtype)
+        kc = torch.randn(BATCH, DEC_H, DEC_T, 64, generator=gen, device=DEVICE).to(dtype)
+        vc = torch.randn(BATCH, DEC_H, DEC_T, 64, generator=gen, device=DEVICE).to(dtype)
+        for pos in (0, 7, 9, 300, 511):
+            got = da.decode_attention(q, kc, vc, pos)
+            want = da.decode_attention_reference(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                f"K4 {dn} d 64 pos {pos}", got, want, torch, dtype))
+        del q, kc, vc
         ins = folded_inputs(torch, gen, dtype)
-        for pos in (0, 127, 128, 300, 479):
+        for pos in CHECK_POS:
             for layer in (0, 5):
                 want = fa.folded_decode_attention_reference(*ins, pos, layer, DEC_H)
                 runs = [("folded_decode_attention", "K5",
@@ -648,6 +670,10 @@ def phase_timing(torch, results, card):
             t_k = decode_ms(lambda p, l: da.decode_attention(q, kc[l], vc[l], p))
             kern["decode_attention"] = dict(kern[name], ms=t_k)
             log(f"    K4: {t_k:.3f} ms per decode (plain and SDPA as K3 dense)")
+            # the same kernel with the split forced to one CTA per (b, h)
+            t_1 = decode_ms(lambda p, l: da._launch_k3(
+                "decode_attention_layered", q, kc, vc, None, None, p, l, cluster=1))
+            log(f"    K3 dense, one CTA per (b, h) (cluster 1): {t_1:.3f} ms per decode")
         del ins
 
     qf, kf, vf = folded_inputs(torch, gen, bf)
@@ -744,7 +770,7 @@ def main() -> int:
     log(f"kernels built in {build_s:.1f} s")
     for name, text in BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 log(f"  nvcc {name}: {line.strip()}")
     results = {}
     if "kernels" in phases:

@@ -35,10 +35,10 @@ SIGNATURES = {
         "mnx_fused_ln_mlp": [_I] + [_P] * 9 + [_I] * 3 + [_P],
     },
     "decode_attention": {
-        "mnx_decode_attention_layered": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
+        "mnx_decode_attention_layered": [_I, _I] + [_P] * 6 + [_I] * 9 + [_P],
     },
     "folded_attention": {
-        "mnx_folded_decode_attention": [_I] + [_P] * 4 + [_I] * 7 + [_P],
+        "mnx_folded_decode_attention": [_I] + [_P] * 4 + [_I] * 9 + [_P],
     },
 }
 

@@ -1,11 +1,12 @@
-"""Launch counters and operand checks shared by every kernel wrapper.
+"""Launch counters, operand checks and the decode-attention kernels' split
+plan, shared by the kernel wrappers.
 
 Kept apart from ``ops/__init__.py`` so that the wrapper modules can import
 it while the package, which re-exports their entry points, is still
 loading.
 """
 
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 LAUNCHES: Dict[str, int] = {
     "fused_window_attention": 0,
@@ -32,6 +33,56 @@ def dtype_code(t) -> int:
         return DTYPE_CODES[str(t.dtype)]
     except KeyError:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
+
+
+CLUSTER_MAX = 8  # the portable thread-block cluster size
+WAVE_CTAS = 4 * 132  # CTAs of 256 threads resident at once on an H100: 4 on each SM
+MAX_CHUNK_ROWS = 512
+
+
+class SplitPlan(NamedTuple):
+    """How the decode-attention kernels split the positions ``0..pos`` of
+    each (batch row, head) group: ``cluster`` CTAs per group, one
+    thread-block cluster, each taking ``slice_rows`` positions and staging
+    them ``chunk_rows`` rows at a time."""
+
+    cluster: int
+    slice_rows: int
+    chunk_rows: int
+
+
+def split_plan(pos: int, groups: int, row_bytes: int, chunk_bytes: int,
+               cluster: Optional[int] = None) -> SplitPlan:
+    """The split for ``groups`` independent (b, h) groups (or batch rows) of
+    ``pos + 1`` positions, rows of ``row_bytes`` bytes, at most
+    ``chunk_bytes`` bytes of a cache staged at once.  The cluster size is
+    the largest power of two, up to 8, whose grid of ``groups * cluster``
+    CTAs still runs in one wave (``WAVE_CTAS``); at least 1.  It depends on
+    ``groups`` only, so every position of a decode launches the same grid.
+    ``cluster`` overrides it (1 to 8)."""
+    if cluster is None:
+        cluster = 1
+        while cluster < CLUSTER_MAX and groups * cluster * 2 <= WAVE_CTAS:
+            cluster *= 2
+    if not 1 <= cluster <= CLUSTER_MAX:
+        raise ValueError(f"cluster size {cluster} is not in 1..{CLUSTER_MAX}")
+    slice_rows = -(-(pos + 1) // cluster)
+    chunk_rows = max(1, min(slice_rows, chunk_bytes // row_bytes, MAX_CHUNK_ROWS))
+    return SplitPlan(cluster, slice_rows, chunk_rows)
+
+
+def slices(plan: SplitPlan, pos: int) -> List[Tuple[int, int]]:
+    """``(start, stop)`` of each CTA's positions, by cluster rank: the
+    kernels' ``slice_bounds``.  A slice that would start past ``pos`` is
+    empty and starts at ``pos``."""
+    out = []
+    for rank in range(plan.cluster):
+        raw = rank * plan.slice_rows
+        if raw <= pos:
+            out.append((raw, min(raw + plan.slice_rows, pos + 1)))
+        else:
+            out.append((pos, pos))
+    return out
 
 
 def require_cuda(name: str, *tensors) -> int:

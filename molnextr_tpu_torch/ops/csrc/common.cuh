@@ -54,6 +54,208 @@ __device__ __forceinline__ float gelu_exact(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// Pieces of the decode-attention kernels (decode_attention.cu,
+// folded_attention.cu): a cache row read 16 bytes a lane, asynchronous
+// staging of a run of cache rows into shared memory, and the (max, sum)
+// pair of a softmax split over slices of positions.
+// ---------------------------------------------------------------------------
+
+// elements of a cache row in 16 bytes: 4 float, 8 bf16, 16 int8
+template <typename KT> struct Vec16 { static constexpr int n = 16 / (int)sizeof(KT); };
+
+__device__ __forceinline__ float elem_f32(float v) { return v; }
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float elem_f32(int8_t v) { return (float)v; }
+
+// 16 bytes of a row as floats
+template <typename KT>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
+  if constexpr (std::is_same<KT, float>::value) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  } else if constexpr (std::is_same<KT, int8_t>::value) {
+    const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[4 * i] = (float)c[i].x;
+      f[4 * i + 1] = (float)c[i].y;
+      f[4 * i + 2] = (float)c[i].z;
+      f[4 * i + 3] = (float)c[i].w;
+    }
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// The largest of 16, 8, 4, 2, 1 bytes that divides the row width and the
+// addresses of both cache arrays: every row of the arrays then starts on
+// that boundary, and so does every run of rows.
+__device__ __forceinline__ int copy_unit(int row_bytes, const void* a, const void* b) {
+  const unsigned long long addr = (unsigned long long)a | (unsigned long long)b;
+  int u = 16;
+  while (u > 1 && ((row_bytes % u) || (addr % u))) u >>= 1;
+  return u;
+}
+
+// The block copies `nbytes` (a multiple of `unit`) from device memory to
+// shared memory: cp.async of `unit` bytes a thread-step for a unit of 16
+// (bypassing L1), 8 or 4; plain loads and stores for the rare 2- or 1-byte
+// unit, whose data is in place once the block passes its next barrier.
+// cp_async_commit() closes the group; cp_async_wait<N>() waits until at
+// most N of this thread's groups are in flight, and a block barrier after it
+// makes every thread's copies visible.
+__device__ __forceinline__ void stage_rows(void* dst, const void* src, int nbytes, int unit) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  const char* g = static_cast<const char*>(src);
+  const int step = (int)blockDim.x * unit;
+  if (unit == 16) {
+    for (int i = threadIdx.x * 16; i < nbytes; i += step)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s + i), "l"(g + i)
+                   : "memory");
+  } else if (unit == 8) {
+    for (int i = threadIdx.x * 8; i < nbytes; i += step)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s + i), "l"(g + i)
+                   : "memory");
+  } else if (unit == 4) {
+    for (int i = threadIdx.x * 4; i < nbytes; i += step)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s + i), "l"(g + i)
+                   : "memory");
+  } else {
+    char* d = static_cast<char*>(dst);
+    for (int i = threadIdx.x; i < nbytes; i += blockDim.x) d[i] = g[i];
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async.wait_group with a count known only at run time (0 to 4)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+// The first and one-past-last position of slice `rank` of positions
+// 0..pos, `slice_rows` positions a slice (ops/_launch.py::slices computes
+// the same).  A slice that would start past pos is empty and starts at pos:
+// no slice starts past pos, and an empty one reads nothing.
+__device__ __forceinline__ void slice_bounds(int rank, int slice_rows, int pos, int* t0,
+                                             int* t1) {
+  const int raw = rank * slice_rows;
+  *t0 = raw <= pos ? raw : pos;
+  *t1 = raw <= pos ? min(raw + slice_rows, pos + 1) : *t0;
+}
+
+// (m, l) of a softmax over a set of scores: the max m and the sum of
+// exp(s - m).  An empty set is (-inf, 0); merging never forms inf - inf.
+__device__ __forceinline__ void ml_push(float& m, float& l, float s) {
+  if (s > m) {
+    l = l * expf(m - s) + 1.f;  // m = -inf: l is 0 and expf(-inf) is 0
+    m = s;
+  } else {
+    l += expf(s - m);
+  }
+}
+
+__device__ __forceinline__ void ml_merge(float& m, float& l, float m2, float l2) {
+  if (m2 == -INFINITY) return;
+  if (m == -INFINITY) {
+    m = m2;
+    l = l2;
+    return;
+  }
+  const float mx = fmaxf(m, m2);
+  l = l * expf(m - mx) + l2 * expf(m2 - mx);
+  m = mx;
+}
+
+// Signalling inside a thread-block cluster without cluster-wide barriers
+// (a cluster.sync() costs about 1.6 us at 8 CTAs a cluster, 2048 CTAs,
+// on an H100; chip_probe.py): a CTA stores into a peer's shared memory
+// (cluster.map_shared_rank) and then arrives on an mbarrier in the peer's
+// shared memory with release semantics at cluster scope; the peer waits on
+// its own mbarrier with acquire semantics.  The one cluster barrier left
+// orders each CTA's mbarrier initialisation before any peer's arrival; it
+// is split (arrive at the start, wait just before the first remote store)
+// so that it overlaps the loads.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// every thread of the CTA, after one thread initialised its mbarriers
+__device__ __forceinline__ void cluster_arrive_after_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// arrive on the mbarrier at `bar`'s offset in the shared memory of the
+// cluster's CTA `rank`, releasing this thread's earlier stores
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// wait for phase `parity` of a local mbarrier to complete; a wait of more
+// than about a second traps, so that a lost arrival fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 2000000000ll) __trap();
+  }
+}
+
+__device__ __forceinline__ void warp_ml(float& m, float& l) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+    ml_merge(m, l, m2, l2);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // out[m, n] = epi(sum_k a(m, k) * W[k, n] + bias[n])
 //
 //   A (M, K) row-major in T; W (K, N) row-major in T (the flax Dense layout);

@@ -18,8 +18,10 @@ quantization, and the head-folded cross attention of one decode step.
   head-folded ``(L, B, M, H*d)`` memory cache, in plain torch ops (the JAX
   package leaves it to XLA as well).
 
-On a CUDA tensor the kernel wrappers launch ``csrc/decode_attention.cu``; on
-a CPU tensor they run the plain versions below.
+On a CUDA tensor the kernel wrappers launch ``csrc/decode_attention.cu``
+(positions split over a thread-block cluster by ``_launch.split_plan``); on
+a CPU tensor they run the plain versions below.  Both hold the head width
+to what the kernel takes, 1..128.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ from __future__ import annotations
 import torch
 
 from molnextr_tpu_torch.ops._build import check, load_library
-from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda
+from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda, split_plan
 
 CHUNK = 128  # the TPU kernels' cache chunk: K4 takes T in whole chunks
+MAX_HEAD = 128  # head widths the kernel takes: 1..128
+CHUNK_BYTES = 16 * 1024  # K (and V) bytes a CTA stages at once
 NEG_INF = -1e30
 
 
@@ -81,14 +85,24 @@ def decode_attention_layered_q8_reference(q, k_full, k_scale, v_full, v_scale,
     )
 
 
-def _launch_k3(name, q, k_full, v_full, k_scale, v_scale, pos: int, layer: int):
+def _check_head(name, q):
+    """The kernel takes head widths 1..MAX_HEAD; held on either device."""
+    if not 1 <= q.shape[-1] <= MAX_HEAD:
+        raise ValueError(f"{name}: head width {q.shape[-1]} is not in 1..{MAX_HEAD}")
+
+
+def _launch_k3(name, q, k_full, v_full, k_scale, v_scale, pos: int, layer: int,
+               cluster=None):
+    """One launch of ``csrc/decode_attention.cu`` on the stacked cache;
+    ``cluster`` overrides the split plan's cluster size (for timing)."""
     lcount, b, h, t, d = k_full.shape
     if tuple(q.shape) != (b, h, d) or v_full.shape != k_full.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match cache {tuple(k_full.shape)}")
-    if d > 32 or not 0 <= pos < t or not 0 <= layer < lcount:
-        raise ValueError(f"{name}: needs d <= 32, 0 <= pos < T, 0 <= layer < L")
+    if not 0 <= pos < t or not 0 <= layer < lcount:
+        raise ValueError(f"{name}: needs 0 <= pos < T, 0 <= layer < L")
     scales = () if k_scale is None else (k_scale, v_scale)
     stream = require_cuda(name, q, k_full, v_full, *scales)
+    plan = split_plan(pos, b * h, d * k_full.element_size(), CHUNK_BYTES, cluster)
     out = torch.empty_like(q)
     lib = load_library("decode_attention")
     check(
@@ -96,7 +110,7 @@ def _launch_k3(name, q, k_full, v_full, k_scale, v_scale, pos: int, layer: int):
             dtype_code(q), int(k_scale is not None), q.data_ptr(), k_full.data_ptr(),
             v_full.data_ptr(), None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
-            b, h, t, d, int(pos), int(layer), stream,
+            b, h, t, d, int(pos), int(layer), *plan, stream,
         ),
         name,
     )
@@ -106,6 +120,7 @@ def _launch_k3(name, q, k_full, v_full, k_scale, v_scale, pos: int, layer: int):
 
 def decode_attention_layered(q, k_full, v_full, pos: int, layer: int):
     """Dense stacked cache (L, B, H, T, d) in q's dtype."""
+    _check_head("decode_attention_layered", q)
     if q.device.type == "cpu":
         return decode_attention_layered_reference(q, k_full, v_full, pos, layer)
     if k_full.dtype != q.dtype:
@@ -115,6 +130,7 @@ def decode_attention_layered(q, k_full, v_full, pos: int, layer: int):
 
 def decode_attention_layered_q8(q, k_full, k_scale, v_full, v_scale, pos: int, layer: int):
     """int8 stacked cache (L, B, H, T, d) with f32 scales (L, B, H, T, 1)."""
+    _check_head("decode_attention_layered_q8", q)
     if q.device.type == "cpu":
         return decode_attention_layered_q8_reference(
             q, k_full, k_scale, v_full, v_scale, pos, layer
@@ -138,6 +154,7 @@ cached_decode_attention_layered = decode_attention_layered
 def cached_decode_attention(q, k, v, pos: int):
     """K4 on a CUDA tensor for every T, the plain version on a CPU one.
     q (B, H, d); k/v (B, H, T, d) in q's dtype."""
+    _check_head("decode_attention", q)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, pos)
     if k.dtype != q.dtype or v.dtype != q.dtype:

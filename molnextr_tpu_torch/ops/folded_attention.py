@@ -7,8 +7,10 @@ channels ``[h * hd, (h + 1) * hd)`` of a row; q is ``(B, D)`` and the result
 ``molnextr_tpu/ops/folded_attention.py``:
 
 * :func:`folded_decode_attention` — K5 (``folded_decode_attention``);
-* :func:`folded_decode_attention_bb` — K6 (``folded_decode_attention_bb``),
-  ``bb`` batch rows per block of the same kernel;
+* :func:`folded_decode_attention_bb` — K6 (``folded_decode_attention_bb``):
+  the TPU kernel's ``bb`` batch rows per program.  On the card the rows of
+  a ``bb`` group run side by side, so K6 launches K5's grid for every
+  ``bb``; ``bb`` is held to the TPU kernel's contract only;
 * :func:`folded_decode_attention_reference` — the plain version, the math
   of the JAX package's reference: float32 throughout, one rounding of the
   output to q's dtype;
@@ -19,7 +21,8 @@ The kernel-named functions hold their inputs to the TPU kernels' contract
 (T a multiple of 128, ``B % bb == 0``) and to what the kernel takes (q and
 cache in one dtype, float32 or bfloat16; hd of 32, 64 or 128) on either
 device, then dispatch on the device: a CUDA tensor launches
-``csrc/folded_attention.cu``, a CPU tensor runs the plain version.
+``csrc/folded_attention.cu`` (positions split over a thread-block cluster
+by ``_launch.split_plan``), a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ from __future__ import annotations
 import torch
 
 from molnextr_tpu_torch.ops._build import check, load_library
-from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda
+from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code, require_cuda, split_plan
 from molnextr_tpu_torch.ops.decode_attention import CHUNK, _softmax_prefix
 
 HEAD_DIMS = (32, 64, 128)  # a head spans a power of two of a warp's 16-byte lanes
 MAX_ROW_BYTES = 128 * 16  # four 16-byte vectors per lane of a warp
+CHUNK_BYTES = 32 * 1024  # K (and V) bytes a CTA stages at once
 
 
 def folded_decode_attention_reference(q, k_full, v_full, pos: int, layer: int, n_heads: int):
@@ -69,17 +73,18 @@ def _check(name, q, k_full, v_full, pos: int, layer: int, n_heads: int, bb: int,
         raise ValueError(f"{name}: needs 0 <= pos < T and 0 <= layer < L")
 
 
-def _launch(name, q, k_full, v_full, pos: int, layer: int, n_heads: int, bb: int):
+def _launch(name, q, k_full, v_full, pos: int, layer: int, n_heads: int):
     stream = require_cuda(name, q, k_full, v_full)
     if any(t.data_ptr() % 16 for t in (q, k_full, v_full)):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
     _, b, t, d_model = k_full.shape
+    plan = split_plan(pos, b, d_model * q.element_size(), CHUNK_BYTES)
     out = torch.empty_like(q)
     lib = load_library("folded_attention")
     check(
         lib.mnx_folded_decode_attention(
             dtype_code(q), q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), out.data_ptr(),
-            b, t, d_model, n_heads, int(pos), int(layer), bb, stream,
+            b, t, d_model, n_heads, int(pos), int(layer), *plan, stream,
         ),
         name,
     )
@@ -92,16 +97,17 @@ def folded_decode_attention(q, k_full, v_full, pos: int, layer: int, n_heads: in
     _check("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads, 1, True)
     if q.device.type == "cpu":
         return folded_decode_attention_reference(q, k_full, v_full, pos, layer, n_heads)
-    return _launch("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads, 1)
+    return _launch("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads)
 
 
 def folded_decode_attention_bb(q, k_full, v_full, pos: int, layer: int, n_heads: int,
                                bb: int = 8):
-    """K6: K5 with ``bb`` batch rows per block; ``B % bb == 0``."""
+    """K6: the TPU kernel's batch-blocked form, ``B % bb == 0``; on the card
+    its rows run side by side, on K5's grid."""
     _check("folded_decode_attention_bb", q, k_full, v_full, pos, layer, n_heads, bb, True)
     if q.device.type == "cpu":
         return folded_decode_attention_reference(q, k_full, v_full, pos, layer, n_heads)
-    return _launch("folded_decode_attention_bb", q, k_full, v_full, pos, layer, n_heads, bb)
+    return _launch("folded_decode_attention_bb", q, k_full, v_full, pos, layer, n_heads)
 
 
 def cached_folded_attention(q, k_full, v_full, pos: int, layer: int, n_heads: int):
@@ -110,4 +116,4 @@ def cached_folded_attention(q, k_full, v_full, pos: int, layer: int, n_heads: in
     if q.device.type == "cpu":
         return folded_decode_attention_reference(q, k_full, v_full, pos, layer, n_heads)
     _check("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads, 1, False)
-    return _launch("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads, 1)
+    return _launch("folded_decode_attention", q, k_full, v_full, pos, layer, n_heads)

@@ -22,6 +22,7 @@ from molnextr_tpu_torch.models.model import MolNexTRModel
 from molnextr_tpu_torch.models.swin import shift_attn_mask
 from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from molnextr_tpu_torch.ops import folded_attention as fa
+from molnextr_tpu_torch.ops._launch import split_plan
 from molnextr_tpu_torch.ops import swin_fused as sf
 from molnextr_tpu_torch.tokenization import get_tokenizer
 from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
@@ -100,6 +101,100 @@ def test_decode_attention_kernel(dev, dtype, q8):
                 got = da.decode_attention_layered(q, k.to(dtype), v.to(dtype), pos, layer)
                 want = da.decode_attention_layered_reference(q, k.to(dtype), v.to(dtype), pos, layer)
             _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("q8", [True, False])
+def test_decode_attention_kernel_every_slice_boundary(dev, dtype, d, q8):
+    """K3 at every position of a 136-long cache: pos 0, pos below the
+    cluster size (empty slices), and pos on and either side of every slice
+    boundary of every split plan the wrapper makes here (cluster 8)."""
+    g = torch.Generator(device=dev).manual_seed(d + int(q8))
+    b, h, t = 2, 3, 136
+    assert split_plan(t - 1, b * h, d, da.CHUNK_BYTES).cluster == 8
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, b, h, t, d, generator=g, device=dev)
+    v = torch.randn(2, b, h, t, d, generator=g, device=dev)
+    if q8:
+        ins = (q, *da.quantize_per_token(k), *da.quantize_per_token(v))
+        fn, ref = da.decode_attention_layered_q8, da.decode_attention_layered_q8_reference
+    else:
+        ins = (q, k.to(dtype), v.to(dtype))
+        fn, ref = da.decode_attention_layered, da.decode_attention_layered_reference
+    for pos in range(t):
+        layer = pos % 2
+        _close(fn(*ins, pos, layer), ref(*ins, pos, layer), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_long_cache(dev, dtype):
+    """K4 on a T = 4096 cache up to pos 4095 (slices of 512 positions, staged
+    in several chunks), which the one-warp kernel could not launch; and a
+    d 128 float32 cache whose slices take 4 chunks."""
+    g = torch.Generator(device=dev).manual_seed(4096)
+    q = torch.randn(2, 4, 32, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 4, 4096, 32, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 4, 4096, 32, generator=g, device=dev).to(dtype)
+    for pos in (4095, 4094, 2048, 511):
+        _close(da.decode_attention(q, k, v, pos), da.decode_attention_reference(q, k, v, pos),
+               dtype)
+    q = torch.randn(2, 2, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 2, 1024, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 2, 1024, 128, generator=g, device=dev).to(dtype)
+    for pos in (1023, 700, 257, 256, 255):
+        _close(ops.cached_decode_attention(q, k, v, pos),
+               da.decode_attention_reference(q, k, v, pos), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bb", [1, 2, 4, 8])
+def test_folded_attention_kernel_bb_every_position(dev, dtype, bb):
+    """K6 at bb 1, 2, 4 and 8 at every position of a 128-long cache."""
+    g = torch.Generator(device=dev).manual_seed(bb)
+    heads, hd, t = 4, 32, 128
+    q = torch.randn(8, heads * hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 8, t, heads * hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 8, t, heads * hd, generator=g, device=dev).to(dtype)
+    for pos in range(t):
+        layer = pos % 2
+        want = fa.folded_decode_attention_reference(q, k, v, pos, layer, heads)
+        _close(fa.folded_decode_attention_bb(q, k, v, pos, layer, heads, bb=bb), want, dtype)
+
+
+def test_kernels_in_a_cuda_graph(dev):
+    """Each decode-attention kernel captured in a CUDA graph and replayed
+    gives what the eager call gives."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    q = torch.randn(4, 8, 32, generator=g, device=dev).to(bf)
+    k = torch.randn(2, 4, 8, 256, 32, generator=g, device=dev)
+    v = torch.randn(2, 4, 8, 256, 32, generator=g, device=dev)
+    kq, ks = da.quantize_per_token(k)
+    vq, vs = da.quantize_per_token(v)
+    kb, vb = k.to(bf), v.to(bf)
+    qf = torch.randn(4, 256, generator=g, device=dev).to(bf)
+    kf = torch.randn(2, 4, 256, 256, generator=g, device=dev).to(bf)
+    vf = torch.randn(2, 4, 256, 256, generator=g, device=dev).to(bf)
+    calls = [
+        lambda: da.decode_attention_layered_q8(q, kq, ks, vq, vs, 200, 1),
+        lambda: da.decode_attention_layered(q, kb, vb, 5, 0),
+        lambda: da.decode_attention(q, kb[1], vb[1], 255),
+        lambda: fa.folded_decode_attention(qf, kf, vf, 130, 1, 8),
+        lambda: fa.folded_decode_attention_bb(qf, kf, vf, 3, 0, 8, bb=2),
+    ]
+    eager = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [fn() for fn in calls]
+    for _ in range(2):
+        for out in captured:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
 
 
 def test_wrappers_raise_on_bad_operands(dev):
