@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where a launch of the decode-attention kernels spends its time, on one
-Hopper card.  Run from the root of a checkout::
+"""Where the port's kernels spend their time, on one Hopper card: a launch
+of the decode-attention kernels, and the device kernels inside the Swin
+encoder's K1 and K2.  Run from the root of a checkout::
 
-    python3 chip_probe.py [--parts sweep,barriers,trace]
+    python3 chip_probe.py [--parts sweep,barriers,trace,encoder]
 
 * sweep: time per launch (a CUDA graph of 50 launches, CUDA events) at
   positions 0, 60, 240 and 479 of the full-width decode (B 32, H 8, T 512,
@@ -14,7 +15,13 @@ Hopper card.  Run from the root of a checkout::
   10 block barriers or 1 and 4 dependent global loads;
 * trace: ``%globaltimer`` stamps at the phases of copies of the two kernels
   built with marks, per CTA; prints the spread of the CTAs' start times and
-  the median and largest time of each phase over the CTAs, in ns.
+  the median and largest time of each phase over the CTAs, in ns;
+* encoder: the device kernels inside one call of K1 (QKV GEMM, window
+  attention, projection GEMM) and K2 (fc1 and fc2, or the one fused
+  kernel) at the four Swin-B stage shapes, batch 32, bf16, from
+  ``torch.profiler``'s CUDA activity, and their sums over one encode; K2
+  also in the form the plan does not pick, wherever the fused kernel can
+  run ("K2x").
 
 A development tool beside ``chip_smoke.py``, which is the contract check.
 It builds into ``build/probe`` and exits non-zero without a CUDA card.
@@ -278,9 +285,116 @@ def part_trace(torch, cs):
                 print(" ".join(row), flush=True)
 
 
+ENCODER_CALLS = 3  # profiled calls of each kernel at each shape, after one warm-up
+# the kernels of one call, in launch order, by their number
+ENCODER_PARTS = {"K1": {3: ("qkv", "attention", "proj")},
+                 "K2": {1: ("fused",), 2: ("fc1", "fc2")}}
+
+
+def device_kernels(torch, fn, calls):
+    """The device kernels of ``calls`` calls of ``fn``, from
+    ``torch.profiler``'s CUDA activity: one list of (name, us) per call,
+    in launch order, and the calls' mean CUDA-event time in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not kern or len(kern) % calls:
+        raise RuntimeError(f"profiler saw {len(kern)} device kernels in {calls} calls")
+    per = len(kern) // calls
+    runs = [[(e.name, e.time_range.elapsed_us()) for e in kern[i * per:(i + 1) * per]]
+            for i in range(calls)]
+    return runs, start.elapsed_time(end) * 1e3 / calls
+
+
+def mlp_form(torch, args, fused):
+    """K2 on ``args`` in the form ``fused`` (the one fused kernel) or not
+    (LN + fc1 + GELU into h, then fc2), whichever ``encoder_plan`` picks:
+    the C entry point with the fused flag set, for the comparison of the
+    two forms wherever the fused kernel can run (C <= 512)."""
+    from molnextr_tpu_torch.ops._build import check, load_library
+    from molnextr_tpu_torch.ops._launch import dtype_code, encoder_plan
+
+    x, ln_s, ln_b, w1, b1, w2, b2 = args
+    t, c = x.shape
+    f = w1.shape[1]
+    plan = encoder_plan(c, t)
+    h = None if fused else torch.empty((t, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    lib = load_library("swin_fused")
+
+    def run():
+        check(lib.mnx_fused_ln_mlp(
+            dtype_code(x), x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if h is None else h.data_ptr(),
+            out.data_ptr(), t, c, f, int(fused), plan.mlp_stages, plan.ln_gemm_stages,
+            plan.gemm_stages, plan.fc1_tiles, torch.cuda.current_stream().cuda_stream),
+            f"K2 {'fused' if fused else 'as two GEMMs'}")
+        return out
+
+    return run
+
+
+def part_encoder(torch, cs):
+    """Each device kernel inside one K1 and one K2 call at the four Swin-B
+    stage shapes, batch 32, bf16, labelled by its place in the call (K2 is
+    one fused kernel or two GEMMs, by ``encoder_plan``).  Where the fused
+    kernel can run (C <= 512), the form the plan does not pick is timed
+    beside it, as "K2x", and checked equal."""
+    from molnextr_tpu_torch.ops import swin_fused as sf
+    from molnextr_tpu_torch.ops._launch import MLP_FUSED_MAX_C, encoder_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    print(f"encoder: us per kernel (mean of {ENCODER_CALLS} profiled calls), batch {cs.BATCH}, "
+          "bf16; per encode = x launches of one encode")
+    total = {}
+    for res, c, heads, depth in cs.STAGES:
+        t = cs.BATCH * res * res
+        variants = ((False, depth // 2), (True, depth - depth // 2)) if res > cs.WS else ((False, depth),)
+        calls = []
+        for shifted, count in variants:
+            args = cs.window_inputs(torch, gen, cs.BATCH, res, c, heads, cs.WS, shifted, bf)
+            calls.append((f"K1 res {res} C {c} {'shifted' if shifted else 'unshifted'}", count,
+                          lambda a=args: sf.fused_window_attention(*a)))
+        args = cs.mlp_inputs(torch, gen, t, c, bf)
+        calls.append((f"K2 T {t} C {c}", depth, lambda a=args: sf.fused_ln_mlp(*a)))
+        if c <= MLP_FUSED_MAX_C:
+            other = mlp_form(torch, args, not encoder_plan(c, t).mlp_fused)
+            cs.check_close(f"K2 C {c}, the other form against the plan's", other(),
+                           sf.fused_ln_mlp(*args), torch, bf)
+            calls.append((f"K2x T {t} C {c}", depth, other))
+        for label, count, fn in calls:
+            runs, call_us = device_kernels(torch, fn, ENCODER_CALLS)
+            kind = label.split()[0]
+            parts = ENCODER_PARTS[kind[:2]].get(len(runs[0]))
+            if parts is None:
+                raise RuntimeError(f"{label}: {len(runs[0])} kernels a call")
+            row = [f"  {label} x {count}: call {call_us:.1f}"]
+            for i, part in enumerate(parts):
+                us = sum(r[i][1] for r in runs) / len(runs)
+                key = f"{kind} {part}"
+                total[key] = total.get(key, 0.0) + count * us
+                row.append(f"{part} {us:.1f} [{runs[0][i][0][:60]}]")
+            print(" ".join(row), flush=True)
+        del calls, args
+        torch.cuda.empty_cache()
+    print("  per encode (ms): " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in total.items()),
+          flush=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--parts", default="sweep,barriers,trace")
+    p.add_argument("--parts", default="sweep,barriers,trace,encoder")
     parts = p.parse_args().parts.split(",")
     import torch
 
@@ -298,6 +412,8 @@ def main() -> int:
         part_barriers(torch, tm)
     if "trace" in parts:
         part_trace(torch, cs)
+    if "encoder" in parts:
+        part_encoder(torch, cs)
     return 0
 
 

@@ -11,7 +11,8 @@ failure:
 
 1. setup: the card, its power limit, compute capability 9.x, build seconds;
 2. kernels: K1-K6 against their plain PyTorch versions at the full-width
-   shapes, in float32 and bf16, each error beside its tolerance; the
+   shapes, in float32 and bf16, each error beside its tolerance (K1 also
+   at head width 64 and at 7 x 7 and 14 x 14 windows); the
    decode-attention kernels at positions on and beside the split plan's
    slice boundaries, and K4 at head width 64;
 3. parity: ``Config()`` (Swin-B 384 + 6x256x8 decoder) in float32 with
@@ -273,6 +274,11 @@ def phase_kernels(torch, results):
                  for res, c, heads, _ in STAGES
                  for shifted in ((False, True) if res > WS else (False,))]
         cases += [(BATCH, 32, 48, 3, 4, False), (BATCH, 32, 48, 3, 4, True)]  # demo stage 0, hd 16
+        # widths beyond Swin-B's: hd 64 (N 144), a 7 x 7 window (N 49), a
+        # 14 x 14 window (N 196)
+        cases += [(BATCH, res, c, heads, ws, shifted)
+                  for res, c, heads, ws in ((24, 256, 4, 12), (28, 96, 3, 7), (28, 128, 4, 14))
+                  for shifted in (False, True)]
         for b, res, c, heads, ws, shifted in cases:
             args = window_inputs(torch, gen, b, res, c, heads, ws, shifted, dtype)
             got = sf.fused_window_attention(*args)

@@ -85,6 +85,124 @@ def slices(plan: SplitPlan, pos: int) -> List[Tuple[int, int]]:
     return out
 
 
+SMEM_LIMIT = 232448  # dynamic shared memory one block may take on an H100 (227 KB)
+SMEM_TWO_BLOCKS = 110 * 1024  # at most this each (and their barriers), two blocks share an SM
+STATIC_SMEM = 1024  # room left for the kernels' static shared memory (mbarriers, LN statistics)
+SMS = 132
+GEMM_BM, GEMM_BN, GEMM_BK = 64, 128, 64  # the bf16 GEMMs' tile: 2 warpgroups x 64 columns
+LN_GEMM_MIN_BLOCKS = 4 * SMS  # LN GEMM blocks wanted: split the columns until there are
+MLP_FUSED_MAX_C = 512  # widths the fused K2 kernel is built for: <= 4 accumulator slabs a warpgroup
+ATTN_KEY_TILES = (1, 2, 4, 9, 16)  # 16-key tiles the attention kernel is built for
+ATTN_HD_TILES = (1, 2, 4, 8)  # 16-wide head-dim tiles
+ATTN_MAX_HD, ATTN_MAX_N = 128, 256
+ATTN_MIN_BLOCKS = 2 * SMS  # attention blocks wanted in flight: two per SM
+
+
+class EncoderPlan(NamedTuple):
+    """How the bf16 kernels of K1 and K2 run one call (``encoder_plan``).
+
+    ``gemm_stages`` / ``ln_gemm_stages``: depth of the TMA ring of the GEMMs
+    whose A operand streams (projection, fc2) / is the block's LayerNormed
+    rows kept in shared memory (QKV, fc1).  ``qkv_tiles`` / ``fc1_tiles``:
+    128-wide column tiles each LN-GEMM block walks with its rows normalised
+    once.  ``mlp_fused``: K2 as one kernel with the 4C intermediate on chip
+    rather than two GEMMs; ``mlp_stages``: that kernel's ring depth, also
+    where the plan does not pick it (up to ``MLP_FUSED_MAX_C``).
+    ``attn_key_tiles`` / ``attn_hd_tiles``: the window attention's 16-key
+    and 16-wide head-dim tiles (padded up to a built variant),
+    ``attn_windows`` windows of one head and window position per block,
+    ``attn_buffers`` 1 or 2 (double-buffered staging).  ``smem``: bytes of
+    dynamic shared memory per kernel, as the C launchers compute them."""
+
+    gemm_stages: int
+    ln_gemm_stages: int
+    qkv_tiles: int
+    fc1_tiles: int
+    mlp_fused: bool
+    mlp_stages: int
+    attn_key_tiles: int
+    attn_hd_tiles: int
+    attn_windows: int
+    attn_buffers: int
+    smem: Dict[str, int]
+
+
+def _tiles(n: int, built) -> int:
+    need = -(-n // 16)
+    return min(t for t in built if t >= need)
+
+
+def _stages(fixed: int, per_stage: int, most: int, two_blocks: bool = True, least: int = 2) -> int:
+    """The ring depth, at most ``most`` stages beside ``fixed`` bytes: the
+    deepest of at least 3 that lets two blocks share an SM, if there is
+    one (and ``two_blocks``); else the deepest that fits one block, at
+    least ``least``.  Two blocks an SM outrun one block with a deeper ring:
+    each overlaps its prologue, epilogue and waits with the other's
+    products."""
+    if two_blocks:
+        for s in range(most, 2, -1):
+            if fixed + s * per_stage <= SMEM_TWO_BLOCKS:
+                return s
+    s = most
+    while s > least and fixed + s * per_stage > SMEM_LIMIT - STATIC_SMEM:
+        s -= 1
+    return s
+
+
+def _column_tiles(rows: int, n: int) -> int:
+    """128-wide column tiles per block of an LN GEMM over ``rows`` rows and
+    ``n`` columns: all of them, unless the grid would have fewer than
+    ``LN_GEMM_MIN_BLOCKS`` blocks; then the columns are split that many
+    more ways (each split normalises the rows again)."""
+    row_blocks, col_tiles = -(-rows // GEMM_BM), -(-n // GEMM_BN)
+    splits = min(col_tiles, -(-LN_GEMM_MIN_BLOCKS // row_blocks))
+    return -(-col_tiles // splits)
+
+
+def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int = 1,
+                 batch: int = 1) -> EncoderPlan:
+    """The launch plan of the bf16 K1 (``fused_window_attention`` on
+    ``tokens`` = ``batch`` x Hres x Wres tokens of width ``c``, ``num_heads``
+    heads, window ``ws``) and K2 (``fused_ln_mlp`` on ``tokens`` rows of
+    width ``c``, with ``num_heads`` None: the attention fields then
+    describe a window of one token).  Raises ``ValueError`` for a head width
+    above 128 or a window of more than 256 tokens, on either device.  The
+    sizes in ``smem`` may exceed ``SMEM_LIMIT`` for widths the bf16 kernels
+    cannot take; the wrappers refuse those."""
+    hd, n = (c // num_heads if num_heads else 1), ws * ws
+    if hd > ATTN_MAX_HD or n > ATTN_MAX_N:
+        raise ValueError(f"window attention takes head width <= {ATTN_MAX_HD} and <= "
+                         f"{ATTN_MAX_N} tokens a window, got {hd} and {n}")
+    kb = -(-c // GEMM_BK)  # 64-wide blocks of a row of C
+    box = GEMM_BK * 128  # one 64 x 64 bf16 tile, 128-byte swizzled
+    stage_out = 2 * box  # the epilogue's staging of a 64 x 128 output tile
+    gemm_stages = _stages(1024 + stage_out, 3 * box, 4)
+    ln_gemm_stages = _stages(1024 + kb * box + stage_out, 2 * box, 4)
+    mlp_fixed = 1024 + kb * box + 4 * box  # xn (later the output), h double-buffered
+    # K2 is the fused kernel where two of its blocks share an SM (one
+    # accumulator slab a warpgroup, C <= 128); with one block an SM (C 256
+    # and 512) two GEMMs measured faster on the H100 (PERF.md).  Its
+    # ring needs 3 stages: each warpgroup may hold two slots.
+    mlp_fused = kb <= 2 and mlp_fixed + 3 * 2 * box <= SMEM_TWO_BLOCKS
+    mlp_stages = _stages(mlp_fixed, 2 * box, 6, two_blocks=mlp_fused, least=3)
+    kt, ht = _tiles(n, ATTN_KEY_TILES), _tiles(hd, ATTN_HD_TILES)
+    buf = 3 * kt * 16 * (ht * 16 + 8) * 2  # q, k and v of one window, rows padded by 16 bytes
+    n_windows = tokens // (batch * n)
+    windows = 8
+    while windows > 1 and n_windows * -(-batch // windows) * (num_heads or 1) < ATTN_MIN_BLOCKS:
+        windows //= 2
+    buffers = 2 if 2 * buf <= SMEM_LIMIT else 1
+    smem = {
+        "gemm": 1024 + stage_out + gemm_stages * 3 * box,
+        "ln_gemm": 1024 + kb * box + stage_out + ln_gemm_stages * 2 * box,
+        "mlp": mlp_fixed + mlp_stages * 2 * box,
+        "attention": buffers * buf,
+    }
+    return EncoderPlan(gemm_stages, ln_gemm_stages, _column_tiles(tokens, 3 * c),
+                       _column_tiles(tokens, 4 * c), mlp_fused, mlp_stages, kt, ht, windows,
+                       buffers, smem)
+
+
 def require_cuda(name: str, *tensors) -> int:
     """Check that every tensor is a contiguous CUDA tensor on the current
     device; returns that device's current stream handle for the launch."""

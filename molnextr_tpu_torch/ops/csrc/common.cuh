@@ -1,16 +1,17 @@
 // Shared device helpers for the port's hand-written kernels: dtype
-// conversion, warp reductions, and a GEMM with an optional LayerNorm
-// prologue and a bias / exact-GELU epilogue.
+// conversion, warp reductions, the pieces of the decode-attention kernels,
+// and the encoder's GEMM (LayerNorm prologue, bias / exact-GELU epilogue):
+// on the CUDA cores in float32, and with TMA and wgmma in bf16.
 //
 // Every kernel here is built for sm_90a by ops/_build.py (nvcc, plain C
 // interface, loaded with ctypes).  The model's working dtype T is float or
 // __nv_bfloat16; every product accumulates in float32.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -51,6 +52,22 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// Exact GELU with the Pallas kernels' own erf (Abramowitz & Stegun 7.1.26,
+// |error| <= 1.5e-7; molnextr_tpu/ops/swin_fused.py::_erf), for the bf16
+// kernels, whose GELU output is rounded to bf16 at once: a fraction of
+// erff's instructions, whose cost on the CUDA cores holds up the fused
+// MLP's GELU step.
+__device__ __forceinline__ float gelu_poly(float x) {
+  const float z = x * 0.70710678118654752f, az = fabsf(z);
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(1.0f + 0.3275911f * az));
+  const float poly =
+      ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
+       0.254829592f) * t;
+  const float e = 1.0f - poly * __expf(-az * az);
+  return 0.5f * x * (1.0f + copysignf(e, z));
 }
 
 // ---------------------------------------------------------------------------
@@ -259,7 +276,7 @@ __device__ __forceinline__ void warp_ml(float& m, float& l) {
 // out[m, n] = epi(sum_k a(m, k) * W[k, n] + bias[n])
 //
 //   A (M, K) row-major in T; W (K, N) row-major in T (the flax Dense layout);
-//   bias (N,) float32; out (M, N) in TO.
+//   bias (N,) float32; out (M, N).
 //   LN:   a(m, k) = T((A[m,k] - mu_m) * rstd_m * ln_s[k] + ln_b[k]), with
 //         mu/rstd from a two-pass f32 reduction over the row (eps given);
 //         otherwise a(m, k) = A[m, k].
@@ -269,40 +286,9 @@ __device__ __forceinline__ void warp_ml(float& m, float& l) {
 //   float:  a 64x64 output tile per 256-thread block, 16-deep K slices in
 //           shared memory, a 4x4 register tile per thread, FMA on the CUDA
 //           cores (exact float32, as the float32 model needs);
-//   bf16:   the tensor cores (mma.sync through nvcuda::wmma, f32
-//           accumulation): a 128x128 tile per 256-thread block, 32-deep K
-//           slices in shared memory, 8 warps in a 2x4 grid each holding
-//           64x32 of accumulators.  Rows are loaded 16 bytes at a time, so
-//           K and N are multiples of 8 (the wrappers check).
-// Neither pipelines its loads; wgmma and TMA are a later change.
+//   bf16:   gemm_tma_kernel below: TMA tile loads into a 128-byte-swizzled
+//           ring in shared memory, wgmma.mma_async on the tensor cores.
 // ---------------------------------------------------------------------------
-
-// mean and 1/std of rows m0 .. m0 + rows - 1 of A, one warp per row
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* __restrict__ A, int m0, int rows, int M,
-                                          int K, float eps, float* mu_s, float* rstd_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += blockDim.x / 32) {
-    const int m = m0 + r;
-    float mu = 0.f, rstd = 0.f;
-    if (m < M) {
-      const T* row = A + (size_t)m * K;
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += to_f32(row[k]);
-      mu = warp_sum(s) / K;
-      float v = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float dlt = to_f32(row[k]) - mu;
-        v += dlt * dlt;
-      }
-      rstd = rsqrtf(warp_sum(v) / K + eps);
-    }
-    if (lane == 0) {
-      mu_s[r] = mu;
-      rstd_s[r] = rstd;
-    }
-  }
-}
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
@@ -316,10 +302,26 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
   __shared__ __align__(16) float Ws[kBK][kBN + 4];
   __shared__ float mu_s[kBM], rstd_s[kBM];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  if (LN) {
-    row_stats(A, m0, kBM, M, K, eps, mu_s, rstd_s);
+  if (LN) {  // mean and 1/std of the block's rows, one warp a row
+    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
+      const int m = m0 + r;
+      float mu = 0.f, rstd = 0.f;
+      if (m < M) {
+        const float* row = A + (size_t)m * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += row[k];
+        mu = warp_sum(s) / K;
+        float v = 0.f;
+        for (int k = lane; k < K; k += 32) v += (row[k] - mu) * (row[k] - mu);
+        rstd = rsqrtf(warp_sum(v) / K + eps);
+      }
+      if (lane == 0) {
+        mu_s[r] = mu;
+        rstd_s[r] = rstd;
+      }
+    }
     __syncthreads();
   }
 
@@ -376,115 +378,412 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-constexpr int kTBM = 128, kTBN = 128, kTBK = 32, kTThreads = 256, kTPad = 8;
-
 template <typename TO, bool LN, bool GELU>
-__global__ void __launch_bounds__(kTThreads)
-gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                 const float* __restrict__ bias, const float* __restrict__ ln_s,
-                 const float* __restrict__ ln_b, TO* __restrict__ out,
-                 int M, int N, int K, float eps) {
-  using namespace nvcuda;
-  // rows padded by 8 elements (16 bytes) against bank conflicts; every
-  // fragment pointer below stays 32-byte aligned
-  __shared__ __align__(128) __nv_bfloat16 As[kTBM][kTBK + kTPad];
-  __shared__ __align__(128) __nv_bfloat16 Ws[kTBK][kTBN + kTPad];
-  __shared__ __align__(128) float stage[kTThreads / 32][16 * 16];
-  __shared__ float mu_s[kTBM], rstd_s[kTBM];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * kTBM, n0 = blockIdx.x * kTBN;
-  const int wm = warp / 4, wn = warp % 4;
-  if (LN) {
-    row_stats(A, m0, kTBM, M, K, eps, mu_s, rstd_s);
-    __syncthreads();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kTBK) {
-    for (int v = tid; v < kTBM * kTBK / 8; v += kTThreads) {
-      const int r = v / (kTBK / 8), c = (v % (kTBK / 8)) * 8;
-      const int m = m0 + r, k = k0 + c;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < K) {
-        raw = *reinterpret_cast<const uint4*>(A + (size_t)m * K + k);
-        if (LN) {
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            e[i] = __float2bfloat16((__bfloat162float(e[i]) - mu_s[r]) * rstd_s[r] *
-                                        ln_s[k + i] + ln_b[k + i]);
-        }
-      }
-      *reinterpret_cast<uint4*>(&As[r][c]) = raw;
-    }
-    for (int v = tid; v < kTBK * kTBN / 8; v += kTThreads) {
-      const int r = v / (kTBN / 8), c = (v % (kTBN / 8)) * 8;
-      const int k = k0 + r, n = n0 + c;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (k < K && n < N) raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n);
-      *reinterpret_cast<uint4*>(&Ws[r][c]) = raw;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 64 + i * 16][kk], kTBK + kTPad);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Ws[kk][wn * 32 + j * 16], kTBN + kTPad);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue through a per-warp 16x16 staging tile: bias, GELU, convert
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 16 * 16; e += 32) {
-        const int m = m0 + wm * 64 + i * 16 + e / 16;
-        const int n = n0 + wn * 32 + j * 16 + e % 16;
-        if (m < M && n < N) {
-          float v = st[e] + bias[n];
-          if (GELU) v = gelu_exact(v);
-          out[(size_t)m * N + n] = from_f32<TO>(v);
-        }
-      }
-      __syncwarp();
-    }
+inline cudaError_t launch_gemm_f32(const void* A, const void* W, const float* bias,
+                                   const float* ln_s, const float* ln_b, void* out, int M,
+                                   int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  gemm_f32_kernel<TO, LN, GELU><<<grid, kGemmThreads, 0, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(W), bias, ln_s, ln_b,
+      static_cast<TO*>(out), M, N, K, 1e-5f);
+  return cudaGetLastError();
 }
 
-template <typename T, typename TO, bool LN, bool GELU>
-inline cudaError_t launch_gemm(const void* A, const void* W, const float* bias,
-                               const float* ln_s, const float* ln_b, void* out,
-                               int M, int N, int K, float eps, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM);
-    gemm_bf16_kernel<TO, LN, GELU><<<grid, kTThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(W), bias,
-        ln_s, ln_b, static_cast<TO*>(out), M, N, K, eps);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    gemm_f32_kernel<TO, LN, GELU><<<grid, kGemmThreads, 0, stream>>>(
-        static_cast<const float*>(A), static_cast<const float*>(W), bias, ln_s, ln_b,
-        static_cast<TO*>(out), M, N, K, eps);
+// ---------------------------------------------------------------------------
+// Hopper pieces of the bf16 kernels: TMA loads of 64-element-wide tiles into
+// 128-byte-swizzled shared memory, completed on mbarriers; wgmma on them.
+//
+// A tile ("box") is 64 bf16 columns (128 bytes) by R rows, row r at byte
+// r * 128 with its 16-byte chunks XOR-ed by r % 8 (CU_TENSOR_MAP_SWIZZLE_128B),
+// boxes 1024-byte aligned.  wgmma reads such boxes through descriptors:
+//   K-major A (rows = M, the 128 bytes = 64 K values): a k16 step is the
+//     box's address + 32 bytes; 8-row groups 1024 bytes apart (SBO);
+//   MN-major B (rows = K, the 128 bytes = 64 N values, which is W's own
+//     row-major layout): a k16 step is the next 16 rows, + 2048 bytes; the
+//     two 8-row groups of a step 1024 bytes apart.  One instruction covers
+//     one box's 64 columns (m64n64k16), so the stride between boxes along N
+//     never enters; both offset fields carry the 1024.
+// ---------------------------------------------------------------------------
+
+constexpr int kBox = 64 * 128;      // bytes of a 64 x 64 bf16 box
+constexpr int kMaxStages = 8;
+constexpr int kTmaThreads = 288;    // two consumer warpgroups and one producer warp
+constexpr int kProducerWarp = 8;
+constexpr int kEmptyArrivals = 8;   // lane 0 of each consumer warp releases a stage
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// box at inner coordinate x (column), outer y (row) of `map` into `dst`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// generic-proxy stores to shared memory made visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` of `threads` threads (a multiple of 32); the non-.aligned
+// form, which a warp may reach with its lanes apart
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// mbar_wait by every lane of a warp.  The lanes leave the wait's loop one
+// by one; __syncwarp joins them again before the .aligned instructions
+// that follow (wgmma, warp shuffles), which a split warp must not reach.
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar, int parity) {
+  mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_a(const void* p) { return sw128_desc(p, 16, 1024); }
+__device__ __forceinline__ uint64_t desc_b(const void* p) { return sw128_desc(p, 1024, 1024); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all(float (&d)[32]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d(64x64, f32) = A(64x16, K-major in shared memory) * B(16x64, MN-major)
+// + (accumulate ? d : 0): the first product of a sum passes 0, so no
+// instruction other than wgmma writes d while products are in flight
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// byte offset of element (r, c) (c < 64) in a 128-byte-swizzled box
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// The LN prologue shared by the bf16 GEMM and the fused MLP.  The 256
+// consumer threads copy rows m0 .. m0 + 63 of A (M, K) into ceil(K / 64)
+// K-major boxes at `xn` (cp.async, 16 bytes a thread, every copy in flight
+// at once; rows past M and columns past K zero), take each row's mean and
+// 1/std (two f32 passes over the row in shared memory, a warp a row) and
+// normalise the rows in place, rounding to bf16 where the Pallas kernels
+// round xn.  Ends with the consumers' barrier 1 and the fence that hands
+// xn to wgmma.  K is a multiple of 8.
+__device__ __forceinline__ void ln_rows(const __nv_bfloat16* __restrict__ A, int m0, int M, int K,
+                                        const float* __restrict__ ln_s,
+                                        const float* __restrict__ ln_b, float eps, uint8_t* xn,
+                                        float2* stats, int tid) {
+  const int nch = K / 8, wch = (K + 63) / 64 * 8, warp = tid >> 5, lane = tid & 31;
+  auto chunk = [&](int r, int c) -> uint4* {
+    return reinterpret_cast<uint4*>(xn + (c >> 3) * kBox + sw128(r, (c & 7) * 8));
+  };
+  for (int i = tid; i < 64 * wch; i += 256) {
+    const int r = i / wch, c = i % wch;
+    uint4* d = chunk(r, c);
+    if (m0 + r < M && c < nch)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(d)),
+                   "l"(A + (size_t)(m0 + r) * K + 8 * c)
+                   : "memory");
+    else
+      *d = make_uint4(0u, 0u, 0u, 0u);
   }
+  cp_async_commit();
+  cp_async_wait<0>();
+  named_bar_sync(1, 256);
+  for (int r = warp; r < 64; r += 8) {
+    float f[8], s = 0.f;
+    for (int c = lane; c < nch; c += 32) {
+      unpack16<__nv_bfloat16>(*chunk(r, c), f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += f[i];
+    }
+    const float mu = warp_sum(s) / K;
+    float v = 0.f;
+    for (int c = lane; c < nch; c += 32) {
+      unpack16<__nv_bfloat16>(*chunk(r, c), f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
+    }
+    v = warp_sum(v);
+    if (lane == 0) stats[r] = make_float2(mu, rsqrtf(v / K + eps));
+  }
+  named_bar_sync(1, 256);
+  for (int i = tid; i < 64 * nch; i += 256) {
+    const int r = i / nch, c = i % nch;
+    if (m0 + r >= M) continue;
+    uint4* p = chunk(r, c);
+    float f[8];
+    unpack16<__nv_bfloat16>(*p, f);
+    const float mu = stats[r].x, rstd = stats[r].y;
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c + 4));
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint4 o;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn((f[2 * k] - mu) * rstd * sc[2 * k] + bi[2 * k],
+                                   (f[2 * k + 1] - mu) * rstd * sc[2 * k + 1] + bi[2 * k + 1]);
+    *p = o;
+  }
+  fence_proxy_async();
+  named_bar_sync(1, 256);
+}
+
+// The epilogue of a consumer warpgroup's 64x64 accumulator: + bias (columns
+// n0 .. n0 + 63, zero past N), exact GELU, rounding to bf16, staged in the
+// 128-byte-swizzled box `st`, then stored 16 bytes a thread to out (M, N)
+// at rows m0 .., masked to M and N (N is a multiple of 8).  `bar` is a
+// named barrier of the warpgroup's 128 threads, passed before and after
+// the stores.
+template <bool GELU>
+__device__ __forceinline__ void store_tile(const float (&acc)[32], const float* __restrict__ bias,
+                                           uint8_t* st, __nv_bfloat16* __restrict__ out, int m0,
+                                           int n0, int M, int N, int wg_tid, int bar) {
+  const int wl = wg_tid >> 5, lane = wg_tid & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3), n = n0 + col;
+    const float c0 = n < N ? bias[n] : 0.f, c1 = n + 1 < N ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * wl + (lane >> 2) + 8 * half;
+      float v0 = acc[4 * j + 2 * half] + c0, v1 = acc[4 * j + 2 * half + 1] + c1;
+      if (GELU) {
+        v0 = gelu_poly(v0);
+        v1 = gelu_poly(v1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(st + sw128(row, col)) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  named_bar_sync(bar, 128);
+  for (int i = wg_tid; i < 64 * 8; i += 128) {
+    const int row = i >> 3, ch = i & 7, m = m0 + row, n = n0 + 8 * ch;
+    if (m < M && n < N)
+      *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+          *reinterpret_cast<const uint4*>(st + sw128(row, 8 * ch));
+  }  named_bar_sync(bar, 128);  // the staging box may be refilled
+}
+
+// Consumer side of one ring slot: wait until the TMA data of slot `it` is
+// in, and later release it for the producer (lane 0 of each consumer warp).
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  __device__ __forceinline__ int wait(int it) const {
+    const int s = it % stages;
+    mbar_wait_warp(&full[s], (it / stages) & 1);
+    return s;
+  }
+  __device__ __forceinline__ void release(int it, int lane) const {
+    if (lane == 0) mbar_arrive(&empty[it % stages]);
+  }
+  // producer: the slot of load `it`, once its previous use is released,
+  // armed for `bytes`
+  __device__ __forceinline__ int acquire(int it, uint32_t bytes) const {
+    const int s = it % stages, round = it / stages;
+    if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+    mbar_expect_tx(&full[s], bytes);
+    return s;
+  }
+};
+
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The bf16 GEMM.  A block owns rows m0 .. m0 + 63 and walks `tiles` 128-wide
+// column tiles of out from blockIdx.x * tiles.  With LN the consumers first
+// normalise the block's rows (all of K) into shared memory, once for every
+// tile, where they stay as the A operand.  Warp 8 issues the TMA loads of
+// each tile's 64-deep K slices of W (two 64-column boxes) and, without LN,
+// of A, into a ring of `stages` slots with full and empty mbarriers.
+// Consumer warpgroup g (warps 4g .. 4g + 3) runs m64n64k16 on the tile's
+// columns 64g .. 64g + 63, keeping one slice's wgmma in flight while it
+// waits for the next slice.
+template <bool LN, bool GELU>
+__global__ void __launch_bounds__(kTmaThreads, 2)
+gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+                const __nv_bfloat16* __restrict__ A, const float* __restrict__ bias,
+                const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                __nv_bfloat16* __restrict__ out, int M, int N, int K, int stages, int tiles,
+                float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ float2 stats[64];
+  const int kb = (K + 63) / 64;
+  uint8_t* xn = align1024(smem_raw);                 // LN: kb boxes of the block's rows
+  uint8_t* ring = xn + (LN ? kb * kBox : 0);
+  const int stage_bytes = (LN ? 2 : 3) * kBox;       // W's two boxes, then A's
+  uint8_t* staging = ring + stages * stage_bytes;    // one box per warpgroup
+  const int m0 = blockIdx.y * 64;
+  const int t0 = blockIdx.x * tiles, t1 = min((N + 127) / 128, t0 + tiles);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Ring ring_bars{full, empty, stages};
+  ring_init(full, empty, stages);
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      int it = 0;
+      for (int t = t0; t < t1; ++t)
+        for (int ks = 0; ks < kb; ++ks, ++it) {
+          const int s = ring_bars.acquire(it, stage_bytes);
+          uint8_t* st = ring + s * stage_bytes;
+          tma_load(st, &map_w, &full[s], t * 128, ks * 64);
+          tma_load(st + kBox, &map_w, &full[s], t * 128 + 64, ks * 64);
+          if (!LN) tma_load(st + 2 * kBox, &map_a, &full[s], ks * 64, m0);
+        }
+    }
+    return;
+  }
+
+  // with LN, the consumers normalise the rows while the producer loads W
+  if (LN) ln_rows(A, m0, M, K, ln_s, ln_b, eps, xn, stats, threadIdx.x);
+  const int wg = warp >> 2;
+  // zeroed once, before any product is in flight; each tile's sum then
+  // starts with a product that does not accumulate
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int t = t0; t < t1; ++t) {
+    for (int ks = 0; ks < kb; ++ks, ++it) {
+      const int s = ring_bars.wait(it);
+      const uint8_t* st = ring + s * stage_bytes;
+      const uint8_t* a = LN ? xn + ks * kBox : st + 2 * kBox;
+      const uint8_t* b = st + wg * kBox;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_64x64(acc, desc_a(a + 32 * j), desc_b(b + 2048 * j), ks > 0 || j > 0);
+      wgmma_commit();
+      if (ks > 0) {  // the previous slice's products are done: release its slot
+        wgmma_wait<1>();
+        ring_bars.release(it - 1, lane);
+      }
+    }
+    wgmma_wait_all(acc);
+    ring_bars.release(it - 1, lane);
+    store_tile<GELU>(acc, bias, staging + wg * kBox, out, m0, t * 128 + 64 * wg, M, N,
+                     threadIdx.x & 127, 2 + wg);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A TMA descriptor of a row-major bf16 (rows, cols) matrix read in boxes of
+// 64 columns x box_rows rows, 128-byte swizzled; boxes past the edge are
+// zero-filled.  cuTensorMapEncodeTiled is a driver function: it is taken
+// from the runtime's driver entry point, so the library needs no -lcuda.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// dynamic shared memory of gemm_tma_kernel (ops/_launch.py::encoder_plan
+// computes the same)
+inline size_t gemm_tma_smem(bool ln, int K, int stages) {
+  return 1024 + (ln ? (size_t)((K + 63) / 64) * kBox : 0) + 2 * kBox +
+         (size_t)stages * (ln ? 2 : 3) * kBox;
+}
+
+// `tiles`: 128-wide column tiles per block (the plan's; a block with LN
+// normalises its rows once for all of them)
+template <bool LN, bool GELU>
+inline cudaError_t launch_gemm_tma(const void* A, const void* W, const float* bias,
+                                   const float* ln_s, const float* ln_b, void* out, int M, int N,
+                                   int K, int stages, int tiles, cudaStream_t stream) {
+  if (stages < 2 || stages > kMaxStages || tiles < 1) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w;
+  cudaError_t err = bf16_map(&map_w, W, K, N, 64);
+  if (err != cudaSuccess) return err;
+  err = bf16_map(&map_a, A, M, K, 64);
+  if (err != cudaSuccess) return err;
+  const size_t smem = gemm_tma_smem(LN, K, stages);
+  err = cudaFuncSetAttribute(gemm_tma_kernel<LN, GELU>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (N + 127) / 128;
+  const dim3 grid((ntiles + tiles - 1) / tiles, (M + 63) / 64);
+  gemm_tma_kernel<LN, GELU><<<grid, kTmaThreads, smem, stream>>>(
+      map_a, map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
+      static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);
   return cudaGetLastError();
 }
 

@@ -84,6 +84,109 @@ def test_ln_mlp_kernel(dev, dtype, t, c):
     _close(sf.fused_ln_mlp(*args), sf.ln_mlp_reference(*args), dtype)
 
 
+def _window_args(dev, dtype, b, res, c, heads, ws, shifted, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
+    mask = None
+    if shifted:
+        mask = torch.from_numpy(
+            np.where(shift_attn_mask(res, res, ws, ws // 2), -100.0, 0.0).astype(np.float32)
+        ).to(dev)
+    return (r(b, res, res, c).to(dtype), r(c, 3 * c, k=c ** -0.5).to(dtype), r(3 * c, k=0.1),
+            r(c, c, k=c ** -0.5).to(dtype), r(c, k=0.1), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(heads, ws * ws, ws * ws, k=0.5), mask, heads, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("ws,res", [(4, 8), (7, 14), (12, 24), (14, 28)])
+@pytest.mark.parametrize("c,heads", [(16, 2), (48, 3), (64, 2), (128, 2)])
+def test_window_attention_kernel_widths(dev, dtype, shifted, ws, res, c, heads):
+    """K1 at head width 8, 16, 32 and 64 and windows of 16, 49, 144 and 196
+    tokens, on a ragged batch of 3 images (T not a multiple of the GEMMs'
+    64-row tile, the last attention block short of images)."""
+    args = _window_args(dev, dtype, 3, res, c, heads, ws, shifted, seed=c + ws)
+    before = LAUNCHES["fused_window_attention"]
+    got = sf.fused_window_attention(*args)
+    assert LAUNCHES["fused_window_attention"] == before + 1
+    _close(got, sf.window_attention_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_kernel_largest(dev, dtype):
+    """The widest window attention the kernels take: hd 128, N 256; one
+    past either raises."""
+    args = _window_args(dev, dtype, 2, 32, 256, 2, 16, True, seed=7)
+    _close(sf.fused_window_attention(*args), sf.window_attention_reference(*args), dtype)
+    for c, heads, ws, res in ((258, 2, 4, 8), (32, 2, 17, 17)):
+        with pytest.raises(ValueError):
+            sf.fused_window_attention(*_window_args(dev, dtype, 1, res, c, heads, ws, False, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 48, 128, 256, 512, 1024])
+def test_ln_mlp_kernel_widths(dev, dtype, c):
+    """K2 at every width from the tiny config to Swin-B's last stage: the
+    fused kernel up to C 128, two GEMMs above; T = 200 and 4100 are not
+    multiples of the 64-row tile."""
+    for t in (200, 4100):
+        g = torch.Generator(device=dev).manual_seed(t + c)
+        r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
+        args = (r(t, c).to(dtype), 1 + r(c, k=0.1), r(c, k=0.1),
+                r(c, 4 * c, k=c ** -0.5).to(dtype), r(4 * c, k=0.1),
+                r(4 * c, c, k=(4 * c) ** -0.5).to(dtype), r(c, k=0.1))
+        before = LAUNCHES["fused_ln_mlp"]
+        got = sf.fused_ln_mlp(*args)
+        assert LAUNCHES["fused_ln_mlp"] == before + 1
+        _close(got, sf.ln_mlp_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("c", [16, 48, 128, 256, 512])
+def test_ln_mlp_both_bf16_forms(dev, c):
+    """Wherever the fused K2 kernel can run (C <= 512), it and the two-GEMM
+    form agree with the plain version, whichever the plan picks (the C
+    entry point's fused flag; T 4100 is not a multiple of the tile)."""
+    from molnextr_tpu_torch.ops._build import check, load_library
+    from molnextr_tpu_torch.ops._launch import encoder_plan
+
+    t, f = 4100, 4 * c
+    g = torch.Generator(device=dev).manual_seed(c)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
+    args = (r(t, c).to(torch.bfloat16), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(c, f, k=c ** -0.5).to(torch.bfloat16), r(f, k=0.1),
+            r(f, c, k=f ** -0.5).to(torch.bfloat16), r(c, k=0.1))
+    x, ln_s, ln_b, w1, b1, w2, b2 = args
+    plan = encoder_plan(c, t)
+    want = sf.ln_mlp_reference(*args)
+    for fused in (1, 0):
+        h = torch.empty((t, f), dtype=x.dtype, device=dev)
+        out = torch.empty_like(x)
+        check(load_library("swin_fused").mnx_fused_ln_mlp(
+            1, x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(), t, c, f, fused,
+            plan.mlp_stages, plan.ln_gemm_stages, plan.gemm_stages, plan.fc1_tiles,
+            torch.cuda.current_stream().cuda_stream), "fused_ln_mlp")
+        _close(out, want, torch.bfloat16)
+
+
+def test_full_width_encode_launch_counts(dev):
+    """One full-width bf16 encode (Swin-B, 24 blocks) launches K1 and K2 24
+    times each and gives finite features."""
+    cfg = Config()
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, 0))
+    model = model.to(dev).eval()
+    model.to_dtype(torch.bfloat16)
+    s = cfg.data.input_size
+    imgs = torch.from_numpy(np.random.RandomState(0).randn(1, s, s, 3).astype(np.float32))
+    reset_launch_counts()
+    with torch.no_grad():
+        memory = model.encode(imgs.to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_window_attention"] == LAUNCHES["fused_ln_mlp"] == 24
+    assert torch.isfinite(memory.float()).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q8", [True, False])
 def test_decode_attention_kernel(dev, dtype, q8):
