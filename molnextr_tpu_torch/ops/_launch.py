@@ -103,7 +103,8 @@ class EncoderPlan(NamedTuple):
 
     ``gemm_stages`` / ``ln_gemm_stages``: depth of the TMA ring of the GEMMs
     whose A operand streams (projection, fc2) / is the block's LayerNormed
-    rows kept in shared memory (QKV, fc1).  ``qkv_tiles`` / ``fc1_tiles``:
+    rows kept in shared memory (QKV, fc1; per warpgroup where the block
+    has the SM to itself and runs ping-pong, C = 512).  ``qkv_tiles`` / ``fc1_tiles``:
     128-wide column tiles each LN-GEMM block walks with its rows normalised
     once.  ``mlp_fused``: K2 as one kernel with the 4C intermediate on chip
     rather than two GEMMs; ``mlp_stages``: that kernel's ring depth, also
@@ -177,7 +178,18 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     box = GEMM_BK * 128  # one 64 x 64 bf16 tile, 128-byte swizzled
     stage_out = 2 * box  # the epilogue's staging of a 64 x 128 output tile
     gemm_stages = _stages(1024 + stage_out, 3 * box, 4)
-    ln_gemm_stages = _stages(1024 + kb * box + stage_out, 2 * box, 4)
+    ln_fixed = 1024 + kb * box + stage_out  # the block's normalised rows stay resident
+    # where two blocks cannot share an SM at 3 stages, the LN GEMM runs
+    # ping-pong (each warpgroup a whole tile from a ring of its own) if each
+    # ring still gets 3 stages (C = 512; common.cuh ln_pingpong)
+    pp_fixed = 1024 + kb * box + 2 * stage_out
+    ln_pingpong = (ln_fixed + 3 * 2 * box > SMEM_TWO_BLOCKS
+                   and pp_fixed + 3 * 4 * box <= SMEM_LIMIT - STATIC_SMEM)
+    if ln_pingpong:
+        ln_fixed = pp_fixed
+        ln_gemm_stages = _stages(ln_fixed, 4 * box, 4, two_blocks=False)
+    else:
+        ln_gemm_stages = _stages(ln_fixed, 2 * box, 4)
     mlp_fixed = 1024 + kb * box + 4 * box  # xn (later the output), h double-buffered
     # K2 is the fused kernel where two of its blocks share an SM (one
     # accumulator slab a warpgroup, C <= 128); with one block an SM (C 256
@@ -194,7 +206,7 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     buffers = 2 if 2 * buf <= SMEM_LIMIT else 1
     smem = {
         "gemm": 1024 + stage_out + gemm_stages * 3 * box,
-        "ln_gemm": 1024 + kb * box + stage_out + ln_gemm_stages * 2 * box,
+        "ln_gemm": ln_fixed + ln_gemm_stages * (4 if ln_pingpong else 2) * box,
         "mlp": mlp_fixed + mlp_stages * 2 * box,
         "attention": buffers * buf,
     }

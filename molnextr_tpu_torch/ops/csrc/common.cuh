@@ -446,6 +446,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrival on barrier `id` of `threads` threads without waiting for it
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // mbar_wait by every lane of a warp.  The lanes leave the wait's loop one
 // by one; __syncwarp joins them again before the .aligned instructions
 // that follow (wgmma, warp shuffles), which a split warp must not reach.
@@ -725,6 +730,97 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant
   }
 }
 
+// The LN GEMM where a block has the SM to itself (its normalised rows and
+// a ring of 3 stages do not fit twice; ln_pingpong below): ping-pong.  Consumer warpgroup g
+// takes the block's tiles t0 + g, t0 + g + 2, ...: a whole 64 x 128 tile
+// each (two m64n64 accumulators), from its own ring fed by producer warp
+// 8 + g.  The warpgroups take turns on the tensor cores: one starts a
+// tile's products once the other has issued its previous tile's last ones
+// (named barriers 4 and 5), so each tile's epilogue runs under the other
+// warpgroup's products.  Both warpgroups normalise the rows once, as above.
+constexpr int kPingThreads = 320;  // two consumer warpgroups, two producer warps
+
+template <bool GELU>
+__global__ void __launch_bounds__(kPingThreads, 1)
+gemm_ln_pingpong_kernel(const __grid_constant__ CUtensorMap map_w,
+                        const __nv_bfloat16* __restrict__ A, const float* __restrict__ bias,
+                        const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                        __nv_bfloat16* __restrict__ out, int M, int N, int K, int stages,
+                        int tiles, float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][kMaxStages], empty[2][kMaxStages];
+  __shared__ float2 stats[64];
+  const int kb = (K + 63) / 64;
+  uint8_t* xn = align1024(smem_raw);    // kb boxes of the block's rows
+  uint8_t* staging = xn + kb * kBox;    // two boxes per warpgroup
+  uint8_t* rings = staging + 4 * kBox;  // [warpgroup][stage]: two boxes of W
+  const int m0 = blockIdx.y * 64;
+  const int t0 = blockIdx.x * tiles, nt = min((N + 127) / 128, t0 + tiles) - t0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g)
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(&full[g][s], 1);
+        mbar_init(&empty[g][s], 4);  // lane 0 of each of the warpgroup's warps
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    const int g = warp - 8;
+    if (lane == 0) {
+      const Ring ring{full[g], empty[g], stages};
+      uint8_t* base = rings + g * stages * 2 * kBox;
+      int it = 0;
+      for (int r = g; r < nt; r += 2)
+        for (int ks = 0; ks < kb; ++ks, ++it) {
+          const int s = ring.acquire(it, 2 * kBox);
+          tma_load(base + s * 2 * kBox, &map_w, &full[g][s], (t0 + r) * 128, ks * 64);
+          tma_load(base + s * 2 * kBox + kBox, &map_w, &full[g][s], (t0 + r) * 128 + 64, ks * 64);
+        }
+    }
+    return;
+  }
+
+  ln_rows(A, m0, M, K, ln_s, ln_b, eps, xn, stats, threadIdx.x);
+  const int g = warp >> 2, wg_tid = threadIdx.x & 127;
+  const Ring ring{full[g], empty[g], stages};
+  const uint8_t* base = rings + g * stages * 2 * kBox;
+  // zeroed once, before any product is in flight; each tile's sums then
+  // start with a product that does not accumulate
+  float lo[32], hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) lo[i] = hi[i] = 0.f;
+  int it = 0;
+  for (int r = g; r < nt; r += 2) {
+    if (r > 0) named_bar_sync(4 + (g ^ 1), 256);  // the other issued tile r - 1
+    for (int ks = 0; ks < kb; ++ks, ++it) {
+      const uint8_t* st = base + ring.wait(it) * 2 * kBox;
+      const uint8_t* a = xn + ks * kBox;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_64x64(lo, desc_a(a + 32 * j), desc_b(st + 2048 * j), ks > 0 || j > 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_64x64(hi, desc_a(a + 32 * j), desc_b(st + kBox + 2048 * j), ks > 0 || j > 0);
+      wgmma_commit();
+      if (ks > 0) {  // the previous slice's products are done: release its slot
+        wgmma_wait<1>();
+        ring.release(it - 1, lane);
+      }
+    }
+    if (r + 1 < nt) named_bar_arrive(4 + g, 256);  // the other may start tile r + 1
+    wgmma_wait_all(lo);
+    wgmma_wait_all(hi);
+    ring.release(it - 1, lane);
+    const int n0 = (t0 + r) * 128;
+    store_tile<GELU>(lo, bias, staging + 2 * g * kBox, out, m0, n0, M, N, wg_tid, 2 + g);
+    store_tile<GELU>(hi, bias, staging + (2 * g + 1) * kBox, out, m0, n0 + 64, M, N, wg_tid, 2 + g);
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -763,6 +859,22 @@ inline size_t gemm_tma_smem(bool ln, int K, int stages) {
          (size_t)stages * (ln ? 2 : 3) * kBox;
 }
 
+// ... and of gemm_ln_pingpong_kernel, `stages` per warpgroup
+inline size_t gemm_pingpong_smem(int K, int stages) {
+  return 1024 + (size_t)((K + 63) / 64) * kBox + 4 * kBox + (size_t)stages * 4 * kBox;
+}
+
+// Dynamic shared memory two blocks of an SM may each take, and one block
+// (ops/_launch.py SMEM_TWO_BLOCKS, SMEM_LIMIT - STATIC_SMEM)
+constexpr size_t kTwoBlockSmem = 110 * 1024, kBlockSmem = 232448 - 1024;
+
+// The LN GEMM runs ping-pong where two blocks with 3 stages do not fit an
+// SM and each warpgroup's ring still gets 3 (C = 512 at Swin-B's widths;
+// on the H100 it lost to the one-ring kernel on 2 stages, at C = 1024)
+inline bool ln_pingpong(int K) {
+  return gemm_tma_smem(true, K, 3) > kTwoBlockSmem && gemm_pingpong_smem(K, 3) <= kBlockSmem;
+}
+
 // `tiles`: 128-wide column tiles per block (the plan's; a block with LN
 // normalises its rows once for all of them)
 template <bool LN, bool GELU>
@@ -773,14 +885,24 @@ inline cudaError_t launch_gemm_tma(const void* A, const void* W, const float* bi
   CUtensorMap map_a, map_w;
   cudaError_t err = bf16_map(&map_w, W, K, N, 64);
   if (err != cudaSuccess) return err;
+  const int ntiles = (N + 127) / 128;
+  const dim3 grid((ntiles + tiles - 1) / tiles, (M + 63) / 64);
+  if (LN && ln_pingpong(K)) {
+    const size_t smem = gemm_pingpong_smem(K, stages);
+    err = cudaFuncSetAttribute(gemm_ln_pingpong_kernel<GELU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    gemm_ln_pingpong_kernel<GELU><<<grid, kPingThreads, smem, stream>>>(
+        map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
+        static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);
+    return cudaGetLastError();
+  }
   err = bf16_map(&map_a, A, M, K, 64);
   if (err != cudaSuccess) return err;
   const size_t smem = gemm_tma_smem(LN, K, stages);
   err = cudaFuncSetAttribute(gemm_tma_kernel<LN, GELU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int ntiles = (N + 127) / 128;
-  const dim3 grid((ntiles + tiles - 1) / tiles, (M + 63) / 64);
   gemm_tma_kernel<LN, GELU><<<grid, kTmaThreads, smem, stream>>>(
       map_a, map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
       static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);

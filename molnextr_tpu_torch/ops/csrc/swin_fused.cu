@@ -12,7 +12,9 @@
 // TFLOP/s in bf16); the window attention (4*T*N*C FLOPs) is small beside
 // them.  The bf16 model (the serving path) runs:
 //   K1: [LN1 + QKV GEMM, common.cuh gemm_tma_kernel: TMA ring, wgmma, the
-//       block's LayerNormed rows resident in shared memory] -> qkv (T, 3C)
+//       block's LayerNormed rows resident in shared memory; at C = 512
+//       gemm_ln_pingpong_kernel, the same with its two warpgroups taking
+//       turns on whole tiles] -> qkv (T, 3C)
 //       bf16 -> [window attention on the tensor cores, mma.sync m16n8k16:
 //       a warp holds 16 query rows' scores over the whole window in
 //       registers; a block walks several images' windows of one head and

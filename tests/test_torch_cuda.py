@@ -100,11 +100,12 @@ def _window_args(dev, dtype, b, res, c, heads, ws, shifted, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("ws,res", [(4, 8), (7, 14), (12, 24), (14, 28)])
-@pytest.mark.parametrize("c,heads", [(16, 2), (48, 3), (64, 2), (128, 2)])
+@pytest.mark.parametrize("c,heads", [(16, 2), (48, 3), (64, 2), (128, 2), (512, 16)])
 def test_window_attention_kernel_widths(dev, dtype, shifted, ws, res, c, heads):
     """K1 at head width 8, 16, 32 and 64 and windows of 16, 49, 144 and 196
     tokens, on a ragged batch of 3 images (T not a multiple of the GEMMs'
-    64-row tile, the last attention block short of images)."""
+    64-row tile, the last attention block short of images); C 512 takes
+    the ping-pong QKV GEMM."""
     args = _window_args(dev, dtype, 3, res, c, heads, ws, shifted, seed=c + ws)
     before = LAUNCHES["fused_window_attention"]
     got = sf.fused_window_attention(*args)
