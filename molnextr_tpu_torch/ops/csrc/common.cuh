@@ -731,13 +731,14 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant
 }
 
 // The LN GEMM where a block has the SM to itself (its normalised rows and
-// a ring of 3 stages do not fit twice; ln_pingpong below): ping-pong.  Consumer warpgroup g
-// takes the block's tiles t0 + g, t0 + g + 2, ...: a whole 64 x 128 tile
-// each (two m64n64 accumulators), from its own ring fed by producer warp
-// 8 + g.  The warpgroups take turns on the tensor cores: one starts a
-// tile's products once the other has issued its previous tile's last ones
-// (named barriers 4 and 5), so each tile's epilogue runs under the other
-// warpgroup's products.  Both warpgroups normalise the rows once, as above.
+// a ring of 3 stages do not fit twice; ln_pingpong below): ping-pong.
+// Consumer warpgroup g takes the block's tiles t0 + g, t0 + g + 2, ...: a
+// whole 64 x 128 tile each (two m64n64 accumulators), from its own ring
+// fed by producer warp 8 + g.  The warpgroups take turns on the tensor
+// cores: one starts a tile's products once the other has issued its
+// previous tile's last ones (named barriers 4 and 5), so each tile's
+// epilogue runs under the other warpgroup's products.  Both warpgroups
+// normalise the rows once, as above.
 constexpr int kPingThreads = 320;  // two consumer warpgroups, two producer warps
 
 template <bool GELU>
