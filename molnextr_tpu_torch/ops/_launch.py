@@ -95,7 +95,11 @@ MLP_FUSED_MAX_C = 512  # widths the fused K2 kernel is built for: <= 4 accumulat
 ATTN_KEY_TILES = (1, 2, 4, 9, 16)  # 16-key tiles the attention kernel is built for
 ATTN_HD_TILES = (1, 2, 4, 8)  # 16-wide head-dim tiles
 ATTN_MAX_HD, ATTN_MAX_N = 128, 256
-ATTN_MIN_BLOCKS = 2 * SMS  # attention blocks wanted in flight: two per SM
+# windows of one head and position a block walks: the most, up to 16, that
+# still leaves about a block for each SM (a 9-warp block at 168 registers has
+# its SM alone); the more windows a block walks, the fewer times the grid
+# reads the bias and mask
+ATTN_MAX_WINDOWS, ATTN_MIN_BLOCKS = 16, 128
 
 
 class EncoderPlan(NamedTuple):
@@ -200,7 +204,7 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     kt, ht = _tiles(n, ATTN_KEY_TILES), _tiles(hd, ATTN_HD_TILES)
     buf = 3 * kt * 16 * (ht * 16 + 8) * 2  # q, k and v of one window, rows padded by 16 bytes
     n_windows = tokens // (batch * n)
-    windows = 8
+    windows = ATTN_MAX_WINDOWS
     while windows > 1 and n_windows * -(-batch // windows) * (num_heads or 1) < ATTN_MIN_BLOCKS:
         windows //= 2
     buffers = 2 if 2 * buf <= SMEM_LIMIT else 1

@@ -280,7 +280,8 @@ __device__ __forceinline__ void warp_ml(float& m, float& l) {
 //   LN:   a(m, k) = T((A[m,k] - mu_m) * rstd_m * ln_s[k] + ln_b[k]), with
 //         mu/rstd from a two-pass f32 reduction over the row (eps given);
 //         otherwise a(m, k) = A[m, k].
-//   GELU: epi(v) = gelu_exact(v); otherwise identity.
+//   GELU: epi(v) = exact GELU (gelu_exact in float32, gelu_poly in bf16);
+//         otherwise identity.
 //
 // Two implementations of that one function, one per input type:
 //   float:  a 64x64 output tile per 256-thread block, 16-deep K slices in
@@ -610,7 +611,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[32], const float* 
     if (m < M && n < N)
       *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
           *reinterpret_cast<const uint4*>(st + sw128(row, 8 * ch));
-  }  named_bar_sync(bar, 128);  // the staging box may be refilled
+  }
+  named_bar_sync(bar, 128);  // the staging box may be refilled
 }
 
 // Consumer side of one ring slot: wait until the TMA data of slot `it` is

@@ -19,7 +19,8 @@ from molnextr_tpu.ops import swin_fused as jsf
 from molnextr_tpu_torch.models.swin import shift_attn_mask
 from molnextr_tpu_torch.ops import swin_fused as tsf
 from molnextr_tpu_torch.ops._launch import (
-    ATTN_MAX_HD, ATTN_MAX_N, MLP_FUSED_MAX_C, SMEM_LIMIT, SMEM_TWO_BLOCKS, encoder_plan,
+    ATTN_MAX_HD, ATTN_MAX_N, ATTN_MAX_WINDOWS, MLP_FUSED_MAX_C, SMEM_LIMIT, SMEM_TWO_BLOCKS,
+    encoder_plan,
 )
 
 torch.set_num_threads(2)
@@ -124,7 +125,7 @@ def test_encoder_plan_fits_and_picks_the_fused_mlp(shape):
     if c <= MLP_FUSED_MAX_C:
         assert 3 <= k2.mlp_stages and k2.smem["mlp"] <= SMEM_LIMIT
     assert k1.attn_key_tiles * 16 >= ws * ws and k1.attn_hd_tiles * 16 >= c // heads
-    assert 1 <= k1.attn_windows <= 8 and k1.attn_buffers in (1, 2)
+    assert 1 <= k1.attn_windows <= ATTN_MAX_WINDOWS and k1.attn_buffers in (1, 2)
     assert 2 <= k1.gemm_stages and 2 <= k1.ln_gemm_stages
     assert k1.qkv_tiles >= 1 and k2.fc1_tiles >= 1
 
