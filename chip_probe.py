@@ -19,9 +19,7 @@ encoder's K1 and K2.  Run from the root of a checkout::
 * encoder: the device kernels inside one call of K1 (QKV GEMM, window
   attention, projection GEMM) and K2 (fc1 and fc2, or the one fused
   kernel) at the four Swin-B stage shapes, batch 32, bf16, from
-  ``torch.profiler``'s CUDA activity, and their sums over one encode; K2
-  also in the form the plan does not pick, wherever the fused kernel can
-  run ("K2x").
+  ``torch.profiler``'s CUDA activity, and their sums over one encode.
 
 A development tool beside ``chip_smoke.py``, which is the contract check.
 It builds into ``build/probe`` and exits non-zero without a CUDA card.
@@ -316,42 +314,11 @@ def device_kernels(torch, fn, calls):
     return runs, start.elapsed_time(end) * 1e3 / calls
 
 
-def mlp_form(torch, args, fused):
-    """K2 on ``args`` in the form ``fused`` (the one fused kernel) or not
-    (LN + fc1 + GELU into h, then fc2), whichever ``encoder_plan`` picks:
-    the C entry point with the fused flag set, for the comparison of the
-    two forms wherever the fused kernel can run (C <= 512)."""
-    from molnextr_tpu_torch.ops._build import check, load_library
-    from molnextr_tpu_torch.ops._launch import dtype_code, encoder_plan
-
-    x, ln_s, ln_b, w1, b1, w2, b2 = args
-    t, c = x.shape
-    f = w1.shape[1]
-    plan = encoder_plan(c, t)
-    h = None if fused else torch.empty((t, f), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    lib = load_library("swin_fused")
-
-    def run():
-        check(lib.mnx_fused_ln_mlp(
-            dtype_code(x), x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if h is None else h.data_ptr(),
-            out.data_ptr(), t, c, f, int(fused), plan.mlp_stages, plan.ln_gemm_stages,
-            plan.gemm_stages, plan.fc1_tiles, torch.cuda.current_stream().cuda_stream),
-            f"K2 {'fused' if fused else 'as two GEMMs'}")
-        return out
-
-    return run
-
-
 def part_encoder(torch, cs):
     """Each device kernel inside one K1 and one K2 call at the four Swin-B
     stage shapes, batch 32, bf16, labelled by its place in the call (K2 is
-    one fused kernel or two GEMMs, by ``encoder_plan``).  Where the fused
-    kernel can run (C <= 512), the form the plan does not pick is timed
-    beside it, as "K2x", and checked equal."""
+    one fused kernel or two GEMMs, by ``encoder_plan``)."""
     from molnextr_tpu_torch.ops import swin_fused as sf
-    from molnextr_tpu_torch.ops._launch import MLP_FUSED_MAX_C, encoder_plan
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -368,15 +335,10 @@ def part_encoder(torch, cs):
                           lambda a=args: sf.fused_window_attention(*a)))
         args = cs.mlp_inputs(torch, gen, t, c, bf)
         calls.append((f"K2 T {t} C {c}", depth, lambda a=args: sf.fused_ln_mlp(*a)))
-        if c <= MLP_FUSED_MAX_C:
-            other = mlp_form(torch, args, not encoder_plan(c, t).mlp_fused)
-            cs.check_close(f"K2 C {c}, the other form against the plan's", other(),
-                           sf.fused_ln_mlp(*args), torch, bf)
-            calls.append((f"K2x T {t} C {c}", depth, other))
         for label, count, fn in calls:
             runs, call_us = device_kernels(torch, fn, ENCODER_CALLS)
             kind = label.split()[0]
-            parts = ENCODER_PARTS[kind[:2]].get(len(runs[0]))
+            parts = ENCODER_PARTS[kind].get(len(runs[0]))
             if parts is None:
                 raise RuntimeError(f"{label}: {len(runs[0])} kernels a call")
             row = [f"  {label} x {count}: call {call_us:.1f}"]

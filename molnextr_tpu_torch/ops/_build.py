@@ -31,8 +31,8 @@ NVCC_FLAGS = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "swin_fused": {
-        "mnx_fused_window_attention": [_I] + [_P] * 12 + [_I] * 13 + [_P],
-        "mnx_fused_ln_mlp": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+        "mnx_fused_window_attention": [_I] + [_P] * 12 + [_I] * 14 + [_P],
+        "mnx_fused_ln_mlp": [_I] + [_P] * 9 + [_I] * 9 + [_P],
     },
     "decode_attention": {
         "mnx_decode_attention_layered": [_I, _I] + [_P] * 6 + [_I] * 9 + [_P],

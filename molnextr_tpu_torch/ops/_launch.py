@@ -91,7 +91,7 @@ STATIC_SMEM = 1024  # room left for the kernels' static shared memory (mbarriers
 SMS = 132
 GEMM_BM, GEMM_BN, GEMM_BK = 64, 128, 64  # the bf16 GEMMs' tile: 2 warpgroups x 64 columns
 LN_GEMM_MIN_BLOCKS = 4 * SMS  # LN GEMM blocks wanted: split the columns until there are
-MLP_FUSED_MAX_C = 512  # widths the fused K2 kernel is built for: <= 4 accumulator slabs a warpgroup
+MLP_FUSED_MAX_C = 128  # widths the fused K2 kernel takes: one accumulator slab a warpgroup
 ATTN_KEY_TILES = (1, 2, 4, 9, 16)  # 16-key tiles the attention kernel is built for
 ATTN_HD_TILES = (1, 2, 4, 8)  # 16-wide head-dim tiles
 ATTN_MAX_HD, ATTN_MAX_N = 128, 256
@@ -102,17 +102,27 @@ ATTN_MAX_HD, ATTN_MAX_N = 128, 256
 ATTN_MAX_WINDOWS, ATTN_MIN_BLOCKS = 16, 128
 
 
+# how the LN GEMMs (QKV, fc1) get their LayerNormed A operand; the C
+# launchers' LnForm
+LN_RESIDENT = 0  # the block's 64 rows normalised once into shared memory, where they stay
+LN_PINGPONG = 1  # the same, with the two warpgroups taking turns on whole tiles
+LN_APART = 2  # rows too wide to stay: LayerNormed into scratch, streamed by the plain GEMM
+
+
 class EncoderPlan(NamedTuple):
     """How the bf16 kernels of K1 and K2 run one call (``encoder_plan``).
 
     ``gemm_stages`` / ``ln_gemm_stages``: depth of the TMA ring of the GEMMs
     whose A operand streams (projection, fc2) / is the block's LayerNormed
-    rows kept in shared memory (QKV, fc1; per warpgroup where the block
-    has the SM to itself and runs ping-pong, C = 512).  ``qkv_tiles`` / ``fc1_tiles``:
+    rows kept in shared memory (QKV, fc1; per warpgroup with
+    ``LN_PINGPONG``).  ``ln_form``: ``LN_RESIDENT``, ``LN_PINGPONG`` (where
+    two blocks cannot share an SM but each warpgroup's ring still gets 3
+    stages, C = 512) or ``LN_APART`` (where 64 rows and a ring of 2 stages
+    do not fit a block, C > 1408).  ``qkv_tiles`` / ``fc1_tiles``:
     128-wide column tiles each LN-GEMM block walks with its rows normalised
     once.  ``mlp_fused``: K2 as one kernel with the 4C intermediate on chip
-    rather than two GEMMs; ``mlp_stages``: that kernel's ring depth, also
-    where the plan does not pick it (up to ``MLP_FUSED_MAX_C``).
+    rather than two GEMMs (C <= ``MLP_FUSED_MAX_C``); ``mlp_stages``: that
+    kernel's ring depth, 0 where it does not run.
     ``attn_key_tiles`` / ``attn_hd_tiles``: the window attention's 16-key
     and 16-wide head-dim tiles (padded up to a built variant),
     ``attn_windows`` windows of one head and window position per block,
@@ -121,6 +131,7 @@ class EncoderPlan(NamedTuple):
 
     gemm_stages: int
     ln_gemm_stages: int
+    ln_form: int
     qkv_tiles: int
     fc1_tiles: int
     mlp_fused: bool
@@ -171,9 +182,7 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     heads, window ``ws``) and K2 (``fused_ln_mlp`` on ``tokens`` rows of
     width ``c``, with ``num_heads`` None: the attention fields then
     describe a window of one token).  Raises ``ValueError`` for a head width
-    above 128 or a window of more than 256 tokens, on either device.  The
-    sizes in ``smem`` may exceed ``SMEM_LIMIT`` for widths the bf16 kernels
-    cannot take; the wrappers refuse those."""
+    above 128 or a window of more than 256 tokens, on either device."""
     hd, n = (c // num_heads if num_heads else 1), ws * ws
     if hd > ATTN_MAX_HD or n > ATTN_MAX_N:
         raise ValueError(f"window attention takes head width <= {ATTN_MAX_HD} and <= "
@@ -182,25 +191,33 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     box = GEMM_BK * 128  # one 64 x 64 bf16 tile, 128-byte swizzled
     stage_out = 2 * box  # the epilogue's staging of a 64 x 128 output tile
     gemm_stages = _stages(1024 + stage_out, 3 * box, 4)
+    gemm_smem = 1024 + stage_out + gemm_stages * 3 * box
     ln_fixed = 1024 + kb * box + stage_out  # the block's normalised rows stay resident
     # where two blocks cannot share an SM at 3 stages, the LN GEMM runs
     # ping-pong (each warpgroup a whole tile from a ring of its own) if each
-    # ring still gets 3 stages (C = 512; common.cuh ln_pingpong)
+    # ring still gets 3 stages (C = 512; at C = 1024 it lost to one ring of
+    # 4 stages on the H100); where not even 2 stages fit beside the rows,
+    # LayerNorm runs apart (swin_fused.cu passes K1's ctx or K2's out as
+    # the scratch of its rows)
     pp_fixed = 1024 + kb * box + 2 * stage_out
-    ln_pingpong = (ln_fixed + 3 * 2 * box > SMEM_TWO_BLOCKS
-                   and pp_fixed + 3 * 4 * box <= SMEM_LIMIT - STATIC_SMEM)
-    if ln_pingpong:
-        ln_fixed = pp_fixed
-        ln_gemm_stages = _stages(ln_fixed, 4 * box, 4, two_blocks=False)
-    else:
+    if (ln_fixed + 3 * 2 * box > SMEM_TWO_BLOCKS
+            and pp_fixed + 3 * 4 * box <= SMEM_LIMIT - STATIC_SMEM):
+        ln_form = LN_PINGPONG
+        ln_gemm_stages = _stages(pp_fixed, 4 * box, 4, two_blocks=False)
+        ln_smem = pp_fixed + ln_gemm_stages * 4 * box
+    elif ln_fixed + 2 * 2 * box <= SMEM_LIMIT - STATIC_SMEM:
+        ln_form = LN_RESIDENT
         ln_gemm_stages = _stages(ln_fixed, 2 * box, 4)
-    mlp_fixed = 1024 + kb * box + 4 * box  # xn (later the output), h double-buffered
+        ln_smem = ln_fixed + ln_gemm_stages * 2 * box
+    else:
+        ln_form, ln_gemm_stages, ln_smem = LN_APART, gemm_stages, gemm_smem
     # K2 is the fused kernel where two of its blocks share an SM (one
     # accumulator slab a warpgroup, C <= 128); with one block an SM (C 256
     # and 512) two GEMMs measured faster on the H100 (PERF.md).  Its
     # ring needs 3 stages: each warpgroup may hold two slots.
-    mlp_fused = kb <= 2 and mlp_fixed + 3 * 2 * box <= SMEM_TWO_BLOCKS
-    mlp_stages = _stages(mlp_fixed, 2 * box, 6, two_blocks=mlp_fused, least=3)
+    mlp_fused = c <= MLP_FUSED_MAX_C
+    mlp_fixed = 1024 + kb * box + 4 * box  # xn (later the output), h double-buffered
+    mlp_stages = _stages(mlp_fixed, 2 * box, 6, least=3) if mlp_fused else 0
     kt, ht = _tiles(n, ATTN_KEY_TILES), _tiles(hd, ATTN_HD_TILES)
     buf = 3 * kt * 16 * (ht * 16 + 8) * 2  # q, k and v of one window, rows padded by 16 bytes
     n_windows = tokens // (batch * n)
@@ -208,13 +225,10 @@ def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int =
     while windows > 1 and n_windows * -(-batch // windows) * (num_heads or 1) < ATTN_MIN_BLOCKS:
         windows //= 2
     buffers = 2 if 2 * buf <= SMEM_LIMIT else 1
-    smem = {
-        "gemm": 1024 + stage_out + gemm_stages * 3 * box,
-        "ln_gemm": ln_fixed + ln_gemm_stages * (4 if ln_pingpong else 2) * box,
-        "mlp": mlp_fixed + mlp_stages * 2 * box,
-        "attention": buffers * buf,
-    }
-    return EncoderPlan(gemm_stages, ln_gemm_stages, _column_tiles(tokens, 3 * c),
+    smem = {"gemm": gemm_smem, "ln_gemm": ln_smem, "attention": buffers * buf}
+    if mlp_fused:
+        smem["mlp"] = mlp_fixed + mlp_stages * 2 * box
+    return EncoderPlan(gemm_stages, ln_gemm_stages, ln_form, _column_tiles(tokens, 3 * c),
                        _column_tiles(tokens, 4 * c), mlp_fused, mlp_stages, kt, ht, windows,
                        buffers, smem)
 

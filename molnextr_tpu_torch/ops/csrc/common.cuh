@@ -579,6 +579,51 @@ __device__ __forceinline__ void ln_rows(const __nv_bfloat16* __restrict__ A, int
   named_bar_sync(1, 256);
 }
 
+// LayerNorm of each row of A (M, K) into xn (M, K), a warp a row, with the
+// same sums, statistics and bf16 rounding as ln_rows: for rows too wide to
+// stay in a GEMM block's shared memory beside its ring.  K is a multiple
+// of 8.
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const __nv_bfloat16* __restrict__ A, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, __nv_bfloat16* __restrict__ xn, int M, int K,
+               float eps) {
+  const int lane = threadIdx.x & 31, m = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const uint4* row = reinterpret_cast<const uint4*>(A + (size_t)m * K);
+  uint4* dst = reinterpret_cast<uint4*>(xn + (size_t)m * K);
+  const int nch = K / 8;
+  float f[8], s = 0.f;
+  for (int c = lane; c < nch; c += 32) {
+    unpack16<__nv_bfloat16>(row[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mu = warp_sum(s) / K;
+  float v = 0.f;
+  for (int c = lane; c < nch; c += 32) {
+    unpack16<__nv_bfloat16>(row[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
+  }
+  const float rstd = rsqrtf(warp_sum(v) / K + eps);
+  for (int c = lane; c < nch; c += 32) {
+    unpack16<__nv_bfloat16>(row[c], f);
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c + 4));
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint4 o;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn((f[2 * k] - mu) * rstd * sc[2 * k] + bi[2 * k],
+                                   (f[2 * k + 1] - mu) * rstd * sc[2 * k + 1] + bi[2 * k + 1]);
+    dst[c] = o;
+  }
+}
+
 // The epilogue of a consumer warpgroup's 64x64 accumulator: + bias (columns
 // n0 .. n0 + 63, zero past N), exact GELU, rounding to bf16, staged in the
 // 128-byte-swizzled box `st`, then stored 16 bytes a thread to out (M, N)
@@ -733,7 +778,7 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant
 }
 
 // The LN GEMM where a block has the SM to itself (its normalised rows and
-// a ring of 3 stages do not fit twice; ln_pingpong below): ping-pong.
+// a ring of 3 stages do not fit twice; the plan's LN_PINGPONG): ping-pong.
 // Consumer warpgroup g takes the block's tiles t0 + g, t0 + g + 2, ...: a
 // whole 64 x 128 tile each (two m64n64 accumulators), from its own ring
 // fed by producer warp 8 + g.  The warpgroups take turns on the tensor
@@ -867,17 +912,6 @@ inline size_t gemm_pingpong_smem(int K, int stages) {
   return 1024 + (size_t)((K + 63) / 64) * kBox + 4 * kBox + (size_t)stages * 4 * kBox;
 }
 
-// Dynamic shared memory two blocks of an SM may each take, and one block
-// (ops/_launch.py SMEM_TWO_BLOCKS, SMEM_LIMIT - STATIC_SMEM)
-constexpr size_t kTwoBlockSmem = 110 * 1024, kBlockSmem = 232448 - 1024;
-
-// The LN GEMM runs ping-pong where two blocks with 3 stages do not fit an
-// SM and each warpgroup's ring still gets 3 (C = 512 at Swin-B's widths;
-// on the H100 it lost to the one-ring kernel on 2 stages, at C = 1024)
-inline bool ln_pingpong(int K) {
-  return gemm_tma_smem(true, K, 3) > kTwoBlockSmem && gemm_pingpong_smem(K, 3) <= kBlockSmem;
-}
-
 // `tiles`: 128-wide column tiles per block (the plan's; a block with LN
 // normalises its rows once for all of them)
 template <bool LN, bool GELU>
@@ -888,26 +922,58 @@ inline cudaError_t launch_gemm_tma(const void* A, const void* W, const float* bi
   CUtensorMap map_a, map_w;
   cudaError_t err = bf16_map(&map_w, W, K, N, 64);
   if (err != cudaSuccess) return err;
-  const int ntiles = (N + 127) / 128;
-  const dim3 grid((ntiles + tiles - 1) / tiles, (M + 63) / 64);
-  if (LN && ln_pingpong(K)) {
-    const size_t smem = gemm_pingpong_smem(K, stages);
-    err = cudaFuncSetAttribute(gemm_ln_pingpong_kernel<GELU>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    gemm_ln_pingpong_kernel<GELU><<<grid, kPingThreads, smem, stream>>>(
-        map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
-        static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);
-    return cudaGetLastError();
-  }
   err = bf16_map(&map_a, A, M, K, 64);
   if (err != cudaSuccess) return err;
+  const int ntiles = (N + 127) / 128;
+  const dim3 grid((ntiles + tiles - 1) / tiles, (M + 63) / 64);
   const size_t smem = gemm_tma_smem(LN, K, stages);
   err = cudaFuncSetAttribute(gemm_tma_kernel<LN, GELU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   gemm_tma_kernel<LN, GELU><<<grid, kTmaThreads, smem, stream>>>(
       map_a, map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
+      static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);
+  return cudaGetLastError();
+}
+
+// How an LN GEMM gets its LayerNormed rows: the plan's ln_form
+// (ops/_launch.py LN_RESIDENT, LN_PINGPONG, LN_APART), which follows from
+// the shared memory each form needs at width K.
+enum LnForm : int { kLnResident = 0, kLnPingPong = 1, kLnApart = 2 };
+
+// The LN GEMM in the plan's form.  kLnApart writes the LayerNormed rows
+// into `xn` (M, K), a scratch the caller does not read until this GEMM is
+// done, and streams them through the plain GEMM.
+template <bool GELU>
+inline cudaError_t launch_ln_gemm(const void* A, const void* W, const float* bias,
+                                  const float* ln_s, const float* ln_b, void* out, int M, int N,
+                                  int K, int form, int stages, int tiles, void* xn,
+                                  cudaStream_t stream) {
+  if (form == kLnResident)
+    return launch_gemm_tma<true, GELU>(A, W, bias, ln_s, ln_b, out, M, N, K, stages, tiles,
+                                       stream);
+  if (form == kLnApart) {
+    if (xn == nullptr) return cudaErrorInvalidValue;
+    ln_rows_kernel<<<(M + 7) / 8, 256, 0, stream>>>(static_cast<const __nv_bfloat16*>(A), ln_s,
+                                                    ln_b, static_cast<__nv_bfloat16*>(xn), M, K,
+                                                    1e-5f);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_gemm_tma<false, GELU>(xn, W, bias, nullptr, nullptr, out, M, N, K, stages, 1,
+                                        stream);
+  }
+  if (form != kLnPingPong || stages < 2 || stages > kMaxStages || tiles < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_w;
+  cudaError_t err = bf16_map(&map_w, W, K, N, 64);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((N + 127) / 128 + tiles - 1) / tiles, (M + 63) / 64);
+  const size_t smem = gemm_pingpong_smem(K, stages);
+  err = cudaFuncSetAttribute(gemm_ln_pingpong_kernel<GELU>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  gemm_ln_pingpong_kernel<GELU><<<grid, kPingThreads, smem, stream>>>(
+      map_w, static_cast<const __nv_bfloat16*>(A), bias, ln_s, ln_b,
       static_cast<__nv_bfloat16*>(out), M, N, K, stages, tiles, 1e-5f);
   return cudaGetLastError();
 }

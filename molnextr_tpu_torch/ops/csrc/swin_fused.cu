@@ -14,7 +14,8 @@
 //   K1: [LN1 + QKV GEMM, common.cuh gemm_tma_kernel: TMA ring, wgmma, the
 //       block's LayerNormed rows resident in shared memory; at C = 512
 //       gemm_ln_pingpong_kernel, the same with its two warpgroups taking
-//       turns on whole tiles] -> qkv (T, 3C)
+//       turns on whole tiles; above C = 1408, where the rows do not fit,
+//       ln_rows_kernel into scratch and the plain GEMM] -> qkv (T, 3C)
 //       bf16 -> [window attention on the tensor cores, mma.sync m16n8k16:
 //       a warp holds 16 query rows' scores over the whole window in
 //       registers; a block walks several images' windows of one head and
@@ -406,34 +407,30 @@ cudaError_t attention_bf16(int kt, int ht, const void* qkv, const float* bias, c
 }
 
 // ---------------------------------------------------------------------------
-// K2 fused, bf16: a block owns rows m0 .. m0 + 63, which the consumers
-// LayerNorm once into shared memory (ln_rows).  Warp 8 streams, for each
-// 128-wide chunk of F, W1[k-slice, chunk] (two 64 x 64 boxes per 64-deep
-// slice of C) and W2[chunk, slab] (a 128-row x 64-column box per 64-column
-// slab of C) through one ring.  Consumer warpgroup g computes
+// K2 fused, bf16, C <= 128: a block owns rows m0 .. m0 + 63, which the
+// consumers LayerNorm once into shared memory (ln_rows).  Warp 8 streams,
+// for each 128-wide chunk of F, W1[k-slice, chunk] (two 64 x 64 boxes per
+// 64-deep slice of C) and W2[chunk, slab] (a 128-row x 64-column box per
+// 64-column slab of C) through one ring.  Consumer warpgroup g computes
 // h[:, 64g .. 64g + 63] of the chunk against the resident xn, adds b1,
 // applies GELU, rounds to bf16 into a 128-byte-swizzled h buffer (double-
 // buffered by chunk parity), and after a barrier of both warpgroups adds
-// h W2[chunk, slab] into its accumulators for the slabs s with s % 2 == g.
-// SPW: accumulator slabs per warpgroup (32 floats each).
+// h W2[chunk, slab g] into its accumulator (slab g: columns 64g .. 64g + 63
+// of the output; at C <= 64 warpgroup 1 has none).
 //
 // One group of wgmma stays in flight while the warpgroup waits for the next
 // slot, across the boundary of the two products too: a chunk's last slab
 // is still running while the next chunk's first W1 slice is awaited.  Each
 // warpgroup then holds up to two slots, so the ring needs 3 stages.
 //
-// Where it runs (ops/_launch.py::encoder_plan): only where two blocks
-// share an SM (C <= 128).  One block an SM leaves the tensor cores idle
-// through its LN prologue, every chunk's GELU and the epilogue, and there
-// two GEMMs through device memory measured faster on the H100 (PERF.md,
-// chip_probe.py --parts encoder): at C = 256 and 512 the kernel runs only
-// for that comparison.  A block of 9 warps gets at most 168 registers a
-// thread (3 warps share an SM sub-partition's 16384): at SPW 4 (128 floats
-// of acc, 32 of h) it spills.
+// It runs where two blocks share an SM (ops/_launch.py::encoder_plan, C <=
+// 128).  Wider, a block would need the SM to itself, which leaves the
+// tensor cores idle through its LN prologue, every chunk's GELU and the
+// epilogue; there two GEMMs through device memory measured faster on the
+// H100 (PERF.md).
 // ---------------------------------------------------------------------------
 
-template <int SPW>
-__global__ void __launch_bounds__(kTmaThreads, SPW == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kTmaThreads, 2)
 mlp_fused_kernel(const __grid_constant__ CUtensorMap map_w1, const __grid_constant__ CUtensorMap map_w2,
                  const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, const float* __restrict__ b1,
@@ -474,13 +471,9 @@ mlp_fused_kernel(const __grid_constant__ CUtensorMap map_w1, const __grid_consta
   const int wg = warp >> 2, wl = warp & 3;
   // zeroed once, before any product is in flight; each sum then starts
   // with a product that does not accumulate
-  float acc[SPW][32], hacc[32];
+  float acc[32], hacc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    hacc[i] = 0.f;
-#pragma unroll
-    for (int a = 0; a < SPW; ++a) acc[a][i] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) acc[i] = hacc[i] = 0.f;
   int it = 0, held = -1;  // held: the slot of this warpgroup's group that may be in flight
   auto committed = [&](int slot) {  // a group reading `slot` was just committed
     wgmma_wait<1>();
@@ -516,73 +509,64 @@ mlp_fused_kernel(const __grid_constant__ CUtensorMap map_w1, const __grid_consta
     }
     fence_proxy_async();
     named_bar_sync(1, 256);  // both halves of h are in place
+    for (int i = 0; i < kb; ++i, ++it) {
+      const int s = bars.wait(it);
+      if (i == wg) {
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 2 * SPW; ++i) {
-      if (i < kb) {
-        const int s = bars.wait(it);
-        if (i % 2 == wg) {
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            wgmma_64x64(acc[i / 2], desc_a(hb + (j >> 2) * kBox + 32 * (j & 3)),
-                        desc_b(ring + s * 2 * kBox + 2048 * j), 1);
-          wgmma_commit();
-          committed(it);
-        } else {
-          bars.release(it, lane);  // the other warpgroup's slab
-        }
-        ++it;
+        for (int j = 0; j < 8; ++j)
+          wgmma_64x64(acc, desc_a(hb + (j >> 2) * kBox + 32 * (j & 3)),
+                      desc_b(ring + s * 2 * kBox + 2048 * j), 1);
+        wgmma_commit();
+        committed(it);
+      } else {
+        bars.release(it, lane);  // the other warpgroup's slab
       }
     }
   }
-#pragma unroll
-  for (int a = 0; a < SPW; ++a) wgmma_wait_all(acc[a]);
+  wgmma_wait_all(acc);
   if (held >= 0) bars.release(held, lane);
   // xn is read no more (the last chunk's barrier is behind every step 1):
-  // it stages the output, slab i in box i
-#pragma unroll
-  for (int i = 0; i < 2 * SPW; ++i) {
-    if (i < kb && i % 2 == wg)
-      store_tile<false>(acc[i / 2], b2, xn + i * kBox, out, m0, 64 * i, M, C,
-                        threadIdx.x & 127, 2 + wg);
-  }
+  // it stages the output, slab g in box g
+  if (wg < kb)
+    store_tile<false>(acc, b2, xn + wg * kBox, out, m0, 64 * wg, M, C, threadIdx.x & 127, 2 + wg);
 }
 
-template <int SPW>
 cudaError_t launch_mlp_fused(const void* x, const float* ln_s, const float* ln_b, const void* w1,
                              const float* b1, const void* w2, const float* b2, void* out, int M,
                              int C, int F, int stages, cudaStream_t stream) {
-  if (stages < 3 || stages > kMaxStages) return cudaErrorInvalidValue;
+  if (C > 128 || stages < 3 || stages > kMaxStages) return cudaErrorInvalidValue;
   CUtensorMap map_w1, map_w2;
   cudaError_t err = bf16_map(&map_w1, w1, C, F, 64);
   if (err != cudaSuccess) return err;
   err = bf16_map(&map_w2, w2, F, C, 128);
   if (err != cudaSuccess) return err;
   const size_t smem = 1024 + (size_t)((C + 63) / 64) * kBox + 4 * kBox + (size_t)stages * 2 * kBox;
-  err = cudaFuncSetAttribute(mlp_fused_kernel<SPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(mlp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  mlp_fused_kernel<SPW><<<(M + 63) / 64, kTmaThreads, smem, stream>>>(
+  mlp_fused_kernel<<<(M + 63) / 64, kTmaThreads, smem, stream>>>(
       map_w1, map_w2, static_cast<const __nv_bfloat16*>(x), ln_s, ln_b, b1, b2,
       static_cast<__nv_bfloat16*>(out), M, C, F, stages);
   return cudaGetLastError();
 }
 
-// plan: kt, ht, wpb, nbuf of the attention; ln_stages, stages, tiles per
-// block of the QKV GEMM
+// plan: kt, ht, wpb, nbuf of the attention; ln_form, ln_stages, stages,
+// tiles per block of the QKV GEMM.  With LN apart, the LayerNormed rows go
+// through ctx, which the attention writes only after the QKV GEMM.
 cudaError_t window_attention_bf16(const void* x, const void* wqkv, const float* bqkv,
                                   const void* wproj, const float* bproj, const float* ln_s,
                                   const float* ln_b, const float* bias, const float* mask,
                                   void* qkv, void* ctx, void* out, int B, int Hres, int Wres, int C,
                                   int heads, int ws, const int* plan, cudaStream_t st) {
   const int M = B * Hres * Wres;
-  cudaError_t err = launch_gemm_tma<true, false>(x, wqkv, bqkv, ln_s, ln_b, qkv, M, 3 * C, C,
-                                                 plan[4], plan[6], st);
+  cudaError_t err = launch_ln_gemm<false>(x, wqkv, bqkv, ln_s, ln_b, qkv, M, 3 * C, C, plan[4],
+                                          plan[5], plan[7], ctx, st);
   if (err != cudaSuccess) return err;
   err = attention_bf16(plan[0], plan[1], qkv, bias, mask, ctx, B, Hres, Wres, C, heads, ws,
                        plan[2], plan[3], st);
   if (err != cudaSuccess) return err;
-  return launch_gemm_tma<false, false>(ctx, wproj, bproj, nullptr, nullptr, out, M, C, C, plan[5],
+  return launch_gemm_tma<false, false>(ctx, wproj, bproj, nullptr, nullptr, out, M, C, C, plan[6],
                                        1, st);
 }
 
@@ -609,21 +593,17 @@ cudaError_t window_attention_f32(const void* x, const void* wqkv, const float* b
                                               st);
 }
 
-// plan: fused, mlp_stages, ln_stages, stages, tiles per block of fc1
+// plan: fused, mlp_stages, ln_form, ln_stages, stages, tiles per block of
+// fc1.  With LN apart, the LayerNormed rows go through out, which fc2
+// writes only after fc1.
 cudaError_t ln_mlp_bf16(const void* x, const float* ln_s, const float* ln_b, const void* w1,
                         const float* b1, const void* w2, const float* b2, void* hbuf, void* out,
                         int M, int C, int F, const int* plan, cudaStream_t st) {
-  if (plan[0]) {
-    const int slabs = (C + 63) / 64;
-    if (slabs <= 2) return launch_mlp_fused<1>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, C, F, plan[1], st);
-    if (slabs <= 4) return launch_mlp_fused<2>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, C, F, plan[1], st);
-    if (slabs <= 8) return launch_mlp_fused<4>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, C, F, plan[1], st);
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err =
-      launch_gemm_tma<true, true>(x, w1, b1, ln_s, ln_b, hbuf, M, F, C, plan[2], plan[4], st);
+  if (plan[0]) return launch_mlp_fused(x, ln_s, ln_b, w1, b1, w2, b2, out, M, C, F, plan[1], st);
+  cudaError_t err = launch_ln_gemm<true>(x, w1, b1, ln_s, ln_b, hbuf, M, F, C, plan[2], plan[3],
+                                         plan[5], out, st);
   if (err != cudaSuccess) return err;
-  return launch_gemm_tma<false, false>(hbuf, w2, b2, nullptr, nullptr, out, M, C, F, plan[3], 1,
+  return launch_gemm_tma<false, false>(hbuf, w2, b2, nullptr, nullptr, out, M, C, F, plan[4], 1,
                                        st);
 }
 
@@ -641,10 +621,10 @@ extern "C" {
 
 // Each returns a cudaError_t code (0 on success); a bad dtype or plan
 // launches nothing.  The trailing ints are the wrapper's encoder_plan: K1's
-// key tiles, head-dim tiles, windows per block, buffers, LN-GEMM stages,
-// GEMM stages and QKV tiles per block; K2's fused flag, fused stages,
-// LN-GEMM stages, GEMM stages and fc1 tiles per block.  The float32 kernels
-// do not read them.
+// key tiles, head-dim tiles, windows per block, buffers, LN form, LN-GEMM
+// stages, GEMM stages and QKV tiles per block; K2's fused flag, fused
+// stages, LN form, LN-GEMM stages, GEMM stages and fc1 tiles per block.
+// The float32 kernels do not read them.
 int mnx_fused_window_attention(int dtype, const void* x, const void* wqkv,
                                const float* bqkv, const void* wproj,
                                const float* bproj, const float* ln_s,
@@ -652,14 +632,15 @@ int mnx_fused_window_attention(int dtype, const void* x, const void* wqkv,
                                const float* mask, void* qkv_scratch,
                                void* ctx_scratch, void* out, int B, int Hres,
                                int Wres, int C, int heads, int ws, int kt, int ht, int wpb,
-                               int nbuf, int ln_stages, int stages, int tiles, void* stream) {
+                               int nbuf, int ln_form, int ln_stages, int stages, int tiles,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mnx::kF32)
     return mnx::window_attention_f32(x, wqkv, bqkv, wproj, bproj, ln_s, ln_b, bias, mask,
                                      qkv_scratch, ctx_scratch, out, B, Hres, Wres, C, heads, ws,
                                      st);
   if (dtype == mnx::kBF16) {
-    const int plan[7] = {kt, ht, wpb, nbuf, ln_stages, stages, tiles};
+    const int plan[8] = {kt, ht, wpb, nbuf, ln_form, ln_stages, stages, tiles};
     return mnx::window_attention_bf16(x, wqkv, bqkv, wproj, bproj, ln_s, ln_b, bias, mask,
                                       qkv_scratch, ctx_scratch, out, B, Hres, Wres, C, heads, ws,
                                       plan, st);
@@ -670,13 +651,13 @@ int mnx_fused_window_attention(int dtype, const void* x, const void* wqkv,
 int mnx_fused_ln_mlp(int dtype, const void* x, const float* ln_s,
                      const float* ln_b, const void* w1, const float* b1,
                      const void* w2, const float* b2, void* h_scratch, void* out,
-                     int M, int C, int F, int fused, int mlp_stages, int ln_stages, int stages,
-                     int tiles, void* stream) {
+                     int M, int C, int F, int fused, int mlp_stages, int ln_form, int ln_stages,
+                     int stages, int tiles, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mnx::kF32)
     return mnx::ln_mlp_f32(x, ln_s, ln_b, w1, b1, w2, b2, h_scratch, out, M, C, F, st);
   if (dtype == mnx::kBF16) {
-    const int plan[5] = {fused, mlp_stages, ln_stages, stages, tiles};
+    const int plan[6] = {fused, mlp_stages, ln_form, ln_stages, stages, tiles};
     return mnx::ln_mlp_bf16(x, ln_s, ln_b, w1, b1, w2, b2, h_scratch, out, M, C, F, plan, st);
   }
   return cudaErrorInvalidValue;

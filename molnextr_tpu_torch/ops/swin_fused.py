@@ -147,8 +147,8 @@ def fused_window_attention(
             wproj.data_ptr(), bproj.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             bias.data_ptr(), _ptr(mask), qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
             b, hres, wres, c, num_heads, ws, plan.attn_key_tiles, plan.attn_hd_tiles,
-            plan.attn_windows, plan.attn_buffers, plan.ln_gemm_stages, plan.gemm_stages,
-            plan.qkv_tiles, stream,
+            plan.attn_windows, plan.attn_buffers, plan.ln_form, plan.ln_gemm_stages,
+            plan.gemm_stages, plan.qkv_tiles, stream,
         ),
         "fused_window_attention",
     )
@@ -200,7 +200,7 @@ def fused_ln_mlp(
         lib.mnx_fused_ln_mlp(
             dtype_code(x), x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            _ptr(h), out.data_ptr(), t, c, f, int(fused), plan.mlp_stages,
+            _ptr(h), out.data_ptr(), t, c, f, int(fused), plan.mlp_stages, plan.ln_form,
             plan.ln_gemm_stages, plan.gemm_stages, plan.fc1_tiles, stream,
         ),
         "fused_ln_mlp",

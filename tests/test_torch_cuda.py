@@ -125,11 +125,11 @@ def test_window_attention_kernel_largest(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [16, 48, 128, 256, 512, 1024])
+@pytest.mark.parametrize("c", [16, 48, 128, 256, 512, 1024, 1536])
 def test_ln_mlp_kernel_widths(dev, dtype, c):
-    """K2 at every width from the tiny config to Swin-B's last stage: the
-    fused kernel up to C 128, two GEMMs above; T = 200 and 4100 are not
-    multiples of the 64-row tile."""
+    """K2 at every width from the tiny config to Swin-L's last stage: the
+    fused kernel up to C 128, two GEMMs above, LayerNorm apart at C 1536;
+    T = 200 and 4100 are not multiples of the 64-row tile."""
     for t in (200, 4100):
         g = torch.Generator(device=dev).manual_seed(t + c)
         r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
@@ -142,11 +142,11 @@ def test_ln_mlp_kernel_widths(dev, dtype, c):
         _close(got, sf.ln_mlp_reference(*args), dtype)
 
 
-@pytest.mark.parametrize("c", [16, 48, 128, 256, 512])
+@pytest.mark.parametrize("c", [16, 48, 128])
 def test_ln_mlp_both_bf16_forms(dev, c):
-    """Wherever the fused K2 kernel can run (C <= 512), it and the two-GEMM
-    form agree with the plain version, whichever the plan picks (the C
-    entry point's fused flag; T 4100 is not a multiple of the tile)."""
+    """Wherever the fused K2 kernel runs (C <= 128), it and the two-GEMM
+    form agree with the plain version (the C entry point's fused flag;
+    T 4100 is not a multiple of the tile)."""
     from molnextr_tpu_torch.ops._build import check, load_library
     from molnextr_tpu_torch.ops._launch import encoder_plan
 
@@ -165,9 +165,21 @@ def test_ln_mlp_both_bf16_forms(dev, c):
         check(load_library("swin_fused").mnx_fused_ln_mlp(
             1, x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(), t, c, f, fused,
-            plan.mlp_stages, plan.ln_gemm_stages, plan.gemm_stages, plan.fc1_tiles,
+            plan.mlp_stages, plan.ln_form, plan.ln_gemm_stages, plan.gemm_stages, plan.fc1_tiles,
             torch.cuda.current_stream().cuda_stream), "fused_ln_mlp")
         _close(out, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_kernel_wide_rows(dev, dtype):
+    """K1 at Swin-L's last stage (C 1536, 48 heads, ws 12): rows too wide to
+    stay in the QKV GEMM block's shared memory are LayerNormed apart; T 288
+    is not a multiple of the 64-row tile."""
+    from molnextr_tpu_torch.ops._launch import LN_APART, encoder_plan
+
+    assert encoder_plan(1536, 2 * 144, 48, 12, 2).ln_form == LN_APART
+    args = _window_args(dev, dtype, 2, 12, 1536, 48, 12, False, seed=1536)
+    _close(sf.fused_window_attention(*args), sf.window_attention_reference(*args), dtype)
 
 
 def test_full_width_encode_launch_counts(dev):

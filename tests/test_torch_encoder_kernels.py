@@ -19,8 +19,8 @@ from molnextr_tpu.ops import swin_fused as jsf
 from molnextr_tpu_torch.models.swin import shift_attn_mask
 from molnextr_tpu_torch.ops import swin_fused as tsf
 from molnextr_tpu_torch.ops._launch import (
-    ATTN_MAX_HD, ATTN_MAX_N, ATTN_MAX_WINDOWS, MLP_FUSED_MAX_C, SMEM_LIMIT, SMEM_TWO_BLOCKS,
-    encoder_plan,
+    ATTN_MAX_HD, ATTN_MAX_N, ATTN_MAX_WINDOWS, LN_APART, LN_PINGPONG, LN_RESIDENT,
+    SMEM_LIMIT, SMEM_TWO_BLOCKS, STATIC_SMEM, encoder_plan,
 )
 
 torch.set_num_threads(2)
@@ -95,10 +95,12 @@ def test_window_attention_f32_new_widths_match_pallas(res, c, heads, ws, shifted
 
 
 # (res, C, heads, ws, batch): Swin-B's four stages at batch 32 (Config()),
-# the demo bundle's two stages, tiny_test_config's two stages
+# Swin-L's first and last (embed_dim 192), the demo bundle's two stages,
+# tiny_test_config's two stages
 SHAPES = {
     "swin_b_1": (96, 128, 4, 12, 32), "swin_b_2": (48, 256, 8, 12, 32),
     "swin_b_3": (24, 512, 16, 12, 32), "swin_b_4": (12, 1024, 32, 12, 32),
+    "swin_l_1": (96, 192, 6, 12, 32), "swin_l_4": (12, 1536, 48, 12, 32),
     "demo_1": (32, 48, 3, 4, 6), "demo_2": (16, 96, 6, 4, 6),
     "tiny_1": (8, 16, 2, 4, 2), "tiny_2": (4, 32, 2, 4, 2),
 }
@@ -108,22 +110,21 @@ SHAPES = {
 def test_encoder_plan_fits_and_picks_the_fused_mlp(shape):
     """Every kernel a shape runs fits in a block's shared memory; K2 is one
     fused kernel exactly where two of its blocks share an SM (C <= 128),
-    else two GEMMs, and its ring has the 3 stages it needs wherever it can
-    run (C <= 512); the attention's padded tiles cover the window and the
-    head."""
+    with the 3 ring stages it needs, else two GEMMs; the attention's padded
+    tiles cover the window and the head."""
     res, c, heads, ws, batch = SHAPES[shape]
     tokens = batch * res * res
     k1 = encoder_plan(c, tokens, heads, ws, batch)
     k2 = encoder_plan(c, tokens)
     for key in ("ln_gemm", "gemm", "attention"):
-        assert 0 < k1.smem[key] <= SMEM_LIMIT, (key, k1.smem)
+        assert 0 < k1.smem[key] <= SMEM_LIMIT - STATIC_SMEM, (key, k1.smem)
     assert k2.mlp_fused == (c <= 128)
     if k2.mlp_fused:
-        assert k2.smem["mlp"] <= SMEM_TWO_BLOCKS
+        assert k2.smem["mlp"] <= SMEM_TWO_BLOCKS and k2.mlp_stages >= 3
+    else:
+        assert k2.mlp_stages == 0 and "mlp" not in k2.smem
     for key in (("mlp",) if k2.mlp_fused else ("ln_gemm", "gemm")):
-        assert 0 < k2.smem[key] <= SMEM_LIMIT, (key, k2.smem)
-    if c <= MLP_FUSED_MAX_C:
-        assert 3 <= k2.mlp_stages and k2.smem["mlp"] <= SMEM_LIMIT
+        assert 0 < k2.smem[key] <= SMEM_LIMIT - STATIC_SMEM, (key, k2.smem)
     assert k1.attn_key_tiles * 16 >= ws * ws and k1.attn_hd_tiles * 16 >= c // heads
     assert 1 <= k1.attn_windows <= ATTN_MAX_WINDOWS and k1.attn_buffers in (1, 2)
     assert 2 <= k1.gemm_stages and 2 <= k1.ln_gemm_stages
@@ -142,3 +143,21 @@ def test_encoder_plan_largest_widths_and_refusals():
         args, _ = _attn_inputs(1, ws, c, heads, ws, False, seed=1)
         with pytest.raises(ValueError):
             tsf.fused_window_attention(*[torch.from_numpy(v) for v in args], None, heads, ws)
+
+
+@pytest.mark.parametrize("c,form", [
+    (16, LN_RESIDENT), (128, LN_RESIDENT), (256, LN_RESIDENT), (512, LN_PINGPONG),
+    (1024, LN_RESIDENT), (1408, LN_RESIDENT), (1472, LN_APART), (1536, LN_APART),
+    (4096, LN_APART),
+])
+def test_encoder_plan_ln_form(c, form):
+    """The LN GEMMs keep the block's 64 normalised rows in shared memory
+    while they fit beside a ring of 2 stages (C <= 1408), running ping-pong
+    at C 512 only; wider rows (Swin-L's C 1536) are LayerNormed apart and
+    streamed through the plain GEMM, with its ring and shared memory."""
+    plan = encoder_plan(c, 32 * 144)
+    assert plan.ln_form == form
+    assert 2 <= plan.ln_gemm_stages and plan.smem["ln_gemm"] <= SMEM_LIMIT - STATIC_SMEM
+    if form == LN_APART:
+        assert plan.ln_gemm_stages == plan.gemm_stages
+        assert plan.smem["ln_gemm"] == plan.smem["gemm"]
