@@ -14,7 +14,8 @@ failure:
    shapes, in float32 and bf16, each error beside its tolerance (K1 also
    at head width 64 and at 7 x 7 and 14 x 14 windows); the
    decode-attention kernels at positions on and beside the split plan's
-   slice boundaries, and K4 at head width 64;
+   slice boundaries, K4 at head width 64, and K3-int8 at the beam's 128
+   rows;
 3. parity: ``Config()`` (Swin-B 384 + 6x256x8 decoder) in float32 with
    ``seeded_flax_params(seed=0)`` against the JAX package's memory bank and
    first greedy steps stored in ``molnextr_tpu_torch/fixtures``;
@@ -30,11 +31,19 @@ failure:
 6. demo: the trained demo bundle through the public API, hits against gold
    and agreement with the JAX package's SMILES, and ``get_predictions`` on
    a PNG file;
-7. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+7. beam: beam search (beam 4) held against the JAX fixture at full width
+   in float32 (all 4 hypotheses of a 12-step search); the full-width bf16
+   serving path at ``beam_size=4, n_best=4`` on 32 images (128 decode
+   rows) through ``MolNexTR.predict_images`` in both cache forms, with the
+   launch counters zeroed before and read after; the demo bundle's n-best
+   lists against the JAX package's in float32, and its hits in bf16;
+8. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
-   CTA per (b, h).
+   CTA per (b, h); then the beam-4 decode of the same batch (480 forced
+   steps on 128 rows): ms per step, the cache reorder's ms per step, and
+   K3-int8's launches and time at 128 rows beside their bound.
 
 The build's ``nvcc -Xptxas -v`` report (registers, spills) is logged per
 kernel.
@@ -56,7 +65,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -82,6 +91,10 @@ DEC_L, DEC_H, DEC_T, DEC_D, DEC_STEPS = 6, 8, 512, 32, 480
 # of slice boundaries of the split plan (ops/_launch.py::split_plan: cluster
 # slices of ceil((pos + 1) / cluster) positions each)
 CHECK_POS = (0, 3, 7, 8, 9, 63, 64, 65, 127, 128, 300, 479)
+# beam search: batch 32 x beam 4 = 128 decode rows, 1024 (b, h) groups of K3
+BEAM = 4
+BEAM_ROWS = BATCH * BEAM
+BEAM_CHECK_POS = (0, 7, 8, 255, 479)
 TIMED_ITERS = 2  # after one warm-up iteration
 DEVICE = "cuda"
 
@@ -235,11 +248,11 @@ def mlp_inputs(torch, gen, t, c, dtype):
     )
 
 
-def cache_inputs(torch, gen, dtype, q8):
+def cache_inputs(torch, gen, dtype, q8, batch=BATCH):
     from molnextr_tpu_torch.ops.decode_attention import quantize_per_token
 
-    shape = (DEC_L, BATCH, DEC_H, DEC_T, DEC_D)
-    q = torch.randn(BATCH, DEC_H, DEC_D, generator=gen, device=DEVICE).to(dtype)
+    shape = (DEC_L, batch, DEC_H, DEC_T, DEC_D)
+    q = torch.randn(batch, DEC_H, DEC_D, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(*shape, generator=gen, device=DEVICE)
     v = torch.randn(*shape, generator=gen, device=DEVICE)
     if q8:
@@ -324,6 +337,15 @@ def phase_kernels(torch, results):
                         errs["decode_attention"] = max(errs["decode_attention"], check_close(
                             f"K4 {dn} pos {pos} layer {layer}", got, want, torch, dtype))
             del ins
+        # K3-int8 at the beam's rows (B 32 x beam 4)
+        ins = cache_inputs(torch, gen, dtype, True, batch=BEAM_ROWS)
+        for pos in BEAM_CHECK_POS:
+            got = da.decode_attention_layered_q8(*ins, pos, 5)
+            want = da.decode_attention_layered_q8_reference(*ins, pos, 5)
+            torch.cuda.synchronize()
+            errs["decode_attention_layered_q8"] = max(errs["decode_attention_layered_q8"], check_close(
+                f"K3 int8 q {dn} B {BEAM_ROWS} pos {pos} layer 5", got, want, torch, dtype))
+        del ins
         # K4 at head width 64
         q = torch.randn(BATCH, DEC_H, 64, generator=gen, device=DEVICE).to(dtype)
         kc = torch.randn(BATCH, DEC_H, DEC_T, 64, generator=gen, device=DEVICE).to(dtype)
@@ -419,14 +441,15 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
-def drive_api(torch, api, images, label):
+def drive_api(torch, api, images, label, batch_size=16):
     """One run of the serving path through MolNexTR.predict_images with the
     launch counters zeroed before and read after."""
     from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = api.predict_images(images, return_atoms_bonds=True, return_confidence=True)
+    out = api.predict_images(images, return_atoms_bonds=True, return_confidence=True,
+                             batch_size=batch_size)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     log(f"  {label}: {len(out)} images in {time.perf_counter() - t0:.2f} s, launches {json.dumps(counts)}")
@@ -459,6 +482,13 @@ def phase_paths(torch, results):
         del api
         torch.cuda.empty_cache()
     os.environ.pop("MOLNEXTR_KV_INT8")
+    check_path_kernels(paths)
+    results["paths"] = paths
+
+
+def check_path_kernels(paths):
+    """Each cache form's run launched K1, K2 and its own K3, and not the
+    other form's."""
     need = {"int8": ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"),
             "dense": ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered")}
     for path, names in need.items():
@@ -467,7 +497,6 @@ def phase_paths(torch, results):
                 raise AssertionError(f"{path} path never launched {name}")
     if paths["int8"]["decode_attention_layered"] or paths["dense"]["decode_attention_layered_q8"]:
         raise AssertionError("a path launched the other cache form's kernel")
-    results["paths"] = paths
 
 
 OPS_KERNELS = ("decode_attention", "folded_decode_attention", "folded_decode_attention_bb")
@@ -549,6 +578,246 @@ def phase_demo(torch):
     torch.cuda.empty_cache()
 
 
+def capture_engine(api):
+    """Record the engine's predictions (the n-best lists live there) while
+    MolNexTR.predict_images runs its path unchanged."""
+    seen = []
+    inner = api.engine.predict_images
+
+    def predict_images(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.extend(out)
+        return out
+
+    api.engine.predict_images = predict_images
+    return seen
+
+
+def check_n_best(preds, fmt, label):
+    for p in preds:
+        beams = p["beams"]
+        scores = [b["score"] for b in beams]
+        if len(beams) != BEAM or scores != sorted(scores, reverse=True):
+            raise AssertionError(f"{label}: n-best list not {BEAM} entries sorted by score: {beams}")
+        if beams[0]["smiles"] != p[fmt]["smiles"]:
+            raise AssertionError(f"{label}: beams[0] is not the top-1 hypothesis")
+
+
+def phase_beam(torch):
+    beam_parity(torch)
+    beam_paths(torch)
+    beam_demo(torch)
+
+
+def beam_parity(torch):
+    """Full-width float32 beam search against the JAX fixture."""
+    import numpy as np
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.data.transforms import device_normalize
+    from molnextr_tpu_torch.decoding.beam import beam_decode
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
+
+    ref = np.load(fixture_path("full_width.npz"))
+    meta = json.loads(str(ref["meta"]))
+    steps, tol = meta["beam_steps"], meta["beam_score_tol"]
+    log(f"phase beam: Config() float32, beam {meta['beam_size']}, {meta['beam_max_len']} steps, "
+        "against the JAX fixture")
+    for s in range(meta["beam_max_len"]):
+        log(f"  step {s}: JAX gap between candidates {BEAM} and {BEAM + 1}: "
+            + ", ".join(f"{g:.3e}" for g in ref["beam_gap"][:, s])
+            + f" (2 x what the sums may differ by: {2 * (s + 1) * meta['logp_tol']:.1e})")
+    if steps < meta["beam_max_len"]:
+        log(f"  a gap at step {steps} is below twice what the candidates may differ by there: "
+            f"the comparison stops there, holding the search cut to {steps} steps")
+    cfg = Config()
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    fmt = meta["format"]
+    model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, meta["seed"]))
+    model = model.to(DEVICE).eval()
+    tc, cm = toks[fmt].constraint_tables()
+    with torch.no_grad():
+        memory = model.encode(device_normalize(torch.from_numpy(ref["images"]).to(DEVICE)))
+        out = beam_decode(
+            lambda t, p, c: model.decode_step(fmt, t, p, c), lambda m: model.init_cache(fmt, m),
+            memory, torch.as_tensor(tc, device=DEVICE).long(), torch.as_tensor(cm, device=DEVICE),
+            steps, cfg.decoder.hidden_size, beam_size=meta["beam_size"],
+            min_len=cfg.decode.min_length, use_constraint=bool(toks[fmt].output_constraint),
+            return_all=True, unroll=cfg.decode.unroll,
+        )
+    all_seq, all_scores = out[4].cpu().numpy(), out[5].cpu().numpy()
+    for b in range(all_seq.shape[0]):
+        want = {tuple(q): sc for q, sc in zip(ref["beam_seq"][b].tolist(), ref["beam_scores"][b])}
+        got = {tuple(q): sc for q, sc in zip(all_seq[b].tolist(), all_scores[b])}
+        if set(got) != set(want) or len(got) != meta["beam_size"]:
+            raise AssertionError(f"image {b}: beam hypotheses differ from the JAX fixture\n"
+                                 f"  got  {sorted(got)}\n  want {sorted(want)}")
+        err = max(abs(float(got[q]) - float(want[q])) for q in want)
+        log(f"  image {b}: {len(got)} hypotheses equal to JAX's token for token; "
+            f"score max_abs_err {err:.3e} (tol {tol:.0e})")
+        if not err <= tol or list(all_scores[b]) != sorted(all_scores[b], reverse=True):
+            raise AssertionError("beam scores disagree with the JAX fixture or are not sorted")
+    del model, memory, out
+    torch.cuda.empty_cache()
+
+
+def beam_paths(torch):
+    """The full-width serving path at beam 4 on 32 images, both cache forms."""
+    import numpy as np
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.config import Config
+
+    renders = np.load(fixture_path("full_width.npz"))["images"]
+    log(f"  full width (Config(), seeded weights, bf16) at beam_size={BEAM}, n_best={BEAM} "
+        f"on {BATCH} images ({BEAM_ROWS} decode rows) through MolNexTR.predict_images")
+    rng = np.random.RandomState(3)
+    images = [np.repeat(r, 3, axis=2) for r in renders]
+    images += [rng.randint(0, 256, (300 + 3 * i, 420 - 2 * i, 3)).astype(np.uint8)
+               for i in range(BATCH - len(images))]
+    paths = {}
+    for kv in ("1", "0"):
+        os.environ["MOLNEXTR_KV_INT8"] = kv
+        cfg = Config()
+        cfg.decode.beam_size = cfg.decode.n_best = BEAM
+        api = MolNexTR(cfg=cfg, device=DEVICE, num_workers=1)
+        seen = capture_engine(api)
+        label = "beam, int8 KV cache" if kv == "1" else "beam, dense KV cache"
+        _, counts = drive_api(torch, api, images, label, batch_size=BATCH)
+        check_n_best(seen, api.engine.fmt, label)
+        steps_run = counts["decode_attention_layered_q8" if kv == "1" else "decode_attention_layered"]
+        log(f"  {label}: K1 {counts['fused_window_attention']} and K2 {counts['fused_ln_mlp']} "
+            f"launches (24 each per encode), K3 {steps_run} = {DEC_L} x {steps_run / DEC_L:g} "
+            f"steps on {BEAM_ROWS} rows; every n-best list has {BEAM} entries sorted by score")
+        if counts["fused_window_attention"] != 24 or counts["fused_ln_mlp"] != 24 \
+                or steps_run % DEC_L:
+            raise AssertionError(f"{label}: unexpected launch counts {counts}")
+        paths["int8" if kv == "1" else "dense"] = counts
+        del api
+        torch.cuda.empty_cache()
+    os.environ.pop("MOLNEXTR_KV_INT8")
+    check_path_kernels(paths)
+
+
+def beam_demo(torch):
+    """The demo bundle's n-best lists against the JAX package's."""
+    import numpy as np
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+    from molnextr_tpu_torch.checkpoint import load_model
+
+    fx = np.load(fixture_path("demo.npz"))
+    dmeta = json.loads(str(fx["meta"]))
+    bundle = os.path.join(HERE, "examples", "demo_model")
+    for bf16 in (False, True):
+        dn = "bf16" if bf16 else "f32"
+        cfg, params = load_model(bundle)
+        cfg.train.bf16 = bf16
+        cfg.decode.beam_size = cfg.decode.n_best = BEAM
+        api = MolNexTR(cfg=cfg, params=params, device=DEVICE, num_workers=1)
+        seen = capture_engine(api)
+        preds = api.predict_images(list(fx["images"]), batch_size=8)
+        check_n_best(seen, api.engine.fmt, f"demo {dn}")
+        jax_nbest = dmeta[f"jax_{dn}_beam4"]
+        nbest = [[b["smiles"] for b in p["beams"]] for p in seen]
+        for got, want, g_sc, w_sc in zip(nbest, jax_nbest["smiles"], seen, jax_nbest["scores"]):
+            err = max(abs(b["score"] - w) for b, w in zip(g_sc["beams"], w_sc))
+            log(f"  demo {dn} n-best {got} (JAX {want}), score max_abs_err {err:.2e}")
+        equal = sum(g == w for g, w in zip(nbest, jax_nbest["smiles"]))
+        hits = sum(canonicalize_smiles(p["predicted_smiles"])[0] == canonicalize_smiles(g)[0]
+                   for p, g in zip(preds, dmeta["gold"]))
+        log(f"  demo {dn} at beam {BEAM}: n-best lists equal to JAX's {equal}/6, "
+            f"top-1 hits against gold {hits}/6")
+        if not bf16 and equal != 6:
+            raise AssertionError("demo f32: the n-best SMILES differ from the JAX package's")
+        if bf16 and hits < 4:
+            raise AssertionError("demo bf16 at beam 4: fewer than 4/6 hits")
+        del api
+        torch.cuda.empty_cache()
+
+
+def decode_ms(tm, fn):
+    """Time ``fn(pos, layer)`` over every position 0..479 of each layer of
+    one decode, from one CUDA graph per position so host launch overhead
+    is left out (a graph of the whole decode would keep every call's
+    temporaries)."""
+    def per_step(pos):
+        for layer in range(DEC_L):
+            fn(pos, layer)
+
+    return sum(tm.ms(lambda p=p: per_step(p), reps=1, graph=True) for p in range(DEC_STEPS))
+
+
+def beam_timing(torch, tm, model, eng, gen, card):
+    """The beam-4 decode of one batch of 32 (128 rows), 480 forced steps:
+    ms per step; the cache reorder's ms per step; K3-int8's launches in
+    that decode and their time at 128 rows beside their bound and the
+    plain version's."""
+    from molnextr_tpu_torch.decoding.beam import beam_decode, reorder_cache
+    from molnextr_tpu_torch.data.transforms import device_normalize
+    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    da = importlib.import_module(DA_MODULE)
+    cfg = eng.cfg
+    s = cfg.data.input_size
+    log(f"  beam {BEAM} decode: batch {BATCH} x beam {BEAM} = {BEAM_ROWS} rows, "
+        f"{DEC_STEPS} forced steps, bf16, int8 KV cache")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    per_step = []
+    with torch.no_grad():
+        for it in range(TIMED_ITERS + 1):  # the first iteration is warm-up
+            images = torch.randint(0, 256, (BATCH, s, s, 1), generator=gen, device=DEVICE,
+                                   dtype=torch.uint8)
+            memory = model.encode(device_normalize(images))
+            reset_launch_counts()
+            e0, e1 = ev(), ev()
+            e0.record()
+            out = beam_decode(
+                lambda t, p, c: model.decode_step(eng.fmt, t, p, c),
+                lambda m: model.init_cache(eng.fmt, m),
+                memory, eng._token_class, eng._class_mask, DEC_STEPS, cfg.decoder.hidden_size,
+                beam_size=BEAM, min_len=DEC_STEPS, use_constraint=eng._use_constraint,
+                return_all=True, unroll=cfg.decode.unroll,
+            )
+            e1.record()
+            torch.cuda.synchronize()
+            launches = LAUNCHES["decode_attention_layered_q8"]
+            if tuple(out[4].shape) != (BATCH, BEAM, DEC_STEPS) or launches != DEC_L * DEC_STEPS:
+                raise AssertionError(f"beam decode: shape {tuple(out[4].shape)}, {launches} K3 launches")
+            if it:
+                per_step.append(e0.elapsed_time(e1) / DEC_STEPS)
+        # the cache reorder of one step, on the decode's own cache
+        cache = model.init_cache(eng.fmt, memory.repeat_interleave(BEAM, dim=0))
+        beams = torch.randint(0, BEAM, (BATCH, BEAM), generator=gen, device=DEVICE)
+        flat_idx = (torch.arange(BATCH, device=DEVICE)[:, None] * BEAM + beams).reshape(-1)
+        cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
+        reorder_ms = tm.ms(lambda: reorder_cache(cache, flat_idx), reps=20)
+        del cache, memory, out
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    ins = cache_inputs(torch, gen, bf, True, batch=BEAM_ROWS)
+    bound = Bound()
+    for pos in range(DEC_STEPS):
+        bound.add(*k3_work(BEAM_ROWS, DEC_H, DEC_D, pos, 2, True), "bfloat16", DEC_L)
+    t_k = decode_ms(tm, lambda p, l: da.decode_attention_layered_q8(*ins, p, l))
+    t_p = decode_ms(tm, lambda p, l: da.decode_attention_layered_q8_reference(*ins, p, l))
+    del ins
+    torch.cuda.empty_cache()
+    step_ms = sum(per_step) / len(per_step)
+    res = {"rows": BEAM_ROWS, "decode_ms_per_step": step_ms, "iters": TIMED_ITERS,
+           "reorder_ms_per_step": reorder_ms, "reorder_bytes": 2 * cache_bytes,
+           "reorder_share": reorder_ms / step_ms,
+           "k3_int8_launches": launches, "k3_int8_ms": t_k, "k3_int8_plain_ms": t_p,
+           "k3_int8_bound_ms": bound.ms,
+           "k3_int8_bound_by": bound.by, "card": card}
+    log("  beam " + json.dumps(res))
+
+
 def phase_timing(torch, results, card):
     from molnextr_tpu_torch.config import Config
     from molnextr_tpu_torch.data.transforms import device_normalize
@@ -605,7 +874,10 @@ def phase_timing(torch, results, card):
            "card": card}
     log("  end-to-end " + json.dumps(e2e))
     results["e2e"] = e2e
-    del model, eng, memory, hiddens, seq, cls
+    del memory, hiddens, seq, cls
+    torch.cuda.empty_cache()
+    beam_timing(torch, tm, model, eng, gen, card)
+    del model, eng
     torch.cuda.empty_cache()
 
     log("  per-kernel times over one batch's launches (bf16, batch 32)")
@@ -639,18 +911,9 @@ def phase_timing(torch, results, card):
     kern["fused_ln_mlp"] = dict(k2, library_ms=None)
 
     # K3-K6: every launch of one forced decode, pos 0..479 in each of 6
-    # layers, timed from one CUDA graph per position so host launch overhead
-    # is left out (a graph of the whole decode would keep every call's
-    # temporaries)
+    # layers (decode_ms)
     steps = range(DEC_STEPS)
     t_idx = torch.arange(DEC_T, device=DEVICE)
-
-    def decode_ms(fn):
-        def per_step(pos):
-            for layer in range(DEC_L):
-                fn(pos, layer)
-
-        return sum(tm.ms(lambda p=p: per_step(p), reps=1, graph=True) for p in steps)
 
     def sdpa(q, k, v, pos):  # q (B, H, 1, d), k/v (B, H, T, d): the library's prefix attention
         return torch.nn.functional.scaled_dot_product_attention(
@@ -665,23 +928,23 @@ def phase_timing(torch, results, card):
             kfn, pfn = da.decode_attention_layered_q8, da.decode_attention_layered_q8_reference
         else:
             kfn, pfn = da.decode_attention_layered, da.decode_attention_layered_reference
-        t_k = decode_ms(lambda p, l: kfn(*ins, p, l))
-        t_p = decode_ms(lambda p, l: pfn(*ins, p, l))
+        t_k = decode_ms(tm, lambda p, l: kfn(*ins, p, l))
+        t_p = decode_ms(tm, lambda p, l: pfn(*ins, p, l))
         lib = None
         if not q8:
             q, kc, vc = ins
-            lib = decode_ms(lambda p, l: sdpa(q[:, :, None], kc[l], vc[l], p))
+            lib = decode_ms(tm, lambda p, l: sdpa(q[:, :, None], kc[l], vc[l], p))
         kern[name] = {"ms": t_k, "plain_ms": t_p, "bound": bound, "library_ms": lib}
         log(f"    K3 {'int8' if q8 else 'dense'}: {t_k:.3f} ms per decode (plain {t_p:.3f} ms"
             + (f", SDPA {lib:.3f} ms" if lib is not None else "") + ")")
         if not q8:
             # K4 on each layer of the same cache, unstacked: the work, the
             # plain version and the library call are K3-dense's
-            t_k = decode_ms(lambda p, l: da.decode_attention(q, kc[l], vc[l], p))
+            t_k = decode_ms(tm, lambda p, l: da.decode_attention(q, kc[l], vc[l], p))
             kern["decode_attention"] = dict(kern[name], ms=t_k)
             log(f"    K4: {t_k:.3f} ms per decode (plain and SDPA as K3 dense)")
             # the same kernel with the split forced to one CTA per (b, h)
-            t_1 = decode_ms(lambda p, l: da._launch_k3(
+            t_1 = decode_ms(tm, lambda p, l: da._launch_k3(
                 "decode_attention_layered", q, kc, vc, None, None, p, l, cluster=1))
             log(f"    K3 dense, one CTA per (b, h) (cluster 1): {t_1:.3f} ms per decode")
         del ins
@@ -690,13 +953,13 @@ def phase_timing(torch, results, card):
     bound = Bound()
     for pos in steps:
         bound.add(*folded_work(BATCH, DEC_H * DEC_D, pos, es), "bfloat16", DEC_L)
-    t5 = decode_ms(lambda p, l: fa.folded_decode_attention(qf, kf, vf, p, l, DEC_H))
-    t6 = decode_ms(lambda p, l: fa.folded_decode_attention_bb(qf, kf, vf, p, l, DEC_H))
-    t_p = decode_ms(lambda p, l: fa.folded_decode_attention_reference(qf, kf, vf, p, l, DEC_H))
+    t5 = decode_ms(tm, lambda p, l: fa.folded_decode_attention(qf, kf, vf, p, l, DEC_H))
+    t6 = decode_ms(tm, lambda p, l: fa.folded_decode_attention_bb(qf, kf, vf, p, l, DEC_H))
+    t_p = decode_ms(tm, lambda p, l: fa.folded_decode_attention_reference(qf, kf, vf, p, l, DEC_H))
     qh = qf.view(BATCH, DEC_H, 1, DEC_D)
     kh = kf.view(DEC_L, BATCH, DEC_T, DEC_H, DEC_D).transpose(2, 3)  # (L, B, H, T, d) views
     vh = vf.view(DEC_L, BATCH, DEC_T, DEC_H, DEC_D).transpose(2, 3)
-    lib = decode_ms(lambda p, l: sdpa(qh, kh[l], vh[l], p))
+    lib = decode_ms(tm, lambda p, l: sdpa(qh, kh[l], vh[l], p))
     kern["folded_decode_attention"] = {"ms": t5, "plain_ms": t_p, "bound": bound, "library_ms": lib}
     kern["folded_decode_attention_bb"] = dict(kern["folded_decode_attention"], ms=t6)
     log(f"    K5: {t5:.3f} ms per decode, K6 (bb 8): {t6:.3f} ms (plain {t_p:.3f} ms, "
@@ -793,6 +1056,8 @@ def main() -> int:
         phase_ops(torch, results)
     if "demo" in phases:
         phase_demo(torch)
+    if "beam" in phases:
+        phase_beam(torch)
     if "timing" in phases:
         phase_timing(torch, results, card)
     log(f"all phases ({','.join(phases)}) passed in {time.perf_counter() - t0:.1f} s")

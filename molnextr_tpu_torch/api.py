@@ -10,8 +10,10 @@ prediction_time_seconds).
 Everything runs on ``device="cuda"`` (an H100-class, compute capability 9.x
 card) unless the caller passes ``device="cpu"``.  Nothing falls back: no
 device probe picks another device, and a failed prediction raises.
-Not ported yet: loading a reference ``.pth`` checkpoint (and downloading
-it), and the round-trip rerank hook, which raises ``NotImplementedError``.
+``model_path`` is a bundle directory or the reference's ``.pth``
+checkpoint (read by ``convert.load_torch_checkpoint``).  Not ported yet:
+the checkpoint's download (the singleton only looks in its cache) and the
+round-trip rerank hook, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class MolNexTR:
     def __init__(self, model_path: Optional[str] = None, cfg: Optional[Config] = None,
                  params=None, device="cuda", num_workers: int = 16):
         from molnextr_tpu_torch.checkpoint import load_model
+        from molnextr_tpu_torch.convert import load_torch_checkpoint
         from molnextr_tpu_torch.data.transforms import get_transforms
         from molnextr_tpu_torch.inference import InferenceEngine, resolve_device
         from molnextr_tpu_torch.models.model import MolNexTRModel
@@ -54,11 +57,9 @@ class MolNexTR:
         device = resolve_device(device)
         if model_path is not None:
             if model_path.endswith((".pth", ".pt")):
-                raise NotImplementedError(
-                    "reference .pth checkpoints are not supported by the port yet; "
-                    "use a config.json + params.msgpack bundle"
-                )
-            cfg, params = load_model(model_path)
+                cfg, params = load_torch_checkpoint(model_path, cfg)
+            else:
+                cfg, params = load_model(model_path)
         if cfg is None:
             raise ValueError("need model_path or (cfg, params)")
         kv8 = os.environ.get("MOLNEXTR_KV_INT8", "")
@@ -187,13 +188,22 @@ class MolNexTRSingleton:
     """Process-wide cached model on one device.
 
     The model comes from ``model_path`` or ``$MOLNEXTR_MODEL_PATH`` (a
-    bundle directory); without one it is initialized with seeded random
-    weights, as the JAX singleton initializes random ones.  The released
-    ``.pth`` checkpoint and its download are not ported yet.
+    bundle directory or a ``.pth``), else from the released checkpoint at
+    ``<cache_dir()>/molnextr_best.pth`` when that file is present; without
+    any it is initialized with seeded random weights, as the JAX singleton
+    initializes random ones.  The checkpoint's download is not ported.
     """
 
     _instance: Optional[MolNexTR] = None
     _device_name: str = "unknown"
+
+    @classmethod
+    def cache_dir(cls) -> str:
+        """Checkpoint cache directory: ``$MOLNEXTR_CACHE``, else
+        ``~/.data/molnextr`` (the reference's pystow layout)."""
+        return os.environ.get(
+            "MOLNEXTR_CACHE", os.path.join(os.path.expanduser("~"), ".data", "molnextr")
+        )
 
     @classmethod
     def get_instance(cls, model_path: Optional[str] = None, device="cuda") -> MolNexTR:
@@ -201,13 +211,16 @@ class MolNexTRSingleton:
             if model_path is not None and not os.path.exists(model_path):
                 raise FileNotFoundError(f"model_path does not exist: {model_path}")
             path = model_path or os.environ.get("MOLNEXTR_MODEL_PATH")
+            cached = os.path.join(cls.cache_dir(), "molnextr_best.pth")
+            if not (path and os.path.exists(path)) and os.path.exists(cached):
+                path = cached
             if path and os.path.exists(path):
-                logger.info(f"loading model bundle from {path}")
+                logger.info(f"loading model from {path}")
                 inst = MolNexTR(model_path=path, device=device)
             else:
                 logger.warning(
-                    "no model bundle found; initializing seeded random weights "
-                    "(set MOLNEXTR_MODEL_PATH for real predictions)"
+                    f"no model bundle and no checkpoint at {cached}; initializing seeded "
+                    "random weights (set MOLNEXTR_MODEL_PATH for real predictions)"
                 )
                 inst = MolNexTR(cfg=Config(), device=device)
             dev = inst.device

@@ -1,8 +1,10 @@
-"""Inference engine: batched encode -> constrained greedy decode -> edges.
+"""Inference engine: batched encode -> constrained decode -> edges.
 
-Port of ``molnextr_tpu/inference.py::InferenceEngine`` (greedy only; beam
-search is a later slice).  The device path is encode, decode and the edge
-head; sequence -> SMILES and graph assembly stay on the host.
+Port of ``molnextr_tpu/inference.py::InferenceEngine``: greedy decoding, or
+beam search when ``cfg.decode.beam_size > 1``, with the ``n_best`` list in
+``pred["beams"]`` when ``cfg.decode.n_best > 1``.  The device path is
+encode, decode and the edge head (on the best beam's hidden states);
+sequence -> SMILES and graph assembly stay on the host.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from molnextr_tpu_torch.config import Config
 from molnextr_tpu_torch.data.transforms import device_normalize
+from molnextr_tpu_torch.decoding.beam import beam_decode
 from molnextr_tpu_torch.decoding.greedy import greedy_decode
 from molnextr_tpu_torch.models.heads import symmetrize_edge_probs
 from molnextr_tpu_torch.models.model import MolNexTRModel
@@ -56,8 +59,6 @@ class InferenceEngine:
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.decode.beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
         self.model = model.to(self.device).eval()
         self.fmt = primary_format(cfg)
         self.tokenizer = tokenizers[self.fmt]
@@ -72,14 +73,16 @@ class InferenceEngine:
     @torch.no_grad()
     def decode(self, images: np.ndarray, min_len=None):
         """uint8 (B, H, W, 1|3) or normalized float32 (B, H, W, 3) images
-        -> (seq, avg_scores, token_scores, hiddens) on the device."""
+        -> (seq, avg_scores, token_scores, hiddens) on the device, plus
+        (all_seq, all_scores) for a beam search with ``n_best > 1``."""
         x = torch.as_tensor(images, device=self.device)
         if x.dtype == torch.uint8:
             x = device_normalize(x)
         model = self.model
         memory = model.encode(x)
         fmt = self.fmt
-        return greedy_decode(
+        dcfg = self.cfg.decode
+        args = (
             lambda tok, pos, cache: model.decode_step(fmt, tok, pos, cache),
             lambda mem: model.init_cache(fmt, mem),
             memory,
@@ -87,10 +90,16 @@ class InferenceEngine:
             self._class_mask,
             self.max_len,
             self.cfg.decoder.hidden_size,
-            min_len=self.cfg.decode.min_length if min_len is None else min_len,
-            use_constraint=self._use_constraint,
-            unroll=self.cfg.decode.unroll,
         )
+        kwargs = dict(
+            min_len=dcfg.min_length if min_len is None else min_len,
+            use_constraint=self._use_constraint,
+            unroll=dcfg.unroll,
+        )
+        if dcfg.beam_size > 1:
+            return beam_decode(*args, beam_size=dcfg.beam_size,
+                               return_all=dcfg.n_best > 1, **kwargs)
+        return greedy_decode(*args, **kwargs)
 
     @torch.no_grad()
     def edges(self, hiddens: torch.Tensor, indices: torch.Tensor):
@@ -118,7 +127,10 @@ class InferenceEngine:
         """images: uint8 (B, H, W, 1|3) or normalized float32 (B, H, W, 3)."""
         n = images.shape[0]
         images = self._pad_to_pow2(images)
-        seq_d, avg_d, tok_d, hiddens = self.decode(images)
+        out = self.decode(images)
+        seq_d, avg_d, tok_d, hiddens = out[:4]
+        all_seq = out[4].cpu().numpy()[:n] if len(out) > 4 else None
+        all_scores = out[5].cpu().numpy()[:n] if len(out) > 4 else None
         seq = seq_d.cpu().numpy()[:n]
         avg_scores = avg_d.cpu().numpy()[:n]
         token_scores = tok_d.cpu().numpy()[:n]
@@ -133,6 +145,12 @@ class InferenceEngine:
             if compute_confidence:
                 pred[self.fmt]["atom_scores"] = self._atom_scores(parsed, token_scores[i])
                 pred[self.fmt]["average_token_score"] = float(avg_scores[i])
+            if all_seq is not None:
+                pred["beams"] = [
+                    {"smiles": self.tokenizer.sequence_to_smiles(all_seq[i, j].tolist())["smiles"],
+                     "score": float(all_scores[i, j])}
+                    for j in range(min(self.cfg.decode.n_best, all_seq.shape[1]))
+                ]
             predictions.append(pred)
 
         if "edges" in self.cfg.data.formats:

@@ -94,7 +94,7 @@ def test_kv_int8_override_and_unported_options(monkeypatch):
     model.cfg.decode.rerank = "roundtrip"
     with pytest.raises(NotImplementedError):
         model.predict_images([np.full((32, 32, 3), 255, np.uint8)])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a .pth path is read as a reference checkpoint
         MolNexTR(model_path="model.pth", device="cpu")
 
 

@@ -220,6 +220,21 @@ def test_decode_attention_kernel(dev, dtype, q8):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_beam_rows(dev, dtype):
+    """K3-int8 at the rows of a beam-4 decode of batch 32: B 128, H 8 (1024
+    (b, h) groups, cluster 1), the decoder's T 512 and d 32."""
+    g = torch.Generator(device=dev).manual_seed(128)
+    assert split_plan(479, 128 * 8, 32, da.CHUNK_BYTES).cluster == 1
+    q = torch.randn(128, 8, 32, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 128, 8, 512, 32, generator=g, device=dev)
+    v = torch.randn(2, 128, 8, 512, 32, generator=g, device=dev)
+    ins = (q, *da.quantize_per_token(k), *da.quantize_per_token(v))
+    for pos in (0, 7, 8, 255, 479):
+        _close(da.decode_attention_layered_q8(*ins, pos, 1),
+               da.decode_attention_layered_q8_reference(*ins, pos, 1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("q8", [True, False])
 def test_decode_attention_kernel_every_slice_boundary(dev, dtype, d, q8):
@@ -443,3 +458,34 @@ def test_tiny_model_decode_on_card_matches_cpu(dev, kv_int8):
     k3 = "decode_attention_layered_q8" if kv_int8 else "decode_attention_layered"
     assert LAUNCHES["fused_window_attention"] == LAUNCHES["fused_ln_mlp"] == 2
     assert LAUNCHES[k3] == 10 * cfg.decoder.num_layers
+
+
+@pytest.mark.parametrize("kv_int8", [True, False])
+def test_tiny_model_beam_on_card_matches_cpu(dev, kv_int8):
+    """Beam search (beam 3, n-best) of the tiny config in float32: the card
+    (kernels) against the CPU (plain versions)."""
+    from molnextr_tpu_torch.decoding.beam import beam_decode
+
+    cfg = tiny_test_config()
+    cfg.decoder.kv_int8 = kv_int8
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    fmt = "chartok_coords"
+    tc, cm = toks[fmt].constraint_tables()
+    imgs = torch.from_numpy(np.random.RandomState(1).randn(2, 32, 32, 3).astype(np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        model = load_flax_params(MolNexTRModel(Config.from_dict(cfg.to_dict()), vocab),
+                                 seeded_flax_params(cfg, vocab, 0)).to(device).eval()
+        with torch.no_grad():
+            out = beam_decode(
+                lambda t, p, c: model.decode_step(fmt, t, p, c),
+                lambda m: model.init_cache(fmt, m), model.encode(imgs.to(device)),
+                torch.as_tensor(tc, device=device).long(), torch.as_tensor(cm, device=device),
+                cfg.decoder.max_len, cfg.decoder.hidden_size, beam_size=3, return_all=True,
+                unroll=4,
+            )
+        outs.append([o.cpu() for o in out])
+    (_, _, _, _, seq_cpu, sc_cpu), (_, _, _, _, seq_card, sc_card) = outs
+    assert torch.equal(seq_card, seq_cpu)
+    assert (sc_card - sc_cpu).abs().max().item() <= F32_TOL
