@@ -37,7 +37,16 @@ failure:
    rows) through ``MolNexTR.predict_images`` in both cache forms, with the
    launch counters zeroed before and read after; the demo bundle's n-best
    lists against the JAX package's in float32, and its hits in bf16;
-8. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+8. rerank: the port draws the demo SMILES itself (``generate_synthetic_image``,
+   default style, 128 px; pixel-equal to the JAX package's renders in
+   ``demo.npz``), the demo bundle reads them at bf16 with the int8 KV
+   cache, beam 4, n-best 4 and ``rerank="roundtrip"`` through
+   ``MolNexTR.predict_images`` (launch counters zeroed before and read
+   after: K1, K2 and K3-int8 must run), hits against gold; then the port's
+   ``roundtrip_rerank`` on every case of ``fixtures/rerank.npz`` must pick
+   the JAX package's winner; the host's ms per image for drawing and for
+   rerank are logged;
+9. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -65,7 +74,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -740,6 +749,109 @@ def beam_demo(torch):
         torch.cuda.empty_cache()
 
 
+def phase_rerank(torch, results, card):
+    """Round-trip rerank at beam 4 on the demo bundle, on images the port
+    draws itself, and the rerank fixture against the JAX package's
+    winners."""
+    import dataclasses
+    import random
+
+    import numpy as np
+
+    from molnextr_tpu_torch import rerank
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
+    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    log(f"phase rerank: demo bundle (bf16, int8 KV cache) at beam {BEAM} with "
+        f"rerank='roundtrip' on the port's own renders")
+    fx = np.load(fixture_path("demo.npz"))
+    dmeta = json.loads(str(fx["meta"]))
+    draw_ms = []
+    for _ in range(2):  # the first pass also loads the glyph table and builds the cap tables
+        random.seed(5)  # as the fixture's renders were drawn
+        t0 = time.perf_counter()
+        renders = []
+        for smi in dmeta["inputs"]:
+            img, _, _, ok = generate_synthetic_image(smi, mol_augment=False,
+                                                     default_option=True, size=128)
+            if not ok:
+                raise AssertionError(f"rerank: the port failed to draw {smi}")
+            renders.append(img)
+        draw_ms.append((time.perf_counter() - t0) * 1e3 / len(renders))
+        same = sum(np.array_equal(a, b) for a, b in zip(renders, fx["images"]))
+        if same != len(renders):
+            raise AssertionError(f"rerank: {len(renders) - same} of the port's renders differ "
+                                 "from the JAX package's")
+    render_ms = draw_ms[1]
+    log(f"  drew the {len(renders)} demo images, pixel-equal to the JAX package's renders, "
+        f"in {draw_ms[0]:.2f} ms each (first pass) and {draw_ms[1]:.2f} ms (second) on the host")
+
+    cfg, params = load_model(os.path.join(HERE, "examples", "demo_model"))
+    cfg.train.bf16 = True
+    cfg.decoder = dataclasses.replace(cfg.decoder, kv_int8=True)
+    cfg.decode.beam_size = cfg.decode.n_best = BEAM
+    cfg.decode.rerank = "roundtrip"
+    api = MolNexTR(cfg=cfg, params=params, device=DEVICE, num_workers=1)
+    api.predict_images(renders[:1])  # warm-up, off the counts
+    spent = []
+    inner = rerank.roundtrip_rerank
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    rerank.roundtrip_rerank = timed
+    try:
+        random.seed(0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        preds = api.predict_images(renders, batch_size=8)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        total_s = time.perf_counter() - t0
+    finally:
+        rerank.roundtrip_rerank = inner
+    rerank_ms = sum(spent) * 1e3 / len(renders)
+    hits = sum(canonicalize_smiles(p["predicted_smiles"])[0] == canonicalize_smiles(g)[0]
+               for p, g in zip(preds, dmeta["gold"]))
+    for p, g in zip(preds, dmeta["gold"]):
+        log(f"  {p['predicted_smiles']!r:28} gold {g!r}")
+    log(f"  {len(renders)} images in {total_s:.2f} s, launches {json.dumps(counts)}")
+    log(f"  hits {hits}/{len(renders)} against gold on the port's renders (need >= 4)")
+    if hits < 4:
+        raise AssertionError("rerank: fewer than 4/6 demo hits at beam 4 with rerank")
+    for name in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+        if counts[name] == 0:
+            raise AssertionError(f"rerank path never launched {name}")
+    del api
+    torch.cuda.empty_cache()
+
+    rx = np.load(fixture_path("rerank.npz"))
+    rmeta = json.loads(str(rx["meta"]))
+    worst, t0 = 0.0, time.perf_counter()
+    for k, case in enumerate(rmeta["cases"]):
+        random.seed(rmeta["seed"] + k)
+        winner, scores = rerank.roundtrip_rerank(rx[f"image_{k}"], case["candidates"])
+        if winner != case["winner"] or len(scores) != len(case["scores"]):
+            raise AssertionError(f"rerank fixture {case['name']}: winner {winner!r}, "
+                                 f"JAX {case['winner']!r}")
+        if scores:
+            worst = max(worst, max(abs(a - b) for a, b in zip(scores, case["scores"])))
+    fixture_ms = (time.perf_counter() - t0) * 1e3 / len(rmeta["cases"])
+    log(f"  rerank fixture: {len(rmeta['cases'])}/{len(rmeta['cases'])} winners equal the JAX "
+        f"package's, score max_abs_err {worst:.2e}, {fixture_ms:.2f} ms per case (host)")
+    log(f"  host ms per image: drawing {render_ms:.2f}, rerank {rerank_ms:.2f} "
+        f"(card: {card})")
+    results["rerank"] = {"launches": counts, "hits": hits, "render_ms": render_ms,
+                         "render_first_ms": draw_ms[0], "rerank_ms": rerank_ms,
+                         "fixture_ms": fixture_ms}
+
+
 def decode_ms(tm, fn):
     """Time ``fn(pos, layer)`` over every position 0..479 of each layer of
     one decode, from one CUDA graph per position so host launch overhead
@@ -1058,6 +1170,8 @@ def main() -> int:
         phase_demo(torch)
     if "beam" in phases:
         phase_beam(torch)
+    if "rerank" in phases:
+        phase_rerank(torch, results, card)
     if "timing" in phases:
         phase_timing(torch, results, card)
     log(f"all phases ({','.join(phases)}) passed in {time.perf_counter() - t0:.1f} s")

@@ -11,9 +11,10 @@ Everything runs on ``device="cuda"`` (an H100-class, compute capability 9.x
 card) unless the caller passes ``device="cpu"``.  Nothing falls back: no
 device probe picks another device, and a failed prediction raises.
 ``model_path`` is a bundle directory or the reference's ``.pth``
-checkpoint (read by ``convert.load_torch_checkpoint``).  Not ported yet:
-the checkpoint's download (the singleton only looks in its cache) and the
-round-trip rerank hook, which raises ``NotImplementedError``.
+checkpoint (read by ``convert.load_torch_checkpoint``).  With
+``cfg.decode.rerank == "roundtrip"`` the predictions pass the round-trip
+rerank of :mod:`molnextr_tpu_torch.rerank`, on the host.  Not ported yet:
+the checkpoint's download (the singleton only looks in its cache).
 """
 
 from __future__ import annotations
@@ -94,8 +95,6 @@ class MolNexTR:
         from molnextr_tpu_torch.chem.graph import convert_graph_to_smiles
         from molnextr_tpu_torch.data.transforms import stack_gray_batch
 
-        if self.cfg.decode.rerank == "roundtrip":
-            raise NotImplementedError("round-trip reranking is not ported yet")
         predictions: List[Dict[str, Any]] = []
         for start in range(0, len(input_images), batch_size):
             batch = stack_gray_batch(input_images[start : start + batch_size], self.transform)
@@ -109,6 +108,21 @@ class MolNexTR:
             node_coords, node_symbols, edges,
             images=input_images, num_workers=self.num_workers,
         )
+
+        if self.cfg.decode.rerank == "roundtrip":
+            # round-trip verification (rerank.py): candidates are the graph
+            # view (rank 0), the raw token view and any beam n-best strings;
+            # a challenger replaces rank 0 only when its re-render
+            # confidently matches the input's ink
+            from molnextr_tpu_torch.rerank import roundtrip_rerank, smiles_to_molblock
+
+            for i, pred in enumerate(predictions):
+                cands = [smiles_list[i], pred[fmt]["smiles"]]
+                cands += [b["smiles"] for b in pred.get("beams", [])]
+                winner, _ = roundtrip_rerank(input_images[i], cands)
+                if winner is not None:
+                    smiles_list[i] = winner
+                    molblock_list[i] = smiles_to_molblock(winner)
 
         outputs: List[Dict[str, Any]] = []
         for smiles, molfile, pred in zip(smiles_list, molblock_list, predictions):

@@ -31,7 +31,7 @@ PORT_FILES = [os.path.join(ROOT, "chip_smoke.py")] + [
     for d, _, files in os.walk(os.path.join(ROOT, "molnextr_tpu_torch"))
     for f in files if f.endswith(".py")
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "msgpack", "molnextr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "PIL", "msgpack", "molnextr_tpu")
 
 
 @pytest.fixture(scope="module")
@@ -91,9 +91,9 @@ def test_kv_int8_override_and_unported_options(monkeypatch):
     assert not model.cfg.decoder.kv_int8
     cache = model.model.init_cache(model.engine.fmt, torch.zeros(1, 4, 192))
     assert cache["self_k"].dtype == torch.float32 and "self_k_scale" not in cache
-    model.cfg.decode.rerank = "roundtrip"
-    with pytest.raises(NotImplementedError):
-        model.predict_images([np.full((32, 32, 3), 255, np.uint8)])
+    model.cfg.decode.rerank = "roundtrip"  # ported: runs, with nothing to rerank here
+    out = model.predict_images([np.full((32, 32, 3), 255, np.uint8)])
+    assert set(out[0]) == {"predicted_smiles", "predicted_molfile"}
     with pytest.raises(FileNotFoundError):  # a .pth path is read as a reference checkpoint
         MolNexTR(model_path="model.pth", device="cpu")
 
@@ -196,8 +196,9 @@ def test_port_sources_import_nothing_forbidden():
 
 
 def test_port_imports_with_forbidden_modules_blocked():
-    """Import every module of the port, and run the demo bundle through it,
-    in a process where importing any forbidden module fails."""
+    """Import every module of the port, draw a molecule and rerank against
+    it, and run the demo bundle through it, in a process where importing any
+    forbidden module fails."""
     code = f"""
 import importlib, pkgutil, sys
 class Block:
@@ -213,6 +214,10 @@ import torch
 torch.set_num_threads(2)
 from molnextr_tpu_torch.api import MolNexTR
 from molnextr_tpu_torch.data.png import read_png
+from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
+from molnextr_tpu_torch.rerank import roundtrip_rerank
+img = generate_synthetic_image('CC(C)O', mol_augment=False, default_option=True, size=128)[0]
+print(roundtrip_rerank(img, ['CCO', 'CC(C)O'])[0])
 m = MolNexTR(model_path={BUNDLE!r}, device='cpu', num_workers=1)
 print(m.predict_image_files([{os.path.join(FIXTURES, 'demo_0.png')!r}])[0]['predicted_smiles'])
 print(len(mods))
@@ -220,5 +225,6 @@ print(len(mods))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    smiles, count = out.stdout.split()[-2:]
+    winner, smiles, count = out.stdout.split()[-3:]
     assert int(count) > 30 and canonicalize_smiles(smiles)[0] == canonicalize_smiles("CC(C)O")[0]
+    assert canonicalize_smiles(winner)[0] == canonicalize_smiles("CC(C)O")[0]

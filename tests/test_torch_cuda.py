@@ -489,3 +489,36 @@ def test_tiny_model_beam_on_card_matches_cpu(dev, kv_int8):
     (_, _, _, _, seq_cpu, sc_cpu), (_, _, _, _, seq_card, sc_card) = outs
     assert torch.equal(seq_card, seq_cpu)
     assert (sc_card - sc_cpu).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("kv_int8", [True, False])
+def test_tiny_model_rerank_on_card_matches_cpu(dev, kv_int8):
+    """``MolNexTR`` with ``rerank="roundtrip"`` at beam 4 (tiny config,
+    float32) on the port's own renders: the card's predictions, after
+    rerank, equal the CPU's."""
+    import random
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
+
+    cfg = tiny_test_config()
+    cfg.decoder.kv_int8 = kv_int8
+    cfg.decode.rerank = "roundtrip"
+    cfg.decode.beam_size = cfg.decode.n_best = 4
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    params = seeded_flax_params(cfg, vocab, 0)
+    random.seed(5)
+    images = [generate_synthetic_image(s, mol_augment=False, default_option=True, size=128)[0]
+              for s in ("CC(C)O", "c1ccccc1", "CC(=O)Oc1ccccc1C(=O)O")]
+    outs = []
+    for device in ("cpu", "cuda"):
+        model = MolNexTR(cfg=Config.from_dict(cfg.to_dict()), params=params, device=device,
+                         num_workers=1)
+        reset_launch_counts()
+        random.seed(0)
+        outs.append(model.predict_images(images))
+    k3 = "decode_attention_layered_q8" if kv_int8 else "decode_attention_layered"
+    assert LAUNCHES["fused_window_attention"] > 0 and LAUNCHES[k3] > 0
+    cpu, card = outs
+    assert [o["predicted_smiles"] for o in card] == [o["predicted_smiles"] for o in cpu]
+    assert [o["predicted_molfile"] for o in card] == [o["predicted_molfile"] for o in cpu]

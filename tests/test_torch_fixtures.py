@@ -17,9 +17,15 @@ against on the card, where neither JAX nor OpenCV is installed:
   tolerance may pick either token); and a beam-4 search of up to 12 steps
   (``beam_*``): every step's gap between the 4th and 5th candidate, and
   the n-best sequences and scores of the search cut before the first step
-  whose gap is below twice what the candidates may differ by there.
+  whose gap is below twice what the candidates may differ by there;
+* ``rerank.npz`` — the round-trip rerank cases of :func:`_rerank_cases`
+  (input images drawn by the JAX package, candidate lists) with the JAX
+  package's ``roundtrip_rerank`` winner and scores;
 
-Regenerate both with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``.
+and ``molnextr_tpu_torch/chem/glyphs.npz`` is the text renderer's glyph
+table, read from the installed OpenCV (:func:`build_glyphs`).
+
+Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``.
 The full-width fixture runs Swin-B in float32 on the CPU (about a minute),
 so its regeneration test is marked slow.
 """
@@ -40,6 +46,16 @@ FIXTURES = os.path.join(ROOT, "molnextr_tpu_torch", "fixtures")
 BUNDLE = os.path.join(ROOT, "examples", "demo_model")
 DEMO_SMILES = ["CC(C)O", "c1ccccc1", "CC(=O)O", "C1CCCCC1", "CCOC", "CC=O"]
 FULL_SMILES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C"]
+GLYPHS = os.path.join(ROOT, "molnextr_tpu_torch", "chem", "glyphs.npz")
+# text pixel sizes the renderer's options reach (scale 0.45-0.8 is 12-22 px
+# for font ids 0/2/3/4 and 7-12 px for id 1), with a margin either side
+GLYPH_SIZES = range(6, 25)
+RERANK_CORPUS = 9
+RERANK_SEED = 1000
+ASPIRIN = "CC(=O)Oc1ccccc1C(=O)O"
+IBUPROFEN = "CC(C)Cc1ccc(cc1)C(C)C(=O)O"
+CAFFEINE = "Cn1cnc2c1c(=O)n(C)c(=O)n2C"
+ASPIRIN_REORDERED = "O=C(O)c1ccccc1OC(C)=O"  # aspirin from another start atom
 FULL_STEPS = 8
 BEAM, BEAM_STEPS = 4, 12
 # what chip_smoke.py allows between the card's float32 run and these
@@ -253,6 +269,98 @@ def build_full_width():
     }
 
 
+def build_glyphs():
+    """The text renderer's glyph table from the installed OpenCV: for each
+    weight (400: font ids 0/1/3, 600: ids 2/4), pixel size in
+    ``GLYPH_SIZES`` and printable ASCII character, its coverage (255 minus
+    the grey of black text drawn on white) cropped to its ink, the crop's
+    offset from the text origin, and its advance (``getTextSize`` width
+    minus one)."""
+    import cv2
+
+    rows, pixels, offset = [], [], 0
+    for weight, font in ((400, cv2.FONT_HERSHEY_SIMPLEX), (600, cv2.FONT_HERSHEY_DUPLEX)):
+        for size in GLYPH_SIZES:
+            scale = size * 0.037
+            for code in range(32, 127):
+                ch = chr(code)
+                canvas = np.full((4 * size, 4 * size, 3), 255, np.uint8)
+                org = (size, 3 * size)
+                cv2.putText(canvas, ch, org, font, scale, (0, 0, 0), 1, cv2.LINE_AA)
+                cov = 255 - canvas[..., 0]
+                assert (cov[0] == 0).all() and (cov[:, 0] == 0).all() and (cov[-1] == 0).all()
+                ys, xs = np.nonzero(cov)
+                if len(ys):
+                    cov = cov[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
+                    x0, y0 = int(xs.min()) - org[0], int(ys.min()) - org[1]
+                else:
+                    cov, x0, y0 = cov[:0, :0], 0, 0
+                adv = cv2.getTextSize(ch, font, scale, 1)[0][0] - 1
+                rows.append((weight, size, code, adv, x0, y0, cov.shape[0], cov.shape[1], offset))
+                pixels.append(cov.reshape(-1))
+                offset += cov.size
+    return {"index": np.asarray(rows, np.int32), "pixels": np.concatenate(pixels)}
+
+
+def _rerank_cases():
+    """(name, image, candidates) of the rerank fixture, drawn by the JAX
+    package: a challenger that wins, rank 0 standing, duplicates that
+    collapse on canonicalisation, unrenderable candidates, a cluttered
+    input that leaves rerank inert, a grey 2-D input, and corpus molecules
+    at sizes 128-256 with their true structure at rank 0 or later."""
+    from molnextr_tpu.data.corpus import generate_corpus
+    from molnextr_tpu.data.synthetic import generate_synthetic_image
+    from molnextr_tpu.data.transforms import (
+        IMAGENET_MEAN, IMAGENET_STD, get_perturbation_transforms,
+    )
+
+    def draw(smi, size):
+        img, _, _, ok = generate_synthetic_image(
+            smi, mol_augment=False, default_option=True, size=size)
+        assert ok, smi
+        return img
+
+    aspirin = draw(ASPIRIN, 192)
+    cases = [
+        ("challenger_wins", aspirin, [IBUPROFEN, ASPIRIN_REORDERED]),
+        ("true_candidate_wins", aspirin, [IBUPROFEN, ASPIRIN, CAFFEINE]),
+        ("rank0_stands", aspirin, [ASPIRIN, IBUPROFEN, CAFFEINE]),
+        ("duplicates_collapse", aspirin, [ASPIRIN, ASPIRIN_REORDERED, "OC(=O)c1ccccc1OC(C)=O"]),
+        # "1/[O-]" fails to canonicalise, stays as written and cannot be drawn
+        # (score -1); "" and "][" are dropped before drawing
+        ("unrenderable", aspirin, [CAFFEINE, "not-a-smiles", "", "][", "1/[O-]", ASPIRIN]),
+        ("grey_input", draw(CAFFEINE, 160)[..., 0], [ASPIRIN, CAFFEINE]),
+    ]
+    random.seed(0)
+    noisy = get_perturbation_transforms(192)(image=aspirin)["image"]
+    noisy = np.clip((noisy * IMAGENET_STD + IMAGENET_MEAN) * 255, 0, 255).astype(np.uint8)
+    cases.append(("clutter_inert", noisy, [IBUPROFEN, ASPIRIN, CAFFEINE]))
+    corpus = generate_corpus(2 * RERANK_CORPUS, seed=11)
+    for k in range(RERANK_CORPUS):
+        true, other, third = corpus[k], corpus[k + RERANK_CORPUS], corpus[(k + 1) % RERANK_CORPUS]
+        cands = [other, true, third] if k % 2 == 0 else [true, other, third]
+        cases.append((f"corpus_{k}", draw(true, 128 + 32 * (k % 5)), cands))
+    return cases
+
+
+def build_rerank():
+    """The rerank fixture: each case's input image, its candidates and the
+    JAX package's ``roundtrip_rerank`` winner (None: rank 0 stands) and
+    scores, with ``random.seed(RERANK_SEED + k)`` before case k (the layout
+    draws from ``random`` when atoms coincide)."""
+    from molnextr_tpu.rerank import roundtrip_rerank
+
+    arrays, meta = {}, []
+    for k, (name, image, cands) in enumerate(_rerank_cases()):
+        random.seed(RERANK_SEED + k)
+        winner, scores = roundtrip_rerank(image, cands)
+        arrays[f"image_{k}"] = image
+        meta.append({"name": name, "candidates": cands, "winner": winner,
+                     "scores": [float(x) for x in scores]})
+    arrays["meta"] = np.array(json.dumps({"seed": RERANK_SEED, "cases": meta}))
+    return arrays
+
+
 def write_fixtures(full_width: bool = True):
     import cv2
 
@@ -260,6 +368,8 @@ def write_fixtures(full_width: bool = True):
     np.savez_compressed(os.path.join(FIXTURES, "demo.npz"), images=images,
                         meta=np.array(json.dumps(meta)))
     cv2.imwrite(os.path.join(FIXTURES, "demo_0.png"), cv2.cvtColor(images[0], cv2.COLOR_RGB2BGR))
+    np.savez_compressed(os.path.join(FIXTURES, "rerank.npz"), **build_rerank())
+    np.savez_compressed(GLYPHS, **build_glyphs())
     if full_width:
         np.savez_compressed(os.path.join(FIXTURES, "full_width.npz"), **build_full_width())
 
@@ -287,6 +397,22 @@ def test_demo_png_matches_render():
     want = cv2.cvtColor(cv2.imread(png), cv2.COLOR_BGR2RGB)
     np.testing.assert_array_equal(want, _load("demo.npz")["images"][0])
     np.testing.assert_array_equal(read_png(png), want)
+
+
+def test_rerank_fixture_regenerates():
+    got = build_rerank()
+    committed = _load("rerank.npz")
+    assert json.loads(str(got.pop("meta"))) == committed.pop("meta")
+    assert sorted(got) == sorted(committed)
+    for key, image in got.items():
+        np.testing.assert_array_equal(image, committed[key])
+
+
+def test_glyph_table_regenerates():
+    got = build_glyphs()
+    with np.load(GLYPHS) as f:
+        np.testing.assert_array_equal(got["index"], f["index"])
+        np.testing.assert_array_equal(got["pixels"], f["pixels"])
 
 
 @pytest.mark.slow
