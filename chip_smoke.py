@@ -46,7 +46,18 @@ failure:
    ``roundtrip_rerank`` on every case of ``fixtures/rerank.npz`` must pick
    the JAX package's winner; the host's ms per image for drawing and for
    rerank are logged;
-9. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+9. train: the training path at full width.  ``Config()`` in float32 with
+   ``seeded_flax_params(seed=0)``, dropout 0 and remat on, against the JAX
+   package's loss terms, per-group gradient norms, gradient leaves and the
+   leaves after two optimizer updates on ``fixtures/train.npz``'s batch of
+   2; 30 bf16 steps with dropout on one batch of 16 of the port's own
+   renders (the loss falls); K1 and K2 at 0 launches during train steps,
+   and K1, K2, K3-int8 above 0 during the eval step and ``evaluate_model``;
+   ``train_loop`` for 2 epochs with a checkpoint written, read back by
+   ``load_model`` and resumed for a third; ms per optimizer step at batch
+   32 (bf16, remat, dropout), images/s, peak memory, the step's parts and
+   a profiler window; the host's augmented items per second;
+10. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -74,7 +85,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -105,6 +116,13 @@ BEAM = 4
 BEAM_ROWS = BATCH * BEAM
 BEAM_CHECK_POS = (0, 7, 8, 255, 479)
 TIMED_ITERS = 2  # after one warm-up iteration
+# phase train: the overfit run, the timed steps, the loop's corpus
+TRAIN_OVERFIT_BATCH, TRAIN_OVERFIT_STEPS = 16, 30
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 12
+TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "CO",
+                "CCC", "CCCl", "CBr", "CCS", "CC=C", "C#N", "CCCO", "COC",
+                "CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C",
+                "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "OC(=O)c1ccccc1O")
 DEVICE = "cuda"
 
 
@@ -852,6 +870,339 @@ def phase_rerank(torch, results, card):
                          "fixture_ms": fixture_ms}
 
 
+def read_train_fixture(path):
+    """``fixtures/train.npz`` -> (batch {"images", "refs"}, gradient leaves,
+    the leaves after two updates, meta)."""
+    import numpy as np
+
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    meta = json.loads(str(arrays.pop("meta")))
+    batch = {"images": arrays["images"],
+             "refs": {k[4:]: v for k, v in arrays.items() if k.startswith("ref_")}}
+    n = len(meta["leaves"])
+    return (batch, [arrays[f"grad_{i}"] for i in range(n)],
+            [arrays[f"after_{i}"] for i in range(n)], meta)
+
+
+def _leaf_names(leaves):
+    """Flax paths of the fixture's leaves -> the port's parameter names."""
+    from molnextr_tpu_torch.weights import flax_to_state_dict
+
+    names = []
+    for leaf in leaves:
+        parts = leaf.split("/")
+        tree = {}
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = None
+        (name,) = flax_to_state_dict({"params": tree}).keys()
+        names.append(name)
+    return names
+
+
+def _rel(got, want):
+    return abs(got - want) / max(abs(want), 1e-12)
+
+
+def train_parity(torch):
+    """Config() float32, rates 0, remat on: the fixture's batch of 2 through
+    the port's train step pieces, each number against the JAX package's."""
+    import numpy as np
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.wire import as_model_images, as_model_refs
+
+    batch, grads, after, meta = read_train_fixture(fixture_path("train.npz"))
+    tols = meta["tols"]
+    cfg = Config()
+    cfg.train.bf16 = False
+    cfg.encoder.drop_path_rate = 0.0
+    cfg.decoder.hidden_dropout = cfg.decoder.attn_dropout = 0.0
+    cfg.encoder.use_remat = cfg.decoder.use_remat = True
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    state = create_train_state(cfg, MolNexTRModel(cfg, vocab), meta["total_steps"],
+                               seed=meta["seed"], device=DEVICE)
+    criterion = _criterion(cfg, toks)
+    refs = as_model_refs(batch["refs"], DEVICE)
+    outputs = state.model(as_model_images(batch["images"], DEVICE), refs, dropout_seed=0)
+    total, losses = criterion(outputs, refs)
+    total.backward()
+    errs = {}
+    got = {"loss": total.item(), **{k: v.item() for k, v in losses.items()}}
+    for name, want in meta["losses"].items():
+        e = _rel(got[name], want)
+        tol = tols["loss_rtol"] if not name.startswith("acc_") else 1e-6
+        log(f"  {name}: {got[name]:.6f} (JAX {want:.6f}), rel err {e:.2e} (tol {tol:.0e})")
+        if not e <= tol:
+            raise AssertionError(f"train parity: {name} disagrees with the JAX fixture")
+        errs[name] = e
+    norms = state.optimizer.group_norms()
+    for group, want in meta["grad_norms"].items():
+        e = _rel(float(norms[group]), want)
+        log(f"  {group} gradient norm: {float(norms[group]):.6f} (JAX {want:.6f}), "
+            f"rel err {e:.2e} (tol {tols['grad_norm_rtol']:.0e})")
+        if not e <= tols["grad_norm_rtol"]:
+            raise AssertionError(f"train parity: {group} gradient norm disagrees")
+        errs[f"norm_{group}"] = e
+    params = dict(state.model.named_parameters())
+    names = _leaf_names(meta["leaves"])
+    for leaf, name, want in zip(meta["leaves"], names, grads):
+        g = params[name].grad.detach().cpu().numpy()
+        e = float(np.abs(g - want).max() / np.abs(want).max())
+        log(f"  grad {leaf}: max err / max |g| {e:.2e} (tol {tols['grad_rtol']:.0e})")
+        if not e <= tols["grad_rtol"]:
+            raise AssertionError(f"train parity: gradient of {leaf} disagrees")
+        errs[f"grad {leaf}"] = e
+    for _ in range(meta["updates"]):  # the same gradient, as the fixture's updates
+        state.optimizer.step()
+    for leaf, name, want in zip(meta["leaves"], names, after):
+        e = float(np.abs(params[name].detach().cpu().numpy() - want).max())
+        log(f"  {leaf} after {meta['updates']} updates: max abs err {e:.2e} "
+            f"(tol {tols['param_atol']:.0e})")
+        if not e <= tols["param_atol"]:
+            raise AssertionError(f"train parity: {leaf} after the updates disagrees")
+        errs[f"after {leaf}"] = e
+    del state, outputs, total
+    torch.cuda.empty_cache()
+    return errs
+
+
+def overfit_batch(cfg, toks, n):
+    """A fixed batch of ``n`` of the port's own renders of the loop's corpus
+    (default style, no augmentation), on the wire."""
+    import copy
+    import random as pyrandom
+
+    import numpy as np
+
+    from molnextr_tpu_torch.data.dataset import Sample, TrainDataset, pad_batch
+    from molnextr_tpu_torch.utils import FORMAT_INFO
+
+    dcfg = copy.deepcopy(cfg)
+    dcfg.data.augment = dcfg.data.mol_augment = False
+    dcfg.data.default_style = True
+    pyrandom.seed(0)
+    np.random.seed(0)
+    ds = TrainDataset(dcfg, [Sample(s) for s in TRAIN_SMILES], toks)
+    items = [it for it in (ds[i] for i in range(len(ds))) if it is not None]
+    items = (items * (n // len(items) + 1))[:n]
+    fmt = next(f for f in cfg.data.formats if f != "edges")
+    max_len = min(FORMAT_INFO[fmt]["max_len"], cfg.decoder.max_len)
+    batch = pad_batch(items, cfg.data.formats, max_len, cfg.data.max_atoms)
+    batch.pop("smiles")
+    batch["refs"].pop("num_atoms")
+    return batch
+
+
+def train_breakdown(torch, cfg, criterion, state, batch, steps=3):
+    """CUDA-event times of the parts of one train step (the wire to the
+    device, forward and loss, backward, the optimizer), median over
+    ``steps`` after a warm-up."""
+    import numpy as np
+
+    from molnextr_tpu_torch.models.layers import fold_in
+    from molnextr_tpu_torch.train.step import _autocast
+    from molnextr_tpu_torch.train.wire import as_model_images, as_model_refs
+
+    model, parts = state.model, []
+    dev = torch.device(DEVICE)
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in model.parameters():
+            p.grad = None
+        ev[0].record()
+        refs = as_model_refs(batch["refs"], dev)
+        images = as_model_images(batch["images"], dev)
+        ev[1].record()
+        with _autocast(cfg, dev):
+            outputs = model(images, refs, dropout_seed=fold_in(5, i))
+        total, _ = criterion(outputs, refs)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        state.optimizer.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i:
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    med = np.median(np.asarray(parts), axis=0)
+    return dict(zip(("wire_ms", "forward_loss_ms", "backward_ms", "optimizer_ms"), map(float, med)))
+
+
+def train_profile(torch, cfg, criterion, state, batch, steps=2, top=12):
+    """``torch.profiler`` over ``steps`` train steps: the summed device time
+    of the CUDA kernels against the host's wall time (the device's busy
+    share), and the kernels that take the most of it."""
+    from molnextr_tpu_torch.train.step import train_step
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(cfg, criterion, state, batch, seed=4)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    if not kernels or busy <= 0:
+        return {"device_ms_per_step": None, "note": "the profiler recorded no device time"}
+    ranked = sorted(kernels, key=dev_us, reverse=True)[:top]
+    return {"wall_ms_per_step": wall / steps, "device_ms_per_step": busy / steps,
+            "device_busy_share": busy / wall,
+            "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / steps,
+                             "calls_per_step": e.count / steps} for e in ranked]}
+
+
+def phase_train(torch, results, card):
+    import shutil
+
+    import numpy as np
+
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.data.dataset import Sample
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import _criterion, evaluate_model, serving_engine, train_loop
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.step import eval_step, train_step
+    from molnextr_tpu_torch.weights import _flatten, model_to_flax_params
+
+    log("phase train: Config() float32, seeded_flax_params(seed=0), dropout 0, remat on, "
+        "against the JAX fixture (train.npz, batch 2)")
+    out = {"parity_errors": train_parity(torch)}
+
+    cfg = Config()  # bf16, dropout and drop-path on, remat on
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    criterion = _criterion(cfg, toks)
+    batch = overfit_batch(cfg, toks, TRAIN_OVERFIT_BATCH)
+    log(f"  overfit: {TRAIN_OVERFIT_STEPS} bf16 steps with dropout on one batch of "
+        f"{TRAIN_OVERFIT_BATCH} renders")
+    state = create_train_state(cfg, MolNexTRModel(cfg, vocab), TRAIN_OVERFIT_STEPS, seed=0,
+                               device=DEVICE)
+    reset_launch_counts()
+    losses = [float(train_step(cfg, criterion, state, batch, seed=1)["loss"])
+              for _ in range(TRAIN_OVERFIT_STEPS)]
+    torch.cuda.synchronize()
+    train_counts = dict(LAUNCHES)
+    log(f"  loss by step: {' '.join(f'{x:.3f}' for x in losses)}")
+    log(f"  launches during the train steps: {json.dumps(train_counts)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("overfit: the loss is not finite or did not fall")
+    if train_counts["fused_window_attention"] or train_counts["fused_ln_mlp"]:
+        raise AssertionError("a train step launched K1 or K2: training must take the module path")
+
+    reset_launch_counts()
+    ev = eval_step(cfg, criterion, state.model, batch)
+    torch.cuda.synchronize()
+    eval_counts = dict(LAUNCHES)
+    reset_launch_counts()
+    engine = serving_engine(cfg, toks, DEVICE)
+    valid = [Sample(s) for s in TRAIN_SMILES[16:]]
+    scores = evaluate_model(cfg, state.model, toks, valid, num_workers=1, engine=engine)
+    torch.cuda.synchronize()
+    evaluate_counts = dict(LAUNCHES)
+    log(f"  eval step loss {float(ev['loss']):.4f}, launches {json.dumps(eval_counts)}")
+    log(f"  evaluate_model {json.dumps(scores)}, launches {json.dumps(evaluate_counts)}")
+    for name in ("fused_window_attention", "fused_ln_mlp"):
+        if not eval_counts[name] or not evaluate_counts[name]:
+            raise AssertionError(f"the eval step or evaluate_model never launched {name}")
+    if not evaluate_counts["decode_attention_layered_q8"]:
+        raise AssertionError("evaluate_model never launched K3-int8")
+    if not state.model.training or state.model.enc_trans.kernel.dtype != torch.float32:
+        raise AssertionError("evaluation changed the training module's mode or dtype")
+    out.update(overfit_first=losses[0], overfit_last=losses[-1], train_launches=train_counts,
+               eval_step_launches=eval_counts, evaluate_launches=evaluate_counts,
+               eval_scores=scores)
+    del engine
+
+    # card numbers: batch 32, bf16, remat, dropout; CUDA events per step
+    big = {"images": np.concatenate([batch["images"]] * (BATCH // TRAIN_OVERFIT_BATCH)),
+           "refs": {k: np.concatenate([v] * (BATCH // TRAIN_OVERFIT_BATCH))
+                    for k, v in batch["refs"].items()}}
+    for _ in range(TRAIN_WARMUP_STEPS):
+        train_step(cfg, criterion, state, big, seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        train_step(cfg, criterion, state, big, seed=2)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms = float(np.median(times))
+    timing = {"batch": BATCH, "dtype": "bf16", "remat": True, "ms_per_step": ms,
+              "ms_min": min(times), "ms_max": max(times), "steps": TRAIN_TIMED_STEPS,
+              "images_per_s": BATCH / ms * 1e3,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log("  train step " + json.dumps(timing))
+    parts = train_breakdown(torch, cfg, criterion, state, big)
+    log("  train step parts, median ms " + json.dumps(parts))
+    try:
+        prof = train_profile(torch, cfg, criterion, state, big)
+    except (RuntimeError, AttributeError) as e:  # a measurement, not a check
+        prof = {"device_ms_per_step": None, "note": f"profiler failed: {e!r}"}
+    log("  train step profile " + json.dumps(prof))
+    out["timing"] = dict(timing, parts=parts, profile=prof)
+    del state, big
+    torch.cuda.empty_cache()
+
+    # the data pipeline on this host: augmented 384 px items, one thread
+    from molnextr_tpu_torch.data.dataset import TrainDataset
+
+    ds = TrainDataset(cfg, [Sample(s) for s in TRAIN_SMILES], toks)
+    t0 = time.perf_counter()
+    built = sum(ds[i] is not None for i in range(len(ds)))
+    data_s = time.perf_counter() - t0
+    out["data"] = {"items": built, "seconds": data_s, "items_per_s": built / data_s}
+    log(f"  data pipeline (render, augment, tokenize; one thread): {built} items in "
+        f"{data_s:.2f} s, {built / data_s:.1f} items/s")
+
+    # the loop: 2 epochs, a checkpoint, read back, resumed for a third
+    save = os.path.join(HERE, "output", "chip_smoke_train")
+    shutil.rmtree(save, ignore_errors=True)
+    lcfg = Config()
+    lcfg.train.epochs, lcfg.train.batch_size, lcfg.train.train_steps_per_epoch = 2, 4, 3
+    lcfg.train.save_path, lcfg.train.save_mode = save, "last"
+    samples = [Sample(s) for s in TRAIN_SMILES[:16]]
+    t0 = time.perf_counter()
+    state = train_loop(lcfg, samples, valid_samples=valid, num_workers=0, print_freq=1,
+                       device=DEVICE)
+    loop_s = time.perf_counter() - t0
+    _, params = load_model(os.path.join(save, "ckpt_last"))
+    saved, live = _flatten(params), _flatten(model_to_flax_params(state.model))
+    if set(saved) != set(live) or any(not np.array_equal(saved[k], live[k]) for k in live):
+        raise AssertionError("the checkpoint read back differs from the trained parameters")
+    lcfg.train.epochs = 3
+    state = train_loop(lcfg, samples, valid_samples=valid, num_workers=0, print_freq=1,
+                       resume="last", device=DEVICE)
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        epochs = [json.loads(line)["epoch"] for line in f]
+    log(f"  train_loop: 2 epochs in {loop_s:.1f} s, checkpoint read back equal, resumed to "
+        f"step {state.step}, metrics epochs {epochs}")
+    if state.step != 9 or epochs != [0, 1, 2]:
+        raise AssertionError("train_loop did not resume from its checkpoint")
+    out["loop"] = {"seconds_2_epochs": loop_s, "resumed_step": state.step}
+    del state
+    shutil.rmtree(save, ignore_errors=True)
+    torch.cuda.empty_cache()
+    results["train"] = out
+
+
 def decode_ms(tm, fn):
     """Time ``fn(pos, layer)`` over every position 0..479 of each layer of
     one decode, from one CUDA graph per position so host launch overhead
@@ -1172,6 +1523,8 @@ def main() -> int:
         phase_beam(torch)
     if "rerank" in phases:
         phase_rerank(torch, results, card)
+    if "train" in phases:
+        phase_train(torch, results, card)
     if "timing" in phases:
         phase_timing(torch, results, card)
     log(f"all phases ({','.join(phases)}) passed in {time.perf_counter() - t0:.1f} s")

@@ -77,7 +77,8 @@ class MolNexTR:
         model = load_flax_params(MolNexTRModel(cfg, vocab_sizes), params)
         model.to_dtype(torch.bfloat16 if cfg.train.bf16 else torch.float32)
         self.model = model
-        self.transform = get_transforms(cfg.data.input_size)
+        self.transform = get_transforms(cfg.data.input_size, augment=False, rotate=False,
+                                        normalize=False)
         self.engine = InferenceEngine(cfg, self.tokenizers, model, device=device)
 
     @property

@@ -1,5 +1,5 @@
-"""A minimal PNG reader (zlib + numpy), so the port reads image files
-without OpenCV.
+"""A minimal PNG reader and writer (zlib + numpy), so the port reads and
+writes image files without OpenCV.
 
 Supports 8-bit, non-interlaced grey (0), RGB (2), grey+alpha (4) and RGBA
 (6) images.  Returns RGB uint8 ``(H, W, 3)`` as ``cv2.imread`` followed by
@@ -89,3 +89,21 @@ def read_png(path: str) -> np.ndarray:
     if ch in (1, 2):
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write uint8 (H, W, 3) RGB or (H, W) grey as an 8-bit PNG (filter 0)."""
+    img = np.ascontiguousarray(image, dtype=np.uint8)
+    color = 0 if img.ndim == 2 else 2
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        crc = zlib.crc32(ctype + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", crc)
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
+                + chunk(b"IEND", b""))

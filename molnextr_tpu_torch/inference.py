@@ -5,14 +5,21 @@ beam search when ``cfg.decode.beam_size > 1``, with the ``n_best`` list in
 ``pred["beams"]`` when ``cfg.decode.n_best > 1``.  The device path is
 encode, decode and the edge head (on the best beam's hidden states);
 sequence -> SMILES and graph assembly stay on the host.
+
+The engine owns the module it is given: it moves it to its device and puts
+it in eval mode.  ``load_params`` and ``predict_images_raw(params=...)``
+copy another module's parameters (a training module's float32 masters)
+into it, casting to its dtype, so one engine serves every epoch of a
+training run without touching the training module.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from molnextr_tpu_torch.config import Config
 from molnextr_tpu_torch.data.transforms import device_normalize
@@ -109,7 +116,42 @@ class InferenceEngine:
         sym = symmetrize_edge_probs(torch.softmax(logits.float(), dim=-1))
         return sym.argmax(dim=-1), sym.amax(dim=-1)
 
+    @torch.no_grad()
+    def load_params(self, source: Union[nn.Module, Mapping[str, torch.Tensor]]) -> None:
+        """Copy the parameters of ``source`` (a module with this model's
+        parameter names, or a name -> tensor mapping) into the engine's
+        module, each cast to the engine parameter's dtype and device."""
+        named = dict(source.named_parameters()) if isinstance(source, nn.Module) else source
+        own = dict(self.model.named_parameters())
+        missing = sorted(set(own) - set(named))
+        if missing:
+            raise KeyError(f"load_params: missing {missing[:8]}")
+        for name, p in own.items():
+            p.copy_(named[name])
+
     # -- host orchestration ----------------------------------------------
+    def predict_images_raw(self, images: np.ndarray, params: Optional[
+            Union[nn.Module, Mapping[str, torch.Tensor]]] = None) -> Dict[str, np.ndarray]:
+        """Numeric prediction: token ids ``seq`` (B, max_len) and, with the
+        edges format, the edge classes ``edges`` (B, K, K).  ``params``, when
+        given, is copied in first (:meth:`load_params`)."""
+        if params is not None:
+            self.load_params(params)
+        n = images.shape[0]
+        images = self._pad_to_pow2(images)
+        seq_d, _, _, hiddens = self.decode(images)[:4]
+        seq = seq_d.cpu().numpy()[:n]
+        result: Dict[str, np.ndarray] = {"seq": seq}
+        if "edges" in self.cfg.data.formats:
+            indices = np.zeros((hiddens.shape[0], self.max_atoms), np.int64)
+            for i in range(n):
+                parsed = self.tokenizer.sequence_to_smiles(seq[i].tolist())
+                k = min(len(parsed["indices"]), self.max_atoms)
+                indices[i, :k] = np.asarray(parsed["indices"][:k], np.int64)
+            cls, _ = self.edges(hiddens, torch.as_tensor(indices, device=self.device))
+            result["edges"] = cls.cpu().numpy()[:n].astype(np.int32)
+        return result
+
     def _pad_to_pow2(self, images: np.ndarray) -> np.ndarray:
         """Repeat the last image up to the next power of two, as the JAX
         engine does to bound its recompilations."""

@@ -12,6 +12,12 @@ its q/k/v projections as one ``(D, 3D)`` Dense, the concatenation the JAX
 ``project_qkv`` builds per step; cross attention uses its q and kv column
 blocks.
 
+The teacher-forced ``forward`` is the training path too: in training mode
+it applies the JAX decoder's dropout sites (the embedding, each attention's
+probabilities, the two residual branches of a layer and the two inside the
+FFN; ``hidden_dropout``/``attn_dropout``) as seeded masks
+(``layers.Dropout``), and with ``use_remat`` it checkpoints each layer.
+
 Decode caches (``init_cache``): the self cache is ``(L, B, H, T, hd)`` with
 ``T = max_len`` rounded up to a multiple of 128, int8 with per-token f32
 scales ``(L, B, H, T, 1)`` when ``kv_int8`` (the default) or in the model
@@ -34,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from molnextr_tpu_torch.config import DecoderConfig
-from molnextr_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from torch.utils.checkpoint import checkpoint
+
+from molnextr_tpu_torch.models.layers import Dense, Dropout, Embed, LayerNorm, number_dropout_sites
 from molnextr_tpu_torch.ops.decode_attention import (
     cross_decode_attention_folded,
     cross_decode_attention_folded_q8,
@@ -54,11 +62,12 @@ def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
 
 
 class MHA(nn.Module):
-    def __init__(self, heads: int, hidden: int):
+    def __init__(self, heads: int, hidden: int, dropout: float = 0.0):
         super().__init__()
         self.heads, self.hidden = heads, hidden
         self.qkv = Dense(hidden, 3 * hidden)
         self.out = Dense(hidden, hidden)
+        self.attn_drop = Dropout(dropout)
 
     def split(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (B, H, T, hd)."""
@@ -74,26 +83,30 @@ class MHA(nn.Module):
         y = x.to(self.qkv.kernel.dtype) @ self.qkv.kernel[:, d:] + self.qkv.bias[d:]
         return y[..., :d], y[..., d:]
 
-    def attend(self, q, k, v, mask: Optional[torch.Tensor]):
+    def attend(self, q, k, v, mask: Optional[torch.Tensor], dropout_seed=None):
         """Teacher-forced attention; q/k/v (B, H, T, hd), mask True = masked."""
         hd = self.hidden // self.heads
         scores = (q @ k.transpose(-1, -2)) / torch.tensor(math.sqrt(hd), dtype=q.dtype)
         if mask is not None:
             scores = scores.masked_fill(mask, -1e9)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        probs = self.attn_drop(probs, dropout_seed)
         ctx = (probs @ v).transpose(1, 2)
         return self.out(ctx.reshape(ctx.shape[0], ctx.shape[1], self.hidden))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, hidden: int, ffn: int):
+    def __init__(self, hidden: int, ffn: int, dropout: float = 0.0):
         super().__init__()
         self.ln = LayerNorm(hidden, 1e-6)
         self.w1 = Dense(hidden, ffn)
         self.w2 = Dense(ffn, hidden)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
 
-    def forward(self, x):
-        return self.w2(F.gelu(self.w1(self.ln(x)))) + x
+    def forward(self, x, dropout_seed=None):
+        y = self.drop1(F.gelu(self.w1(self.ln(x))), dropout_seed)
+        return self.drop2(self.w2(y), dropout_seed) + x
 
 
 class DecoderLayer(nn.Module):
@@ -101,21 +114,25 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.ln1 = LayerNorm(d, 1e-6)
-        self.self_attn = MHA(cfg.attn_heads, d)
+        self.self_attn = MHA(cfg.attn_heads, d, cfg.attn_dropout)
         self.ln2 = LayerNorm(d, 1e-6)
-        self.cross_attn = MHA(cfg.attn_heads, d)
-        self.ffn = FeedForward(d, d * cfg.ffn_mult)
+        self.cross_attn = MHA(cfg.attn_heads, d, cfg.attn_dropout)
+        self.ffn = FeedForward(d, d * cfg.ffn_mult, cfg.hidden_dropout)
+        self.drop1 = Dropout(cfg.hidden_dropout)
+        self.drop2 = Dropout(cfg.hidden_dropout)
 
-    def forward(self, x, memory, self_mask):
+    def forward(self, x, memory, self_mask, dropout_seed=None):
         d = self.self_attn.hidden
         qkv = self.self_attn.qkv(self.ln1(x))
         sa = self.self_attn
         q = sa.attend(sa.split(qkv[..., :d]), sa.split(qkv[..., d:2 * d]),
-                      sa.split(qkv[..., 2 * d:]), self_mask) + x
+                      sa.split(qkv[..., 2 * d:]), self_mask, dropout_seed)
+        q = self.drop1(q, dropout_seed) + x
         ca = self.cross_attn
         mk, mv = ca.project_kv(memory)
-        mid = ca.attend(ca.split(ca.project_q(self.ln2(q))), ca.split(mk), ca.split(mv), None)
-        return self.ffn(mid + q)
+        mid = ca.attend(ca.split(ca.project_q(self.ln2(q))), ca.split(mk), ca.split(mv), None,
+                        dropout_seed)
+        return self.ffn(self.drop2(mid, dropout_seed) + q, dropout_seed)
 
     def cached_step(self, x, cache, layer: int, pos: int, int8: bool):
         """One token (B, 1, D) against the caches; updates them in place."""
@@ -164,7 +181,9 @@ class Decoder(nn.Module):
         )
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.final_ln = LayerNorm(d, 1e-6)
+        self.emb_drop = Dropout(cfg.hidden_dropout)
         self.output = Dense(d, vocab_size)
+        number_dropout_sites(self)
 
     def embed_tokens(self, tokens: torch.Tensor, start_pos: int) -> torch.Tensor:
         emb = self.embed(tokens)
@@ -172,16 +191,21 @@ class Decoder(nn.Module):
         pe = self.pe[start_pos : start_pos + tokens.shape[1]]
         return emb + pe.to(emb.dtype)[None]
 
-    def forward(self, tokens, memory, pad_mask: Optional[torch.Tensor] = None):
+    def forward(self, tokens, memory, pad_mask: Optional[torch.Tensor] = None,
+                dropout_seed=None):
         """Teacher-forced: tokens (B, T), memory (B, M, D), pad_mask (B, T)
         True at padding.  Returns final hidden states (B, T, D)."""
         t = tokens.shape[1]
-        x = self.embed_tokens(tokens, 0)
+        x = self.emb_drop(self.embed_tokens(tokens, 0), dropout_seed)
         mask = torch.triu(torch.ones(t, t, dtype=torch.bool, device=tokens.device), 1)[None, None]
         if pad_mask is not None:
             mask = mask | pad_mask[:, None, None, :]
+        remat = self.training and self.cfg.use_remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, memory, mask)
+            if remat:
+                x = checkpoint(layer, x, memory, mask, dropout_seed, use_reentrant=False)
+            else:
+                x = layer(x, memory, mask, dropout_seed)
         return self.final_ln(x)
 
     def init_cache(self, memory: torch.Tensor) -> Dict[str, torch.Tensor]:

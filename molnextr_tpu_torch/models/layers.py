@@ -11,6 +11,8 @@ carry over one to one (``weights.py``):
 * :class:`LayerNorm` — ``scale``/``bias`` stay float32, statistics and
   normalization run in float32, the output is cast to the input dtype.
 * :class:`Embed` — ``embedding (num, dim)``.
+* :class:`Dropout` — dropout (or stochastic depth) with masks seeded per
+  step and site, which ``torch.utils.checkpoint`` recomputes exactly.
 """
 
 from __future__ import annotations
@@ -63,3 +65,57 @@ class Embed(nn.Module):
     def cast(self, dtype: torch.dtype) -> None:
         self.embedding.data = self.embedding.data.to(dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# seeded dropout
+# ---------------------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``(seed, data)`` (splitmix64 of their mix), the
+    role ``jax.random.fold_in`` plays for the JAX train step's dropout key."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask is a function of ``(seed, site)`` alone.
+
+    The training forward passes one seed per step; every dropout module of a
+    model has its own ``site`` (:func:`number_dropout_sites`).  A mask is drawn
+    from a generator seeded with ``fold_in(seed, site)``, never from the
+    global generators, so ``torch.utils.checkpoint`` recomputes the same mask
+    in the backward pass.  Active only in training mode with ``rate > 0``;
+    ``drop_path`` masks whole samples (one draw per leading index), as the
+    Swin blocks' stochastic depth does.
+    """
+
+    def __init__(self, rate: float, drop_path: bool = False):
+        super().__init__()
+        self.rate = float(rate)
+        self.drop_path = drop_path
+        self.site = 0
+
+    def forward(self, x: torch.Tensor, seed) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if seed is None:
+            raise ValueError("a training forward with dropout needs a dropout_seed")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1) if self.drop_path else x.shape
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(fold_in(seed, self.site))
+        mask = torch.rand(shape, generator=gen, device=x.device) < keep
+        return x * mask.to(x.dtype) / keep
+
+
+def number_dropout_sites(module: nn.Module) -> None:
+    """Give every :class:`Dropout` under ``module`` its own site, in module
+    order."""
+    for i, m in enumerate(m for m in module.modules() if isinstance(m, Dropout)):
+        m.site = i

@@ -16,6 +16,9 @@ its bias and the normalised attention weights p, where the tensor-core
 attention takes them as bf16 operands; everything accumulates in float32).
 In float32 those roundings are no-ops and the plain versions equal
 ``window_attention_reference`` / ``ln_mlp_reference`` of the JAX package.
+The kernels have no backward: on a CUDA tensor, with gradients enabled and
+an input that requires one, a wrapper raises ``RuntimeError`` instead of
+returning an output autograd cannot differentiate.
 
 Weights use the flax layout: ``(in, out)`` kernels in the model dtype;
 biases, LayerNorm parameters, the gathered rel-pos bias ``(H, N, N)`` and
@@ -93,6 +96,15 @@ def window_attention_reference(
     return out.to(x.dtype)
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward: an output that autograd should
+    differentiate would carry no ``grad_fn`` and train nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; run it under torch.no_grad() "
+            "(training takes the Swin module path)")
+
+
 def fused_window_attention(
     x: torch.Tensor,       # (B, Hres, Wres, C) in the model dtype
     wqkv: torch.Tensor,    # (C, 3C) model dtype
@@ -118,6 +130,7 @@ def fused_window_attention(
         return window_attention_reference(
             x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, bias, mask, num_heads, ws
         )
+    _refuse_grad("fused_window_attention", x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, bias)
     if wqkv.dtype != x.dtype or wproj.dtype != x.dtype:
         raise TypeError("fused_window_attention: weights must be in the activation dtype")
     f32 = (bqkv, bproj, ln_scale, ln_bias, bias) + (() if mask is None else (mask,))
@@ -178,6 +191,7 @@ def fused_ln_mlp(
     """LN + fc1 + GELU + fc2; CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    _refuse_grad("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2)
     t, c = x.shape
     f = w1.shape[1]
     if tuple(w1.shape) != (c, f) or tuple(w2.shape) != (f, c):

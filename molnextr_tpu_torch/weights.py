@@ -7,7 +7,11 @@
   attention's separate ``q``/``k``/``v`` Dense layers are concatenated into
   one ``(D, 3D)`` ``qkv`` Dense; the HWIO patch-embed kernel is flattened to
   ``(p*p*3, C)``.  Flax ``Dense`` kernels are ``(in, out)`` in both.  The
-  training-only ``heatmap_head`` is skipped.
+  training-only ``heatmap_head`` is carried when both sides have it; a
+  serving bundle without it loads into a model that builds it.
+* :func:`model_to_flax_params` is the reverse: a port model -> the JAX
+  package's ``{"params": tree}`` of float32 numpy arrays, which
+  ``checkpoint.save_model`` writes in the JAX package's format.
 * :func:`seeded_flax_params` makes a numpy tree with the names and shapes
   of ``MolNexTRModel.init`` from a numpy ``RandomState``: normal * 0.02 for
   kernels, embeddings and ``rel_bias``, ones for LayerNorm scales, zeros
@@ -25,7 +29,7 @@ import torch
 from molnextr_tpu_torch.config import Config
 from molnextr_tpu_torch.models.swin import effective_window
 
-SKIPPED = ("heatmap_head",)  # training-only head, not built by the port
+OPTIONAL = "heatmap_head"  # training-only: either side may lack it
 N_HEATMAP_OUT = 13  # presence + 11 element classes + "other"
 
 
@@ -59,8 +63,6 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     qkv: Dict[Tuple[str, str, str], Dict[str, np.ndarray]] = {}
     for path, arr in _flatten(params).items():
         parts = path.split("/")
-        if parts[0] in SKIPPED:
-            continue
         if parts[0].startswith("decoders_"):
             parts = ["decoders", parts[0][len("decoders_"):]] + parts[1:]
         if parts[:3] == ["encoder", "patch_embed", "kernel"]:
@@ -83,22 +85,57 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
 def load_flax_params(model: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
     """Copy a flax parameter tree into ``model`` in place; every parameter
-    must be covered and every shape must match.  The tree's
-    ``heatmap_head`` (a training-only head the port does not build) is
-    skipped."""
+    must be covered and every shape must match, except the training-only
+    ``heatmap_head``, which is copied when both sides have it (a model's
+    head that the tree lacks keeps its values)."""
     sd = flax_to_state_dict(params)
     own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(sd))
-    unexpected = sorted(set(sd) - set(own))
+    missing = sorted(n for n in set(own) - set(sd) if not n.startswith(OPTIONAL + "."))
+    unexpected = sorted(n for n in set(sd) - set(own) if not n.startswith(OPTIONAL + "."))
     if missing or unexpected:
         raise KeyError(f"parameter mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
     with torch.no_grad():
         for name, p in own.items():
+            if name not in sd:
+                continue
             arr = sd[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def model_to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """A port model -> ``{"params": tree}`` with the JAX package's names and
+    layouts, float32 numpy leaves (the inverse of :func:`flax_to_state_dict`)."""
+    sd = {n: p.detach().float().cpu().numpy() for n, p in model.named_parameters()}
+    return state_dict_to_flax(sd, model.cfg.encoder.patch_size)
+
+
+def state_dict_to_flax(sd: Dict[str, np.ndarray], patch_size: int) -> Dict[str, Any]:
+    """The port's parameter names and layouts -> ``{"params": tree}`` in the
+    JAX package's (for parameters, or for their gradients)."""
+    flat: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, arr in sd.items():
+        parts = name.split(".")
+        if parts[0] == "decoders":
+            parts = [f"decoders_{parts[1]}"] + parts[2:]
+        if parts[:3] == ["encoder", "patch_embed", "kernel"]:
+            arr = arr.reshape(patch_size, patch_size, -1, arr.shape[-1])
+        if parts[0].startswith("decoders_") and parts[1] == "layers":
+            layer, rest = int(parts[2]), parts[3:]
+            if rest[0] in ("self_attn", "cross_attn") and rest[1] == "qkv":
+                for i, piece in enumerate(np.split(arr, 3, axis=-1)):
+                    key = "/".join([parts[0], "layers", rest[0], "qkv"[i], rest[2]])
+                    stacked.setdefault(key, {})[layer] = piece
+                continue
+            stacked.setdefault("/".join([parts[0], "layers"] + rest), {})[layer] = arr
+            continue
+        flat["/".join(parts)] = arr
+    for key, layers in stacked.items():
+        flat[key] = np.stack([layers[i] for i in range(len(layers))])
+    return {"params": _unflatten(flat)}
 
 
 def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[int, ...]]:

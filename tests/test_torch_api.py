@@ -187,6 +187,11 @@ def _imported_modules(path):
 
 def test_port_sources_import_nothing_forbidden():
     assert len(PORT_FILES) > 30
+    scanned = {os.path.relpath(p, ROOT) for p in PORT_FILES}
+    for name in ("train/__init__.py", "train/losses.py", "train/state.py", "train/step.py",
+                 "train/wire.py", "train/loop.py", "data/dataset.py", "data/transforms.py",
+                 "checkpoint.py"):
+        assert os.path.join("molnextr_tpu_torch", name) in scanned, name
     bad = [
         (os.path.relpath(p, ROOT), m)
         for p in PORT_FILES for m in _imported_modules(p)
@@ -210,6 +215,8 @@ import molnextr_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(molnextr_tpu_torch.__path__, 'molnextr_tpu_torch.')]
 for m in mods:
     importlib.import_module(m)
+assert set(['molnextr_tpu_torch.train.loop', 'molnextr_tpu_torch.data.dataset',
+            'molnextr_tpu_torch.checkpoint']) <= set(mods)
 import torch
 torch.set_num_threads(2)
 from molnextr_tpu_torch.api import MolNexTR

@@ -522,3 +522,97 @@ def test_tiny_model_rerank_on_card_matches_cpu(dev, kv_int8):
     cpu, card = outs
     assert [o["predicted_smiles"] for o in card] == [o["predicted_smiles"] for o in cpu]
     assert [o["predicted_molfile"] for o in card] == [o["predicted_molfile"] for o in cpu]
+
+
+def test_swin_kernels_refuse_inputs_that_need_gradients(dev):
+    """K1 and K2 have no backward: with gradients enabled and an input that
+    requires one, they raise instead of returning an output that would
+    train nothing; under no_grad they launch."""
+    c, res, ws, heads = 32, 8, 4, 2
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.1  # noqa: E731
+    attn = [r(2, res, res, c), r(c, 3 * c), r(3 * c), r(c, c), r(c), 1 + r(c), r(c),
+            r(heads, ws * ws, ws * ws)]
+    mlp = [r(64, c), 1 + r(c), r(c), r(c, 4 * c), r(4 * c), r(4 * c, c), r(c)]
+    attn[1].requires_grad_(True)
+    mlp[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sf.fused_window_attention(*attn, None, heads, ws)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sf.fused_ln_mlp(*mlp)
+    with torch.no_grad():
+        sf.fused_window_attention(*attn, None, heads, ws)
+        sf.fused_ln_mlp(*mlp)
+
+
+def _tiny_train_batch(cfg):
+    rng = np.random.RandomState(0)
+    k, t = cfg.data.max_atoms, 20
+    labels = rng.randint(3, 60, (4, t)).astype(np.int32)
+    labels[:, 0] = 1
+    edges = np.full((4, k, k), -100, np.int8)
+    edges[:, :3, :3] = rng.randint(0, 7, (4, 3, 3))
+    return {"images": rng.randint(0, 256, (4, 32, 32, 1)).astype(np.uint8),
+            "refs": {"chartok_coords": labels,
+                     "atom_indices": np.tile(np.array([[2, 4, 6] + [-1] * (k - 3)]), (4, 1)),
+                     "edges": edges,
+                     "atom_grid": rng.randint(-1, 12, (4, 4, 4)).astype(np.int8)}}
+
+
+def test_tiny_train_step_on_card_matches_cpu(dev):
+    """Two float32 train steps of the tiny model (remat on, dropout rates 0:
+    the card's generators draw other masks than the CPU's) on the card and
+    on the CPU, from the same seeded weights: the same losses and
+    parameters; no K1 or K2 launch while training, both in the eval step."""
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.step import eval_step, train_step
+
+    cfg = tiny_test_config()
+    cfg.encoder.use_remat = cfg.decoder.use_remat = True
+    cfg.encoder.drop_path_rate = cfg.decoder.hidden_dropout = cfg.decoder.attn_dropout = 0.0
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    batch = _tiny_train_batch(cfg)
+    runs = []
+    for device in ("cpu", "cuda"):
+        state = create_train_state(cfg, MolNexTRModel(cfg, vocab), 10, seed=0, device=device)
+        criterion = _criterion(cfg, toks)
+        reset_launch_counts()
+        losses = [float(train_step(cfg, criterion, state, batch, seed=3)["loss"])
+                  for _ in range(2)]
+        if device == "cuda":
+            assert LAUNCHES["fused_window_attention"] == LAUNCHES["fused_ln_mlp"] == 0
+            eval_step(cfg, criterion, state.model, batch)
+            assert LAUNCHES["fused_window_attention"] > 0 and LAUNCHES["fused_ln_mlp"] > 0
+        runs.append((losses, {n: p.detach().cpu() for n, p in state.model.named_parameters()}))
+    (l_cpu, p_cpu), (l_card, p_card) = runs
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    for name in p_cpu:
+        assert (p_card[name] - p_cpu[name]).abs().max().item() <= 1e-5, name
+
+
+def test_remat_on_card_equals_remat_off_with_dropout(dev):
+    """On the card, with dropout on: checkpointed blocks and layers redraw
+    the same seeded masks in the backward pass, so remat on and off give the
+    same gradients."""
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.wire import as_model_images, as_model_refs
+
+    grads = []
+    for remat in (False, True):
+        cfg = tiny_test_config()
+        cfg.encoder.use_remat = cfg.decoder.use_remat = remat
+        cfg.encoder.drop_path_rate = 0.2
+        toks = get_tokenizer(cfg.data)
+        vocab = {f: len(t) for f, t in toks.items()}
+        model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, 0))
+        model = model.to(dev).train()
+        batch = _tiny_train_batch(cfg)
+        refs = as_model_refs(batch["refs"], dev)
+        total, _ = _criterion(cfg, toks)(
+            model(as_model_images(batch["images"], dev), refs, dropout_seed=7), refs)
+        total.backward()
+        grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    for name in grads[0]:
+        torch.testing.assert_close(grads[1][name], grads[0][name], rtol=1e-5, atol=1e-7)

@@ -18,6 +18,15 @@ against on the card, where neither JAX nor OpenCV is installed:
   (``beam_*``): every step's gap between the 4th and 5th candidate, and
   the n-best sequences and scores of the search cut before the first step
   whose gap is below twice what the candidates may differ by there;
+* ``train.npz`` — the training parity of ``chip_smoke.py`` phase train
+  (:func:`build_train`): for ``Config()`` in float32 with
+  ``seeded_flax_params(seed=0)``, dropout and drop-path rates 0 and remat
+  on, a batch of two 384 px renders on the wire (``TrainDataset`` without
+  augmentation, ``pad_batch``), the JAX package's loss terms and
+  accuracies, each group's gradient global norm, a few gradient leaves, and
+  the same leaves after the optimizer's first two updates on that gradient
+  (``make_optimizer`` at ``TRAIN_TOTAL_STEPS``: the first update's learning
+  rate is 0 under the warmup from 0, the second's is the peak);
 * ``rerank.npz`` — the round-trip rerank cases of :func:`_rerank_cases`
   (input images drawn by the JAX package, candidate lists) with the JAX
   package's ``roundtrip_rerank`` winner and scores;
@@ -63,6 +72,23 @@ BEAM, BEAM_STEPS = 4, 12
 # each summing in another order than XLA on the CPU
 FULL_MEMORY_TOL = 1e-4
 FULL_LOGP_TOL = 2e-4
+# training parity: leaves checked on the card, chosen across the model and
+# with gradients well away from zero (the Adam step's direction is the
+# gradient's sign there); the tolerances the card's float32 run is held to
+TRAIN_SMILES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C"]
+TRAIN_LEAVES = [
+    "encoder/patch_embed/bias",
+    "encoder/stage0_block0/norm1/scale",
+    "encoder/stage2_block17/norm2/bias",
+    "encoder/stage3_block1/fc2/bias",
+    "enc_trans/bias",
+    "decoders_chartok_coords/final_ln/scale",
+    "edges_head/mlp2/bias",
+    "heatmap_head/out/bias",
+]
+TRAIN_TOTAL_STEPS = 10
+TRAIN_TOLS = {"loss_rtol": 1e-4, "grad_norm_rtol": 1e-3, "grad_rtol": 1e-3,
+              "param_atol": 1e-6}
 
 torch.set_num_threads(2)
 
@@ -269,6 +295,90 @@ def build_full_width():
     }
 
 
+def build_train():
+    import jax
+    import jax.numpy as jnp
+
+    from molnextr_tpu.config import Config as JConfig
+    from molnextr_tpu.data.dataset import Sample, TrainDataset, pad_batch
+    from molnextr_tpu.models.model import MolNexTRModel
+    from molnextr_tpu.tokenization import get_tokenizer
+    from molnextr_tpu.train.losses import Criterion
+    from molnextr_tpu.train.state import make_optimizer
+    from molnextr_tpu.train.wire import as_model_images, as_model_refs
+    from molnextr_tpu.utils import FORMAT_INFO
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.weights import _flatten, seeded_flax_params
+
+    cfg = JConfig()
+    cfg.encoder.drop_path_rate = 0.0
+    cfg.decoder.hidden_dropout = cfg.decoder.attn_dropout = 0.0
+    cfg.encoder.use_remat = cfg.decoder.use_remat = True
+    cfg.data.augment = cfg.data.mol_augment = False
+    cfg.data.default_style = True
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    fmt = "chartok_coords"
+    random.seed(11)
+    np.random.seed(11)
+    ds = TrainDataset(cfg, [Sample(s) for s in TRAIN_SMILES], toks)
+    items = [ds[i] for i in range(len(TRAIN_SMILES))]
+    assert all(it is not None for it in items)
+    max_len = min(FORMAT_INFO[fmt]["max_len"], cfg.decoder.max_len)
+    batch = pad_batch(items, cfg.data.formats, max_len, cfg.data.max_atoms)
+    batch.pop("smiles")
+    batch["refs"].pop("num_atoms")
+    tok = toks[fmt]
+    criterion = Criterion(cfg.data.formats, cfg.train.label_smoothing,
+                          (tok.offset, tok.maxx, tok.maxy, tok.sep_xy),
+                          cfg.train.aux_heatmap_weight)
+    model = MolNexTRModel(cfg, vocab, dtype=jnp.float32)
+    params = seeded_flax_params(Config.from_dict(cfg.to_dict()), vocab, 0)
+    dev_batch = jax.tree_util.tree_map(jnp.asarray, batch)
+
+    def loss_fn(p):
+        refs = as_model_refs(dev_batch["refs"])
+        out = model.apply(p, as_model_images(dev_batch["images"]), refs, deterministic=False,
+                          rngs={"dropout": jax.random.PRNGKey(0)})
+        total, losses = criterion(out, refs)
+        return total, losses
+
+    (total, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    tx = make_optimizer(cfg, TRAIN_TOTAL_STEPS)
+
+    @jax.jit
+    def two_updates(g, p):
+        import optax
+
+        state = tx.init(p)
+        for _ in range(2):
+            u, state = tx.update(g, state, p)
+            p = optax.apply_updates(p, u)
+        return p
+
+    after = two_updates(grads, jax.tree_util.tree_map(jnp.asarray, params))
+    flat_g = _flatten(jax.tree_util.tree_map(np.asarray, grads))
+    flat_a = _flatten(jax.tree_util.tree_map(np.asarray, after))
+    norms = {}
+    for group in ("encoder", "decoder"):
+        sel = [v for k, v in flat_g.items() if (k.split("/")[1] == "encoder") == (group == "encoder")]
+        norms[group] = float(np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in sel)))
+    arrays = {"images": batch["images"]}
+    for key, value in batch["refs"].items():
+        arrays[f"ref_{key}"] = value
+    for i, leaf in enumerate(TRAIN_LEAVES):
+        g = flat_g[f"params/{leaf}"]
+        assert np.abs(g).min() > 1e-4 * np.abs(g).max(), (leaf, np.abs(g).min(), np.abs(g).max())
+        arrays[f"grad_{i}"] = g.astype(np.float32)
+        arrays[f"after_{i}"] = flat_a[f"params/{leaf}"].astype(np.float32)
+    meta = {"seed": 0, "format": fmt, "smiles": TRAIN_SMILES, "leaves": TRAIN_LEAVES,
+            "total_steps": TRAIN_TOTAL_STEPS, "updates": 2, "tols": TRAIN_TOLS,
+            "losses": {"loss": float(total), **{k: float(v) for k, v in losses.items()}},
+            "grad_norms": norms}
+    arrays["meta"] = np.array(json.dumps(meta))
+    return arrays
+
+
 def build_glyphs():
     """The text renderer's glyph table from the installed OpenCV: for each
     weight (400: font ids 0/1/3, 600: ids 2/4), pixel size in
@@ -372,6 +482,7 @@ def write_fixtures(full_width: bool = True):
     np.savez_compressed(GLYPHS, **build_glyphs())
     if full_width:
         np.savez_compressed(os.path.join(FIXTURES, "full_width.npz"), **build_full_width())
+        np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
 
 
 def _load(name):
@@ -415,6 +526,46 @@ def test_glyph_table_regenerates():
         np.testing.assert_array_equal(got["pixels"], f["pixels"])
 
 
+def test_train_fixture_is_what_chip_smoke_reads():
+    """``chip_smoke.py`` phase train reads ``train.npz`` with
+    ``read_train_fixture``: a ``Config()`` batch on the wire, the leaves'
+    shapes, and every number it compares."""
+    import chip_smoke
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.weights import param_shapes
+
+    cfg = Config()
+    batch, grads, after, meta = chip_smoke.read_train_fixture(os.path.join(FIXTURES, "train.npz"))
+    s, k, n = cfg.data.input_size, cfg.data.max_atoms, len(TRAIN_SMILES)
+    g = s // cfg.train.aux_heatmap_stride
+    assert batch["images"].shape == (n, s, s, 1) and batch["images"].dtype == np.uint8
+    shapes = {"chartok_coords": (n, cfg.decoder.max_len), "atom_indices": (n, k),
+              "edges": (n, k, k), "atom_grid": (n, g, g)}
+    assert {key: v.shape for key, v in batch["refs"].items()} == shapes
+    assert meta["leaves"] == TRAIN_LEAVES and meta["tols"] == TRAIN_TOLS
+    assert meta["total_steps"] == TRAIN_TOTAL_STEPS and meta["updates"] == 2
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    want = param_shapes(cfg, vocab)
+    for leaf, gr, af, name in zip(TRAIN_LEAVES, grads, after,
+                                  chip_smoke._leaf_names(TRAIN_LEAVES)):
+        assert gr.shape == af.shape == want[leaf] and gr.dtype == np.float32
+        assert name.replace(".", "/").replace("decoders/", "decoders_") == leaf
+    assert set(meta["losses"]) == {"loss", "chartok_coords", "edges", "heatmap", "acc_sym",
+                                   "acc_x", "acc_y", "acc_edge", "acc_bond", "acc_heat"}
+    assert set(meta["grad_norms"]) == {"encoder", "decoder"}
+
+
+@pytest.mark.slow
+def test_train_fixture_regenerates():
+    got = build_train()
+    committed = _load("train.npz")
+    assert json.loads(str(got.pop("meta"))) == committed.pop("meta")
+    for key, value in got.items():
+        np.testing.assert_allclose(value, committed[key], rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.slow
 def test_full_width_fixture_regenerates():
     got = build_full_width()
@@ -428,4 +579,7 @@ def test_full_width_fixture_regenerates():
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    write_fixtures(full_width="--demo-only" not in sys.argv)
+    if "--train-only" in sys.argv:
+        np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
+    else:
+        write_fixtures(full_width="--demo-only" not in sys.argv)

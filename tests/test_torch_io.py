@@ -191,7 +191,7 @@ def test_resize_within_one_grey_level(src, dst):
 def test_inference_transform_matches_jax():
     """CropWhite -> Resize -> ToGray, as MolNexTR.predict_images runs it."""
     jt = jtr.get_transforms(128, augment=False, rotate=False, normalize=False)
-    tt = ttr.get_transforms(128)
+    tt = ttr.get_transforms(128, augment=False, rotate=False, normalize=False)
     for seed in range(3):
         img = _image(10 + seed, 150 + 17 * seed, 210 - 23 * seed)
         want = jt(image=img)["image"]
