@@ -56,7 +56,9 @@ failure:
    ``train_loop`` for 2 epochs with a checkpoint written, read back by
    ``load_model`` and resumed for a third; ms per optimizer step at batch
    32 (bf16, remat, dropout), images/s, peak memory, the step's parts and
-   a profiler window; the host's augmented items per second;
+   a profiler window; the host's augmented 384 px items per second over
+   ``generate_corpus(seed=0)``'s drug-like SMILES, in one thread and in
+   the spawn pool, each after a warm-up;
 10. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
@@ -123,6 +125,9 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
                 "CCC", "CCCl", "CBr", "CCS", "CC=C", "C#N", "CCCO", "COC",
                 "CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C",
                 "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "OC(=O)c1ccccc1O")
+# the data pipeline's rate: drug-like SMILES from generate_corpus, timed
+# after a warm-up, in one thread and in a spawn pool of up to 8 workers
+DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
 DEVICE = "cuda"
 
 
@@ -1161,16 +1166,7 @@ def phase_train(torch, results, card):
     del state, big
     torch.cuda.empty_cache()
 
-    # the data pipeline on this host: augmented 384 px items, one thread
-    from molnextr_tpu_torch.data.dataset import TrainDataset
-
-    ds = TrainDataset(cfg, [Sample(s) for s in TRAIN_SMILES], toks)
-    t0 = time.perf_counter()
-    built = sum(ds[i] is not None for i in range(len(ds)))
-    data_s = time.perf_counter() - t0
-    out["data"] = {"items": built, "seconds": data_s, "items_per_s": built / data_s}
-    log(f"  data pipeline (render, augment, tokenize; one thread): {built} items in "
-        f"{data_s:.2f} s, {built / data_s:.1f} items/s")
+    out["data"] = data_pipeline_rate(cfg, toks)
 
     # the loop: 2 epochs, a checkpoint, read back, resumed for a third
     save = os.path.join(HERE, "output", "chip_smoke_train")
@@ -1202,6 +1198,49 @@ def phase_train(torch, results, card):
     torch.cuda.empty_cache()
     results["train"] = out
 
+
+
+def data_pipeline_rate(cfg, toks):
+    """Augmented 384 px items per second of ``TrainDataset`` (render,
+    augment, tokenize) over ``DATA_ITEMS`` drug-like SMILES of
+    ``generate_corpus(seed=0)``: in this thread after ``DATA_WARMUP_ITEMS``
+    items, and through ``DataLoader``'s spawn pool at batch 32, timing the
+    batches after the first (which carries the pool's start)."""
+    import numpy as np
+
+    from molnextr_tpu_torch.chem import num_atoms
+    from molnextr_tpu_torch.data.corpus import generate_corpus
+    from molnextr_tpu_torch.data.dataset import DataLoader, Sample, TrainDataset
+
+    smiles = generate_corpus(DATA_WARMUP_ITEMS + DATA_ITEMS + BATCH, seed=0)
+    atoms = [num_atoms(s) for s in smiles]
+    ds = TrainDataset(cfg, [Sample(s) for s in smiles], toks)
+    for i in range(DATA_WARMUP_ITEMS):
+        ds[i]
+    t0 = time.perf_counter()
+    built = sum(ds[i] is not None for i in range(DATA_WARMUP_ITEMS, DATA_WARMUP_ITEMS + DATA_ITEMS))
+    thread_s = time.perf_counter() - t0
+    workers = min(DATA_POOL_WORKERS, len(os.sched_getaffinity(0)))
+    pool_ds = TrainDataset(cfg, [Sample(s) for s in smiles[DATA_WARMUP_ITEMS:]], toks)
+    loader = DataLoader(pool_ds, batch_size=BATCH, shuffle=False, num_workers=workers)
+    pooled = 0
+    t0 = time.perf_counter()
+    for b, batch in enumerate(loader):
+        if b == 0:  # the pool's start and first batch
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        else:
+            pooled += len(batch["smiles"])
+    pool_s = time.perf_counter() - t0
+    data = {"corpus": "generate_corpus(seed=0)", "input_size": cfg.data.input_size,
+            "median_atoms": float(np.median(atoms)), "thread_items": built,
+            "thread_seconds": thread_s, "thread_items_per_s": built / thread_s,
+            "pool_workers": workers, "pool_first_batch_seconds": first_s,
+            "pool_items": pooled, "pool_seconds": pool_s, "pool_items_per_s": pooled / pool_s}
+    log("  data pipeline (render, augment, tokenize) " + json.dumps(data))
+    if not built or not pooled:
+        raise AssertionError("the data pipeline built no item")
+    return data
 
 def decode_ms(tm, fn):
     """Time ``fn(pos, layer)`` over every position 0..479 of each layer of

@@ -326,15 +326,19 @@ class CheckpointManager:
 
     def restore(self, state, tag: str = "best"):
         """Load snapshot ``tag`` into ``state`` (parameters, optimizer state,
-        step) -> (state, meta)."""
-        from molnextr_tpu_torch.weights import load_flax_params
+        step) -> (state, meta).  Every file is read and checked before
+        ``state`` changes, so a snapshot that fails leaves it as it was."""
+        from molnextr_tpu_torch.weights import check_flax_params, load_flax_params
 
         path = self._snapshot_dir(tag)
         _cfg, params = load_model(path)
         opt = torch.load(os.path.join(path, OPT_STATE), map_location="cpu", weights_only=True)
         with open(os.path.join(path, TRAIN_META)) as f:
             meta = json.load(f)
+        step = int(meta["step"])
+        check_flax_params(state.model, params)
+        state.optimizer.check_state_dict(opt)
         load_flax_params(state.model, params)
         state.optimizer.load_state_dict(opt)
-        state.step = int(meta["step"])
+        state.step = step
         return state, meta

@@ -110,10 +110,12 @@ class TwoGroupAdamW:
             gs, ps = grads[g], self.params[g]
             if not gs:
                 continue
+            # optax: where(norm < max_norm, g, (g / norm) * max_norm), on the
+            # device (dividing and multiplying by 1 are exact)
             norm = _global_norm(gs)
-            if norm.item() >= self.max_norm:  # optax: (g / norm) * max_norm
-                gs = torch._foreach_div(gs, norm)
-                torch._foreach_mul_(gs, self.max_norm)
+            clip = norm >= self.max_norm
+            gs = torch._foreach_div(gs, torch.where(clip, norm, 1.0))
+            torch._foreach_mul_(gs, torch.where(clip, self.max_norm, 1.0))
             lr = self.schedules[g](self.count)
             c1 = float(np.float32(1) - np.float32(B1) ** np.float32(t))
             c2 = float(np.float32(1) - np.float32(B2) ** np.float32(t))
@@ -142,8 +144,20 @@ class TwoGroupAdamW:
                     out[f"acc/{name}"] = self.acc[g][i]
         return out
 
+    def check_state_dict(self, state: Dict[str, object]) -> None:
+        """Raise unless ``state`` holds every key of this optimizer's own
+        ``state_dict()`` with the same shapes."""
+        own = self.state_dict()
+        missing = sorted(set(own) - set(state))
+        if missing:
+            raise KeyError(f"optimizer state lacks {missing[:8]}")
+        for k, v in own.items():
+            if isinstance(v, torch.Tensor) and tuple(state[k].shape) != tuple(v.shape):
+                raise ValueError(f"{k}: shape {tuple(state[k].shape)} != {tuple(v.shape)}")
+
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.check_state_dict(state)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         for g in GROUPS:

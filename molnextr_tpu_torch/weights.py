@@ -83,25 +83,31 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_flax_params(model: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
-    """Copy a flax parameter tree into ``model`` in place; every parameter
-    must be covered and every shape must match, except the training-only
-    ``heatmap_head``, which is copied when both sides have it (a model's
-    head that the tree lacks keeps its values)."""
+def check_flax_params(model: torch.nn.Module, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port state dict of a flax parameter tree, once every parameter of
+    ``model`` is covered and every shape matches (raises otherwise), except
+    the training-only ``heatmap_head``, which may be on one side only."""
     sd = flax_to_state_dict(params)
     own = dict(model.named_parameters())
     missing = sorted(n for n in set(own) - set(sd) if not n.startswith(OPTIONAL + "."))
     unexpected = sorted(n for n in set(sd) - set(own) if not n.startswith(OPTIONAL + "."))
     if missing or unexpected:
         raise KeyError(f"parameter mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
+    for name, p in own.items():
+        if name in sd and tuple(sd[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {sd[name].shape} != {tuple(p.shape)}")
+    return sd
+
+
+def load_flax_params(model: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
+    """Copy a flax parameter tree into ``model`` in place, after
+    :func:`check_flax_params` (a model's ``heatmap_head`` that the tree
+    lacks keeps its values)."""
+    sd = check_flax_params(model, params)
     with torch.no_grad():
-        for name, p in own.items():
-            if name not in sd:
-                continue
-            arr = sd[name]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        for name, p in model.named_parameters():
+            if name in sd:
+                p.copy_(torch.from_numpy(np.array(sd[name], dtype=np.float32)))
     return model
 
 

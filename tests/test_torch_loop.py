@@ -106,6 +106,27 @@ def test_resume_restores_step_and_optimizer(tmp_path):
             assert torch.equal(a, b)
 
 
+
+def test_restore_that_fails_leaves_the_state_as_it_was(tmp_path):
+    """A snapshot whose optimizer state does not fit (saved without
+    accumulation, restored with grad_accum_steps 2) raises before anything
+    is copied: the parameters, the optimizer and the step stay as they were,
+    so the loop's fallback starts from an untouched state."""
+    cfg = _cfg(tmp_path)
+    saved = _state(cfg, seed=0)
+    saved.step = 5
+    pckpt.CheckpointManager(str(tmp_path), "best").save(cfg, saved, epoch=0, score=0.5)
+    cfg.train.grad_accum_steps = 2
+    state = _state(cfg, seed=1)
+    before = {n: p.clone() for n, p in state.model.named_parameters()}
+    assert any(not torch.equal(before[n], p) for n, p in saved.model.named_parameters())
+    with pytest.raises(KeyError, match="acc/"):
+        pckpt.CheckpointManager(str(tmp_path), "best").restore(state, "best")
+    assert state.step == 0 and state.optimizer.count == 0
+    for n, p in state.model.named_parameters():
+        assert torch.equal(p, before[n]), n
+
+
 def test_snapshot_atomic_swap_keeps_old_on_partial(tmp_path):
     cfg = _cfg(tmp_path)
     state = _state(cfg)
