@@ -59,7 +59,27 @@ failure:
    a profiler window; the host's augmented 384 px items per second over
    ``generate_corpus(seed=0)``'s drug-like SMILES, in one thread and in
    the spawn pool, each after a warm-up;
-10. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+10. cli: the console entry points.  ``predict.main`` (the demo bundle,
+   bf16) on every PNG form of ``fixtures/demo_0.png`` (grey, grey+alpha,
+   RGB, RGBA at 8 and 16 bits, palette, Adam7), which must read to the
+   same pixels and give ``demo.npz``'s SMILES, with the launch counters
+   zeroed before and read after; once more as ``python3 -m
+   molnextr_tpu_torch.predict`` in a new process; ``evaluate_cli.main`` on
+   its output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
+   batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
+   ``MolNexTR`` reads back and predicts with;
+11. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
+   (ConvNeXt-B, depths 3/3/27/3, dims 128-1024, 384 px) in float32
+   against ``fixtures/convnext.npz``; bf16 serving with the int8 KV cache
+   at batch 32 through ``MolNexTR.predict_images`` (launch counters: K1 =
+   K2 = 0, K3-int8 = 6 x the decode steps taken); encode ms per batch;
+   three train steps through ``train.main --encoder convnext_base`` at
+   batch 32, ms per step and peak memory;
+12. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
+   ``suite_train_throughput`` at full width (batch 32, 8 workers), each
+   suite's dict on a line and gated on the JAX suites' keys; and which of
+   PIL, torchvision, pandas and cv2 import on the card's machine;
+13. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -68,7 +88,7 @@ failure:
    K3-int8's launches and time at 128 rows beside their bound.
 
 The build's ``nvcc -Xptxas -v`` report (registers, spills) is logged per
-kernel.
+kernel; each phase logs its seconds.
 
 The last three lines are the kernels line, the card line and the device
 line.  ``--phases`` runs a subset (for development); the contract run uses
@@ -87,7 +107,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "cli",
+          "convnext", "suites", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -128,6 +149,8 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
 # the data pipeline's rate: drug-like SMILES from generate_corpus, timed
 # after a warm-up, in one thread and in a spawn pool of up to 8 workers
 DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
+# phases cli and convnext: the train CLI's corpus (3 batches of 32) and valid set
+CLI_TRAIN_ITEMS, CLI_VALID_ITEMS = 96, 8
 DEVICE = "cuda"
 
 
@@ -412,23 +435,32 @@ def fixture_path(name):
 
 
 def phase_parity(torch):
+    from molnextr_tpu_torch.config import Config
+
+    log("phase parity: Config() float32, seeded_flax_params(seed=0), against the JAX fixture")
+    model_parity(torch, "full_width.npz", Config())
+
+
+def model_parity(torch, name, cfg, params=None):
+    """``cfg`` in float32 with ``seeded_flax_params`` (or ``params``, the
+    same tree made by the caller) against a JAX fixture (``full_width.npz``,
+    ``convnext.npz``): the memory bank of its two renders, then the greedy
+    steps' log-probs and tokens.  Returns the largest errors."""
     import numpy as np
 
-    from molnextr_tpu_torch.config import Config
     from molnextr_tpu_torch.data.transforms import device_normalize
     from molnextr_tpu_torch.decoding.greedy import greedy_decode
     from molnextr_tpu_torch.models.model import MolNexTRModel
     from molnextr_tpu_torch.tokenization import get_tokenizer
     from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
 
-    log("phase parity: Config() float32, seeded_flax_params(seed=0), against the JAX fixture")
-    ref = np.load(fixture_path("full_width.npz"))
+    ref = np.load(fixture_path(name))
     meta = json.loads(str(ref["meta"]))
-    cfg = Config()
     toks = get_tokenizer(cfg.data)
     vocab = {f: len(t) for f, t in toks.items()}
-    model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, meta["seed"]))
-    model = model.to(DEVICE).eval()
+    if params is None:
+        params = seeded_flax_params(cfg, vocab, meta["seed"])
+    model = load_flax_params(MolNexTRModel(cfg, vocab), params).to(DEVICE).eval()
     fmt = meta["format"]
     with torch.no_grad():
         images = device_normalize(torch.from_numpy(ref["images"]).to(DEVICE))
@@ -437,7 +469,7 @@ def phase_parity(torch):
         log(f"  memory bank {tuple(memory.shape)}: max_abs_err {mem_err:.3e} "
             f"(tol {meta['memory_tol']:.0e}, max |ref| {float(np.abs(ref['memory']).max()):.3f})")
         if not mem_err <= meta["memory_tol"]:
-            raise AssertionError("memory bank disagrees with the JAX fixture")
+            raise AssertionError(f"memory bank disagrees with the JAX fixture {name}")
         tc, cm = toks[fmt].constraint_tables()
         steps = []
 
@@ -455,22 +487,25 @@ def phase_parity(torch):
     tokens = seq[:, :len(steps)].cpu().numpy()
     logp = torch.stack(steps, dim=1).cpu().numpy()
     tol = meta["logp_tol"]
+    worst = 0.0
     for b in range(tokens.shape[0]):
         for s in range(ref["tokens"].shape[1]):
             e = float(np.abs(logp[b, s] - ref["logp"][b, s]).max())
+            worst = max(worst, e)
             gap = float(ref["gap"][b, s])
             log(f"  image {b} step {s}: token {tokens[b, s]} (JAX {ref['tokens'][b, s]}), "
                 f"log-prob max_abs_err {e:.3e} (tol {tol:.0e}), JAX top-2 gap {gap:.3e}")
             if not e <= tol:
-                raise AssertionError("log-probs disagree with the JAX fixture")
+                raise AssertionError(f"log-probs disagree with the JAX fixture {name}")
             if tokens[b, s] != ref["tokens"][b, s]:
                 if gap < 2 * tol:
                     log(f"  image {b}: the JAX top-2 gap is below the tolerance; "
                         "either token is right, comparison stops here")
                     break
-                raise AssertionError("greedy token disagrees with the JAX fixture")
+                raise AssertionError(f"greedy token disagrees with the JAX fixture {name}")
     del model
     torch.cuda.empty_cache()
+    return {"memory_max_abs_err": mem_err, "logp_max_abs_err": worst}
 
 
 def drive_api(torch, api, images, label, batch_size=16):
@@ -1242,6 +1277,313 @@ def data_pipeline_rate(cfg, toks):
         raise AssertionError("the data pipeline built no item")
     return data
 
+def count_launches(torch, run):
+    """``run()`` with the launch counters zeroed before and read after."""
+    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def run_cli(main, argv):
+    """A console entry point's ``main(argv)`` and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def write_csv(path, header, rows):
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+    return path
+
+
+def timed_train_main(torch, argv):
+    """``molnextr_tpu_torch.train.main(argv)`` with each train step timed by
+    CUDA events and the peak device memory read after."""
+    from molnextr_tpu_torch.train import loop
+    from molnextr_tpu_torch.train import main as train_main
+
+    inner, times = loop.train_step, []
+
+    def timed_step(*args, **kwargs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(*args, **kwargs)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        train_main(argv)
+    finally:
+        loop.train_step = inner
+    return {"wall_s": time.perf_counter() - t0, "step_ms": times,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def corpus_csvs(work, n_train, n_valid):
+    """Train and valid CSVs (a ``SMILES`` column) of ``generate_corpus(seed=0)``."""
+    from molnextr_tpu_torch.data.corpus import generate_corpus
+
+    smiles = generate_corpus(n_train + n_valid, seed=0)
+    return (write_csv(os.path.join(work, "train.csv"), ["SMILES"], [[s] for s in smiles[:n_train]]),
+            write_csv(os.path.join(work, "valid.csv"), ["SMILES"],
+                      [[s] for s in smiles[n_train:n_train + n_valid]]))
+
+
+def phase_cli(torch, results, card):
+    """The console entry points on the card: predict on every PNG form of
+    demo_0.png (in-process with the launch counters, and once more as a
+    subprocess), evaluate on its output, and train at full width, whose
+    bundle is read back and predicts."""
+    import shutil
+
+    import numpy as np
+
+    from molnextr_tpu_torch import evaluate_cli, predict
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+    from molnextr_tpu_torch.data.png import read_png
+
+    log("phase cli: molnextr-torch-predict / -evaluate / -train on the card")
+    work = os.path.join(HERE, "output", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fixtures = os.path.join(HERE, "molnextr_tpu_torch", "fixtures")
+    forms = sorted(f for f in os.listdir(fixtures) if f.startswith("demo_0") and f.endswith(".png"))
+    paths = [os.path.join(fixtures, f) for f in forms]
+    ref = read_png(fixture_path("demo_0.png"))
+    for form, path in zip(forms, paths):
+        if not np.array_equal(read_png(path), ref):
+            raise AssertionError(f"{form}: its pixels differ from demo_0.png")
+    log(f"  {len(forms)} PNG forms read to demo_0.png's pixels: {' '.join(forms)}")
+    meta = json.loads(str(np.load(fixture_path("demo.npz"))["meta"]))
+    want = canonicalize_smiles(meta["jax_bf16"]["smiles"][0])[0]
+    bundle = os.path.join(HERE, "examples", "demo_model")
+    out_json = os.path.join(work, "predict.json")
+    t0 = time.perf_counter()
+    _, counts = count_launches(torch, lambda: predict.main(
+        paths + ["--model_path", bundle, "--molfile", "--confidence", "--output", out_json,
+                 "--device", DEVICE]))
+    predict_s = time.perf_counter() - t0
+    with open(out_json) as f:
+        preds = json.load(f)
+    log(f"  predict.main: {len(preds)} images in {predict_s:.2f} s, launches {json.dumps(counts)}")
+    for p in preds:
+        ok = (canonicalize_smiles(p["predicted_smiles"])[0] == want and p["predicted_molfile"]
+              and 0.0 <= p["confidence"] <= 1.0)
+        if not ok:
+            raise AssertionError(f"predict CLI on {p['image']}: {p['predicted_smiles']!r}, "
+                                 f"demo.npz's {meta['jax_bf16']['smiles'][0]!r}")
+    for name in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+        if not counts[name]:
+            raise AssertionError(f"the predict CLI never launched {name}")
+    log(f"  every form: {preds[0]['predicted_smiles']!r} (demo.npz: "
+        f"{meta['jax_bf16']['smiles'][0]!r})")
+    sub_json = os.path.join(work, "predict_sub.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "molnextr_tpu_torch.predict", paths[0],
+                           "--model_path", bundle, "--molfile", "--output", sub_json,
+                           "--device", DEVICE],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m molnextr_tpu_torch.predict failed: {proc.stderr[-3000:]}")
+    with open(sub_json) as f:
+        sub = json.load(f)
+    log(f"  python3 -m molnextr_tpu_torch.predict: {sub[0]['predicted_smiles']!r} in "
+        f"{time.perf_counter() - t0:.2f} s (a new process)")
+    if canonicalize_smiles(sub[0]["predicted_smiles"])[0] != want:
+        raise AssertionError("the predict subprocess disagrees")
+    gold = write_csv(os.path.join(work, "gold.csv"), ["image_id", "SMILES"],
+                     [[i, meta["gold"][0]] for i in range(len(preds))])
+    pred = write_csv(os.path.join(work, "pred.csv"), ["image_id", "SMILES"],
+                     [[i, p["predicted_smiles"]] for i, p in enumerate(preds)])
+    text = run_cli(evaluate_cli.main, ["--gold_file", gold, "--pred_file", pred,
+                                       "--num_workers", "1"])
+    scores = json.loads(text[text.index("{"):])
+    log(f"  evaluate_cli.main: {json.dumps(scores)} (exact match = canon_smiles)")
+    if scores["canon_smiles"] != 1.0 or scores["graph"] != 1.0:
+        raise AssertionError("evaluate CLI: exact match below 1.0 on the demo forms")
+
+    train_csv, valid_csv = corpus_csvs(work, CLI_TRAIN_ITEMS, CLI_VALID_ITEMS)
+    save = os.path.join(work, "train")
+    run = timed_train_main(torch, [
+        "--train_file", train_csv, "--valid_file", valid_csv, "--save_path", save,
+        "--epochs", "1", "--steps_per_epoch", "3", "--batch_size", str(BATCH),
+        "--num_workers", "8", "--device", DEVICE])
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        epoch = json.loads(f.readline())
+    ckpts = sorted(d for d in os.listdir(save) if d.startswith("ckpt_"))
+    log(f"  train.main (Config() Swin-B 384, batch {BATCH}, 3 steps, 8 workers, eval on "
+        f"{CLI_VALID_ITEMS}): {run['wall_s']:.1f} s, steps ms "
+        f"{' '.join(f'{t:.1f}' for t in run['step_ms'])}, peak {run['peak_memory_gb']:.2f} GB, "
+        f"epoch {json.dumps(epoch)}, bundles {ckpts}")
+    if epoch["step"] != 3 or not np.isfinite(epoch["train_loss"]) or not ckpts:
+        raise AssertionError("train CLI: no 3 finite steps or no bundle written")
+    api = MolNexTR(model_path=os.path.join(save, ckpts[0]), device=DEVICE, num_workers=1)
+    out = api.predict_image_files([paths[0]])[0]
+    log(f"  the trained bundle {ckpts[0]} reloaded: predicts {out['predicted_smiles']!r}")
+    if not isinstance(out["predicted_smiles"], str):
+        raise AssertionError("the trained bundle did not predict")
+    del api
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    results["cli"] = {"predict_launches": counts, "predict_s": predict_s, "scores": scores,
+                      "train": run}
+
+
+def convnext_config():
+    """``Config()`` with the ConvNeXt-B encoder at the config's defaults."""
+    from molnextr_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.encoder.name = "convnext_base"
+    return cfg
+
+
+def phase_convnext(torch, results, card):
+    """ConvNeXt-B at full width and depth: float32 parity with the JAX
+    fixture, the bf16 serving path with the launch counters, encode ms, and
+    three train steps through the train CLI."""
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.data.transforms import device_normalize
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.weights import seeded_flax_params
+
+    log("phase convnext: Config() with encoder convnext_base (depths 3/3/27/3, dims "
+        "128-1024, 384 px), float32 against fixtures/convnext.npz")
+    cfg = convnext_config()
+    f32 = copy.deepcopy(cfg)
+    f32.train.bf16 = False
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    params = seeded_flax_params(cfg, vocab, 0)  # the fixture's seed, and MolNexTR's
+    out = {"parity": model_parity(torch, "convnext.npz", f32, params)}
+
+    api = MolNexTR(cfg=cfg, params=params, device=DEVICE, num_workers=1)  # bf16, int8 KV
+    renders = np.load(fixture_path("convnext.npz"))["images"]
+    rng = np.random.RandomState(2)
+    images = [np.repeat(renders[i % 2], 3, axis=2) for i in range(BATCH // 2)]
+    images += [rng.randint(0, 256, (300, 420, 3)).astype(np.uint8) for _ in range(BATCH // 2)]
+    model, steps = api.model, []
+    inner = model.decode_step
+
+    def counted_step(*args, **kwargs):
+        steps.append(1)
+        return inner(*args, **kwargs)
+
+    model.decode_step = counted_step
+    t0 = time.perf_counter()
+    preds, counts = count_launches(torch, lambda: api.predict_images(
+        images, return_atoms_bonds=True, return_confidence=True, batch_size=BATCH))
+    serve_s = time.perf_counter() - t0
+    del model.decode_step
+    log(f"  serving (bf16, int8 KV cache, batch {BATCH}): {len(preds)} images in "
+        f"{serve_s:.2f} s, {len(steps)} decode steps, launches {json.dumps(counts)}")
+    if counts["fused_window_attention"] or counts["fused_ln_mlp"]:
+        raise AssertionError("the ConvNeXt path launched a Swin kernel")
+    if counts["decode_attention_layered_q8"] != DEC_L * len(steps) or not steps:
+        raise AssertionError(f"K3-int8 launched {counts['decode_attention_layered_q8']} times, "
+                             f"not {DEC_L} x {len(steps)} steps")
+    if any(not isinstance(p["predicted_smiles"], str) for p in preds):
+        raise AssertionError("ConvNeXt serving: malformed result")
+
+    tm = Timer(torch)
+    batch = np.stack([renders[i % 2] for i in range(BATCH)])
+    with torch.no_grad():
+        x = device_normalize(torch.from_numpy(batch).to(DEVICE))
+        encode_ms = tm.ms(lambda: api.model.encode(x), reps=TIMED_ITERS * 5)
+    log(f"  encode, batch {BATCH} bf16: {encode_ms:.3f} ms ({card})")
+    del api, x
+    torch.cuda.empty_cache()
+
+    work = os.path.join(HERE, "output", "chip_smoke_convnext")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    train_csv, _ = corpus_csvs(work, CLI_TRAIN_ITEMS, 0)
+    run = timed_train_main(torch, [
+        "--train_file", train_csv, "--save_path", os.path.join(work, "train"),
+        "--encoder", "convnext_base", "--epochs", "1", "--steps_per_epoch", "3",
+        "--batch_size", str(BATCH), "--num_workers", "8", "--no_eval", "--device", DEVICE])
+    log(f"  train.main --encoder convnext_base, batch {BATCH} (bf16 autocast, dropout, drop-path "
+        f"0.1, no remat): steps ms {' '.join(f'{t:.1f}' for t in run['step_ms'])}, peak "
+        f"{run['peak_memory_gb']:.2f} GB, {run['wall_s']:.1f} s in all ({card})")
+    if len(run["step_ms"]) != 3:
+        raise AssertionError("the ConvNeXt train CLI did not take 3 steps")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update(serving_launches=counts, decode_steps=len(steps), serve_s=serve_s,
+               encode_ms=encode_ms, train=run)
+    results["convnext"] = out
+
+
+# the keys each bench suite returns, as the JAX package's suites return them
+SCORE_KEYS = {"canon_smiles", "graph", "chiral", "chiral_ratio"}
+SUITE_KEYS = {
+    "single_image_greedy": {"suite", "first_call_s", "steady_s", "smiles"},
+    "batch_greedy": {"suite", "n", "img_per_s"} | SCORE_KEYS,
+    "batch_beam": {"suite", "n", "img_per_s"} | SCORE_KEYS,
+    "dataset_eval": {"suite", "dataset", "n"} | SCORE_KEYS,
+    "perturbed": {"suite", "n"} | SCORE_KEYS,
+    "train_throughput": {"suite", "global_batch", "img_per_s", "step_s"},
+}
+
+
+def phase_suites(torch, results, card):
+    """The bench suites on the card: ``run_all`` on the demo bundle, the
+    train suite at full width, and which image libraries this machine has."""
+    from molnextr_tpu_torch import benchmarks
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.config import Config
+
+    log("phase suites: benchmarks.run_all on examples/demo_model (n 16), "
+        "suite_train_throughput(Config(), batch 32, 8 workers)")
+    cfg, params = load_model(os.path.join(HERE, "examples", "demo_model"))
+    t0 = time.perf_counter()
+    report, counts = count_launches(torch, lambda: benchmarks.run_all(
+        cfg, params, n=16, device=DEVICE))
+    log(f"  run_all in {time.perf_counter() - t0:.1f} s, launches {json.dumps(counts)} ({card})")
+    tcfg = Config()
+    tcfg.train.batch_size = BATCH
+    report.append(benchmarks.suite_train_throughput(tcfg, num_workers=8, device=DEVICE))
+    for suite in report:
+        log("  suite " + json.dumps(suite))
+        want = SUITE_KEYS.get(suite["suite"])
+        if want is None or set(suite) != want:
+            raise AssertionError(f"suite {suite['suite']}: keys {sorted(suite)}, not the JAX "
+                                 "package's")
+    if len(report) != len(SUITE_KEYS) + 1:
+        raise AssertionError(f"run_all returned {len(report) - 1} suites, not {len(SUITE_KEYS)}")
+    present = {}  # module -> its version, or False where it does not import
+    for name in ("PIL", "torchvision", "pandas", "cv2"):
+        probe = subprocess.run([sys.executable, "-c", f"import {name}; print({name}.__version__)"],
+                               capture_output=True, text=True, timeout=120)
+        present[name] = probe.returncode == 0 and probe.stdout.strip()
+    log(f"  image libraries importable on this machine (version or false): "
+        f"{json.dumps(present)}")
+    results["suites"] = {"report": report, "launches": counts, "imports": present}
+
+
 def decode_ms(tm, fn):
     """Time ``fn(pos, layer)`` over every position 0..479 of each layer of
     one decode, from one CUDA graph per position so host launch overhead
@@ -1548,24 +1890,25 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 log(f"  nvcc {name}: {line.strip()}")
     results = {}
-    if "kernels" in phases:
-        phase_kernels(torch, results)
-    if "parity" in phases:
-        phase_parity(torch)
-    if "paths" in phases:
-        phase_paths(torch, results)
-    if "ops" in phases:
-        phase_ops(torch, results)
-    if "demo" in phases:
-        phase_demo(torch)
-    if "beam" in phases:
-        phase_beam(torch)
-    if "rerank" in phases:
-        phase_rerank(torch, results, card)
-    if "train" in phases:
-        phase_train(torch, results, card)
-    if "timing" in phases:
-        phase_timing(torch, results, card)
+    runs = {
+        "kernels": lambda: phase_kernels(torch, results),
+        "parity": lambda: phase_parity(torch),
+        "paths": lambda: phase_paths(torch, results),
+        "ops": lambda: phase_ops(torch, results),
+        "demo": lambda: phase_demo(torch),
+        "beam": lambda: phase_beam(torch),
+        "rerank": lambda: phase_rerank(torch, results, card),
+        "train": lambda: phase_train(torch, results, card),
+        "cli": lambda: phase_cli(torch, results, card),
+        "convnext": lambda: phase_convnext(torch, results, card),
+        "suites": lambda: phase_suites(torch, results, card),
+        "timing": lambda: phase_timing(torch, results, card),
+    }
+    for name in PHASES:
+        if name in phases:
+            t1 = time.perf_counter()
+            runs[name]()
+            log(f"phase {name} passed in {time.perf_counter() - t1:.1f} s")
     log(f"all phases ({','.join(phases)}) passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results))
     print(card)

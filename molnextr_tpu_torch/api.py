@@ -175,7 +175,7 @@ class MolNexTR:
         )[0]
 
     def predict_image_files(self, image_files: List[str], return_atoms_bonds=False,
-                            return_confidence=False):
+                            return_confidence=False, batch_size: int = 16):
         from molnextr_tpu_torch.data.png import read_png
 
         for path in image_files:
@@ -184,7 +184,7 @@ class MolNexTR:
         return self.predict_images(
             [read_png(path) for path in image_files],
             return_atoms_bonds=return_atoms_bonds,
-            return_confidence=return_confidence,
+            return_confidence=return_confidence, batch_size=batch_size,
         )
 
     def predict_final_results(self, image_file: str, return_atoms_bonds=False,

@@ -175,13 +175,17 @@ def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
         img[y, max(x1, 0) : min(x2, w - 1) + 1] = color[: img.shape[2]]
 
 
-def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> None:
-    """OpenCV's ``FillConvexPoly`` with ``LINE_AA`` on 16.16 fixed-point
-    points: anti-aliased edges (``LineAA``), then a solid interior."""
+def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color,
+                     aa: bool = True) -> None:
+    """OpenCV's ``FillConvexPoly`` on 16.16 fixed-point points: with
+    ``LINE_AA`` (``aa``) anti-aliased edges (``LineAA``), else ``LINE_8``
+    edges (``Line2``), then a solid interior, whose rows ``LINE_8`` rounds
+    to the nearest pixel at both ends."""
     h, w = img.shape[:2]
     v = [(int(x), int(y)) for x, y in pts]
     npts = len(v)
     delta = XY_ONE >> 1
+    delta1, delta2 = (XY_ONE - 1, 0) if aa else (delta, delta)
     p0 = v[-1]
     xmin = xmax = v[0][0]
     ymin = ymax = v[0][1]
@@ -191,7 +195,7 @@ def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> 
         if y < ymin:
             ymin, imin = y, idx
         ymax, xmax, xmin = max(ymax, y), max(xmax, x), min(xmin, x)
-        line_aa(img, p0, p, color)
+        (line_aa if aa else _line2)(img, p0, p, color)
         p0 = p
     xmin, xmax = (xmin + delta) >> XY_SHIFT, (xmax + delta) >> XY_SHIFT
     ymin, ymax = (ymin + delta) >> XY_SHIFT, (ymax + delta) >> XY_SHIFT
@@ -203,7 +207,7 @@ def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> 
     edges = npts
     y = ymin
     while True:
-        if y < ymax or y == ymin:
+        if not aa or y < ymax or y == ymin:
             for e in edge:
                 if y < e["ye"]:
                     continue
@@ -232,7 +236,8 @@ def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> 
             break
         if y >= 0:
             left, right = (edge[1], edge[0]) if edge[0]["x"] > edge[1]["x"] else (edge[0], edge[1])
-            _hline(img, y, (left["x"] + XY_ONE - 1) >> XY_SHIFT, right["x"] >> XY_SHIFT, color)
+            _hline(img, y, (left["x"] + delta1) >> XY_SHIFT, (right["x"] + delta2) >> XY_SHIFT,
+                   color)
         edge[0]["x"] += edge[0]["dx"]
         edge[1]["x"] += edge[1]["dx"]
         y += 1
@@ -358,6 +363,113 @@ def _line8(img: np.ndarray, pt1, pt2, color) -> None:
             else:
                 x += sx
     img[ys, xs] = np.asarray(color)[: img.shape[2]]
+
+
+def _line2(img: np.ndarray, p1, p2, color) -> None:
+    """OpenCV's ``Line2``: an 8-connected line between 16.16 fixed-point
+    points, one pixel per step of the major axis plus the rounded end."""
+    h, w = img.shape[:2]
+    clipped = _clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    dx, dy = x2 - x1, y2 - y1
+    major_x = abs(dx) > abs(dy)
+    if major_x:
+        if dx < 0:
+            x1, x2, y1, y2, dy = x2, x1, y2, y1, -dy
+        x_step, y_step = XY_ONE, _cdiv(dy << XY_SHIFT, abs(dx) | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            x1, x2, y1, y2, dx = x2, x1, y2, y1, -dx
+        x_step, y_step = _cdiv(dx << XY_SHIFT, abs(dy) | 1), XY_ONE
+        ecount = (y2 - y1) >> XY_SHIFT
+    half = XY_ONE >> 1
+    k = np.arange(max(ecount + 1, 0), dtype=np.int64)
+    if major_x:
+        xs, ys = ((x1 + half) >> XY_SHIFT) + k, (y1 + half + k * y_step) >> XY_SHIFT
+    else:
+        xs, ys = (x1 + half + k * x_step) >> XY_SHIFT, ((y1 + half) >> XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> XY_SHIFT)
+    m = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[m], xs[m]] = np.asarray(color)[: img.shape[2]]
+
+
+def _fill_circle(img: np.ndarray, center, radius: int, color) -> None:
+    """OpenCV's filled ``Circle`` (the cap of a ``LINE_8`` thick line): the
+    midpoint walk, a row of pixels per octant pair."""
+    cx, cy = center
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    h = img.shape[0]
+    while dx >= dy:
+        for y, half in ((cy - dy, dx), (cy + dy, dx), (cy - dx, dy), (cy + dx, dy)):
+            if 0 <= y < h:
+                _hline(img, y, cx - half, cx + half, color)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def _thick_line8(img: np.ndarray, p0, p1, color, thickness: int, caps: Tuple[bool, bool]):
+    """``ThickLine`` with ``LINE_8`` between 16.16 points: a quadrilateral
+    through :func:`fill_convex_poly` and a filled circle at each end that
+    ``caps`` asks for."""
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    half = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half + (thickness & 1) * XY_ONE * 0.5) / np.sqrt(r)
+        ddx, ddy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        quad = [(p0[0] + ddx, p0[1] + ddy), (p0[0] - ddx, p0[1] - ddy),
+                (p1[0] - ddx, p1[1] - ddy), (p1[0] + ddx, p1[1] + ddy)]
+        fill_convex_poly(img, quad, color, aa=False)
+    radius = (half + (XY_ONE >> 1)) >> XY_SHIFT
+    for p, cap in zip((p0, p1), caps):
+        if cap:
+            _fill_circle(img, ((p[0] + (XY_ONE >> 1)) >> XY_SHIFT,
+                               (p[1] + (XY_ONE >> 1)) >> XY_SHIFT), radius, color)
+
+
+def line8(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> None:
+    """``cv2.line(img, pt1, pt2, color, thickness)`` (``LINE_8``) on integer
+    points: at thickness 1 OpenCV's ``LineIterator`` walk, clipped to the
+    image; thicker, the line clipped to the image grown by ``thickness``,
+    then :func:`_thick_line8` with both caps."""
+    if thickness <= 1:
+        _line8(img, (int(pt1[0]), int(pt1[1])), (int(pt2[0]), int(pt2[1])), color)
+        return
+    h, w = img.shape[:2]
+    m = thickness
+    clipped = _clip_line(w + 2 * m, h + 2 * m, (int(pt1[0]) + m, int(pt1[1]) + m),
+                         (int(pt2[0]) + m, int(pt2[1]) + m))
+    if clipped is None:
+        return
+    (x0, y0), (x1, y1) = clipped
+    _thick_line8(img, ((x0 - m) << XY_SHIFT, (y0 - m) << XY_SHIFT),
+                 ((x1 - m) << XY_SHIFT, (y1 - m) << XY_SHIFT), color, thickness, (True, True))
+
+
+def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> None:
+    """``cv2.rectangle(img, pt1, pt2, color, thickness)`` (``LINE_8``,
+    outline): the closed polyline through the four corners, each side
+    capped at its end only, as OpenCV's ``PolyLine`` draws it."""
+    (xa, ya), (xb, yb) = (int(pt1[0]), int(pt1[1])), (int(pt2[0]), int(pt2[1]))
+    corners = [(xa, ya), (xb, ya), (xb, yb), (xa, yb)]
+    p0 = corners[-1]
+    for p in corners:
+        if thickness <= 1:
+            _line8(img, p0, p, color)
+        else:
+            _thick_line8(img, (p0[0] << XY_SHIFT, p0[1] << XY_SHIFT),
+                         (p[0] << XY_SHIFT, p[1] << XY_SHIFT), color, thickness, (False, True))
+        p0 = p
 
 
 def fill_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> None:

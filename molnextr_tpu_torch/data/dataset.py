@@ -59,7 +59,7 @@ def _normalize_keypoints(kps: np.ndarray, h: int, w: int) -> np.ndarray:
 def read_image(path: str) -> np.ndarray:
     """RGB uint8 of an image file: a missing file is a white 256 x 256
     placeholder (as ``cv2.imread`` returning None is in the JAX package);
-    a file that is not an 8-bit PNG raises ``ValueError``."""
+    a file that is not a PNG raises ``ValueError``."""
     if not os.path.exists(path):
         return np.full((256, 256, 3), 255, np.uint8)
     return read_png(path)

@@ -1,27 +1,62 @@
-"""A minimal PNG reader and writer (zlib + numpy), so the port reads and
-writes image files without OpenCV.
+"""A PNG reader and writer (zlib + numpy), so the port reads and writes
+image files without OpenCV.
 
-Supports 8-bit, non-interlaced grey (0), RGB (2), grey+alpha (4) and RGBA
-(6) images.  Returns RGB uint8 ``(H, W, 3)`` as ``cv2.imread`` followed by
-``cv2.cvtColor(BGR2RGB)`` would: grey is replicated and alpha is dropped.
-Every other format (palette, 16-bit, interlaced, non-PNG files) raises.
+:func:`read_png` reads every form the PNG standard allows: grey (colour
+type 0) at 1, 2, 4, 8 and 16 bits, RGB (2) at 8 and 16, palette (3) at 1,
+2, 4 and 8, grey+alpha (4) and RGBA (6) at 8 and 16, each with or without
+Adam7 interlace, any of the five row filters.  It returns RGB uint8
+``(H, W, 3)``, exactly what ``cv2.cvtColor(cv2.imread(path),
+cv2.COLOR_BGR2RGB)`` returns, because it applies libpng's transforms in the
+form OpenCV asks for them (``IMREAD_COLOR``):
+
+* grey below 8 bits is expanded as ``png_set_expand_gray_1_2_4_to_8``
+  does: the sample times 255, 85 or 17 (1 bit reads 0 and 255);
+* 16-bit samples keep their high byte (``png_set_strip_16``: ``0x00ff``
+  reads 0, ``0xff80`` reads 255), without rounding;
+* palette indices go through ``PLTE`` (``png_set_palette_to_rgb``); an
+  index past its entries reads black;
+* alpha and ``tRNS`` are dropped (``png_set_strip_alpha``): the colour
+  samples are returned as stored, never composited;
+* grey is replicated to three channels (``png_set_gray_to_rgb``).
+
+Another file raises ``ValueError`` naming the format its first bytes show
+(JPEG, TIFF, BMP, GIF, WebP); decoding JPEG and TIFF is listed in ROADMAP
+queue 1.  :func:`write_png` writes 8-bit grey or RGB.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import Tuple
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: first row, first column, row step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
+# magic bytes of the formats a user may hand the reader instead
+_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+          (b"BM", "BMP"), (b"GIF8", "GIF"))
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+def _other_format(data: bytes) -> str:
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    for magic, name in _MAGIC:
+        if data.startswith(magic):
+            return name
+    return "unknown format"
+
+
+def _unfilter(raw: bytes, pos: int, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters of ``height`` rows of ``stride`` bytes that start
+    at ``raw[pos]`` (each row led by its filter-type byte)."""
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.int64)
-    pos = 0
     for y in range(height):
         ftype = raw[pos]
         line = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int64)
@@ -35,9 +70,8 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
             for c in range(bpp):
                 cur[c::bpp] = np.cumsum(line[c::bpp]) & 0xFF
         elif ftype in (3, 4):  # Average, Paeth: sequential along the row
-            cur = line.copy()
             up = prior.tolist()
-            vals = cur.tolist()
+            vals = line.tolist()
             for x in range(stride):
                 a = vals[x - bpp] if x >= bpp else 0
                 b = up[x]
@@ -57,35 +91,81 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is supported)")
+def _samples(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> (h, width, ch) samples: packed sub-byte samples
+    unpacked (most significant bits first), 16-bit ones big-endian."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(h, width, ch).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(h, width, ch)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :width].reshape(h, width, 1)
+
+
+def _chunks(data: bytes, path: str) -> Tuple[tuple, bytes, bytes]:
+    """(IHDR fields, PLTE body, joined IDAT bodies)."""
     pos = len(_SIGNATURE)
-    header = None
-    idat = []
+    header, plte, idat = None, b"", []
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = body
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
-    width, height, depth, color, _comp, _filt, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
+    return header, plte, b"".join(idat)
+
+
+def read_png(path: str) -> np.ndarray:
+    """RGB uint8 (H, W, 3) of a PNG file, as OpenCV reads it (module doc)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
         raise ValueError(
-            f"{path}: unsupported PNG (bit depth {depth}, color type {color}, "
-            f"interlace {interlace}); 8-bit non-interlaced grey/RGB/RGBA only"
-        )
+            f"{path}: not a PNG file ({_other_format(data)}); the port reads PNG only "
+            "(JPEG and TIFF decoding: ROADMAP queue 1)")
+    (width, height, depth, color, _comp, _filt, interlace), plte, idat = _chunks(data, path)
+    if depth not in _DEPTHS.get(color, ()) or interlace not in (0, 1):
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace})")
+    if color == 3 and not plte:
+        raise ValueError(f"{path}: palette PNG without PLTE")
     ch = _CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat))
-    img = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+    bpp = max(1, ch * depth // 8)
+    raw = zlib.decompress(idat)
+    if interlace == 0:
+        stride = (width * ch * depth + 7) // 8
+        img = _samples(_unfilter(raw, 0, height, stride, bpp), width, ch, depth)
+    else:
+        img = np.zeros((height, width, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for y0, x0, dy, dx in _ADAM7:
+            ph, pw = -(-(height - y0) // dy), -(-(width - x0) // dx)
+            if ph <= 0 or pw <= 0:  # an empty pass has no rows, not even filter bytes
+                continue
+            stride = (pw * ch * depth + 7) // 8
+            img[y0::dy, x0::dx] = _samples(_unfilter(raw, pos, ph, stride, bpp), pw, ch, depth)
+            pos += ph * (stride + 1)
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+    if color == 3:
+        # libpng's palette has 256 entries, zero past PLTE's: an index beyond
+        # them reads black
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[: min(len(plte) // 3, 256) * 3]
+        pal[: len(entries) // 3] = entries.reshape(-1, 3)
+        return pal[img[..., 0]]
+    if color == 0 and depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if ch in (1, 2):
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])

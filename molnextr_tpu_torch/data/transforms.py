@@ -4,31 +4,42 @@ Port of ``molnextr_tpu/data/transforms.py``: ``Compose`` over transforms that
 map ``(image HxWx3 uint8, keypoints Nx2 float32)`` to the same pair, and
 ``get_transforms`` with the default augmenting set (SafeRotate, CropWhite,
 PadToSquare, CropAndPad, PadWhite, Downscale, Blur, GaussNoise,
-SaltAndPepperNoise, then Resize, ToGray and Normalize).  Every transform
+SaltAndPepperNoise, then Resize, ToGray and Normalize), the clutter family
+of ``clutter=True`` and ``get_perturbation_transforms`` (AddLineNoise,
+AddEdgeElementSymbolNoise, AddBondNoise, AddIncompleteStructuralNoise,
+DrawBorder), and ResizePad, ConditionalPadToSquare and
+NormalizedGridDistortion, which no composition uses.  Every transform
 draws from the ``random.Random`` and ``np.random.RandomState`` instances it
 is handed, in the order the JAX transform draws from the global ``random``
 and ``np.random``: each transform's ``p`` gate draws one number, even at
-``p = 1``.  The clutter family (``clutter=True``) and
-``NormalizedGridDistortion`` are not ported.
+``p = 1``.
 
-Each pixel operation reproduces the cv2 call the JAX package makes:
+Each pixel operation reproduces the cv2 call the JAX package makes, as the
+installed OpenCV 5 computes it:
 
 * CropWhite trims rows/columns that are entirely white and pads a constant
   white border (``cv2.copyMakeBorder(BORDER_CONSTANT)``);
-* Resize is cv2's ``INTER_LINEAR`` for uint8: half-pixel centres, edge
-  clamping, 11-bit fixed-point coefficients, and the vertical pass's
-  rounding of cv2's vectorized path (cv2 finishes a row's ragged tail with
-  its scalar path, which rounds once; there the two differ by at most one
-  grey level);
+* Resize is cv2's ``INTER_LINEAR`` for uint8: half-pixel centres, 11-bit
+  fixed-point coefficients, the vertical pass's rounding of cv2's
+  vectorized path; a horizontal tap past an edge moves onto the edge pixel,
+  a vertical one keeps its weight on the clipped row (exact);
 * ToGray uses cv2's fixed-point weights ``(9798 R + 19235 G + 3735 B +
   2**14) >> 15`` (the 15-bit form of 0.299/0.587/0.114 that ``cvtColor``
   computes for uint8) and replicates the grey channel;
 * the pads, crops, noise, the box filter (``cv2.blur``: integer window sums
   over a ``BORDER_REFLECT_101`` border) and ``INTER_AREA`` (cv2's float32
-  cell weights, summed in its order) are exact; ``warpAffine`` (bilinear,
-  constant border) and ``INTER_CUBIC`` follow OpenCV 5's float32
-  arithmetic and may differ from it by one grey level at a few pixels
-  (``tests/test_torch_data.py`` states the measured bound).
+  cell weights, summed in its order) are exact;
+* ``cv2.remap`` (NormalizedGridDistortion; bilinear, constant border) is
+  float32 in OpenCV 5, not the fixed-point tables of OpenCV 4: the
+  coordinates' fractions weight two horizontal lerps and a vertical one,
+  each a fused multiply-add, rounded to nearest; taps off the image read
+  the border value (exact);
+* ``warpAffine`` (the same bilinear step on an inverse map computed in
+  float32) and ``INTER_CUBIC`` may differ from OpenCV 5 by one grey level
+  at a few pixels (``tests/test_torch_data.py`` states the measured bound);
+* the clutter draws ``cv2.line`` (``LINE_8``, thickness 1-2),
+  ``cv2.rectangle`` and ``cv2.putText`` (``LINE_AA``) through
+  ``chem/raster.py``, pixel for pixel.
 
 :func:`device_normalize` is the ImageNet normalization as a torch op on the
 device, for uint8 batches of one or three channels.
@@ -42,6 +53,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from molnextr_tpu_torch.chem import raster
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -69,19 +82,23 @@ def crop_white(image: np.ndarray, pad: int = 50, value=(255, 255, 255)) -> np.nd
     return out
 
 
-def _linear_taps(src: int, dst: int):
-    """Source indices and fixed-point weights of cv2's INTER_LINEAR."""
+def _linear_taps(src: int, dst: int, clamp: bool = True):
+    """Source indices and fixed-point weights of cv2's INTER_LINEAR.  The
+    horizontal pass (``clamp``) moves a tap that falls off either edge onto
+    the edge pixel with weight 0; the vertical pass keeps its weights and
+    clips the two source rows, which may then be one row twice."""
     scale = src / dst
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s.astype(np.float32)).astype(np.float32)
-    low = s < 0
-    f[low], s[low] = 0.0, 0
-    high = s >= src - 1
-    f[high], s[high] = 0.0, src - 1
+    if clamp:
+        low = s < 0
+        f[low], s[low] = 0.0, 0
+        high = s >= src - 1
+        f[high], s[high] = 0.0, src - 1
     w1 = np.round(f * _COEF_SCALE).astype(np.int64)
     w0 = np.round((np.float32(1.0) - f) * _COEF_SCALE).astype(np.int64)
-    return s, np.minimum(s + 1, src - 1), w0, w1
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
 
 
 def resize_linear(image: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -89,7 +106,7 @@ def resize_linear(image: np.ndarray, height: int, width: int) -> np.ndarray:
     h, w = image.shape[:2]
     img = image.astype(np.int64)
     x0, x1, a0, a1 = _linear_taps(w, width)
-    y0, y1, b0, b1 = _linear_taps(h, height)
+    y0, y1, b0, b1 = _linear_taps(h, height, clamp=False)
     rows = img[:, x0] * a0[None, :, None] + img[:, x1] * a1[None, :, None]
     # the vertical pass rounds as cv2's vectorized uint8 path does: each
     # product is truncated before the final rounding shift
@@ -127,21 +144,36 @@ def rotation_matrix(center: Tuple[float, float], angle: float, scale: float = 1.
 
 def warp_affine(image: np.ndarray, m: np.ndarray, dsize: Tuple[int, int], value) -> np.ndarray:
     """``cv2.warpAffine(image, m, dsize, INTER_LINEAR, BORDER_CONSTANT, value)``
-    as OpenCV 5 computes it: the inverse map in float32, bilinear
-    interpolation in float32 (two horizontal lerps, then a vertical one),
-    rounded to nearest; taps outside the image read ``value``."""
+    as OpenCV 5 computes it: the inverse map in float32 (``x`` term fused
+    onto the row's ``y`` term), then its bilinear step (:func:`remap_linear`)."""
     width, height = dsize
-    h, w, c = image.shape
     d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
     d = 1.0 / d if d != 0 else 0.0
     inv = np.array([[m[1, 1] * d, -m[0, 1] * d, 0.0], [-m[1, 0] * d, m[0, 0] * d, 0.0]])
     inv[0, 2] = -inv[0, 0] * m[0, 2] - inv[0, 1] * m[1, 2]
     inv[1, 2] = -inv[1, 0] * m[0, 2] - inv[1, 1] * m[1, 2]
     inv = inv.astype(np.float32)
-    xs = np.arange(width, dtype=np.float32)[None, :]
+    xs = np.broadcast_to(np.arange(width, dtype=np.float32)[None, :], (height, width))
     ys = np.arange(height, dtype=np.float32)[:, None]
-    sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
-    sy = inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])
+    sx = _fma(inv[0, 0], xs, inv[0, 1] * ys + inv[0, 2])
+    sy = _fma(inv[1, 0], xs, inv[1, 1] * ys + inv[1, 2])
+    return remap_linear(image, sx, sy, value)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two float32 values is exact in float64."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(
+        np.float32)
+
+
+def remap_linear(image: np.ndarray, sx: np.ndarray, sy: np.ndarray, value) -> np.ndarray:
+    """``cv2.remap(image, sx, sy, INTER_LINEAR, BORDER_CONSTANT, value)`` for
+    float32 maps, as OpenCV 5 computes it: two horizontal lerps by the
+    coordinates' fractions, then a vertical one, each a float32 fused
+    multiply-add, rounded to nearest; taps outside the image read ``value``."""
+    sx, sy = sx.astype(np.float32), sy.astype(np.float32)
+    h, w, c = image.shape
     ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
     alpha = (sx - ix).astype(np.float32)[..., None]
     beta = (sy - iy).astype(np.float32)[..., None]
@@ -154,9 +186,9 @@ def warp_affine(image: np.ndarray, m: np.ndarray, dsize: Tuple[int, int], value)
         return np.where(inside[..., None], src[yy.clip(0, h - 1), xx.clip(0, w - 1)], val)
 
     p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
-    v0 = p00 + alpha * (p01 - p00)
-    v1 = p10 + alpha * (p11 - p10)
-    return np.clip(np.rint(v0 + beta * (v1 - v0)), 0, 255).astype(np.uint8)
+    v0 = _fma(alpha, p01 - p00, p00)
+    v1 = _fma(alpha, p11 - p10, p10)
+    return np.clip(np.rint(_fma(beta, v1 - v0, v0)), 0, 255).astype(np.uint8)
 
 
 # -- INTER_AREA downscale, INTER_CUBIC upscale ---------------------------------
@@ -396,6 +428,56 @@ class PadToSquare(Transform):
         return image, keypoints
 
 
+class ResizePad(Transform):
+    """Clamp each side to (height, width) with INTER_LINEAR (no upscale,
+    each axis on its own), then centre-pad with white to exactly that size."""
+
+    def __init__(self, height: int, width: int, value=(255, 255, 255), p: float = 1.0):
+        super().__init__(p)
+        self.height = height
+        self.width = width
+        self.value = value
+
+    def apply(self, image, keypoints, rng, np_rng):
+        h, w = image.shape[:2]
+        nh, nw = min(h, self.height), min(w, self.width)
+        if (nh, nw) != (h, w):
+            image = resize_linear(image, nh, nw)
+            if len(keypoints):
+                keypoints = keypoints * np.asarray([nw / w, nh / h], np.float32)
+        t, l = (self.height - nh) // 2, (self.width - nw) // 2
+        image = pad_constant(image, t, self.height - nh - t, l, self.width - nw - l, self.value)
+        if len(keypoints):
+            keypoints = keypoints + np.asarray([l, t], np.float32)
+        return image, keypoints
+
+
+class ConditionalPadToSquare(Transform):
+    """Centre-pad the short side to a square only when the aspect ratio is
+    at least ``ratio_threshold``."""
+
+    def __init__(self, value=(255, 255, 255), ratio_threshold: float = 1.5, p: float = 1.0):
+        super().__init__(p)
+        self.value = value
+        self.ratio_threshold = ratio_threshold
+
+    def apply(self, image, keypoints, rng, np_rng):
+        h, w = image.shape[:2]
+        if max(h, w) / max(min(h, w), 1) < self.ratio_threshold:
+            return image, keypoints
+        diff = abs(h - w)
+        p1, p2 = diff // 2, diff - diff // 2
+        if h < w:
+            image = pad_constant(image, p1, p2, 0, 0, self.value)
+            shift = [0, p1]
+        else:
+            image = pad_constant(image, 0, 0, p1, p2, self.value)
+            shift = [p1, 0]
+        if len(keypoints):
+            keypoints = keypoints + np.asarray(shift, np.float32)
+        return image, keypoints
+
+
 class CropAndPad(Transform):
     """Crop each side by a fraction drawn from ``percent`` (negative = crop)."""
 
@@ -486,6 +568,160 @@ class SaltAndPepperNoise(Transform):
         return image, keypoints
 
 
+class NormalizedGridDistortion(Transform):
+    """Grid distortion whose ``num_steps + 1`` step sizes per axis, drawn
+    from 1 +- ``distort_limit``, are scaled to mean 1; the image is
+    resampled with ``remap_linear`` and a white border, keypoints are left
+    as they are (as the JAX transform leaves them)."""
+
+    def __init__(self, num_steps: int = 10, distort_limit: float = 0.3, p: float = 0.5):
+        super().__init__(p)
+        self.num_steps = num_steps
+        self.distort_limit = distort_limit
+
+    def apply(self, image, keypoints, rng, np_rng):
+        h, w = image.shape[:2]
+        ns, lim = self.num_steps, self.distort_limit
+        xsteps = np.array([1 + rng.uniform(-lim, lim) for _ in range(ns + 1)])
+        ysteps = np.array([1 + rng.uniform(-lim, lim) for _ in range(ns + 1)])
+        xsteps = xsteps / xsteps.mean()
+        ysteps = ysteps / ysteps.mean()
+
+        def axis_map(size, steps):
+            span = size // ns
+            pos = [0.0]
+            for i in range(ns):
+                pos.append(pos[-1] + span * steps[i])
+            pos = np.asarray(pos) * (size - 1) / max(pos[-1], 1e-6)
+            xs = np.zeros(size, np.float32)
+            for i in range(ns):
+                lo, hi = i * span, min((i + 1) * span, size)
+                if hi > lo:
+                    xs[lo:hi] = np.linspace(pos[i], pos[i + 1], hi - lo)
+            if ns * span < size:
+                xs[ns * span:] = np.linspace(pos[-1], size - 1, size - ns * span)
+            return xs
+
+        map_x = np.tile(axis_map(w, xsteps)[None], (h, 1))
+        map_y = np.tile(axis_map(h, ysteps)[:, None], (1, w))
+        return remap_linear(image, map_x, map_y, (255, 255, 255)), keypoints
+
+
+# -- synthetic clutter: black marks drawn with chem/raster.py ------------------
+
+BLACK = (0, 0, 0)
+
+
+class AddLineNoise(Transform):
+    """1 to ``num_lines`` stray lines between random pixels."""
+
+    def __init__(self, num_lines: int = 3, p: float = 0.3):
+        super().__init__(p)
+        self.num_lines = num_lines
+
+    def apply(self, image, keypoints, rng, np_rng):
+        image = image.copy()
+        h, w = image.shape[:2]
+        for _ in range(rng.randrange(1, self.num_lines + 1)):
+            p1 = (rng.randrange(w), rng.randrange(h))
+            p2 = (rng.randrange(w), rng.randrange(h))
+            raster.line8(image, p1, p2, BLACK, rng.randrange(1, 3))
+        return image, keypoints
+
+
+class AddEdgeElementSymbolNoise(Transform):
+    """1 to ``num_symbols`` stray element symbols near a random border."""
+
+    SYMBOLS = ["C", "N", "O", "H", "S", "Cl", "Br", "F", "P", "OH", "NH"]
+
+    def __init__(self, num_symbols: int = 3, p: float = 0.3):
+        super().__init__(p)
+        self.num_symbols = num_symbols
+
+    def apply(self, image, keypoints, rng, np_rng):
+        image = image.copy()
+        h, w = image.shape[:2]
+        margin = max(min(h, w) // 10, 12)
+        for _ in range(rng.randrange(1, self.num_symbols + 1)):
+            side = rng.randrange(4)
+            if side == 0:
+                x, y = rng.randrange(w), rng.randrange(margin, 2 * margin)
+            elif side == 1:
+                x, y = rng.randrange(w), h - rng.randrange(margin, 2 * margin)
+            elif side == 2:
+                x, y = rng.randrange(margin, 2 * margin), rng.randrange(h)
+            else:
+                x, y = w - rng.randrange(margin, 2 * margin), rng.randrange(h)
+            symbol = rng.choice(self.SYMBOLS)
+            raster.put_text(image, symbol, (x, y), 0, rng.uniform(0.4, 0.8), BLACK)
+        return image, keypoints
+
+
+class DrawBorder(Transform):
+    """A black frame of thickness 1 or 2 around the image."""
+
+    def __init__(self, p: float = 0.2):
+        super().__init__(p)
+
+    def apply(self, image, keypoints, rng, np_rng):
+        image = image.copy()
+        h, w = image.shape[:2]
+        raster.rectangle(image, (0, 0), (w - 1, h - 1), BLACK, rng.randrange(1, 3))
+        return image, keypoints
+
+
+class AddBondNoise(Transform):
+    """1 to ``num_bonds`` short bond-like segments, 30 % of them doubled."""
+
+    def __init__(self, num_bonds: int = 3, p: float = 0.3):
+        super().__init__(p)
+        self.num_bonds = num_bonds
+
+    def apply(self, image, keypoints, rng, np_rng):
+        image = image.copy()
+        h, w = image.shape[:2]
+        length = max(min(h, w) // 12, 8)
+        for _ in range(rng.randrange(1, self.num_bonds + 1)):
+            x, y = rng.randrange(w), rng.randrange(h)
+            a = rng.uniform(0, 2 * math.pi)
+            x2 = int(x + length * math.cos(a))
+            y2 = int(y + length * math.sin(a))
+            raster.line8(image, (x, y), (x2, y2), BLACK, rng.randrange(1, 3))
+            if rng.random() < 0.3:  # double bond
+                off = 3
+                raster.line8(image, (x + off, y + off), (x2 + off, y2 + off), BLACK, 1)
+        return image, keypoints
+
+
+class AddIncompleteStructuralNoise(Transform):
+    """1 to ``num_structs`` rings of 5 or 6 sides with only 2 to n - 1 of
+    their sides drawn."""
+
+    def __init__(self, num_structs: int = 2, p: float = 0.3):
+        super().__init__(p)
+        self.num_structs = num_structs
+
+    def apply(self, image, keypoints, rng, np_rng):
+        image = image.copy()
+        h, w = image.shape[:2]
+        r = max(min(h, w) // 10, 10)
+        for _ in range(rng.randrange(1, self.num_structs + 1)):
+            cx, cy = rng.randrange(w), rng.randrange(h)
+            n = rng.choice([5, 6])
+            start = rng.uniform(0, 2 * math.pi)
+            pts = [(int(cx + r * math.cos(start + 2 * math.pi * k / n)),
+                    int(cy + r * math.sin(start + 2 * math.pi * k / n))) for k in range(n)]
+            for k in range(rng.randrange(2, n)):
+                raster.line8(image, pts[k], pts[(k + 1) % n], BLACK, 1)
+        return image, keypoints
+
+
+def clutter_transforms(p: float, border_p: float) -> List[Transform]:
+    """The clutter family, each at ``p``, the border at ``border_p``."""
+    return [AddLineNoise(p=p), AddEdgeElementSymbolNoise(p=p), AddBondNoise(p=p),
+            AddIncompleteStructuralNoise(p=p), DrawBorder(p=border_p)]
+
+
 class ToGray(Transform):
     def apply(self, image, keypoints, rng, np_rng):
         return to_gray(image), keypoints
@@ -513,10 +749,9 @@ def get_transforms(input_size: int, augment: bool = True, rotate: bool = True,
                    dataset: Optional[str] = None, normalize: bool = True,
                    clutter: bool = False) -> Compose:
     """The JAX package's composition; ``normalize=False`` keeps uint8 (the
-    training and serving wire)."""
-    if clutter:
-        raise NotImplementedError(
-            "the clutter transforms are not ported (ROADMAP queue 1, item 4: bench suites)")
+    training and serving wire).  ``clutter=True`` adds the clutter family
+    after the photometric set (each at p 0.3, the border at 0.2), with or
+    without ``augment``, as the JAX package's clutter fine-tune draws it."""
     trans: List[Transform] = []
     if augment and rotate:
         trans.append(SafeRotate(limit=90))
@@ -532,12 +767,21 @@ def get_transforms(input_size: int, augment: bool = True, rotate: bool = True,
             GaussNoise(p=0.5),
             SaltAndPepperNoise(num_dots=20, p=0.5),
         ]
+    if clutter:
+        trans += clutter_transforms(0.3, 0.2)
     trans.append(Resize(input_size, input_size))
     if not debug:
         trans.append(ToGray(p=1.0))
         if normalize:
             trans.append(Normalize(p=1.0))
     return Compose(trans)
+
+
+def get_perturbation_transforms(input_size: int) -> Compose:
+    """The perturbed suite's pipeline: CropWhite, the clutter family (each at
+    p 0.5, the border at 0.3), Resize, ToGray, Normalize."""
+    return Compose([CropWhite(pad=50), *clutter_transforms(0.5, 0.3),
+                    Resize(input_size, input_size), ToGray(p=1.0), Normalize(p=1.0)])
 
 
 def device_normalize(images: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,12 @@ carry over one to one (``weights.py``):
 * :class:`LayerNorm` — ``scale``/``bias`` stay float32, statistics and
   normalization run in float32, the output is cast to the input dtype.
 * :class:`Embed` — ``embedding (num, dim)``.
+* :class:`Conv` — ``flax.linen.Conv`` on NHWC activations: ``kernel`` in
+  PyTorch's ``(out, in / groups, kh, kw)`` layout (``weights.py``
+  transposes flax's HWIO), ``bias (out,)``, ``"SAME"`` padding by default
+  (for a stride-k k x k kernel on a multiple of k: none) or an explicit
+  symmetric pad.  The NHWC input is handed to ``F.conv2d`` as a
+  channels-last NCHW view, so no layout copy is made.
 * :class:`Dropout` — dropout (or stochastic depth) with masks seeded per
   step and site, which ``torch.utils.checkpoint`` recomputes exactly.
 """
@@ -52,6 +58,40 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
         return y.to(x.dtype)
+
+
+class Conv(nn.Module):
+    def __init__(self, in_features: int, out_features: int, kernel_size: int, stride: int = 1,
+                 padding="SAME", groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.zeros(out_features, in_features // groups, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+        self.stride, self.padding, self.groups = stride, padding, groups
+
+    def _pads(self, size: int):
+        if self.padding != "SAME":
+            return self.padding, self.padding
+        k, s = self.kernel.shape[-1], self.stride
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        return total // 2, total - total // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C_in) -> (B, H', W', C_out) in the kernel's dtype."""
+        x = x.to(self.kernel.dtype).permute(0, 3, 1, 2)
+        (top, bottom), (left, right) = self._pads(x.shape[2]), self._pads(x.shape[3])
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x, self.kernel, bias, self.stride, pad, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+    def cast(self, dtype: torch.dtype) -> None:
+        self.kernel.data = self.kernel.data.to(dtype)
+        if self.bias is not None:
+            self.bias.data = self.bias.data.to(dtype)
 
 
 class Embed(nn.Module):

@@ -1,4 +1,5 @@
-"""Top-level model: Swin encoder + per-format decoders + edge head.
+"""Top-level model: Swin or ConvNeXt encoder + per-format decoders + edge
+head.
 
 Port of ``molnextr_tpu/models/model.py::MolNexTRModel``: the teacher-forced
 ``forward`` (the JAX ``__call__``, used for training and the eval loss) and
@@ -17,9 +18,10 @@ import torch
 from torch import nn
 
 from molnextr_tpu_torch.config import Config
+from molnextr_tpu_torch.models.convnext import ConvNeXtBlock, ConvNeXtEncoder
 from molnextr_tpu_torch.models.decoder import Decoder
 from molnextr_tpu_torch.models.heads import AtomHeatmapHead, GraphPredictor
-from molnextr_tpu_torch.models.layers import Dense, Embed, number_dropout_sites
+from molnextr_tpu_torch.models.layers import Conv, Dense, Embed, number_dropout_sites
 from molnextr_tpu_torch.models.swin import SwinEncoder
 from molnextr_tpu_torch.tokenization import PAD_ID
 
@@ -31,9 +33,12 @@ class MolNexTRModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.vocab_sizes = dict(vocab_sizes)
-        if not cfg.encoder.name.startswith("swin"):
-            raise NotImplementedError(f"encoder {cfg.encoder.name}: only Swin is ported")
-        self.encoder = SwinEncoder(cfg.encoder, cfg.data.input_size)
+        if cfg.encoder.name.startswith("swin"):
+            self.encoder = SwinEncoder(cfg.encoder, cfg.data.input_size)
+        elif cfg.encoder.name.startswith("convnext"):
+            self.encoder = ConvNeXtEncoder(cfg.encoder, cfg.data.input_size)
+        else:
+            raise ValueError(f"unknown encoder {cfg.encoder.name}")
         self.enc_trans = Dense(cfg.encoder.num_features, cfg.decoder.hidden_size)
         self.enc_pos = Embed(144, cfg.encoder.num_features) if cfg.decoder.enc_pos_emb else None
         decoders = {}
@@ -59,11 +64,14 @@ class MolNexTRModel(nn.Module):
         return self.enc_trans.kernel.dtype
 
     def to_dtype(self, dtype: torch.dtype) -> "MolNexTRModel":
-        """Cast every Dense and Embed to ``dtype``; LayerNorms and the Swin
-        kernels' biases stay float32 (the flax ``dtype=`` policy)."""
+        """Cast every Dense, Embed and Conv (the ConvNeXt convolutions) and
+        ConvNeXt's ``gamma`` to ``dtype``; LayerNorms and the Swin kernels'
+        biases stay float32 (the flax ``dtype=`` policy)."""
         for m in self.modules():
-            if isinstance(m, (Dense, Embed)):
+            if isinstance(m, (Dense, Embed, Conv)):
                 m.cast(dtype)
+            elif isinstance(m, ConvNeXtBlock):
+                m.gamma.data = m.gamma.data.to(dtype)
         return self
 
     def _memory(self, feats: torch.Tensor) -> torch.Tensor:

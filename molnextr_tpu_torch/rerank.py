@@ -34,8 +34,8 @@ literature.
 
 Port of ``molnextr_tpu/rerank.py`` without OpenCV: grey conversion is
 ``to_gray``'s fixed-point weights, CropWhite+Resize are ``crop_white`` and
-``resize_linear`` (within one grey level of OpenCV's resize on a row's
-ragged tail), and the dilation is a 3x3 maximum filter, equal to OpenCV's.
+``resize_linear`` (equal to OpenCV's resize), and the dilation is a 3x3
+maximum filter, equal to OpenCV's.
 """
 
 from __future__ import annotations

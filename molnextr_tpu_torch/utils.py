@@ -1,18 +1,22 @@
-"""Shared utilities: format metadata, meters, logging, seeding.
+"""Shared utilities: format metadata, meters, logging, seeding, CSV input.
 
-Copied from ``molnextr_tpu/utils.py`` for the PyTorch port; the only change
-is that :func:`is_main_process` asks ``torch.distributed`` instead of JAX.
+Copied from ``molnextr_tpu/utils.py`` for the PyTorch port; the changes:
+:func:`is_main_process` asks ``torch.distributed`` instead of JAX, and
+:func:`read_csv` reads the CLIs' CSV files with the ``csv`` module, as
+``pandas.read_csv`` would type them (the card's machine has no pandas).
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import logging
+import re
 import math
 import os
 import random
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -140,3 +144,39 @@ def format_df(df):
         if field in df.columns:
             df[field] = [_dumps(obj) for obj in df[field]]
     return df
+
+
+# the cells pandas.read_csv reads as missing by default
+CSV_NA = frozenset(["", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+                    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+                    "nan", "null"])
+_INT = re.compile(r"[+-]?[0-9]+")
+
+
+def _typed_column(cells: List[str]) -> List[Any]:
+    """One column as pandas types it: missing cells are NaN (a new float
+    each, so no two are equal); a column whose other cells all read as
+    integers holds ints, as numbers floats, else the strings."""
+    present = [c for c in cells if c not in CSV_NA]
+    if present and all(_INT.fullmatch(c.strip()) for c in present):
+        cast = int
+    else:
+        cast = float
+        for c in present:
+            try:
+                float(c)
+            except ValueError:
+                cast = str
+                break
+    return [float("nan") if c in CSV_NA else cast(c) for c in cells]
+
+
+def read_csv(path: str) -> Dict[str, List[Any]]:
+    """Column name -> typed cells of a CSV file with a header row (blank
+    lines skipped, short rows padded with missing cells), in the meaning
+    ``pandas.read_csv`` gives them: see :func:`_typed_column`."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    header, body = rows[0], rows[1:]
+    return {name: _typed_column([r[i] if i < len(r) else "" for r in body])
+            for i, name in enumerate(header)}

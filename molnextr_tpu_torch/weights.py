@@ -6,17 +6,24 @@
   layers (leading ``L`` axis) are unstacked into ``layers.<i>``; each
   attention's separate ``q``/``k``/``v`` Dense layers are concatenated into
   one ``(D, 3D)`` ``qkv`` Dense; the HWIO patch-embed kernel is flattened to
-  ``(p*p*3, C)``.  Flax ``Dense`` kernels are ``(in, out)`` in both.  The
+  ``(p*p*3, C)``; every other 4-D kernel (the ConvNeXt and DAHead
+  convolutions) is transposed from flax's HWIO to PyTorch's OIHW.  Flax
+  ``Dense`` kernels are ``(in, out)`` in both.  The
   training-only ``heatmap_head`` is carried when both sides have it; a
   serving bundle without it loads into a model that builds it.
 * :func:`model_to_flax_params` is the reverse: a port model -> the JAX
   package's ``{"params": tree}`` of float32 numpy arrays, which
   ``checkpoint.save_model`` writes in the JAX package's format.
 * :func:`seeded_flax_params` makes a numpy tree with the names and shapes
-  of ``MolNexTRModel.init`` from a numpy ``RandomState``: normal * 0.02 for
-  kernels, embeddings and ``rel_bias``, ones for LayerNorm scales, zeros
-  for biases.  Both frameworks can then run the same full-width model
-  without JAX on the card.
+  of ``MolNexTRModel.init`` (Swin or ConvNeXt) from a numpy
+  ``RandomState``, :func:`seeded_tree` one of any shapes (a DAHead's):
+  normal * 0.02 for kernels, embeddings and
+  ``rel_bias``, ones for LayerNorm scales, zeros for biases, and U(0.5,
+  1.5) for the scales that flax initialises to (almost) zero, ConvNeXt's
+  per-block ``gamma`` and DAHead's ``alpha`` and ``beta``: at their init
+  values every ConvNeXt block and both attentions would be the identity,
+  and a comparison of them would pass on any code.  Both frameworks can
+  then run the same full-width model without JAX on the card.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from molnextr_tpu_torch.models.swin import effective_window
 
 OPTIONAL = "heatmap_head"  # training-only: either side may lack it
 N_HEATMAP_OUT = 13  # presence + 11 element classes + "other"
+LAYER_SCALES = ("gamma", "alpha", "beta")  # drawn U(0.5, 1.5) by seeded_tree
+PATCH_EMBED = ["encoder", "patch_embed", "kernel"]
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -65,8 +74,10 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
         parts = path.split("/")
         if parts[0].startswith("decoders_"):
             parts = ["decoders", parts[0][len("decoders_"):]] + parts[1:]
-        if parts[:3] == ["encoder", "patch_embed", "kernel"]:
+        if parts[:3] == PATCH_EMBED:
             arr = arr.reshape(-1, arr.shape[-1])
+        elif parts[-1] == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
         if len(parts) > 3 and parts[0] == "decoders" and parts[2] == "layers":
             prefix, rest = ".".join(parts[:3]), parts[3:]
             if rest[0] in ("self_attn", "cross_attn") and rest[1] in ("q", "k", "v"):
@@ -115,20 +126,24 @@ def model_to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
     """A port model -> ``{"params": tree}`` with the JAX package's names and
     layouts, float32 numpy leaves (the inverse of :func:`flax_to_state_dict`)."""
     sd = {n: p.detach().float().cpu().numpy() for n, p in model.named_parameters()}
-    return state_dict_to_flax(sd, model.cfg.encoder.patch_size)
+    return state_dict_to_flax(sd)
 
 
-def state_dict_to_flax(sd: Dict[str, np.ndarray], patch_size: int) -> Dict[str, Any]:
+def state_dict_to_flax(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """The port's parameter names and layouts -> ``{"params": tree}`` in the
-    JAX package's (for parameters, or for their gradients)."""
+    JAX package's (for parameters, or for their gradients).  The Swin patch
+    size is read off the patch-embed kernel ``(p*p*3, C)``."""
     flat: Dict[str, np.ndarray] = {}
     stacked: Dict[str, Dict[int, np.ndarray]] = {}
     for name, arr in sd.items():
         parts = name.split(".")
         if parts[0] == "decoders":
             parts = [f"decoders_{parts[1]}"] + parts[2:]
-        if parts[:3] == ["encoder", "patch_embed", "kernel"]:
-            arr = arr.reshape(patch_size, patch_size, -1, arr.shape[-1])
+        if parts[:3] == PATCH_EMBED:
+            p = int(round((arr.shape[0] // 3) ** 0.5))
+            arr = arr.reshape(p, p, -1, arr.shape[-1])
+        elif parts[-1] == "kernel" and arr.ndim == 4:  # OIHW -> HWIO
+            arr = arr.transpose(2, 3, 1, 0)
         if parts[0].startswith("decoders_") and parts[1] == "layers":
             layer, rest = int(parts[2]), parts[3:]
             if rest[0] in ("self_attn", "cross_attn") and rest[1] == "qkv":
@@ -144,13 +159,7 @@ def state_dict_to_flax(sd: Dict[str, np.ndarray], patch_size: int) -> Dict[str, 
     return {"params": _unflatten(flat)}
 
 
-def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[int, ...]]:
-    """Flax path -> shape for every parameter ``MolNexTRModel.init`` makes."""
-    e, dcfg = cfg.encoder, cfg.decoder
-    if not e.name.startswith("swin"):
-        raise NotImplementedError(f"encoder {e.name}: only Swin is ported")
-    s: Dict[str, Tuple[int, ...]] = {}
-
+def _shape_helpers(s: Dict[str, Tuple[int, ...]]):
     def dense(path, din, dout, bias=True):
         s[f"{path}/kernel"] = (din, dout)
         if bias:
@@ -160,6 +169,40 @@ def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[in
         s[f"{path}/scale"] = (dim,)
         s[f"{path}/bias"] = (dim,)
 
+    def conv(path, k, cin, cout, bias=True):  # flax HWIO
+        s[f"{path}/kernel"] = (k, k, cin, cout)
+        if bias:
+            s[f"{path}/bias"] = (cout,)
+
+    return dense, ln, conv
+
+
+def _convnext_shapes(e, s: Dict[str, Tuple[int, ...]]) -> list:
+    """ConvNeXtEncoder's parameters into ``s``; returns the stage widths."""
+    dense, ln, conv = _shape_helpers(s)
+    dims = [int(d) for d in e.convnext_dims]
+    conv("encoder/stem", 4, 3, dims[0])
+    ln("encoder/stem_norm", dims[0])
+    for stage, depth in enumerate(e.convnext_depths):
+        dim = dims[stage]
+        if stage > 0:
+            ln(f"encoder/down_norm{stage}", dims[stage - 1])
+            conv(f"encoder/down{stage}", 2, dims[stage - 1], dim)
+        for i in range(depth):
+            blk = f"encoder/s{stage}_b{i}"
+            conv(f"{blk}/dwconv", 7, 1, dim)
+            ln(f"{blk}/norm", dim)
+            dense(f"{blk}/pw1", dim, 4 * dim)
+            dense(f"{blk}/pw2", 4 * dim, dim)
+            s[f"{blk}/gamma"] = (dim,)
+    ln("encoder/final_norm", dims[-1])
+    return dims
+
+
+def _swin_shapes(cfg: Config, s: Dict[str, Tuple[int, ...]]) -> list:
+    """SwinEncoder's parameters into ``s``; returns the stage widths."""
+    dense, ln, _ = _shape_helpers(s)
+    e = cfg.encoder
     p = e.patch_size
     s["encoder/patch_embed/kernel"] = (p, p, 3, e.embed_dim)
     s["encoder/patch_embed/bias"] = (e.embed_dim,)
@@ -184,6 +227,20 @@ def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[in
             dense(f"encoder/merge{stage}/reduction", 4 * dim, 2 * dim, bias=False)
             res = (res[0] // 2, res[1] // 2)
     ln("encoder/norm", dims[-1])
+    return dims
+
+
+def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[int, ...]]:
+    """Flax path -> shape for every parameter ``MolNexTRModel.init`` makes."""
+    e, dcfg = cfg.encoder, cfg.decoder
+    s: Dict[str, Tuple[int, ...]] = {}
+    if e.name.startswith("swin"):
+        dims = _swin_shapes(cfg, s)
+    elif e.name.startswith("convnext"):
+        dims = _convnext_shapes(e, s)
+    else:
+        raise ValueError(f"unknown encoder {e.name}")
+    dense, ln, _ = _shape_helpers(s)
     d = dcfg.hidden_size
     dense("enc_trans", e.num_features, d)
     if dcfg.enc_pos_emb:
@@ -224,17 +281,24 @@ def param_shapes(cfg: Config, vocab_sizes: Dict[str, int]) -> Dict[str, Tuple[in
     return s
 
 
-def seeded_flax_params(cfg: Config, vocab_sizes: Dict[str, int], seed: int = 0) -> Dict[str, Any]:
-    """``{"params": tree}`` of float32 numpy arrays, drawn in sorted path
-    order from ``np.random.RandomState(seed)``."""
+def seeded_tree(shapes: Dict[str, Tuple[int, ...]], seed: int = 0) -> Dict[str, Any]:
+    """``{"params": tree}`` of float32 numpy arrays of ``shapes``, drawn in
+    sorted path order from ``np.random.RandomState(seed)`` (module doc)."""
     rng = np.random.RandomState(seed)
     flat = {}
-    for path, shape in sorted(param_shapes(cfg, vocab_sizes).items()):
+    for path, shape in sorted(shapes.items()):
         leaf = path.rsplit("/", 1)[-1]
         if leaf in ("kernel", "embedding", "rel_bias"):
             flat[path] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
         elif leaf == "scale":
             flat[path] = np.ones(shape, np.float32)
+        elif leaf in LAYER_SCALES:
+            flat[path] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
         else:
             flat[path] = np.zeros(shape, np.float32)
     return {"params": _unflatten(flat)}
+
+
+def seeded_flax_params(cfg: Config, vocab_sizes: Dict[str, int], seed: int = 0) -> Dict[str, Any]:
+    """:func:`seeded_tree` of :func:`param_shapes`: the model's parameters."""
+    return seeded_tree(param_shapes(cfg, vocab_sizes), seed)

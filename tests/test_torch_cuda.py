@@ -616,3 +616,84 @@ def test_remat_on_card_equals_remat_off_with_dropout(dev):
         grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     for name in grads[0]:
         torch.testing.assert_close(grads[1][name], grads[0][name], rtol=1e-5, atol=1e-7)
+
+
+def _tiny_convnext_cfg(kv_int8=True):
+    cfg = tiny_test_config()
+    cfg.encoder.name = "convnext_tiny_test"
+    cfg.encoder.convnext_depths = (1, 1, 2, 1)
+    cfg.encoder.convnext_dims = (16, 32, 64, 128)
+    cfg.decoder.kv_int8 = kv_int8
+    cfg.data.input_size = 64
+    return cfg
+
+
+@pytest.mark.parametrize("kv_int8", [True, False])
+def test_tiny_convnext_on_card_matches_cpu(dev, kv_int8):
+    """The tiny ConvNeXt (depths 1/1/2/1, dims 16-128, 64 px, seeded gamma)
+    in float32: encode and 10 decode steps on the card (cuDNN convolutions
+    with TF32 off, the decode kernel) against the CPU; no Swin kernel runs."""
+    cfg = _tiny_convnext_cfg(kv_int8)
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    params = seeded_flax_params(cfg, vocab, 0)
+    cpu = load_flax_params(MolNexTRModel(cfg, vocab), params).eval()
+    card = load_flax_params(MolNexTRModel(Config.from_dict(cfg.to_dict()), vocab),
+                            params).to(dev).eval()
+    imgs = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 64, 3).astype(np.float32))
+    fmt = "chartok_coords"
+    reset_launch_counts()
+    with torch.no_grad():
+        m_cpu, m_card = cpu.encode(imgs), card.encode(imgs.to(dev))
+        assert (m_card.cpu() - m_cpu).abs().max().item() <= F32_TOL
+        c_cpu, c_card = cpu.init_cache(fmt, m_cpu), card.init_cache(fmt, m_card)
+        tok = torch.ones(2, dtype=torch.long)
+        for pos in range(10):
+            l_cpu, _, c_cpu = cpu.decode_step(fmt, tok, pos, c_cpu)
+            l_card, _, c_card = card.decode_step(fmt, tok.to(dev), pos, c_card)
+            assert (l_card.cpu() - l_cpu).abs().max().item() <= F32_TOL
+            tok = l_cpu.argmax(-1)
+        card.to_dtype(torch.bfloat16)
+        low = card.encode(imgs.to(dev))
+    assert low.dtype == torch.bfloat16 and torch.isfinite(low.float()).all()
+    k3 = "decode_attention_layered_q8" if kv_int8 else "decode_attention_layered"
+    assert LAUNCHES["fused_window_attention"] == LAUNCHES["fused_ln_mlp"] == 0
+    assert LAUNCHES[k3] == 10 * cfg.decoder.num_layers
+
+
+def test_clutter_pipeline_as_a_wire_batch(dev):
+    """Training items drawn with the clutter transforms (``clutter_augment``)
+    padded into a batch: the card receives the same uint8 images and refs
+    as the CPU, normalizes them within a few float32 ulps of the CPU
+    (1e-6: its division rounds on its own), and an eval step of the tiny
+    model on them is finite."""
+    import random
+
+    from molnextr_tpu_torch.data.dataset import Sample, TrainDataset, pad_batch
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.step import eval_step
+    from molnextr_tpu_torch.train.wire import as_model_images, as_model_refs
+
+    cfg = tiny_test_config()
+    cfg.data.clutter_augment = True
+    cfg.data.input_size = 64
+    toks = get_tokenizer(cfg.data)
+    ds = TrainDataset(cfg, [Sample(s) for s in ("CCO", "c1ccccc1", "CC(=O)O", "CCN")], toks,
+                      rng=random.Random(0), np_rng=np.random.RandomState(0))
+    random.seed(0)
+    np.random.seed(0)
+    items = [ds[i] for i in range(len(ds))]
+    batch = pad_batch(items, cfg.data.formats, cfg.decoder.max_len, cfg.data.max_atoms)
+    batch.pop("smiles")
+    batch["refs"].pop("num_atoms")
+    assert batch["images"].dtype == np.uint8 and batch["images"].shape[1:] == (64, 64, 1)
+    wire = torch.from_numpy(batch["images"])
+    assert torch.equal(wire.to(dev).cpu(), wire)
+    on_card, on_cpu = as_model_images(batch["images"], dev), as_model_images(batch["images"], "cpu")
+    assert (on_card.cpu() - on_cpu).abs().max().item() <= 1e-6
+    refs = as_model_refs(batch["refs"], dev)
+    for key, value in as_model_refs(batch["refs"], "cpu").items():
+        assert torch.equal(refs[key].cpu(), value), key
+    vocab = {f: len(t) for f, t in toks.items()}
+    model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, 0))
+    metrics = eval_step(cfg, _criterion(cfg, toks), model.to(dev), batch)
+    assert torch.isfinite(metrics["loss"]).item()

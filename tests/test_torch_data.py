@@ -107,8 +107,15 @@ def test_normalize_and_clutter():
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=0.02)  # one grey level of the resize
     assert pt.dataset_pads_to_square("real/UOB.csv") and not pt.dataset_pads_to_square("uspto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.get_transforms(32, clutter=True)
+    # the clutter family is ported (tests/test_torch_clutter.py): equal to JAX's
+    random.seed(4)
+    np.random.seed(4)
+    want = jt.get_transforms(32, augment=False, rotate=False, clutter=True)(image=img)["image"]
+    rng, np_rng = random.Random(4), np.random.RandomState(4)
+    got = pt.get_transforms(32, augment=False, rotate=False, clutter=True)(
+        image=img, rng=rng, np_rng=np_rng)["image"]
+    np.testing.assert_array_equal(got, want)
+    _check_same_draws(rng, np_rng)
 
 
 # ---------------------------------------------------------------------------

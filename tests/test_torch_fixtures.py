@@ -30,13 +30,26 @@ against on the card, where neither JAX nor OpenCV is installed:
 * ``rerank.npz`` — the round-trip rerank cases of :func:`_rerank_cases`
   (input images drawn by the JAX package, candidate lists) with the JAX
   package's ``roundtrip_rerank`` winner and scores;
+* ``convnext.npz`` — as ``full_width.npz`` without the beam, for
+  ``Config()`` with ``encoder.name = "convnext_base"`` (ConvNeXt-B at its
+  config defaults: depths 3/3/27/3, dims 128-1024, 384 px; the 6x256x8
+  decoder) in float32 with ``seeded_flax_params(seed=0)`` (every block's
+  ``gamma`` drawn from U(0.5, 1.5)): two 384 px renders, the JAX memory
+  bank, the log-probs of the first 8 greedy steps, their tokens and top-2
+  gaps (:func:`build_convnext`);
+* ``demo_0_<form>.png`` — ``demo_0.png`` in every PNG form that holds its
+  119 grey levels without loss (grey, grey+alpha, RGB, RGBA at 8 and 16
+  bits, an 8-bit palette with and without ``tRNS``; several Adam7
+  interlaced), written by ``test_torch_png.encode_png`` with each row
+  filter in turn (:func:`build_png_forms`); ``chip_smoke.py`` phase cli
+  reads them all through the predict CLI;
 
 and ``molnextr_tpu_torch/chem/glyphs.npz`` is the text renderer's glyph
 table, read from the installed OpenCV (:func:`build_glyphs`).
 
 Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``.
-The full-width fixture runs Swin-B in float32 on the CPU (about a minute),
-so its regeneration test is marked slow.
+The full-width fixtures run Swin-B and ConvNeXt-B in float32 on the CPU
+(a minute or more each), so their regeneration tests are marked slow.
 """
 
 import json
@@ -66,6 +79,19 @@ IBUPROFEN = "CC(C)Cc1ccc(cc1)C(C)C(=O)O"
 CAFFEINE = "Cn1cnc2c1c(=O)n(C)c(=O)n2C"
 ASPIRIN_REORDERED = "O=C(O)c1ccccc1OC(C)=O"  # aspirin from another start atom
 FULL_STEPS = 8
+# convnext.npz: ConvNeXt-B's memory bank passes 39 convolution blocks;
+# the card's float32 run (cuDNN convolutions, TF32 off) is held to these.
+# The log-probs get more room than full_width.npz's: a memory bank a few
+# 1e-6 off JAX's moves the int8 cross-attention cache entries that sit on
+# a rounding boundary by one step, and the log-probs by more than
+# full_width.npz's 2e-4 (tests/test_torch_convnext.py holds the CPU)
+CONVNEXT_MEMORY_TOL = 1e-4
+CONVNEXT_LOGP_TOL = 1e-3
+# the PNG forms of demo_0.png: name -> (colour type, bit depth, Adam7)
+PNG_FORMS = {"grey8": (0, 8, False), "grey8_adam7": (0, 8, True), "grey16": (0, 16, False),
+             "ga8": (4, 8, False), "ga16_adam7": (4, 16, True), "rgb16": (2, 16, False),
+             "rgb8_adam7": (2, 8, True), "rgba8": (6, 8, False), "rgba16_adam7": (6, 16, True),
+             "palette8": (3, 8, False), "palette8_trns_adam7": (3, 8, True)}
 BEAM, BEAM_STEPS = 4, 12
 # what chip_smoke.py allows between the card's float32 run and these
 # numbers: the memory bank passes 24 Swin blocks and the decoder 6 layers,
@@ -196,27 +222,15 @@ def build_full_width():
     import jax.numpy as jnp
 
     from molnextr_tpu.config import Config as JConfig
-    from molnextr_tpu.data.synthetic import generate_synthetic_image
-    from molnextr_tpu.data.transforms import get_transforms
     from molnextr_tpu.decoding.beam import beam_decode
-    from molnextr_tpu.decoding.greedy import greedy_decode
     from molnextr_tpu.models.model import MolNexTRModel
-    from molnextr_tpu.tokenization import EOS_ID, get_tokenizer
+    from molnextr_tpu.tokenization import get_tokenizer
     from molnextr_tpu.train.wire import as_model_images
     from molnextr_tpu_torch.config import Config
     from molnextr_tpu_torch.weights import seeded_flax_params
 
     cfg = JConfig()
-    random.seed(7)
-    transform = get_transforms(cfg.data.input_size, augment=False, rotate=False, normalize=False)
-    images = []
-    for smi in FULL_SMILES:
-        img, _, _, ok = generate_synthetic_image(
-            smi, mol_augment=False, default_option=True, size=cfg.data.input_size
-        )
-        assert ok, smi
-        images.append(transform(image=img)["image"][..., :1])
-    images = np.stack(images)
+    images = _full_width_renders(cfg.data.input_size)
 
     toks = get_tokenizer(cfg.data)
     vocab = {f: len(t) for f, t in toks.items()}
@@ -235,27 +249,7 @@ def build_full_width():
     def step_p(t, pos, c):
         return step(params, t, pos, c)
 
-    cache = model.apply(params, fmt, memory, method=MolNexTRModel.init_cache)
-    tokens = np.full((2,), 1, np.int32)
-    logps, picks, gaps = [], [], []
-    for pos in range(FULL_STEPS):  # the greedy step, recording its log-probs
-        logits, _, cache = step(params, jnp.asarray(tokens), jnp.asarray(pos), cache)
-        logp = np.asarray(jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1))
-        con = np.where(cm[tc[tokens]], logp - 10000.0, logp)
-        if pos < cfg.decode.min_length:
-            con[:, EOS_ID] = -1e20
-        top2 = np.sort(con, axis=-1)[:, -2:]
-        tokens = con.argmax(-1).astype(np.int32)
-        logps.append(logp)
-        picks.append(tokens)
-        gaps.append(top2[:, 1] - top2[:, 0])
-    picks = np.stack(picks, 1)
-    seq, _, _, _ = greedy_decode(
-        lambda t, p, c: model.apply(params, fmt, t, p, c, method=MolNexTRModel.decode_step),
-        lambda m: model.apply(params, fmt, m, method=MolNexTRModel.init_cache),
-        memory, jnp.asarray(tc), jnp.asarray(cm), FULL_STEPS, cfg.decoder.hidden_size,
-    )
-    np.testing.assert_array_equal(np.asarray(seq), picks)
+    logps, picks, gaps = _greedy_record(cfg, model, params, memory, toks, fmt)
 
     def beam(steps):
         return beam_decode(
@@ -288,11 +282,123 @@ def build_full_width():
         "beam_gap": beam_gap,
         "images": images,
         "memory": np.asarray(memory, np.float32),
-        "logp": np.stack(logps, 1).astype(np.float32),
+        "logp": logps,
         "tokens": picks,
-        "gap": np.stack(gaps, 1).astype(np.float32),
+        "gap": gaps,
         "meta": np.array(json.dumps(meta)),
     }
+
+
+def _full_width_renders(size):
+    """The two FULL_SMILES renders after the inference transforms, (2, S, S, 1)."""
+    from molnextr_tpu.data.synthetic import generate_synthetic_image
+    from molnextr_tpu.data.transforms import get_transforms
+
+    random.seed(7)
+    transform = get_transforms(size, augment=False, rotate=False, normalize=False)
+    images = []
+    for smi in FULL_SMILES:
+        img, _, _, ok = generate_synthetic_image(smi, mol_augment=False, default_option=True,
+                                                 size=size)
+        assert ok, smi
+        images.append(transform(image=img)["image"][..., :1])
+    return np.stack(images)
+
+
+def _greedy_record(cfg, model, params, memory, toks, fmt):
+    """FULL_STEPS greedy steps of the JAX model, recording each step's
+    log-probs, its pick and the top-2 gap of its constrained log-probs;
+    checked against ``greedy_decode``."""
+    import jax
+    import jax.numpy as jnp
+
+    from molnextr_tpu.decoding.greedy import greedy_decode
+    from molnextr_tpu.models.model import MolNexTRModel
+    from molnextr_tpu.tokenization import EOS_ID
+
+    tc, cm = toks[fmt].constraint_tables()
+    step = jax.jit(
+        lambda p, t, pos, c: model.apply(p, fmt, t, pos, c, method=MolNexTRModel.decode_step)
+    )
+    cache = model.apply(params, fmt, memory, method=MolNexTRModel.init_cache)
+    tokens = np.full((memory.shape[0],), 1, np.int32)
+    logps, picks, gaps = [], [], []
+    for pos in range(FULL_STEPS):
+        logits, _, cache = step(params, jnp.asarray(tokens), jnp.asarray(pos), cache)
+        logp = np.asarray(jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1))
+        con = np.where(cm[tc[tokens]], logp - 10000.0, logp)
+        if pos < cfg.decode.min_length:
+            con[:, EOS_ID] = -1e20
+        top2 = np.sort(con, axis=-1)[:, -2:]
+        tokens = con.argmax(-1).astype(np.int32)
+        logps.append(logp)
+        picks.append(tokens)
+        gaps.append(top2[:, 1] - top2[:, 0])
+    picks = np.stack(picks, 1)
+    seq, _, _, _ = greedy_decode(
+        lambda t, p, c: model.apply(params, fmt, t, p, c, method=MolNexTRModel.decode_step),
+        lambda m: model.apply(params, fmt, m, method=MolNexTRModel.init_cache),
+        memory, jnp.asarray(tc), jnp.asarray(cm), FULL_STEPS, cfg.decoder.hidden_size,
+    )
+    np.testing.assert_array_equal(np.asarray(seq), picks)
+    return (np.stack(logps, 1).astype(np.float32), picks,
+            np.stack(gaps, 1).astype(np.float32))
+
+
+def build_convnext():
+    import jax
+    import jax.numpy as jnp
+
+    from molnextr_tpu.config import Config as JConfig
+    from molnextr_tpu.models.model import MolNexTRModel
+    from molnextr_tpu.tokenization import get_tokenizer
+    from molnextr_tpu.train.wire import as_model_images
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.weights import seeded_flax_params
+
+    cfg = JConfig()
+    cfg.encoder.name = "convnext_base"
+    images = _full_width_renders(cfg.data.input_size)
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    fmt = "chartok_coords"
+    params = seeded_flax_params(Config.from_dict(cfg.to_dict()), vocab, 0)
+    model = MolNexTRModel(cfg, vocab, dtype=jnp.float32)
+    memory = jax.jit(
+        lambda p, x: model.apply(p, as_model_images(x), method=MolNexTRModel.encode)
+    )(params, jnp.asarray(images))
+    logps, picks, gaps = _greedy_record(cfg, model, params, memory, toks, fmt)
+    meta = {"seed": 0, "format": fmt, "smiles": FULL_SMILES, "encoder": cfg.encoder.name,
+            "memory_tol": CONVNEXT_MEMORY_TOL, "logp_tol": CONVNEXT_LOGP_TOL}
+    return {"images": images, "memory": np.asarray(memory, np.float32), "logp": logps,
+            "tokens": picks, "gap": gaps, "meta": np.array(json.dumps(meta))}
+
+
+def build_png_forms():
+    """name -> PNG bytes of demo_0.png in each of PNG_FORMS (module doc)."""
+    from test_torch_png import encode_png
+
+    from molnextr_tpu_torch.data.png import read_png
+
+    grey = read_png(os.path.join(FIXTURES, "demo_0.png"))[..., :1].astype(np.int64)
+    rng = np.random.RandomState(8)
+    out = {}
+    for name, (color, depth, adam7) in PNG_FORMS.items():
+        scale = 257 if depth == 16 else 1  # 16-bit samples whose high byte is the grey
+        plte = trns = b""
+        if color == 3:
+            levels, samples = np.unique(grey, return_inverse=True)
+            samples = samples.reshape(grey.shape)
+            plte = np.repeat(levels.astype(np.uint8), 3).tobytes()
+            if "trns" in name:
+                trns = rng.randint(0, 256, len(levels)).astype(np.uint8).tobytes()
+        else:
+            colour = grey * scale if color in (0, 4) else np.repeat(grey * scale, 3, axis=2)
+            yy, xx = np.indices(grey.shape[:2])
+            alpha = ((3 * xx + yy) % 256 * scale)[..., None]  # a ramp: dropped on reading
+            samples = np.concatenate([colour, alpha], axis=2) if color in (4, 6) else colour
+        out[name] = encode_png(samples, color, depth, adam7, plte=plte, trns=trns)
+    return out
 
 
 def build_train():
@@ -480,9 +586,13 @@ def write_fixtures(full_width: bool = True):
     cv2.imwrite(os.path.join(FIXTURES, "demo_0.png"), cv2.cvtColor(images[0], cv2.COLOR_RGB2BGR))
     np.savez_compressed(os.path.join(FIXTURES, "rerank.npz"), **build_rerank())
     np.savez_compressed(GLYPHS, **build_glyphs())
+    for name, data in build_png_forms().items():
+        with open(os.path.join(FIXTURES, f"demo_0_{name}.png"), "wb") as f:
+            f.write(data)
     if full_width:
         np.savez_compressed(os.path.join(FIXTURES, "full_width.npz"), **build_full_width())
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
+        np.savez_compressed(os.path.join(FIXTURES, "convnext.npz"), **build_convnext())
 
 
 def _load(name):
@@ -557,6 +667,66 @@ def test_train_fixture_is_what_chip_smoke_reads():
     assert set(meta["grad_norms"]) == {"encoder", "decoder"}
 
 
+def test_png_forms_regenerate_and_read_as_demo_0():
+    """Every committed ``demo_0_<form>.png`` is what :func:`build_png_forms`
+    writes, and reads (port and cv2) to ``demo_0.png``'s pixels, as
+    ``chip_smoke.py`` phase cli requires of the forms it finds."""
+    import cv2
+
+    from molnextr_tpu_torch.data.png import read_png
+
+    want = read_png(os.path.join(FIXTURES, "demo_0.png"))
+    forms = build_png_forms()
+    committed = sorted(f for f in os.listdir(FIXTURES) if f.startswith("demo_0_"))
+    assert committed == sorted(f"demo_0_{name}.png" for name in forms)
+    for name, data in forms.items():
+        path = os.path.join(FIXTURES, f"demo_0_{name}.png")
+        with open(path, "rb") as f:
+            assert f.read() == data, name
+        np.testing.assert_array_equal(read_png(path), want, err_msg=name)
+        np.testing.assert_array_equal(cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB), want,
+                                      err_msg=name)
+
+
+def test_convnext_fixture_is_what_chip_smoke_reads():
+    """``chip_smoke.py`` phase convnext holds ``convnext_config()`` in float32
+    against ``convnext.npz`` through ``model_parity``: two grey 384 px
+    renders, the memory bank, FULL_STEPS steps of log-probs, tokens and
+    gaps, the tolerances, and no step whose gap is below twice the log-prob
+    tolerance (a token that could flip)."""
+    import chip_smoke
+
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+
+    cfg = chip_smoke.convnext_config()
+    assert cfg.encoder.name == "convnext_base"
+    assert cfg.encoder.convnext_depths == (3, 3, 27, 3)
+    assert tuple(cfg.encoder.convnext_dims) == (128, 256, 512, 1024)
+    fx = _load("convnext.npz")
+    meta = fx["meta"]
+    s, n = cfg.data.input_size, len(FULL_SMILES)
+    v = len(get_tokenizer(cfg.data)[meta["format"]])
+    assert fx["images"].shape == (n, s, s, 1) and fx["images"].dtype == np.uint8
+    assert fx["memory"].shape == (n, (s // 32) ** 2, cfg.decoder.hidden_size)
+    assert fx["logp"].shape == (n, FULL_STEPS, v) and fx["tokens"].shape == (n, FULL_STEPS)
+    assert fx["gap"].shape == (n, FULL_STEPS) and fx["gap"].min() > 2 * CONVNEXT_LOGP_TOL
+    assert meta == {"seed": 0, "format": "chartok_coords", "smiles": FULL_SMILES,
+                    "encoder": "convnext_base", "memory_tol": CONVNEXT_MEMORY_TOL,
+                    "logp_tol": CONVNEXT_LOGP_TOL}
+    np.testing.assert_array_equal(fx["images"], _load("full_width.npz")["images"])
+
+
+@pytest.mark.slow
+def test_convnext_fixture_regenerates():
+    got = build_convnext()
+    committed = _load("convnext.npz")
+    assert json.loads(str(got.pop("meta"))) == committed.pop("meta")
+    for key in ("images", "tokens"):
+        np.testing.assert_array_equal(got[key], committed[key])
+    for key in ("memory", "logp", "gap"):
+        np.testing.assert_allclose(got[key], committed[key], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.slow
 def test_train_fixture_regenerates():
     got = build_train()
@@ -581,5 +751,7 @@ if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     if "--train-only" in sys.argv:
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
+    elif "--convnext-only" in sys.argv:
+        np.savez_compressed(os.path.join(FIXTURES, "convnext.npz"), **build_convnext())
     else:
         write_fixtures(full_width="--demo-only" not in sys.argv)

@@ -269,14 +269,19 @@ def test_png_reader_rejects_other_formats(tmp_path):
 
     jpg = tmp_path / "x.jpg"
     cv2.imwrite(str(jpg), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ValueError, match="not a PNG"):
+    with pytest.raises(ValueError, match="not a PNG file \\(JPEG\\)"):
         read_png(str(jpg))
+    # 16-bit and palette PNG are read (tests/test_torch_png.py); a palette
+    # image without PLTE, or a bit depth its colour type forbids, is refused
     p16 = tmp_path / "x16.png"
     cv2.imwrite(str(p16), np.zeros((4, 4), np.uint16))
-    with pytest.raises(ValueError, match="unsupported PNG"):
-        read_png(str(p16))
+    np.testing.assert_array_equal(read_png(str(p16)), np.zeros((4, 4, 3), np.uint8))
     pal = tmp_path / "pal.png"
     body = struct.pack(">IIBBBBB", 2, 2, 8, 3, 0, 0, 0)
+    pal.write_bytes(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", body) + _png_chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="without PLTE"):
+        read_png(str(pal))
+    body = struct.pack(">IIBBBBB", 2, 2, 16, 3, 0, 0, 0)
     pal.write_bytes(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", body) + _png_chunk(b"IEND", b""))
     with pytest.raises(ValueError, match="unsupported PNG"):
         read_png(str(pal))

@@ -298,8 +298,7 @@ def test_gradients_match_jax_grad(setup, jax_reference):
     refs = pwire.as_model_refs(batch["refs"], "cpu")
     total, _ = pc(port(pwire.as_model_images(batch["images"], "cpu"), refs, dropout_seed=0), refs)
     total.backward()
-    got = _flatten(state_dict_to_flax(
-        {n: p.grad.numpy() for n, p in port.named_parameters()}, cfg.encoder.patch_size))
+    got = _flatten(state_dict_to_flax({n: p.grad.numpy() for n, p in port.named_parameters()}))
     assert set(got) == set(want)
     for path in want:
         scale = float(np.abs(want[path]).max())
