@@ -59,7 +59,19 @@ failure:
    a profiler window; the host's augmented 384 px items per second over
    ``generate_corpus(seed=0)``'s drug-like SMILES, in one thread and in
    the spawn pool, each after a warm-up;
-10. cli: the console entry points.  ``predict.main`` (the demo bundle,
+10. dp: data parallel at full width (``Config()``, remat on).  A world of
+   one rank over NCCL in this process: two float32 steps on
+   ``train.npz``'s batch against the step with no process group (expected
+   0 apart), then bf16 steps at batch 32 of both forms in turns, and the
+   gradient reduction and the count all-reduce timed alone.  Then two
+   spawned gloo ranks sharing ``cuda:0``: ``evaluate_model`` of the seeded
+   weights on 8 ``generate_corpus(seed=0)`` SMILES (bf16, int8 cache; each
+   rank's K1, K2, K3-int8 launches above 0, rank 0's scores equal one
+   process's, rank 1's ``{}``), then two float32 steps on 16 rows a rank of
+   a global batch of 32, the ranks' parameters equal bit for bit and rank
+   0's held to one process on all 32 rows; step ms, reduction ms and peak
+   memory a rank;
+11. cli: the console entry points.  ``predict.main`` (the demo bundle,
    bf16) on every PNG form of ``fixtures/demo_0.png`` (grey, grey+alpha,
    RGB, RGBA at 8 and 16 bits, palette, Adam7), which must read to the
    same pixels and give ``demo.npz``'s SMILES, with the launch counters
@@ -68,18 +80,18 @@ failure:
    its output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
    ``MolNexTR`` reads back and predicts with;
-11. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
+12. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
    (ConvNeXt-B, depths 3/3/27/3, dims 128-1024, 384 px) in float32
    against ``fixtures/convnext.npz``; bf16 serving with the int8 KV cache
    at batch 32 through ``MolNexTR.predict_images`` (launch counters: K1 =
    K2 = 0, K3-int8 = 6 x the decode steps taken); encode ms per batch;
    three train steps through ``train.main --encoder convnext_base`` at
    batch 32, ms per step and peak memory;
-12. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
+13. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
    ``suite_train_throughput`` at full width (batch 32, 8 workers), each
    suite's dict on a line and gated on the JAX suites' keys; and which of
    PIL, torchvision, pandas and cv2 import on the card's machine;
-13. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+14. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -107,7 +119,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "cli",
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "dp", "cli",
           "convnext", "suites", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
@@ -149,6 +161,16 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
 # the data pipeline's rate: drug-like SMILES from generate_corpus, timed
 # after a warm-up, in one thread and in a spawn pool of up to 8 workers
 DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
+# phase dp: the world-2 run's global batch (16 rows a rank), the total updates
+# of its schedule (warmup 1: the first update's rate is 0), the timed bf16
+# steps of each world-1 form, the evaluation's SMILES, the ranks' join limit
+DP_BATCH, DP_TOTAL_STEPS, DP_TIMED_STEPS, DP_EVAL_ITEMS, DP_JOIN_S = 32, 10, 3, 8, 240
+# the evaluations' decode batch: a rank's share of the 8 SMILES, so one
+# process decodes each image in a batch of the same shape as its rank does
+DP_EVAL_BATCH = 4
+# small molecules the demo bundle reads (7 of 8 on the CPU), each prediction
+# distinct: its evaluation shows a gather that loses, zeroes or reorders rows
+DP_DEMO_SMILES = ("C", "CC", "CCO", "CCC", "CCN", "CCCC", "OCCO", "CC(C)O")
 # phases cli and convnext: the train CLI's corpus (3 batches of 32) and valid set
 CLI_TRAIN_ITEMS, CLI_VALID_ITEMS = 96, 8
 DEVICE = "cuda"
@@ -1235,6 +1257,366 @@ def phase_train(torch, results, card):
 
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_config(bf16):
+    """``Config()`` at full width with remat on; float32 runs take dropout
+    and drop-path 0, so a world of ranks can be held to one process."""
+    from molnextr_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.train.bf16 = bf16
+    cfg.encoder.use_remat = cfg.decoder.use_remat = True
+    if not bf16:
+        cfg.encoder.drop_path_rate = 0.0
+        cfg.decoder.hidden_dropout = cfg.decoder.attn_dropout = 0.0
+    return cfg
+
+
+def dp_state(cfg, toks, mesh=None):
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.train.state import create_train_state
+
+    return create_train_state(cfg, MolNexTRModel(cfg, {f: len(t) for f, t in toks.items()}),
+                              DP_TOTAL_STEPS, seed=0, device=DEVICE, mesh=mesh)
+
+
+def params_gap(torch, a, b):
+    """Largest absolute difference between two models' parameters."""
+    return max(float((p - q).detach().abs().max()) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def read_predictions(path):
+    """The rows of ``evaluate_model``'s predictions CSV, header first (None
+    where no file was written: a rank other than 0)."""
+    import csv
+
+    if not os.path.exists(path):
+        return None
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def dp_eval(torch, cfg, toks, model, dump_csv):
+    """``evaluate_model`` in bf16 with the int8 cache over the first
+    ``DP_EVAL_ITEMS`` SMILES of ``generate_corpus(seed=0)``, with the launch
+    counters zeroed before and read after; returns the scores, the counts
+    and the predictions CSV's rows."""
+    from molnextr_tpu_torch.data.corpus import generate_corpus
+    from molnextr_tpu_torch.data.dataset import Sample
+    from molnextr_tpu_torch.train.loop import evaluate_model, serving_engine
+
+    serve = dp_config(bf16=True)
+    engine = serving_engine(serve, toks, DEVICE)
+    samples = [Sample(s) for s in generate_corpus(DP_EVAL_ITEMS, seed=0)]
+    scores, launches = count_launches(torch, lambda: evaluate_model(
+        serve, model, toks, samples, num_workers=1, batch_size=DP_EVAL_BATCH, engine=engine,
+        dump_csv=dump_csv))
+    return scores, launches, read_predictions(dump_csv)
+
+
+def dp_demo_eval(dump_csv):
+    """``evaluate_model`` of the trained demo bundle (bf16, int8 cache) over
+    ``DP_DEMO_SMILES``; returns the scores and the predictions CSV's rows."""
+    import dataclasses
+
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.data.dataset import Sample
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import evaluate_model
+    from molnextr_tpu_torch.weights import load_flax_params
+
+    cfg, params = load_model(os.path.join(HERE, "examples", "demo_model"))
+    cfg.train.bf16 = True
+    cfg.decoder = dataclasses.replace(cfg.decoder, kv_int8=True)
+    toks = get_tokenizer(cfg.data)
+    model = MolNexTRModel(cfg, {f: len(t) for f, t in toks.items()})
+    load_flax_params(model, params)
+    scores = evaluate_model(cfg, model.to(DEVICE), toks, [Sample(s) for s in DP_DEMO_SMILES],
+                            num_workers=1, batch_size=DP_EVAL_BATCH, dump_csv=dump_csv)
+    return scores, read_predictions(dump_csv)
+
+
+def dp_rank(rank, port, work):
+    """One rank of the world-2 run: gloo, sharing ``cuda:0`` with the other.
+    Evaluates the seeded weights and the demo bundle, then takes two
+    float32 steps on its 16 rows of the global batch; writes its numbers
+    (rank 0 its predictions and parameters too) to ``work``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from molnextr_tpu_torch.parallel.distributed import initialize, shutdown
+    from molnextr_tpu_torch.parallel.mesh import axis_group, make_mesh, shard_batch
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.step import reduce_gradients, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(backend="gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+               local_rank=rank, device="cuda:0")
+    try:
+        cfg = dp_config(bf16=False)
+        toks = get_tokenizer(cfg.data)
+        mesh = make_mesh(device="cuda:0")
+        state = dp_state(cfg, toks, mesh)
+        scores, launches, rows = dp_eval(torch, cfg, toks, state.model,
+                                         os.path.join(work, f"eval_rank{rank}.csv"))
+        demo_scores, demo_rows = dp_demo_eval(os.path.join(work, f"demo_rank{rank}.csv"))
+        with np.load(os.path.join(work, "batch.npz")) as f:
+            batch = {"images": f["images"],
+                     "refs": {k[4:]: f[k] for k in f.files if k.startswith("ref_")}}
+        local = shard_batch(mesh, batch)
+        criterion = _criterion(cfg, toks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(2):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses.append(float(train_step(cfg, criterion, state, local, seed=0)["loss"]))
+            e1.record()
+            torch.cuda.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()  # the reduction alone, on the last step's gradients
+        reduce_gradients(state.model, axis_group(mesh, "data"))
+        e1.record()
+        torch.cuda.synchronize()
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        digest = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+        if rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                       os.path.join(work, "rank0_params.pt"))
+        out = {"rank": rank, "rows": int(local["images"].shape[0]), "losses": losses,
+               "step_ms": step_ms, "reduce_ms": e0.elapsed_time(e1),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params_sha256": digest, "eval_scores": scores, "eval_launches": launches,
+               "eval_rows": rows, "demo_scores": demo_scores, "demo_rows": demo_rows}
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def dp_world_one(torch, card):
+    """World 1 over NCCL in this process: the step on a mesh against the
+    step with no group, float32 on the fixture's batch of 2; then the
+    bf16 step at batch 32, each form timed in turns."""
+    import numpy as np
+
+    from molnextr_tpu_torch.parallel.mesh import axis_group, make_mesh
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.step import global_denominators, reduce_gradients, train_step
+    from molnextr_tpu_torch.train.wire import as_model_refs
+
+    batch, _, _, meta = read_train_fixture(fixture_path("train.npz"))
+    cfg = dp_config(bf16=False)
+    toks = get_tokenizer(cfg.data)
+    criterion = _criterion(cfg, toks)
+    mesh = make_mesh(device=DEVICE)
+    runs = {}
+    for name, m in (("no_group", None), ("no_group_again", None), ("nccl_world_1", mesh)):
+        state = dp_state(cfg, toks, m)
+        losses = [float(train_step(cfg, criterion, state, batch, seed=0)["loss"])
+                  for _ in range(2)]
+        runs[name] = (state, losses)
+    ref_state, ref_losses = runs["no_group"]
+    out = {}
+    for name in ("no_group_again", "nccl_world_1"):
+        state, losses = runs[name]
+        out[name] = {"loss_gap": max(abs(a - b) for a, b in zip(losses, ref_losses)),
+                     "param_gap": params_gap(torch, state.model, ref_state.model)}
+    log(f"  world 1 over NCCL, float32, fixture batch of 2, 2 steps: losses {ref_losses}; "
+        f"against the step with no group {json.dumps(out['nccl_world_1'])} (expected 0); "
+        f"the no-group step run twice {json.dumps(out['no_group_again'])}")
+    tol = meta["tols"]
+    if not (out["nccl_world_1"]["loss_gap"] <= tol["loss_rtol"] * abs(ref_losses[0])
+            and out["nccl_world_1"]["param_gap"] <= tol["param_atol"]):
+        raise AssertionError("the world-1 NCCL step disagrees with the step with no group")
+    del runs, ref_state, state
+    torch.cuda.empty_cache()
+
+    # bf16, batch 32 (phase train's timed cell), the two forms in turns
+    cfg = dp_config(bf16=True)
+    criterion = _criterion(cfg, toks)
+    half = overfit_batch(cfg, toks, TRAIN_OVERFIT_BATCH)
+    big = {"images": np.concatenate([half["images"]] * (BATCH // TRAIN_OVERFIT_BATCH)),
+           "refs": {k: np.concatenate([v] * (BATCH // TRAIN_OVERFIT_BATCH))
+                    for k, v in half["refs"].items()}}
+    states = {"no_group": dp_state(cfg, toks), "nccl_world_1": dp_state(cfg, toks, mesh)}
+    times = {name: [] for name in states}
+    for i in range(DP_TIMED_STEPS + 1):
+        for name in (("no_group", "nccl_world_1") if i % 2 else ("nccl_world_1", "no_group")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            train_step(cfg, criterion, states[name], big, seed=2)
+            e1.record()
+            torch.cuda.synchronize()
+            if i:  # the first round warms up
+                times[name].append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    group = axis_group(mesh, "data")
+    model = states["nccl_world_1"].model
+    refs = as_model_refs(big["refs"], torch.device(DEVICE))
+    part_ms = {"reduce_gradients": [], "count_all_reduce": []}
+    for _ in range(3):
+        for name, fn in (("reduce_gradients", lambda: reduce_gradients(model, group)),
+                         ("count_all_reduce", lambda: global_denominators(criterion, refs,
+                                                                           group))):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            part_ms[name].append(e0.elapsed_time(e1))
+    timing = {"batch": BATCH, "dtype": "bf16", "remat": True, "dropout": True,
+              "ms_no_group": times["no_group"], "ms_nccl_world_1": times["nccl_world_1"],
+              "median_ms_no_group": float(np.median(times["no_group"])),
+              "median_ms_nccl_world_1": float(np.median(times["nccl_world_1"])),
+              "reduce_gradients_ms": part_ms["reduce_gradients"],
+              "count_all_reduce_ms": part_ms["count_all_reduce"],
+              "peak_memory_gb_last_step": peak, "card": card}
+    log("  world 1 over NCCL, bf16 steps " + json.dumps(timing))
+    del states, model
+    torch.cuda.empty_cache()
+    return {"parity": out, "timing": timing}
+
+
+def dp_world_two(torch, card):
+    """World 2 over gloo: two spawned ranks share ``cuda:0``.  This process
+    holds the one-process reference: the same seeded weights and the demo
+    bundle evaluated, then two float32 steps on all 32 rows."""
+    import multiprocessing as mp
+    import shutil
+
+    import numpy as np
+
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.step import train_step
+
+    cfg = dp_config(bf16=False)
+    toks = get_tokenizer(cfg.data)
+    work = os.path.join(HERE, "output", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    batch = overfit_batch(cfg, toks, DP_BATCH)
+    np.savez(os.path.join(work, "batch.npz"), images=batch["images"],
+             **{f"ref_{k}": v for k, v in batch["refs"].items()})
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=dp_rank, args=(r, port, work)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        # the one-process reference, while the ranks start
+        ref = dp_state(cfg, toks)
+        ref_scores, ref_launches, ref_rows = dp_eval(torch, cfg, toks, ref.model,
+                                                     os.path.join(work, "eval_one.csv"))
+        ref_demo_scores, ref_demo_rows = dp_demo_eval(os.path.join(work, "demo_one.csv"))
+        criterion = _criterion(cfg, toks)
+        ref_losses = [float(train_step(cfg, criterion, ref, batch, seed=0)["loss"])
+                      for _ in range(2)]
+        deadline = time.monotonic() + DP_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"world-2 ranks exited with {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = torch.load(os.path.join(work, "rank0_params.pt"))
+    lr = cfg.train.encoder_lr
+    worst = {"tight": 0.0, "loose": 0.0}  # |g| >= 1e-6: param_atol; below: Adam's 2 lr
+    for name, p in ref.model.named_parameters():
+        err = (got[name].to(p.device) - p.detach()).abs()
+        sure = p.grad.abs() >= 1e-6
+        worst["tight"] = max(worst["tight"], float(err[sure].max()) if sure.any() else 0.0)
+        worst["loose"] = max(worst["loose"], float(err[~sure].max()) if (~sure).any() else 0.0)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    for r in ranks:
+        log(f"  world 2 over gloo, rank {r['rank']}: {r['rows']} rows, float32 step ms "
+            f"{[round(x, 3) for x in r['step_ms']]}, gradient reduction {r['reduce_ms']:.3f} ms, "
+            f"peak {r['peak_memory_gb']:.2f} GB, evaluate_model launches "
+            f"{json.dumps(r['eval_launches'])} (card: {card})")
+    log(f"  world 2 losses {ranks[0]['losses']} against one process on 32 rows {ref_losses}: "
+        f"rel gap {loss_gap:.2e}; rank 0 parameters against one process: max abs gap "
+        f"{worst['tight']:.2e} where |g| >= 1e-6, {worst['loose']:.2e} elsewhere (2 lr = "
+        f"{2 * lr:.0e}); evaluate_model rank 0 {json.dumps(ranks[0]['eval_scores'])}, one "
+        f"process {json.dumps(ref_scores)} (launches {json.dumps(ref_launches)}); "
+        f"{len(ref_rows) - 1} predictions, {distinct(ref_rows)} distinct, rank 0's in global "
+        f"order equal one process's: {ranks[0]['eval_rows'] == ref_rows}")
+    log(f"  demo bundle over {len(DP_DEMO_SMILES)} small molecules: rank 0 "
+        f"{json.dumps(ranks[0]['demo_scores'])}, one process {json.dumps(ref_demo_scores)}; "
+        f"{distinct(ref_demo_rows)} distinct predictions, rank 0's equal one process's: "
+        f"{ranks[0]['demo_rows'] == ref_demo_rows}")
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        raise AssertionError("the two ranks' parameters differ")
+    if not (loss_gap <= 1e-4 and worst["tight"] <= 1e-6 and worst["loose"] <= 2 * lr + 1e-6):
+        raise AssertionError("the world-2 step disagrees with the one-process step")
+    for r in ranks:
+        for name in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+            if not r["eval_launches"][name]:
+                raise AssertionError(f"rank {r['rank']}'s evaluate_model never launched {name}")
+    if ranks[0]["eval_scores"] != ref_scores or ranks[1]["eval_scores"] != {}:
+        raise AssertionError("the world-2 evaluation's scores are not the one-process scores")
+    if ranks[0]["eval_rows"] != ref_rows or ranks[1]["eval_rows"] is not None:
+        raise AssertionError("the world-2 evaluation's predictions are not one process's")
+    if not (ref_demo_scores["canon_smiles"] > 0
+            and distinct(ref_demo_rows) == len(DP_DEMO_SMILES)):
+        raise AssertionError("the demo bundle's evaluation cannot show a wrong gather: "
+                             f"{json.dumps(ref_demo_scores)}")
+    if (ranks[0]["demo_rows"] != ref_demo_rows or ranks[0]["demo_scores"] != ref_demo_scores
+            or ranks[1]["demo_scores"] != {}):
+        raise AssertionError("the world-2 evaluation of the demo bundle is not one process's")
+    del ref, got
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"ranks": ranks, "reference_losses": ref_losses, "loss_rel_gap": loss_gap,
+            "param_gap": worst, "reference_scores": ref_scores,
+            "reference_demo_scores": ref_demo_scores}
+
+
+def distinct(rows):
+    """How many different predictions (every column after the gold) a
+    predictions CSV holds."""
+    return len({tuple(r[2:]) for r in rows[1:]})
+
+
+def phase_dp(torch, results, card):
+    from molnextr_tpu_torch.parallel.distributed import initialize, shutdown
+
+    log("phase dp: data parallel at full width (Config(), remat on): world 1 over NCCL in "
+        "this process, then world 2 over gloo on this one card")
+    initialize(backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+               rank=0, local_rank=0, device=DEVICE)
+    try:
+        one = dp_world_one(torch, card)
+    finally:
+        shutdown()
+    results["dp"] = {"world_1": one, "world_2": dp_world_two(torch, card)}
+
+
 def data_pipeline_rate(cfg, toks):
     """Augmented 384 px items per second of ``TrainDataset`` (render,
     augment, tokenize) over ``DATA_ITEMS`` drug-like SMILES of
@@ -1899,6 +2281,7 @@ def main() -> int:
         "beam": lambda: phase_beam(torch),
         "rerank": lambda: phase_rerank(torch, results, card),
         "train": lambda: phase_train(torch, results, card),
+        "dp": lambda: phase_dp(torch, results, card),
         "cli": lambda: phase_cli(torch, results, card),
         "convnext": lambda: phase_convnext(torch, results, card),
         "suites": lambda: phase_suites(torch, results, card),

@@ -15,8 +15,10 @@ flags, plus ``--device`` (default ``cuda``):
    and ``np.random`` that ``_synthetic_eval_set`` leaves behind, as the JAX
    suite draws them, so its images equal the JAX suite's pixel for pixel;
 5. ``suite_train_throughput``: the augmenting data pipeline and the port's
-   train step on one device (data parallel is not ported), with
-   ``torch.cuda.synchronize`` before each clock read on the card.
+   train step over the mesh of ``cfg.train.mesh_shape`` (one device, or
+   every rank under torchrun, each loading its rows of the global batch),
+   with ``torch.cuda.synchronize`` before each clock read on the card; it
+   reports the global batch and images/s over the world.
 
 Each suite returns a dict; ``run_all`` runs them into one report.  Its
 default single image is ``fixtures/demo_0.png`` of this package.
@@ -157,11 +159,13 @@ def suite_perturbed(cfg: Config, model, n: int = 16) -> Dict[str, Any]:
 
 def suite_train_throughput(cfg: Config, n_batches: int = 3, num_workers: int = 8,
                            device="cuda") -> Dict[str, Any]:
-    """Config 5: host pipeline + device step throughput at the train batch
-    size, on one device; the first batch (start-up) is not timed."""
+    """Config 5: host pipeline + device step throughput at the global train
+    batch over the mesh's ranks; the first batch (start-up) is not
+    timed."""
     from molnextr_tpu_torch.data.dataset import DataLoader, Sample, TrainDataset
     from molnextr_tpu_torch.inference import resolve_device
     from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.parallel.mesh import axis_rank, axis_size, make_mesh
     from molnextr_tpu_torch.tokenization import get_tokenizer
     from molnextr_tpu_torch.train.loop import _criterion
     from molnextr_tpu_torch.train.state import create_train_state
@@ -175,9 +179,11 @@ def suite_train_throughput(cfg: Config, n_batches: int = 3, num_workers: int = 8
     ] * ((cfg.train.batch_size * (n_batches + 1)) // 8 + 1)
     tokenizers = get_tokenizer(cfg.data)
     ds = TrainDataset(cfg, [Sample(s) for s in smiles], tokenizers)
-    loader = DataLoader(ds, batch_size=cfg.train.batch_size, num_workers=num_workers)
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes, device=dev)
+    loader = DataLoader(ds, batch_size=cfg.train.batch_size, num_workers=num_workers,
+                        rank=axis_rank(mesh, "data"), world=axis_size(mesh, "data"))
     model = MolNexTRModel(cfg, {f: len(t) for f, t in tokenizers.items()})
-    state = create_train_state(cfg, model, 100, seed=0, device=dev)
+    state = create_train_state(cfg, model, 100, seed=0, device=dev, mesh=mesh)
     criterion = _criterion(cfg, tokenizers)
     times = []
     seen = 0
@@ -210,13 +216,33 @@ def run_all(cfg: Optional[Config] = None, params=None, image_path: str = DEMO_IM
     the dataset and perturbed suites at n / 2, and ``equal_n`` runs all at
     ``n``.  ``rerank`` turns on round-trip candidate verification for every
     accuracy suite, and the beam suite then surfaces its n-best list.  The
-    train suite runs its pipeline inline (no pool), as the JAX package's."""
+    train suite runs its pipeline inline (no pool), as the JAX package's.
+
+    Under a process group the accuracy suites run on rank 0 alone (the
+    others wait at a barrier), then every rank runs the train suite."""
     import copy
+
+    from molnextr_tpu_torch.parallel.distributed import barrier, is_main_process
 
     cfg = cfg or Config()
     if rerank:
         cfg = copy.deepcopy(cfg)
         cfg.decode.rerank = "roundtrip"
+    report = []
+    if is_main_process():
+        report += _accuracy_suites(cfg, params, image_path, eval_csvs, n, equal_n, rerank,
+                                   beam_size, device)
+    barrier()
+    report.append(suite_train_throughput(cfg, num_workers=0, device=device))
+    for suite in report:
+        suite.pop("_smiles", None)
+    return report
+
+
+def _accuracy_suites(cfg, params, image_path, eval_csvs, n, equal_n, rerank, beam_size,
+                     device) -> List[Dict[str, Any]]:
+    import copy
+
     model = _engine(cfg, params, device)
     report = []
     if os.path.exists(image_path):
@@ -234,10 +260,6 @@ def run_all(cfg: Optional[Config] = None, params=None, image_path: str = DEMO_IM
     for csv in eval_csvs or [None]:
         report.append(suite_dataset_eval(model, csv, n_fallback=n_half))
     report.append(suite_perturbed(cfg, model, n=n_half))
-    del model
-    report.append(suite_train_throughput(cfg, num_workers=0, device=device))
-    for suite in report:
-        suite.pop("_smiles", None)
     return report
 
 
@@ -256,7 +278,20 @@ def main(argv=None):
                    help="round-trip candidate verification on every accuracy suite")
     p.add_argument("--beam_size", type=int, default=2, help="beam width for the beam suite")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--backend", type=str, default=None,
+                   help="under torchrun: nccl (default for CUDA ranks) or gloo (CPU ranks, "
+                        "or ranks that share a card)")
     args = p.parse_args(argv)
+    from molnextr_tpu_torch.parallel.distributed import initialize, is_main_process, shutdown
+
+    device = str(initialize(backend=args.backend, device=args.device))  # this rank's card
+    try:
+        _bench_main(args, device, is_main_process())
+    finally:
+        shutdown()
+
+
+def _bench_main(args, device, main_rank: bool) -> None:
     params = None
     if args.model_path:
         from molnextr_tpu_torch.checkpoint import load_model
@@ -269,7 +304,9 @@ def main(argv=None):
     else:
         cfg = Config()
     report = run_all(cfg, params, eval_csvs=args.eval_csv, n=args.n, equal_n=args.equal_n,
-                     rerank=args.rerank, beam_size=args.beam_size, device=args.device)
+                     rerank=args.rerank, beam_size=args.beam_size, device=device)
+    if not main_rank:
+        return
     text = json.dumps(report, indent=2, default=float)
     if args.output:
         with open(args.output, "w") as f:

@@ -12,7 +12,16 @@ Random numbers: the transforms draw from the dataset's ``random.Random``
 and ``np.random.RandomState`` instances (``rng``/``np_rng``, seeded from
 ``cfg.train.seed`` unless given).  The renderer, like the JAX package's,
 draws from the module-level ``random`` and ``np.random``; pool workers seed
-both, and their own instances, from the loader's seed.
+both, and their own instances, from (the loader's seed and epoch, the
+rank, the worker's index).
+
+What a rank loads.  Under data parallelism ``batch_size`` stays the global
+batch.  Every rank draws the same permutation from the shared seed and
+builds only its contiguous ``batch_size // world`` rows of each global
+batch (``rank``/``world`` of the mesh's ``data`` axis), so the union of the
+ranks' step-``s`` batches is the one-process loader's batch ``s``, and
+every rank has the same ``len`` (global batches, the last partial one
+dropped).
 """
 
 from __future__ import annotations
@@ -317,10 +326,14 @@ def pad_batch(items: List[Optional[Dict[str, Any]]], formats: Sequence[str], max
 _WORKER: Dict[str, TrainDataset] = {}
 
 
-def _worker_init(cfg_json: str, samples: List[Sample], split: str, seed: int) -> None:
+def _worker_init(cfg_json: str, samples: List[Sample], split: str, seed: int, rank: int,
+                 counter) -> None:
     from molnextr_tpu_torch.tokenization import get_tokenizer
 
-    s = (seed + os.getpid()) % 2**31
+    with counter.get_lock():  # this worker's index in its pool
+        worker = counter.value
+        counter.value += 1
+    s = int(np.random.SeedSequence([seed, rank, worker]).generate_state(1)[0]) % 2**31
     random.seed(s)  # the renderer's generators
     np.random.seed(s)
     cfg = Config.from_json(cfg_json)
@@ -335,11 +348,16 @@ def _worker_get(idx: int):
 class DataLoader:
     """Batches over a ``TrainDataset``: ``num_workers=0`` builds them in a
     thread (``prefetch > 0``) or inline, ``num_workers > 0`` in a process
-    pool started with ``spawn``."""
+    pool started with ``spawn``.  ``rank`` of ``world`` data ranks yields
+    its contiguous share of each global batch of ``batch_size``."""
 
     def __init__(self, dataset: TrainDataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 0, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, rank: int = 0, world: int = 1):
+        if world > 1 and (batch_size % world or not drop_last):
+            raise ValueError(f"a global batch of {batch_size} over {world} data ranks needs "
+                             "drop_last and a batch the ranks divide")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -372,7 +390,8 @@ class DataLoader:
         chunks = [order[s : s + self.batch_size] for s in range(0, len(order), self.batch_size)]
         if self.drop_last:
             chunks = [c for c in chunks if len(c) == self.batch_size]
-        return chunks
+        per = self.batch_size // self.world
+        return [c[self.rank * per:(self.rank + 1) * per] for c in chunks]
 
     def _collate(self, items) -> Dict[str, Any]:
         return pad_batch(items, self.dataset.cfg.data.formats, self.max_len, self.max_atoms)
@@ -433,7 +452,7 @@ class DataLoader:
         ctx = mp.get_context("spawn")
         with ctx.Pool(self.num_workers, initializer=_worker_init,
                       initargs=(ds.cfg.to_json(), ds.samples, ds.split,
-                                self.seed + self.epoch)) as pool:
+                                self.seed + self.epoch, self.rank, ctx.Value("i", 0))) as pool:
             it = iter(chunks)
             inflight = []
             for _ in range(max(self.prefetch, 1)):

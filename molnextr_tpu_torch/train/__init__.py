@@ -24,10 +24,15 @@ __all__ = [
 
 def main(argv=None):
     """``molnextr-torch-train``: the JAX package's ``molnextr-train`` with
-    the same flags plus ``--device`` (default ``cuda``), over the port's
-    ``train_loop``.  CSVs are read with ``utils.read_csv`` (pandas' typing,
-    without pandas): a ``SMILES`` column to render, and optionally
-    ``file_path`` for image files (relative to ``--data_path``)."""
+    the same flags plus ``--device`` (default ``cuda``) and ``--backend``,
+    over the port's ``train_loop``.  CSVs are read with ``utils.read_csv``
+    (pandas' typing, without pandas): a ``SMILES`` column to render, and
+    optionally ``file_path`` for image files (relative to ``--data_path``).
+
+    Launched plainly it trains on one device; under ``torchrun
+    --nproc_per_node N`` every process is a rank (``parallel.initialize``
+    reads torchrun's environment) and ``--batch_size`` is the global
+    batch."""
     import argparse
     import os
 
@@ -63,6 +68,9 @@ def main(argv=None):
     p.add_argument("--save_image", type=int, default=0,
                    help="dump the first N synthetic renders to save_path/images")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--backend", type=str, default=None,
+                   help="under torchrun: nccl (default for CUDA ranks) or gloo (CPU ranks, "
+                        "or ranks that share a card)")
     args = p.parse_args(argv)
 
     if args.config and os.path.exists(args.config):
@@ -96,8 +104,13 @@ def main(argv=None):
         train_samples = train_samples[: args.max_samples]
     valid_samples = load_samples(args.valid_file) if args.valid_file else None
 
+    from molnextr_tpu_torch.parallel.distributed import initialize, shutdown
     from molnextr_tpu_torch.train.loop import train_loop
 
-    train_loop(cfg, train_samples, valid_samples, num_workers=args.num_workers,
-               do_eval=not args.no_eval, save_images=args.save_image, resume=args.resume,
-               device=args.device)
+    device = str(initialize(backend=args.backend, device=args.device))  # this rank's card
+    try:
+        train_loop(cfg, train_samples, valid_samples, num_workers=args.num_workers,
+                   do_eval=not args.no_eval, save_images=args.save_image, resume=args.resume,
+                   device=device)
+    finally:
+        shutdown()

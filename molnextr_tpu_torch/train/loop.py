@@ -1,18 +1,26 @@
 """Training orchestration: epochs, meters, per-epoch eval, checkpoints.
 
-Port of ``molnextr_tpu/train/loop.py`` on one device:
+Port of ``molnextr_tpu/train/loop.py``, on one device or on every rank of
+a process group (``parallel.initialize``, one process per device):
 
-* the train step of ``train/step.py`` (``dispatch_steps`` batches a call);
+* the train step of ``train/step.py`` over the mesh of
+  ``cfg.train.mesh_shape``/``mesh_axes`` (``dispatch_steps`` batches a
+  call), each rank fed its rows of every global batch by the sharded
+  ``DataLoader``;
 * step-time meters with ETA printing;
 * per-epoch greedy evaluation through an engine that owns its own module at
   the serving dtype (``InferenceEngine.load_params`` copies the training
-  weights in), scored with ``SmilesEvaluator``;
+  weights in), scored with ``SmilesEvaluator``: on a world of ranks each
+  decodes its round-robin share, the numeric results are gathered as
+  tensors (``_gather_shards``) and rank 0 alone scores;
 * best/all/last checkpointing keyed on the validation ``canon_smiles``
-  score, and resume with fallbacks;
-* metrics appended to ``metrics.jsonl``.
+  score, and resume with fallbacks (every rank restores the same bundle;
+  rank 0 alone writes, and the others wait for it);
+* metrics appended to ``metrics.jsonl`` by rank 0.
 
-The multi-host gather of the JAX package (``_gather_shards``) waits for
-data parallel.
+As in the JAX loop, a ``model`` mesh axis holds replicas of the data
+ranks' rows; the decoder's tensor-parallel split is ``parallel/tp.py``'s,
+applied by a caller that owns the state.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import csv
 import json
 import os
+import random
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -32,6 +41,8 @@ from molnextr_tpu_torch.data.dataset import DataLoader, Sample, TrainDataset, re
 from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
 from molnextr_tpu_torch.inference import InferenceEngine, resolve_device
 from molnextr_tpu_torch.models.model import MolNexTRModel
+from molnextr_tpu_torch.parallel import distributed as pdist
+from molnextr_tpu_torch.parallel.mesh import axis_rank, axis_size, make_mesh
 from molnextr_tpu_torch.tokenization import get_tokenizer
 from molnextr_tpu_torch.train.losses import Criterion
 from molnextr_tpu_torch.train.state import TrainState, create_train_state
@@ -39,6 +50,39 @@ from molnextr_tpu_torch.train.step import multi_train_step, train_step
 from molnextr_tpu_torch.utils import (
     AverageMeter, LossMeter, print_rank_0, round_floats, seed_everything, time_since,
 )
+
+
+# evaluation golds cross ranks as fixed-width UTF-8 byte rows
+GOLD_BYTES = 512
+
+
+def _gather_shards(arrays: Dict[str, np.ndarray], idx: np.ndarray, gather, world: int):
+    """Pad per-rank result arrays to a common length, all-gather them, and
+    restore global order, dropping pad rows.
+
+    ``arrays``: per-rank numeric results keyed by name (leading axis =
+    local samples); ``idx``: global sample index per local row; ``gather``:
+    a ``gather_arrays``-style function (all-gather along axis 0), passed in
+    so the logic is testable with a fake gather."""
+    n_local = int(idx.shape[0])
+    n_max = int(gather(np.asarray([n_local], np.int32)).max())
+    pad = n_max - n_local
+
+    def pad0(a):
+        if pad == 0:
+            return a
+        widths = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
+        return np.pad(a, widths)
+
+    idx_g = gather(pad0(np.asarray(idx, np.int32) + 1))  # +1: 0 marks padding
+    idx_g = idx_g.reshape(world * n_max)
+    keep = idx_g > 0
+    order = np.argsort(idx_g[keep], kind="stable")
+    out: Dict[str, np.ndarray] = {}
+    for k, a in arrays.items():
+        g = gather(pad0(a)).reshape((world * n_max,) + a.shape[1:])
+        out[k] = g[keep][order]
+    return out, idx_g[keep][order] - 1
 
 
 def _wire_image(image: np.ndarray) -> np.ndarray:
@@ -77,7 +121,14 @@ def evaluate_model(cfg: Config, model: MolNexTRModel, tokenizers,
     score it.  The weights are copied into ``engine`` (built by
     :func:`serving_engine` on the model's device when None); ``model``'s
     mode and parameters are left as they were.  ``render_cache`` keeps the
-    deterministic validation renders across calls."""
+    deterministic validation renders across calls.
+
+    On a world of ranks every rank calls it: samples go round-robin over
+    the ranks, each decodes its share to numeric arrays (token ids, edge
+    classes, and its golds as byte rows, since a synthetic gold is the
+    canonical form its rank drew), the arrays are all-gathered as tensors
+    (``parallel.gather_arrays``), and rank 0 alone runs the chemistry and
+    scores; the other ranks return ``{}``."""
     from molnextr_tpu_torch.chem.graph import convert_graph_to_smiles
     from molnextr_tpu_torch.evaluation import SmilesEvaluator
 
@@ -86,6 +137,7 @@ def evaluate_model(cfg: Config, model: MolNexTRModel, tokenizers,
     engine.load_params(model)
     ds = TrainDataset(cfg, list(valid_samples), tokenizers, split="valid", dynamic=True)
     bs = batch_size or cfg.decode.batch_size
+    world, rank = pdist.process_count(), pdist.process_index()
     golds_all: List[Optional[str]] = [s.smiles for s in ds.samples]
     seqs: List[np.ndarray] = []
     edges_mats: List[np.ndarray] = []
@@ -104,7 +156,8 @@ def evaluate_model(cfg: Config, model: MolNexTRModel, tokenizers,
         batch_imgs.clear()
         batch_idx.clear()
 
-    for i, sample in enumerate(ds.samples):
+    for i in range(rank, len(ds), world):
+        sample = ds.samples[i]
         if sample.image_path is None:
             if render_cache is not None and i in render_cache:
                 image, golds_all[i] = render_cache[i]
@@ -127,19 +180,35 @@ def evaluate_model(cfg: Config, model: MolNexTRModel, tokenizers,
             flush()
     flush()
 
-    seq_all = np.concatenate(seqs) if seqs else np.zeros((0, engine.max_len), np.int32)
-    edge_all = np.concatenate(edges_mats) if edges_mats else None
+    local = {"seq": np.concatenate(seqs) if seqs else np.zeros((0, engine.max_len), np.int32)}
+    if "edges" in cfg.data.formats:
+        # present even at zero length, so every rank issues the same collectives
+        k = engine.max_atoms
+        local["edges"] = (np.concatenate(edges_mats) if edges_mats
+                          else np.zeros((0, k, k), np.int32))
+    idx = np.asarray(kept_idx, np.int32)
+    if world > 1:
+        gold_rows = np.zeros((len(kept_idx), GOLD_BYTES), np.uint8)
+        for r, i in enumerate(kept_idx):
+            enc = (golds_all[i] or "").encode("utf-8")[:GOLD_BYTES]
+            gold_rows[r, : len(enc)] = np.frombuffer(enc, np.uint8)
+        local["gold"] = gold_rows
+        local, idx = _gather_shards(local, idx, pdist.gather_arrays, world)
+        if not pdist.is_main_process():
+            return {}
+        for r, i in enumerate(idx):
+            golds_all[i] = bytes(local["gold"][r]).rstrip(b"\x00").decode("utf-8", "replace")
     coords, symbols, edges = [], [], []
-    for r in range(seq_all.shape[0]):
-        parsed = engine.tokenizer.sequence_to_smiles(seq_all[r].tolist())
+    for r in range(local["seq"].shape[0]):
+        parsed = engine.tokenizer.sequence_to_smiles(local["seq"][r].tolist())
         coords.append(parsed["coords"])
         symbols.append(parsed["symbols"])
         k = min(len(parsed["indices"]), engine.max_atoms)
-        if edge_all is not None:
-            edges.append(edge_all[r, :k, :k].tolist())
+        if "edges" in local:
+            edges.append(local["edges"][r, :k, :k].tolist())
         else:
             edges.append([[0] * k for _ in range(k)])
-    golds = [golds_all[i] for i in kept_idx]
+    golds = [golds_all[i] for i in idx]
     smiles_list, _, _ = convert_graph_to_smiles(coords, symbols, edges, num_workers=num_workers)
     scores = SmilesEvaluator(golds[: len(smiles_list)], num_workers=num_workers).evaluate(
         smiles_list)
@@ -167,14 +236,16 @@ def train_loop(cfg: Config, train_samples: Sequence[Sample],
                eval_every: int = 1, save_images: int = 0, profile_steps: int = 0,
                resume: Optional[str] = None, device="cuda") -> TrainState:
     """A whole training run on ``device`` (CUDA unless the caller asks for
-    the CPU); returns the final state.  ``save_images`` writes the first N
-    synthetic renders as PNG; ``profile_steps`` traces that many steps with
-    ``torch.profiler`` into ``save_path/profile``."""
+    the CPU; under a process group, this rank's device from
+    ``parallel.initialize``); returns the final state.  ``save_images``
+    writes the first N synthetic renders as PNG; ``profile_steps`` traces
+    that many steps with ``torch.profiler`` into ``save_path/profile``."""
     from molnextr_tpu_torch.data.png import write_png
 
     dev = resolve_device(device)
     seed_everything(cfg.train.seed)  # the renderer's module-level generators
-    if save_images > 0:
+    main_rank = pdist.is_main_process()
+    if save_images > 0 and main_rank:
         img_dir = os.path.join(cfg.train.save_path, "images")
         os.makedirs(img_dir, exist_ok=True)
         for i, sample in enumerate(train_samples[:save_images]):
@@ -182,26 +253,45 @@ def train_loop(cfg: Config, train_samples: Sequence[Sample],
                 img, _, _, ok = generate_synthetic_image(sample.smiles)
                 if ok:
                     write_png(os.path.join(img_dir, f"{i}.png"), img)
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes, device=dev)
+    data_rank, data_world = axis_rank(mesh, "data"), axis_size(mesh, "data")
+    if dev.type == "cuda" and pdist.process_count() > 1:
+        # the evaluation's kernels: rank 0 builds them once, the others then
+        # find the libraries built instead of each running nvcc
+        if main_rank:
+            from molnextr_tpu_torch.ops._build import build_all
+
+            build_all()
+        pdist.barrier()
     tokenizers = get_tokenizer(cfg.data)
     vocab_sizes = {f: len(t) for f, t in tokenizers.items()}
-    ds = TrainDataset(cfg, list(train_samples), tokenizers, split="train")
+    if data_world > 1:  # each rank's augmentations from its own generators
+        rank_seed = int(np.random.SeedSequence([cfg.train.seed, data_rank]).generate_state(1)[0])
+        ds = TrainDataset(cfg, list(train_samples), tokenizers, split="train",
+                          rng=random.Random(rank_seed), np_rng=np.random.RandomState(rank_seed))
+    else:
+        ds = TrainDataset(cfg, list(train_samples), tokenizers, split="train")
     workers = cfg.train.num_workers if num_workers is None else num_workers
+    # the item cache holds one process's items: off on a world of ranks
+    use_item_cache = workers == 0 and pdist.process_count() == 1
     item_cache_path = os.path.join(cfg.train.save_path, "item_cache.pkl")
-    if workers == 0 and ds._item_cacheable and ds.load_item_cache(item_cache_path):
+    if use_item_cache and ds._item_cacheable and ds.load_item_cache(item_cache_path):
         print_rank_0(f"item cache loaded: {len(ds._item_cache)} prebuilt items")
     loader = DataLoader(ds, batch_size=cfg.train.batch_size, shuffle=True,
-                        num_workers=workers, seed=cfg.train.seed)
+                        num_workers=workers, seed=cfg.train.seed, rank=data_rank,
+                        world=data_world)
     steps_per_epoch = (cfg.train.train_steps_per_epoch if cfg.train.train_steps_per_epoch > 0
                        else len(loader))
     # the schedules count optimizer updates: one per grad_accum_steps batches
     accum = max(cfg.train.grad_accum_steps, 1)
     total_steps = max(steps_per_epoch * cfg.train.epochs // accum, 1)
-    print_rank_0(f"device={dev} micro_batch={cfg.train.batch_size} "
+    print_rank_0(f"device={dev} ranks={pdist.process_count()} mesh={tuple(mesh.shape)} "
+                 f"micro_batch={cfg.train.batch_size} "
                  f"global_batch={cfg.train.batch_size * accum} "
                  f"steps/epoch={steps_per_epoch} total_updates={total_steps}")
 
     state = create_train_state(cfg, MolNexTRModel(cfg, vocab_sizes), total_steps,
-                               seed=cfg.train.seed, device=dev)
+                               seed=cfg.train.seed, device=dev, mesh=mesh)
     criterion = _criterion(cfg, tokenizers)
     ckpt = CheckpointManager(cfg.train.save_path, cfg.train.save_mode)
     start_epoch = 0
@@ -287,7 +377,9 @@ def train_loop(cfg: Config, train_samples: Sequence[Sample],
                 profiler.stop()
                 trace_dir = os.path.join(cfg.train.save_path, "profile")
                 os.makedirs(trace_dir, exist_ok=True)
-                profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+                name = ("trace.json" if pdist.process_count() == 1
+                        else f"trace_rank{pdist.process_index()}.json")
+                profiler.export_chrome_trace(os.path.join(trace_dir, name))
                 profiler, profile_steps = None, 0
             if bidx % print_freq < k or bidx >= steps_per_epoch - 1:
                 host = {name: float(v) for name, v in metrics.items()}
@@ -312,14 +404,16 @@ def train_loop(cfg: Config, train_samples: Sequence[Sample],
                                     num_workers=max(workers, 1), engine=eval_engine,
                                     render_cache=eval_render_cache)
             print_rank_0(f"epoch {epoch} eval: {scores}")
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({
-                "epoch": epoch, "step": global_step, "train_loss": loss_meter.epoch.avg,
-                **{f"train_{n}": m.epoch.avg for n, m in loss_meter.subs.items()},
-                **{f"valid_{n}": v for n, v in scores.items()},
-            }) + "\n")
-        ckpt.save(cfg, state, epoch, score=scores.get("canon_smiles"))
-        if workers == 0 and ds.item_cache_complete() and not os.path.exists(item_cache_path):
+        if main_rank:  # rank 0 alone writes; the others wait for its files
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch, "step": global_step, "train_loss": loss_meter.epoch.avg,
+                    **{f"train_{n}": m.epoch.avg for n, m in loss_meter.subs.items()},
+                    **{f"valid_{n}": v for n, v in scores.items()},
+                }) + "\n")
+            ckpt.save(cfg, state, epoch, score=scores.get("canon_smiles"))
+        pdist.barrier()
+        if use_item_cache and ds.item_cache_complete() and not os.path.exists(item_cache_path):
             t0 = time.time()
             if ds.save_item_cache(item_cache_path):
                 print_rank_0(f"item cache saved ({len(ds._item_cache)} items, "

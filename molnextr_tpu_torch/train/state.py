@@ -18,12 +18,19 @@ adamw(schedule))`` written out on tensors, so a step gives optax's values:
 over k micro-steps is clipped and applied once, and only those real updates
 advance the schedule and the Adam count.  Parameters and optimizer state
 stay float32.
+
+On a data-parallel mesh the step hands the optimizer gradients already
+summed over the data axis, so every rank clips and updates alike.  Under
+the decoder's tensor-parallel split (``parallel/tp.py``) a rank holds a
+shard of some leaves; the clip's global norm then counts each shard once
+(their squares summed over the ``model`` axis) and each replicated leaf
+once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -82,10 +89,28 @@ class TwoGroupAdamW:
                     if self.accum > 1 else None)
         self.count = 0  # real updates applied (the schedules' and Adam's count)
         self.mini_step = 0
+        # the tensor-parallel split: which leaves are shards, summed over which group
+        self.sharded = {g: [False] * len(ps) for g, ps in self.params.items()}
+        self.shard_group = None
+
+    def _norm(self, group: str, grads: List[torch.Tensor]) -> torch.Tensor:
+        flags = self.sharded[group]
+        if self.shard_group is None or not any(flags):
+            return _global_norm(grads)
+        import torch.distributed as dist
+
+        def squares(ts):
+            if not ts:
+                return grads[0].new_zeros(())
+            return torch.stack(torch._foreach_norm(ts)).square().sum()
+
+        shards = squares([x for x, f in zip(grads, flags) if f])
+        dist.all_reduce(shards, group=self.shard_group)
+        return (squares([x for x, f in zip(grads, flags) if not f]) + shards).sqrt()
 
     def group_norms(self) -> Dict[str, torch.Tensor]:
         """Global norm of each group's current ``.grad``."""
-        return {g: _global_norm([p.grad for p in ps]) for g, ps in self.params.items()}
+        return {g: self._norm(g, [p.grad for p in ps]) for g, ps in self.params.items()}
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -112,7 +137,7 @@ class TwoGroupAdamW:
                 continue
             # optax: where(norm < max_norm, g, (g / norm) * max_norm), on the
             # device (dividing and multiplying by 1 are exact)
-            norm = _global_norm(gs)
+            norm = self._norm(g, gs)
             clip = norm >= self.max_norm
             gs = torch._foreach_div(gs, torch.where(clip, norm, 1.0))
             torch._foreach_mul_(gs, torch.where(clip, self.max_norm, 1.0))
@@ -174,24 +199,34 @@ def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 @dataclass
 class TrainState:
-    """The model (float32 masters), its optimizer and the micro-step count
+    """The model (float32 masters), its optimizer, the micro-step count
     (``TrainState.step`` of the JAX package: it counts every call of the
-    train step, accumulation micro-steps included)."""
+    train step, accumulation micro-steps included) and the mesh the step
+    runs over (a ``TrivialMesh``: one device, no process group)."""
 
     model: nn.Module
     optimizer: TwoGroupAdamW
+    mesh: Any
     step: int = 0
 
 
 def create_train_state(cfg: Config, model: nn.Module, total_steps: int, seed: int = 0,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh=None) -> TrainState:
     """Initialize ``model`` from ``weights.seeded_flax_params(seed)`` in
     float32 on ``device`` (CUDA unless the caller asks for the CPU) and wrap
-    it with its optimizer."""
+    it with its optimizer.  On a ``mesh`` with a process group every rank
+    then takes global rank 0's parameters; with no ``mesh`` the state runs
+    the single-device step (a one-rank ``TrivialMesh``)."""
     from molnextr_tpu_torch.inference import resolve_device
+    from molnextr_tpu_torch.parallel.distributed import broadcast_
+    from molnextr_tpu_torch.parallel.mesh import TrivialMesh, has_group
     from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
 
     dev = resolve_device(device)
     load_flax_params(model, seeded_flax_params(cfg, model.vocab_sizes, seed))
     model.to(device=dev, dtype=torch.float32).train()
-    return TrainState(model, TwoGroupAdamW(cfg, model, total_steps))
+    if mesh is None:
+        mesh = TrivialMesh((1,), ("data",), dev.type)
+    elif has_group(mesh):
+        broadcast_([p.data for p in model.parameters()], src=0)
+    return TrainState(model, TwoGroupAdamW(cfg, model, total_steps), mesh)

@@ -44,11 +44,9 @@ def seed_everything(seed: int = 42) -> None:
 
 
 def is_main_process() -> bool:
-    import torch.distributed as dist
+    from molnextr_tpu_torch.parallel.distributed import is_main_process as main
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+    return main()
 
 
 def print_rank_0(message: str) -> None:

@@ -697,3 +697,74 @@ def test_clutter_pipeline_as_a_wire_batch(dev):
     model = load_flax_params(MolNexTRModel(cfg, vocab), seeded_flax_params(cfg, vocab, 0))
     metrics = eval_step(cfg, _criterion(cfg, toks), model.to(dev), batch)
     assert torch.isfinite(metrics["loss"]).item()
+
+
+def _dp_tiny_cfg():
+    cfg = tiny_test_config()
+    cfg.encoder.use_remat = cfg.decoder.use_remat = True
+    cfg.encoder.drop_path_rate = cfg.decoder.hidden_dropout = cfg.decoder.attn_dropout = 0.0
+    return cfg
+
+
+def test_world_one_nccl_step_equals_the_step_with_no_group(dev):
+    """A process group of one rank over NCCL: the count all-reduce and the
+    gradient reduction change nothing (expected 0 difference; held to
+    1e-6 for the card's atomics)."""
+    import torch_parallel_worker as worker
+    from molnextr_tpu_torch.parallel.distributed import initialize, shutdown
+    from molnextr_tpu_torch.parallel.mesh import make_mesh
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.step import train_step
+
+    cfg = _dp_tiny_cfg()
+    toks = get_tokenizer(cfg.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    batch = _tiny_train_batch(cfg)
+
+    def run(mesh):
+        state = create_train_state(cfg, MolNexTRModel(cfg, vocab), 10, seed=0, device="cuda",
+                                   mesh=mesh)
+        losses = [float(train_step(cfg, _criterion(cfg, toks), state, batch, seed=3)["loss"])
+                  for _ in range(2)]
+        return losses, {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+
+    plain = run(None)
+    initialize(backend="nccl", init_method=f"tcp://127.0.0.1:{worker.free_port()}",
+               world_size=1, rank=0, local_rank=0, device="cuda")
+    try:
+        grouped = run(make_mesh(device="cuda"))
+    finally:
+        shutdown()
+    np.testing.assert_allclose(grouped[0], plain[0], rtol=0, atol=1e-6)
+    for name, p in plain[1].items():
+        assert (grouped[1][name] - p).abs().max().item() <= 1e-6, name
+
+
+def test_world_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two gloo ranks on one card, 2 rows each of the tiny batch: both take
+    the same steps, so their parameters are equal bit for bit."""
+    import torch_parallel_worker as worker
+
+    cfg = _dp_tiny_cfg()
+    batch = _tiny_train_batch(cfg)
+    path = str(tmp_path / "batch.npz")
+    np.savez(path, images=batch["images"], **{f"ref_{k}": v for k, v in batch["refs"].items()})
+    r0, r1 = worker.spawn("steps", 2, tmp_path / "ranks", device="cuda:0", backend="gloo",
+                          cfg_json=cfg.to_json(), batch_path=path)
+    assert r0["local_rows"] == r1["local_rows"] == 2 and r0["step"] == r1["step"] == 2
+    assert r0["metrics"] == r1["metrics"]
+    for name, p in r0["params"].items():
+        assert torch.equal(p, r1["params"][name]), name
+
+
+def test_nccl_ranks_sharing_a_card_are_refused(dev, tmp_path):
+    """Two NCCL ranks named onto one card: each raises, naming the card,
+    instead of hanging in NCCL's first collective."""
+    import torch_parallel_worker as worker
+
+    refusals = worker.Ranks(2, tmp_path, [], device="cuda:0", backend="nccl",
+                            start_only=True).join()
+    name = torch.cuda.get_device_name(0)
+    for (message,) in refusals:
+        assert message is not None and "share cuda:0" in message and name in message
