@@ -45,7 +45,12 @@ failure:
    after: K1, K2 and K3-int8 must run), hits against gold; then the port's
    ``roundtrip_rerank`` on every case of ``fixtures/rerank.npz`` must pick
    the JAX package's winner; the host's ms per image for drawing and for
-   rerank are logged;
+   rerank are logged; the reactions of ``fixtures/reaction.npz`` drawn by
+   ``generate_reaction_image`` must equal the JAX package's drawings pixel
+   for pixel, with the same labels and graphs; the one-thread augmenting
+   data pipeline's items/s over 64 ``generate_corpus(seed=0)`` SMILES with
+   the native matcher and with ``MOLNEXTR_NO_NATIVE=1`` (each after a
+   warm-up; both must build the same items);
 9. train: the training path at full width.  ``Config()`` in float32 with
    ``seeded_flax_params(seed=0)``, dropout 0 and remat on, against the JAX
    package's loss terms, per-group gradient norms, gradient leaves and the
@@ -76,8 +81,19 @@ failure:
    RGB, RGBA at 8 and 16 bits, palette, Adam7), which must read to the
    same pixels and give ``demo.npz``'s SMILES, with the launch counters
    zeroed before and read after; once more as ``python3 -m
-   molnextr_tpu_torch.predict`` in a new process; ``evaluate_cli.main`` on
-   its output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
+   molnextr_tpu_torch.predict`` in a new process; the JPEG, TIFF and
+   oriented PNG forms of ``fixtures/forms`` (4:2:0, 4:2:2, 4:4:4, 4:1:1,
+   progressive, restart markers, grey, EXIF orientation 6; LZW with
+   predictor 2, Deflate, PackBits, tiled, 16-bit, G4; PNG ``eXIf``) read
+   by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
+   ``predict.main`` on them with the counters zeroed before and read after
+   (K1, K2, K3-int8 above 0; each SMILES equal to demo_0.png's and to the
+   JAX package's on that form; tokens equal to demo_0.png's, the lossy
+   JPEG forms' within one coordinate bin); which of the files this
+   machine's cv2 reads to the same arrays (information only); the
+   readers' host ms per image and per megapixel on 1024 x 1024 JPEG
+   4:2:0, progressive JPEG, TIFF LZW and TIFF G4; ``evaluate_cli.main`` on
+   the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
    ``MolNexTR`` reads back and predicts with;
 12. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
@@ -161,6 +177,8 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
 # the data pipeline's rate: drug-like SMILES from generate_corpus, timed
 # after a warm-up, in one thread and in a spawn pool of up to 8 workers
 DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
+MATCHER_ITEMS, MATCHER_WARMUP_ITEMS = 64, 8
+READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
 # phase dp: the world-2 run's global batch (16 rows a rank), the total updates
 # of its schedule (warmup 1: the first update's rate is 0), the timed bf16
 # steps of each world-1 form, the evaluation's SMILES, the ranks' join limit
@@ -929,7 +947,107 @@ def phase_rerank(torch, results, card):
         f"(card: {card})")
     results["rerank"] = {"launches": counts, "hits": hits, "render_ms": render_ms,
                          "render_first_ms": draw_ms[0], "rerank_ms": rerank_ms,
-                         "fixture_ms": fixture_ms}
+                         "fixture_ms": fixture_ms, "reactions": reaction_drawings(),
+                         "matcher": matcher_pipeline_rate(card)}
+
+
+def reaction_drawings():
+    """``generate_reaction_image`` on ``fixtures/reaction.npz``'s reactions,
+    each after the seeds it was drawn with: the image pixel for pixel, the
+    label and the graph must equal the JAX package's."""
+    import random
+
+    import numpy as np
+
+    from molnextr_tpu_torch.data.reaction import generate_reaction_image
+
+    fx = np.load(fixture_path("reaction.npz"))
+    rows = json.loads(str(fx["meta"]))
+    t0 = time.perf_counter()
+    for k, row in enumerate(rows):
+        random.seed(k)
+        np.random.seed(k)
+        image, label, graph, ok = generate_reaction_image(row["reaction"],
+                                                          mol_augment=row["mol_augment"])
+        same = (ok == row["ok"] and label == row["label"]
+                and np.array_equal(image, fx[f"image_{k}"])
+                and graph.get("symbols", []) == row["symbols"]
+                and [[float(v) for v in c] for c in graph.get("coords", [])] == row["coords"]
+                and np.array_equal(np.asarray(graph.get("edges", np.zeros((0, 0)))),
+                                   fx[f"edges_{k}"]))
+        if not same:
+            raise AssertionError(f"reaction {row['reaction']!r}: the port's drawing, label or "
+                                 "graph differs from the JAX package's")
+    ms = (time.perf_counter() - t0) * 1e3 / len(rows)
+    log(f"  reactions: {len(rows)}/{len(rows)} drawings pixel-equal to the JAX package's "
+        f"(reaction.npz), labels and graphs equal, {ms:.2f} ms each (host)")
+    return {"n": len(rows), "ms_per_reaction": ms}
+
+
+def matcher_pipeline_rate(card):
+    """Items per second of the one-thread augmenting data pipeline (384 px,
+    ``Config()``'s data options) over ``MATCHER_ITEMS`` SMILES of
+    ``generate_corpus(seed=0)``, with ``MOLNEXTR_NO_NATIVE=1`` and with the
+    native matcher in turns (Python, native, native, Python), each run after
+    ``MATCHER_WARMUP_ITEMS`` items and from the same seeds, with the time
+    spent inside the matcher per item; every run must build the same items."""
+    import random
+
+    import numpy as np
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.data import synthetic
+    from molnextr_tpu_torch.data.corpus import generate_corpus
+    from molnextr_tpu_torch.data.dataset import Sample, TrainDataset
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+
+    cfg = Config()
+    toks = get_tokenizer(cfg.data)
+    smiles = generate_corpus(MATCHER_WARMUP_ITEMS + MATCHER_ITEMS, seed=0)
+    inner = synthetic.find_substructures
+    spent = []
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    runs, first = {"python": [], "native": []}, {}
+    synthetic.find_substructures = timed
+    try:
+        for name in ("python", "native", "native", "python"):
+            os.environ["MOLNEXTR_NO_NATIVE"] = "1" if name == "python" else ""
+            random.seed(0)
+            np.random.seed(0)
+            ds = TrainDataset(cfg, [Sample(s) for s in smiles], toks)
+            for i in range(MATCHER_WARMUP_ITEMS):
+                ds[i]
+            spent.clear()
+            t0 = time.perf_counter()
+            built = [ds[i] for i in range(MATCHER_WARMUP_ITEMS, len(smiles))]
+            wall = time.perf_counter() - t0
+            runs[name].append({"items_per_s": len(built) / wall,
+                               "matcher_ms_per_item": sum(spent) * 1e3 / len(built),
+                               "matcher_calls": len(spent)})
+            images = [None if b is None else b["image"] for b in built]
+            if name in first and not all(
+                    (a is None and b is None) or (a is not None and b is not None
+                                                  and np.array_equal(a, b))
+                    for a, b in zip(first[name], images)):
+                raise AssertionError(f"two {name} runs of the data pipeline built different items")
+            first.setdefault(name, images)
+    finally:
+        synthetic.find_substructures = inner
+        os.environ.pop("MOLNEXTR_NO_NATIVE", None)
+    same = all((a is None and b is None) or (a is not None and b is not None
+                                             and np.array_equal(a, b))
+               for a, b in zip(first["native"], first["python"]))
+    log(f"  data pipeline, one thread, {MATCHER_ITEMS} generate_corpus(seed=0) SMILES after "
+        f"{MATCHER_WARMUP_ITEMS}, in turns (host of {card}): " + json.dumps(runs))
+    if not same:
+        raise AssertionError("the native and the Python matcher built different items")
+    return runs
 
 
 def read_train_fixture(path):
@@ -1729,6 +1847,112 @@ def corpus_csvs(work, n_train, n_valid):
                       [[s] for s in smiles[n_train:n_train + n_valid]]))
 
 
+def image_forms(torch, card, bundle, work, want):
+    """The JPEG, TIFF and oriented PNG forms of demo_0.png in
+    ``fixtures/forms``: each read by ``imread`` to the array ``cv2.imread``
+    gave (``arrays.npz``); ``predict.main`` on them (the demo bundle, bf16)
+    with the launch counters zeroed before and read after (K1, K2, K3-int8
+    above 0), each SMILES equal to demo_0.png's and to the JAX package's on
+    that form; the tokens of the lossless forms equal demo_0.png's, those
+    of the lossy JPEG forms equal in every symbol and within one bin in
+    every coordinate; which files this machine's cv2 reads to the same
+    array (information); and the readers' host ms on the 1024 x 1024 files."""
+    import numpy as np
+
+    from molnextr_tpu_torch import predict
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+    from molnextr_tpu_torch.data.image import imread
+    from molnextr_tpu_torch.data.transforms import stack_gray_batch
+
+    folder = fixture_path("forms")
+    stored = np.load(os.path.join(folder, "arrays.npz"))
+    fmeta = json.loads(str(stored["meta"]))
+    names = sorted(f for f in os.listdir(folder) if f != "arrays.npz")
+    images = {}
+    for name in names:
+        images[name] = imread(os.path.join(folder, name))
+        if images[name] is None or not np.array_equal(images[name], stored[name]):
+            raise AssertionError(f"forms/{name}: imread differs from cv2.imread's array")
+    demo = fmeta["names"]
+    log(f"  {len(names)} JPEG/TIFF/PNG files read to cv2.imread's arrays: {' '.join(names)}")
+    out_json = os.path.join(work, "predict_forms.json")
+    paths = [os.path.join(folder, n) for n in demo]
+    t0 = time.perf_counter()
+    _, counts = count_launches(torch, lambda: predict.main(
+        paths + ["--model_path", bundle, "--output", out_json, "--device", DEVICE]))
+    predict_s = time.perf_counter() - t0
+    with open(out_json) as f:
+        preds = json.load(f)
+    log(f"  predict.main: {len(preds)} forms in {predict_s:.2f} s, launches {json.dumps(counts)}")
+    for name, p, jax_smiles in zip(demo, preds, fmeta["jax_bf16"]["smiles"]):
+        got = canonicalize_smiles(p["predicted_smiles"])[0]
+        if got != want or got != canonicalize_smiles(jax_smiles)[0]:
+            raise AssertionError(f"predict CLI on forms/{name}: {p['predicted_smiles']!r}, the "
+                                 f"JAX package's {jax_smiles!r}, demo_0.png's {want!r}")
+    for kname in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+        if not counts[kname]:
+            raise AssertionError(f"the predict CLI on the forms never launched {kname}")
+    api = MolNexTR(model_path=bundle, device=DEVICE, num_workers=1)
+    png = imread(fixture_path("demo_0.png"))
+    batch = stack_gray_batch([png] + [images[n] for n in demo], api.transform)
+    seq = api.engine.predict_images_raw(batch)["seq"]
+    offset = api.engine.tokenizer.offset
+    token_gaps = {}
+    for name, row in zip(demo, seq[1:]):
+        coord = seq[0] >= offset
+        gap = np.abs(row.astype(np.int64) - seq[0])
+        token_gaps[name] = int((gap > 0).sum())
+        lossy = name.endswith(".jpg")
+        ok = (gap[~coord] == 0).all() and (gap[coord] <= 1).all() if lossy else not gap.any()
+        if not ok or (row >= offset).tolist() != coord.tolist():
+            raise AssertionError(f"forms/{name}: tokens {row.tolist()} against demo_0.png's "
+                                 f"{seq[0].tolist()}")
+    log(f"  tokens against demo_0.png's (positions that differ; JPEG forms by one "
+        f"coordinate bin at most, others none): {json.dumps(token_gaps)}")
+    del api
+    probe = subprocess.run([sys.executable, "-c", CV2_PROBE, folder], capture_output=True,
+                           text=True, timeout=300)
+    if probe.returncode == 0:
+        log(f"  this machine's cv2 reads to the stored array: {probe.stdout.strip()}")
+    else:
+        log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
+            f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
+    timings = {}
+    for name in ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif"):
+        path = os.path.join(folder, name)
+        spent = []
+        for _ in range(READER_REPS):
+            t0 = time.perf_counter()
+            img = imread(path)
+            spent.append((time.perf_counter() - t0) * 1e3)
+        mpix = img.shape[0] * img.shape[1] / 1e6
+        timings[name] = {"ms_per_image": float(np.median(spent)),
+                         "ms_per_megapixel": float(np.median(spent)) / mpix,
+                         "all_ms": spent, "size": list(img.shape[:2])}
+    log("  readers on the host, median of "
+        f"{READER_REPS} reads (host of {card}): " + json.dumps(timings))
+    return {"files": names, "predict_launches": counts, "predict_s": predict_s,
+            "token_gaps": token_gaps, "cv2": probe.stdout.strip(), "readers": timings}
+
+
+# run in a new process on the card's machine: which files of the forms folder
+# that machine's cv2 reads to the array stored beside them
+CV2_PROBE = """
+import json, os, sys
+import cv2
+import numpy as np
+folder = sys.argv[1]
+stored = np.load(os.path.join(folder, 'arrays.npz'))
+same = {}
+for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
+    img = cv2.imread(os.path.join(folder, name))
+    same[name] = img is not None and np.array_equal(cv2.cvtColor(img, cv2.COLOR_BGR2RGB),
+                                                    stored[name])
+print(json.dumps({'cv2': cv2.__version__, 'same_array': same}))
+"""
+
+
 def phase_cli(torch, results, card):
     """The console entry points on the card: predict on every PNG form of
     demo_0.png (in-process with the launch counters, and once more as a
@@ -1778,6 +2002,7 @@ def phase_cli(torch, results, card):
             raise AssertionError(f"the predict CLI never launched {name}")
     log(f"  every form: {preds[0]['predicted_smiles']!r} (demo.npz: "
         f"{meta['jax_bf16']['smiles'][0]!r})")
+    forms = image_forms(torch, card, bundle, work, want)
     sub_json = os.path.join(work, "predict_sub.json")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "molnextr_tpu_torch.predict", paths[0],
@@ -1827,7 +2052,7 @@ def phase_cli(torch, results, card):
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     results["cli"] = {"predict_launches": counts, "predict_s": predict_s, "scores": scores,
-                      "train": run}
+                      "train": run, "forms": forms}
 
 
 def convnext_config():
@@ -2267,6 +2492,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = build_all()
     log(f"kernels built in {build_s:.1f} s")
+    from molnextr_tpu_torch import native
+
+    t1 = time.perf_counter()
+    native.get_lib()
+    log(f"native matcher built and loaded in {time.perf_counter() - t1:.1f} s "
+        f"({native.get_lib()._name})")
     for name, text in BUILD_LOG.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error")):

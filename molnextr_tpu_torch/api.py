@@ -176,13 +176,16 @@ class MolNexTR:
 
     def predict_image_files(self, image_files: List[str], return_atoms_bonds=False,
                             return_confidence=False, batch_size: int = 16):
-        from molnextr_tpu_torch.data.png import read_png
+        from molnextr_tpu_torch.data.image import imread
 
+        images = []
         for path in image_files:
-            if not os.path.exists(path):
+            image = imread(path)
+            if image is None:  # cv2.imread's None in the JAX package
                 raise FileNotFoundError(path)
+            images.append(image)
         return self.predict_images(
-            [read_png(path) for path in image_files],
+            images,
             return_atoms_bonds=return_atoms_bonds,
             return_confidence=return_confidence, batch_size=batch_size,
         )

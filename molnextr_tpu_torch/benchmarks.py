@@ -7,9 +7,10 @@ flags, plus ``--device`` (default ``cuda``):
 1. ``suite_single_image``: one-call ``predict_final_results`` latency;
 2. ``suite_batch_inference``: greedy or beam accuracy and images/s on
    synthetic renders;
-3. ``suite_dataset_eval``: a CSV of ``file_path``/``SMILES`` (PNG files,
-   read with ``data/png.py``; rows whose file is missing are skipped, as
-   ``cv2.imread`` returning None skips them), or a synthetic fallback;
+3. ``suite_dataset_eval``: a CSV of ``file_path``/``SMILES`` (files read
+   with ``data/image.py::imread``; a row whose file it reads as None,
+   missing, unreadable or corrupt, is skipped, as ``cv2.imread`` returning
+   None skips it), or a synthetic fallback;
 4. ``suite_perturbed``: the clutter perturbations of
    ``get_perturbation_transforms``, drawn from the module-level ``random``
    and ``np.random`` that ``_synthetic_eval_set`` leaves behind, as the JAX
@@ -112,7 +113,7 @@ def suite_batch_inference(cfg: Config, model, n: int = 32, device="cuda") -> Dic
 def suite_dataset_eval(model, csv_path: Optional[str], n_fallback: int = 16) -> Dict[str, Any]:
     """Config 3: a real dataset's CSV (graph exact match), or the synthetic
     fallback when there is none."""
-    from molnextr_tpu_torch.data.png import read_png
+    from molnextr_tpu_torch.data.image import imread
     from molnextr_tpu_torch.evaluation import SmilesEvaluator
     from molnextr_tpu_torch.utils import read_csv
 
@@ -121,9 +122,10 @@ def suite_dataset_eval(model, csv_path: Optional[str], n_fallback: int = 16) -> 
         paths = table.get("file_path", [""] * len(table["SMILES"]))
         images, golds = [], []
         for path, smiles in zip(paths, table["SMILES"]):
-            if not os.path.isfile(str(path)):
+            image = imread(str(path))
+            if image is None:  # skipped, as the JAX suite skips cv2.imread's None
                 continue
-            images.append(read_png(str(path)))
+            images.append(image)
             golds.append(smiles)
         name = os.path.basename(csv_path)
     else:

@@ -8,14 +8,16 @@ SMILES itself — bracket atoms encode exact H counts, and open valence on the
 attachment atom maps to "may have external bonds", mirroring the intent of
 the reference's ``[OH0;D2]``-style SMARTS annotations.
 
-The port keeps only the pure-Python backtracking search; it returns the
-same matches, in the same order, as the C++ matcher of the JAX package.
+The search runs in C++ (``native.py``, ``native_src/matcher.cpp``) unless
+``MOLNEXTR_NO_NATIVE`` is set; the Python backtracking search below gives
+the same matches in the same order.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
+from molnextr_tpu_torch import native
 from molnextr_tpu_torch.chem.mol import Mol
 
 
@@ -74,6 +76,9 @@ def find_substructures(
     for k, c in _composition(pattern).items():
         if mc.get(k, 0) < c:
             return []
+    # native C++ fast path (the host hot loop of synthetic data generation)
+    if native.enabled():
+        return native.find_substructures_native(mol, pattern, attachment_free, max_matches)
     matches: List[Dict[int, int]] = []
     seen_atomsets: Set[frozenset] = set()
 

@@ -16,13 +16,17 @@ fixed-point algorithms (``imgproc/src/drawing.cpp``):
 * :func:`fill_poly` — ``fillPoly`` with 8-connected edges: Bresenham
   outlines and a scanline fill between edge crossings.
 * :func:`fill_rect` — the filled ``rectangle``, inclusive of both corners.
+* :func:`arrowed_line` — ``cv2.arrowedLine`` (``LINE_8``): the shaft and
+  two tip lines at +-45 degrees, each :func:`line8`, the tips' ends
+  rounded as ``cvRound`` rounds.
 * :func:`text_size` / :func:`put_text` — OpenCV 5 draws the Hershey font
-  ids with its built-in outline font: ids 0, 3 and 1 at weight 400, ids 2
-  and 4 at 600, at pixel size ``round(scale / 0.037)`` (id 1:
-  ``round(scale / 0.066)``).  Each glyph has an integer advance at each
+  ids with its built-in outline font: at thickness 1 ids 0, 3 and 1 at
+  weight 400, ids 2 and 4 at 600; id 0 at thickness 2 or more at 600; at
+  pixel size ``round(scale / 0.037)`` (id 1: ``round(scale / 0.066)``).  Each glyph has an integer advance at each
   size (its own box's width less one); a string's box is ``1 +`` the sum
   of its advances wide and ``size`` high.  The glyphs' coverage and
-  advances come from ``glyphs.npz`` beside this module (pixel sizes 6-24,
+  advances come from ``glyphs.npz`` beside this module (pixel sizes 6-24
+  at both weights, and 27 at weight 600 for the reaction drawing's ``+``;
   printable ASCII; other characters draw as ``?``, as OpenCV draws them);
   each glyph is blended onto the image in turn as
   ``(bg * (255 - a) + fg * a + 127) // 255``.
@@ -33,6 +37,7 @@ The two tables are OpenCV's ``FilterTable`` and ``SlopeCorrTable``.
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import Dict, Sequence, Tuple
 
@@ -52,9 +57,10 @@ SLOPE_CORR = (
     203, 206, 209, 211, 214, 218, 221, 224, 227, 231, 235, 238, 242, 246, 250, 254,
 )
 
-# Hershey font id -> (weight, divisor of the scale that gives the pixel size)
-FONT_STYLE = {0: (400, 0.037), 1: (400, 0.066), 2: (600, 0.037), 3: (400, 0.037),
-              4: (600, 0.037)}
+# (Hershey font id, thickness > 1) -> (weight, divisor of the scale that
+# gives the pixel size)
+FONT_STYLE = {(0, False): (400, 0.037), (1, False): (400, 0.066), (2, False): (600, 0.037),
+              (3, False): (400, 0.037), (4, False): (600, 0.037), (0, True): (600, 0.037)}
 GLYPHS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "glyphs.npz")
 
 
@@ -472,6 +478,20 @@ def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> None:
         p0 = p
 
 
+def arrowed_line(img: np.ndarray, pt1, pt2, color, thickness: int = 1,
+                 tip_length: float = 0.1) -> None:
+    """``cv2.arrowedLine(img, pt1, pt2, color, thickness, cv2.LINE_8, 0,
+    tip_length)`` on integer points."""
+    (x1, y1), (x2, y2) = (int(pt1[0]), int(pt1[1])), (int(pt2[0]), int(pt2[1]))
+    tip = math.sqrt(float((x1 - x2) ** 2 + (y1 - y2) ** 2)) * tip_length
+    line8(img, (x1, y1), (x2, y2), color, thickness)
+    angle = math.atan2(y1 - y2, x1 - x2)
+    for turn in (math.pi / 4, -math.pi / 4):
+        p = (int(np.rint(x2 + tip * math.cos(angle + turn))),
+             int(np.rint(y2 + tip * math.sin(angle + turn))))
+        line8(img, p, (x2, y2), color, thickness)
+
+
 def fill_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]], color) -> None:
     """``cv2.fillPoly(img, [pts], color)`` for one integer contour: its
     8-connected outline, then each row filled between the crossings of its
@@ -532,14 +552,17 @@ def _glyph_table() -> Dict[Tuple[int, int, str], Tuple[int, int, int, np.ndarray
     return table
 
 
-def font_size(font: int, scale: float) -> Tuple[int, int]:
-    """Hershey font id and scale -> (weight, pixel size)."""
-    weight, unit = FONT_STYLE[font]
+def font_size(font: int, scale: float, thickness: int = 1) -> Tuple[int, int]:
+    """Hershey font id, scale and thickness -> (weight, pixel size)."""
+    style = FONT_STYLE.get((font, thickness > 1))
+    if style is None:
+        raise ValueError(f"no glyph table for font {font} at thickness {thickness}")
+    weight, unit = style
     return weight, int(np.floor(scale / unit + 0.5))
 
 
-def _glyphs(text: str, font: int, scale: float):
-    weight, size = font_size(font, scale)
+def _glyphs(text: str, font: int, scale: float, thickness: int = 1):
+    weight, size = font_size(font, scale, thickness)
     table = _glyph_table()
     out = []
     for ch in text:
@@ -551,17 +574,16 @@ def _glyphs(text: str, font: int, scale: float):
 
 
 def text_size(text: str, font: int, scale: float, thickness: int = 1) -> Tuple[int, int]:
-    """``cv2.getTextSize(text, font, scale, 1)[0]``: (width, height)."""
-    if thickness != 1:
-        raise ValueError("labels are drawn at thickness 1")
-    size, glyphs = _glyphs(text, font, scale)
+    """``cv2.getTextSize(text, font, scale, thickness)[0]``: (width, height)."""
+    size, glyphs = _glyphs(text, font, scale, thickness)
     return 1 + sum(g[0] for g in glyphs), size
 
 
-def put_text(img: np.ndarray, text: str, org, font: int, scale: float, color) -> None:
-    """``cv2.putText(img, text, org, font, scale, color, 1, cv2.LINE_AA)``."""
+def put_text(img: np.ndarray, text: str, org, font: int, scale: float, color,
+             thickness: int = 1) -> None:
+    """``cv2.putText(img, text, org, font, scale, color, thickness, cv2.LINE_AA)``."""
     h, w = img.shape[:2]
-    _, glyphs = _glyphs(text, font, scale)
+    _, glyphs = _glyphs(text, font, scale, thickness)
     col = np.asarray(color, np.int64)[: img.shape[2]]
     pen_x, pen_y = int(org[0]), int(org[1])
     for adv, x0, y0, cov in glyphs:

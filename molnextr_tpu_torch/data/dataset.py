@@ -2,7 +2,7 @@
 
 Port of ``molnextr_tpu/data/dataset.py``: ``TrainDataset`` builds one
 tokenized example per sample (a synthetic render through
-``data/synthetic.py``, or a PNG file through ``data/png.py``), the
+``data/synthetic.py``, or an image file through ``data/image.py``), the
 augmenting transforms of ``data/transforms.py``, the labels of every format,
 the edge matrix and the auxiliary heatmap's atom grid; ``pad_batch`` pads a
 batch to static shapes on the uint8/int8 wire; ``DataLoader`` runs the
@@ -39,7 +39,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from molnextr_tpu_torch.config import Config
-from molnextr_tpu_torch.data.png import read_png
+from molnextr_tpu_torch.data.image import imread
 from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
 from molnextr_tpu_torch.data.transforms import Compose, get_transforms
 from molnextr_tpu_torch.models.heads import heatmap_class_of
@@ -66,12 +66,14 @@ def _normalize_keypoints(kps: np.ndarray, h: int, w: int) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """RGB uint8 of an image file: a missing file is a white 256 x 256
-    placeholder (as ``cv2.imread`` returning None is in the JAX package);
-    a file that is not a PNG raises ``ValueError``."""
-    if not os.path.exists(path):
+    """RGB uint8 of an image file (``data/image.py::imread``): a file it
+    reads as None (missing, unreadable, corrupt) is a white 256 x 256
+    placeholder, as ``cv2.imread`` returning None is in the JAX package; a
+    format the port does not decode yet raises ``ValueError``."""
+    img = imread(path)
+    if img is None:
         return np.full((256, 256, 3), 255, np.uint8)
-    return read_png(path)
+    return img
 
 
 class TrainDataset:

@@ -17,11 +17,13 @@ form OpenCV asks for them (``IMREAD_COLOR``):
   index past its entries reads black;
 * alpha and ``tRNS`` are dropped (``png_set_strip_alpha``): the colour
   samples are returned as stored, never composited;
-* grey is replicated to three channels (``png_set_gray_to_rgb``).
+* grey is replicated to three channels (``png_set_gray_to_rgb``);
+* the orientation of an ``eXIf`` chunk turns the result, as OpenCV turns
+  it (``data/exif.py``).
 
-Another file raises ``ValueError`` naming the format its first bytes show
-(JPEG, TIFF, BMP, GIF, WebP); decoding JPEG and TIFF is listed in ROADMAP
-queue 1.  :func:`write_png` writes 8-bit grey or RGB.
+Another file raises ``ValueError``; ``data/image.py::imread`` dispatches
+every format by its first bytes.  :func:`write_png` writes 8-bit grey or
+RGB.
 """
 
 from __future__ import annotations
@@ -32,26 +34,15 @@ from typing import Tuple
 
 import numpy as np
 
+from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
+from molnextr_tpu_torch.data.image import sniff_format
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7 passes: first row, first column, row step, column step
 _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
           (0, 1, 2, 2), (1, 0, 2, 1))
-# magic bytes of the formats a user may hand the reader instead
-_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-          (b"BM", "BMP"), (b"GIF8", "GIF"))
-
-
-def _other_format(data: bytes) -> str:
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    for magic, name in _MAGIC:
-        if data.startswith(magic):
-            return name
-    return "unknown format"
-
-
 def _unfilter(raw: bytes, pos: int, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the row filters of ``height`` rows of ``stride`` bytes that start
     at ``raw[pos]`` (each row led by its filter-type byte)."""
@@ -104,10 +95,10 @@ def _samples(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
     return vals.reshape(h, -1)[:, :width].reshape(h, width, 1)
 
 
-def _chunks(data: bytes, path: str) -> Tuple[tuple, bytes, bytes]:
-    """(IHDR fields, PLTE body, joined IDAT bodies)."""
+def _chunks(data: bytes, path: str) -> Tuple[tuple, bytes, bytes, int]:
+    """(IHDR fields, PLTE body, joined IDAT bodies, eXIf orientation)."""
     pos = len(_SIGNATURE)
-    header, plte, idat = None, b"", []
+    header, plte, idat, orientation = None, b"", [], 1
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
@@ -118,22 +109,29 @@ def _chunks(data: bytes, path: str) -> Tuple[tuple, bytes, bytes]:
             plte = body
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"eXIf":
+            orientation = exif_orientation(body)
         elif ctype == b"IEND":
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
-    return header, plte, b"".join(idat)
+    return header, plte, b"".join(idat), orientation
 
 
 def read_png(path: str) -> np.ndarray:
     """RGB uint8 (H, W, 3) of a PNG file, as OpenCV reads it (module doc)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """:func:`read_png` of a file's bytes; ``path`` names it in errors."""
     if not data.startswith(_SIGNATURE):
-        raise ValueError(
-            f"{path}: not a PNG file ({_other_format(data)}); the port reads PNG only "
-            "(JPEG and TIFF decoding: ROADMAP queue 1)")
-    (width, height, depth, color, _comp, _filt, interlace), plte, idat = _chunks(data, path)
+        raise ValueError(f"{path}: not a PNG file ({sniff_format(data)}); "
+                         "data/image.py::imread reads every format the port decodes "
+                         "(ROADMAP queue 1 lists the rest)")
+    (width, height, depth, color, _comp, _filt, interlace), plte, idat, orientation = \
+        _chunks(data, path)
     if depth not in _DEPTHS.get(color, ()) or interlace not in (0, 1):
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour type {color}, "
                          f"interlace {interlace})")
@@ -155,6 +153,11 @@ def read_png(path: str) -> np.ndarray:
             stride = (pw * ch * depth + 7) // 8
             img[y0::dy, x0::dx] = _samples(_unfilter(raw, pos, ph, stride, bpp), pw, ch, depth)
             pos += ph * (stride + 1)
+    return apply_orientation(_to_rgb(img, color, depth, ch, plte), orientation)
+
+
+def _to_rgb(img: np.ndarray, color: int, depth: int, ch: int, plte: bytes) -> np.ndarray:
+    """Samples (H, W, ch) -> RGB uint8 by libpng's transforms (module doc)."""
     if depth == 16:
         img = (img >> 8).astype(np.uint8)
     if color == 3:

@@ -37,7 +37,8 @@ import torch
 
 from molnextr_tpu_torch.checkpoint import CheckpointManager
 from molnextr_tpu_torch.config import Config
-from molnextr_tpu_torch.data.dataset import DataLoader, Sample, TrainDataset, read_image
+from molnextr_tpu_torch.data.dataset import DataLoader, Sample, TrainDataset
+from molnextr_tpu_torch.data.image import imread
 from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
 from molnextr_tpu_torch.inference import InferenceEngine, resolve_device
 from molnextr_tpu_torch.models.model import MolNexTRModel
@@ -172,8 +173,10 @@ def evaluate_model(cfg: Config, model: MolNexTRModel, tokenizers,
                 if render_cache is not None:
                     render_cache[i] = (image, smiles)
         else:
-            image = _wire_image(ds.transform(image=read_image(sample.image_path),
-                                             keypoints=[])["image"])
+            img = imread(sample.image_path)
+            if img is None:  # skipped, as the JAX loop skips cv2.imread's None
+                continue
+            image = _wire_image(ds.transform(image=img, keypoints=[])["image"])
         batch_imgs.append(image)
         batch_idx.append(i)
         if len(batch_imgs) == bs:

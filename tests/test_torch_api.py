@@ -192,7 +192,9 @@ def test_port_sources_import_nothing_forbidden():
     for name in ("train/__init__.py", "train/losses.py", "train/state.py", "train/step.py",
                  "train/wire.py", "train/loop.py", "data/dataset.py", "data/transforms.py",
                  "checkpoint.py", "data/png.py", "predict.py", "evaluate_cli.py",
-                 "benchmarks.py", "models/convnext.py", "models/danet.py", "utils.py"):
+                 "benchmarks.py", "models/convnext.py", "models/danet.py", "utils.py",
+                 "data/image.py", "data/exif.py", "data/jpeg.py", "data/tiff.py",
+                 "data/ccitt.py", "data/reaction.py", "native.py"):
         assert os.path.join("molnextr_tpu_torch", name) in scanned, name
     bad = [
         (os.path.relpath(p, ROOT), m)
@@ -220,7 +222,10 @@ for m in mods:
 assert set(['molnextr_tpu_torch.train.loop', 'molnextr_tpu_torch.data.dataset',
             'molnextr_tpu_torch.checkpoint', 'molnextr_tpu_torch.predict',
             'molnextr_tpu_torch.evaluate_cli', 'molnextr_tpu_torch.benchmarks',
-            'molnextr_tpu_torch.models.convnext', 'molnextr_tpu_torch.models.danet']) <= set(mods)
+            'molnextr_tpu_torch.models.convnext', 'molnextr_tpu_torch.models.danet',
+            'molnextr_tpu_torch.data.image', 'molnextr_tpu_torch.data.jpeg',
+            'molnextr_tpu_torch.data.tiff', 'molnextr_tpu_torch.data.reaction',
+            'molnextr_tpu_torch.native']) <= set(mods)
 import torch
 torch.set_num_threads(2)
 from molnextr_tpu_torch.api import MolNexTR
@@ -229,7 +234,12 @@ from molnextr_tpu_torch.data.synthetic import generate_synthetic_image
 from molnextr_tpu_torch.rerank import roundtrip_rerank
 img = generate_synthetic_image('CC(C)O', mol_augment=False, default_option=True, size=128)[0]
 print(roundtrip_rerank(img, ['CCO', 'CC(C)O'])[0])
+from molnextr_tpu_torch.data.reaction import generate_reaction_image
+assert generate_reaction_image('CCO>>CC=O')[3]
 m = MolNexTR(model_path={BUNDLE!r}, device='cpu', num_workers=1)
+forms = [{os.path.join(FIXTURES, 'forms', 'demo_0_420.jpg')!r},
+         {os.path.join(FIXTURES, 'forms', 'demo_0_g4.tif')!r}]
+assert len(set(p['predicted_smiles'] for p in m.predict_image_files(forms))) == 1
 print(m.predict_image_files([{os.path.join(FIXTURES, 'demo_0.png')!r}])[0]['predicted_smiles'])
 print(len(mods))
 """

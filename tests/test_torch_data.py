@@ -217,14 +217,19 @@ def test_file_samples_read_png_and_refuse_other_files(tmp_path):
     img[10:50, 30:33] = 0
     png = str(tmp_path / "mol.png")
     write_png(png, img)
-    other = tmp_path / "mol.jpg"
-    other.write_bytes(b"\xff\xd8\xff\xe0not a png")
+    corrupt = tmp_path / "mol.jpg"
+    corrupt.write_bytes(b"\xff\xd8\xff\xe0not a jpeg")
+    other = tmp_path / "mol.bmp"
+    other.write_bytes(b"BM" + bytes(60))
     samples = [pds.Sample("CC", image_path=png, coords=np.array([[0.4, 0.2], [0.5, 0.7]])),
-               pds.Sample("CC", image_path=str(other))]
+               pds.Sample("CC", image_path=str(other)), pds.Sample("CC", image_path=str(corrupt))]
     ds = pds.TrainDataset(cfg, samples, get_tokenizer(cfg.data), split="valid")
     item = ds[0]
     assert item["image"].shape == (64, 64, 3)
     assert (item["atom_grid"] == -2).all()  # a file sample has no atom symbols: unlabeled
+    # a format the port does not decode is refused, never whitened
     assert ds[1] is None
-    with pytest.raises(ValueError, match="PNG"):
+    with pytest.raises(ValueError, match="BMP"):
         ds._build(samples[1])
+    # a corrupt file reads as None, as cv2.imread's: the JAX package's white placeholder
+    assert ds[2]["image"].shape == (64, 64, 3) and (ds[2]["image"] == 255).all()

@@ -44,10 +44,25 @@ against on the card, where neither JAX nor OpenCV is installed:
   filter in turn (:func:`build_png_forms`); ``chip_smoke.py`` phase cli
   reads them all through the predict CLI;
 
+* ``forms/`` — ``demo_0.png`` as JPEG (4:2:0, 4:2:2, 4:4:4, 4:1:1,
+  progressive, restart markers, grey, EXIF orientation 6) and TIFF (LZW
+  with predictor 2, Deflate, PackBits, tiled, 16-bit, bilevel G4) and a PNG
+  with an ``eXIf`` orientation, written by ``cv2.imwrite``, PIL and the
+  hand encoders of ``torch_image_writers``; four 1024 x 1024 files
+  (``big_*``: JPEG 4:2:0 and progressive, TIFF LZW and G4) for the reader
+  timings; and ``arrays.npz``: the array ``cv2.imread`` reads each file to,
+  and in ``meta`` the JAX package's bf16 tokens and SMILES for the demo
+  bundle on each ``demo_0_*`` form (:func:`build_image_forms`);
+  ``chip_smoke.py`` phase cli reads, predicts and times them;
+* ``reaction.npz`` — the JAX package's ``generate_reaction_image`` on
+  ``REACTIONS`` (:func:`build_reaction`), which ``chip_smoke.py`` phase
+  rerank holds the port's drawings to;
+
 and ``molnextr_tpu_torch/chem/glyphs.npz`` is the text renderer's glyph
 table, read from the installed OpenCV (:func:`build_glyphs`).
 
-Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``.
+Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``
+(``--forms-only``: ``forms/`` and ``reaction.npz`` alone).
 The full-width fixtures run Swin-B and ConvNeXt-B in float32 on the CPU
 (a minute or more each), so their regeneration tests are marked slow.
 """
@@ -56,6 +71,7 @@ import json
 import os
 import random
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -72,6 +88,19 @@ GLYPHS = os.path.join(ROOT, "molnextr_tpu_torch", "chem", "glyphs.npz")
 # text pixel sizes the renderer's options reach (scale 0.45-0.8 is 12-22 px
 # for font ids 0/2/3/4 and 7-12 px for id 1), with a margin either side
 GLYPH_SIZES = range(6, 25)
+# (weight, font, thickness, pixel size) that data/reaction.py draws: its "+"
+# at FONT_HERSHEY_SIMPLEX, scale 1.0, thickness 2
+REACTION_GLYPHS = [(600, 0, 2, 27)]
+# (reaction SMILES, mol_augment) of reaction.npz: a reagent over the arrow,
+# two reactants, three reactants, a product with superatom candidates, and
+# one augmented
+REACTIONS = [("CCO.CC(=O)O>[H+]>CCOC(C)=O", False),
+             ("c1ccccc1Br.OB(O)c1ccccc1>>c1ccc(cc1)-c1ccccc1", False),
+             ("CC(=O)Cl.NCC.CCN(CC)CC>>CC(=O)NCC", False),
+             ("OC(=O)c1ccccc1O.CC(=O)OC(C)=O>>CC(=O)Oc1ccccc1C(=O)O", False),
+             ("CC(C)(C)OC(=O)NC1CCNCC1.CS(=O)(=O)Cl>>CC(C)(C)OC(=O)NC1CCN(CC1)S(C)(=O)=O",
+              True)]
+IMAGE_FORMS = os.path.join(FIXTURES, "forms")
 RERANK_CORPUS = 9
 RERANK_SEED = 1000
 ASPIRIN = "CC(=O)Oc1ccccc1C(=O)O"
@@ -401,6 +430,115 @@ def build_png_forms():
     return out
 
 
+def build_image_forms():
+    """name -> bytes of ``demo_0.png`` in the JPEG and TIFF forms (and a PNG
+    with an ``eXIf`` orientation) that ``chip_smoke.py`` phase cli reads, and
+    the array ``cv2.imread`` reads each to (RGB).  An oriented file stores
+    the picture turned the other way, so it reads upright."""
+    import io
+    import tempfile
+
+    import cv2
+    from PIL import Image
+    from torch_image_writers import encode_tiff, with_jpeg_exif, with_png_exif
+
+    bgr = cv2.imread(os.path.join(FIXTURES, "demo_0.png"))
+    grey = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    turned = np.ascontiguousarray(np.rot90(bgr, 1))  # orientation 6 turns it back
+    jpeg = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+            "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+            "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+    files = {}
+    for name, factor in jpeg.items():
+        files[f"demo_0_{name}.jpg"] = cv2.imencode(
+            ".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                          factor])[1].tobytes()
+    files["demo_0_progressive.jpg"] = cv2.imencode(
+        ".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    files["demo_0_restart.jpg"] = cv2.imencode(
+        ".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_RST_INTERVAL, 3])[1].tobytes()
+    files["demo_0_grey.jpg"] = cv2.imencode(".jpg", grey, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+    files["demo_0_exif6.jpg"] = with_jpeg_exif(
+        cv2.imencode(".jpg", turned, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes(), 6)
+    files["demo_0_exif6.png"] = with_png_exif(cv2.imencode(".png", turned)[1].tobytes(), 6)
+    tiff = {"lzw_pred2": [cv2.IMWRITE_TIFF_COMPRESSION, 5, cv2.IMWRITE_TIFF_PREDICTOR, 2],
+            "deflate": [cv2.IMWRITE_TIFF_COMPRESSION, 8],
+            "packbits": [cv2.IMWRITE_TIFF_COMPRESSION, 32773]}
+    for name, params in tiff.items():
+        files[f"demo_0_{name}.tif"] = cv2.imencode(".tiff", bgr, params)[1].tobytes()
+    files["demo_0_16bit.tif"] = cv2.imencode(".tiff", bgr.astype(np.uint16) * 257,
+                                             [cv2.IMWRITE_TIFF_COMPRESSION, 1])[1].tobytes()
+    rgb, tile = bgr[..., ::-1], 48
+    tiles = []
+    for ty in range(0, rgb.shape[0], tile):
+        for tx in range(0, rgb.shape[1], tile):
+            block = np.zeros((tile, tile, 3), np.uint8)
+            part = rgb[ty : ty + tile, tx : tx + tile]
+            block[: part.shape[0], : part.shape[1]] = part
+            tiles.append(zlib.compress(block.tobytes()))
+    files["demo_0_tiled.tif"] = encode_tiff(
+        tiles, rgb.shape[1], rgb.shape[0],
+        {258: (3, [8, 8, 8]), 259: (3, [8]), 262: (3, [2]), 277: (3, [3]), 284: (3, [1]),
+         322: (3, [tile]), 323: (3, [tile])})
+    def g4(bits):
+        buf = io.BytesIO()
+        Image.fromarray(bits).convert("1").save(buf, "TIFF", compression="group4")
+        return buf.getvalue()
+
+    files["demo_0_g4.tif"] = g4(grey >= 128)
+    big = cv2.cvtColor(_big_render(), cv2.COLOR_RGB2BGR)  # the reader timings' 1024 x 1024
+    files["big_420.jpg"] = cv2.imencode(".jpg", big)[1].tobytes()
+    files["big_progressive.jpg"] = cv2.imencode(".jpg", big, [cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                                               1])[1].tobytes()
+    files["big_lzw.tif"] = cv2.imencode(".tiff", big, [cv2.IMWRITE_TIFF_COMPRESSION, 5])[1].tobytes()
+    files["big_g4.tif"] = g4(cv2.cvtColor(big, cv2.COLOR_BGR2GRAY) >= 128)
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in files.items():
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            arrays[name] = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+    demo = sorted(n for n in files if n.startswith("demo_0_"))
+    meta = {"names": demo, "jax_bf16": _jax_demo_run([arrays[n] for n in demo], bf16=True)}
+    arrays["meta"] = np.array(json.dumps(meta))
+    return files, arrays
+
+
+def _big_render():
+    """A 1024 x 1024 drawing of a drug-like molecule by the JAX renderer."""
+    from molnextr_tpu.data.synthetic import generate_synthetic_image
+
+    random.seed(0)
+    np.random.seed(0)
+    img, _, _, ok = generate_synthetic_image(FULL_SMILES[1], mol_augment=False,
+                                             default_option=True, size=1024)
+    assert ok and img.shape == (1024, 1024, 3)
+    return img
+
+
+def build_reaction():
+    """``reaction.npz``: the JAX package's ``generate_reaction_image`` on
+    ``REACTIONS`` (each drawn after ``random.seed(k)`` and
+    ``np.random.seed(k)``): image ``image_<k>``, edge matrix ``edges_<k>``,
+    and in ``meta`` the reactions, labels, symbols, coordinates and success."""
+    from molnextr_tpu.data.reaction import generate_reaction_image
+
+    arrays, rows = {}, []
+    for k, (reaction, augment) in enumerate(REACTIONS):
+        random.seed(k)
+        np.random.seed(k)
+        image, label, graph, ok = generate_reaction_image(reaction, mol_augment=augment)
+        arrays[f"image_{k}"] = image
+        arrays[f"edges_{k}"] = np.asarray(graph.get("edges", np.zeros((0, 0))), np.int8)
+        rows.append({"reaction": reaction, "mol_augment": augment, "label": label, "ok": ok,
+                     "symbols": graph.get("symbols", []),
+                     "coords": [[float(v) for v in c] for c in graph.get("coords", [])]})
+    arrays["meta"] = np.array(json.dumps(rows))
+    return arrays
+
+
 def build_train():
     import jax
     import jax.numpy as jnp
@@ -491,30 +629,33 @@ def build_glyphs():
     ``GLYPH_SIZES`` and printable ASCII character, its coverage (255 minus
     the grey of black text drawn on white) cropped to its ink, the crop's
     offset from the text origin, and its advance (``getTextSize`` width
-    minus one)."""
+    minus one); and the (weight, size) pairs of ``REACTION_GLYPHS``, drawn
+    with the font and thickness the reaction drawing uses."""
     import cv2
 
+    styles = [(400, cv2.FONT_HERSHEY_SIMPLEX, 1, size) for size in GLYPH_SIZES]
+    styles += [(600, cv2.FONT_HERSHEY_DUPLEX, 1, size) for size in GLYPH_SIZES]
+    styles += REACTION_GLYPHS
     rows, pixels, offset = [], [], 0
-    for weight, font in ((400, cv2.FONT_HERSHEY_SIMPLEX), (600, cv2.FONT_HERSHEY_DUPLEX)):
-        for size in GLYPH_SIZES:
-            scale = size * 0.037
-            for code in range(32, 127):
-                ch = chr(code)
-                canvas = np.full((4 * size, 4 * size, 3), 255, np.uint8)
-                org = (size, 3 * size)
-                cv2.putText(canvas, ch, org, font, scale, (0, 0, 0), 1, cv2.LINE_AA)
-                cov = 255 - canvas[..., 0]
-                assert (cov[0] == 0).all() and (cov[:, 0] == 0).all() and (cov[-1] == 0).all()
-                ys, xs = np.nonzero(cov)
-                if len(ys):
-                    cov = cov[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
-                    x0, y0 = int(xs.min()) - org[0], int(ys.min()) - org[1]
-                else:
-                    cov, x0, y0 = cov[:0, :0], 0, 0
-                adv = cv2.getTextSize(ch, font, scale, 1)[0][0] - 1
-                rows.append((weight, size, code, adv, x0, y0, cov.shape[0], cov.shape[1], offset))
-                pixels.append(cov.reshape(-1))
-                offset += cov.size
+    for weight, font, thickness, size in styles:
+        scale = size * 0.037
+        for code in range(32, 127):
+            ch = chr(code)
+            canvas = np.full((4 * size, 4 * size, 3), 255, np.uint8)
+            org = (size, 3 * size)
+            cv2.putText(canvas, ch, org, font, scale, (0, 0, 0), thickness, cv2.LINE_AA)
+            cov = 255 - canvas[..., 0]
+            assert (cov[0] == 0).all() and (cov[:, 0] == 0).all() and (cov[-1] == 0).all()
+            ys, xs = np.nonzero(cov)
+            if len(ys):
+                cov = cov[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
+                x0, y0 = int(xs.min()) - org[0], int(ys.min()) - org[1]
+            else:
+                cov, x0, y0 = cov[:0, :0], 0, 0
+            adv = cv2.getTextSize(ch, font, scale, thickness)[0][0] - 1
+            rows.append((weight, size, code, adv, x0, y0, cov.shape[0], cov.shape[1], offset))
+            pixels.append(cov.reshape(-1))
+            offset += cov.size
     return {"index": np.asarray(rows, np.int32), "pixels": np.concatenate(pixels)}
 
 
@@ -589,10 +730,21 @@ def write_fixtures(full_width: bool = True):
     for name, data in build_png_forms().items():
         with open(os.path.join(FIXTURES, f"demo_0_{name}.png"), "wb") as f:
             f.write(data)
+    write_image_forms()
+    np.savez_compressed(os.path.join(FIXTURES, "reaction.npz"), **build_reaction())
     if full_width:
         np.savez_compressed(os.path.join(FIXTURES, "full_width.npz"), **build_full_width())
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
         np.savez_compressed(os.path.join(FIXTURES, "convnext.npz"), **build_convnext())
+
+
+def write_image_forms():
+    files, arrays = build_image_forms()
+    os.makedirs(IMAGE_FORMS, exist_ok=True)
+    for name, data in files.items():
+        with open(os.path.join(IMAGE_FORMS, name), "wb") as f:
+            f.write(data)
+    np.savez_compressed(os.path.join(IMAGE_FORMS, "arrays.npz"), **arrays)
 
 
 def _load(name):
@@ -688,6 +840,36 @@ def test_png_forms_regenerate_and_read_as_demo_0():
                                       err_msg=name)
 
 
+def test_image_forms_regenerate_and_read_as_cv2_reads_them():
+    """Every file under ``fixtures/forms`` is what :func:`build_image_forms`
+    writes; ``arrays.npz`` holds what cv2 reads each to, and the port reads
+    each to the same array, as ``chip_smoke.py`` phase cli requires."""
+    from molnextr_tpu_torch.data.image import imread
+
+    files, arrays = build_image_forms()
+    committed = sorted(f for f in os.listdir(IMAGE_FORMS) if f != "arrays.npz")
+    assert committed == sorted(files)
+    with np.load(os.path.join(IMAGE_FORMS, "arrays.npz")) as f:
+        stored = {k: f[k] for k in f.files}
+    assert sorted(stored) == sorted(files) + ["meta"]
+    assert json.loads(str(stored["meta"])) == json.loads(str(arrays["meta"]))
+    for name, data in files.items():
+        path = os.path.join(IMAGE_FORMS, name)
+        with open(path, "rb") as f:
+            assert f.read() == data, name
+        np.testing.assert_array_equal(stored[name], arrays[name], err_msg=name)
+        np.testing.assert_array_equal(imread(path), arrays[name], err_msg=name)
+
+
+def test_reaction_fixture_regenerates():
+    got, want = build_reaction(), _load("reaction.npz")
+    assert sorted(got) == sorted(want)
+    assert json.loads(str(got["meta"])) == want["meta"]
+    for key in got:
+        if key != "meta":
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 def test_convnext_fixture_is_what_chip_smoke_reads():
     """``chip_smoke.py`` phase convnext holds ``convnext_config()`` in float32
     against ``convnext.npz`` through ``model_parity``: two grey 384 px
@@ -753,5 +935,8 @@ if __name__ == "__main__":
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
     elif "--convnext-only" in sys.argv:
         np.savez_compressed(os.path.join(FIXTURES, "convnext.npz"), **build_convnext())
+    elif "--forms-only" in sys.argv:
+        write_image_forms()
+        np.savez_compressed(os.path.join(FIXTURES, "reaction.npz"), **build_reaction())
     else:
         write_fixtures(full_width="--demo-only" not in sys.argv)

@@ -279,8 +279,11 @@ def test_demo_renders_equal_fixture():
 def test_text_outside_the_glyph_table_raises():
     with pytest.raises(ValueError, match="no glyph table"):
         raster.text_size("N", cv2.FONT_HERSHEY_SIMPLEX, 1.5)
-    with pytest.raises(ValueError, match="thickness 1"):
-        raster.text_size("N", cv2.FONT_HERSHEY_SIMPLEX, 0.6, 2)
+    # thickness 2 is OpenCV's heavier weight: SIMPLEX is in the table, DUPLEX not
+    assert raster.text_size("N", cv2.FONT_HERSHEY_SIMPLEX, 0.6, 2) == \
+        cv2.getTextSize("N", cv2.FONT_HERSHEY_SIMPLEX, 0.6, 2)[0]
+    with pytest.raises(ValueError, match="no glyph table for font 2 at thickness 2"):
+        raster.text_size("N", cv2.FONT_HERSHEY_DUPLEX, 0.6, 2)
     # a character outside printable ASCII is drawn as "?", as OpenCV draws it
     assert raster.text_size("é", cv2.FONT_HERSHEY_SIMPLEX, 0.6) == \
         cv2.getTextSize("?", cv2.FONT_HERSHEY_SIMPLEX, 0.6, 1)[0]
