@@ -15,7 +15,9 @@ failure:
    at head width 64 and at 7 x 7 and 14 x 14 windows); the
    decode-attention kernels at positions on and beside the split plan's
    slice boundaries, K4 at head width 64, and K3-int8 at the beam's 128
-   rows;
+   rows; K1, K2 and K3-int8 at the drug-like recipe's shapes (batch 64,
+   C 64-512, a single window at stage 3 and 6 x 6 windows at stage 4; a
+   4-layer, 256-step cache);
 3. parity: ``Config()`` (Swin-B 384 + 6x256x8 decoder) in float32 with
    ``seeded_flax_params(seed=0)`` against the JAX package's memory bank and
    first greedy steps stored in ``molnextr_tpu_torch/fixtures``;
@@ -64,7 +66,13 @@ failure:
    a profiler window; the host's augmented 384 px items per second over
    ``generate_corpus(seed=0)``'s drug-like SMILES, in one thread and in
    the spawn pool, each after a warm-up;
-10. dp: data parallel at full width (``Config()``, remat on).  A world of
+10. recipe: ``scripts/train_druglike_torch.py`` unchanged in width (192
+   px, Swin of embed 64 and depths 2/2/6/2, batch 256, a 4 x 256 x 8
+   decoder), cut to 1024 train and 64 valid SMILES, 3 steps and 1 epoch:
+   ms per train step (CUDA events), images/s, peak memory, its per-epoch
+   ``evaluate_model`` with the launch counters zeroed before and read after
+   (K1, K2, K3-int8 above 0), and its bundle read back by ``MolNexTR``;
+11. dp: data parallel at full width (``Config()``, remat on).  A world of
    one rank over NCCL in this process: two float32 steps on
    ``train.npz``'s batch against the step with no process group (expected
    0 apart), then bf16 steps at batch 32 of both forms in turns, and the
@@ -76,38 +84,43 @@ failure:
    a global batch of 32, the ranks' parameters equal bit for bit and rank
    0's held to one process on all 32 rows; step ms, reduction ms and peak
    memory a rank;
-11. cli: the console entry points.  ``predict.main`` (the demo bundle,
+12. cli: the console entry points.  ``predict.main`` (the demo bundle,
    bf16) on every PNG form of ``fixtures/demo_0.png`` (grey, grey+alpha,
    RGB, RGBA at 8 and 16 bits, palette, Adam7), which must read to the
    same pixels and give ``demo.npz``'s SMILES, with the launch counters
    zeroed before and read after; once more as ``python3 -m
-   molnextr_tpu_torch.predict`` in a new process; the JPEG, TIFF and
-   oriented PNG forms of ``fixtures/forms`` (4:2:0, 4:2:2, 4:4:4, 4:1:1,
-   progressive, restart markers, grey, EXIF orientation 6; LZW with
-   predictor 2, Deflate, PackBits, tiled, 16-bit, G4; PNG ``eXIf``) read
-   by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
-   ``predict.main`` on them with the counters zeroed before and read after
-   (K1, K2, K3-int8 above 0; each SMILES equal to demo_0.png's and to the
-   JAX package's on that form; tokens equal to demo_0.png's, the lossy
-   JPEG forms' within one coordinate bin); which of the files this
-   machine's cv2 reads to the same arrays (information only); the
-   readers' host ms per image and per megapixel on 1024 x 1024 JPEG
-   4:2:0, progressive JPEG, TIFF LZW and TIFF G4; ``evaluate_cli.main`` on
+   molnextr_tpu_torch.predict`` in a new process; every file of
+   ``fixtures/forms`` (JPEG 4:2:0, 4:2:2, 4:4:4, 4:1:1, progressive,
+   restart markers, grey, EXIF orientation 6; TIFF LZW with predictor 2,
+   Deflate, PackBits, tiled, 16-bit, G4; PNG ``eXIf``; BMP 24-bit, 8-bit
+   palette, RLE8, 32-bit bit fields; P5, P6, ASCII P2, 16-bit P5, PAM, PFM;
+   run-length Sun raster; GIF; HDR; LZW BigTIFF) read by ``imread`` to the
+   arrays ``cv2.imread`` gave (``arrays.npz``), and ``predict.main`` on the
+   ``demo_0_*`` forms with the counters zeroed before and read after (K1,
+   K2, K3-int8 above 0; each SMILES equal to demo_0.png's and to the JAX
+   package's on that form; tokens equal to demo_0.png's, the lossy JPEG
+   and HDR forms' within one coordinate bin); the new lossless forms at
+   full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
+   batch with demo_0.png, tokens all equal, launches counted; which of the
+   files this machine's cv2 reads to the same arrays (information only);
+   the readers' host ms per image and per megapixel on 1024 x 1024 JPEG
+   4:2:0, progressive JPEG, TIFF LZW, TIFF G4, BMP RLE8 and GIF;
+   ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
    ``MolNexTR`` reads back and predicts with;
-12. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
+13. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
    (ConvNeXt-B, depths 3/3/27/3, dims 128-1024, 384 px) in float32
    against ``fixtures/convnext.npz``; bf16 serving with the int8 KV cache
    at batch 32 through ``MolNexTR.predict_images`` (launch counters: K1 =
    K2 = 0, K3-int8 = 6 x the decode steps taken); encode ms per batch;
    three train steps through ``train.main --encoder convnext_base`` at
    batch 32, ms per step and peak memory;
-13. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
+14. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
    ``suite_train_throughput`` at full width (batch 32, 8 workers), each
    suite's dict on a line and gated on the JAX suites' keys; and which of
    PIL, torchvision, pandas and cv2 import on the card's machine;
-14. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+15. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -135,8 +148,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "dp", "cli",
-          "convnext", "suites", "timing")
+PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "recipe", "dp",
+          "cli", "convnext", "suites", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -153,6 +166,12 @@ F32_TOL = 1e-4
 BF16_RTOL = 3e-2
 
 STAGES = ((96, 128, 4, 2), (48, 256, 8, 2), (24, 512, 16, 18), (12, 1024, 32, 2))  # res, C, heads, depth
+# the drug-like recipe's encoder (192 px, embed 64) at its evaluation batch:
+# stage maps 48, 24, 12 (one unshifted window) and 6 (a window clipped to
+# 6 x 6 = 36 tokens); its decoder's layered int8 cache (4 layers, 256 steps)
+RECIPE_STAGES = ((48, 64, 2), (24, 128, 4), (12, 256, 8), (6, 512, 16))  # res, C, heads
+RECIPE_BATCH, RECIPE_DEC_L, RECIPE_DEC_T = 64, 4, 256
+RECIPE_CHECK_POS = (0, 7, 8, 100, 255)
 SWIN_L_LAST = ((12, 1536, 48, 2),)  # Swin-L (embed_dim 192), stage 4: held in phase kernels only
 WS = 12
 BATCH = 32
@@ -179,6 +198,12 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
 DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
 MATCHER_ITEMS, MATCHER_WARMUP_ITEMS = 64, 8
 READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
+READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
+                "big_rle8.bmp", "big.gif")
+# phase recipe: scripts/train_druglike_torch.py at its own width, cut in
+# corpus, steps and epochs only (8 loader workers, as the host needs them)
+RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
+                "--workers", "8")
 # phase dp: the world-2 run's global batch (16 rows a rank), the total updates
 # of its schedule (warmup 1: the first update's rate is 0), the timed bf16
 # steps of each world-1 form, the evaluation's SMILES, the ranks' join limit
@@ -343,10 +368,10 @@ def mlp_inputs(torch, gen, t, c, dtype):
     )
 
 
-def cache_inputs(torch, gen, dtype, q8, batch=BATCH):
+def cache_inputs(torch, gen, dtype, q8, batch=BATCH, layers=DEC_L, steps=DEC_T):
     from molnextr_tpu_torch.ops.decode_attention import quantize_per_token
 
-    shape = (DEC_L, batch, DEC_H, DEC_T, DEC_D)
+    shape = (layers, batch, DEC_H, steps, DEC_D)
     q = torch.randn(batch, DEC_H, DEC_D, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(*shape, generator=gen, device=DEVICE)
     v = torch.randn(*shape, generator=gen, device=DEVICE)
@@ -391,6 +416,10 @@ def phase_kernels(torch, results):
         # Swin-L's last stage: rows too wide to stay in the LN GEMM's shared
         # memory, LayerNormed apart
         cases += [(BATCH, res, c, heads, WS, False) for res, c, heads, _ in SWIN_L_LAST]
+        # the drug-like recipe's stages (single and clipped windows unshifted)
+        cases += [(RECIPE_BATCH, res, c, heads, min(WS, res), shifted)
+                  for res, c, heads in RECIPE_STAGES
+                  for shifted in ((False, True) if res > WS else (False,))]
         for b, res, c, heads, ws, shifted in cases:
             args = window_inputs(torch, gen, b, res, c, heads, ws, shifted, dtype)
             got = sf.fused_window_attention(*args)
@@ -400,13 +429,15 @@ def phase_kernels(torch, results):
             errs["fused_window_attention"] = max(
                 errs["fused_window_attention"], check_close(name, got, want, torch, dtype))
             del args, got, want
-        for res, c, _, _ in STAGES + SWIN_L_LAST:
-            args = mlp_inputs(torch, gen, BATCH * res * res, c, dtype)
+        mlp_cases = [(BATCH * res * res, c) for res, c, _, _ in STAGES + SWIN_L_LAST]
+        mlp_cases += [(RECIPE_BATCH * res * res, c) for res, c, _ in RECIPE_STAGES]
+        for t, c in mlp_cases:
+            args = mlp_inputs(torch, gen, t, c, dtype)
             got = sf.fused_ln_mlp(*args)
             want = sf.ln_mlp_reference(*args)
             torch.cuda.synchronize()
             errs["fused_ln_mlp"] = max(errs["fused_ln_mlp"], check_close(
-                f"K2 {dn} T {BATCH * res * res} C {c}", got, want, torch, dtype))
+                f"K2 {dn} T {t} C {c}", got, want, torch, dtype))
             del args, got, want
         for q8 in (True, False):
             ins = cache_inputs(torch, gen, dtype, q8)
@@ -440,6 +471,19 @@ def phase_kernels(torch, results):
             torch.cuda.synchronize()
             errs["decode_attention_layered_q8"] = max(errs["decode_attention_layered_q8"], check_close(
                 f"K3 int8 q {dn} B {BEAM_ROWS} pos {pos} layer 5", got, want, torch, dtype))
+        del ins
+        # K3-int8 on the recipe's decoder cache (4 layers, 256 steps, batch 64)
+        ins = cache_inputs(torch, gen, dtype, True, batch=RECIPE_BATCH, layers=RECIPE_DEC_L,
+                           steps=RECIPE_DEC_T)
+        for pos in RECIPE_CHECK_POS:
+            for layer in (0, RECIPE_DEC_L - 1):
+                got = da.decode_attention_layered_q8(*ins, pos, layer)
+                want = da.decode_attention_layered_q8_reference(*ins, pos, layer)
+                torch.cuda.synchronize()
+                errs["decode_attention_layered_q8"] = max(
+                    errs["decode_attention_layered_q8"], check_close(
+                        f"K3 int8 q {dn} recipe L {RECIPE_DEC_L} T {RECIPE_DEC_T} B "
+                        f"{RECIPE_BATCH} pos {pos} layer {layer}", got, want, torch, dtype))
         del ins
         # K4 at head width 64
         q = torch.randn(BATCH, DEC_H, 64, generator=gen, device=DEVICE).to(dtype)
@@ -1375,6 +1419,69 @@ def phase_train(torch, results, card):
 
 
 
+def phase_recipe(torch, results, card):
+    """``scripts/train_druglike_torch.py`` unchanged in width (192 px, Swin of
+    embed 64, batch 256, the 4 x 256 x 8 decoder), cut in corpus, steps and
+    epochs (``RECIPE_FLAGS``), the launch counters zeroed before and read
+    after: 3 timed train steps, the per-epoch ``evaluate_model`` through K1,
+    K2 and K3-int8, and a bundle that ``MolNexTR`` reads back."""
+    import runpy
+    import shutil
+
+    import numpy as np
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    script = os.path.join(HERE, "scripts", "train_druglike_torch.py")
+    work = os.path.join(HERE, "output", "chip_smoke_recipe")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = [script, *RECIPE_FLAGS, "--save-path", work, "--device", DEVICE]
+    log("phase recipe: " + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
+                                    for a in argv) + " (cuts: corpus 60000 -> 1024, valid 384 "
+        "-> 64, epochs 30 -> 1, steps per epoch 3; width as published: 192 px, embed 64, "
+        "depths 2/2/6/2, batch 256, decoder 4 x 256 x 8)")
+
+    def run():
+        saved = sys.argv
+        sys.argv = argv
+        try:
+            runpy.run_path(script, run_name="__main__")
+        finally:
+            sys.argv = saved
+
+    reset_launch_counts()
+    timed = timed_steps(torch, run)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        epoch = json.loads(f.readline())
+    step_ms = float(np.median(timed["step_ms"]))
+    bundles = sorted(d for d in os.listdir(work) if d.startswith("ckpt_"))
+    log(f"  {timed['wall_s']:.1f} s wall; step ms {' '.join(f'{t:.1f}' for t in timed['step_ms'])} "
+        f"(median {step_ms:.2f}, {256 / step_ms * 1e3:.1f} images/s); peak "
+        f"{timed['peak_memory_gb']:.2f} GB; epoch {json.dumps(epoch)}; launches "
+        f"{json.dumps(counts)}; bundles {bundles} (host of {card})")
+    if epoch["step"] != 3 or not np.isfinite(epoch["train_loss"]) or "valid_canon_smiles" not in epoch:
+        raise AssertionError("recipe: no 3 finite steps, or no evaluation")
+    for kname in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+        if not counts[kname]:
+            raise AssertionError(f"the recipe's evaluation never launched {kname}")
+    if not bundles:
+        raise AssertionError("recipe: no bundle written")
+    api = MolNexTR(model_path=os.path.join(work, bundles[0]), device=DEVICE, num_workers=1)
+    out = api.predict_image_files([fixture_path("demo_0.png")])[0]
+    log(f"  the recipe's bundle {bundles[0]} reloaded: predicts {out['predicted_smiles']!r}")
+    if not isinstance(out["predicted_smiles"], str):
+        raise AssertionError("the recipe's bundle did not predict")
+    del api
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    results["recipe"] = {"launches": counts, "step_ms": timed["step_ms"],
+                         "peak_memory_gb": timed["peak_memory_gb"], "wall_s": timed["wall_s"],
+                         "epoch": epoch}
+
+
 def free_port() -> int:
     import socket
 
@@ -1811,8 +1918,15 @@ def write_csv(path, header, rows):
 def timed_train_main(torch, argv):
     """``molnextr_tpu_torch.train.main(argv)`` with each train step timed by
     CUDA events and the peak device memory read after."""
-    from molnextr_tpu_torch.train import loop
     from molnextr_tpu_torch.train import main as train_main
+
+    return timed_steps(torch, lambda: train_main(argv))
+
+
+def timed_steps(torch, run):
+    """``run()`` (a training run through ``train_loop``) with each train step
+    timed by CUDA events and the peak device memory read after."""
+    from molnextr_tpu_torch.train import loop
 
     inner, times = loop.train_step, []
 
@@ -1830,7 +1944,7 @@ def timed_train_main(torch, argv):
     loop.train_step = timed_step
     t0 = time.perf_counter()
     try:
-        train_main(argv)
+        run()
     finally:
         loop.train_step = inner
     return {"wall_s": time.perf_counter() - t0, "step_ms": times,
@@ -1875,7 +1989,7 @@ def image_forms(torch, card, bundle, work, want):
         if images[name] is None or not np.array_equal(images[name], stored[name]):
             raise AssertionError(f"forms/{name}: imread differs from cv2.imread's array")
     demo = fmeta["names"]
-    log(f"  {len(names)} JPEG/TIFF/PNG files read to cv2.imread's arrays: {' '.join(names)}")
+    log(f"  {len(names)} files read to cv2.imread's arrays: {' '.join(names)}")
     out_json = os.path.join(work, "predict_forms.json")
     paths = [os.path.join(folder, n) for n in demo]
     t0 = time.perf_counter()
@@ -1903,14 +2017,16 @@ def image_forms(torch, card, bundle, work, want):
         coord = seq[0] >= offset
         gap = np.abs(row.astype(np.int64) - seq[0])
         token_gaps[name] = int((gap > 0).sum())
-        lossy = name.endswith(".jpg")
+        lossy = name.endswith(LOSSY_FORMS)
         ok = (gap[~coord] == 0).all() and (gap[coord] <= 1).all() if lossy else not gap.any()
         if not ok or (row >= offset).tolist() != coord.tolist():
             raise AssertionError(f"forms/{name}: tokens {row.tolist()} against demo_0.png's "
                                  f"{seq[0].tolist()}")
-    log(f"  tokens against demo_0.png's (positions that differ; JPEG forms by one "
+    log(f"  tokens against demo_0.png's (positions that differ; JPEG and HDR forms by one "
         f"coordinate bin at most, others none): {json.dumps(token_gaps)}")
     del api
+    full_width = forms_full_width(torch, png, {n: images[n] for n in demo
+                                               if n.endswith(NEW_LOSSLESS_FORMS)})
     probe = subprocess.run([sys.executable, "-c", CV2_PROBE, folder], capture_output=True,
                            text=True, timeout=300)
     if probe.returncode == 0:
@@ -1919,7 +2035,7 @@ def image_forms(torch, card, bundle, work, want):
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
     timings = {}
-    for name in ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif"):
+    for name in READER_FILES:
         path = os.path.join(folder, name)
         spent = []
         for _ in range(READER_REPS):
@@ -1933,7 +2049,48 @@ def image_forms(torch, card, bundle, work, want):
     log("  readers on the host, median of "
         f"{READER_REPS} reads (host of {card}): " + json.dumps(timings))
     return {"files": names, "predict_launches": counts, "predict_s": predict_s,
-            "token_gaps": token_gaps, "cv2": probe.stdout.strip(), "readers": timings}
+            "token_gaps": token_gaps, "full_width": full_width, "cv2": probe.stdout.strip(),
+            "readers": timings}
+
+
+# forms read with a loss that may move a coordinate by one bin (RGBE rounds
+# a grey level by at most one), and the lossless forms of the BMP, PNM, GIF,
+# Sun raster and BigTIFF readers
+LOSSY_FORMS = (".jpg", ".hdr")
+NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf")
+
+
+def forms_full_width(torch, png, images):
+    """The lossless forms through ``MolNexTR(cfg=Config())`` (seeded weights,
+    bf16, int8 KV cache, Swin-B 384) in one batch with demo_0.png, the launch
+    counters zeroed before and read after: every form's tokens equal
+    demo_0.png's at this width."""
+    import numpy as np
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.data.transforms import stack_gray_batch
+
+    api = MolNexTR(cfg=Config(), device=DEVICE, num_workers=1)
+    names = sorted(images)
+    batch = stack_gray_batch([png] + [images[n] for n in names], api.transform)
+    t0 = time.perf_counter()
+    out, counts = count_launches(torch, lambda: api.engine.predict_images_raw(batch))
+    seconds = time.perf_counter() - t0
+    seq = out["seq"]
+    for name, row in zip(names, seq[1:]):
+        if not np.array_equal(row, seq[0]):
+            raise AssertionError(f"forms/{name} at full width: tokens {row.tolist()} against "
+                                 f"demo_0.png's {seq[0].tolist()}")
+    for kname in ("fused_window_attention", "fused_ln_mlp", "decode_attention_layered_q8"):
+        if not counts[kname]:
+            raise AssertionError(f"the full-width forms run never launched {kname}")
+    log(f"  full width (Config(), seeded weights, bf16, int8 KV cache): {len(names)} lossless "
+        f"forms and demo_0.png in one batch, tokens all equal ({int((seq[0] > 0).sum())} "
+        f"tokens), {seconds:.2f} s, launches {json.dumps(counts)}")
+    del api
+    torch.cuda.empty_cache()
+    return {"forms": names, "launches": counts, "seconds": seconds}
 
 
 # run in a new process on the card's machine: which files of the forms folder
@@ -2512,6 +2669,7 @@ def main() -> int:
         "beam": lambda: phase_beam(torch),
         "rerank": lambda: phase_rerank(torch, results, card),
         "train": lambda: phase_train(torch, results, card),
+        "recipe": lambda: phase_recipe(torch, results, card),
         "dp": lambda: phase_dp(torch, results, card),
         "cli": lambda: phase_cli(torch, results, card),
         "convnext": lambda: phase_convnext(torch, results, card),

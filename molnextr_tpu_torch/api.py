@@ -225,6 +225,13 @@ class MolNexTRSingleton:
 
     @classmethod
     def get_instance(cls, model_path: Optional[str] = None, device="cuda") -> MolNexTR:
+        """The cached instance, made on ``device`` at the first call.  Asking
+        for another device later raises ``ValueError``: :meth:`reset` first."""
+        if cls._instance is not None:
+            want, have = torch.device(device), cls._instance.device
+            if want.type != have.type or want.index not in (None, have.index):
+                raise ValueError(f"the cached model is on {have}, not on the requested {want}; "
+                                 "call MolNexTRSingleton.reset() to switch devices")
         if cls._instance is None:
             if model_path is not None and not os.path.exists(model_path):
                 raise FileNotFoundError(f"model_path does not exist: {model_path}")
@@ -265,7 +272,8 @@ def get_predictions(
     predicted_molfile: bool = False,
     device="cuda",
 ) -> Dict[str, Any]:
-    """One-call prediction API on a PNG file."""
+    """One-call prediction API on an image file (any format ``data/image.py::imread``
+    reads)."""
     t0 = time.perf_counter()
     model = MolNexTRSingleton.get_instance(device=device)
     predictions = model.predict_final_results(imagepath, return_atoms_bonds=atoms_bonds)

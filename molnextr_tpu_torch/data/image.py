@@ -4,17 +4,22 @@
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``, or None where
 ``cv2.imread`` returns None: a missing file, one that is empty, unreadable
 or corrupt, or a TIFF whose orientation is 5-8 (which OpenCV 5.0 fails to
-read; ``data/tiff.py``).  It dispatches on the file's first bytes to
-``data/png.py``, ``data/jpeg.py`` or ``data/tiff.py``; each applies the
-EXIF orientation as OpenCV does (``data/exif.py``).
+read; ``data/tiff.py``).  It dispatches on the file's first bytes to the
+port's readers: ``data/png.py``, ``data/jpeg.py``, ``data/tiff.py`` (TIFF
+and BigTIFF), ``data/bmp.py``, ``data/pnm.py`` (PBM, PGM, PPM, PAM, PFM),
+``data/gif.py``, ``data/sunras.py`` and ``data/hdr.py``; PNG, JPEG and TIFF
+apply the EXIF orientation as OpenCV does (``data/exif.py``).  Each reader
+module names the few forms where it reads a file that OpenCV 5.0 returns
+None for (differences by design, pinned by tests).
 
-A format that OpenCV reads and the port does not yet decode raises
-:class:`UnsupportedFormat` (a ``ValueError``) naming it, and so does an
-unported form of JPEG or TIFF (arithmetic coding, JPEG-in-TIFF, ...): such a
-file is never silently dropped or whitened.  The call sites do on None what
-their JAX counterparts do on ``cv2.imread``'s None: ``predict_image_files``
-raises ``FileNotFoundError``, the dataset substitutes a white placeholder,
-evaluation and the dataset-eval suite skip the row.
+WebP, JPEG 2000 and AVIF, which OpenCV reads and the port does not decode
+yet, raise :class:`UnsupportedFormat` (a ``ValueError``) naming the format,
+and so does an unported form of JPEG or TIFF (arithmetic coding,
+JPEG-in-TIFF, ...): such a file is never silently dropped or whitened.  The
+call sites do on None what their JAX counterparts do on ``cv2.imread``'s
+None: ``predict_image_files`` raises ``FileNotFoundError``, the dataset
+substitutes a white placeholder, evaluation and the dataset-eval suite skip
+the row.
 """
 
 from __future__ import annotations
@@ -60,17 +65,21 @@ def decode(data: bytes, path: str = "<bytes>") -> Optional[np.ndarray]:
     kind = sniff_format(data)
     if kind == "unknown format":
         return None  # OpenCV finds no decoder for it
-    if kind not in ("PNG", "JPEG", "TIFF"):
-        raise UnsupportedFormat(f"{path}: {kind} is not decoded by the port yet "
-                                "(PNG, JPEG and TIFF are; ROADMAP queue 1)")
-    from molnextr_tpu_torch.data import jpeg, png, tiff
+    if kind in ("WebP", "JPEG 2000", "AVIF"):
+        raise UnsupportedFormat(f"{path}: {kind} is not decoded by the port yet (PNG, JPEG, "
+                                "TIFF, BigTIFF, BMP, PNM, GIF, HDR and Sun raster are; "
+                                "ROADMAP queue 1)")
+    from molnextr_tpu_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tiff
 
-    reader = {"PNG": png.decode_png, "JPEG": jpeg.decode_jpeg, "TIFF": tiff.decode_tiff}[kind]
+    reader = {"PNG": png.decode_png, "JPEG": jpeg.decode_jpeg, "TIFF": tiff.decode_tiff,
+              "BigTIFF": tiff.decode_tiff, "BMP": bmp.decode_bmp, "PNM": pnm.decode_pnm,
+              "GIF": gif.decode_gif, "HDR": hdr.decode_hdr,
+              "Sun raster": sunras.decode_sunras}[kind]
     try:
         return reader(data, path)
     except UnsupportedFormat:
         raise
-    except (ValueError, IndexError, KeyError, struct.error, zlib.error):
+    except (ValueError, IndexError, KeyError, OverflowError, struct.error, zlib.error):
         return None  # corrupt: the library under cv2.imread gives up too
 
 

@@ -4,7 +4,9 @@ OpenCV reads an 8-bit colour TIFF through libtiff's RGBA interface
 (``tif_getimage.c``) and drops the alpha it returns.  :func:`decode_tiff`
 reads the first page the same way and returns RGB uint8 ``(H, W, 3)``:
 
-* layout: both byte orders, strips and tiles, planar configuration 1 and 2,
+* layout: classic TIFF and BigTIFF (8-byte offsets and counts, ``LONG8``,
+  ``SLONG8`` and ``IFD8`` values), both byte orders, strips and tiles,
+  planar configuration 1 and 2,
   ``FillOrder`` 2 (bits reversed in each byte before decoding);
 * compressions: none (1), CCITT MH (2), T.4 1-D and 2-D (3) and T.6 (4)
   (``data/ccitt.py``), LZW (5), Deflate (8 and 32946), PackBits (32773);
@@ -51,6 +53,7 @@ _UNSUPPORTED_COMPRESSION = {
 }
 _PHOTOMETRIC = {5: "CMYK", 6: "YCbCr", 8: "CIE Lab", 9: "ICC Lab", 10: "ITU Lab",
                 32844: "LogL", 32845: "LogLuv", 4: "transparency mask"}
+_CHUNK_TAGS = (273, 279, 324, 325)  # strip and tile offsets and byte counts
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -59,19 +62,22 @@ def _unsupported(path: str, what: str) -> UnsupportedFormat:
                              "(ROADMAP queue 1)")
 
 
-def _tags(data: bytes, order: str, ifd: int) -> Dict[int, List]:
-    """Every tag of the IFD at ``ifd`` -> its values."""
-    (count,) = struct.unpack_from(order + "H", data, ifd)
+def _tags(data: bytes, order: str, ifd: int, big: bool = False) -> Dict[int, List]:
+    """Every tag of the IFD at ``ifd`` -> its values.  A BigTIFF IFD has an
+    8-byte count, 20-byte entries and values of up to 8 bytes in place."""
+    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
+    (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, ifd)
+    first = ifd + (8 if big else 2)
     tags: Dict[int, List] = {}
     for k in range(count):
-        tag, typ, n = struct.unpack_from(order + "HHI", data, ifd + 2 + 12 * k)
-        if typ not in _TYPES:
-            continue
+        tag, typ, n = struct.unpack_from(order + "HH" + word, data, first + entry * k)
+        if typ not in _TYPES or (typ == 18 and tag in _CHUNK_TAGS):
+            continue  # libtiff refuses IFD8 strip or tile offsets and counts
         fmt = _TYPES[typ]
         size = struct.calcsize(order + fmt) * n
-        at = ifd + 10 + 12 * k
-        if size > 4:
-            (at,) = struct.unpack_from(order + "I", data, at)
+        at = first + entry * k + (12 if big else 8)  # after tag, type and count
+        if size > inline:
+            (at,) = struct.unpack_from(order + word, data, at)
         if at + size > len(data):
             raise ValueError("TIFF: tag data past the end of the file")
         vals = list(struct.unpack_from(order + fmt * n, data, at))
@@ -139,15 +145,19 @@ def _packbits(data: bytes, expected: int) -> bytes:
 class _Image:
     def __init__(self, data: bytes, path: str):
         self.path = path
-        if data[:4] == b"II*\x00":
-            order = "<"
-        elif data[:4] == b"MM\x00*":
-            order = ">"
-        else:
+        head = data[:4]
+        order = {b"II": "<", b"MM": ">"}.get(head[:2])
+        big = head in (b"II+\x00", b"MM\x00+")
+        if order is None or not (big or head in (b"II*\x00", b"MM\x00*")):
             raise ValueError(f"{path}: not a TIFF file")
-        (ifd,) = struct.unpack_from(order + "I", data, 4)
+        if big:
+            size, zero, ifd = struct.unpack_from(order + "HHQ", data, 4)
+            if size != 8 or zero != 0:
+                raise ValueError(f"{path}: BigTIFF header")
+        else:
+            (ifd,) = struct.unpack_from(order + "I", data, 4)
         self.data, self.order = data, order
-        t = _tags(data, order, ifd)
+        t = _tags(data, order, ifd, big)
         self.tags = t
         self.width, self.height = t[256][0], t[257][0]
         self.spp = t.get(277, [1])[0]

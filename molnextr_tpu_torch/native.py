@@ -6,8 +6,9 @@ patterns a sample).  It returns the matches of the Python search, in the
 same order.
 
 The library is built at first use with ``g++ -O3 -std=c++17 -fPIC
--shared`` into ``native_src/_build/<hash>/``, the hash covering the source
-and the flags; it is written under a temporary name and renamed into
+-shared`` into ``<root>/<hash>/``, the hash covering the source and the
+flags, where ``<root>`` is ``native_src/_build`` unless ``build_dir.py``
+picks ``$MOLNEXTR_BUILD_DIR`` or the per-user cache; it is written under a temporary name and renamed into
 place, so processes of a spawn pool that start the build together do not
 clobber each other.  ``MOLNEXTR_NO_NATIVE=1`` (the JAX package's switch)
 selects the Python search.  A failed build or load raises, with the
@@ -25,6 +26,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from molnextr_tpu_torch.build_dir import build_root
+
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native_src")
 BUILD_ROOT = os.path.join(SRC_DIR, "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
@@ -40,8 +43,11 @@ def enabled() -> bool:
     return not os.environ.get("MOLNEXTR_NO_NATIVE")
 
 
-def build(src: str = os.path.join(SRC_DIR, "matcher.cpp"), root: str = BUILD_ROOT) -> str:
-    """Compile ``src`` unless its library is built; returns the library's path."""
+def build(src: str = os.path.join(SRC_DIR, "matcher.cpp"), root: Optional[str] = None) -> str:
+    """Compile ``src`` unless its library is built; returns the library's path.
+    ``root`` defaults to :func:`build_dir.build_root`'s choice."""
+    if root is None:
+        root = build_root(BUILD_ROOT, "native")
     with open(src, "rb") as f:
         digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read()).hexdigest()[:16]
     target = os.path.join(root, digest, LIB_NAME)

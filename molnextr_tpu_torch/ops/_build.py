@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``) and
 loaded with :mod:`ctypes`.  Builds happen at first use, into
-``ops/_build/<hash>/`` where the hash covers every source and the compiler
-flags, so a changed source rebuilds and an unchanged one is reused.  All
+``<root>/<hash>/`` where the hash covers every source and the compiler
+flags and ``<root>`` is ``ops/_build`` unless ``build_dir.py`` picks
+``$MOLNEXTR_BUILD_DIR`` or the per-user cache, so a changed source rebuilds and an unchanged one is reused.  All
 sources are compiled together, one ``nvcc`` process each, started at once.
 
 Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import time
 from typing import Dict
+
+from molnextr_tpu_torch.build_dir import build_root
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -69,7 +72,7 @@ def _source_hash() -> str:
 def build_all() -> float:
     """Compile every library that is not built yet; returns the seconds
     spent.  One nvcc per source, all running at once."""
-    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    out_dir = os.path.join(build_root(BUILD_ROOT, "kernels"), _source_hash())
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = None
@@ -101,7 +104,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all()
-    path = os.path.join(BUILD_ROOT, _source_hash(), f"lib{name}.so")
+    path = os.path.join(build_root(BUILD_ROOT, "kernels"), _source_hash(), f"lib{name}.so")
     lib = ctypes.CDLL(path)
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes

@@ -26,12 +26,17 @@ torch.set_num_threads(2)
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 BUNDLE = os.path.join(ROOT, "examples", "demo_model")
 FIXTURES = os.path.join(ROOT, "molnextr_tpu_torch", "fixtures")
-PORT_FILES = [os.path.join(ROOT, "chip_smoke.py")] + [
+# the port's scripts and walkthroughs beside the JAX package's
+PORT_SCRIPTS = [os.path.join(ROOT, "scripts", "train_druglike_torch.py"),
+                os.path.join(ROOT, "scripts", "prebuild_item_cache_torch.py"),
+                os.path.join(ROOT, "examples", "predict_example_torch.py"),
+                os.path.join(ROOT, "examples", "visualize_example_torch.py")]
+PORT_FILES = [os.path.join(ROOT, "chip_smoke.py")] + PORT_SCRIPTS + [
     os.path.join(d, f)
     for d, _, files in os.walk(os.path.join(ROOT, "molnextr_tpu_torch"))
     for f in files if f.endswith(".py")
 ]
-# pandas too: the card's machine has none, so the CLIs read CSV with the csv module
+# pandas too: the port does not import it (the CLIs read CSV with the csv module)
 FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "PIL", "msgpack", "molnextr_tpu", "pandas")
 
 
@@ -84,6 +89,29 @@ def test_get_predictions_on_png(monkeypatch):
     assert {"atom_sets", "bond_sets", "predicted_molfile"} <= set(res)
     with pytest.raises(FileNotFoundError):
         MolNexTRSingleton.get_instance(model_path=os.path.join(FIXTURES, "missing"), device="cpu")
+
+
+def test_singleton_refuses_a_changed_device(monkeypatch):
+    """The fault the port had: after a CPU call, a default-device call ran on
+    the cached CPU instance and reported ``"CPU"``.  Now it raises, naming
+    both devices; after ``reset()`` the default call needs CUDA."""
+    monkeypatch.setenv("MOLNEXTR_MODEL_PATH", BUNDLE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    png = os.path.join(FIXTURES, "demo_0.png")
+    MolNexTRSingleton.reset()
+    try:
+        res = get_predictions(png, device="cpu")
+        assert res["device_info"] == "CPU"
+        with pytest.raises(ValueError, match="cached model is on cpu.*requested cuda"):
+            get_predictions(png)
+        with pytest.raises(ValueError, match="cpu.*cuda:1"):
+            MolNexTRSingleton.get_instance(device="cuda:1")
+        assert MolNexTRSingleton.get_instance(device=torch.device("cpu")).device.type == "cpu"
+        MolNexTRSingleton.reset()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_predictions(png)
+    finally:
+        MolNexTRSingleton.reset()
 
 
 def test_kv_int8_override_and_unported_options(monkeypatch):
@@ -194,8 +222,11 @@ def test_port_sources_import_nothing_forbidden():
                  "checkpoint.py", "data/png.py", "predict.py", "evaluate_cli.py",
                  "benchmarks.py", "models/convnext.py", "models/danet.py", "utils.py",
                  "data/image.py", "data/exif.py", "data/jpeg.py", "data/tiff.py",
-                 "data/ccitt.py", "data/reaction.py", "native.py"):
+                 "data/ccitt.py", "data/reaction.py", "native.py", "build_dir.py",
+                 "data/bmp.py", "data/pnm.py", "data/gif.py", "data/sunras.py", "data/hdr.py",
+                 "train/druglike.py"):
         assert os.path.join("molnextr_tpu_torch", name) in scanned, name
+    assert all(os.path.exists(p) for p in PORT_SCRIPTS)
     bad = [
         (os.path.relpath(p, ROOT), m)
         for p in PORT_FILES for m in _imported_modules(p)
@@ -225,7 +256,10 @@ assert set(['molnextr_tpu_torch.train.loop', 'molnextr_tpu_torch.data.dataset',
             'molnextr_tpu_torch.models.convnext', 'molnextr_tpu_torch.models.danet',
             'molnextr_tpu_torch.data.image', 'molnextr_tpu_torch.data.jpeg',
             'molnextr_tpu_torch.data.tiff', 'molnextr_tpu_torch.data.reaction',
-            'molnextr_tpu_torch.native']) <= set(mods)
+            'molnextr_tpu_torch.native', 'molnextr_tpu_torch.data.bmp',
+            'molnextr_tpu_torch.data.pnm', 'molnextr_tpu_torch.data.gif',
+            'molnextr_tpu_torch.data.sunras', 'molnextr_tpu_torch.data.hdr',
+            'molnextr_tpu_torch.train.druglike', 'molnextr_tpu_torch.build_dir']) <= set(mods)
 import torch
 torch.set_num_threads(2)
 from molnextr_tpu_torch.api import MolNexTR

@@ -45,12 +45,17 @@ against on the card, where neither JAX nor OpenCV is installed:
   reads them all through the predict CLI;
 
 * ``forms/`` — ``demo_0.png`` as JPEG (4:2:0, 4:2:2, 4:4:4, 4:1:1,
-  progressive, restart markers, grey, EXIF orientation 6) and TIFF (LZW
-  with predictor 2, Deflate, PackBits, tiled, 16-bit, bilevel G4) and a PNG
-  with an ``eXIf`` orientation, written by ``cv2.imwrite``, PIL and the
-  hand encoders of ``torch_image_writers``; four 1024 x 1024 files
-  (``big_*``: JPEG 4:2:0 and progressive, TIFF LZW and G4) for the reader
-  timings; and ``arrays.npz``: the array ``cv2.imread`` reads each file to,
+  progressive, restart markers, grey, EXIF orientation 6), TIFF (LZW
+  with predictor 2, Deflate, PackBits, tiled, 16-bit, bilevel G4), a PNG
+  with an ``eXIf`` orientation, BMP (24-bit, 8-bit palette, RLE8, 32-bit
+  bit fields under a v5 header), P5, P6, ASCII P2, 16-bit P5, PAM, PFM of
+  values 0..255, a run-length Sun raster, a GIF of the image's exact
+  119-grey palette, Radiance HDR and an LZW BigTIFF, written by
+  ``cv2.imwrite``, PIL and the hand encoders of ``torch_image_writers``;
+  six 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF LZW
+  and G4, BMP RLE8, GIF) for the reader timings; and ``arrays.npz``: the
+  array ``cv2.imread`` reads each file to (for the run-length Sun raster,
+  which OpenCV 5 refuses, the array of the standard file of its pixels),
   and in ``meta`` the JAX package's bf16 tokens and SMILES for the demo
   bundle on each ``demo_0_*`` form (:func:`build_image_forms`);
   ``chip_smoke.py`` phase cli reads, predicts and times them;
@@ -488,22 +493,96 @@ def build_image_forms():
 
     files["demo_0_g4.tif"] = g4(grey >= 128)
     big = cv2.cvtColor(_big_render(), cv2.COLOR_RGB2BGR)  # the reader timings' 1024 x 1024
+    files.update(_raster_forms(bgr, grey))
     files["big_420.jpg"] = cv2.imencode(".jpg", big)[1].tobytes()
     files["big_progressive.jpg"] = cv2.imencode(".jpg", big, [cv2.IMWRITE_JPEG_PROGRESSIVE,
                                                                1])[1].tobytes()
     files["big_lzw.tif"] = cv2.imencode(".tiff", big, [cv2.IMWRITE_TIFF_COMPRESSION, 5])[1].tobytes()
     files["big_g4.tif"] = g4(cv2.cvtColor(big, cv2.COLOR_BGR2GRAY) >= 128)
+    big_grey = cv2.cvtColor(big, cv2.COLOR_BGR2GRAY)
+    files["big_rle8.bmp"] = _rle8_bmp(big_grey)
+    files["big.gif"] = _grey_gif(big_grey)
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
+            # OpenCV 5 refuses a run-length Sun raster (by design in the port):
+            # its array is cv2's of the standard file of the same pixels
+            read = _sun_standard(grey) if name == "demo_0_rle.ras" else data
             path = os.path.join(tmp, name)
             with open(path, "wb") as f:
-                f.write(data)
+                f.write(read)
             arrays[name] = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
     demo = sorted(n for n in files if n.startswith("demo_0_"))
     meta = {"names": demo, "jax_bf16": _jax_demo_run([arrays[n] for n in demo], bf16=True)}
     arrays["meta"] = np.array(json.dumps(meta))
     return files, arrays
+
+
+def _grey_levels(grey):
+    """The image's grey levels (its exact palette) and each pixel's index."""
+    levels, idx = np.unique(grey, return_inverse=True)
+    return np.repeat(levels[:, None], 3, axis=1), idx.reshape(grey.shape)
+
+
+def _rle8_bmp(grey):
+    from torch_image_writers import encode_bmp, rle8
+
+    pal, idx = _grey_levels(grey)
+    return encode_bmp(idx, 8, pal, compression=1, raw=rle8(idx))
+
+
+def _grey_gif(grey):
+    from torch_image_writers import encode_gif
+
+    pal, idx = _grey_levels(grey)
+    return encode_gif([{"indices": idx}], grey.shape[1], grey.shape[0], pal)
+
+
+def _sun_standard(grey):
+    """The RT_STANDARD Sun raster of ``grey`` through its exact palette."""
+    from torch_image_writers import encode_sunras
+
+    pal, idx = _grey_levels(grey)
+    return encode_sunras(idx, 8, 1, pal)
+
+
+def _raster_forms(bgr, grey):
+    """demo_0.png as BMP, PNM/PAM/PFM, Sun raster, GIF, HDR and BigTIFF."""
+    import cv2
+    from torch_image_writers import encode_bmp, encode_sunras, encode_tiff
+
+    pal, idx = _grey_levels(grey)
+    h, w = grey.shape
+    files = {
+        "demo_0_24.bmp": cv2.imencode(".bmp", bgr)[1].tobytes(),
+        "demo_0_palette8.bmp": encode_bmp(idx, 8, pal),
+        "demo_0_rle8.bmp": _rle8_bmp(grey),
+        "demo_0_bitfields32.bmp": encode_bmp(
+            np.concatenate([bgr, np.full((h, w, 1), 255, np.uint8)], axis=2), 32, header=124,
+            compression=3, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000), masks_after=False),
+        "demo_0_p5.pgm": cv2.imencode(".pgm", grey)[1].tobytes(),
+        "demo_0_p6.ppm": cv2.imencode(".ppm", bgr)[1].tobytes(),
+        "demo_0_p2_ascii.pgm": cv2.imencode(".pgm", grey, [cv2.IMWRITE_PXM_BINARY, 0])[1].tobytes(),
+        "demo_0_p5_16bit.pgm": cv2.imencode(".pgm", grey.astype(np.uint16) * 257)[1].tobytes(),
+        "demo_0_grey.pam": cv2.imencode(".pam", grey, [cv2.IMWRITE_PAM_TUPLETYPE,
+                                                  cv2.IMWRITE_PAM_FORMAT_GRAYSCALE])[1].tobytes(),
+        "demo_0_0to255.pfm": cv2.imencode(".pfm", bgr.astype(np.float32))[1].tobytes(),  # 0..255
+        "demo_0_rle.ras": encode_sunras(idx, 8, 2, pal),
+        "demo_0_119grey.gif": _grey_gif(grey),
+        "demo_0_rgbe.hdr": cv2.imencode(".hdr", bgr.astype(np.float32) / 255)[1].tobytes(),
+    }
+    # BigTIFF: cv2's one LZW strip (predictor 2) under a BigTIFF header
+    classic = cv2.imencode(".tiff", bgr, [cv2.IMWRITE_TIFF_COMPRESSION, 5,
+                                          cv2.IMWRITE_TIFF_PREDICTOR, 2,
+                                          cv2.IMWRITE_TIFF_ROWSPERSTRIP, h])[1].tobytes()
+    from molnextr_tpu_torch.data.tiff import _tags
+
+    t = _tags(classic, "<", int.from_bytes(classic[4:8], "little"))
+    strip = classic[t[273][0] : t[273][0] + t[279][0]]
+    files["demo_0_lzw.btf"] = encode_tiff(
+        [strip], w, h, {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [2]), 277: (3, [3]),
+                        278: (4, [h]), 317: (3, [2])}, big=True)
+    return files
 
 
 def _big_render():

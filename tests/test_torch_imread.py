@@ -5,7 +5,8 @@ that read image files against their JAX counterparts.
   (both byte orders) read as cv2 reads them; a TIFF's tag 274 too for 1-4,
   while 5-8, which OpenCV 5.0 fails to read (None), read turned as a JPEG's
   are (a difference by design, pinned here);
-* formats the port does not decode raise ``UnsupportedFormat`` naming them;
+* BMP, GIF, PNM/PAM/PFM, HDR, Sun raster and BigTIFF read as cv2 reads
+  them; WebP, JPEG 2000 and AVIF raise ``UnsupportedFormat`` naming them;
   a missing, empty, unknown or corrupt file reads as None, as in cv2;
 * on a directory holding a PNG, a JPEG, a TIFF, a missing path and a
   corrupt file: ``MolNexTR.predict_image_files`` and the predict CLI raise
@@ -129,23 +130,50 @@ def test_malformed_exif_reads_as_orientation_1():
 
 
 @pytest.mark.parametrize("name,data", [
-    ("BMP", None), ("GIF", b"GIF89a" + bytes(20)), ("WebP", b"RIFF\x10\x00\x00\x00WEBPVP8 "),
-    ("PNM", b"P6\n2 2\n255\n" + bytes(12)), ("HDR", b"#?RADIANCE\n"),
-    ("Sun raster", b"\x59\xa6\x6a\x95" + bytes(28)),
+    ("WebP", b"RIFF\x10\x00\x00\x00WEBPVP8 "),
     ("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)),
-    ("AVIF", b"\x00\x00\x00\x1cftypavif" + bytes(8)), ("BigTIFF", b"II+\x00" + bytes(12))])
+    ("AVIF", b"\x00\x00\x00\x1cftypavif" + bytes(8))])
 def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data):
+    """WebP, JPEG 2000 and AVIF raise naming the format.  The BMP, GIF, PNM,
+    HDR, Sun raster and BigTIFF cases this test held before the port read
+    them are now read to cv2's arrays (the next test and each format's own
+    test file)."""
     path = tmp_path / "x.img"
-    if data is None:
-        cv2.imwrite(str(tmp_path / "x.bmp"), _picture())
-        path = tmp_path / "x.bmp"
-        data = path.read_bytes()
-    else:
-        path.write_bytes(data)
+    path.write_bytes(data)
     assert sniff_format(data) == name
     with pytest.raises(UnsupportedFormat, match=name):
         imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
+
+
+def _bigtiff(img):
+    h, w = img.shape[:2]
+    return encode_tiff([img.tobytes()], w, h, {258: (3, [8, 8, 8]), 259: (3, [1]),
+                                                262: (3, [2]), 277: (3, [3]), 278: (4, [h])},
+                       big=True)
+
+
+@pytest.mark.parametrize("name,ext", [("BMP", ".bmp"), ("GIF", ".gif"), ("PNM", ".ppm"),
+                                      ("PNM", ".pgm"), ("PNM", ".pbm"), ("PNM", ".pam"),
+                                      ("PNM", ".pfm"), ("HDR", ".hdr"), ("Sun raster", ".ras"),
+                                      ("BigTIFF", ".tif")])
+def test_formats_read_through_imread_as_cv2_reads_them(tmp_path, name, ext):
+    path = tmp_path / ("x" + ext)
+    picture = _picture(9, 13, seed=len(ext))
+    if ext == ".gif":
+        from PIL import Image
+
+        Image.fromarray(picture).save(str(path), "GIF")
+    elif ext == ".tif":
+        path.write_bytes(_bigtiff(picture))
+    else:
+        img = picture.astype(np.float32) / 255 if ext in (".hdr", ".pfm") else picture
+        assert cv2.imwrite(str(path), img[..., 0] if ext in (".pgm", ".pbm") else img)
+    data = path.read_bytes()
+    assert sniff_format(data) == name
+    want = cv2_rgb(path)
+    assert want is not None
+    np.testing.assert_array_equal(imread(str(path)), want)
 
 
 def test_unreadable_files_read_as_none_as_in_cv2(tmp_path):
@@ -153,7 +181,10 @@ def test_unreadable_files_read_as_none_as_in_cv2(tmp_path):
     cases = {"missing.png": None, "empty.png": b"", "text.png": b"not an image at all",
              "bad_zlib.png": png[:41] + b"\x00" * 20 + png[61:],
              "no_ihdr.png": png[:8] + png[33:], "short.jpg": b"\xff\xd8\xff",
-             "short.tif": b"II*\x00\x08\x00\x00\x00"}
+             "short.tif": b"II*\x00\x08\x00\x00\x00", "short.bmp": b"BM\x00\x00",
+             "short.gif": b"GIF89a\x01", "short.ppm": b"P6\n2 2\n255\n" + bytes(11),
+             "short.hdr": b"#?RADIANCE\n", "short.ras": b"\x59\xa6\x6a\x95" + bytes(28),
+             "short_big.tif": b"II+\x00" + bytes(12)}
     for name, data in cases.items():
         path = tmp_path / name
         if data is not None:

@@ -6,6 +6,10 @@
   sets, which is all its own test holds it to).
 * ``MOLNEXTR_NO_NATIVE`` selects the Python search; a broken source raises
   with the compiler's output; builds started together land in one place.
+* The build root (``build_dir.py``): below a package directory that cannot
+  be created, the build lands in ``$MOLNEXTR_BUILD_DIR`` when it is set and
+  in the per-user cache when not, and raises naming the directories when
+  none can be written; the CUDA kernels' root is chosen the same way.
 """
 
 import os
@@ -13,7 +17,7 @@ import threading
 
 import pytest
 
-from molnextr_tpu_torch import native
+from molnextr_tpu_torch import build_dir, native
 from molnextr_tpu_torch.chem import match
 from molnextr_tpu_torch.chem.aromaticity import sanitize
 from molnextr_tpu_torch.chem.smiles_parser import parse_smiles
@@ -128,3 +132,68 @@ def test_builds_started_together_land_in_one_place(tmp_path):
     lib = native.load(paths[0])
     assert lib.mnx_find_substructures.restype is not None
     assert [p.name for p in tmp_path.rglob("*") if p.is_file()] == [native.LIB_NAME]
+
+
+def _unwritable(tmp_path):
+    """A directory below a regular file: not even root can create it."""
+    (tmp_path / "f").write_text("a file")
+    return str(tmp_path / "f" / "_build")
+
+
+def test_a_package_root_that_cannot_be_written_builds_in_the_override(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "BUILD_ROOT", _unwritable(tmp_path))
+    monkeypatch.setenv("MOLNEXTR_BUILD_DIR", str(tmp_path / "override"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    path = native.build()
+    assert path.startswith(str(tmp_path / "override" / "native") + os.sep)
+    assert native.load(path).mnx_find_substructures.restype is not None
+    assert not (tmp_path / "cache").exists()
+
+
+def test_without_the_override_the_build_lands_in_the_user_cache(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "BUILD_ROOT", _unwritable(tmp_path))
+    monkeypatch.delenv("MOLNEXTR_BUILD_DIR", raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    path = native.build()
+    assert path.startswith(str(tmp_path / "cache" / "molnextr_tpu_torch" / "native") + os.sep)
+    assert os.path.exists(path)
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert build_dir.build_root(native.BUILD_ROOT, "native") == str(
+        tmp_path / "home" / ".cache" / "molnextr_tpu_torch" / "native")
+
+
+def test_no_writable_root_raises_naming_the_directories(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "BUILD_ROOT", _unwritable(tmp_path))
+    monkeypatch.delenv("MOLNEXTR_BUILD_DIR", raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", _unwritable(tmp_path))
+    with pytest.raises(RuntimeError, match="no writable build directory for native") as err:
+        native.build()
+    assert native.BUILD_ROOT in str(err.value) and "MOLNEXTR_BUILD_DIR" in str(err.value)
+    monkeypatch.setenv("MOLNEXTR_BUILD_DIR", _unwritable(tmp_path))
+    with pytest.raises(RuntimeError, match="no writable build directory"):
+        native.build()
+
+
+def test_the_kernels_build_root_is_chosen_the_same_way(tmp_path, monkeypatch):
+    """No ``nvcc`` here: the root choice of ``ops/_build.py`` alone."""
+    from molnextr_tpu_torch.ops import _build
+
+    assert build_dir.build_root(_build.BUILD_ROOT, "kernels") == _build.BUILD_ROOT
+    monkeypatch.setattr(_build, "BUILD_ROOT", _unwritable(tmp_path))
+    monkeypatch.delenv("MOLNEXTR_BUILD_DIR", raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    seen = []
+
+    def no_nvcc():
+        seen.append(1)
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert seen and (tmp_path / "cache" / "molnextr_tpu_torch" / "kernels").is_dir()
+    monkeypatch.setenv("MOLNEXTR_BUILD_DIR", str(tmp_path / "override"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert (tmp_path / "override" / "kernels" / _build._source_hash()).is_dir()

@@ -10,7 +10,8 @@ reference is ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``; the
 port must equal it with no tolerance.  Differences by design have tests of
 their own: grey at 2 and 4 bits and palettes at 2 bits, which OpenCV 5.0
 refuses (orientations 5-8: ``test_torch_imread.py``).  Unported forms raise
-naming the form.
+naming the form.  BigTIFF files (``II+``/``MM\\0+``) come from the hand
+encoder, since neither cv2 nor PIL writes them.
 """
 
 import io
@@ -310,3 +311,69 @@ def test_hypothesis_ccitt(tmp_path, h, w, seed, compression, two_d):
     info = {292: 1} if two_d and compression == "group3" else {}
     Image.fromarray(bits).convert("1").save(buf, "TIFF", compression=compression, tiffinfo=info)
     check(tmp_path, buf.getvalue())
+
+
+# -- BigTIFF -------------------------------------------------------------------------
+
+
+def _bigtiff_cases(rng, h, w):
+    rgb = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    grey = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    base = {258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]), 278: (4, [h])}
+    grey_tags = {258: (3, [8]), 259: (3, [1]), 262: (3, [1]), 277: (3, [1]), 278: (4, [h])}
+    rows = 3
+    return {
+        "raw": ([rgb.tobytes()], {**base, 259: (3, [1])}, {}),
+        "deflate": ([zlib.compress(rgb.tobytes())], {**base, 259: (3, [8])}, {}),
+        "LONG offsets": ([rgb.tobytes()], {**base, 259: (3, [1])}, {"offset_type": 4}),
+        "IFD8 offsets": ([rgb.tobytes()], {**base, 259: (3, [1])}, {"offset_type": 18}),
+        "strips": ([rgb[i:i + rows].tobytes() for i in range(0, h, rows)],
+                   {**base, 259: (3, [1]), 278: (4, [rows])}, {}),
+        "two pages": ([grey.tobytes()], grey_tags,
+                      {"second_page": {258: (3, [8]), 262: (3, [0]), 277: (3, [1])}}),
+        "palette": ([grey.tobytes()], {**grey_tags, 262: (3, [3]),
+                                       320: (3, list(rng.randint(0, 65536, 3 * 256)))}, {}),
+    }
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("name", ["raw", "deflate", "LONG offsets", "IFD8 offsets", "strips",
+                                  "two pages", "palette"])
+def test_bigtiff(tmp_path, order, name):
+    """8-byte offsets and counts, 20-byte IFD entries, ``LONG8`` chunk
+    offsets (``LONG`` ones too; libtiff refuses ``IFD8`` ones: None)."""
+    for h, w in ((1, 1), (7, 9), (40, 33)):
+        chunks, tags, extra = _bigtiff_cases(np.random.RandomState(h + w), h, w)[name]
+        data = encode_tiff(chunks, w, h, tags, order, big=True, **extra)
+        path = tmp_path / "x.tif"
+        path.write_bytes(data)
+        want = cv2_rgb(path)
+        assert (want is None) == (name == "IFD8 offsets")
+        if want is None:
+            assert imread(str(path)) is None
+        else:
+            check(tmp_path, data)
+
+
+def test_bigtiff_lzw_and_a_bad_header(tmp_path):
+    rng = np.random.RandomState(5)
+    rgb = rng.randint(0, 4, (30, 20, 3)).astype(np.uint8) * 60
+    classic = cv2.imencode(".tiff", rgb, [cv2.IMWRITE_TIFF_COMPRESSION, 5])[1].tobytes()
+    lzw, predictor = _lzw_strip(classic)  # the LZW strip, re-wrapped as a BigTIFF
+    tags = {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [2]), 277: (3, [3]), 278: (4, [30]),
+            317: (3, [predictor])}
+    data = encode_tiff([lzw], 20, 30, tags, big=True)
+    strip = decode_tiff(classic)
+    np.testing.assert_array_equal(check(tmp_path, data), strip)
+    path = tmp_path / "y.tif"
+    path.write_bytes(data[:4] + b"\x04" + data[5:])  # offset size 4: not a BigTIFF
+    assert cv2.imread(str(path)) is None and imread(str(path)) is None
+
+
+def _lzw_strip(classic: bytes):
+    """The one LZW strip of a one-strip classic TIFF, and its predictor."""
+    from molnextr_tpu_torch.data.tiff import _tags
+
+    t = _tags(classic, "<", int.from_bytes(classic[4:8], "little"))
+    assert len(t[273]) == 1 and t[259] == [5]
+    return classic[t[273][0] : t[273][0] + t[279][0]], t.get(317, [1])[0]

@@ -1,14 +1,22 @@
 """Hand encoders for the image-reader tests: files that ``cv2.imwrite`` and
 PIL do not write, read back by ``cv2.imread`` as the reference.
 
-* :func:`encode_tiff`: a TIFF from raw or already-compressed strips or
-  tiles and any tags (both byte orders, a second page on request);
+* :func:`encode_tiff`: a TIFF or BigTIFF from raw or already-compressed
+  strips or tiles and any tags (both byte orders, a second page on
+  request);
 * :func:`encode_jpeg`: a baseline JPEG from component planes at any
   sampling factors (1-4), with any component ids, an Adobe APP14 marker
   and restart markers; fixed-length Huffman codes, so no table needs
   building;
 * :func:`exif_block`, :func:`with_jpeg_exif`, :func:`with_png_exif`: an
-  EXIF orientation in either byte order, put into a JPEG or a PNG.
+  EXIF orientation in either byte order, put into a JPEG or a PNG;
+* :func:`encode_bmp`, :func:`rle8`, :func:`rle4`: a BMP at any depth under
+  any header (OS/2 12 bytes, 40, v4 108, v5 124), bottom-up or top-down,
+  with bit fields, short palettes, and RLE8 / RLE4 streams with deltas;
+* :func:`encode_sunras`, :func:`sun_rle`: a Sun raster of any type and
+  depth, with or without a colour map, run-length encoded on request;
+* :func:`encode_gif`, :func:`gif_lzw`: a GIF87a/89a of one or more frames,
+  each with its own table, offset, interlace and transparent index.
 """
 
 from __future__ import annotations
@@ -19,16 +27,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II"}
+_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 16: "Q", 17: "q", 18: "Q"}
 
 
 def encode_tiff(chunks: Sequence[bytes], width: int, height: int,
                 tags: Dict[int, Tuple[int, list]], order: str = "<",
-                second_page: Optional[Dict[int, Tuple[int, list]]] = None) -> bytes:
+                second_page: Optional[Dict[int, Tuple[int, list]]] = None,
+                big: bool = False, offset_type: Optional[int] = None) -> bytes:
     """A TIFF whose strips (or tiles, when ``tags`` has 322) are ``chunks``;
     the size and the chunks' offsets and counts are filled in.  A
-    ``second_page`` is an IFD of its own tags, pointing at the same chunks."""
-    out = bytearray((b"II*\x00" if order == "<" else b"MM\x00*") + bytes(4))
+    ``second_page`` is an IFD of its own tags, pointing at the same chunks.
+    ``big`` writes a BigTIFF (8-byte offsets, counts and IFD entries), whose
+    chunk offsets and counts are ``LONG8`` unless ``offset_type`` says."""
+    word = "Q" if big else "I"
+    inline = 8 if big else 4
+    if offset_type is None:
+        offset_type = 16 if big else 4
+    if big:
+        out = bytearray((b"II+\x00" if order == "<" else b"MM\x00+")
+                        + struct.pack(order + "HH", 8, 0) + bytes(8))
+    else:
+        out = bytearray((b"II*\x00" if order == "<" else b"MM\x00*") + bytes(4))
     offsets = []
     for c in chunks:
         out += b"\x00" * (len(out) % 2)
@@ -40,11 +59,12 @@ def encode_tiff(chunks: Sequence[bytes], width: int, height: int,
         tags = dict(tags)
         tiled = 322 in tags
         tags[256], tags[257] = (4, [width]), (4, [height])
-        tags[324 if tiled else 273] = (4, offsets)
-        tags[325 if tiled else 279] = (4, [len(c) for c in chunks])
+        tags[324 if tiled else 273] = (offset_type, offsets)
+        tags[325 if tiled else 279] = (offset_type, [len(c) for c in chunks])
         entries = sorted(tags.items())
-        size = 2 + 12 * len(entries) + 4
-        head, extra = bytearray(struct.pack(order + "H", len(entries))), bytearray()
+        size = (8 + 20 * len(entries) + 8) if big else (2 + 12 * len(entries) + 4)
+        head = bytearray(struct.pack(order + ("Q" if big else "H"), len(entries)))
+        extra = bytearray()
         for tag, (typ, vals) in entries:
             if typ == 2:
                 raw = bytes(vals)
@@ -53,16 +73,17 @@ def encode_tiff(chunks: Sequence[bytes], width: int, height: int,
             else:
                 raw = struct.pack(order + _TYPES[typ] * len(vals), *vals)
             n = len(raw) if typ == 2 else len(vals)
-            if len(raw) <= 4:
-                head += struct.pack(order + "HHI", tag, typ, n) + raw.ljust(4, b"\x00")
+            if len(raw) <= inline:
+                head += struct.pack(order + "HH" + word, tag, typ, n) + raw.ljust(inline, b"\x00")
             else:
-                head += struct.pack(order + "HHII", tag, typ, n, base + size + len(extra))
+                head += struct.pack(order + "HH" + word + word, tag, typ, n,
+                                    base + size + len(extra))
                 extra += raw + b"\x00" * (len(raw) % 2)
-        head += struct.pack(order + "I", next_ifd)
+        head += struct.pack(order + word, next_ifd)
         return bytes(head + extra)
 
     first = len(out)
-    struct.pack_into(order + "I", out, 4, first)
+    struct.pack_into(order + word, out, 8 if big else 4, first)
     page = ifd(tags, first, 0)
     if second_page is not None:
         page = ifd(tags, first, first + len(page))
@@ -216,3 +237,243 @@ def encode_jpeg(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]]
                             writer.put(ac_code[0x00], 8)
     out += writer.flush() + b"\xff\xd9"
     return bytes(out)
+
+
+# -- BMP --------------------------------------------------------------------------
+
+
+def encode_bmp(pixels: np.ndarray, bpp: int, palette: Optional[np.ndarray] = None,
+               header: int = 40, compression: int = 0, top_down: bool = False,
+               masks: Optional[Sequence[int]] = None, used: Optional[int] = None,
+               raw: Optional[bytes] = None, masks_after: bool = True) -> bytes:
+    """A BMP of ``pixels``: indices (H, W) at 1, 4 and 8 bits, packed 16-bit
+    values (H, W) at 16, BGR(A) (H, W, 3 or 4) at 24 and 32.  ``palette`` is
+    (n, 3) RGB; ``raw`` replaces the pixel data (an RLE stream, in the order
+    the rows are stored); ``masks`` (red, green, blue[, alpha]) go after a
+    40-byte header (``masks_after``) or into a v4/v5 header."""
+    h, w = pixels.shape[:2]
+    if raw is None:
+        stored = pixels[::-1] if not top_down else pixels
+        if bpp <= 8:
+            rows = pack_bits(stored.astype(np.int64), bpp)
+        elif bpp == 16:
+            rows = stored.astype("<u2").view(np.uint8).reshape(h, -1)
+        else:
+            rows = stored.astype(np.uint8).reshape(h, -1)
+        pitch = (rows.shape[1] + 3) & -4
+        raw = np.pad(rows, ((0, 0), (0, pitch - rows.shape[1]))).tobytes()
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    mask_bytes = b"".join(struct.pack("<I", m) for m in (masks or ()))
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, -h if top_down else h, 1, bpp)
+    else:
+        n_used = used if used is not None else (len(palette) if palette is not None else 0)
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bpp,
+                           compression, len(raw), 2835, 2835, n_used, 0)
+        if header > 40:
+            inner = (mask_bytes if not masks_after else b"").ljust(16, b"\x00")
+            info += inner.ljust(header - 40, b"\x00")
+        if masks_after:
+            pal = mask_bytes + pal
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", offset + len(raw), 0, 0, offset) + info + pal + raw
+
+
+def _rle_runs(row: np.ndarray, four: bool) -> bytes:
+    """One row of indices as encoded runs of equal values and absolute runs
+    of unequal ones (RLE4 runs alternate two indices)."""
+    out = bytearray()
+    n, i = len(row), 0
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 255 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3 or n - i < 3:
+            v = int(row[i])
+            out += bytes([j - i, (v << 4) | v if four else v])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 255 and not (j + 2 < n and row[j] == row[j + 1] == row[j + 2]):
+            j += 1
+        count = j - i
+        if count < 3:
+            v = int(row[i])
+            out += bytes([1, (v << 4) | v if four else v])
+            i += 1
+            continue
+        vals = [int(v) for v in row[i:j]]
+        if four:
+            vals += [0] * (count % 2)
+            data = bytes((a << 4) | b for a, b in zip(vals[::2], vals[1::2]))
+        else:
+            data = bytes(vals)
+        data += b"\x00" * (len(data) % 2)
+        out += bytes([0, count]) + data
+        i = j
+    return bytes(out)
+
+
+def rle8(indices: np.ndarray, top_down: bool = False, eob: bool = True) -> bytes:
+    """An RLE8 stream of (H, W) indices, each row closed by an end of line."""
+    rows = indices if top_down else indices[::-1]
+    out = b"".join(_rle_runs(r, False) + b"\x00\x00" for r in rows)
+    return out + (b"\x00\x01" if eob else b"")
+
+
+def rle4(indices: np.ndarray, top_down: bool = False, eob: bool = True) -> bytes:
+    rows = indices if top_down else indices[::-1]
+    out = b"".join(_rle_runs(r, True) + b"\x00\x00" for r in rows)
+    return out + (b"\x00\x01" if eob else b"")
+
+
+# -- Sun raster -------------------------------------------------------------------
+
+
+def sun_rle(raw: bytes) -> bytes:
+    """Sun's byte RLE: runs of 3 or more (and any 0x80) as ``0x80 n v``."""
+    out = bytearray()
+    i, n = 0, len(raw)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 256 and raw[j] == raw[i]:
+            j += 1
+        run = j - i
+        if run >= 3 or raw[i] == 0x80:
+            if run == 1:
+                out += b"\x80\x00"
+            else:
+                out += bytes([0x80, run - 1, raw[i]])
+            i = j
+        else:
+            out += raw[i:j]
+            i = j
+    return bytes(out)
+
+
+def encode_sunras(pixels: np.ndarray, bpp: int, kind: int = 1,
+                  cmap: Optional[np.ndarray] = None, maptype: Optional[int] = None,
+                  raw: Optional[bytes] = None) -> bytes:
+    """A Sun raster of ``pixels``: bits or indices (H, W) at 1 and 8 bits,
+    byte triples or quads (H, W, 3 or 4) in file order at 24 and 32.
+    ``cmap`` is (n, 3) RGB; ``kind`` 2 run-length encodes; ``raw``
+    replaces the (encoded) pixel data."""
+    h, w = pixels.shape[:2]
+    if raw is None:
+        if bpp <= 8:
+            rows = pack_bits(pixels.astype(np.int64), bpp)
+        else:
+            rows = pixels.astype(np.uint8).reshape(h, -1)
+        pitch = (rows.shape[1] + 1) & -2
+        raw = np.pad(rows, ((0, 0), (0, pitch - rows.shape[1]))).tobytes()
+        if kind == 2:
+            raw = sun_rle(raw)
+    maps = b"" if cmap is None else np.asarray(cmap, np.uint8).T.tobytes()
+    if maptype is None:
+        maptype = 0 if cmap is None else 1
+    head = struct.pack(">8I", 0x59A66A95, w, h, bpp, len(raw), kind, maptype, len(maps))
+    return head + maps + raw
+
+
+# -- GIF --------------------------------------------------------------------------
+
+
+def gif_lzw(indices: Sequence[int], min_size: int) -> bytes:
+    """GIF LZW (LSB first) of ``indices``, as sub-blocks ending in a 0 block;
+    a clear code first and whenever the table is full."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    width, table = min_size + 1, {}
+    acc = nbits = 0
+    out = bytearray()
+
+    def put(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    put(clear)
+    nxt = eoi + 1
+    prefix = None
+    for k in indices:
+        k = int(k)
+        if prefix is None:
+            prefix = k
+            continue
+        key = (prefix, k)
+        if key in table:
+            prefix = table[key]
+            continue
+        put(prefix)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        else:
+            put(clear)
+            table, nxt, width = {}, eoi + 1, min_size + 1
+        prefix = k
+    if prefix is not None:
+        put(prefix)
+    put(eoi)
+    if nbits:
+        out.append(acc & 255)
+    blocks = bytearray([min_size])
+    for i in range(0, len(out), 255):
+        chunk = out[i : i + 255]
+        blocks += bytes([len(chunk)]) + chunk
+    return bytes(blocks + b"\x00")
+
+
+def _gif_table(colours: np.ndarray) -> Tuple[bytes, int]:
+    """A colour table padded to a power of two, and its size field."""
+    n = max(2, len(colours))
+    bits = max(1, (n - 1).bit_length())
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[: len(colours)] = colours
+    return table.tobytes(), bits - 1
+
+
+def encode_gif(frames: Sequence[dict], width: int, height: int,
+               palette: Optional[np.ndarray] = None, version: bytes = b"89a",
+               background: int = 0) -> bytes:
+    """A GIF of ``frames``, each a dict with ``indices`` (h, w) and optional
+    ``left``, ``top``, ``palette`` (a local table, (n, 3) RGB),
+    ``interlace``, ``transparent`` (an index) and ``disposal``."""
+    out = bytearray(b"GIF" + version)
+    flags = 0
+    gct = b""
+    if palette is not None:
+        gct, size = _gif_table(np.asarray(palette, np.uint8))
+        flags = 0x80 | 0x70 | size
+    out += struct.pack("<HHBBB", width, height, flags, background, 0) + gct
+    for f in frames:
+        idx = np.asarray(f["indices"])
+        h, w = idx.shape
+        if "transparent" in f or "disposal" in f:
+            packed = (f.get("disposal", 0) << 2) | (1 if "transparent" in f else 0)
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", packed, 10,
+                                                  f.get("transparent", 0)) + b"\x00"
+        lct, lflags = b"", 0
+        if f.get("palette") is not None:
+            lct, size = _gif_table(np.asarray(f["palette"], np.uint8))
+            lflags = 0x80 | size
+        rows = np.arange(h)
+        if f.get("interlace"):
+            lflags |= 0x40
+            rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4], rows[1::2]])
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0), w, h,
+                                      lflags) + lct
+        ncolours = (len(lct) or len(gct)) // 3
+        min_size = max(2, (max(ncolours, 2) - 1).bit_length())
+        out += gif_lzw(idx[rows].ravel(), min_size)
+    return bytes(out + b"\x3b")
