@@ -109,8 +109,8 @@ def _chunks(data: bytes, path: str) -> Tuple[tuple, bytes, bytes, int]:
             plte = body
         elif ctype == b"IDAT":
             idat.append(body)
-        elif ctype == b"eXIf":
-            orientation = exif_orientation(body)
+        elif ctype == b"eXIf":  # libpng drops one without "II" or "MM" first
+            orientation = exif_orientation(body) if body[:2] in (b"II", b"MM") else 1
         elif ctype == b"IEND":
             break
     if header is None:

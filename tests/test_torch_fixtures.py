@@ -50,10 +50,13 @@ against on the card, where neither JAX nor OpenCV is installed:
   with an ``eXIf`` orientation, BMP (24-bit, 8-bit palette, RLE8, 32-bit
   bit fields under a v5 header), P5, P6, ASCII P2, 16-bit P5, PAM, PFM of
   values 0..255, a run-length Sun raster, a GIF of the image's exact
-  119-grey palette, Radiance HDR and an LZW BigTIFF, written by
-  ``cv2.imwrite``, PIL and the hand encoders of ``torch_image_writers``;
-  six 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF LZW
-  and G4, BMP RLE8, GIF) for the reader timings; and ``arrays.npz``: the
+  119-grey palette, Radiance HDR, an LZW BigTIFF, and WebP (lossless,
+  lossy at quality 90, lossy with an ``ALPH`` chunk, lossless with EXIF
+  orientation 6, an animation whose first frame is the picture; the lossy
+  ones named ``*_lossy.webp``), written by ``cv2.imwrite``, PIL and the hand
+  encoders of ``torch_image_writers``; eight 1024 x 1024 files (``big_*``:
+  JPEG 4:2:0 and progressive, TIFF LZW and G4, BMP RLE8, GIF, WebP lossy
+  and lossless) for the reader timings; and ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
   and in ``meta`` the JAX package's bf16 tokens and SMILES for the demo
@@ -436,8 +439,9 @@ def build_png_forms():
 
 
 def build_image_forms():
-    """name -> bytes of ``demo_0.png`` in the JPEG and TIFF forms (and a PNG
-    with an ``eXIf`` orientation) that ``chip_smoke.py`` phase cli reads, and
+    """name -> bytes of ``demo_0.png`` in the JPEG, TIFF, raster and WebP
+    forms (and a PNG with an ``eXIf`` orientation) that ``chip_smoke.py``
+    phase cli reads, and
     the array ``cv2.imread`` reads each to (RGB).  An oriented file stores
     the picture turned the other way, so it reads upright."""
     import io
@@ -492,6 +496,7 @@ def build_image_forms():
         return buf.getvalue()
 
     files["demo_0_g4.tif"] = g4(grey >= 128)
+    files.update(_webp_forms(bgr, turned))
     big = cv2.cvtColor(_big_render(), cv2.COLOR_RGB2BGR)  # the reader timings' 1024 x 1024
     files.update(_raster_forms(bgr, grey))
     files["big_420.jpg"] = cv2.imencode(".jpg", big)[1].tobytes()
@@ -502,6 +507,10 @@ def build_image_forms():
     big_grey = cv2.cvtColor(big, cv2.COLOR_BGR2GRAY)
     files["big_rle8.bmp"] = _rle8_bmp(big_grey)
     files["big.gif"] = _grey_gif(big_grey)
+    files["big_lossy.webp"] = cv2.imencode(".webp", big, [cv2.IMWRITE_WEBP_QUALITY,
+                                                           WEBP_QUALITY])[1].tobytes()
+    files["big_lossless.webp"] = cv2.imencode(".webp", big, [cv2.IMWRITE_WEBP_QUALITY,
+                                                              101])[1].tobytes()
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -516,6 +525,46 @@ def build_image_forms():
     meta = {"names": demo, "jax_bf16": _jax_demo_run([arrays[n] for n in demo], bf16=True)}
     arrays["meta"] = np.array(json.dumps(meta))
     return files, arrays
+
+
+WEBP_QUALITY = 90  # the lossy WebP forms' quality (cv2 and PIL)
+
+
+def _webp_forms(bgr, turned):
+    """demo_0.png as WebP: lossless (cv2 at quality 101), lossy (cv2 at
+    ``WEBP_QUALITY``), lossy with an ``ALPH`` chunk of a ramp (PIL), lossless
+    with EXIF orientation 6 over the turned picture (PIL), and an animation
+    of two lossless frames whose first is the picture (PIL).  The lossy
+    forms' names end in ``_lossy.webp``, the others' in ``_lossless.webp``."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    h, w = rgb.shape[:2]
+    files = {"demo_0_lossless.webp": cv2.imencode(".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY,
+                                                                  101])[1].tobytes(),
+             "demo_0_lossy.webp": cv2.imencode(".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY,
+                                                               WEBP_QUALITY])[1].tobytes()}
+
+    def pil(image, **kw):
+        buf = io.BytesIO()
+        image.save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    ramp = ((np.indices((h, w)).sum(0) * 3) % 256).astype(np.uint8)  # dropped on reading
+    files["demo_0_alpha_lossy.webp"] = pil(Image.fromarray(np.dstack([rgb, ramp]), "RGBA"),
+                                           quality=WEBP_QUALITY)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    files["demo_0_exif6_lossless.webp"] = pil(
+        Image.fromarray(np.ascontiguousarray(turned[..., ::-1])), lossless=True,
+        exif=exif.tobytes())
+    frames = [Image.fromarray(rgb), Image.fromarray(255 - rgb)]
+    files["demo_0_anim_lossless.webp"] = pil(frames[0], save_all=True, append_images=frames[1:],
+                                             duration=100, lossless=True)
+    return files
 
 
 def _grey_levels(grey):

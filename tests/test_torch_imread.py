@@ -5,8 +5,9 @@ that read image files against their JAX counterparts.
   (both byte orders) read as cv2 reads them; a TIFF's tag 274 too for 1-4,
   while 5-8, which OpenCV 5.0 fails to read (None), read turned as a JPEG's
   are (a difference by design, pinned here);
-* BMP, GIF, PNM/PAM/PFM, HDR, Sun raster and BigTIFF read as cv2 reads
-  them; WebP, JPEG 2000 and AVIF raise ``UnsupportedFormat`` naming them;
+* BMP, GIF, PNM/PAM/PFM, HDR, Sun raster, BigTIFF and WebP (lossy and
+  lossless) read as cv2 reads them; JPEG 2000 and AVIF raise
+  ``UnsupportedFormat`` naming them;
   a missing, empty, unknown or corrupt file reads as None, as in cv2;
 * on a directory holding a PNG, a JPEG, a TIFF, a missing path and a
   corrupt file: ``MolNexTR.predict_image_files`` and the predict CLI raise
@@ -130,12 +131,11 @@ def test_malformed_exif_reads_as_orientation_1():
 
 
 @pytest.mark.parametrize("name,data", [
-    ("WebP", b"RIFF\x10\x00\x00\x00WEBPVP8 "),
     ("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)),
     ("AVIF", b"\x00\x00\x00\x1cftypavif" + bytes(8))])
 def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data):
-    """WebP, JPEG 2000 and AVIF raise naming the format.  The BMP, GIF, PNM,
-    HDR, Sun raster and BigTIFF cases this test held before the port read
+    """JPEG 2000 and AVIF raise naming the format.  The BMP, GIF, PNM, HDR,
+    Sun raster, BigTIFF and WebP cases this test held before the port read
     them are now read to cv2's arrays (the next test and each format's own
     test file)."""
     path = tmp_path / "x.img"
@@ -156,11 +156,15 @@ def _bigtiff(img):
 @pytest.mark.parametrize("name,ext", [("BMP", ".bmp"), ("GIF", ".gif"), ("PNM", ".ppm"),
                                       ("PNM", ".pgm"), ("PNM", ".pbm"), ("PNM", ".pam"),
                                       ("PNM", ".pfm"), ("HDR", ".hdr"), ("Sun raster", ".ras"),
-                                      ("BigTIFF", ".tif")])
+                                      ("BigTIFF", ".tif"), ("WebP", "_lossy.webp"),
+                                      ("WebP", ".webp")])
 def test_formats_read_through_imread_as_cv2_reads_them(tmp_path, name, ext):
     path = tmp_path / ("x" + ext)
     picture = _picture(9, 13, seed=len(ext))
-    if ext == ".gif":
+    if ext.endswith(".webp"):  # lossy at quality 80, lossless at cv2's 101
+        quality = 80 if ext.startswith("_lossy") else 101
+        assert cv2.imwrite(str(path), picture, [cv2.IMWRITE_WEBP_QUALITY, quality])
+    elif ext == ".gif":
         from PIL import Image
 
         Image.fromarray(picture).save(str(path), "GIF")
