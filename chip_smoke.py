@@ -95,19 +95,22 @@ failure:
    Deflate, PackBits, tiled, 16-bit, G4; PNG ``eXIf``; BMP 24-bit, 8-bit
    palette, RLE8, 32-bit bit fields; P5, P6, ASCII P2, 16-bit P5, PAM, PFM;
    run-length Sun raster; GIF; HDR; LZW BigTIFF; WebP lossless, lossy,
-   lossy with alpha, lossless with EXIF orientation 6, animated) read by
-   ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
+   lossy with alpha, lossless with EXIF orientation 6, animated; JPEG 2000
+   JP2 5/3, raw J2K 5/3, JP2 9/7, JP2 5/3 tiled with precincts and RPCL)
+   read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
    demo_0.png's and to the JAX package's on that form; tokens equal to
-   demo_0.png's, the lossy JPEG, HDR and WebP forms' within one coordinate
-   bin); the new lossless forms (WebP's too) at full width (``Config()``,
-   seeded weights, bf16, int8 KV cache) in one batch with demo_0.png,
-   tokens all equal, launches counted; which of the files this machine's
-   cv2 reads to the same arrays, and the shapes it reads the WebP files to
-   (information only); the readers' host ms per image and per megapixel on
-   1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF G4, BMP RLE8,
-   GIF and lossy and lossless WebP;
+   demo_0.png's, the lossy JPEG, HDR, WebP and 9/7 forms' within one
+   coordinate bin); the new lossless forms (WebP's and JPEG 2000's too) at
+   full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
+   batch with demo_0.png, tokens all equal, launches counted; which of the
+   files this machine's cv2 reads to the same arrays, the shapes it reads
+   the WebP files to, whether it reads JPEG 2000 at all and its own ms on
+   the 1024 x 1024 files (information only); the readers' host ms per
+   image and per megapixel on 1024 x 1024
+   JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF G4, BMP RLE8, GIF, lossy
+   and lossless WebP, and 5/3 and 9/7 JPEG 2000;
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -203,7 +206,8 @@ MATCHER_ITEMS, MATCHER_WARMUP_ITEMS = 64, 8
 READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
 READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
-                "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp")
+                "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
+                "big_lossless.jp2", "big_lossy.jp2")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -1966,17 +1970,18 @@ def corpus_csvs(work, n_train, n_valid):
 
 
 def image_forms(torch, card, bundle, work, want):
-    """The JPEG, TIFF, raster, WebP and oriented PNG forms of demo_0.png in
-    ``fixtures/forms``: each read by ``imread`` to the array ``cv2.imread``
-    gave (``arrays.npz``); ``predict.main`` on them (the demo bundle, bf16)
-    with the launch counters zeroed before and read after (K1, K2, K3-int8
-    above 0), each SMILES equal to demo_0.png's and to the JAX package's on
-    that form; the tokens of the lossless forms equal demo_0.png's, those
-    of the lossy JPEG, HDR and WebP forms equal in every symbol and within
-    one bin in every coordinate; which files this machine's cv2 reads to the
-    same array (information: its cv2 may not turn WebP by EXIF or read an
-    animation); and the readers' host ms on the 1024 x 1024 files, the
-    median of ``READER_REPS`` reads (one where the first passes
+    """The JPEG, TIFF, raster, WebP, JPEG 2000 and oriented PNG forms of
+    demo_0.png in ``fixtures/forms``: each read by ``imread`` to the array
+    ``cv2.imread`` gave (``arrays.npz``); ``predict.main`` on them (the demo
+    bundle, bf16) with the launch counters zeroed before and read after
+    (K1, K2, K3-int8 above 0), each SMILES equal to demo_0.png's and to the
+    JAX package's on that form; the tokens of the lossless forms equal
+    demo_0.png's, those of the lossy JPEG, HDR, WebP and 9/7 forms equal in
+    every symbol and within one bin in every coordinate; which files this
+    machine's cv2 reads to the same array (information: its cv2 may not
+    turn WebP by EXIF, read an animation or read JPEG 2000 at all) and its
+    ms on the 1024 x 1024 files; and the readers' host ms on those files,
+    the median of ``READER_REPS`` reads (one where the first passes
     ``READER_ONE_READ_MS``)."""
     import numpy as np
 
@@ -2029,13 +2034,13 @@ def image_forms(torch, card, bundle, work, want):
         if not ok or (row >= offset).tolist() != coord.tolist():
             raise AssertionError(f"forms/{name}: tokens {row.tolist()} against demo_0.png's "
                                  f"{seq[0].tolist()}")
-    log(f"  tokens against demo_0.png's (positions that differ; JPEG, HDR and lossy WebP "
-        f"forms by one coordinate bin at most, others none): {json.dumps(token_gaps)}")
+    log(f"  tokens against demo_0.png's (positions that differ; JPEG, HDR, lossy WebP and "
+        f"9/7 forms by one coordinate bin at most, others none): {json.dumps(token_gaps)}")
     del api
     full_width = forms_full_width(torch, png, {n: images[n] for n in demo
                                                if n.endswith(NEW_LOSSLESS_FORMS)})
-    probe = subprocess.run([sys.executable, "-c", CV2_PROBE, folder], capture_output=True,
-                           text=True, timeout=300)
+    probe = subprocess.run([sys.executable, "-c", CV2_PROBE, folder, *READER_FILES],
+                           capture_output=True, text=True, timeout=300)
     if probe.returncode == 0:
         log(f"  this machine's cv2 reads to the stored array: {probe.stdout.strip()}")
     else:
@@ -2064,11 +2069,12 @@ def image_forms(torch, card, bundle, work, want):
 
 
 # forms read with a loss that may move a coordinate by one bin (RGBE rounds
-# a grey level by at most one; the lossy WebP forms), and the lossless forms
-# of the BMP, PNM, GIF, Sun raster, BigTIFF and WebP readers
-LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp")
+# a grey level by at most one; the lossy WebP and 9/7 JPEG 2000 forms), and
+# the lossless forms of the BMP, PNM, GIF, Sun raster, BigTIFF, WebP and
+# JPEG 2000 readers
+LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
-                      "_lossless.webp")
+                      "_lossless.webp", "_lossless.jp2", "_lossless.j2k")
 
 
 def forms_full_width(torch, png, images):
@@ -2105,14 +2111,15 @@ def forms_full_width(torch, png, images):
 
 
 # run in a new process on the card's machine: which files of the forms folder
-# that machine's cv2 reads to the array stored beside them
+# that machine's cv2 reads to the array stored beside them, and its host ms on
+# the readers' timing files (information: the port's readers read the same)
 CV2_PROBE = """
-import json, os, sys
+import json, os, sys, time
 import cv2
 import numpy as np
 folder = sys.argv[1]
 stored = np.load(os.path.join(folder, 'arrays.npz'))
-same, shape = {}, {}
+same, shape, jpeg2000 = {}, {}, {}
 for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
     try:
         img = cv2.imread(os.path.join(folder, name))
@@ -2122,7 +2129,18 @@ for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
                                                     stored[name])
     if name.endswith('.webp'):  # turned by EXIF or not, animation read or not
         shape[name] = None if img is None else list(img.shape[:2])
-print(json.dumps({'cv2': cv2.__version__, 'same_array': same, 'webp_shape': shape}))
+    if name.endswith(('.jp2', '.j2k')):  # read at all (OpenJPEG in this build or not)
+        jpeg2000[name] = img is not None
+ms = {}
+for name in sys.argv[2:]:  # cv2's own host ms on the readers' timing files, median of 3
+    spent = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cv2.imread(os.path.join(folder, name))
+        spent.append((time.perf_counter() - t0) * 1e3)
+    ms[name] = sorted(spent)[1]
+print(json.dumps({'cv2': cv2.__version__, 'same_array': same, 'webp_shape': shape,
+                  'jpeg2000_read': jpeg2000, 'cv2_ms': ms}))
 """
 
 

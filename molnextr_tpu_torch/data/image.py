@@ -7,16 +7,19 @@ or corrupt, or a TIFF whose orientation is 5-8 (which OpenCV 5.0 fails to
 read; ``data/tiff.py``).  It dispatches on the file's first bytes to the
 port's readers: ``data/png.py``, ``data/jpeg.py``, ``data/tiff.py`` (TIFF
 and BigTIFF), ``data/bmp.py``, ``data/pnm.py`` (PBM, PGM, PPM, PAM, PFM),
-``data/gif.py``, ``data/sunras.py``, ``data/hdr.py`` and ``data/webp.py``
-(lossy, lossless, alpha, animated: the first frame); PNG, JPEG, TIFF and
-WebP apply the EXIF orientation as OpenCV does (``data/exif.py``).  Each
-reader module names the few forms where it reads a file that OpenCV 5.0
-returns None for (differences by design, pinned by tests).
+``data/gif.py``, ``data/sunras.py``, ``data/hdr.py``, ``data/webp.py``
+(lossy, lossless, alpha, animated: the first frame) and ``data/jp2.py``
+(JPEG 2000: the JP2 file and the raw codestream, over ``data/j2k*.py``);
+PNG, JPEG, TIFF and WebP apply the EXIF orientation as OpenCV does
+(``data/exif.py``).  Each reader module names the few forms where it reads
+a file that OpenCV 5.0 returns None for (differences by design, pinned by
+tests).
 
-JPEG 2000 and AVIF, which OpenCV reads and the port does not decode yet,
-raise :class:`UnsupportedFormat` (a ``ValueError``) naming the format,
-and so does an unported form of JPEG or TIFF (arithmetic coding,
-JPEG-in-TIFF, ...): such a file is never silently dropped or whitened.  The
+AVIF, which OpenCV reads and the port does not decode yet, raises
+:class:`UnsupportedFormat` (a ``ValueError``) naming the format, and so
+does an unported form of JPEG, TIFF or JPEG 2000 (arithmetic coding,
+JPEG-in-TIFF, HTJ2K, ...): such a file is never silently dropped or
+whitened.  The
 call sites do on None what their JAX counterparts do on ``cv2.imread``'s
 None: ``predict_image_files`` raises ``FileNotFoundError``, the dataset
 substitutes a white placeholder, evaluation and the dataset-eval suite skip
@@ -66,16 +69,17 @@ def decode(data: bytes, path: str = "<bytes>") -> Optional[np.ndarray]:
     kind = sniff_format(data)
     if kind == "unknown format":
         return None  # OpenCV finds no decoder for it
-    if kind in ("JPEG 2000", "AVIF"):
+    if kind == "AVIF":
         raise UnsupportedFormat(f"{path}: {kind} is not decoded by the port yet (PNG, JPEG, "
-                                "TIFF, BigTIFF, BMP, PNM, GIF, HDR, Sun raster and WebP are; "
-                                "ROADMAP queue 1)")
-    from molnextr_tpu_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tiff, webp
+                                "TIFF, BigTIFF, BMP, PNM, GIF, HDR, Sun raster, WebP and "
+                                "JPEG 2000 are; ROADMAP queue 1)")
+    from molnextr_tpu_torch.data import bmp, gif, hdr, jp2, jpeg, png, pnm, sunras, tiff, webp
 
     reader = {"PNG": png.decode_png, "JPEG": jpeg.decode_jpeg, "TIFF": tiff.decode_tiff,
               "BigTIFF": tiff.decode_tiff, "BMP": bmp.decode_bmp, "PNM": pnm.decode_pnm,
               "GIF": gif.decode_gif, "HDR": hdr.decode_hdr,
-              "Sun raster": sunras.decode_sunras, "WebP": webp.decode_webp}[kind]
+              "Sun raster": sunras.decode_sunras, "WebP": webp.decode_webp,
+              "JPEG 2000": jp2.decode_jpeg2000}[kind]
     try:
         return reader(data, path)
     except UnsupportedFormat:

@@ -102,3 +102,11 @@ def symmetrize_edge_probs(prob: torch.Tensor) -> torch.Tensor:
     w = (prob[..., 5] + pt[..., 6]) / 2
     d = (prob[..., 6] + pt[..., 5]) / 2
     return torch.cat([sym, w[..., None], d[..., None]], dim=-1)
+
+
+def edge_prediction(prob: torch.Tensor):
+    """The argmax class of (..., K, K, 7) edge probabilities after
+    :func:`symmetrize_edge_probs`, and its probability."""
+    sym = symmetrize_edge_probs(prob)
+    best, cls = sym.max(dim=-1)
+    return cls, best

@@ -53,10 +53,13 @@ against on the card, where neither JAX nor OpenCV is installed:
   119-grey palette, Radiance HDR, an LZW BigTIFF, and WebP (lossless,
   lossy at quality 90, lossy with an ``ALPH`` chunk, lossless with EXIF
   orientation 6, an animation whose first frame is the picture; the lossy
-  ones named ``*_lossy.webp``), written by ``cv2.imwrite``, PIL and the hand
-  encoders of ``torch_image_writers``; eight 1024 x 1024 files (``big_*``:
+  ones named ``*_lossy.webp``), and JPEG 2000 (JP2 5/3, raw J2K 5/3, JP2
+  9/7, JP2 5/3 with tiles, precincts and RPCL; the 9/7 one named
+  ``*_lossy.jp2``), written by ``cv2.imwrite``, PIL and the hand
+  encoders of ``torch_image_writers``; ten 1024 x 1024 files (``big_*``:
   JPEG 4:2:0 and progressive, TIFF LZW and G4, BMP RLE8, GIF, WebP lossy
-  and lossless) for the reader timings; and ``arrays.npz``: the
+  and lossless, JPEG 2000 5/3 and 9/7) for the reader timings; and
+  ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
   and in ``meta`` the JAX package's bf16 tokens and SMILES for the demo
@@ -511,6 +514,7 @@ def build_image_forms():
                                                            WEBP_QUALITY])[1].tobytes()
     files["big_lossless.webp"] = cv2.imencode(".webp", big, [cv2.IMWRITE_WEBP_QUALITY,
                                                               101])[1].tobytes()
+    files.update(_jpeg2000_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -528,6 +532,31 @@ def build_image_forms():
 
 
 WEBP_QUALITY = 90  # the lossy WebP forms' quality (cv2 and PIL)
+
+
+def _jpeg2000_forms(bgr, big):
+    """demo_0.png and the 1024 x 1024 drawing (both BGR) as JPEG 2000 by PIL
+    (OpenJPEG): 5/3 in JP2 and as a raw codestream, 9/7, and 5/3 with tiles
+    that do not divide the picture, 16 x 16 precincts and RPCL.  The 9/7
+    demo form has 3 resolutions: at OpenJPEG's default 6 its 168 pixels
+    one grey level off turn the demo bundle's SMILES (the JAX package's
+    too) from CC(C)O to CC(C)C."""
+    import io
+
+    from PIL import Image
+
+    def pil(image, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(image[..., ::-1])).save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    return {"demo_0_lossless.jp2": pil(bgr), "demo_0_lossless.j2k": pil(bgr, no_jp2=True),
+            "demo_0_lossy.jp2": pil(bgr, irreversible=True, num_resolutions=3),
+            "demo_0_tiled_lossless.jp2": pil(bgr, tile_size=(48, 48), precinct_size=(16, 16),
+                                             num_resolutions=3, progression="RPCL"),
+            "big_lossless.jp2": pil(big),
+            "big_lossy.jp2": pil(big, irreversible=True, quality_mode="rates",
+                                 quality_layers=[20])}
 
 
 def _webp_forms(bgr, turned):

@@ -5,9 +5,9 @@ that read image files against their JAX counterparts.
   (both byte orders) read as cv2 reads them; a TIFF's tag 274 too for 1-4,
   while 5-8, which OpenCV 5.0 fails to read (None), read turned as a JPEG's
   are (a difference by design, pinned here);
-* BMP, GIF, PNM/PAM/PFM, HDR, Sun raster, BigTIFF and WebP (lossy and
-  lossless) read as cv2 reads them; JPEG 2000 and AVIF raise
-  ``UnsupportedFormat`` naming them;
+* BMP, GIF, PNM/PAM/PFM, HDR, Sun raster, BigTIFF, WebP (lossy and
+  lossless) and JPEG 2000 read as cv2 reads them; AVIF raises
+  ``UnsupportedFormat`` naming it;
   a missing, empty, unknown or corrupt file reads as None, as in cv2;
 * on a directory holding a PNG, a JPEG, a TIFF, a missing path and a
   corrupt file: ``MolNexTR.predict_image_files`` and the predict CLI raise
@@ -17,6 +17,7 @@ that read image files against their JAX counterparts.
   give the same scores.
 """
 
+import io
 import multiprocessing
 import os
 
@@ -24,6 +25,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from torch_image_writers import encode_tiff, exif_block, with_jpeg_exif, with_png_exif
 
 from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
@@ -134,15 +136,26 @@ def test_malformed_exif_reads_as_orientation_1():
     ("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)),
     ("AVIF", b"\x00\x00\x00\x1cftypavif" + bytes(8))])
 def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data):
-    """JPEG 2000 and AVIF raise naming the format.  The BMP, GIF, PNM, HDR,
-    Sun raster, BigTIFF and WebP cases this test held before the port read
-    them are now read to cv2's arrays (the next test and each format's own
-    test file)."""
+    """AVIF raises naming the format.  JPEG 2000 raised here until the port
+    read it: now this cut JP2 file reads as None and a whole one to its
+    pixels, as cv2 reads them (``test_torch_jpeg2000.py`` holds the reader).
+    The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
+    held before the port read them are read to cv2's arrays (the next test
+    and each format's own test file)."""
     path = tmp_path / "x.img"
     path.write_bytes(data)
     assert sniff_format(data) == name
-    with pytest.raises(UnsupportedFormat, match=name):
-        imread(str(path))
+    if name == "JPEG 2000":
+        assert cv2_rgb(path) is None and imread(str(path)) is None
+        img = _picture(9, 11)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG2000")
+        path.write_bytes(buf.getvalue())
+        np.testing.assert_array_equal(cv2_rgb(path), img)
+        np.testing.assert_array_equal(imread(str(path)), img)
+    else:
+        with pytest.raises(UnsupportedFormat, match=name):
+            imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 
 

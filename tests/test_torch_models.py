@@ -17,11 +17,12 @@ import torch
 
 from molnextr_tpu.config import tiny_test_config as jax_tiny_config
 from molnextr_tpu.decoding.greedy import greedy_decode as jax_greedy
+from molnextr_tpu.models.heads import edge_prediction as jax_edge_prediction
 from molnextr_tpu.models.heads import symmetrize_edge_probs as jax_symmetrize
 from molnextr_tpu.models.model import MolNexTRModel as JModel
 from molnextr_tpu_torch.config import Config
 from molnextr_tpu_torch.decoding.greedy import greedy_decode
-from molnextr_tpu_torch.models.heads import symmetrize_edge_probs
+from molnextr_tpu_torch.models.heads import edge_prediction, symmetrize_edge_probs
 from molnextr_tpu_torch.models.model import MolNexTRModel
 from molnextr_tpu_torch.tokenization import get_tokenizer
 from molnextr_tpu_torch.weights import load_flax_params, seeded_flax_params
@@ -104,6 +105,18 @@ def test_edge_head_and_symmetrize_match():
         symmetrize_edge_probs(torch.from_numpy(prob)).numpy(),
         np.asarray(jax_symmetrize(jnp.asarray(prob))),
     )
+
+
+def test_edge_prediction_matches():
+    """Classes equal and probabilities within 1e-6 (f32) on seeded
+    (B, K, K, 7) probabilities, ties included."""
+    rng = np.random.RandomState(9)
+    prob = rng.rand(3, 12, 12, 7).astype(np.float32)
+    prob[0, :4, :4] = 0.5  # every class tied
+    want_cls, want_p = jax_edge_prediction(jnp.asarray(prob))
+    cls, p = edge_prediction(torch.from_numpy(prob))
+    np.testing.assert_array_equal(cls.numpy(), np.asarray(want_cls))
+    np.testing.assert_allclose(p.numpy(), np.asarray(want_p), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("kv_int8,min_len", [(True, 1), (False, 30)])

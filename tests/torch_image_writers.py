@@ -1253,3 +1253,817 @@ def alph_chunk(alpha: np.ndarray, filtering: int = 0, lossless: bool = False,
     if not lossless:
         return head + res.astype(np.uint8).tobytes()
     return head + vp8l_stream(0xFF000000 | (res << 8), **kw)
+
+
+# ----- JPEG 2000 -------------------------------------------------------------
+
+# MQ coder states (ISO/IEC 15444-1 Table C.2): Qe, next after MPS, after LPS, switch
+_MQ_STATES = (
+    (0x5601, 1, 1, 1), (0x3401, 2, 6, 0), (0x1801, 3, 9, 0), (0x0AC1, 4, 12, 0),
+    (0x0521, 5, 29, 0), (0x0221, 38, 33, 0), (0x5601, 7, 6, 1), (0x5401, 8, 14, 0),
+    (0x4801, 9, 14, 0), (0x3801, 10, 14, 0), (0x3001, 11, 17, 0), (0x2401, 12, 18, 0),
+    (0x1C01, 13, 20, 0), (0x1601, 29, 21, 0), (0x5601, 15, 14, 1), (0x5401, 16, 14, 0),
+    (0x5101, 17, 15, 0), (0x4801, 18, 16, 0), (0x3801, 19, 17, 0), (0x3401, 20, 18, 0),
+    (0x3001, 21, 19, 0), (0x2801, 22, 19, 0), (0x2401, 23, 20, 0), (0x2201, 24, 21, 0),
+    (0x1C01, 25, 22, 0), (0x1801, 26, 23, 0), (0x1601, 27, 24, 0), (0x1401, 28, 25, 0),
+    (0x1201, 29, 26, 0), (0x1101, 30, 27, 0), (0x0AC1, 31, 28, 0), (0x09C1, 32, 29, 0),
+    (0x08A1, 33, 30, 0), (0x0521, 34, 31, 0), (0x0441, 35, 32, 0), (0x02A1, 36, 33, 0),
+    (0x0221, 37, 34, 0), (0x0141, 38, 35, 0), (0x0111, 39, 36, 0), (0x0085, 40, 37, 0),
+    (0x0049, 41, 38, 0), (0x0025, 42, 39, 0), (0x0015, 43, 40, 0), (0x0009, 44, 41, 0),
+    (0x0005, 45, 42, 0), (0x0001, 45, 43, 0), (0x5601, 46, 46, 0))
+J2K_LAZY, J2K_RESET, J2K_TERMALL, J2K_VSC, J2K_PTERM, J2K_SEGSYM = 1, 2, 4, 8, 16, 32
+
+
+class _MQEncoder:
+    """The MQ encoder of Annex C.2 (ENCODE, RENORME, BYTEOUT, FLUSH) over
+    19 contexts started as Part 1 starts them."""
+
+    def __init__(self):
+        self.reset()
+        self.start()
+
+    def reset(self):
+        self.index = [0] * 19
+        self.mps = [0] * 19
+        self.index[18], self.index[17], self.index[0] = 46, 3, 4
+
+    def start(self):
+        self.a, self.c, self.ct = 0x8000, 0, 12
+        self.out = bytearray([0])  # the byte before the first, never written
+
+    def _byteout(self):
+        if self.out[-1] == 0xFF:
+            self.out.append((self.c >> 20) & 0xFF)
+            self.c &= 0xFFFFF
+            self.ct = 7
+        elif self.c < 0x8000000:
+            self.out.append((self.c >> 19) & 0xFF)
+            self.c &= 0x7FFFF
+            self.ct = 8
+        else:
+            self.out[-1] += 1
+            if self.out[-1] == 0xFF:
+                self.c &= 0x7FFFFFF
+                self.out.append((self.c >> 20) & 0xFF)
+                self.c &= 0xFFFFF
+                self.ct = 7
+            else:
+                self.out.append((self.c >> 19) & 0xFF)
+                self.c &= 0x7FFFF
+                self.ct = 8
+
+    def encode(self, d: int, cx: int) -> None:
+        qe, nmps, nlps, switch = _MQ_STATES[self.index[cx]]
+        self.a -= qe
+        if d == self.mps[cx]:
+            if self.a & 0x8000:
+                self.c += qe
+                return
+            if self.a < qe:
+                self.a = qe
+            else:
+                self.c += qe
+            self.index[cx] = nmps
+        else:
+            if self.a < qe:
+                self.c += qe
+            else:
+                self.a = qe
+            if switch:
+                self.mps[cx] ^= 1
+            self.index[cx] = nlps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byteout()
+            if self.a & 0x8000:
+                break
+
+    def flush(self) -> bytes:
+        temp = self.c + self.a
+        self.c |= 0xFFFF
+        if self.c >= temp:
+            self.c -= 0x8000
+        self.c <<= self.ct
+        self._byteout()
+        self.c <<= self.ct
+        self._byteout()
+        out = self.out[1:]
+        if out and out[-1] == 0xFF:
+            out = out[:-1]
+        return bytes(out)
+
+
+class _RawWriter:
+    """Bypass bits, MSB first, seven bits in the byte after a 0xFF."""
+
+    def __init__(self):
+        self.out, self.cur, self.n = bytearray(), 0, 0
+
+    def put(self, bit: int) -> None:
+        self.cur = (self.cur << 1) | bit
+        self.n += 1
+        if self.n == (7 if self.out and self.out[-1] == 0xFF else 8):
+            self.out.append(self.cur)
+            self.cur = self.n = 0
+
+    def flush(self) -> bytes:
+        if self.n:
+            limit = 7 if self.out and self.out[-1] == 0xFF else 8
+            self.out.append(self.cur << (limit - self.n))
+            self.cur = self.n = 0
+        return bytes(self.out)
+
+
+def _zc(h: int, v: int, d: int, orient: int) -> int:
+    """Zero-coding context (Table D.1); HL swaps the horizontal and vertical
+    counts."""
+    if orient == 3:
+        hv = h + v
+        if d >= 3:
+            return 8
+        if d == 2:
+            return 7 if hv else 6
+        if d == 1:
+            return 3 + min(hv, 2)
+        return min(hv, 2)
+    if orient == 1:
+        h, v = v, h
+    if h == 2:
+        return 8
+    if h == 1:
+        return 7 if v else (6 if d else 5)
+    if v:
+        return 3 + (v == 2)
+    return min(d, 2)
+
+
+def _t1_encode(q: np.ndarray, orient: int, style: int):
+    """Tier 1 of one code-block of signed integers ``q``: (number of bit
+    planes, [(segment bytes, passes)], per pass the bytes of its segment
+    written by its end)."""
+    h, w = q.shape
+    mag = np.abs(q).astype(np.int64)
+    nbits = int(mag.max()).bit_length()
+    if nbits == 0:
+        return 0, [], []
+    sig = np.zeros((h + 2, w + 2), np.int8)
+    neg = np.zeros((h + 2, w + 2), np.int8)
+    visited = np.zeros((h, w), bool)
+    refined = np.zeros((h, w), bool)
+    vsc = bool(style & J2K_VSC)
+    npasses = 1 + 3 * (nbits - 1)
+    mq, raw = _MQEncoder(), None
+    segments, ends = [], []
+    seg_passes, in_raw = 0, False
+
+    def below(y):  # the row under y is visible to y's contexts
+        return not (vsc and y % 4 == 3)
+
+    def counts(y, x):
+        Y, X = y + 1, x + 1
+        s = sig
+        hh = s[Y, X - 1] + s[Y, X + 1]
+        vv = s[Y - 1, X] + (s[Y + 1, X] if below(y) else 0)
+        dd = s[Y - 1, X - 1] + s[Y - 1, X + 1]
+        if below(y):
+            dd += s[Y + 1, X - 1] + s[Y + 1, X + 1]
+        return int(hh), int(vv), int(dd)
+
+    def sign_ctx(y, x):
+        Y, X = y + 1, x + 1
+
+        def contrib(yy, xx):
+            return 0 if not sig[yy, xx] else (-1 if neg[yy, xx] else 1)
+
+        hc = max(-1, min(1, contrib(Y, X - 1) + contrib(Y, X + 1)))
+        vc = contrib(Y - 1, X) + (contrib(Y + 1, X) if below(y) else 0)
+        vc = max(-1, min(1, vc))
+        xor = 0
+        if hc < 0 or (hc == 0 and vc < 0):
+            hc, vc, xor = -hc, -vc, 1
+        return 9 + {(1, 1): 4, (1, 0): 3, (1, -1): 2, (0, 1): 1, (0, 0): 0}[(hc, vc)], xor
+
+    def put(bit, cx):
+        if in_raw:
+            raw.put(bit)
+        else:
+            mq.encode(bit, cx)
+
+    def code_sig(y, x, p):
+        bit = int((mag[y, x] >> p) & 1)
+        put(bit, _zc(*counts(y, x), orient))
+        if bit:
+            code_sign(y, x)
+
+    def code_sign(y, x):
+        s = int(q[y, x] < 0)
+        if in_raw:
+            raw.put(s)
+        else:
+            cx, xor = sign_ctx(y, x)
+            mq.encode(s ^ xor, cx)
+        sig[y + 1, x + 1], neg[y + 1, x + 1] = 1, s
+
+    def order():
+        for k in range(0, h, 4):
+            for x in range(w):
+                for y in range(k, min(k + 4, h)):
+                    yield y, x
+
+    def sig_pass(p):
+        for y, x in order():
+            if not sig[y + 1, x + 1] and any(counts(y, x)):
+                code_sig(y, x, p)
+                visited[y, x] = True
+
+    def ref_pass(p):
+        for y, x in order():
+            if sig[y + 1, x + 1] and not visited[y, x]:
+                if in_raw:
+                    cx = 0
+                elif refined[y, x]:
+                    cx = 16
+                else:
+                    cx = 15 if any(counts(y, x)) else 14
+                put(int((mag[y, x] >> p) & 1), cx)
+                refined[y, x] = True
+
+    def clean_pass(p):
+        for k in range(0, h, 4):
+            for x in range(w):
+                ys = list(range(k, min(k + 4, h)))
+                quiet = len(ys) == 4 and all(
+                    not sig[y + 1, x + 1] and not visited[y, x] and not any(counts(y, x))
+                    for y in ys)
+                start = 0
+                if quiet:
+                    hits = [i for i, y in enumerate(ys) if (mag[y, x] >> p) & 1]
+                    mq.encode(int(bool(hits)), 17)
+                    if not hits:
+                        continue
+                    run = hits[0]
+                    mq.encode(run >> 1, 18)
+                    mq.encode(run & 1, 18)
+                    code_sign(ys[run], x)
+                    start = run + 1
+                for y in ys[start:]:
+                    if not sig[y + 1, x + 1] and not visited[y, x]:
+                        code_sig(y, x, p)
+        visited[:] = False
+        if style & J2K_SEGSYM:
+            for bit in (1, 0, 1, 0):
+                mq.encode(bit, 18)
+
+    def maxpasses(index):
+        if style & J2K_TERMALL:
+            return 1
+        if style & J2K_LAZY:
+            return 10 if index == 0 else (2 if index % 2 else 1)
+        return 109
+
+    def written():
+        return len(raw.out) if in_raw else len(mq.out) - 1
+
+    passtype, plane = 2, nbits - 1
+    for n in range(npasses):
+        if seg_passes == 0:  # a segment starts
+            in_raw = bool(style & J2K_LAZY and passtype < 2 and nbits - 1 - plane >= 4)
+            if in_raw:
+                raw = _RawWriter()
+            else:
+                mq.start()
+        (sig_pass, ref_pass, clean_pass)[passtype](plane)
+        if style & J2K_RESET and not in_raw:
+            mq.reset()
+        seg_passes += 1
+        ends.append(written())
+        if seg_passes == maxpasses(len(segments)) or n == npasses - 1:
+            segments.append((raw.flush() if in_raw else mq.flush(), seg_passes))
+            seg_passes = 0
+        passtype += 1
+        if passtype == 3:
+            passtype, plane = 0, plane - 1
+    return nbits, segments, ends
+
+
+class _TagEncoder:
+    """A tag tree (B.10.2) for writing: ``opj_tgt_encode``."""
+
+    def __init__(self, values: np.ndarray):
+        h, w = values.shape
+        self.levels = [values.astype(np.int64)]
+        while h * w > 1:
+            h, w = (h + 1) // 2, (w + 1) // 2
+            prev = self.levels[-1]
+            up = np.full((h, w), 1 << 30, np.int64)
+            for j in range(prev.shape[0]):
+                for i in range(prev.shape[1]):
+                    up[j // 2, i // 2] = min(up[j // 2, i // 2], prev[j, i])
+            self.levels.append(up)
+        self.low = [np.zeros_like(v) for v in self.levels]
+        self.known = [np.zeros(v.shape, bool) for v in self.levels]
+
+    def encode(self, bits, j: int, i: int, threshold: int) -> None:
+        path = [(lvl, j >> lvl, i >> lvl) for lvl in range(len(self.levels))][::-1]
+        low = 0
+        for lvl, y, x in path:
+            if low > self.low[lvl][y, x]:
+                self.low[lvl][y, x] = low
+            else:
+                low = int(self.low[lvl][y, x])
+            while low < threshold:
+                if low >= self.levels[lvl][y, x]:
+                    if not self.known[lvl][y, x]:
+                        bits.put(1)
+                        self.known[lvl][y, x] = True
+                    break
+                bits.put(0)
+                low += 1
+            self.low[lvl][y, x] = low
+
+
+class _HeaderBits:
+    """Packet-header bits with the stuffing of B.10.1."""
+
+    def __init__(self):
+        self.out, self.cur, self.n = bytearray(), 0, 0
+
+    def put(self, bit: int, nbits: int = 1) -> None:
+        for k in range(nbits - 1, -1, -1):
+            self.cur = (self.cur << 1) | ((bit >> k) & 1)
+            self.n += 1
+            if self.n == (7 if self.out and self.out[-1] == 0xFF else 8):
+                self.out.append(self.cur)
+                self.cur = self.n = 0
+
+    def flush(self) -> bytes:
+        if self.n:
+            limit = 7 if self.out and self.out[-1] == 0xFF else 8
+            self.out.append(self.cur << (limit - self.n))
+        if self.out and self.out[-1] == 0xFF:
+            self.out.append(0)
+        return bytes(self.out)
+
+
+def _passes_code(bits, n: int) -> None:
+    if n == 1:
+        bits.put(0)
+    elif n == 2:
+        bits.put(0b10, 2)
+    elif n <= 5:
+        bits.put(0b1100 | (n - 3), 4)
+    elif n <= 36:
+        bits.put(0b111100000 | (n - 6), 9)
+    else:
+        bits.put((0b111111111 << 7) | (n - 37), 16)
+
+
+def _lift(a: np.ndarray, origin: int, reversible: bool) -> np.ndarray:
+    """Forward 5/3 (integer) or 9/7 (float) lifting along axis 1, the
+    result low samples first: the inverse of what Part 1 decoders do,
+    with OpenJPEG's 9/7 scaling (K on the low pass, K/2 on the high)."""
+    n = a.shape[1]
+    cas = origin % 2
+    if n == 1:
+        return a * 2 if reversible and cas else a.copy()
+    x = a.astype(np.int64 if reversible else np.float64)
+    lo, hi = np.arange(cas, n, 2), np.arange(1 - cas, n, 2)
+
+    def nbr(pos):
+        left, right = pos - 1, pos + 1
+        return np.where(left < 0, 1, left), np.where(right >= n, n - 2, right)
+
+    if reversible:
+        l, r = nbr(hi)
+        x[:, hi] -= (x[:, l] + x[:, r]) >> 1
+        l, r = nbr(lo)
+        x[:, lo] += (x[:, l] + x[:, r] + 2) >> 2
+    else:
+        for pos, c in ((hi, -1.586134342), (lo, -0.052980118), (hi, 0.882911075),
+                       (lo, 0.443506852)):
+            l, r = nbr(pos)
+            x[:, pos] += c * (x[:, l] + x[:, r])
+        x[:, lo] /= 1.230174105
+        x[:, hi] *= 1.230174105 / 2
+    return np.concatenate([x[:, lo], x[:, hi]], axis=1)
+
+
+def _forward_dwt(tc: np.ndarray, x0: int, y0: int, levels: int, reversible: bool):
+    """The Mallat layout of ``levels`` forward levels on a tile-component
+    whose origin is (x0, y0)."""
+    out = tc.astype(np.int64 if reversible else np.float64)
+    h, w = out.shape
+    for lvl in range(levels):
+        rx0, ry0 = -(-x0 >> lvl), -(-y0 >> lvl)
+        rw = -(-(x0 + w) >> lvl) - rx0
+        rh = -(-(y0 + h) >> lvl) - ry0
+        if rw and rh:
+            out[:rh, :rw] = _lift(out[:rh, :rw].T, ry0, reversible).T
+            out[:rh, :rw] = _lift(out[:rh, :rw], rx0, reversible)
+    return out
+
+
+def j2k_segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=None,
+               numres: int = 3, cblk: Tuple[int, int] = (4, 4), style: int = 0,
+               reversible: bool = True, mct: int = 0, layers: int = 1, progression: int = 0,
+               pocs: Sequence[Tuple[int, int, int, int, int, int]] = (), sop: bool = False,
+               eph: bool = False, headers: str = "packets", parts: int = 1,
+               interleave: bool = False, coc: Optional[Dict[int, dict]] = None,
+               qntsty: int = 0, expn0: Optional[int] = None, mant: int = 0,
+               roi: Optional[Dict[int, Tuple[int, int, int, int]]] = None,
+               tile_markers: bool = False, comment: Optional[bytes] = None,
+               main_markers: Sequence[bytes] = (), tile_header: Sequence[bytes] = (),
+               eoc: bool = True) -> bytes:
+    """A JPEG 2000 codestream (Part 1) of unsigned ``planes`` of ``prec``
+    bits, one precinct per resolution:
+
+    * ``sub``: per component (XRsiz, YRsiz), each plane already at its size;
+      ``tile``: (width, height) of the tiles;
+    * ``numres``, ``cblk`` (log2 width, height), ``style`` (the ``J2K_*``
+      code-block bits), ``reversible`` (5/3, or 9/7 with scalar
+      quantisation, ``qntsty`` 1 derived or 2 expounded from ``expn0`` and
+      ``mant``); ``coc``: component -> overrides of those keys, written as
+      ``COC``/``QCC``;
+    * ``mct`` (RCT or ICT on the first three), ``layers`` (passes spread
+      over them), ``progression`` (0-4: LRCP, RLCP, RPCL, PCRL, CPRL) and
+      ``pocs`` (resno0, compno0, layno1, resno1, compno1, order);
+    * ``sop``/``eph`` markers; ``headers``: "packets", "ppm" or "ppt";
+      ``parts`` tile-parts a tile, ``interleave`` them across tiles;
+    * ``roi``: component -> a rectangle (x0, y0, x1, y1) on its grid,
+      coded with the max-shift method (``RGN``); ``tile_markers`` puts
+      ``COC``, ``QCC``, ``RGN`` and ``POC`` in the first tile-part
+      headers instead of the main header; ``main_markers``: whole marker
+      segments put at the end of the main header (``TLM``, ``PLM``, ``CRG``,
+      unknown ones), ``tile_header`` at the start of each tile's first
+      tile-part header."""
+    ncomp = len(planes)
+    sub = sub or [(1, 1)] * ncomp
+    height = max(p.shape[0] * s[1] for p, s in zip(planes, sub))
+    width = max(p.shape[1] * s[0] for p, s in zip(planes, sub))
+    height = min(height, planes[0].shape[0] * sub[0][1])
+    width = min(width, planes[0].shape[1] * sub[0][0])
+    tw, th = tile or (width, height)
+    base = dict(numres=numres, cblk=cblk, style=style, reversible=reversible, qntsty=qntsty,
+                expn0=expn0, mant=mant)
+    cp = [dict(base, **((coc or {}).get(c, {}))) for c in range(ncomp)]
+    roi = roi or {}
+    # forward transforms, per tile and component: the integer coefficients of each band
+    ntx, nty = -(-width // tw), -(-height // th)
+    shifted = [p.astype(np.float64) - (1 << (prec - 1)) for p in planes]
+    if mct and ncomp >= 3:
+        r, g, b = shifted[:3]
+        if cp[0]["reversible"]:
+            shifted[:3] = [np.floor((r + 2 * g + b) / 4), b - g, r - g]
+        else:
+            shifted[:3] = [0.299 * r + 0.587 * g + 0.114 * b,
+                           -0.16875 * r - 0.33126 * g + 0.5 * b,
+                           0.5 * r - 0.41869 * g - 0.08131 * b]
+    tiles = []
+    for t in range(ntx * nty):
+        tx0, ty0 = (t % ntx) * tw, (t // ntx) * th
+        tx1, ty1 = min(tx0 + tw, width), min(ty0 + th, height)
+        comps = []
+        for c in range(ncomp):
+            dx, dy = sub[c]
+            p = cp[c]
+            x0, y0, x1, y1 = -(-tx0 // dx), -(-ty0 // dy), -(-tx1 // dx), -(-ty1 // dy)
+            coeffs = _forward_dwt(shifted[c][y0:y1, x0:x1], x0, y0, p["numres"] - 1,
+                                  p["reversible"])
+            comps.append((x0, y0, x1, y1, coeffs))
+        tiles.append(((tx0, ty0, tx1, ty1), comps))
+
+    def bands(c, x0, y0, x1, y1):
+        """(resno, bandno, band rectangle, offset in the Mallat layout)."""
+        n = cp[c]["numres"]
+        out = []
+        for r in range(n):
+            lvl = n - 1 - r
+            if r == 0:
+                out.append((0, 0, (-(-x0 >> lvl), -(-y0 >> lvl), -(-x1 >> lvl), -(-y1 >> lvl)),
+                            (0, 0)))
+                continue
+            pw = -(-x1 >> (lvl + 1)) - -(-x0 >> (lvl + 1))
+            ph = -(-y1 >> (lvl + 1)) - -(-y0 >> (lvl + 1))
+            for b in (1, 2, 3):
+                xb, yb = b & 1, b >> 1
+                rect = tuple(-(-(v - (o << lvl)) >> (lvl + 1))
+                             for v, o in ((x0, xb), (y0, yb), (x1, xb), (y1, yb)))
+                out.append((r, b, rect, (pw if xb else 0, ph if yb else 0)))
+        return out
+
+    # steps and guard bits per component
+    steps = []
+    for c in range(ncomp):
+        p = cp[c]
+        if p["reversible"]:
+            steps.append(None)
+            continue
+        e0 = p["expn0"] if p["expn0"] is not None else prec + 1
+        nb = 3 * p["numres"] - 2
+        if p["qntsty"] == 1:
+            ex = [e0] + [max(e0 - (b - 1) // 3, 0) for b in range(1, nb)]
+        else:
+            ex = [e0 + (0 if b == 0 else min(2, (b - 1) % 3 + 1) // 2) for b in range(nb)]
+        steps.append([(e, p["mant"]) for e in ex])
+    # quantised code-block coefficients, and the ROI shift per component
+    blocks = {}
+    need = [0] * ncomp
+    shifts = {}
+    for t, (_, comps) in enumerate(tiles):
+        for c, (x0, y0, x1, y1, coeffs) in enumerate(comps):
+            p = cp[c]
+            for i, (r, b, (bx0, by0, bx1, by1), (ox, oy)) in enumerate(bands(c, x0, y0, x1, y1)):
+                band = coeffs[oy : oy + by1 - by0, ox : ox + bx1 - bx0]
+                if not p["reversible"]:
+                    e, m = steps[c][i]
+                    delta = (1 + m / 2048) * 2.0 ** (prec - e)
+                    band = np.sign(band) * np.floor(np.abs(band) / delta)
+                band = band.astype(np.int64)
+                if c in roi:
+                    lvl = p["numres"] - 1 - r if r else p["numres"] - 1
+                    rx0, ry0, rx1, ry1 = (v >> (lvl + (1 if r else 0)) for v in roi[c])
+                    mask = np.zeros(band.shape, bool)
+                    mask[max(ry0 - by0, 0) : max(ry1 - by0 + 1, 0),
+                         max(rx0 - bx0, 0) : max(rx1 - bx0 + 1, 0)] = True
+                    back = np.abs(band[~mask]).max() if (~mask).any() else 0
+                    shifts[c] = max(shifts.get(c, 1), int(back).bit_length() + 1)
+                    blocks[(t, c, i)] = (band, mask)
+                else:
+                    blocks[(t, c, i)] = (band, None)
+    for key, (band, mask) in blocks.items():
+        c = key[1]
+        if mask is not None:
+            band = np.where(mask, band << shifts[c], band)
+        blocks[key] = band
+        need[c] = max(need[c], int(np.abs(band).max(initial=0)).bit_length() - shifts.get(c, 0))
+    qcd = []
+    for c in range(ncomp):
+        p = cp[c]
+        nb = 3 * p["numres"] - 2
+        if p["reversible"]:
+            guard = 2
+            ex = [max(need[c] - guard + 1, 0)] * nb
+            body = bytes([guard << 5]) + bytes(e << 3 for e in ex)
+            mbs = [e + guard - 1 for e in ex]
+        else:
+            ex = [e for e, _ in steps[c]]
+            guard = min(7, max(1, max(need[c] - e + 1 for e in ex)))
+            mbs = [e + guard - 1 for e in ex]
+            if p["qntsty"] == 1:
+                body = bytes([1 | guard << 5]) + struct.pack(">H", ex[0] << 11 | p["mant"])
+            else:
+                body = bytes([2 | guard << 5]) + b"".join(
+                    struct.pack(">H", e << 11 | p["mant"]) for e in ex)
+        qcd.append((body, mbs))
+
+    def spcod(p):
+        return bytes([p["numres"] - 1, p["cblk"][0] - 2, p["cblk"][1] - 2, p["style"],
+                      int(p["reversible"])])
+
+    # code-blocks, passes and layers per tile
+    def code_blocks(t, c, i, rect):
+        p = cp[c]
+        bx0, by0, bx1, by1 = rect
+        cw, ch = p["cblk"]
+        band = blocks[(t, c, i)]
+        out = []
+        for gy in range((by0 >> ch) << ch, by1, 1 << ch):
+            row = []
+            for gx in range((bx0 >> cw) << cw, bx1, 1 << cw):
+                ya, yb = max(gy, by0), min(gy + (1 << ch), by1)
+                xa, xb = max(gx, bx0), min(gx + (1 << cw), bx1)
+                q = band[ya - by0 : yb - by0, xa - bx0 : xb - bx0]
+                r, b = bands(c, 0, 0, 1, 1)[i][:2]
+                row.append(_t1_encode(q, b, p["style"]))
+            out.append(row)
+        return out
+
+    def split_layers(npasses):
+        return [(l * npasses // layers, (l + 1) * npasses // layers) for l in range(layers)]
+
+    def segment_pieces(nbits, segments, ends, u, v):
+        """(passes, bytes) of each segment part in passes [u, v)."""
+        pieces, first = [], 0
+        for data, n in segments:
+            lo, hi = max(u, first), min(v, first + n)
+            if lo < hi:
+                def cut(k):
+                    if k == first:
+                        return 0
+                    if k == first + n:
+                        return len(data)
+                    return min(len(data), ends[k - 1] + 3)
+                pieces.append((hi - lo, data[cut(lo) : cut(hi)]))
+            first += n
+        return pieces
+
+    order_names = []
+    tile_streams = []
+    for t, ((tx0, ty0, tx1, ty1), comps) in enumerate(tiles):
+        state = {}
+        for c, (x0, y0, x1, y1, _) in enumerate(comps):
+            for i, (r, b, rect, _) in enumerate(bands(c, x0, y0, x1, y1)):
+                cbs = code_blocks(t, c, i, rect)
+                ny, nx = len(cbs), len(cbs[0]) if cbs else 0
+                first = np.full((max(ny, 1), max(nx, 1)), layers, np.int64)
+                zero = np.zeros((max(ny, 1), max(nx, 1)), np.int64)
+                for y, row in enumerate(cbs):
+                    for x, (nbits, segs, ends) in enumerate(row):
+                        if nbits:
+                            npass = 1 + 3 * (nbits - 1)
+                            first[y, x] = next(l for l, (u, v) in enumerate(split_layers(npass))
+                                               if v > u)
+                            zero[y, x] = qcd[c][1][i] + shifts.get(c, 0) - nbits
+                state[(c, i)] = dict(cbs=cbs, incl=_TagEncoder(first), zbp=_TagEncoder(zero),
+                                     lblock={}, done=set(), r=r, empty=rect[0] >= rect[2]
+                                     or rect[1] >= rect[3])
+        nres = [cp[c]["numres"] for c in range(ncomp)]
+
+        def packet(l, r, c):
+            bits, body = _HeaderBits(), bytearray()
+            pieces_all = []
+            for i, (rr, b, rect, _) in enumerate(bands(c, *comps[c][:4])):
+                if rr != r:
+                    continue
+                st = state[(c, i)]
+                if st["empty"]:
+                    continue
+                for y, row in enumerate(st["cbs"]):
+                    for x, (nbits, segs, ends) in enumerate(row):
+                        npass = 1 + 3 * (nbits - 1) if nbits else 0
+                        u, v = split_layers(npass)[l] if nbits else (0, 0)
+                        pieces_all.append((st, y, x, nbits, segs, ends, u, v))
+            if not any(v > u for *_, u, v in pieces_all):
+                return bits, bytes([0]), b""
+            bits.put(1)
+            for st, y, x, nbits, segs, ends, u, v in pieces_all:
+                included = v > u
+                if (y, x) not in st["done"]:
+                    st["incl"].encode(bits, y, x, l + 1)
+                    if not included:
+                        continue
+                    st["zbp"].encode(bits, y, x, 1 << 30)
+                    st["done"].add((y, x))
+                    st["lblock"][(y, x)] = 3
+                else:
+                    bits.put(int(included))
+                    if not included:
+                        continue
+                _passes_code(bits, v - u)
+                pieces = segment_pieces(nbits, segs, ends, u, v)
+                lb = st["lblock"][(y, x)]
+                inc = max([0] + [len(d).bit_length() - (n.bit_length() - 1) - lb
+                                 for n, d in pieces])
+                bits.put((1 << (inc + 1)) - 2, inc + 1)
+                lb += inc
+                st["lblock"][(y, x)] = lb
+                for n, d in pieces:
+                    bits.put(len(d), lb + n.bit_length() - 1)
+                    body += d
+            return bits, bits.flush(), bytes(body)
+
+        def walk(order, r0, c0, l1, r1, c1):
+            if order == 0:
+                return [(l, r, c) for l in range(l1) for r in range(r0, r1) for c in range(c0, c1)
+                        if r < nres[c]]
+            if order == 1:
+                return [(l, r, c) for r in range(r0, r1) for l in range(l1) for c in range(c0, c1)
+                        if r < nres[c]]
+            if order == 2:
+                return [(l, r, c) for r in range(r0, r1) for c in range(c0, c1) for l in range(l1)
+                        if r < nres[c]]
+            return [(l, r, c) for c in range(c0, c1) for r in range(r0, min(r1, nres[c]))
+                    for l in range(l1)]
+
+        seq = []
+        seen = set()
+        walks = pocs or [(0, 0, layers, max(nres), ncomp, progression)]
+        for r0, c0, l1, r1, c1, order in walks:
+            for key in walk(order, r0, c0, min(l1, layers), r1, min(c1, ncomp)):
+                if key not in seen:
+                    seen.add(key)
+                    seq.append(key)
+        pkts = []
+        for n, (l, r, c) in enumerate(seq):
+            _, head, body = packet(l, r, c)
+            if eph:
+                head += b"\xff\x92"
+            pre = struct.pack(">HHH", 0xFF91, 4, n & 0xFFFF) if sop else b""
+            pkts.append((head, pre + body))
+        tile_streams.append(pkts)
+
+    # markers
+    siz = struct.pack(">HIIIIIIIIH", 0, width, height, 0, 0, tw, th, 0, 0, ncomp)
+    for c in range(ncomp):
+        siz += bytes([prec - 1, sub[c][0], sub[c][1]])
+    scod = (2 if sop else 0) | (4 if eph else 0)
+    main = j2k_segment(0xFF51, siz)
+    main += j2k_segment(0xFF52, bytes([scod, progression]) + struct.pack(">H", layers)
+                         + bytes([mct]) + spcod(cp[0]))
+    main += j2k_segment(0xFF5C, qcd[0][0])
+    extra = b""
+    for c in range(1, ncomp):
+        if spcod(cp[c]) != spcod(cp[0]):
+            extra += j2k_segment(0xFF53, bytes([c, 0]) + spcod(cp[c]))
+        if qcd[c][0] != qcd[0][0]:
+            extra += j2k_segment(0xFF5D, bytes([c]) + qcd[c][0])
+    for c in sorted(shifts):
+        extra += j2k_segment(0xFF5E, bytes([c, 0, shifts[c]]))
+    if pocs:
+        extra += j2k_segment(0xFF5F, b"".join(
+            bytes([r0, c0]) + struct.pack(">H", l1) + bytes([r1, c1, order])
+            for r0, c0, l1, r1, c1, order in pocs))
+    if not tile_markers:
+        main += extra
+    if comment is not None:
+        main += j2k_segment(0xFF64, b"\x00\x01" + comment)
+    main += b"".join(main_markers)
+    # tile-parts
+    parts_of = []
+    for t, pkts in enumerate(tile_streams):
+        k = max(1, min(parts, len(pkts)))
+        cuts = [len(pkts) * j // k for j in range(k + 1)]
+        parts_of.append([pkts[cuts[j] : cuts[j + 1]] for j in range(k)])
+    if interleave:
+        order_tp = [(t, j) for j in range(max(len(p) for p in parts_of))
+                    for t in range(len(parts_of)) if j < len(parts_of[t])]
+    else:
+        order_tp = [(t, j) for t in range(len(parts_of)) for j in range(len(parts_of[t]))]
+    if headers == "ppm":
+        ppm = b"".join(struct.pack(">I", sum(len(h) for h, _ in parts_of[t][j]))
+                       + b"".join(h for h, _ in parts_of[t][j]) for t, j in order_tp)
+        for z, start in enumerate(range(0, len(ppm), 60000)):
+            main += j2k_segment(0xFF60, bytes([z]) + ppm[start : start + 60000])
+    out = b"\xff\x4f" + main
+    for t, j in order_tp:
+        pk = parts_of[t][j]
+        hdr = b""
+        if j == 0:
+            hdr += b"".join(tile_header)
+        if j == 0 and tile_markers:
+            hdr += extra
+        if headers == "ppt":
+            hdr += j2k_segment(0xFF61, bytes([j]) + b"".join(h for h, _ in pk))
+            data = b"".join(b for _, b in pk)
+        elif headers == "ppm":
+            data = b"".join(b for _, b in pk)
+        else:
+            data = b"".join(b[:6] + h + b[6:] if sop else h + b for h, b in pk)
+        psot = 12 + len(hdr) + 2 + len(data)
+        out += j2k_segment(0xFF90, struct.pack(">HIBB", t, psot, j, len(parts_of[t])))
+        out += hdr + b"\xff\x93" + data
+    return out + (b"\xff\xd9" if eoc else b"")
+
+
+def jp2_box(kind: bytes, body: bytes, form: str = "plain") -> bytes:
+    """A JP2 box; ``form`` "xl" writes an extended length, "open" a length
+    of 0 (to the end of the file)."""
+    if form == "xl":
+        return struct.pack(">I", 1) + kind + struct.pack(">Q", len(body) + 16) + body
+    if form == "open":
+        return struct.pack(">I", 0) + kind + body
+    return struct.pack(">I", len(body) + 8) + kind + body
+
+
+def encode_jp2(codestream: bytes, width: int, height: int, ncomp: int, bpc: int = 7, *,
+               colr: Optional[bytes] = b"\x01\x00\x00" + struct.pack(">I", 16),
+               header_boxes: Sequence[bytes] = (), before: Sequence[bytes] = (),
+               jp2c_form: str = "plain") -> bytes:
+    """A JP2 file around ``codestream``: the signature and ``ftyp`` boxes,
+    ``jp2h`` with ``ihdr``, ``colr`` (a box body; None for none) and
+    ``header_boxes`` (whole boxes: ``pclr``, ``cmap``, ``cdef``, ``res ``),
+    ``before`` (whole boxes before ``jp2c``) and the ``jp2c`` box in
+    ``jp2c_form``."""
+    ihdr = struct.pack(">IIHBBBB", height, width, ncomp, bpc, 7, 0, 0)
+    jp2h = jp2_box(b"ihdr", ihdr) + (jp2_box(b"colr", colr) if colr is not None else b"")
+    jp2h += b"".join(header_boxes)
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + jp2_box(b"jp2h", jp2h) + b"".join(before) + jp2_box(b"jp2c", codestream, jp2c_form))
+
+
+def pclr_box(entries: np.ndarray, bits: Sequence[int]) -> bytes:
+    """A ``pclr`` box of ``entries`` (n, channels) at ``bits`` a channel."""
+    n, nch = entries.shape
+    body = struct.pack(">HB", n, nch) + bytes(b - 1 for b in bits)
+    for row in entries:
+        for v, b in zip(row, bits):
+            body += int(v).to_bytes((b + 7) // 8, "big")
+    return jp2_box(b"pclr", body)
+
+
+def cmap_box(maps: Sequence[Tuple[int, int, int]]) -> bytes:
+    """A ``cmap`` box of (component, type, palette column) entries."""
+    return jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m) for m in maps))
+
+
+def cdef_box(defs: Sequence[Tuple[int, int, int]]) -> bytes:
+    """A ``cdef`` box of (channel, type, association) entries."""
+    return jp2_box(b"cdef", struct.pack(">H", len(defs)) + b"".join(
+        struct.pack(">HHH", *d) for d in defs))
