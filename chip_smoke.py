@@ -96,21 +96,27 @@ failure:
    palette, RLE8, 32-bit bit fields; P5, P6, ASCII P2, 16-bit P5, PAM, PFM;
    run-length Sun raster; GIF; HDR; LZW BigTIFF; WebP lossless, lossy,
    lossy with alpha, lossless with EXIF orientation 6, animated; JPEG 2000
-   JP2 5/3, raw J2K 5/3, JP2 9/7, JP2 5/3 tiled with precincts and RPCL)
+   JP2 5/3, raw J2K 5/3, JP2 9/7, JP2 5/3 tiled with precincts and RPCL;
+   JPEG-in-TIFF YCbCr 4:2:0 strips and RGB tiles, YCbCr 1x1, CMYK, CIE
+   Lab, signed 16-bit, ThunderScan, LogL TIFF; arithmetic sequential and
+   progressive, cut progressive (block-smoothed) and lossless JPEG)
    read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
    demo_0.png's and to the JAX package's on that form; tokens equal to
-   demo_0.png's, the lossy JPEG, HDR, WebP and 9/7 forms' within one
-   coordinate bin); the new lossless forms (WebP's and JPEG 2000's too) at
+   demo_0.png's, the lossy JPEG, HDR, WebP, 9/7, JPEG-in-TIFF, Lab and
+   ThunderScan forms' within one coordinate bin); the new lossless forms
+   (WebP's, JPEG 2000's, and the YCbCr 1x1, CMYK, signed, LogL and lossless
+   JPEG forms too) at
    full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
    batch with demo_0.png, tokens all equal, launches counted; which of the
-   files this machine's cv2 reads to the same arrays, the shapes it reads
-   the WebP files to, whether it reads JPEG 2000 at all and its own ms on
-   the 1024 x 1024 files (information only); the readers' host ms per
-   image and per megapixel on 1024 x 1024
-   JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF G4, BMP RLE8, GIF, lossy
-   and lossless WebP, and 5/3 and 9/7 JPEG 2000;
+   files this machine's cv2 reads to the same arrays (the new TIFF and
+   JPEG forms on a line of their own), the shapes it reads the WebP files
+   to, whether it reads JPEG 2000 at all and its own ms on the 1024 x 1024
+   files (information only); the readers' host ms per image and per
+   megapixel on 1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF
+   G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
+   JPEG-in-TIFF 4:2:0 and arithmetic JPEG;
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -207,7 +213,7 @@ READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
 READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
-                "big_lossless.jp2", "big_lossy.jp2")
+                "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2043,6 +2049,9 @@ def image_forms(torch, card, bundle, work, want):
                            capture_output=True, text=True, timeout=300)
     if probe.returncode == 0:
         log(f"  this machine's cv2 reads to the stored array: {probe.stdout.strip()}")
+        same = json.loads(probe.stdout)["same_array"]
+        log("  the new TIFF and JPEG forms read alike by this machine's cv2 "
+            f"(information): {json.dumps({n: same.get(n) for n in TIFF_JPEG_FORMS})}")
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
@@ -2072,9 +2081,19 @@ def image_forms(torch, card, bundle, work, want):
 # a grey level by at most one; the lossy WebP and 9/7 JPEG 2000 forms), and
 # the lossless forms of the BMP, PNM, GIF, Sun raster, BigTIFF, WebP and
 # JPEG 2000 readers
-LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2")
+LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
+               "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
-                      "_lossless.webp", "_lossless.jp2", "_lossless.j2k")
+                      "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
+                      "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg")
+# the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
+# TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
+# smoothing: whether the card machine's cv2 reads them alike is logged apart
+TIFF_JPEG_FORMS = ("demo_0_jpeg_ycc420.tif", "demo_0_jpeg_rgb_tiled.tif", "demo_0_ycbcr11.tif",
+                   "demo_0_cmyk.tif", "demo_0_lab.tif", "demo_0_signed16.tif",
+                   "demo_0_thunderscan.tif", "demo_0_logl.tif", "demo_0_arith.jpg",
+                   "demo_0_arith_progressive.jpg", "demo_0_truncated_progressive.jpg",
+                   "demo_0_lossless.jpg", "big_jpeg.tif", "big_arith.jpg")
 
 
 def forms_full_width(torch, png, images):

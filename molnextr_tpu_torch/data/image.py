@@ -3,25 +3,30 @@
 ``imread(path)`` returns RGB uint8 ``(H, W, 3)``, equal to
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``, or None where
 ``cv2.imread`` returns None: a missing file, one that is empty, unreadable
-or corrupt, or a TIFF whose orientation is 5-8 (which OpenCV 5.0 fails to
-read; ``data/tiff.py``).  It dispatches on the file's first bytes to the
-port's readers: ``data/png.py``, ``data/jpeg.py``, ``data/tiff.py`` (TIFF
-and BigTIFF), ``data/bmp.py``, ``data/pnm.py`` (PBM, PGM, PPM, PAM, PFM),
-``data/gif.py``, ``data/sunras.py``, ``data/hdr.py``, ``data/webp.py``
-(lossy, lossless, alpha, animated: the first frame) and ``data/jp2.py``
-(JPEG 2000: the JP2 file and the raw codestream, over ``data/j2k*.py``);
-PNG, JPEG, TIFF and WebP apply the EXIF orientation as OpenCV does
-(``data/exif.py``).  Each reader module names the few forms where it reads
-a file that OpenCV 5.0 returns None for (differences by design, pinned by
-tests).
+or corrupt, or a form OpenCV 5.0 refuses (a TIFF of a compression its
+libtiff lacks, float or 12-64-bit samples, ICC or ITU Lab; a 12-bit or
+hierarchical JPEG, or one whose height is left to a DNL marker: each
+reader module lists them), or a TIFF whose orientation is 5-8 (which
+OpenCV 5.0 fails to read; ``data/tiff.py``).  It dispatches on the file's
+first bytes to the port's readers: ``data/png.py``, ``data/jpeg.py``
+(Huffman, arithmetic and lossless, with libjpeg's block smoothing),
+``data/tiff.py`` (TIFF and BigTIFF; JPEG-in-TIFF, YCbCr, CMYK, CIE Lab,
+ThunderScan and SGILog too), ``data/bmp.py``, ``data/pnm.py`` (PBM, PGM,
+PPM, PAM, PFM), ``data/gif.py``, ``data/sunras.py``, ``data/hdr.py``,
+``data/webp.py`` (lossy, lossless, alpha, animated: the first frame) and
+``data/jp2.py`` (JPEG 2000: the JP2 file and the raw codestream, over
+``data/j2k*.py``); PNG, JPEG, TIFF and WebP apply the EXIF orientation as
+OpenCV does (``data/exif.py``).  Each reader module names the few forms
+where it reads a file that OpenCV 5.0 returns None for (differences by
+design, pinned by tests).
 
 AVIF, which OpenCV reads and the port does not decode yet, raises
 :class:`UnsupportedFormat` (a ``ValueError``) naming the format, and so
-does an unported form of JPEG, TIFF or JPEG 2000 (arithmetic coding,
-JPEG-in-TIFF, HTJ2K, ...): such a file is never silently dropped or
-whitened.  The
-call sites do on None what their JAX counterparts do on ``cv2.imread``'s
-None: ``predict_image_files`` raises ``FileNotFoundError``, the dataset
+does a form of TIFF or JPEG 2000 that OpenCV reads and the port does not
+(CCITT RLE/W, HTJ2K, the JPEG 2000 Part 2 markers; ROADMAP queue 1): such
+a file is never silently dropped or whitened.  The call sites do on None
+what their JAX counterparts do on ``cv2.imread``'s None:
+``predict_image_files`` raises ``FileNotFoundError``, the dataset
 substitutes a white placeholder, evaluation and the dataset-eval suite skip
 the row.
 """

@@ -1,65 +1,112 @@
 """A TIFF reader in Python and numpy, exact against ``cv2.imread``.
 
-OpenCV reads an 8-bit colour TIFF through libtiff's RGBA interface
-(``tif_getimage.c``) and drops the alpha it returns.  :func:`decode_tiff`
-reads the first page the same way and returns RGB uint8 ``(H, W, 3)``:
+OpenCV 5.0 reads a TIFF through libtiff 4.7's RGBA interface
+(``tif_getimage.c``, ``TIFFReadRGBAStrip``/``Tile``, not stopping on
+errors) and drops the alpha it returns.  :func:`decode_tiff` reads the
+first page the same way and returns RGB uint8 ``(H, W, 3)``, or raises
+``ValueError`` where ``cv2.imread`` returns None:
 
 * layout: classic TIFF and BigTIFF (8-byte offsets and counts, ``LONG8``,
   ``SLONG8`` and ``IFD8`` values), both byte orders, strips and tiles,
   planar configuration 1 and 2,
-  ``FillOrder`` 2 (bits reversed in each byte before decoding);
+  ``FillOrder`` 2 (bits reversed in each byte before decoding); byte
+  counts missing or doubtful estimated as ``EstimateStripByteCounts``
+  does; a strip or tile whose RGBA buffer would reach 1 GiB read as None,
+  as OpenCV refuses it;
 * compressions: none (1), CCITT MH (2), T.4 1-D and 2-D (3) and T.6 (4)
-  (``data/ccitt.py``), LZW (5), Deflate (8 and 32946), PackBits (32773);
-  horizontal differencing (predictor 2) on 8- and 16-bit samples;
+  (``data/ccitt.py``), LZW (5, old-style codes too), Deflate (8 and 32946),
+  PackBits (32773), JPEG (7: each strip or tile an abbreviated stream read
+  after ``JPEGTables`` by ``data/jpeg.py``, YCbCr converted by libjpeg as
+  ``JPEGCOLORMODE_RGB`` asks, other photometrics raw), ThunderScan (32809)
+  and SGILog (34676, 34677) (``data/tiff_codecs.py``); horizontal
+  differencing (predictor 2) on 8- and 16-bit samples (other predictors,
+  and predictor 2 at other depths, are ignored, as libtiff ignores them);
 * samples (libtiff's maps): grey (MinIsBlack, MinIsWhite) at 1, 2, 4 and 8
   bits as ``v * 255 // max`` (MinIsWhite inverted), at 16 bits by the high
   byte; RGB at 8 bits as stored and at 16 bits as ``(v + 128) // 257``; a
   palette at 1, 2, 4 and 8 bits through its colour map, each entry shifted
   right by 8 unless every entry is below 256 (libtiff then assumes an 8-bit
-  map); an unassociated alpha (``ExtraSamples`` 2) premultiplies RGB as
+  map; a map of another count than 3 * 2**bits is ignored, and a palette
+  image of 8 bits or more without one reads as grey); an unassociated alpha (``ExtraSamples`` 2) premultiplies RGB as
   ``(v * a + 127) // 255``, while other extra samples, and any beside grey,
-  are dropped; more than four samples read as None, as in OpenCV;
+  are dropped; signed samples (``SampleFormat`` 2) read as their unsigned
+  bytes, as libtiff reads them;
+* photometric interpretations (``data/tiff_colour.py``): YCbCr at 8 bits,
+  contiguous at every ``YCbCrSubSampling`` of ``putcontig8bitYCbCr*tile``
+  (1, 2 or 4 across, 1, 2 or 4 down, not more down than across but 1x2),
+  planar at 1x1, through ``TIFFYCbCrToRGBInit``'s tables; CMYK with 4 inks
+  at 8 bits, contiguous or planar; CIE L*a*b* at 8 and 16 bits,
+  contiguous, through ``TIFFCIELabToXYZ`` and ``display_sRGB``; LogL and
+  LogLuv from SGILog data;
 * the orientation tag (274): 2-4 flip as OpenCV flips, 5-8 turn as the JPEG
   ones do (``data/exif.py``).
 
-Differences by design, each pinned by a test: OpenCV 5.0 fails to read
-orientations 5-8 (it returns None), and refuses grey at 2 and 4 bits and
-palettes at 2 bits, which the port reads as libtiff's maps give them.
+A strip or tile that libtiff's decoder fails on (a compressed one of too
+little data, a corrupt LZW or Deflate stream, a ThunderScan or SGILog row
+of too little or too much data, or a compression libtiff does not know at
+all) reads as far as the decoder wrote and zero after:
+OpenCV reads each strip or tile into a zeroed buffer, and the RGBA
+interface does not stop on a decoding error.
 
-JPEG-in-TIFF (6, 7), LZMA, ZSTD, WebP, JBIG, JPEG 2000 and LERC
-compressions, float, signed and 10-64-bit samples (predictor 3 included),
-and the CMYK, YCbCr and CIE Lab photometric interpretations raise
-:class:`UnsupportedFormat` naming the form.
+Read as None, as OpenCV 5.0 refuses them: LZMA, ZSTD (50000), WebP
+(50001), JBIG (34661), LERC and PixarLog (32909) compressions, which its
+libtiff lacks ("not configured"); old-style JPEG (6) and NeXT (32766);
+samples of 12, 24, 32 or 64 bits, floating-point (``SampleFormat`` 3) or
+void ones, or formats that differ between samples; ICC Lab (9), ITU Lab
+(10) and transparency masks; CMYK or YCbCr at 16 bits or with the wrong
+sample count, CMYK of another ink set, planar subsampled YCbCr, planar or
+non-3-sample Lab; more than four samples a pixel.
+
+CCITT RLE/W (32771), which OpenCV reads, raises :class:`UnsupportedFormat`
+naming it (ROADMAP queue 1): libtiff aligns its rows by how many bytes its
+bit accumulator happened to load.
+
+Differences by design, each pinned by a test: OpenCV 5.0 fails to read
+orientations 5-8 (it returns None), and refuses grey at 2 and 4 bits (a
+ThunderScan one too) and palettes at 2 bits, which the port reads as
+libtiff's maps give them.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from molnextr_tpu_torch.data import ccitt
+from molnextr_tpu_torch.data import ccitt, jpeg, tiff_codecs, tiff_colour
 from molnextr_tpu_torch.data.exif import apply_orientation
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
-_UNSUPPORTED_COMPRESSION = {
-    6: "old-style JPEG", 7: "JPEG", 34892: "lossy JPEG", 34925: "LZMA", 50000: "ZSTD",
-    34926: "ZSTD", 50001: "WebP", 34927: "WebP", 34661: "JBIG", 9: "JBIG", 10: "JBIG",
-    34712: "JPEG 2000", 33003: "JPEG 2000", 33005: "JPEG 2000", 34887: "LERC",
+# compressions libtiff 4.7 registers but OpenCV 5.0 builds without ("not
+# configured": TIFFRGBAImageOK fails), or that can never give an image
+# OpenCV takes: cv2.imread returns None
+_REFUSED_COMPRESSION = {
+    34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34661: "JBIG", 34887: "LERC",
+    32909: "PixarLog", 6: "old-style JPEG", 32766: "NeXT (2-bit samples only)",
 }
-_PHOTOMETRIC = {5: "CMYK", 6: "YCbCr", 8: "CIE Lab", 9: "ICC Lab", 10: "ITU Lab",
-                32844: "LogL", 32845: "LogLuv", 4: "transparency mask"}
+# compressions the port decodes; any code libtiff does not know decodes to
+# nothing (libtiff's default codec fails every strip)
+_DECODED = {1, 2, 3, 4, 5, 7, 8, 32773, 32809, 32946, 34676, 34677}
+# read by OpenCV, not by the port: RLE/W aligns its rows by how many bytes
+# tif_fax3.c's bit accumulator happened to load (ROADMAP queue 1)
+_UNPORTED_COMPRESSION = {32771: "CCITT RLE/W"}
+_LIBTIFF_CODECS = _DECODED | set(_REFUSED_COMPRESSION) | set(_UNPORTED_COMPRESSION)
+_REFUSED_PHOTOMETRIC = {9: "ICC Lab", 10: "ITU Lab", 4: "transparency mask"}
 _CHUNK_TAGS = (273, 279, 324, 325)  # strip and tile offsets and byte counts
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# putcontig8bitYCbCr*tile's subsamplings (across, down)
+_YCBCR_SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
+# D50 as the WhitePoint default (float32 sums, as tif_aux.c computes it)
+_D50 = (np.float32(96.425), np.float32(100.0), np.float32(82.468))
 
 
-def _unsupported(path: str, what: str) -> UnsupportedFormat:
-    return UnsupportedFormat(f"{path}: TIFF with {what} is not decoded by the port yet "
-                             "(ROADMAP queue 1)")
+class _Failed(Exception):
+    """libtiff's decoder failed on a strip or tile: the RGBA interface goes
+    on with the strip buffer as the decoder left it."""
 
 
 def _tags(data: bytes, order: str, ifd: int, big: bool = False) -> Dict[int, List]:
@@ -85,21 +132,51 @@ def _tags(data: bytes, order: str, ifd: int, big: bool = False) -> Dict[int, Lis
     return tags
 
 
+_WIDTHS = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+           16: 8, 17: 8, 18: 8}
+
+
+def _ifd_space(data: bytes, order: str, ifd: int, big: bool) -> int:
+    """``EstimateStripByteCounts``' bytes taken by the header, the IFD and
+    the values stored outside it; a tag of a type libtiff cannot size
+    fails the estimate."""
+    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
+    (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, ifd)
+    space = (16 + 8 + 20 * count + 8) if big else (8 + 2 + 12 * count + 4)
+    for k in range(count):
+        _tag, typ, n = struct.unpack_from(order + "HH" + word, data,
+                                          ifd + (8 if big else 2) + entry * k)
+        if typ not in _WIDTHS:
+            raise ValueError("TIFF: a tag of unknown type")
+        size = _WIDTHS[typ] * n
+        space += size if size > inline else 0
+    return space
+
+
 def _lzw(data: bytes, expected: int) -> bytes:
-    """TIFF LZW (MSB first, code width grown one code early)."""
-    if data[:2] == b"\x00\x01":
-        raise ValueError("TIFF: old-style LZW")
+    """TIFF LZW (MSB first, the code width grown one code early), or the
+    old-style codes ``LZWDecodeCompat`` reads (LSB first, grown at the
+    width's limit), which a strip starting ``00`` and an odd byte uses.
+    A corrupt code ends the strip, as in libtiff."""
+    compat = len(data) >= 2 and data[0] == 0 and data[1] & 1
     b = np.frombuffer(data + bytes(4), np.uint8).astype(np.int64)
-    win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
+    if compat:
+        win = (b[:-3] | (b[1:-2] << 8) | (b[2:-1] << 16) | (b[3:] << 24)).tolist()
+    else:
+        win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
     nbits_total = len(data) * 8
     base = [bytes([i]) for i in range(256)] + [b"", b""]
     table = list(base)
     out = bytearray()
     pos, width, prev = 0, 9, None
+    early = 0 if compat else 1
     while len(out) < expected:
         if pos + width > nbits_total:
             break
-        code = (win[pos >> 3] >> (32 - (pos & 7) - width)) & ((1 << width) - 1)
+        if compat:
+            code = (win[pos >> 3] >> (pos & 7)) & ((1 << width) - 1)
+        else:
+            code = (win[pos >> 3] >> (32 - (pos & 7) - width)) & ((1 << width) - 1)
         pos += width
         if code == 257:
             break
@@ -109,7 +186,7 @@ def _lzw(data: bytes, expected: int) -> bytes:
             continue
         if prev is None:
             if code > 255:
-                raise ValueError("TIFF: corrupt LZW data")
+                break  # "Corrupted LZW table"
             entry = table[code]
         elif code < len(table):
             entry = table[code]
@@ -118,28 +195,48 @@ def _lzw(data: bytes, expected: int) -> bytes:
             entry = prev + prev[:1]
             table.append(entry)
         else:
-            raise ValueError("TIFF: corrupt LZW data")
+            break
         out += entry
         prev = entry
-        if len(table) >= (1 << width) - 1 and width < 12:
+        if len(table) >= (1 << width) - early and width < 12:
             width += 1
-    return bytes(out)
+    return bytes(out[:expected])
 
 
 def _packbits(data: bytes, expected: int) -> bytes:
+    """``PackBitsDecode``: a run or a literal that the data cuts short ends
+    the strip; one past the strip is cut to it."""
     out = bytearray()
     pos, n = 0, len(data)
     while pos < n and len(out) < expected:
         c = data[pos]
         pos += 1
-        if c < 128:
-            out += data[pos : pos + c + 1]
-            pos += c + 1
-        elif c > 128:
-            if pos < n:
-                out += bytes([data[pos]]) * (257 - c)
+        if c > 128:  # a run of 257 - c
+            if pos >= n:
+                break
+            out += bytes([data[pos]]) * min(257 - c, expected - len(out))
             pos += 1
+        elif c < 128:  # c + 1 literal bytes
+            count = min(c + 1, expected - len(out))
+            if n - pos < count:
+                break
+            out += data[pos : pos + count]
+            pos += count
     return bytes(out)
+
+
+def _inflate(raw: bytes, expected: int) -> bytes:
+    """``ZIPDecode``: what inflate writes before the stream ends or breaks."""
+    try:
+        return zlib.decompressobj().decompress(raw, expected)
+    except zlib.error:
+        stream, out = zlib.decompressobj(), bytearray()
+        for k in range(len(raw)):  # a byte at a time, up to the broken one
+            try:
+                out += stream.decompress(raw[k : k + 1], expected - len(out))
+            except zlib.error:
+                break
+        return bytes(out)
 
 
 class _Image:
@@ -159,80 +256,196 @@ class _Image:
         self.data, self.order = data, order
         t = _tags(data, order, ifd, big)
         self.tags = t
+        self._ifd, self._big = ifd, big
         self.width, self.height = t[256][0], t[257][0]
         self.spp = t.get(277, [1])[0]
-        bps = t.get(258, [1] * self.spp)
+        # per-sample tags: libtiff reads the first spp values and needs them equal
+        bps = t.get(258, [1] * self.spp)[: self.spp]
         self.bps = bps[0]
         self.compression = t.get(259, [1])[0]
         if 262 not in t:
             raise ValueError(f"{path}: TIFF without a photometric interpretation")
         self.photometric = t[262][0]
+        if 320 in t and len(t[320]) != 3 << self.bps:
+            del t[320]  # "Incorrect count for ColorMap; tag ignored"
+        if self.photometric == 3 and 320 not in t and self.bps >= 8:
+            # TIFFReadDirectory: a palette image without its map at 8 bits
+            # or more is read as grey (with three samples as RGB, but it has
+            # made two of them extra samples by then: refused)
+            if self.spp == 3:
+                raise ValueError(f"{path}: palette TIFF of 3 samples without its colour map")
+            self.photometric = 1
         self.planar = t.get(284, [1])[0]
         self.predictor = t.get(317, [1])[0]
         self.fill_order = t.get(266, [1])[0]
         self.orientation = t.get(274, [1])[0]
         self.extra = t.get(338, [])
         self.t4 = t.get(292, [0])[0]
+        self.subsampling = tuple(t.get(530, [2, 2])[:2])
+        self._jpeg_subsampling = None
+        if self.photometric != 6 or self.compression == 7 or self.planar == 2:
+            self.subsampling = (1, 1)  # only raw contiguous YCbCr data is packed in blocks
         self._check(bps)
 
     def _check(self, bps: List[int]) -> None:
-        path, t = self.path, self.tags
-        if self.compression in _UNSUPPORTED_COMPRESSION:
-            raise _unsupported(path, f"{_UNSUPPORTED_COMPRESSION[self.compression]} compression")
-        if self.compression not in (1, 2, 3, 4, 5, 8, 32946, 32773):
-            raise ValueError(f"{path}: TIFF compression {self.compression}")
-        formats = set(t.get(339, [1]))
-        if 3 in formats or self.predictor == 3:
-            raise _unsupported(path, "float samples")
-        if formats - {1}:
-            raise _unsupported(path, "signed samples")
-        if self.photometric in _PHOTOMETRIC:
-            raise _unsupported(path, f"{_PHOTOMETRIC[self.photometric]} photometric "
-                                     "interpretation")
-        if self.photometric not in (0, 1, 2, 3):
-            raise ValueError(f"{path}: TIFF photometric interpretation {self.photometric}")
+        path, t, ph = self.path, self.tags, self.photometric
+        if self.compression in _UNPORTED_COMPRESSION:
+            raise UnsupportedFormat(f"{path}: TIFF with "
+                                    f"{_UNPORTED_COMPRESSION[self.compression]} compression is "
+                                    "not decoded by the port yet (ROADMAP queue 1)")
+        if self.compression in _REFUSED_COMPRESSION:
+            raise ValueError(f"{path}: TIFF {_REFUSED_COMPRESSION[self.compression]} "
+                             "compression (OpenCV 5.0 reads none)")
+        formats = t.get(339, [1] * self.spp)[: self.spp]
+        if len(set(formats)) > 1 or formats[0] not in (1, 2):
+            raise ValueError(f"{path}: TIFF sample format {formats} (OpenCV takes unsigned "
+                             "and signed integers)")
+        if ph in _REFUSED_PHOTOMETRIC:
+            raise ValueError(f"{path}: TIFF {_REFUSED_PHOTOMETRIC[ph]} photometric "
+                             "interpretation (libtiff's RGBA interface refuses it)")
         if len(set(bps)) != 1:
             raise ValueError(f"{path}: TIFF with mixed bit depths")
         if self.bps not in (1, 2, 4, 8, 16):
-            raise _unsupported(path, f"{self.bps}-bit samples")
+            raise ValueError(f"{path}: TIFF {self.bps}-bit samples (libtiff's RGBA "
+                             "interface refuses them)")
         if self.spp > 4 or self.spp < 1:
             raise ValueError(f"{path}: TIFF with {self.spp} samples a pixel")
-        if self.photometric == 2 and (self.spp < 3 or self.bps not in (8, 16)):
-            raise ValueError(f"{path}: RGB TIFF of {self.spp} samples at {self.bps} bits")
-        if self.photometric == 3 and (self.bps > 8 or 320 not in t):
-            raise ValueError(f"{path}: palette TIFF at {self.bps} bits")
-        if self.predictor == 2 and self.bps not in (8, 16):
-            raise ValueError(f"{path}: TIFF predictor 2 at {self.bps} bits")
-        if self.compression in (2, 3, 4) and (self.bps != 1 or self.spp != 1):
+        c = self.compression
+        if c in (2, 3, 4) and (self.bps != 1 or self.spp != 1):
             raise ValueError(f"{path}: CCITT TIFF that is not bilevel")
-        if self.planar == 1 and self.spp > 1 and self.bps < 8 and self.photometric != 3:
-            # tif_getimage: "can not handle contiguous data with ... BitsPerSample < 8"
-            raise ValueError(f"{path}: contiguous TIFF with {self.spp} samples of "
-                             f"{self.bps} bits")
+        if c == 32809 and self.bps != 4:
+            raise ValueError(f"{path}: ThunderScan TIFF at {self.bps} bits")
+        if c in (34676, 34677) and ph not in (32844, 32845):
+            raise ValueError(f"{path}: SGILog TIFF that is not LogL or LogLuv")
+        if ph in (0, 1, 3):
+            if self.planar == 1 and self.spp > 1 and self.bps < 8 and ph != 3:
+                # tif_getimage: "can not handle contiguous data with ... BitsPerSample < 8"
+                raise ValueError(f"{path}: contiguous TIFF with {self.spp} samples of "
+                                 f"{self.bps} bits")
+            if ph == 3 and (self.bps > 8 or 320 not in t):
+                raise ValueError(f"{path}: palette TIFF at {self.bps} bits")
+        elif ph == 2:
+            if self.spp - len(self.extra) < 3 or self.bps not in (8, 16):
+                raise ValueError(f"{path}: RGB TIFF of {self.spp} samples at {self.bps} bits")
+        elif ph == 5:
+            if t.get(332, [1])[0] != 1 or self.bps != 8 or self.spp != 4:
+                raise ValueError(f"{path}: CMYK TIFF of {self.spp} samples at {self.bps} bits "
+                                 "or of another ink set (libtiff reads 8-bit CMYK)")
+        elif ph == 6:
+            if self.bps != 8 or self.spp != 3:
+                raise ValueError(f"{path}: YCbCr TIFF of {self.spp} samples at {self.bps} "
+                                 "bits (libtiff reads 8-bit YCbCr)")
+            sub = tuple(t.get(530, [2, 2])[:2])
+            if (self.planar == 2 and sub != (1, 1)) or sub not in _YCBCR_SUBSAMPLING:
+                raise ValueError(f"{path}: YCbCr TIFF subsampled {sub} in planar "
+                                 f"configuration {self.planar}")
+        elif ph == 8:
+            if self.spp != 3 or len(self.extra) or self.bps not in (8, 16) or self.planar != 1:
+                raise ValueError(f"{path}: CIE Lab TIFF of {self.spp} samples at {self.bps} "
+                                 "bits, or planar")
+        elif ph == 32844:
+            if c != 34676 or self.spp != 1:
+                raise ValueError(f"{path}: LogL TIFF without SGILog compression")
+        elif ph == 32845:
+            if c not in (34676, 34677) or self.planar != 1 or self.spp != 3:
+                raise ValueError(f"{path}: LogLuv TIFF without SGILog compression")
+        else:
+            raise ValueError(f"{path}: TIFF photometric interpretation {ph}")
 
     # -- chunks ------------------------------------------------------------
-    def _decompress(self, raw: bytes, rows: int, width: int, spp: int) -> np.ndarray:
-        """One strip or tile -> samples (rows, width, spp) (uint8 or uint16)."""
+    def _depth(self) -> int:
+        """Bits of a sample as the chunk buffer holds it (SGILog is read as
+        8-bit data)."""
+        return 8 if self.compression in (34676, 34677) else self.bps
+
+    def _chunk_size(self, rows: int, width: int, spp: int) -> int:
+        """Bytes of a strip or tile of ``rows`` rows: YCbCr subsampled data in
+        blocks of hs x vs luma samples and two chroma ones, other data in
+        rows of ``width * spp`` samples."""
+        hs, vs = self.subsampling
+        if (hs, vs) != (1, 1):
+            return -(-rows // vs) * -(-width // hs) * (hs * vs + 2)
+        return ((width * spp * self._depth() + 7) // 8) * rows
+
+    def _decompress(self, raw: bytes, rows: int, width: int, spp: int, buf: bytearray,
+                    last: bool = True) -> None:
+        """One strip or tile into ``buf``; raises ``_Failed`` where libtiff's
+        decoder fails and the RGBA interface carries on."""
         if self.fill_order == 2:
             raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-        bps = self.bps
-        stride = (width * spp * bps + 7) // 8
-        expected = stride * rows
+        expected = self._chunk_size(rows, width, spp)
         c = self.compression
+        if c not in _LIBTIFF_CODECS:
+            raise _Failed  # libtiff's default codec: "Decoding of ... is not implemented"
         if c in (2, 3, 4):
             bits = ccitt.rows_to_bits(ccitt.decode(raw, width, rows, c, self.t4), width)
-            return bits[..., None]
-        if c == 1:
-            buf = raw
+            buf[:expected] = np.packbits(bits, axis=1).tobytes()
+            return
+        if c == 32809:
+            if not tiff_codecs.thunderscan(raw, rows, width, buf):
+                raise _Failed
+            return
+        if c in (34676, 34677):
+            kind = "L" if self.photometric == 32844 else ("Luv24" if c == 34677 else "Luv32")
+            if not tiff_codecs.sgilog(raw, rows, width, buf, kind):
+                raise _Failed
+            return
+        if c == 7:
+            buf[:expected] = self._jpeg(raw, rows, width, spp, last)
+            return
+        if c == 1:  # DumpModeDecode copies nothing from a short strip
+            out = raw if len(raw) >= expected else b""
         elif c == 5:
-            buf = _lzw(raw, expected)
+            out = _lzw(raw, expected)
         elif c in (8, 32946):
-            buf = zlib.decompressobj().decompress(raw, expected)
+            out = _inflate(raw, expected)
         else:
-            buf = _packbits(raw, expected)
-        if len(buf) < expected:
-            raise ValueError(f"{self.path}: TIFF strip or tile shorter than its rows")
-        rowdata = np.frombuffer(buf[:expected], np.uint8).reshape(rows, stride)
+            out = _packbits(raw, expected)
+        buf[: min(len(out), expected)] = out[:expected]
+        if len(out) < expected:
+            raise _Failed  # "Not enough data": the rest stays zero
+
+    def _jpeg(self, raw: bytes, rows: int, width: int, spp: int, last: bool) -> bytes:
+        """``JPEGPreDecode`` and ``JPEGDecode``: the stream's header must
+        match the strip or tile (its width, its height or, in the last strip,
+        more; the components; 8 bits; the YCbCr subsampling on its first
+        component and 1x1 on the others).  Without a ``YCbCrSubSampling`` tag
+        libtiff takes the first strip's own factors (``JPEGFixupTags``).  A
+        refused strip fails the read (None)."""
+        ycc = self.photometric == 6 and self.planar == 1
+        stream = jpeg.InTiff(raw, _bytes_of(self.tags.get(347)), "ycc" if ycc else "raw",
+                             self.path)
+        jw, jh, factors = stream.frame()
+        want = (1, 1)
+        if ycc:
+            if 530 not in self.tags and self._jpeg_subsampling is None:
+                self._jpeg_subsampling = factors[0]
+            want = self._jpeg_subsampling or tuple(self.tags[530][:2])
+        taller_last = jw == width and jh > rows and last
+        if (jw > width or jh > rows) and not taller_last or len(factors) != spp \
+                or factors[0] != want or any(f != (1, 1) for f in factors[1:]):
+            raise ValueError(f"{self.path}: JPEG strip of {jw} x {jh} and factors {factors} "
+                             f"for a {width} x {rows} strip of {spp} samples, subsampled {want}")
+        # a smaller stream (only a warning in libtiff) fills the rows and
+        # columns it has; the rest of the zeroed buffer stays zero
+        out = np.zeros((rows, width, spp), np.uint8)
+        got = stream.samples()[:rows]
+        out[: got.shape[0], : got.shape[1]] = got
+        return out.tobytes()
+
+    def _unpack(self, data: bytes, rows: int, width: int, spp: int) -> np.ndarray:
+        """A chunk's bytes -> samples (rows, width, spp) (uint8 or uint16)."""
+        hs, vs = self.subsampling
+        if (hs, vs) != (1, 1):  # blocks of hs x vs Y, then Cb, Cr
+            across = -(-width // hs)
+            blocks = np.frombuffer(data, np.uint8).reshape(-1, across, hs * vs + 2)
+            y = blocks[..., : hs * vs].reshape(-1, across, vs, hs).transpose(0, 2, 1, 3)
+            y = y.reshape(-1, across * hs)[:rows, :width]
+            chroma = np.repeat(np.repeat(blocks[..., hs * vs :], vs, axis=0), hs, axis=1)
+            return np.concatenate([y[..., None], chroma[:rows, :width]], axis=2)
+        bps = self._depth()
+        stride = (width * spp * bps + 7) // 8
+        rowdata = np.frombuffer(data, np.uint8).reshape(rows, stride)
         if bps == 16:
             samples = rowdata.view(self.order + "u2").reshape(rows, width, spp).astype(np.uint16)
         elif bps == 8:
@@ -241,7 +454,7 @@ class _Image:
             shifts = np.arange(8 - bps, -1, -bps, dtype=np.uint8)
             vals = (rowdata[:, :, None] >> shifts) & ((1 << bps) - 1)
             samples = vals.reshape(rows, -1)[:, : width * spp].reshape(rows, width, spp)
-        if self.predictor == 2:
+        if self.predictor == 2 and bps in (8, 16) and self.compression not in (7, 34676, 34677):
             mod = np.uint16 if bps == 16 else np.uint8
             samples = np.cumsum(samples.astype(np.int64), axis=1).astype(mod)
         return samples
@@ -251,64 +464,140 @@ class _Image:
         t, h, w = self.tags, self.height, self.width
         planes = self.spp if self.planar == 2 else 1
         per = 1 if self.planar == 2 else self.spp
-        dtype = np.uint16 if self.bps == 16 else np.uint8
+        dtype = np.uint16 if self._depth() == 16 else np.uint8
         out = np.zeros((h, w, self.spp), dtype)
-        if 322 in t:
-            tw, th = t[322][0], t[323][0]
-            offsets, counts = t[324], t[325]
-            across, down = -(-w // tw), -(-h // th)
-            if len(offsets) < across * down * planes or len(counts) < len(offsets):
-                raise ValueError(f"{self.path}: TIFF with missing tiles")
-            k = 0
-            for p in range(planes):
-                for ty in range(down):
-                    for tx in range(across):
-                        tile = self._decompress(self._chunk(offsets[k], counts[k]), th, tw, per)
-                        k += 1
-                        y0, x0 = ty * th, tx * tw
-                        hh, ww = min(th, h - y0), min(tw, w - x0)
-                        out[y0 : y0 + hh, x0 : x0 + ww, p : p + per] = tile[:hh, :ww]
-            return out
-        rps = min(t.get(278, [h])[0], h)
-        offsets, counts = t[273], t[279]
-        per_plane = -(-h // rps)
-        if len(offsets) < per_plane * planes or len(counts) < len(offsets):
-            raise ValueError(f"{self.path}: TIFF with missing strips")
+        tiled = 322 in t
+        if tiled:
+            cw, ch = t[322][0], t[323][0]
+            offsets = t[324]
+            across, down = -(-w // cw), -(-h // ch)
+        else:
+            cw, ch = w, min(t.get(278, [h])[0], h)
+            offsets = t[273]
+            across, down = 1, -(-h // ch)
+        chunks = across * down * planes
+        counts = t.get(325 if tiled else 279)
+        if counts is None:  # libtiff estimates them for one strip or tile (a plane)
+            if chunks != (self.spp if self.planar == 2 else 1):
+                raise ValueError(f"{self.path}: TIFF without its byte counts")
+            counts = self._estimate_counts(offsets, chunks, cw, ch, per)
+        elif not tiled and self._counts_look_bad(offsets, counts, chunks, cw):
+            counts = self._estimate_counts(offsets, chunks, cw, ch, per)
+        if len(offsets) < across * down * planes or len(counts) < len(offsets):
+            raise ValueError(f"{self.path}: TIFF with missing {'tiles' if tiled else 'strips'}")
+        # OpenCV's RGBA buffer for one strip or tile (its RowsPerStrip as
+        # written, 2**32 - 1 meaning the image) must stay under 1 GiB
+        rps = t.get(278, [h])[0]
+        tall = ch if tiled else (h if rps == 2**32 - 1 else rps)
+        if tall * cw * 4 >= 1 << 30:
+            raise ValueError(f"{self.path}: TIFF strip or tile buffer of 1 GiB or more")
         k = 0
+        hs, vs = self.subsampling
         for p in range(planes):
-            for s in range(per_plane):
-                y0 = s * rps
-                rows = min(rps, h - y0)
-                out[y0 : y0 + rows, :, p : p + per] = self._decompress(
-                    self._chunk(offsets[k], counts[k]), rows, w, per)
-                k += 1
+            for ty in range(down):
+                for tx in range(across):
+                    y0, x0 = ty * ch, tx * cw
+                    rows = ch if tiled else min(ch, h - y0)
+                    # OpenCV reads each strip or tile with a TIFFReadRGBA call of
+                    # its own, whose buffer starts zeroed
+                    size = self._chunk_size(rows, cw, per)
+                    buf = bytearray(size)
+                    try:
+                        self._decompress(self._chunk(offsets[k], counts[k]), rows, cw, per,
+                                         buf, not tiled and ty == down - 1)
+                    except _Failed:
+                        pass
+                    k += 1
+                    if not tiled and (hs, vs) != (1, 1):
+                        # gtStripContig asks for whole block rows of TIFFScanlineSize
+                        # bytes, a block row's size divided by vs and truncated
+                        line = (-(-cw // hs) * (hs * vs + 2)) // vs
+                        limit = -(-rows // vs) * vs * line
+                        buf[limit:] = bytes(len(buf) - limit)
+                    hh, ww = min(ch, h - y0), min(cw, w - x0)
+                    if tiled and (hs, vs) == (4, 4) and ww < cw:
+                        buf = _skewed_44(buf, ww, cw)
+                    chunk = self._unpack(bytes(buf), rows, cw, per)
+                    out[y0 : y0 + hh, x0 : x0 + ww, p : p + per] = chunk[:hh, :ww]
         return out
 
+    def _counts_look_bad(self, offsets: List[int], counts: List[int], chunks: int,
+                         width: int) -> bool:
+        """``TIFFReadDirectory``'s doubts about StripByteCounts, after which it
+        estimates them: one strip of no bytes at a nonzero offset, or
+        uncompressed past the end of the file or shorter than the image; or
+        three or more uncompressed contiguous strips whose first two counts
+        differ."""
+        raw = self.compression == 1
+        if chunks == 1:
+            return (counts[0] == 0 and offsets[0] != 0) or raw and (
+                offsets[0] > len(self.data) - counts[0]
+                or counts[0] < self._chunk_size(self.height, width, self.spp))
+        return raw and self.planar == 1 and chunks > 2 and counts[0] != counts[1] \
+            and counts[0] != 0 and counts[1] != 0
+
+    def _estimate_counts(self, offsets: List[int], chunks: int, width: int, rows: int,
+                         spp: int) -> List[int]:
+        """``EstimateStripByteCounts``: compressed, the file past its header,
+        IFD and tag values (a plane's share), the last cut at the end of the
+        file; uncompressed, a tile's bytes or the rows' of ImageLength over
+        the strips of a plane."""
+        n = len(self.data)
+        if self.compression != 1:
+            space = _ifd_space(self.data, self.order, self._ifd, self._big)
+            space = n - space if n >= space else n
+            if self.planar == 2:
+                space //= self.spp
+            counts = [space] * chunks
+            last = offsets[chunks - 1]
+            if last + counts[-1] > n:
+                counts[-1] = n - last if last < n else 0
+            return counts
+        if 322 in self.tags:
+            return [self._chunk_size(rows, width, spp)] * chunks
+        per_plane = chunks // (self.spp if self.planar == 2 else 1)
+        return [self._chunk_size(self.height // per_plane, width, spp)] * chunks
+
     def _chunk(self, offset: int, count: int) -> bytes:
-        if offset + count > len(self.data):
-            raise ValueError(f"{self.path}: TIFF data past the end of the file")
+        if not count or offset + count > len(self.data):  # TIFFFillStrip fails: None
+            raise ValueError(f"{self.path}: TIFF strip or tile empty or past the end of the file")
         return self.data[offset : offset + count]
 
     # -- libtiff's RGBA maps -----------------------------------------------
     def rgb(self) -> np.ndarray:
         s = self.samples()
-        bps, ph = self.bps, self.photometric
-        if ph in (0, 1):
+        bps, ph = self._depth(), self.photometric
+        if ph in (0, 1, 32844):
             v = s[..., 0].astype(np.int64)
             if bps == 16:
                 v = v >> 8
                 top = 255
             else:
                 top = (1 << bps) - 1
-            grey = (v * 255) // top if ph == 1 else ((top - v) * 255) // top
+            grey = (v * 255) // top if ph != 0 else ((top - v) * 255) // top
             return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=2)
         if ph == 3:
             cmap = np.asarray(self.tags[320], np.int64).reshape(3, -1)
-            if cmap.shape[1] < 1 << bps:
-                raise ValueError(f"{self.path}: TIFF colour map too short")
             if (cmap >= 256).any():
                 cmap = cmap >> 8
             return cmap[:, s[..., 0].astype(np.int64)].transpose(1, 2, 0).astype(np.uint8)
+        if ph == 5:
+            return tiff_colour.cmyk_to_rgb(*(s[..., k] for k in range(4)))
+        if ph == 6 and not (self.compression == 7 and self.planar == 1):
+            luma = self._floats(529, [0.299, 0.587, 0.114])
+            ref = self._floats(532, [0, 255, 128, 255, 128, 255])
+            if luma[1] == 0 or not all(v < np.float32(2**31) for v in ref):
+                # initYCbCrConversion: "Invalid values for YCbCrCoefficients
+                # tag", "... ReferenceBlackWhite tag"
+                raise ValueError(f"{self.path}: TIFF YCbCr coefficients {luma} or reference "
+                                 f"{ref} libtiff refuses")
+            return tiff_colour.ycbcr_to_rgb(s, luma, ref)
+        if ph == 8:
+            d50 = sum(_D50[1:], _D50[0])
+            white = self._floats(318, [_D50[0] / d50, _D50[1] / d50])
+            if white[1] == 0:
+                raise ValueError(f"{self.path}: TIFF white point of zero luminance")
+            return tiff_colour.cielab_to_rgb(s, bps, white)
         rgb = s[..., :3].astype(np.int64)
         if bps == 16:
             rgb = (rgb + 128) // 257
@@ -318,6 +607,34 @@ class _Image:
                 alpha = (alpha + 128) // 257
             rgb = (rgb * alpha + 127) // 255
         return rgb.astype(np.uint8)
+
+    def _floats(self, tag: int, default: List[float]) -> List[np.float32]:
+        """A RATIONAL tag as libtiff reads it to floats (0 where a
+        denominator is 0), or its default."""
+        vals = self.tags.get(tag)
+        if vals is None or len(vals) < 2 * len(default):
+            return [np.float32(v) for v in default]
+        return [np.float32(n) / np.float32(d) if d else np.float32(0)
+                for n, d in zip(vals[0::2], vals[1::2])][: len(default)]
+
+
+def _skewed_44(buf: bytearray, visible: int, width: int) -> bytearray:
+    """A 4x4-subsampled YCbCr tile as ``putcontig8bitYCbCr44tile`` walks an
+    edge tile ``visible`` samples wide: after each block row it skips the
+    hidden blocks at 10 bytes a block, not 18 (libtiff's ``4 * 2 + 2``).
+    Returns the blocks each row reads, at their places in a tile buffer."""
+    used, per_row = -(-visible // 4), width // 4
+    skip = ((width - visible) // 4) * 10
+    out = bytearray(len(buf))
+    for r in range(len(buf) // (per_row * 18)):
+        start = r * (used * 18 + skip)
+        row = buf[start : start + used * 18]
+        out[r * per_row * 18 : r * per_row * 18 + len(row)] = row
+    return out
+
+
+def _bytes_of(values: Optional[List[int]]) -> Optional[bytes]:
+    return None if values is None else bytes(v & 0xFF for v in values)
 
 
 def decode_tiff(data: bytes, path: str = "<bytes>") -> np.ndarray:

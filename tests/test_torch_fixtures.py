@@ -55,10 +55,14 @@ against on the card, where neither JAX nor OpenCV is installed:
   orientation 6, an animation whose first frame is the picture; the lossy
   ones named ``*_lossy.webp``), and JPEG 2000 (JP2 5/3, raw J2K 5/3, JP2
   9/7, JP2 5/3 with tiles, precincts and RPCL; the 9/7 one named
-  ``*_lossy.jp2``), written by ``cv2.imwrite``, PIL and the hand
-  encoders of ``torch_image_writers``; ten 1024 x 1024 files (``big_*``:
-  JPEG 4:2:0 and progressive, TIFF LZW and G4, BMP RLE8, GIF, WebP lossy
-  and lossless, JPEG 2000 5/3 and 9/7) for the reader timings; and
+  ``*_lossy.jp2``), and the TIFF and JPEG forms of ``_tiff_and_jpeg_forms``
+  (JPEG-in-TIFF YCbCr 4:2:0 strips and RGB tiles, YCbCr 1x1, CMYK, CIE
+  Lab, signed 16-bit, ThunderScan, LogL, arithmetic sequential and
+  progressive JPEG, a cut progressive JPEG, lossless JPEG), written by
+  ``cv2.imwrite``, PIL and the hand encoders of ``torch_image_writers``;
+  twelve 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
+  LZW and G4, BMP RLE8, GIF, WebP lossy and lossless, JPEG 2000 5/3 and
+  9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG) for the reader timings; and
   ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
@@ -515,6 +519,7 @@ def build_image_forms():
     files["big_lossless.webp"] = cv2.imencode(".webp", big, [cv2.IMWRITE_WEBP_QUALITY,
                                                               101])[1].tobytes()
     files.update(_jpeg2000_forms(bgr, big))
+    files.update(_tiff_and_jpeg_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -557,6 +562,135 @@ def _jpeg2000_forms(bgr, big):
             "big_lossless.jp2": pil(big),
             "big_lossy.jp2": pil(big, irreversible=True, quality_mode="rates",
                                  quality_layers=[20])}
+
+
+# the arithmetic progressive forms' scan script: DC (point transform 1),
+# AC bands, then the refinements
+ARITH_SCRIPT = [([0, 1, 2], 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([1], 1, 63, 0, 1),
+                ([2], 1, 63, 0, 1), ([0], 6, 63, 0, 2), ([0], 1, 63, 2, 1),
+                ([0, 1, 2], 0, 0, 1, 0), ([0], 1, 63, 1, 0), ([1], 1, 63, 1, 0),
+                ([2], 1, 63, 1, 0)]
+
+
+def _jpeg_in_tiff_ycc(bgr, rows):
+    """A YCbCr 4:2:0 JPEG-in-TIFF of ``rows``-row strips: each strip's
+    cv2 JPEG (quality 95, standard tables) cut into ``JPEGTables`` and an
+    abbreviated stream, as libtiff's writer lays them out."""
+    import cv2
+    from torch_image_writers import encode_tiff, jpeg_tables_and_body
+
+    h, w = bgr.shape[:2]
+    chunks, tables = [], None
+    for y in range(0, h, rows):
+        j = cv2.imencode(".jpg", bgr[y : y + rows], [
+            cv2.IMWRITE_JPEG_QUALITY, 95,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+        tables, body = jpeg_tables_and_body(j)
+        chunks.append(body)
+    return encode_tiff(chunks, w, h, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]),
+                                      277: (3, [3]), 278: (4, [rows]), 530: (3, [2, 2]),
+                                      347: (7, list(tables))})
+
+
+def _tiff_and_jpeg_forms(bgr, big):
+    """demo_0.png (and the 1024 x 1024 drawing) in the TIFF and JPEG forms
+    the readers gained: JPEG-in-TIFF YCbCr 4:2:0 in strips and RGB in tiles,
+    raw YCbCr 1x1 at Cb = Cr = 128, CMYK of K only, CIE Lab (the L*, a*, b*
+    per grey level that cv2 reads closest to it), signed 16-bit grey, a ThunderScan
+    palette of 16 greys, LogL (a luminance code per grey level that reads
+    back exactly), arithmetic-coded sequential and progressive JPEG, a
+    progressive JPEG cut short (block-smoothed) and a lossless JPEG; and
+    ``big_jpeg.tif`` (JPEG-in-TIFF 4:2:0) and ``big_arith.jpg`` for the
+    reader timings.  The YCbCr 1x1, CMYK, signed, LogL and lossless forms
+    read to demo_0.png's pixels."""
+    import tempfile
+
+    import cv2
+
+    from torch_image_writers import (encode_jpeg, encode_jpeg_arith, encode_jpeg_lossless,
+                                     encode_tiff, jpeg_tables_and_body, sgilog_rle, thunderscan)
+
+    grey = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    h, w = grey.shape
+    deflate = lambda a: zlib.compress(np.ascontiguousarray(a).tobytes())  # noqa: E731
+
+    def tags(bps, spp, photometric, more=None):
+        out = {258: (3, [bps] * spp), 259: (3, [8]), 262: (3, [photometric]), 277: (3, [spp]),
+               278: (4, [h])}
+        out.update(more or {})
+        return out
+
+    files = {"demo_0_jpeg_ycc420.tif": _jpeg_in_tiff_ycc(bgr, 16)}
+    tile, tiles, tables = 64, [], None
+    for ty in range(0, h, tile):
+        for tx in range(0, w, tile):
+            part = np.pad(rgb[ty : ty + tile, tx : tx + tile],
+                          ((0, max(0, ty + tile - h)), (0, max(0, tx + tile - w)), (0, 0)),
+                          mode="edge")
+            tables, body = jpeg_tables_and_body(
+                encode_jpeg([part[..., k] for k in range(3)], [(1, 1)] * 3, quality_step=2))
+            tiles.append(body)
+    files["demo_0_jpeg_rgb_tiled.tif"] = encode_tiff(tiles, w, h, {
+        258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]), 277: (3, [3]), 322: (3, [tile]),
+        323: (3, [tile]), 347: (7, list(tables))})
+    ycc = np.stack([grey, np.full_like(grey, 128), np.full_like(grey, 128)], axis=2)
+    files["demo_0_ycbcr11.tif"] = encode_tiff([deflate(ycc)], w, h,
+                                              tags(8, 3, 6, {530: (3, [1, 1])}))
+    cmyk = np.zeros((h, w, 4), np.uint8)
+    cmyk[..., 3] = 255 - grey
+    files["demo_0_cmyk.tif"] = encode_tiff([deflate(cmyk)], w, h, tags(8, 4, 5))
+    files["demo_0_signed16.tif"] = encode_tiff(
+        [deflate((grey.astype(np.uint16) * 257).astype("<u2"))], w, h,
+        tags(16, 1, 1, {339: (3, [2])}))
+    # Lab: per grey level, the (L, a*, b*) whose cv2 reading is the nearest
+    # neutral grey (D50 white under display sRGB's matrix casts a*, b* = 0)
+    grid = np.stack(np.meshgrid(np.arange(256), np.arange(-24, 25), np.arange(-24, 25),
+                                indexing="ij"), axis=-1).reshape(1, -1, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.tif")
+        n = grid.shape[1]
+        with open(path, "wb") as f:
+            f.write(encode_tiff([(grid % 256).astype(np.uint8).tobytes()], n, 1,
+                                tags(8, 3, 8, {259: (3, [1]), 278: (4, [1])})))
+        read = cv2.imread(path)[0].astype(np.int64)
+    miss = np.abs(read[None, :, :] - np.arange(256)[:, None, None]).max(axis=2)
+    best = grid[0][miss.argmin(axis=1)]
+    lab = (best[grey] % 256).astype(np.uint8)
+    files["demo_0_lab.tif"] = encode_tiff([deflate(lab)], w, h, tags(8, 3, 8))
+    levels = np.round(np.linspace(0, 255, 16)).astype(np.int64)
+    index = np.abs(grey[..., None].astype(np.int64) - levels).argmin(axis=2)
+    files["demo_0_thunderscan.tif"] = encode_tiff(
+        [thunderscan(index)], w, h, {258: (3, [4]), 259: (3, [32809]), 262: (3, [3]),
+                                     277: (3, [1]), 278: (4, [h]),
+                                     320: (3, np.tile(levels * 257, 3).tolist())})
+    # LogL: a 15-bit luminance code whose 256 sqrt(Y) truncates to each grey level
+    le = np.arange(32768)
+    y = np.exp(np.log(2) / 256 * (le + 0.5) - np.log(2) * 64)
+    grey_of = np.where(le == 0, 0, np.where(y >= 1, 255, (256 * np.sqrt(np.minimum(y, 1)))
+                                            .astype(np.int64)))
+    code = np.zeros(256, np.int64)
+    for g in range(256):
+        code[g] = le[np.nonzero(grey_of == g)[0][len(np.nonzero(grey_of == g)[0]) // 2]]
+    files["demo_0_logl.tif"] = encode_tiff([sgilog_rle(code[grey], 2)], w, h, {
+        258: (3, [16]), 259: (3, [34676]), 262: (3, [32844]), 277: (3, [1]), 278: (4, [h]),
+        339: (3, [2])})
+    ycrcb = cv2.cvtColor(bgr, cv2.COLOR_BGR2YCrCb)
+    planes = [ycrcb[..., 0], ycrcb[..., 2], ycrcb[..., 1]]
+    files["demo_0_arith.jpg"] = encode_jpeg_arith(planes, [(2, 2), (1, 1), (1, 1)], jfif=True,
+                                                  quality_step=2)
+    files["demo_0_arith_progressive.jpg"] = encode_jpeg_arith(
+        planes, [(2, 2), (1, 1), (1, 1)], jfif=True, quality_step=2, scans=ARITH_SCRIPT)
+    progressive = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 95,
+                                             cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    files["demo_0_truncated_progressive.jpg"] = progressive[: len(progressive) * 7 // 8]
+    files["demo_0_lossless.jpg"] = encode_jpeg_lossless([rgb[..., k] for k in range(3)], 1)
+    files["big_jpeg.tif"] = _jpeg_in_tiff_ycc(big, 16)
+    big_ycc = cv2.cvtColor(big, cv2.COLOR_BGR2YCrCb)
+    files["big_arith.jpg"] = encode_jpeg_arith(
+        [big_ycc[..., 0], big_ycc[..., 2], big_ycc[..., 1]], [(2, 2), (1, 1), (1, 1)],
+        jfif=True, quality_step=4)
+    return files
 
 
 def _webp_forms(bgr, turned):

@@ -14,7 +14,8 @@ that read image files against their JAX counterparts.
   the JAX package's ``FileNotFoundError``; ``TrainDataset`` items equal the
   JAX package's (the white placeholder included); ``evaluate_model`` (the
   demo bundle, float32) and ``suite_dataset_eval`` skip the same rows and
-  give the same scores.
+  give the same scores; and so do they on an LZMA TIFF and a 12-bit JPEG,
+  which OpenCV 5.0 reads as None.
 """
 
 import io
@@ -26,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_image_writers import encode_tiff, exif_block, with_jpeg_exif, with_png_exif
+from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, with_jpeg_exif,
+                                 with_png_exif)
 
 from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
 from molnextr_tpu_torch.data.image import UnsupportedFormat, imread, sniff_format
@@ -358,6 +360,75 @@ def test_evaluate_model_skips_the_rows_jax_skips(image_dir, tmp_path):
     assert want["n"] == 3 and got == want
     with open(jcsv) as f, open(csv) as g:
         assert g.read() == f.read()
+
+
+@pytest.fixture(scope="module")
+def refused_dir(tmp_path_factory):
+    """demo_0 as a PNG, and two files cv2 5.0 reads as None: an LZMA TIFF (a
+    codec its libtiff lacks) and a 12-bit JPEG (its reader is 8-bit)."""
+    d = tmp_path_factory.mktemp("refused")
+    bgr = cv2.imread(DEMO_PNG)
+    h, w = bgr.shape[:2]
+    paths = {"png": str(d / "a.png"), "lzma": str(d / "b.tif"), "twelve": str(d / "c.jpg")}
+    cv2.imwrite(paths["png"], bgr)
+    with open(paths["lzma"], "wb") as f:
+        f.write(encode_tiff([bytes(64)], w, h, {258: (3, [8] * 3), 259: (3, [34925]),
+                                                262: (3, [2]), 277: (3, [3])}))
+    with open(paths["twelve"], "wb") as f:
+        f.write(encode_jpeg([bgr[..., k].astype(np.int64) * 16 for k in (2, 1, 0)], [(1, 1)] * 3,
+                            precision=12))
+    for kind in ("lzma", "twelve"):
+        assert cv2.imread(paths[kind]) is None and imread(paths[kind]) is None
+    return paths
+
+
+def test_files_opencv_refuses_are_skipped_as_jax_skips_them(refused_dir, tmp_path):
+    """On an LZMA TIFF and a 12-bit JPEG (None in cv2 and in the port, where
+    the port used to raise): ``evaluate_model`` skips both rows as the JAX
+    package does, with the same scores and CSV, ``predict_image_files``
+    raises the JAX package's ``FileNotFoundError``, and the dataset gives
+    its white placeholder."""
+    from molnextr_tpu.api import MolNexTR as JaxMolNexTR
+    from molnextr_tpu.checkpoint import load_model as jax_load
+    from molnextr_tpu.data.dataset import Sample as JaxSample
+    from molnextr_tpu.inference import InferenceEngine as JaxEngine
+    from molnextr_tpu.models.model import MolNexTRModel as JaxModel
+    from molnextr_tpu.tokenization import get_tokenizer as jax_tokenizer
+    from molnextr_tpu.train.loop import evaluate_model as jax_evaluate
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.data.dataset import Sample, read_image
+    from molnextr_tpu_torch.train.loop import evaluate_model
+
+    kinds = ("lzma", "png", "twelve")
+    jcfg, jparams = jax_load(BUNDLE)
+    jcfg.train.bf16 = False
+    jtok = jax_tokenizer(jcfg.data)
+    jmodel = JaxModel(jcfg, {f: len(t) for f, t in jtok.items()})
+    jcsv = str(tmp_path / "jax.csv")
+    want = jax_evaluate(jcfg, jmodel, jparams, jtok,
+                        [JaxSample("CC(C)O", image_path=refused_dir[k]) for k in kinds],
+                        num_workers=0, engine=JaxEngine(jcfg, jtok, jmodel, jparams),
+                        dump_csv=jcsv)
+    cfg, params = load_model(BUNDLE)
+    cfg.train.bf16 = False
+    api = MolNexTR(cfg=cfg, params=params, device="cpu", num_workers=1)
+    csv = str(tmp_path / "port.csv")
+    got = evaluate_model(cfg, api.engine.model, api.tokenizers,
+                         [Sample("CC(C)O", image_path=refused_dir[k]) for k in kinds],
+                         num_workers=0, engine=api.engine, dump_csv=csv)
+    assert want["n"] == 1 and got == want
+    with open(jcsv) as f, open(csv) as g:
+        assert g.read() == f.read()
+    for kind in ("lzma", "twelve"):
+        paths = [refused_dir["png"], refused_dir[kind]]
+        with pytest.raises(FileNotFoundError) as jax_err:
+            JaxMolNexTR.predict_image_files(Recorder(), paths)
+        with pytest.raises(FileNotFoundError) as port_err:
+            MolNexTR.predict_image_files(Recorder(), paths)
+        assert str(port_err.value) == str(jax_err.value) == refused_dir[kind]
+        np.testing.assert_array_equal(read_image(refused_dir[kind]),
+                                      np.full((256, 256, 3), 255, np.uint8))
 
 
 def test_dataset_eval_suite_skips_the_rows_jax_skips(image_dir, tmp_path, monkeypatch):

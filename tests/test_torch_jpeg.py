@@ -6,9 +6,9 @@ the hand encoder of ``torch_image_writers`` (sampling factors up to 4x4,
 component ids, Adobe transforms, JFIF beside Adobe, restarts, CMYK and
 YCCK), at odd sizes and under hypothesis.  The reference is
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``; the port must equal
-it with no tolerance.  Truncated files: sequential ones read as cv2 reads
-them; a truncated progressive file, which libjpeg block-smooths, raises
-(a difference by design).  Unported forms raise naming the form.
+it with no tolerance.  Truncated files read as cv2 reads them, sequential
+ones and progressive ones (block-smoothed, as libjpeg smooths them);
+frames OpenCV refuses read as None beside cv2's None.
 """
 
 import io
@@ -22,7 +22,7 @@ from hypothesis import strategies as st
 from PIL import Image
 from torch_image_writers import encode_jpeg
 
-from molnextr_tpu_torch.data.image import UnsupportedFormat, imread
+from molnextr_tpu_torch.data.image import imread
 from molnextr_tpu_torch.data.jpeg import decode_jpeg
 
 SIZES = [(1, 1), (7, 9), (17, 33), (64, 48)]
@@ -142,6 +142,51 @@ def test_hand_encoded_cmyk_and_ycck(tmp_path, adobe):
     check(tmp_path, encode_jpeg(planes, factors, adobe=adobe))
 
 
+def _without_dht(data: bytes) -> bytes:
+    out, pos = bytearray(data[:2]), 2
+    while data[pos + 1] != 0xDA:
+        length = int.from_bytes(data[pos + 2 : pos + 4], "big")
+        if data[pos + 1] != 0xC4:
+            out += data[pos : pos + 2 + length]
+        pos += 2 + length
+    return bytes(out + data[pos:])
+
+
+@pytest.mark.parametrize("progressive", [0, 1])
+def test_missing_huffman_tables_fall_back_to_annex_k(tmp_path, progressive):
+    """A sequential scan whose table 0 or 1 was never defined (a Motion-JPEG
+    frame) is decoded with Annex K's tables, as libjpeg-turbo's
+    ``jpeg_std_huff_table`` lends them: cv2's own files read unchanged,
+    the hand encoder's garbled, both as cv2 reads them; a progressive or
+    lossless scan without its table, an undefined table 2, or a DC table
+    with a symbol above 15, is refused (None)."""
+    from torch_image_writers import encode_jpeg_lossless
+
+    img = _content(24, 40, 2)
+    data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, progressive])[1].tobytes()
+    path = tmp_path / "x.jpg"
+    if progressive:
+        for stripped in (_without_dht(data), _without_dht(encode_jpeg_lossless(
+                [img[..., k] for k in range(3)], 1))):
+            path.write_bytes(stripped)
+            assert cv2.imread(str(path)) is None and imread(str(path)) is None
+        return
+    check(tmp_path, _without_dht(data))
+    planes = [img[..., k] for k in range(3)]
+    path.write_bytes(_without_dht(encode_jpeg(planes, [(2, 2), (1, 1), (1, 1)])))
+    np.testing.assert_array_equal(imread(str(path)), cv2_rgb(path))
+    hand = bytearray(encode_jpeg(planes, [(1, 1)] * 3))
+    sos = hand.index(b"\xff\xda")
+    table_two = bytearray(hand)
+    table_two[sos + 6] = 0x22  # the first component's tables: DC 2, AC 2
+    dc_symbol = bytearray(hand)
+    dht = dc_symbol.index(b"\xff\xc4")
+    dc_symbol[dht + 5 + 16 + 11] = 16  # the last DC symbol, 11 -> 16
+    for bad in (table_two, dc_symbol):
+        path.write_bytes(bytes(bad))
+        assert cv2.imread(str(path)) is None and imread(str(path)) is None
+
+
 def test_more_than_ten_blocks_in_an_mcu_reads_as_none(tmp_path):
     """libjpeg refuses an MCU of more than 10 blocks; so does the port."""
     planes = [np.zeros((9, 9), np.uint8)] * 3
@@ -182,17 +227,17 @@ def test_truncated_sequential_file_reads_as_cv2(tmp_path, restart):
         assert cv2.imread(str(path)) is None and imread(str(path)) is None
 
 
-def test_truncated_progressive_file_raises_where_libjpeg_smooths(tmp_path):
-    """By design: a progressive file that ends before its low AC
-    coefficients are refined is block-smoothed by libjpeg; the port does
-    not smooth, and raises ``UnsupportedFormat`` instead of differing."""
+def test_truncated_progressive_file_is_smoothed_as_libjpeg(tmp_path):
+    """A progressive file that ends before its low AC coefficients are
+    refined is block-smoothed by libjpeg, and by the port the same way
+    (``test_torch_jpeg_arith.py`` cuts many more)."""
     img = _content(40, 56, 9, "noise")
     data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     path = tmp_path / "cut.jpg"
     path.write_bytes(data[: len(data) // 2])
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(UnsupportedFormat, match="block"):
-        imread(str(path))
+    want = cv2_rgb(path)
+    assert want is not None
+    np.testing.assert_array_equal(imread(str(path)), want)
     path.write_bytes(data[:-2])  # only the EOI is missing: every scan is whole
     np.testing.assert_array_equal(imread(str(path)), cv2_rgb(path))
 
@@ -200,22 +245,35 @@ def test_truncated_progressive_file_raises_where_libjpeg_smooths(tmp_path):
 @pytest.mark.parametrize("marker,name", [
     (0xC3, "lossless"), (0xC5, "hierarchical"), (0xC9, "arithmetic"), (0xCA, "arithmetic"),
     (0xCB, "arithmetic"), (0xCD, "arithmetic")])
-def test_unported_frames_raise_naming_them(marker, name):
+def test_other_frames_read_as_cv2_reads_them(tmp_path, marker, name):
+    """A baseline file relabelled: as arithmetic-coded sequential (SOF9) its
+    data decodes as libjpeg decodes it; as lossless (SOF3, a scan with
+    predictor 0) or progressive arithmetic (SOF10, a DC scan over all 64
+    coefficients) its scan is refused, and hierarchical (SOF5), lossless
+    arithmetic (SOF11) and differential arithmetic (SOF13) frames are
+    refused: None, as cv2 reads them."""
     data = bytearray(cv2.imencode(".jpg", _content(8, 8, 0))[1].tobytes())
     sof = data.index(b"\xff\xc0")
     data[sof + 1] = marker
-    with pytest.raises(UnsupportedFormat, match=name):
-        decode_jpeg(bytes(data))
+    path = tmp_path / "x.jpg"
+    path.write_bytes(bytes(data))
+    want = cv2_rgb(path)
+    assert (want is None) == (marker != 0xC9)
+    if want is None:
+        assert imread(str(path)) is None
+    else:
+        np.testing.assert_array_equal(decode_jpeg(bytes(data)), want)
 
 
-def test_twelve_bit_and_dnl_frames_raise_naming_them():
+def test_twelve_bit_and_dnl_frames_read_as_none(tmp_path):
+    """OpenCV's reader is 8-bit and libjpeg-turbo takes no DNL height: None."""
     data = bytearray(cv2.imencode(".jpg", _content(8, 8, 0))[1].tobytes())
     sof = data.index(b"\xff\xc0")
     twelve = bytearray(data)
     twelve[sof + 4] = 12
-    with pytest.raises(UnsupportedFormat, match="12-bit"):
-        decode_jpeg(bytes(twelve))
     dnl = bytearray(data)
     dnl[sof + 5 : sof + 7] = b"\x00\x00"
-    with pytest.raises(UnsupportedFormat, match="DNL"):
-        decode_jpeg(bytes(dnl))
+    for form in (twelve, dnl):
+        path = tmp_path / "x.jpg"
+        path.write_bytes(bytes(form))
+        assert cv2.imread(str(path)) is None and imread(str(path)) is None

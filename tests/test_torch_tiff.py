@@ -9,9 +9,11 @@ samples, colour maps, two pages), at odd sizes and under hypothesis.  The
 reference is ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``; the
 port must equal it with no tolerance.  Differences by design have tests of
 their own: grey at 2 and 4 bits and palettes at 2 bits, which OpenCV 5.0
-refuses (orientations 5-8: ``test_torch_imread.py``).  Unported forms raise
-naming the form.  BigTIFF files (``II+``/``MM\\0+``) come from the hand
-encoder, since neither cv2 nor PIL writes them.
+refuses (orientations 5-8: ``test_torch_imread.py``).  Forms OpenCV 5.0
+refuses read as None, with cv2's None asserted beside; JPEG-in-TIFF,
+YCbCr, CMYK, Lab, signed samples and the rarer codecs have
+``test_torch_tiff_colour.py``.  BigTIFF files (``II+``/``MM\\0+``) come
+from the hand encoder, since neither cv2 nor PIL writes them.
 """
 
 import io
@@ -26,7 +28,7 @@ from hypothesis import strategies as st
 from PIL import Image
 from torch_image_writers import encode_tiff, pack_bits
 
-from molnextr_tpu_torch.data.image import UnsupportedFormat, imread
+from molnextr_tpu_torch.data.image import imread
 from molnextr_tpu_torch.data.tiff import decode_tiff
 
 SIZES = [(1, 1), (7, 9), (17, 33), (255, 257)]
@@ -243,32 +245,49 @@ def test_more_than_four_samples_reads_as_none(tmp_path):
 @pytest.mark.parametrize("compression,name", [
     (6, "old-style JPEG"), (7, "JPEG"), (34925, "LZMA"), (50000, "ZSTD"), (50001, "WebP"),
     (34661, "JBIG"), (34712, "JPEG 2000"), (34887, "LERC")])
-def test_unported_compressions_raise_naming_them(tmp_path, compression, name):
+def test_compressions_opencv_5_lacks_read_as_none(tmp_path, compression, name):
+    """LZMA, ZSTD, WebP, JBIG and LERC are "not configured" in OpenCV 5.0's
+    libtiff and old-style JPEG is refused: None, as cv2 reads them; a JPEG
+    strip that is no JPEG stream is refused too.  JPEG 2000 (34712) is no
+    libtiff codec at all: every strip fails and reads as zero samples."""
     path = tmp_path / "x.tif"
     path.write_bytes(encode_tiff([bytes(12)], 2, 2, _tags(8, 3, 2, {259: (3, [compression])})))
-    with pytest.raises(UnsupportedFormat, match=name):
-        imread(str(path))
+    want = cv2_rgb(path)
+    if name == "JPEG 2000":
+        np.testing.assert_array_equal(want, np.zeros((2, 2, 3), np.uint8))
+        np.testing.assert_array_equal(imread(str(path)), want)
+    else:
+        assert want is None and imread(str(path)) is None
 
 
 @pytest.mark.parametrize("tags,name", [
-    ({339: (3, [3])}, "float"), ({317: (3, [3])}, "float"), ({339: (3, [2])}, "signed"),
-    ({262: (3, [5])}, "CMYK"), ({262: (3, [6])}, "YCbCr"), ({262: (3, [8])}, "Lab"),
-    ({258: (3, [12, 12, 12])}, "12-bit")])
-def test_unported_samples_raise_naming_them(tmp_path, tags, name):
+    ({339: (3, [3])}, "float"), ({262: (3, [5])}, "CMYK"), ({258: (3, [12, 12, 12])}, "12-bit")])
+def test_samples_opencv_5_refuses_read_as_none(tmp_path, tags, name):
+    """Float samples, CMYK of three samples and 12-bit samples: None, as cv2."""
     path = tmp_path / "x.tif"
     path.write_bytes(encode_tiff([bytes(24)], 2, 2, {**_tags(8, 3, 2), **tags}))
-    with pytest.raises(UnsupportedFormat, match=name):
-        imread(str(path))
+    assert cv2.imread(str(path)) is None and imread(str(path)) is None
 
 
-def test_pil_jpeg_in_tiff_and_float_raise(tmp_path):
-    rgb = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(UnsupportedFormat, match="JPEG"):
-        imread(str(_write(tmp_path / "j.tif", _save(rgb, "jpeg"))))
+@pytest.mark.parametrize("tags,name", [
+    ({317: (3, [3])}, "float predictor"), ({339: (3, [2])}, "signed"),
+    ({262: (3, [6])}, "YCbCr"), ({262: (3, [8])}, "Lab")])
+def test_samples_libtiff_maps_read_as_cv2(tmp_path, tags, name):
+    """The floating-point predictor on integer samples (ignored), signed
+    samples, YCbCr (2x2 by default) and CIE Lab read as cv2 reads them
+    (``test_torch_tiff_colour.py`` holds each form at length)."""
+    rng = np.random.RandomState(len(name))
+    data = rng.randint(0, 256, 24).astype(np.uint8).tobytes()
+    check(tmp_path, encode_tiff([data], 2, 2, {**_tags(8, 3, 2), **tags}))
+
+
+def test_pil_jpeg_in_tiff_reads_and_float_reads_as_none(tmp_path):
+    rgb = Image.fromarray(_content((8, 8, 3), np.uint8, 4))
+    check(tmp_path, _save(rgb, "jpeg"))
     buf = io.BytesIO()
     Image.fromarray(np.zeros((4, 4), np.float32)).save(buf, "TIFF")
-    with pytest.raises(UnsupportedFormat, match="float"):
-        imread(str(_write(tmp_path / "f.tif", buf.getvalue())))
+    path = _write(tmp_path / "f.tif", buf.getvalue())
+    assert cv2.imread(str(path)) is None and imread(str(path)) is None
 
 
 def _write(path, data):

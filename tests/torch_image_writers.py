@@ -3,11 +3,18 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
 
 * :func:`encode_tiff`: a TIFF or BigTIFF from raw or already-compressed
   strips or tiles and any tags (both byte orders, a second page on
-  request);
+  request); :func:`thunderscan`, :func:`sgilog_rle`, :func:`ycbcr_blocks`,
+  :func:`mh_to_rlew` and :func:`lzw_compat`: ThunderScan, SGILog, packed
+  YCbCr, CCITT RLE/W and old-style LZW strip data;
 * :func:`encode_jpeg`: a baseline JPEG from component planes at any
   sampling factors (1-4), with any component ids, an Adobe APP14 marker
   and restart markers; fixed-length Huffman codes, so no table needs
-  building;
+  building (12-bit samples too); :func:`jpeg_tables_and_body` splits one
+  into a JPEG-in-TIFF tables stream and abbreviated stream;
+* :func:`encode_jpeg_arith` (with :class:`ArithEncoder`, ``jcarith.c``'s
+  QM coder): sequential or progressive arithmetic-coded JPEG with any scan
+  script, restarts and ``DAC`` conditioning; :func:`encode_jpeg_lossless`:
+  a lossless JPEG at any predictor and point transform;
 * :func:`exif_block`, :func:`with_jpeg_exif`, :func:`with_png_exif`: an
   EXIF orientation in either byte order, put into a JPEG or a PNG;
 * :func:`encode_bmp`, :func:`rle8`, :func:`rle4`: a BMP at any depth under
@@ -37,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 16: "Q", 17: "q", 18: "Q"}
+_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 7: "B", 8: "h", 16: "Q", 17: "q", 18: "Q"}
 
 
 def encode_tiff(chunks: Sequence[bytes], width: int, height: int,
@@ -113,6 +120,130 @@ def pack_bits(samples: np.ndarray, bps: int) -> np.ndarray:
     return (flat.reshape(rows, -1, per).astype(np.int64) << shifts).sum(axis=2).astype(np.uint8)
 
 
+def lzw_compat(data: bytes) -> bytes:
+    """Old-style TIFF LZW (before TIFF 5): codes LSB first, the width grown
+    when the next code passes the width's limit, a clear code first."""
+    table = {bytes([i]): i for i in range(256)}
+    codes, width, nxt, w = [(256, 9)], 9, 258, b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], width))
+        table[wc] = nxt
+        nxt += 1
+        if nxt > 1 << width and width < 12:
+            width += 1
+        w = bytes([byte])
+    if w:
+        codes.append((table[w], width))
+    codes.append((257, width))
+    acc = nbits = 0
+    out = bytearray()
+    for code, size in codes:
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc)
+    return bytes(out)
+
+
+def thunderscan(values: np.ndarray, runs: bool = True, seed: int = 0) -> bytes:
+    """ThunderScan (compression 32809) rows of 4-bit ``values``: each row
+    from last pixel 0, as runs of the last pixel (``runs``), three 2-bit or
+    two 3-bit deltas where they fit, else raw values; ``seed`` varies the
+    choice between the codes that fit."""
+    rng = np.random.RandomState(seed)
+    out = bytearray()
+    for row in values.astype(np.int64).tolist():
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            n = 0
+            while runs and i + n < w and row[i + n] == last and n < 63:
+                n += 1
+            if n >= 2 or (n == 1 and rng.rand() < 0.3):
+                out.append(n)
+                i += n
+                continue
+            d2 = [(row[i + k] - (row[i + k - 1] if k else last)) % 16 for k in range(min(3, w - i))]
+            if len(d2) == 3 and all(d in (0, 1, 15) for d in d2) and rng.rand() < 0.8:
+                out.append(0x40 | sum({0: 0, 1: 1, 15: 3}[d] << s for d, s in zip(d2, (4, 2, 0))))
+                last, i = row[i + 2], i + 3
+                continue
+            d3 = d2[:2]
+            if len(d3) == 2 and all(d in (0, 1, 2, 3, 13, 14, 15) for d in d3) and rng.rand() < 0.8:
+                code = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+                out.append(0x80 | (code[d3[0]] << 3) | code[d3[1]])
+                last, i = row[i + 1], i + 2
+                continue
+            out.append(0xC0 | row[i])
+            last, i = row[i], i + 1
+    return bytes(out)
+
+
+def sgilog_rle(values: np.ndarray, nbytes: int, runs: bool = True) -> bytes:
+    """SGILog run-length rows (compression 34676) of ``nbytes``-byte codes
+    (2: LogL, 4: LogLuv): each row's byte planes, high byte first, as runs
+    (a byte of 128 + n - 2 then the value, for n of 2-129) and literal
+    spans (a count of 1-127, then the bytes)."""
+    out = bytearray()
+    for row in values.astype(np.int64):
+        for shift in range(8 * (nbytes - 1), -1, -8):
+            plane = ((row >> shift) & 0xFF).tolist()
+            i = 0
+            while i < len(plane):
+                n = 1
+                while runs and i + n < len(plane) and plane[i + n] == plane[i] and n < 129:
+                    n += 1
+                if n >= 3:
+                    out += bytes([128 + n - 2, plane[i]])
+                    i += n
+                    continue
+                j = i
+                while j < len(plane) and j - i < 127 and not (
+                        runs and j + 2 < len(plane) and plane[j] == plane[j + 1] == plane[j + 2]):
+                    j += 1
+                j = max(j, i + 1)
+                out += bytes([j - i]) + bytes(plane[i:j])
+                i = j
+    return bytes(out)
+
+
+def ycbcr_blocks(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """Contiguous TIFF YCbCr data of (h, w, 3) samples subsampled hs x vs:
+    blocks of hs x vs luma samples (edge samples repeated) then the
+    block's top-left Cb and Cr, block rows of ceil(w / hs) blocks."""
+    h, w, _ = ycc.shape
+    by, bx = -(-h // vs), -(-w // hs)
+    pad = np.pad(ycc, ((0, by * vs - h), (0, bx * hs - w), (0, 0)), mode="edge")
+    y = pad[..., 0].reshape(by, vs, bx, hs).transpose(0, 2, 1, 3).reshape(by, bx, vs * hs)
+    chroma = pad[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], axis=2).astype(np.uint8).tobytes()
+
+
+def mh_to_rlew(strip: bytes, width: int, rows: int) -> bytes:
+    """A CCITT MH strip (compression 2, rows on byte boundaries) re-aligned
+    to 16-bit words, as CCITT RLE/W (32771) lays its rows out."""
+    from molnextr_tpu_torch.data import ccitt
+
+    white, black, _ = ccitt._tables()
+    reader = ccitt._Reader(strip)
+    bits = np.unpackbits(np.frombuffer(strip, np.uint8))
+    out = []
+    for _ in range(rows):
+        start = reader.pos
+        ccitt._row_1d(reader, width, white, black)
+        row = bits[start : reader.pos]
+        out.append(np.concatenate([row, np.zeros((-len(row)) % 16, np.uint8)]))
+        reader.pos = (reader.pos + 7) & ~7
+    return np.packbits(np.concatenate(out)).tobytes()
+
+
 def exif_block(orientation: int, order: str = ">") -> bytes:
     """A TIFF-structured EXIF block whose IFD0 holds the orientation."""
     head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", 8)
@@ -172,16 +303,14 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
 
-def encode_jpeg(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]],
-                ids: Optional[Sequence[int]] = None, quality_step: int = 4,
-                adobe: Optional[int] = None, jfif: bool = False, restart: int = 0) -> bytes:
-    """A baseline JPEG of component planes (full image size each; a plane is
-    subsampled by its factors against the largest) with one flat
-    quantisation table."""
+def _jpeg_coefficients(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]],
+                       quality_step: int, precision: int = 8) -> List[np.ndarray]:
+    """Each plane subsampled by its factors, padded to whole MCUs and
+    transformed: (block rows, block columns, 64) quantised coefficients in
+    zig-zag order."""
     h, w = planes[0].shape
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
-    ids = list(ids) if ids is not None else list(range(1, len(planes) + 1))
     mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
     comps = []
     for plane, (fh, fv) in zip(planes, factors):
@@ -190,61 +319,459 @@ def encode_jpeg(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]]
         xs = (np.arange(cw) * hmax // fh).clip(0, w - 1)
         sub = plane.astype(np.float64)[ys][:, xs]
         full = np.pad(sub, ((0, mcuy * fv * 8 - ch), (0, mcux * fh * 8 - cw)), mode="edge")
-        blocks = full.reshape(mcuy * fv, 8, mcux * fh, 8).transpose(0, 2, 1, 3) - 128
+        blocks = full.reshape(mcuy * fv, 8, mcux * fh, 8).transpose(0, 2, 1, 3) \
+            - (1 << (precision - 1))
         coef = np.einsum("ij,abjk,lk->abil", _DCT, blocks, _DCT)
         comps.append(np.rint(coef / quality_step).astype(np.int64).reshape(
             mcuy * fv, mcux * fh, 64)[:, :, _ZIGZAG])
+    return comps
+
+
+def _jpeg_head(planes, factors, ids, quality_step, adobe, jfif, sof: int,
+               precision: int = 8) -> bytearray:
+    h, w = planes[0].shape
     out = bytearray(b"\xff\xd8")
     if jfif:
         out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
     if adobe is not None:
         out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
-    out += _segment(0xDB, bytes([0]) + bytes([quality_step]) * 64)
-    sof = struct.pack(">BHHB", 8, h, w, len(planes))
+    if quality_step:
+        out += _segment(0xDB, bytes([0]) + bytes([quality_step]) * 64)
+    body = struct.pack(">BHHB", precision, h, w, len(planes))
     for cid, (fh, fv) in zip(ids, factors):
-        sof += bytes([cid, (fh << 4) | fv, 0])
-    out += _segment(0xC0, sof)
-    out += _segment(0xC4, bytes([0x00]) + bytes([0, 0, 0, 12] + [0] * 12) + bytes(_DC_SYMBOLS))
+        body += bytes([cid, (fh << 4) | fv, 0])
+    out += _segment(sof, body)
+    return out
+
+
+def _mcu_blocks(comps, factors, mcux, mcuy):
+    """Per MCU in raster order: the (component, block) pairs of an
+    interleaved scan."""
+    for my in range(mcuy):
+        for mx in range(mcux):
+            yield [(k, comp[my * fv + v, mx * fh + hh]) for k, (comp, (fh, fv))
+                   in enumerate(zip(comps, factors)) for v in range(fv) for hh in range(fh)]
+
+
+def encode_jpeg(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]],
+                ids: Optional[Sequence[int]] = None, quality_step: int = 4,
+                adobe: Optional[int] = None, jfif: bool = False, restart: int = 0,
+                precision: int = 8) -> bytes:
+    """A baseline JPEG of component planes (full image size each; a plane is
+    subsampled by its factors against the largest) with one flat
+    quantisation table (``precision`` 12: an extended-sequential SOF1 frame
+    of 12-bit samples)."""
+    h, w = planes[0].shape
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    ids = list(ids) if ids is not None else list(range(1, len(planes) + 1))
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps = _jpeg_coefficients(planes, factors, quality_step, precision)
+    out = _jpeg_head(planes, factors, ids, quality_step, adobe, jfif,
+                     0xC0 if precision == 8 else 0xC1, precision)
+    dc_symbols = _DC_SYMBOLS + ([12, 13, 14, 15] if precision > 8 else [])
+    dc_counts = [0, 0, 0, len(dc_symbols)] + [0] * 12
+    out += _segment(0xC4, bytes([0x00]) + bytes(dc_counts) + bytes(dc_symbols))
+    ac_symbols = _AC_SYMBOLS + ([(r << 4) | s for r in range(16) for s in range(11, 15)]
+                                if precision > 8 else [])
     ac_counts = [0] * 16
-    ac_counts[7] = len(_AC_SYMBOLS)
-    out += _segment(0xC4, bytes([0x10]) + bytes(ac_counts) + bytes(_AC_SYMBOLS))
+    ac_counts[8 if precision > 8 else 7] = len(ac_symbols)
+    ac_len = 9 if precision > 8 else 8
+    out += _segment(0xC4, bytes([0x10]) + bytes(ac_counts) + bytes(ac_symbols))
     if restart:
         out += _segment(0xDD, struct.pack(">H", restart))
     sos = bytes([len(planes)]) + b"".join(bytes([cid, 0x00]) for cid in ids) + bytes([0, 63, 0])
     out += _segment(0xDA, sos)
-    dc_code = {s: i for i, s in enumerate(_DC_SYMBOLS)}
-    ac_code = {s: i for i, s in enumerate(_AC_SYMBOLS)}
+    dc_code = {s: i for i, s in enumerate(dc_symbols)}
+    ac_code = {s: i for i, s in enumerate(ac_symbols)}
     writer = _BitWriter()
     pred = [0] * len(planes)
-    mcu = 0
-    for my in range(mcuy):
-        for mx in range(mcux):
+    for mcu, blocks in enumerate(_mcu_blocks(comps, factors, mcux, mcuy)):
+        if restart and mcu and mcu % restart == 0:
+            out += writer.flush() + bytes([0xFF, 0xD0 + (mcu // restart - 1) % 8])
+            pred = [0] * len(planes)
+        for k, blk in blocks:
+            blk = blk.tolist()
+            s, bits = _category(blk[0] - pred[k])
+            pred[k] = blk[0]
+            writer.put(dc_code[s], 4)
+            writer.put(bits, s)
+            run = 0
+            for c in blk[1:]:
+                if c == 0:
+                    run += 1
+                    continue
+                while run > 15:
+                    writer.put(ac_code[0xF0], ac_len)
+                    run -= 16
+                s, bits = _category(c)
+                writer.put(ac_code[(run << 4) | s], ac_len)
+                writer.put(bits, s)
+                run = 0
+            if run:
+                writer.put(ac_code[0x00], ac_len)
+    out += writer.flush() + b"\xff\xd9"
+    return bytes(out)
+
+
+def jpeg_tables_and_body(jpeg: bytes) -> Tuple[bytes, bytes]:
+    """A JPEG split as a JPEG-in-TIFF writer splits it: the tables-only
+    stream (SOI, every DQT, DHT, DAC and DRI, EOI) for ``JPEGTables`` and
+    the abbreviated stream of the rest."""
+    tables, body = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    pos = 2
+    while jpeg[pos + 1] != 0xDA:
+        length = struct.unpack(">H", jpeg[pos + 2 : pos + 4])[0]
+        seg = jpeg[pos : pos + 2 + length]
+        (tables if jpeg[pos + 1] in (0xDB, 0xC4, 0xCC, 0xDD) else body).extend(seg)
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(body + jpeg[pos:])
+
+
+# -- the arithmetic coder of T.81 Annex D (libjpeg's jcarith.c) ----------------------
+
+# Qe, next index after an LPS, next index after an MPS, switch: T.81 Table D.2,
+# and libjpeg's entry 113, the fixed probability 0.5 of sign bits
+_QE = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0),
+]
+
+
+class ArithEncoder:
+    """The QM coder of T.81 Annex D as libjpeg's ``jcarith.c`` writes it:
+    ``encode(bins, index, bit)`` codes one decision in a statistics bin (a
+    state index with the MPS in bit 7); ``flush()`` ends the segment
+    (D.1.8) and returns its stuffed bytes."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def _zeros(self) -> None:
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def encode(self, bins, i: int, bit: int) -> None:
+        sv = bins[i]
+        qe, nlps, nmps, switch = _QE[sv & 0x7F]
+        self.a -= qe
+        if bit != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ (nlps | (switch << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer + 1)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        self.out += b"\xff\x00" * self.sc
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def flush(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        out = bytes(self.out)
+        self.__init__()
+        return out
+
+
+def _arith_value(enc: ArithEncoder, bins, st: int, v: int, x_bin: int, ac: bool, fixed) -> int:
+    """F.6-F.9: a nonzero value's sign, magnitude category and bits; returns
+    the category's top bit ``m``."""
+    if ac:
+        enc.encode(fixed, 0, int(v < 0))
+        st += 2
+    else:
+        enc.encode(bins, st + 1, int(v < 0))
+        st += 3 if v < 0 else 2
+    v = abs(v) - 1
+    m = 0
+    if v:
+        enc.encode(bins, st, 1)
+        m = 1
+        v2 = v
+        if ac:
+            v2 >>= 1
+            if v2:
+                enc.encode(bins, st, 1)
+                m <<= 1
+                st = x_bin
+                while v2 >> 1:
+                    v2 >>= 1
+                    enc.encode(bins, st, 1)
+                    m <<= 1
+                    st += 1
+        else:
+            st = x_bin
+            while v2 >> 1:
+                v2 >>= 1
+                enc.encode(bins, st, 1)
+                m <<= 1
+                st += 1
+    enc.encode(bins, st, 0)
+    st += 14
+    mm = m
+    while mm > 1:
+        mm >>= 1
+        enc.encode(bins, st, int(bool(mm & v)))
+    return m
+
+
+def _dc_context(m: int, negative: bool, lower: int, upper: int) -> int:
+    if m < (1 << lower) >> 1:
+        return 0
+    return (12 if m > (1 << upper) >> 1 else 4) + 4 * negative
+
+
+def encode_jpeg_arith(planes: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]],
+                      scans: Optional[Sequence[Tuple[Sequence[int], int, int, int, int]]] = None,
+                      ids: Optional[Sequence[int]] = None, quality_step: int = 4,
+                      restart: int = 0, dac: Sequence[Tuple[int, int]] = (),
+                      jfif: bool = False, adobe: Optional[int] = None) -> bytes:
+    """An arithmetic-coded JPEG: sequential (SOF9) when ``scans`` is None,
+    else progressive (SOF10) with scans of (components, Ss, Se, Ah, Al);
+    ``dac`` holds (Tc << 4 | Tb, value) conditioning entries.  Every
+    component uses DC and AC conditioning table 0."""
+    h, w = planes[0].shape
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    ids = list(ids) if ids is not None else list(range(1, len(planes) + 1))
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps = _jpeg_coefficients(planes, factors, quality_step)
+    zz = [c.tolist() for c in comps]  # per block, zig-zag order
+    out = _jpeg_head(planes, factors, ids, quality_step, adobe, jfif,
+                     0xC9 if scans is None else 0xCA)
+    lower, upper, kx = 0, 1, 5
+    if dac:
+        out += _segment(0xCC, b"".join(bytes(d) for d in dac))
+        for index, val in dac:
+            if index == 0x10:
+                kx = val
+            elif index == 0:
+                lower, upper = val & 15, val >> 4
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    progressive = scans is not None
+    if scans is None:
+        scans = [(list(range(len(planes))), 0, 63, 0, 0)]
+    for members, ss, se, ah, al in scans:
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(
+            bytes([ids[k], 0x00]) for k in members) + bytes([ss, se, (ah << 4) | al]))
+        if len(members) > 1:
+            mcus = [[(members.index(k), zz[k][by][bx]) for k in members
+                     for by, bx in _blocks_of(k, factors, my, mx)]
+                    for my in range(mcuy) for mx in range(mcux)]
+        else:
+            k = members[0]
+            fh, fv = factors[k]
+            cw, ch = -(-(-(-w * fh // hmax)) // 8), -(-(-(-h * fv // vmax)) // 8)
+            mcus = [[(0, zz[k][by][bx])] for by in range(ch) for bx in range(cw)]
+        enc = ArithEncoder()
+        fixed = [113]
+        for mcu, blocks in enumerate(mcus):
+            if mcu % (restart or len(mcus) + 1) == 0:
+                if mcu:
+                    out += enc.flush() + bytes([0xFF, 0xD0 + (mcu // restart - 1) % 8])
+                dc_bins, ac_bins = [0] * 64, [0] * 256
+                last, ctx = [0] * len(members), [0] * len(members)
+            for ci, blk in blocks:
+                if not progressive or (ss == 0 and ah == 0):
+                    dc = blk[0] >> al
+                    st = ctx[ci]
+                    diff = dc - last[ci]
+                    if diff == 0:
+                        enc.encode(dc_bins, st, 0)
+                        ctx[ci] = 0
+                    else:
+                        last[ci] = dc
+                        enc.encode(dc_bins, st, 1)
+                        m = _arith_value(enc, dc_bins, st, diff, 20, False, fixed)
+                        ctx[ci] = _dc_context(m, diff < 0, lower, upper)
+                elif ss == 0:
+                    enc.encode(fixed, 0, (blk[0] >> al) & 1)
+                if progressive and ss == 0:
+                    continue
+                lo = 1 if not progressive else ss
+                hi = 63 if not progressive else se
+
+                def point(k):
+                    v = blk[k]
+                    return (abs(v) >> al) * (1 if v >= 0 else -1)
+
+                ke = hi
+                while ke > 0 and point(ke) == 0:
+                    ke -= 1
+                kex = 0
+                if ah:
+                    kex = ke
+                    while kex > 0 and (abs(blk[kex]) >> ah) == 0:
+                        kex -= 1
+                k = lo
+                while k <= ke:
+                    st = 3 * (k - 1)
+                    if not ah or k > kex:
+                        enc.encode(ac_bins, st, 0)
+                    while True:
+                        v = point(k)
+                        if v:
+                            if ah and abs(v) >> 1:
+                                enc.encode(ac_bins, st + 2, abs(v) & 1)
+                            elif ah:
+                                enc.encode(ac_bins, st + 1, 1)
+                                enc.encode(fixed, 0, int(v < 0))
+                            else:
+                                enc.encode(ac_bins, st + 1, 1)
+                                _arith_value(enc, ac_bins, st, v, 189 if k <= kx else 217,
+                                             True, fixed)
+                            break
+                        enc.encode(ac_bins, st + 1, 0)
+                        st += 3
+                        k += 1
+                    k += 1
+                if k <= hi:
+                    enc.encode(ac_bins, 3 * (k - 1), 1)
+        out += enc.flush()
+    return bytes(out + b"\xff\xd9")
+
+
+def _blocks_of(k, factors, my, mx):
+    fh, fv = factors[k]
+    return [(my * fv + v, mx * fh + hh) for v in range(fv) for hh in range(fh)]
+
+
+def encode_jpeg_lossless(planes: Sequence[np.ndarray], predictor: int, pt: int = 0,
+                         precision: int = 8, ids: Optional[Sequence[int]] = None,
+                         restart: int = 0, jfif: bool = False,
+                         adobe: Optional[int] = None) -> bytes:
+    """A lossless JPEG (SOF3) of full-size component planes of
+    ``precision``-bit samples, one interleaved scan with the given predictor
+    (1-7) and point transform; the differences in fixed 5-bit codes of
+    categories 0-16.  ``restart`` is in MCUs (samples of every component)."""
+    h, w = planes[0].shape
+    n = len(planes)
+    ids = list(ids) if ids is not None else list(range(1, n + 1))
+    out = _jpeg_head(planes, [(1, 1)] * n, ids, 0, adobe, jfif, 0xC3, precision)
+    symbols = list(range(17))
+    out += _segment(0xC4, bytes([0x00]) + bytes([0, 0, 0, 0, 17] + [0] * 11) + bytes(symbols))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    out += _segment(0xDA, bytes([n]) + b"".join(bytes([cid, 0x00]) for cid in ids)
+                    + bytes([predictor, 0, pt]))
+    assert restart % w == 0, "restart intervals of whole rows"
+    x = [p.astype(np.int64) >> pt for p in planes]
+    writer = _BitWriter()
+    first_row = 0
+    for y in range(h):
+        for xx in range(w):
+            mcu = y * w + xx
             if restart and mcu and mcu % restart == 0:
                 out += writer.flush() + bytes([0xFF, 0xD0 + (mcu // restart - 1) % 8])
-                pred = [0] * len(planes)
-            mcu += 1
-            for k, (comp, (fh, fv)) in enumerate(zip(comps, factors)):
-                for v in range(fv):
-                    for hh in range(fh):
-                        blk = comp[my * fv + v, mx * fh + hh].tolist()
-                        s, bits = _category(blk[0] - pred[k])
-                        pred[k] = blk[0]
-                        writer.put(dc_code[s], 4)
-                        writer.put(bits, s)
-                        run = 0
-                        for c in blk[1:]:
-                            if c == 0:
-                                run += 1
-                                continue
-                            while run > 15:
-                                writer.put(ac_code[0xF0], 8)
-                                run -= 16
-                            s, bits = _category(c)
-                            writer.put(ac_code[(run << 4) | s], 8)
-                            writer.put(bits, s)
-                            run = 0
-                        if run:
-                            writer.put(ac_code[0x00], 8)
+                first_row = y
+            for k in range(n):
+                p = x[k]
+                if y == first_row:
+                    pred = p[y, xx - 1] if xx else 1 << (precision - pt - 1)
+                elif xx == 0:
+                    pred = p[y - 1, 0]
+                else:
+                    ra, rb, rc = p[y, xx - 1], p[y - 1, xx], p[y - 1, xx - 1]
+                    pred = [0, ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                            rb + ((ra - rc) >> 1), (ra + rb) >> 1][predictor]
+                diff = (int(p[y, xx]) - int(pred)) & 0xFFFF
+                if diff >= 0x8000:
+                    diff -= 0x10000
+                if diff == -0x8000:
+                    writer.put(16, 5)
+                    continue
+                s, bits = _category(diff)
+                writer.put(s, 5)
+                writer.put(bits, s)
     out += writer.flush() + b"\xff\xd9"
     return bytes(out)
 
