@@ -213,7 +213,8 @@ READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
 READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
-                "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg")
+                "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
+                "big_lossless.avif")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -1976,7 +1977,7 @@ def corpus_csvs(work, n_train, n_valid):
 
 
 def image_forms(torch, card, bundle, work, want):
-    """The JPEG, TIFF, raster, WebP, JPEG 2000 and oriented PNG forms of
+    """The JPEG, TIFF, raster, WebP, JPEG 2000, AVIF and oriented PNG forms of
     demo_0.png in ``fixtures/forms``: each read by ``imread`` to the array
     ``cv2.imread`` gave (``arrays.npz``); ``predict.main`` on them (the demo
     bundle, bf16) with the launch counters zeroed before and read after
@@ -1985,7 +1986,7 @@ def image_forms(torch, card, bundle, work, want):
     demo_0.png's, those of the lossy JPEG, HDR, WebP and 9/7 forms equal in
     every symbol and within one bin in every coordinate; which files this
     machine's cv2 reads to the same array (information: its cv2 may not
-    turn WebP by EXIF, read an animation or read JPEG 2000 at all) and its
+    turn WebP by EXIF, read an animation, or read JPEG 2000 or AVIF at all) and its
     ms on the 1024 x 1024 files; and the readers' host ms on those files,
     the median of ``READER_REPS`` reads (one where the first passes
     ``READER_ONE_READ_MS``)."""
@@ -2052,6 +2053,8 @@ def image_forms(torch, card, bundle, work, want):
         same = json.loads(probe.stdout)["same_array"]
         log("  the new TIFF and JPEG forms read alike by this machine's cv2 "
             f"(information): {json.dumps({n: same.get(n) for n in TIFF_JPEG_FORMS})}")
+        log("  the AVIF forms read at all by this machine's cv2 (information): "
+            f"{json.dumps(json.loads(probe.stdout)['avif_read'])}")
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
@@ -2079,13 +2082,14 @@ def image_forms(torch, card, bundle, work, want):
 
 # forms read with a loss that may move a coordinate by one bin (RGBE rounds
 # a grey level by at most one; the lossy WebP and 9/7 JPEG 2000 forms), and
-# the lossless forms of the BMP, PNM, GIF, Sun raster, BigTIFF, WebP and
-# JPEG 2000 readers
+# the lossless forms of the BMP, PNM, GIF, Sun raster, BigTIFF, WebP,
+# JPEG 2000 and AVIF readers
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
                "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
-                      "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg")
+                      "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",
+                      "_lossless.avif")
 # the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
 # TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
 # smoothing: whether the card machine's cv2 reads them alike is logged apart
@@ -2138,7 +2142,7 @@ import cv2
 import numpy as np
 folder = sys.argv[1]
 stored = np.load(os.path.join(folder, 'arrays.npz'))
-same, shape, jpeg2000 = {}, {}, {}
+same, shape, jpeg2000, avif = {}, {}, {}, {}
 for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
     try:
         img = cv2.imread(os.path.join(folder, name))
@@ -2150,6 +2154,8 @@ for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
         shape[name] = None if img is None else list(img.shape[:2])
     if name.endswith(('.jp2', '.j2k')):  # read at all (OpenJPEG in this build or not)
         jpeg2000[name] = img is not None
+    if name.endswith('.avif'):  # read at all (libavif in this build or not)
+        avif[name] = img is not None
 ms = {}
 for name in sys.argv[2:]:  # cv2's own host ms on the readers' timing files, median of 3
     spent = []
@@ -2159,7 +2165,7 @@ for name in sys.argv[2:]:  # cv2's own host ms on the readers' timing files, med
         spent.append((time.perf_counter() - t0) * 1e3)
     ms[name] = sorted(spent)[1]
 print(json.dumps({'cv2': cv2.__version__, 'same_array': same, 'webp_shape': shape,
-                  'jpeg2000_read': jpeg2000, 'cv2_ms': ms}))
+                  'jpeg2000_read': jpeg2000, 'avif_read': avif, 'cv2_ms': ms}))
 """
 
 

@@ -1,0 +1,583 @@
+"""AV1 OBUs and the headers of an intra frame (the AV1 specification,
+sections 5.3-5.9), as an AVIF image item carries them.
+
+:func:`parse_obus` walks the OBUs of an item (``obu_has_size_field``, or
+one last OBU that runs to the end), reads the sequence header
+(``reduced_still_picture_header`` or not, ``color_config`` at 8, 10 and 12
+bits, monochrome, the subsampling) and the first shown frame's
+``uncompressed_header``: a KEY_FRAME or INTRA_ONLY frame, its size and
+render size, ``allow_screen_content_tools``, ``allow_intrabc``,
+``tile_info`` (uniform or not), quantisation with ``qm``, segmentation,
+``delta_q``/``delta_lf``, and the loop filter, CDEF, loop restoration,
+``tx_mode``, ``reduced_tx_set`` and film grain syntax behind them.  It
+returns the frame's tiles as byte ranges.
+
+Only a *coded lossless* frame is decoded (``base_q_idx`` 0 in every
+segment, no quantiser deltas): every transform is then the 4 x 4
+Walsh-Hadamard one and the loop filters are off.  Any other frame raises
+:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` once its header
+has been read to its end and found whole (a header libaom would refuse is
+an ``AV1Error``, None), as do superres and film grain (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+from molnextr_tpu_torch.data.image import UnsupportedFormat
+
+LOSSY = ("lossy AV1 frames (quantised transforms, deblocking, CDEF, loop restoration, "
+         "film grain) are not decoded by the port yet (ROADMAP queue 1)")
+_SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+_SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+_SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+
+
+class AV1Error(ValueError):
+    """An AV1 bitstream libaom refuses."""
+
+
+class BitReader:
+    """MSB-first bits of ``data[start:end]``; reading past the end fails."""
+
+    def __init__(self, data: bytes, start: int = 0, end: Optional[int] = None):
+        self.data, self.bit, self.limit = data, start * 8, (len(data) if end is None else end) * 8
+
+    def f(self, n: int) -> int:
+        if self.bit + n > self.limit:
+            raise AV1Error("AV1: header runs past its OBU")
+        x = 0
+        for _ in range(n):
+            x = (x << 1) | ((self.data[self.bit >> 3] >> (7 - (self.bit & 7))) & 1)
+            self.bit += 1
+        return x
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+            if zeros >= 32:
+                return (1 << 32) - 1
+        return self.f(zeros) + (1 << zeros) - 1
+
+    def le(self, n: int) -> int:
+        return sum(self.f(8) << (8 * i) for i in range(n))
+
+    def align(self) -> None:
+        """``byte_alignment``: zero bits up to the next byte (libaom fails a
+        frame whose alignment bits are not zero)."""
+        while self.bit & 7:
+            if self.f(1):
+                raise AV1Error("AV1: nonzero alignment bits")
+
+    def trailing(self) -> None:
+        """``trailing_bits`` after a header: a one bit, zeros to the byte's
+        end (libaom's ``check_trailing_bits``)."""
+        n = 8 - self.bit % 8
+        if self.f(n) != 1 << (n - 1):
+            raise AV1Error("AV1: header without its trailing bits")
+
+
+def leb128(data: bytes, pos: int) -> Tuple[int, int]:
+    value = 0
+    for i in range(8):
+        if pos >= len(data):
+            raise AV1Error("AV1: OBU size runs past the data")
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            return value, pos
+    return value, pos
+
+
+@dataclass
+class Sequence:
+    profile: int = 0
+    reduced: bool = False
+    use_128: bool = False
+    enable_filter_intra: bool = False
+    enable_intra_edge_filter: bool = False
+    screen_tools: int = 2  # seq_force_screen_content_tools
+    integer_mv: int = 2  # seq_force_integer_mv
+    order_hint_bits: int = 0
+    enable_superres: bool = False
+    enable_cdef: bool = False
+    enable_restoration: bool = False
+    bit_depth: int = 8
+    mono: bool = False
+    ss_x: int = 1
+    ss_y: int = 1
+    primaries: int = 2
+    transfer: int = 2
+    matrix: int = 2
+    full_range: bool = False
+    separate_uv_delta_q: bool = False
+    film_grain: bool = False
+    width_bits: int = 0
+    height_bits: int = 0
+    max_width: int = 0
+    max_height: int = 0
+    frame_id_bits: int = 0  # 0 without frame ids
+    decoder_model: bool = False
+    equal_picture_interval: bool = False
+    buffer_removal_bits: int = 0
+    presentation_bits: int = 0
+    op_idc: List[int] = field(default_factory=list)
+    op_model: List[bool] = field(default_factory=list)
+
+    @property
+    def planes(self) -> int:
+        return 1 if self.mono else 3
+
+
+def sequence_header(r: BitReader) -> Sequence:
+    s = Sequence()
+    s.profile = r.f(3)
+    if s.profile > 2:
+        raise AV1Error(f"AV1: profile {s.profile}")
+    r.f(1)  # still_picture
+    s.reduced = bool(r.f(1))
+    if s.reduced:
+        _level(r.f(5))
+        s.op_idc, s.op_model = [0], [False]
+    else:
+        if r.f(1):  # timing_info_present_flag
+            r.f(32)
+            r.f(32)
+            s.equal_picture_interval = bool(r.f(1))
+            if s.equal_picture_interval:
+                r.uvlc()
+            s.decoder_model = bool(r.f(1))
+            if s.decoder_model:
+                delay_bits = r.f(5) + 1
+                r.f(32)
+                s.buffer_removal_bits = r.f(5) + 1
+                s.presentation_bits = r.f(5) + 1
+        else:
+            s.decoder_model = False
+        initial_delay = r.f(1)
+        for _ in range(r.f(5) + 1):
+            s.op_idc.append(r.f(12))
+            if _level(r.f(5)) > 7:
+                r.f(1)  # seq_tier
+            model = False
+            if s.decoder_model:
+                model = bool(r.f(1))
+                if model:
+                    r.f(delay_bits)
+                    r.f(delay_bits)
+                    r.f(1)
+            s.op_model.append(model)
+            if initial_delay and r.f(1):
+                r.f(4)
+    s.width_bits, s.height_bits = r.f(4) + 1, r.f(4) + 1
+    s.max_width, s.max_height = r.f(s.width_bits) + 1, r.f(s.height_bits) + 1
+    if not s.reduced and r.f(1):  # frame_id_numbers_present_flag
+        delta = r.f(4) + 2
+        s.frame_id_bits = r.f(3) + delta + 1
+    s.use_128 = bool(r.f(1))
+    s.enable_filter_intra = bool(r.f(1))
+    s.enable_intra_edge_filter = bool(r.f(1))
+    if not s.reduced:
+        r.f(4)  # interintra, masked compound, warped motion, dual filter
+        if r.f(1):  # enable_order_hint
+            r.f(2)  # jnt_comp, ref_frame_mvs
+            order_hint = True
+        else:
+            order_hint = False
+        s.screen_tools = 2 if r.f(1) else r.f(1)
+        if s.screen_tools > 0:
+            s.integer_mv = 2 if r.f(1) else r.f(1)
+        if order_hint:
+            s.order_hint_bits = r.f(3) + 1
+    s.enable_superres = bool(r.f(1))
+    s.enable_cdef = bool(r.f(1))
+    s.enable_restoration = bool(r.f(1))
+    _color_config(r, s)
+    s.film_grain = bool(r.f(1))
+    return s
+
+
+def _level(idx: int) -> int:
+    """A ``seq_level_idx`` libaom 3.14 defines (or 31, no level)."""
+    if idx != 31 and (idx >= 20 or idx in (2, 3, 6, 7, 10, 11)):
+        raise AV1Error(f"AV1: seq_level_idx {idx} is not defined")
+    return idx
+
+
+def _color_config(r: BitReader, s: Sequence) -> None:
+    high = r.f(1)
+    if s.profile == 2 and high:
+        s.bit_depth = 12 if r.f(1) else 10
+    else:
+        s.bit_depth = 10 if high else 8
+    s.mono = bool(r.f(1)) if s.profile != 1 else False
+    if r.f(1):  # color_description_present_flag
+        s.primaries, s.transfer, s.matrix = r.f(8), r.f(8), r.f(8)
+    if s.mono:
+        s.full_range = bool(r.f(1))
+        s.ss_x = s.ss_y = 1
+        return
+    if s.primaries == 1 and s.transfer == 13 and s.matrix == 0:
+        s.full_range = True
+        s.ss_x = s.ss_y = 0
+    else:
+        s.full_range = bool(r.f(1))
+        if s.profile == 0:
+            s.ss_x = s.ss_y = 1
+        elif s.profile == 1:
+            s.ss_x = s.ss_y = 0
+        elif s.bit_depth == 12:
+            s.ss_x = r.f(1)
+            s.ss_y = r.f(1) if s.ss_x else 0
+        else:
+            s.ss_x, s.ss_y = 1, 0
+        if s.ss_x and s.ss_y:
+            r.f(2)  # chroma_sample_position
+    s.separate_uv_delta_q = bool(r.f(1))
+
+
+@dataclass
+class Frame:
+    """What decoding an intra frame needs of its header."""
+
+    width: int = 0
+    height: int = 0
+    mi_cols: int = 0
+    mi_rows: int = 0
+    intra_only: bool = False
+    disable_cdf_update: bool = False
+    screen_tools: bool = False
+    allow_intrabc: bool = False
+    base_q_idx: int = 0
+    seg_enabled: bool = False
+    seg_features: List[List[Optional[int]]] = field(default_factory=list)
+    seg_id_pre_skip: bool = False
+    last_active_seg_id: int = 0
+    col_starts: List[int] = field(default_factory=list)
+    row_starts: List[int] = field(default_factory=list)
+    tile_cols_log2: int = 0
+    tile_rows_log2: int = 0
+    tile_size_bytes: int = 4
+    unsupported: str = ""  # what the port does not decode in this frame, if anything
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -> Frame:
+    """``uncompressed_header`` of a shown intra frame; raises for the rest."""
+    fr = Frame()
+    if s.reduced:
+        frame_type, show_frame = 0, True
+    else:
+        if r.f(1):
+            raise UnsupportedFormat("show_existing_frame (an image sequence) is not "
+                                    "decoded by the port (ROADMAP queue 1)")
+        frame_type = r.f(2)
+        show_frame = bool(r.f(1))
+        if frame_type not in (0, 2) or not show_frame:
+            raise UnsupportedFormat("an inter or hidden AV1 frame (an image sequence) is not "
+                                    "decoded by the port (ROADMAP queue 1)")
+        if s.decoder_model and not s.equal_picture_interval:
+            r.f(s.presentation_bits)
+        error_resilient = True if frame_type == 0 else bool(r.f(1))
+    fr.intra_only = frame_type == 2
+    fr.disable_cdf_update = bool(r.f(1))
+    fr.screen_tools = bool(r.f(1) if s.screen_tools == 2 else s.screen_tools)
+    if fr.screen_tools and s.integer_mv == 2:
+        r.f(1)  # force_integer_mv: 1 in an intra frame whatever this says
+    if s.frame_id_bits:
+        r.f(s.frame_id_bits)
+    size_override = 0 if s.reduced else r.f(1)
+    r.f(s.order_hint_bits)
+    if s.decoder_model and r.f(1):  # buffer_removal_time_present_flag
+        for idc, model in zip(s.op_idc, s.op_model):
+            if model:
+                in_t = (idc >> temporal_id) & 1
+                in_s = (idc >> (spatial_id + 8)) & 1
+                if idc == 0 or (in_t and in_s):
+                    r.f(s.buffer_removal_bits)
+    if fr.intra_only:
+        if r.f(8) == 0xFF:  # refresh_frame_flags
+            raise AV1Error("AV1: an intra-only frame refreshing every reference")
+        if error_resilient and s.order_hint_bits:
+            r.f(8 * s.order_hint_bits)  # ref_order_hint[]
+    # frame_size, superres_params, render_size
+    if size_override:
+        fr.width, fr.height = r.f(s.width_bits) + 1, r.f(s.height_bits) + 1
+    else:
+        fr.width, fr.height = s.max_width, s.max_height
+    if s.enable_superres and r.f(1):
+        raise UnsupportedFormat("AV1 superres frames are not decoded by the port yet "
+                                "(ROADMAP queue 1)")
+    fr.mi_cols, fr.mi_rows = 2 * ((fr.width + 7) >> 3), 2 * ((fr.height + 7) >> 3)
+    if r.f(1):  # render_and_frame_size_different
+        r.f(16)
+        r.f(16)
+    if fr.screen_tools:
+        fr.allow_intrabc = bool(r.f(1))
+    if not (s.reduced or fr.disable_cdf_update):
+        r.f(1)  # disable_frame_end_update_cdf
+    _tile_info(r, s, fr)
+    # quantization_params
+    fr.base_q_idx = r.f(8)
+    deltas = [_delta_q(r)]
+    if s.planes > 1:
+        diff_uv = r.f(1) if s.separate_uv_delta_q else 0
+        deltas += [_delta_q(r), _delta_q(r)]
+        if diff_uv:
+            deltas += [_delta_q(r), _delta_q(r)]
+    if r.f(1):  # using_qmatrix
+        r.f(4)
+        r.f(4)
+        if s.separate_uv_delta_q:
+            r.f(4)
+    # segmentation_params
+    fr.seg_features = [[None] * 8 for _ in range(8)]
+    fr.seg_enabled = bool(r.f(1))
+    if fr.seg_enabled:
+        for i in range(8):
+            for j in range(8):
+                if r.f(1):
+                    if _SEG_SIGNED[j]:
+                        v = max(-_SEG_MAX[j], min(_SEG_MAX[j], r.su(1 + _SEG_BITS[j])))
+                    else:
+                        v = min(_SEG_MAX[j], r.f(_SEG_BITS[j]))
+                    fr.seg_features[i][j] = v
+                    fr.last_active_seg_id = i
+                    if j >= 5:
+                        fr.seg_id_pre_skip = True
+    # delta_q_params, delta_lf_params
+    delta_q = fr.base_q_idx > 0 and bool(r.f(1))
+    if delta_q:
+        r.f(2)  # delta_q_res
+        if not fr.allow_intrabc and r.f(1):  # delta_lf_present
+            r.f(3)  # delta_lf_res, delta_lf_multi
+    lossless = not delta_q and not any(deltas) and all(
+        _qindex(fr, seg) == 0 for seg in range(8 if fr.seg_enabled else 1))
+    fr.unsupported = "" if lossless else LOSSY
+    if not lossless:  # the rest of a lossy header, so that its end can be checked
+        _lossy_filters(r, s, fr)
+    # frame_reference_mode, skip_mode_params, allow_warped_motion: none in an
+    # intra frame
+    r.f(1)  # reduced_tx_set: every transform of a lossless frame is the WHT
+    # global_motion_params: none in an intra frame; film_grain_params
+    if s.film_grain and r.f(1):
+        _film_grain(r, s)
+        fr.unsupported = fr.unsupported or ("AV1 film grain is not applied by the port yet "
+                                            "(ROADMAP queue 1)")
+    return fr
+
+
+def _lossy_filters(r: BitReader, s: Sequence, fr: Frame) -> None:
+    """``loop_filter_params``, ``cdef_params``, ``lr_params`` and
+    ``read_tx_mode`` of a frame that is not coded lossless."""
+    if not fr.allow_intrabc:
+        levels = [r.f(6), r.f(6)]
+        if s.planes > 1 and any(levels):
+            r.f(12)
+        r.f(3)  # sharpness
+        if r.f(1) and r.f(1):  # loop_filter_delta_enabled, _update
+            for _ in range(10):
+                if r.f(1):
+                    r.su(7)
+        if s.enable_cdef:
+            r.f(2)  # cdef_damping_minus_3
+            for _ in range(1 << r.f(2)):
+                r.f(6)
+                if s.planes > 1:
+                    r.f(6)
+        if s.enable_restoration:
+            types = [r.f(2) for _ in range(s.planes)]
+            if any(types):
+                if s.use_128:
+                    r.f(1)
+                elif r.f(1):
+                    r.f(1)
+                if s.ss_x and s.ss_y and any(types[1:]):
+                    r.f(1)
+    r.f(1)  # tx_mode_select
+
+
+def _film_grain(r: BitReader, s: Sequence) -> None:
+    """``film_grain_params`` of a shown intra frame with ``apply_grain``."""
+    r.f(16)  # grain_seed
+    y_points = r.f(4)
+    r.f(16 * y_points)
+    from_luma = 0 if s.mono else r.f(1)
+    cb = cr = 0
+    if not (s.mono or from_luma or (s.ss_x == 1 and s.ss_y == 1 and y_points == 0)):
+        cb = r.f(4)
+        r.f(16 * cb)
+        cr = r.f(4)
+        r.f(16 * cr)
+    r.f(2)  # grain_scaling_minus_8
+    lag = r.f(2)
+    pos_luma = 2 * lag * (lag + 1)
+    pos_chroma = pos_luma + 1 if y_points else pos_luma
+    if y_points:
+        r.f(8 * pos_luma)
+    if from_luma or cb:
+        r.f(8 * pos_chroma)
+    if from_luma or cr:
+        r.f(8 * pos_chroma)
+    r.f(4)  # ar_coeff_shift_minus_6, grain_scale_shift
+    if cb:
+        r.f(25)
+    if cr:
+        r.f(25)
+    r.f(2)  # overlap_flag, clip_to_restricted_range
+
+
+def _delta_q(r: BitReader) -> int:
+    return r.su(7) if r.f(1) else 0
+
+
+def _qindex(fr: Frame, seg: int) -> int:
+    alt = fr.seg_features[seg][0] if fr.seg_enabled else None
+    return fr.base_q_idx if alt is None else max(0, min(255, fr.base_q_idx + alt))
+
+
+def _tile_info(r: BitReader, s: Sequence, fr: Frame) -> None:
+    sb_shift = 5 if s.use_128 else 4
+    sb_cols = (fr.mi_cols + (1 << sb_shift) - 1) >> sb_shift
+    sb_rows = (fr.mi_rows + (1 << sb_shift) - 1) >> sb_shift
+    sb_size = sb_shift + 2
+    max_width_sb = 4096 >> sb_size
+    max_area_sb = (4096 * 2304) >> (2 * sb_size)
+    min_log2_cols = _tile_log2(max_width_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2_tiles = max(min_log2_cols, _tile_log2(max_area_sb, sb_rows * sb_cols))
+    if r.f(1):  # uniform_tile_spacing_flag
+        cols_log2 = min_log2_cols
+        while cols_log2 < max_log2_cols and r.f(1):
+            cols_log2 += 1
+        width_sb = (sb_cols + (1 << cols_log2) - 1) >> cols_log2
+        fr.col_starts = [c << sb_shift for c in range(0, sb_cols, width_sb)]
+        rows_log2 = max(min_log2_tiles - cols_log2, 0)
+        while rows_log2 < max_log2_rows and r.f(1):
+            rows_log2 += 1
+        height_sb = (sb_rows + (1 << rows_log2) - 1) >> rows_log2
+        fr.row_starts = [c << sb_shift for c in range(0, sb_rows, height_sb)]
+    else:
+        widest, start = 0, 0
+        fr.col_starts = []
+        while start < sb_cols:
+            fr.col_starts.append(start << sb_shift)
+            size = r.ns(min(sb_cols - start, max_width_sb)) + 1
+            widest = max(size, widest)
+            start += size
+        cols_log2 = _tile_log2(1, len(fr.col_starts))
+        area = (sb_rows * sb_cols) >> (min_log2_tiles + 1) if min_log2_tiles else \
+            sb_rows * sb_cols
+        max_height_sb = max(area // widest, 1)
+        start = 0
+        fr.row_starts = []
+        while start < sb_rows:
+            fr.row_starts.append(start << sb_shift)
+            start += r.ns(min(sb_rows - start, max_height_sb)) + 1
+        rows_log2 = _tile_log2(1, len(fr.row_starts))
+    fr.col_starts.append(fr.mi_cols)
+    fr.row_starts.append(fr.mi_rows)
+    fr.tile_cols_log2, fr.tile_rows_log2 = cols_log2, rows_log2
+    if cols_log2 or rows_log2:
+        r.f(cols_log2 + rows_log2)  # context_update_tile_id
+        fr.tile_size_bytes = r.f(2) + 1
+
+
+def parse_obus(data: bytes) -> Tuple[Sequence, Frame, bytes, List[Tuple[int, int, int]]]:
+    """The sequence header, the first frame's header and its tiles, as
+    (tile number, start, size) ranges of the returned bytes."""
+    pos, seq, frame, tiles, tg_data = 0, None, None, [], b""
+    while pos < len(data):
+        head = data[pos]
+        if head & 0x80:
+            raise AV1Error("AV1: forbidden bit set")
+        obu_type, ext, has_size = (head >> 3) & 15, (head >> 2) & 1, (head >> 1) & 1
+        pos += 1
+        temporal_id = spatial_id = 0
+        if ext:
+            if pos >= len(data):
+                raise AV1Error("AV1: OBU extension past the data")
+            temporal_id, spatial_id = data[pos] >> 5, (data[pos] >> 3) & 3
+            pos += 1
+        if has_size:
+            size, pos = leb128(data, pos)
+        else:
+            size = len(data) - pos
+        end = pos + size
+        if end > len(data):
+            raise AV1Error("AV1: OBU runs past the data")
+        if obu_type == 1:
+            r = BitReader(data, pos, end)
+            seq = sequence_header(r)
+            r.trailing()
+        elif obu_type in (3, 6) and frame is None:
+            if seq is None:
+                raise AV1Error("AV1: frame before a sequence header")
+            r = BitReader(data, pos, end)
+            frame = frame_header(r, seq, temporal_id, spatial_id)
+            if obu_type == 6:
+                r.align()
+            else:
+                r.trailing()
+            if frame.unsupported:  # the header read whole, as libaom reads it
+                raise UnsupportedFormat(frame.unsupported)
+            if obu_type == 6:
+                tiles += _tile_group(data, r, end, frame)
+        elif obu_type == 4 and frame is not None:
+            tiles += _tile_group(data, BitReader(data, pos, end), end, frame)
+        elif obu_type in (3, 6, 7):  # a second frame, or a redundant header
+            pass
+        pos = end
+        if frame is not None and len(tiles) == _tile_count(frame):
+            break
+    if seq is None or frame is None:
+        raise AV1Error("AV1: no sequence header or no frame")
+    if len(tiles) != _tile_count(frame):
+        raise AV1Error("AV1: tiles missing")
+    return seq, frame, data, tiles
+
+
+def _tile_count(fr: Frame) -> int:
+    return (len(fr.col_starts) - 1) * (len(fr.row_starts) - 1)
+
+
+def _tile_group(data: bytes, r: BitReader, end: int, fr: Frame) -> List[Tuple[int, int, int]]:
+    n = _tile_count(fr)
+    start, last = 0, n - 1
+    if n > 1 and r.f(1):  # tile_start_and_end_present_flag
+        bits = fr.tile_cols_log2 + fr.tile_rows_log2
+        start, last = r.f(bits), r.f(bits)
+    r.align()
+    pos = r.bit >> 3
+    out = []
+    for num in range(start, last + 1):
+        if num == last:
+            size = end - pos
+        else:
+            size = int.from_bytes(data[pos : pos + fr.tile_size_bytes], "little") + 1
+            pos += fr.tile_size_bytes
+        if size < 1 or pos + size > end:
+            raise AV1Error("AV1: tile size past the tile group")
+        out.append((num, pos, size))
+        pos += size
+    return out

@@ -1,0 +1,525 @@
+"""An AVIF reader in Python and numpy, exact against ``cv2.imread``.
+
+OpenCV 5.0 reads AVIF through libavif 1.4 (``avifDecoderParse``, then
+``avifDecoderNextImage`` over libaom, then ``avifImageYUVToRGB`` into
+8-bit BGR).  :func:`decode_avif` returns RGB uint8 ``(H, W, 3)`` of the
+primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
+
+* **The container** (ISOBMFF/HEIF, as libavif parses it): ``ftyp`` first,
+  with ``avif`` or ``avis`` as its major or a compatible brand; ``meta``
+  with ``hdlr`` ``pict`` first, ``pitm``, ``iloc`` (versions 0-2,
+  construction methods 0 and 1 with ``idat``), ``iinf``/``infe`` (versions
+  2 and 3), ``iref`` (``auxl``, ``dimg``, ``thmb``, ``cdsc``, ``prem``) and
+  ``iprp``/``ipco``/``ipma`` with essential flags; properties ``ispe``,
+  ``pixi``, ``av1C``, ``colr`` (nclx and ICC), ``irot``, ``imir``,
+  ``clap``, ``auxC``, ``a1op``, ``lsel``.  A box cut short, a duplicate
+  unique box, a missing primary item or a missing mandatory property read
+  as None.  The alpha item is found (``auxl``) and not decoded: OpenCV
+  drops alpha.  ``irot``, ``imir`` and ``clap`` are parsed and, as in
+  OpenCV 5.0, not applied.
+* **The image**: the item's AV1 OBUs (``data/av1_obu.py``), decoded where
+  the frame is coded lossless (``data/av1_block.py``,
+  ``data/av1_recon.py``), with libaom's checks of a corrupt frame (a tile
+  that overruns its data or lacks its trailing bits, an intra block copy
+  vector outside the decoded area, a segment id past the last).
+* **Colour** as ``avifImageYUVToRGB`` gives 8-bit BGR: matrix 0 (GBR) as
+  the planes are, monochrome (the sequence header's or ``av1C``'s flag) as
+  grey, BT.601 and BT.709 at full or limited
+  range through libyuv's fixed-point conversion, 4:2:0 and 4:2:2 chroma
+  upsampled as libavif's ``AUTOMATIC`` choice does (libyuv's bilinear
+  filter); 10- and 12-bit 4:4:4 YCbCr shifted down to 8 bits first, GBR
+  at any depth or range through libavif's float path, grey above 8 bits
+  rounded half to even as OpenCV's ``convertTo`` does.  (10- and 12-bit
+  subsampled YCbCr, which no writer here makes, raises naming itself.)  The matrix and range of an nclx ``colr`` box win
+  over the sequence header's.
+
+A ``grid`` derived image, an ``avis`` image sequence, a lossy AV1 frame,
+superres or film grain, and a colour form whose conversion is not ported
+raise :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` naming
+themselves (ROADMAP queue 1), and so does an ``ispe`` size other than the
+frame's (OpenCV then resamples).  An image past libavif's 32768 a side or
+OpenCV's 2^30 pixels reads as None.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from molnextr_tpu_torch.data.image import UnsupportedFormat
+
+_MAX_PIXELS = 1 << 30  # OpenCV's CV_IO_MAX_IMAGE_PIXELS
+_MAX_DIMENSION = 32768  # libavif's imageDimensionLimit
+_UNIQUE_META = (b"hdlr", b"pitm", b"iloc", b"iinf", b"iref", b"iprp", b"idat")
+_KNOWN_PROPS = (b"ispe", b"pixi", b"av1C", b"colr", b"irot", b"imir", b"clap", b"auxC",
+                b"a1op", b"lsel", b"pasp", b"clli", b"mdcv", b"cclv", b"amve", b"a1lx")
+_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+               b"urn:mpeg:hevc:2015:auxid:1")
+
+
+class AVIFError(ValueError):
+    """An AVIF file libavif or OpenCV refuses."""
+
+
+def compatible(data: bytes) -> bool:
+    """An ``ftyp`` box first, naming ``avif`` or ``avis`` as its major brand
+    or among the compatible brands the file holds (OpenCV's signature check
+    parses the file's start with libavif and accepts one cut short)."""
+    if len(data) < 12 or data[4:8] != b"ftyp":
+        return False
+    size = int.from_bytes(data[:4], "big")
+    if size == 1 or 0 < size < 16 or size % 4:
+        return False
+    end = min(size or len(data), len(data))
+    brands = [data[8:12]] + [data[k : k + 4] for k in range(16, end - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
+
+
+def _boxes(data: bytes, pos: int, end: int, top: bool = False
+           ) -> List[Tuple[bytes, int, int]]:
+    """The boxes of ``data[pos:end]`` as (type, body start, body end).  At
+    the top level a box libavif does not read (``mdat``, ``free``, ...) may
+    run past the end of the file, as libavif only skips it."""
+    out = []
+    while pos < end:
+        if end - pos < 8:
+            raise AVIFError("AVIF: box header cut short")
+        size, typ = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            if end - pos < 16:
+                raise AVIFError("AVIF: box header cut short")
+            (size,) = struct.unpack_from(">Q", data, pos + 8)
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if size < head:
+            raise AVIFError(f"AVIF: box {typ!r} shorter than its header")
+        if pos + size > end:
+            if not top or typ in (b"ftyp", b"meta", b"moov"):
+                raise AVIFError(f"AVIF: box {typ!r} runs past its parent")
+            size = end - pos
+        out.append((typ, pos + head, pos + size))
+        pos += size
+    return out
+
+
+class _Reader:
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.pos, self.end = data, pos, end
+
+    def u(self, n: int) -> int:
+        if self.pos + n > self.end:
+            raise AVIFError("AVIF: box body cut short")
+        v = int.from_bytes(self.data[self.pos : self.pos + n], "big")
+        self.pos += n
+        return v
+
+    def full(self, top: int = 0) -> Tuple[int, int]:
+        """A FullBox's version (at most ``top``, as libavif enforces) and
+        flags."""
+        v = self.u(4)
+        if v >> 24 > top:
+            raise AVIFError(f"AVIF: box version {v >> 24}")
+        return v >> 24, v & 0xFFFFFF
+
+    def string(self) -> bytes:
+        k = self.data.find(b"\0", self.pos, self.end)
+        if k < 0:
+            raise AVIFError("AVIF: string without its terminator")
+        s = self.data[self.pos : k]
+        self.pos = k + 1
+        return s
+
+
+class _Item:
+    def __init__(self, item_id: int):
+        self.id = item_id
+        self.type = b""
+        self.extents: List[Tuple[int, int]] = []
+        self.method = 0
+        self.props: List[Tuple[int, bool]] = []  # (property index, essential)
+        self.refs: Dict[bytes, List[int]] = {}
+
+
+class _Avif:
+    def __init__(self, data: bytes):
+        if not compatible(data):
+            raise AVIFError("AVIF: not an AVIF file")
+        self.data = data
+        top = _boxes(data, 0, len(data), top=True)
+        if top[0][0] != b"ftyp":
+            raise AVIFError("AVIF: ftyp is not the first box")
+        brands = {data[top[0][1] : top[0][1] + 4]} | {
+            data[k : k + 4] for k in range(top[0][1] + 8, top[0][2] - 3, 4)}
+        metas = [b for b in top if b[0] == b"meta"]
+        if b"avis" in brands:
+            if any(b[0] == b"moov" for b in top):
+                raise UnsupportedFormat("image sequences (avis) are not decoded by the port "
+                                        "yet (ROADMAP queue 1)")
+            raise AVIFError("AVIF: an avis brand without its moov box")
+        if len(metas) != 1:
+            raise AVIFError("AVIF: no meta box, or more than one")
+        self.items: Dict[int, _Item] = {}
+        self.properties: List[Tuple[bytes, int, int]] = []
+        self.idat: Optional[Tuple[int, int]] = None
+        self.primary = None
+        self._meta(*metas[0][1:])
+
+    def _item(self, item_id: int) -> _Item:
+        return self.items.setdefault(item_id, _Item(item_id))
+
+    def _meta(self, pos: int, end: int) -> None:
+        r = _Reader(self.data, pos, end)
+        r.full()
+        children = _boxes(self.data, r.pos, end)
+        if not children or children[0][0] != b"hdlr":
+            raise AVIFError("AVIF: meta without hdlr first")
+        seen = set()
+        for typ, start, stop in children:
+            if typ in _UNIQUE_META:
+                if typ in seen:
+                    raise AVIFError(f"AVIF: duplicate {typ!r} box")
+                seen.add(typ)
+            body = _Reader(self.data, start, stop)
+            if typ == b"hdlr":
+                body.full()
+                if body.u(4):
+                    raise AVIFError("AVIF: hdlr pre_defined is not zero")
+                if body.u(4) != int.from_bytes(b"pict", "big"):
+                    raise AVIFError("AVIF: handler is not pict")
+                body.u(12)  # reserved
+                body.string()  # the name, which must be terminated
+            elif typ == b"pitm":
+                version, _ = body.full(1)
+                self.primary = body.u(2 if version == 0 else 4)
+            elif typ == b"iloc":
+                self._iloc(body)
+            elif typ == b"iinf":
+                self._iinf(body)
+            elif typ == b"iref":
+                self._iref(body)
+            elif typ == b"iprp":
+                self._iprp(start, stop)
+            elif typ == b"idat":
+                self.idat = (start, stop)
+        if self.primary is None:
+            raise AVIFError("AVIF: no primary item")
+
+    def _iloc(self, r: _Reader) -> None:
+        version, _ = r.full(2)
+        sizes = r.u(2)
+        off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+        base_size, index_size = (sizes >> 4) & 15, (sizes & 15) if version else 0
+        for s in (off_size, len_size, base_size):
+            if s not in (0, 4, 8):
+                raise AVIFError("AVIF: iloc field size")
+        if index_size not in (0, 4, 8):
+            raise AVIFError("AVIF: iloc index size")
+        for _ in range(r.u(2 if version < 2 else 4)):
+            item = self._item(r.u(2 if version < 2 else 4))
+            if item.extents:
+                raise AVIFError("AVIF: item located twice")
+            if version:
+                item.method = r.u(2) & 15
+                if item.method > 1:
+                    raise AVIFError(f"AVIF: iloc construction method {item.method}")
+            r.u(2)  # data_reference_index, which libavif does not check
+            base = r.u(base_size)
+            count = r.u(2)
+            if count == 0:
+                raise AVIFError("AVIF: item without extents")
+            for _ in range(count):
+                if index_size:
+                    r.u(index_size)
+                item.extents.append((base + r.u(off_size), r.u(len_size)))
+
+    def _iinf(self, r: _Reader) -> None:
+        version, _ = r.full(1)
+        count = r.u(2 if version == 0 else 4)
+        entries = _boxes(self.data, r.pos, r.end)
+        if len(entries) != count:
+            raise AVIFError("AVIF: iinf entry count")
+        for typ, start, stop in entries:
+            if typ != b"infe":
+                raise AVIFError("AVIF: iinf holds a box other than infe")
+            e = _Reader(self.data, start, stop)
+            v, _ = e.full(3)
+            if v < 2:
+                raise AVIFError(f"AVIF: infe version {v}")
+            item = self._item(e.u(2 if v == 2 else 4))
+            e.u(2)  # item_protection_index
+            item.type = self.data[e.pos : e.pos + 4]
+            e.u(4)
+            e.string()  # item_name
+
+    def _iref(self, r: _Reader) -> None:
+        version, _ = r.full(1)
+        width = 2 if version == 0 else 4
+        for typ, start, stop in _boxes(self.data, r.pos, r.end):
+            e = _Reader(self.data, start, stop)
+            item = self._item(e.u(width))
+            item.refs.setdefault(typ, []).extend(e.u(width) for _ in range(e.u(2)))
+
+    def _iprp(self, pos: int, end: int) -> None:
+        children = _boxes(self.data, pos, end)
+        if not children or children[0][0] != b"ipco":
+            raise AVIFError("AVIF: iprp without ipco first")
+        self.properties = _boxes(self.data, children[0][1], children[0][2])
+        for typ, start, stop in children[1:]:
+            if typ != b"ipma":
+                continue
+            r = _Reader(self.data, start, stop)
+            version, flags = r.full(1)
+            for _ in range(r.u(4)):
+                item = self._item(r.u(2 if version < 1 else 4))
+                if item.props:
+                    raise AVIFError("AVIF: item associated twice")
+                for _ in range(r.u(1)):
+                    v = r.u(2 if flags & 1 else 1)
+                    bits = 15 if flags & 1 else 7
+                    index = v & ((1 << bits) - 1)
+                    if index:
+                        if index > len(self.properties):
+                            raise AVIFError("AVIF: property index past ipco")
+                        item.props.append((index - 1, bool(v >> bits)))
+
+    def prop(self, item: _Item, kind: bytes) -> Optional[Tuple[int, int]]:
+        for index, _essential in item.props:
+            typ, start, stop = self.properties[index]
+            if typ == kind:
+                return start, stop
+        return None
+
+    def payload(self, item: _Item) -> bytes:
+        if item.method == 1:
+            if self.idat is None:
+                raise AVIFError("AVIF: construction method 1 without idat")
+            base, end = self.idat
+        else:
+            base, end = 0, len(self.data)
+        out = bytearray()
+        for off, length in item.extents:
+            if length == 0:
+                length = end - base - off
+            if off < 0 or base + off + length > end:
+                raise AVIFError("AVIF: item data past the end of the file")
+            out += self.data[base + off : base + off + length]
+        return bytes(out)
+
+
+def _primary(f: _Avif) -> _Item:
+    item = f.items.get(f.primary)
+    if item is None or not item.type:
+        raise AVIFError("AVIF: primary item not found")
+    if item.type == b"grid":
+        raise UnsupportedFormat("grid images (a derived item of tiles) are not decoded "
+                                "by the port yet (ROADMAP queue 1)")
+    if item.type != b"av01":
+        raise AVIFError(f"AVIF: primary item of type {item.type!r}")
+    for index, essential in item.props:
+        typ = f.properties[index][0]
+        if essential and typ not in _KNOWN_PROPS:
+            raise AVIFError(f"AVIF: unsupported essential property {typ!r}")
+    av1c = f.prop(item, b"av1C")
+    if av1c is None or f.prop(item, b"ispe") is None:
+        raise AVIFError("AVIF: primary item without av1C or ispe")
+    if av1c[1] - av1c[0] < 4 or f.data[av1c[0]] != 0x81:
+        raise AVIFError("AVIF: av1C marker and version")
+    kinds = []
+    for index, _essential in item.props:
+        typ, start, stop = f.properties[index]
+        if typ == b"colr" and stop - start >= 4:
+            kinds.append(f.data[start : start + 4] == b"nclx")
+    if kinds.count(True) > 1 or kinds.count(False) > 1:
+        raise AVIFError("AVIF: more than one nclx or ICC colr property")
+    flags = f.data[av1c[0] + 2]
+    depth = 12 if flags & 0x20 else 10 if flags & 0x40 else 8
+    pixi = f.prop(item, b"pixi")
+    if pixi is not None:  # every plane depth must be av1C's
+        r = _Reader(f.data, *pixi)
+        r.full()
+        count = r.u(1)
+        if count == 0 or any(r.u(1) != depth for _ in range(count)):
+            raise AVIFError("AVIF: pixi depths differ from av1C's")
+    return item
+
+
+def _alpha_item(f: _Avif, primary: _Item) -> Optional[_Item]:
+    """The ``auxl`` item whose ``auxC`` names alpha, as libavif finds it."""
+    for item in f.items.values():
+        if primary.id in item.refs.get(b"auxl", ()) and item.type == b"av01":
+            aux = f.prop(item, b"auxC")
+            if aux is not None:
+                r = _Reader(f.data, *aux)
+                r.full()
+                if r.string() in _ALPHA_URNS:
+                    return item
+    return None
+
+
+def _nclx(f: _Avif, item: _Item) -> Optional[Tuple[int, int, int, bool]]:
+    colr = f.prop(item, b"colr")
+    if colr is None:
+        return None
+    r = _Reader(f.data, *colr)
+    if r.u(4) != int.from_bytes(b"nclx", "big"):
+        return None
+    primaries, transfer, matrix, flags = r.u(2), r.u(2), r.u(2), r.u(1)
+    if flags & 0x7F:
+        raise AVIFError("AVIF: nclx reserved bits set")
+    return primaries, transfer, matrix, bool(flags >> 7)
+
+
+def read_avif(data: bytes) -> Tuple[List[np.ndarray], int, int, int, bool, int, int]:
+    """The primary image's planes (Y, then U and V unless monochrome), as
+    decoded: (planes, bit depth, ss_x, ss_y, full range, matrix, width)."""
+    from molnextr_tpu_torch.data import av1_block, av1_obu
+
+    f = _Avif(data)
+    item = _primary(f)
+    _alpha_item(f, item)  # located; OpenCV drops alpha, so it is not decoded
+    ispe = _Reader(f.data, *f.prop(item, b"ispe"))
+    ispe.full()
+    iw, ih = ispe.u(4), ispe.u(4)
+    if not (0 < iw <= _MAX_DIMENSION and 0 < ih <= _MAX_DIMENSION) or iw * ih > _MAX_PIXELS:
+        raise AVIFError(f"AVIF: {iw} x {ih} is past libavif's or OpenCV's limits")
+    seq, fr, payload, tiles = av1_obu.parse_obus(f.payload(item))
+    other_size = UnsupportedFormat(
+        f"an ispe size ({iw} x {ih}) other than the AV1 frame's ({fr.width} x {fr.height}), "
+        "which libavif rescales, is not read by the port (ROADMAP queue 1)")
+    if fr.width * fr.height > 4 * iw * ih:
+        raise other_size  # not decoded at all: the port would hold it in lists
+    dec = av1_block.FrameDecoder(seq, fr)
+    dec.decode(payload, tiles)
+    if (fr.width, fr.height) != (iw, ih):  # a frame libaom decodes whole
+        raise other_size
+    planes = []
+    av1c = f.prop(item, b"av1C")
+    grey = bool(f.data[av1c[0] + 2] & 0x10)  # av1C's monochrome: libavif keeps only Y
+    for p in range(1 if grey else seq.planes):
+        sx, sy = dec.ss[p]
+        w, h = (fr.width + sx) >> sx, (fr.height + sy) >> sy
+        full = np.asarray(dec.planes[p], np.int32).reshape(-1, dec.strides[p])
+        planes.append(full[:h, :w])
+    nclx = _nclx(f, item)
+    matrix, full = (nclx[2], nclx[3]) if nclx is not None else (seq.matrix, seq.full_range)
+    return planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, fr.width
+
+
+def decode_avif(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """RGB uint8 (H, W, 3) of an AVIF file's primary image, as OpenCV reads
+    it (module doc)."""
+    try:
+        planes, bd, ss_x, ss_y, full, matrix, _w = read_avif(data)
+    except UnsupportedFormat as err:
+        raise UnsupportedFormat(f"{path}: AVIF: {err}") from None
+    return yuv_to_rgb(planes, bd, ss_x, ss_y, full, matrix, path)
+
+
+# libyuv's YuvConstants (YG, YB, UB, UG, VG, VR) for the matrices libavif
+# hands to libyuv: BT.709 (1), BT.601 (5, 6, and 2, unspecified) and
+# BT.2020 (9), at full and limited range (found by probing OpenCV 5.0)
+_LIBYUV = {
+    ("709", True): (16320, 32, 119, 12, 30, 101),
+    ("709", False): (18997, -1160, 128, 14, 34, 115),
+    ("601", True): (16320, 32, 113, 22, 46, 90),
+    ("601", False): (18997, -1160, 128, 25, 52, 102),
+    ("2020", True): (16320, 32, 120, 11, 37, 94),
+    ("2020", False): (19003, -1160, 128, 12, 42, 107),
+}
+_MATRIX_CLASS = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+
+
+def yuv_to_rgb(planes: List[np.ndarray], bd: int, ss_x: int, ss_y: int, full: bool,
+               matrix: int, path: str = "<bytes>") -> np.ndarray:
+    """``avifImageYUVToRGB`` into 8-bit RGB, as OpenCV 5.0 gets it."""
+    if len(planes) == 1:  # grey: as stored at 8 bits, else rounded half to even
+        y = planes[0]
+        grey = y if bd == 8 else np.rint(y / float(1 << (bd - 8)))
+        return np.repeat(np.clip(grey, 0, 255).astype(np.uint8)[..., None], 3, axis=2)
+    y, u, v = planes
+    if matrix == 0 and not (ss_x or ss_y):  # GBR, through libavif's float path
+        if bd == 8 and full:
+            return np.stack([v, y, u], axis=2).astype(np.uint8)
+        return np.stack([_unorm8(v, bd, full), _unorm8(y, bd, full), _unorm8(u, bd, full)],
+                        axis=2)
+    kind = _MATRIX_CLASS.get(matrix)
+    if kind is None or (bd != 8 and (ss_x or ss_y)):
+        raise UnsupportedFormat(
+            f"{path}: AVIF: colour of matrix {matrix} at {bd} bits, subsampling {ss_x}/{ss_y} "
+            f"({'full' if full else 'limited'} range) is not converted by the port yet "
+            "(ROADMAP queue 1)")
+    if bd != 8:  # libavif hands libyuv the samples shifted down to 8 bits
+        y, u, v = (a >> (bd - 8) for a in (y, u, v))
+    h, w = y.shape
+    if ss_x and ss_y:
+        u, v = _up_bilinear(u, w, h), _up_bilinear(v, w, h)
+    elif ss_x:
+        u, v = _up_linear(u, w), _up_linear(v, w)
+    return _libyuv(y, u, v, *_LIBYUV[(kind, full)])
+
+
+def _unorm8(a: np.ndarray, bd: int, full: bool = True) -> np.ndarray:
+    """libavif's float32 path from a sample to 8 bits: over the full range,
+    or less 16 and over 219 (times 2**(bd - 8)) at limited range."""
+    if full:
+        x = a.astype(np.float32) / np.float32((1 << bd) - 1)
+    else:
+        s = 1 << (bd - 8)
+        x = (a.astype(np.float32) - np.float32(16 * s)) / np.float32(219 * s)
+    return (np.float32(0.5) + np.clip(x, 0, 1) * np.float32(255)).astype(np.uint8)
+
+
+def _libyuv(y, u, v, yg: int, yb: int, ub: int, ug: int, vg: int, vr: int) -> np.ndarray:
+    """libyuv's ``YuvPixel``: Y scaled by ``yg`` (16.16), U and V less 128
+    times 6-bit coefficients, the sum over 64, clamped."""
+    y1 = (y.astype(np.int64) * 0x0101 * yg) >> 16
+    u = u.astype(np.int64) - 128
+    v = v.astype(np.int64) - 128
+    rgb = np.stack([(y1 + v * vr + yb) >> 6, (y1 - u * ug - v * vg + yb) >> 6,
+                    (y1 + u * ub + yb) >> 6], axis=2)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _up_linear(s: np.ndarray, w: int) -> np.ndarray:
+    """libyuv's ``ScaleRowUp2_Linear_Any``: each output pixel 3:1 between
+    the two nearest chroma samples, the first and last copied."""
+    s = s.astype(np.int64)
+    out = np.empty(s.shape[:-1] + (w,), np.int64)
+    n = (w - 1) & ~1
+    if n > 0:
+        a, b = s[..., : n // 2], s[..., 1 : n // 2 + 1]
+        out[..., 1 : n + 1 : 2] = (3 * a + b + 2) >> 2
+        out[..., 2 : n + 1 : 2] = (a + 3 * b + 2) >> 2
+    out[..., 0] = s[..., 0]
+    out[..., w - 1] = s[..., (w - 1) // 2]
+    return out
+
+
+def _up_bilinear(s: np.ndarray, w: int, h: int) -> np.ndarray:
+    """libyuv's ``I420ToRGB24MatrixFilter`` (bilinear) upsampling: the
+    first and (at an even height) last rows linear, each pair of rows
+    between two chroma rows 3:1 both ways (``ScaleRowUp2_Bilinear_Any``)."""
+    s = s.astype(np.int64)
+    out = np.empty((h, w), np.int64)
+    out[0] = _up_linear(s[0], w)
+    n = (w - 1) & ~1
+    half = n // 2
+    pairs = (h - 1) // 2
+    if pairs:
+        for offset, (p, q) in ((1, (s[:pairs], s[1 : pairs + 1])),
+                               (2, (s[1 : pairs + 1], s[:pairs]))):
+            o = out[offset : offset + 2 * pairs : 2]
+            o[:, 0] = (3 * p[:, 0] + q[:, 0] + 2) >> 2
+            if n > 0:
+                pa, pb, qa, qb = p[:, :half], p[:, 1 : half + 1], q[:, :half], q[:, 1 : half + 1]
+                o[:, 1 : n + 1 : 2] = (9 * pa + 3 * pb + 3 * qa + qb + 8) >> 4
+                o[:, 2 : n + 1 : 2] = (3 * pa + 9 * pb + qa + 3 * qb + 8) >> 4
+            last = (w - 1) // 2
+            o[:, w - 1] = (3 * p[:, last] + q[:, last] + 2) >> 2
+    if not h & 1:
+        out[h - 1] = _up_linear(s[pairs], w)
+    return out

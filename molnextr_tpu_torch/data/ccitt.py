@@ -1,22 +1,30 @@
 """CCITT bilevel decoding for TIFF (compressions 2, 3 and 4), as libtiff's
 ``tif_fax3.c`` decodes it.
 
+:func:`decode_strip` is libtiff's own state machine (``Fax3DecodeRLE``,
+``Fax3Decode1D``, ``Fax3Decode2D``, ``Fax4Decode`` over the ``tif_fax3.h``
+macros and ``mkg3states``' tables), run-length arrays and all, so that a
+damaged strip reads as libtiff reads it:
+
 * Modified Huffman (compression 2): each row one-dimensional, starting on
   a byte boundary, no EOL codes.
-* T.4 (compression 3): every row follows an EOL (libtiff's ``SYNC_EOL``:
-  eleven zero bits or more, then a one); with ``T4Options`` bit 0 a tag
-  bit after the EOL says whether the row is coded in 1-D or 2-D.
+* T.4 (compression 3): every row follows an EOL (``SYNC_EOL``: eleven zero
+  bits or more, then a one); with ``T4Options`` bit 0 a tag bit after the
+  EOL says whether the row is coded in 1-D or 2-D.
 * T.6 / Group 4 (compression 4): every row 2-D, no EOLs; each strip starts
-  from an all-white reference row.
+  from an all-white reference row; an EOL ends the strip.
+* A bad code ends its row (``unexpected``), a row of the wrong length is
+  cut or padded (``CLEANUP_RUNS``), runs past the row are clipped in the
+  run array the next row refers to (``_TIFFFax3fillruns``), the data's end
+  pads the last code with zeros, and the run arrays (zeroed once) carry
+  over from strip to strip (:class:`FaxState`).
 
-A decoded row is a list of changing elements (the positions where the
-colour flips, white first); :func:`rows_to_bits` turns rows into pixels, 1
-for a black run, as libtiff fills them.  A bad code raises ``ValueError``.
+The code tables and :class:`_Reader` / :func:`_row_1d` also serve the test
+writers (``tests/torch_image_writers.py``).
 """
 
 from __future__ import annotations
 
-from bisect import bisect_right
 from typing import Dict, List
 
 import numpy as np
@@ -93,7 +101,6 @@ def _tables():
     return _TABLES["white"], _TABLES["black"], _TABLES["mode"]
 
 
-_MODE_LIST = list(_MODES.values())
 _TAIL = [0] * 64
 
 
@@ -146,73 +153,351 @@ def _row_1d(reader: _Reader, width: int, white: List[int], black: List[int]) -> 
     return changes
 
 
-def _row_2d(reader: _Reader, width: int, ref: List[int], white: List[int],
-            black: List[int], modes: List[int]) -> List[int]:
-    """One 2-D row against the reference row's changing elements ``ref``."""
-    changes: List[int] = []
-    a0, colour = -1, 0
-    refs = ref + [width, width]
-    while a0 < width:
-        entry = modes[reader.peek(7)]
-        if not entry:
-            raise ValueError("CCITT: bad mode code")
-        reader.pos += entry & 31
-        mode, offset = _MODE_LIST[entry >> 5]
-        i = bisect_right(refs, a0)
-        if i % 2 != colour:
-            i += 1
-        b1 = refs[i] if i < len(refs) else width
-        if mode == "P":
-            a0 = refs[i + 1] if i + 1 < len(refs) else width
-        elif mode == "H":
-            start = max(a0, 0)
-            a1 = start + _run(reader, black if colour else white)
-            a2 = a1 + _run(reader, white if colour else black)
-            changes += [min(a1, width), min(a2, width)]
-            a0 = a2
-        elif mode == "V":
-            a1 = b1 + offset
-            if a1 < max(a0, 0) or a1 > width:
-                raise ValueError("CCITT: vertical mode out of the row")
-            changes.append(a1)
-            a0 = a1
-            colour ^= 1
-        else:
-            raise ValueError("CCITT: uncompressed mode is not supported (libtiff refuses it)")
-    return changes
+# ----- libtiff's state machine (tif_fax3.c, tif_fax3.h), error recovery and all
+
+S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERMW, S_TERMB, S_MAKEUPW, S_MAKEUPB, \
+    S_MAKEUP, S_EOL = range(13)
+_REV = [int(f"{i:08b}"[::-1], 2) for i in range(256)]
+_FAX: Dict[str, list] = {}
 
 
-def decode(data: bytes, width: int, rows: int, compression: int, t4_options: int = 0
-           ) -> List[List[int]]:
-    """The changing elements of ``rows`` rows of one strip or tile."""
-    white, black, modes = _tables()
-    reader = _Reader(data)
-    out: List[List[int]] = []
-    ref: List[int] = []
-    for _ in range(rows):
-        if compression == 2:
-            row = _row_1d(reader, width, white, black)
-            reader.pos = (reader.pos + 7) & ~7
-        elif compression == 3:
-            reader.sync_eol()
-            two_d = False
-            if t4_options & 1:
-                two_d = not reader.peek(1)
-                reader.pos += 1
-            row = (_row_2d(reader, width, ref, white, black, modes) if two_d
-                   else _row_1d(reader, width, white, black))
-        else:
-            row = _row_2d(reader, width, ref, white, black, modes)
-        out.append(row)
-        ref = row
-    return out
+def _fax_table(bits: int, protos) -> list:
+    """A ``mkg3states`` table: indexed by the next ``bits`` bits, first bit
+    lowest (libtiff's accumulator); entry (state, width, param); an index
+    no code starts with stays (S_NULL, 0, 0)."""
+    table = [(S_NULL, 0, 0)] * (1 << bits)
+    for code, state, param in protos:
+        n = len(code)
+        rev = int(code[::-1], 2) if n else 0
+        for x in range(1 << (bits - n)):
+            table[rev | (x << n)] = (state, n, param)
+    return table
 
 
-def rows_to_bits(rows: List[List[int]], width: int) -> np.ndarray:
-    """Changing elements -> (rows, width) uint8, 1 where a run is black."""
-    flips = np.zeros((len(rows), width + 1), np.int64)
-    for y, changes in enumerate(rows):
-        if changes:
-            np.add.at(flips[y], np.minimum(changes, width), 1)
-    return (np.cumsum(flips, axis=1)[:, :width] & 1).astype(np.uint8)
+def _fax_tables():
+    if not _FAX:
+        main = [("0001", S_PASS, 0), ("001", S_HORIZ, 0), ("1", S_V0, 0),
+                ("011", S_VR, 1), ("000011", S_VR, 2), ("0000011", S_VR, 3),
+                ("010", S_VL, 1), ("000010", S_VL, 2), ("0000010", S_VL, 3),
+                ("0000001", S_EXT, 0), ("0000000", S_EOL, 0)]
+        ext = [(c, S_MAKEUP, 1792 + 64 * i) for i, c in enumerate(_EXT_MAKEUP.split())]
+        white = [(c, S_MAKEUPW, 64 * (i + 1)) for i, c in enumerate(_WHITE_MAKEUP.split())]
+        white += ext + [(c, S_TERMW, i) for i, c in enumerate(_WHITE_TERM.split())]
+        white += [("0" * 11, S_EOL, 0)]
+        black = [(c, S_MAKEUPB, 64 * (i + 1)) for i, c in enumerate(_BLACK_MAKEUP.split())]
+        black += ext + [(c, S_TERMB, i) for i, c in enumerate(_BLACK_TERM.split())]
+        black += [("0" * 11, S_EOL, 0)]
+        _FAX["main"] = _fax_table(7, main)
+        _FAX["white"] = _fax_table(12, white)
+        _FAX["black"] = _fax_table(13, black)
+    return _FAX["main"], _FAX["white"], _FAX["black"]
 
+
+class FaxState:
+    """What libtiff's fax decoder keeps from one strip to the next of an
+    image: the run arrays (``2 * nruns`` words, zeroed once) and which half
+    is the current row's."""
+
+    def __init__(self, width: int, two_d: bool):
+        nruns = ((width + 1 + 31) // 32) * 32
+        self.nruns = nruns * 2 if two_d else nruns
+        self.runs = [0] * (2 * self.nruns)
+        self.cur, self.ref = 0, (self.nruns if two_d else None)
+
+
+class _Overflow(Exception):
+    """libtiff's "Buffer overflow": the strip's decoding stops (-1)."""
+
+
+class _Eof(Exception):
+    """No bits left where a code was needed."""
+
+
+def _i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >> 31 else v
+
+
+def decode_strip(data: bytes, width: int, rows: int, compression: int, t4_options: int,
+                 state: FaxState) -> "tuple":
+    """One strip or tile as libtiff's ``Fax3DecodeRLE`` (2), ``Fax3Decode1D``
+    / ``Fax3Decode2D`` (3) or ``Fax4Decode`` (4) decode it, bad codes and
+    lengths repaired as ``tif_fax3.h`` repairs them (``CLEANUP_RUNS``, runs
+    clipped by ``_TIFFFax3fillruns``).  Returns the rows' pixels (rows,
+    width) uint8, 1 black, and whether the decoder reported success; rows it
+    never reached stay 0."""
+    main, white_t, black_t = _fax_tables()
+    out = np.zeros((rows, width), np.uint8)
+    runs, nruns = state.runs, state.nruns
+    lastx = width
+    if state.ref is not None:
+        runs[state.ref] = width
+        runs[state.ref + 1] = 0
+    acc = [0, 0, 0]  # BitAcc, BitsAvail, cp
+    end = len(data)
+
+    def need(n: int) -> bool:
+        """NeedBits8/16: False at the end of the data with no bits left."""
+        while acc[1] < n:
+            if acc[2] >= end:
+                if acc[1] == 0:
+                    return False
+                acc[1] = n  # pad with zeros
+                return True
+            acc[0] |= _REV[data[acc[2]]] << acc[1]
+            acc[2] += 1
+            acc[1] += 8
+        return True
+
+    def clr(n: int) -> None:
+        acc[1] -= n
+        acc[0] >>= n
+
+    def lookup(table, n: int):
+        if not need(n):
+            raise _Eof
+        ent = table[acc[0] & ((1 << n) - 1)]
+        clr(ent[1])
+        return ent
+
+    eol = [0]
+
+    def sync_eol() -> None:
+        if eol[0] == 0:
+            while True:
+                if not need(11):
+                    raise _Eof
+                if acc[0] & 0x7FF == 0:
+                    break
+                clr(1)
+        while True:
+            if not need(8):
+                raise _Eof
+            if acc[0] & 0xFF:
+                break
+            clr(8)
+        while not acc[0] & 1:
+            clr(1)
+        clr(1)
+        eol[0] = 0
+
+    def fill(row: int, this: int, pa: int) -> None:
+        """``_TIFFFax3fillruns``: white and black runs, each clipped to
+        the row (in the run array too)."""
+        if (pa - this) & 1:
+            runs[pa] = 0
+            pa += 1
+        x, bits = 0, out[row]
+        for k in range(this, pa, 2):
+            run = runs[k]
+            if x + run > lastx or run > lastx:
+                run = runs[k] = (lastx - x) & 0xFFFFFFFF
+            x += run
+            run = runs[k + 1]
+            if x + run > lastx or run > lastx:
+                run = runs[k + 1] = (lastx - x) & 0xFFFFFFFF
+            if run:
+                bits[x : x + run] = 1
+            x += run
+
+    ok = True
+    row = 0
+    try:
+        while row < rows:
+            this = state.cur
+            st = {"pa": this, "a0": 0, "rl": 0}
+
+            def setvalue(x: int) -> None:
+                if st["pa"] >= this + nruns:
+                    raise _Overflow
+                runs[st["pa"]] = (st["rl"] + x) & 0xFFFFFFFF
+                st["pa"] += 1
+                st["a0"] = _i32(st["a0"] + x)
+                st["rl"] = 0
+
+            def cleanup() -> None:
+                if st["rl"]:
+                    setvalue(0)
+                if st["a0"] != lastx:
+                    while st["a0"] > lastx and st["pa"] > this:
+                        st["pa"] -= 1
+                        st["a0"] = _i32(st["a0"] - runs[st["pa"]])
+                    if st["a0"] < lastx:
+                        if st["a0"] < 0:
+                            st["a0"] = 0
+                        if (st["pa"] - this) & 1:
+                            setvalue(0)
+                        setvalue(lastx - st["a0"])
+                    elif st["a0"] > lastx:
+                        setvalue(lastx)
+                        setvalue(0)
+
+            def expand_1d() -> None:
+                """EXPAND1D; raises _Eof where it jumps to eof1d (after its
+                cleanup)."""
+                try:
+                    while True:
+                        while True:
+                            s_, _w, p = lookup(white_t, 12)
+                            if s_ == S_EOL:
+                                eol[0] = 1
+                                return cleanup()
+                            if s_ == S_TERMW:
+                                setvalue(p)
+                                break
+                            if s_ in (S_MAKEUPW, S_MAKEUP):
+                                st["a0"] = _i32(st["a0"] + p)
+                                st["rl"] += p
+                                continue
+                            return cleanup()  # unexpected("WhiteTable")
+                        if st["a0"] >= lastx:
+                            return cleanup()
+                        while True:
+                            s_, _w, p = lookup(black_t, 13)
+                            if s_ == S_EOL:
+                                eol[0] = 1
+                                return cleanup()
+                            if s_ == S_TERMB:
+                                setvalue(p)
+                                break
+                            if s_ in (S_MAKEUPB, S_MAKEUP):
+                                st["a0"] = _i32(st["a0"] + p)
+                                st["rl"] += p
+                                continue
+                            return cleanup()  # unexpected("BlackTable")
+                        if st["a0"] >= lastx:
+                            return cleanup()
+                        if runs[st["pa"] - 1] == 0 and runs[st["pa"] - 2] == 0:
+                            st["pa"] -= 2
+                except _Eof:
+                    cleanup()
+                    raise
+
+            def expand_2d() -> None:
+                """EXPAND2D; raises _Eof where it jumps to eof2d."""
+                pb = [state.ref]
+                b1 = [runs[pb[0]]]
+                pb[0] += 1
+
+                def check_b1() -> None:
+                    if st["pa"] != this:
+                        while b1[0] <= st["a0"] and b1[0] < lastx:
+                            if pb[0] + 1 >= state.ref + nruns:
+                                raise _Overflow
+                            b1[0] = _i32(b1[0] + runs[pb[0]] + runs[pb[0] + 1])
+                            pb[0] += 2
+
+                def next_b1() -> None:
+                    if pb[0] >= state.ref + nruns:
+                        raise _Overflow
+                    b1[0] = _i32(b1[0] + runs[pb[0]])
+                    pb[0] += 1
+
+                try:
+                    while st["a0"] < lastx:
+                        if st["pa"] >= this + nruns:
+                            raise _Overflow
+                        s_, _w, p = lookup(main, 7)
+                        if s_ == S_PASS:
+                            check_b1()
+                            next_b1()
+                            st["rl"] += b1[0] - st["a0"]
+                            st["a0"] = b1[0]
+                            b1[0] = _i32(b1[0] + runs[pb[0]])
+                            pb[0] += 1
+                        elif s_ == S_HORIZ:
+                            order = ((black_t, 13, S_TERMB, S_MAKEUPB),
+                                     (white_t, 12, S_TERMW, S_MAKEUPW))
+                            if not (st["pa"] - this) & 1:
+                                order = order[::-1]
+                            for table, n, term, makeup in order:
+                                while True:
+                                    s2, _w2, p2 = lookup(table, n)
+                                    if s2 == term:
+                                        setvalue(p2)
+                                        break
+                                    if s2 in (makeup, S_MAKEUP):
+                                        st["a0"] = _i32(st["a0"] + p2)
+                                        st["rl"] += p2
+                                        continue
+                                    return cleanup()  # unexpected("Black/WhiteTable")
+                            check_b1()
+                        elif s_ == S_V0:
+                            check_b1()
+                            setvalue(b1[0] - st["a0"])
+                            next_b1()
+                        elif s_ == S_VR:
+                            check_b1()
+                            setvalue(b1[0] - st["a0"] + p)
+                            next_b1()
+                        elif s_ == S_VL:
+                            check_b1()
+                            if b1[0] < _i32(st["a0"] + p):
+                                return cleanup()  # unexpected("VL")
+                            setvalue(b1[0] - st["a0"] - p)
+                            pb[0] -= 1
+                            b1[0] = _i32(b1[0] - runs[pb[0]])
+                        elif s_ == S_EXT:
+                            runs[st["pa"]] = (lastx - st["a0"]) & 0xFFFFFFFF
+                            st["pa"] += 1
+                            return cleanup()
+                        elif s_ == S_EOL:
+                            runs[st["pa"]] = (lastx - st["a0"]) & 0xFFFFFFFF
+                            st["pa"] += 1
+                            if not need(4):
+                                raise _Eof
+                            clr(4)
+                            eol[0] = 1
+                            return cleanup()
+                        else:
+                            return cleanup()  # unexpected("MainTable")
+                    if st["rl"]:
+                        if st["rl"] + st["a0"] < lastx:
+                            if not need(1):
+                                raise _Eof
+                            if not acc[0] & 1:
+                                return cleanup()  # badMain2D
+                            clr(1)
+                        setvalue(0)
+                    return cleanup()
+                except _Eof:
+                    cleanup()
+                    raise
+
+            try:
+                if compression == 2:
+                    expand_1d()
+                elif compression == 3:
+                    sync_eol()
+                    two_d = False
+                    if t4_options & 1:
+                        if not need(1):
+                            raise _Eof
+                        two_d = not acc[0] & 1
+                        clr(1)
+                    if two_d:
+                        expand_2d()
+                    else:
+                        expand_1d()
+                else:
+                    expand_2d()
+                    if eol[0]:
+                        raise _Eof  # Fax4Decode: an EOL ends the strip (EOFG4)
+            except _Eof:
+                fill(row, this, st["pa"])
+                if compression == 4:
+                    ok = row > 0  # "don't error on badly-terminated strips"
+                else:
+                    ok = False
+                break
+            fill(row, this, st["pa"])
+            if compression == 2:
+                clr(acc[1] & 7)  # FAXMODE_BYTEALIGN: the rest of the byte
+            elif compression == 4 or st["pa"] < this + nruns:
+                setvalue(0)  # the reference's imaginary change
+            if state.ref is not None:
+                state.cur, state.ref = state.ref, state.cur
+            row += 1
+    except _Overflow:
+        ok = False
+    return out, ok

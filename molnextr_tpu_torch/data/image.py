@@ -15,16 +15,17 @@ ThunderScan and SGILog too), ``data/bmp.py``, ``data/pnm.py`` (PBM, PGM,
 PPM, PAM, PFM), ``data/gif.py``, ``data/sunras.py``, ``data/hdr.py``,
 ``data/webp.py`` (lossy, lossless, alpha, animated: the first frame) and
 ``data/jp2.py`` (JPEG 2000: the JP2 file and the raw codestream, over
-``data/j2k*.py``); PNG, JPEG, TIFF and WebP apply the EXIF orientation as
-OpenCV does (``data/exif.py``).  Each reader module names the few forms
-where it reads a file that OpenCV 5.0 returns None for (differences by
-design, pinned by tests).
+``data/j2k*.py``) and ``data/avif.py`` (AVIF: the HEIF container over the
+AV1 intra decoder of ``data/av1_*.py``, lossless frames); PNG, JPEG, TIFF
+and WebP apply the EXIF orientation as OpenCV does (``data/exif.py``).
+Each reader module names the few forms where it reads a file that OpenCV
+5.0 returns None for (differences by design, pinned by tests).
 
-AVIF, which OpenCV reads and the port does not decode yet, raises
-:class:`UnsupportedFormat` (a ``ValueError``) naming the format, and so
-does a form of TIFF or JPEG 2000 that OpenCV reads and the port does not
-(CCITT RLE/W, HTJ2K, the JPEG 2000 Part 2 markers; ROADMAP queue 1): such
-a file is never silently dropped or whitened.  The call sites do on None
+A form that OpenCV reads and the port does not decode yet raises
+:class:`UnsupportedFormat` (a ``ValueError``) naming it: lossy AV1 frames,
+AVIF grids and image sequences, CCITT RLE/W TIFF, HTJ2K, the JPEG 2000
+Part 2 markers (ROADMAP queue 1).  Such a file is never silently dropped
+or whitened.  The call sites do on None
 what their JAX counterparts do on ``cv2.imread``'s None:
 ``predict_image_files`` raises ``FileNotFoundError``, the dataset
 substitutes a white placeholder, evaluation and the dataset-eval suite skip
@@ -58,8 +59,10 @@ def sniff_format(data: bytes) -> str:
     """The image format that a file's first bytes show, or ``unknown format``."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
-        return "AVIF"
+    if data[4:8] == b"ftyp":
+        from molnextr_tpu_torch.data.avif import compatible
+
+        return "AVIF" if compatible(data) else "unknown format"
     if len(data) >= 3 and data[:1] == b"P" and data[1:2] in b"1234567fF" \
             and data[2:3] in b" \t\r\n":
         return "PNM"
@@ -74,17 +77,13 @@ def decode(data: bytes, path: str = "<bytes>") -> Optional[np.ndarray]:
     kind = sniff_format(data)
     if kind == "unknown format":
         return None  # OpenCV finds no decoder for it
-    if kind == "AVIF":
-        raise UnsupportedFormat(f"{path}: {kind} is not decoded by the port yet (PNG, JPEG, "
-                                "TIFF, BigTIFF, BMP, PNM, GIF, HDR, Sun raster, WebP and "
-                                "JPEG 2000 are; ROADMAP queue 1)")
-    from molnextr_tpu_torch.data import bmp, gif, hdr, jp2, jpeg, png, pnm, sunras, tiff, webp
+    from molnextr_tpu_torch.data import avif, bmp, gif, hdr, jp2, jpeg, png, pnm, sunras, tiff, webp
 
     reader = {"PNG": png.decode_png, "JPEG": jpeg.decode_jpeg, "TIFF": tiff.decode_tiff,
               "BigTIFF": tiff.decode_tiff, "BMP": bmp.decode_bmp, "PNM": pnm.decode_pnm,
               "GIF": gif.decode_gif, "HDR": hdr.decode_hdr,
               "Sun raster": sunras.decode_sunras, "WebP": webp.decode_webp,
-              "JPEG 2000": jp2.decode_jpeg2000}[kind]
+              "JPEG 2000": jp2.decode_jpeg2000, "AVIF": avif.decode_avif}[kind]
     try:
         return reader(data, path)
     except UnsupportedFormat:

@@ -19,8 +19,10 @@ first page the same way and returns RGB uint8 ``(H, W, 3)``, or raises
   after ``JPEGTables`` by ``data/jpeg.py``, YCbCr converted by libjpeg as
   ``JPEGCOLORMODE_RGB`` asks, other photometrics raw), ThunderScan (32809)
   and SGILog (34676, 34677) (``data/tiff_codecs.py``); horizontal
-  differencing (predictor 2) on 8- and 16-bit samples (other predictors,
-  and predictor 2 at other depths, are ignored, as libtiff ignores them);
+  differencing (predictor 2) on 8- and 16-bit samples of LZW and Deflate
+  strips, undone only where the strip decoded whole (other predictors, and
+  predictor 2 at other depths, fail ``PredictorSetup``: None; the tag is
+  ignored beside other compressions);
 * samples (libtiff's maps): grey (MinIsBlack, MinIsWhite) at 1, 2, 4 and 8
   bits as ``v * 255 // max`` (MinIsWhite inverted), at 16 bits by the high
   byte; RGB at 8 bits as stored and at 16 bits as ``(v + 128) // 257``; a
@@ -59,7 +61,20 @@ non-3-sample Lab; more than four samples a pixel.
 
 CCITT RLE/W (32771), which OpenCV reads, raises :class:`UnsupportedFormat`
 naming it (ROADMAP queue 1): libtiff aligns its rows by how many bytes its
-bit accumulator happened to load.
+bit accumulator happened to load.  The other CCITT codecs are read by
+libtiff's own state machine (``data/ccitt.py``), so a bad code, a row of
+the wrong length or a strip cut short is repaired as libtiff repairs it.
+
+The directory is read as ``TIFFReadDirectory`` reads it (``_directory``):
+each tag through its ``TIFFReadDirEntry*`` reader's rules (the types it
+converts from, the count, each value in range, the values inside the file),
+a failure failing the directory (None) for the tags libtiff lays the image
+out by (``SamplesPerPixel``, ``Compression``, the sizes, ``PlanarConfig``,
+``RowsPerStrip``, ``ExtraSamples``, the per-sample tags, the strip or tile
+arrays) and ignoring the tag for the others; the values ``TIFFSetField``
+refuses; strip or tile arrays cut or padded with zeros to their number;
+no strips or tiles, or a zero size, failing; a size past OpenCV's limits
+(2^20 a side, 2^30 pixels) read as None before anything is allocated.
 
 Differences by design, each pinned by a test: OpenCV 5.0 fails to read
 orientations 5-8 (it returns None), and refuses grey at 2 and 4 bits (a
@@ -71,7 +86,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -80,7 +95,7 @@ from molnextr_tpu_torch.data.exif import apply_orientation
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
-          11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+          11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
 # compressions libtiff 4.7 registers but OpenCV 5.0 builds without ("not
 # configured": TIFFRGBAImageOK fails), or that can never give an image
 # OpenCV takes: cv2.imread returns None
@@ -96,7 +111,6 @@ _DECODED = {1, 2, 3, 4, 5, 7, 8, 32773, 32809, 32946, 34676, 34677}
 _UNPORTED_COMPRESSION = {32771: "CCITT RLE/W"}
 _LIBTIFF_CODECS = _DECODED | set(_REFUSED_COMPRESSION) | set(_UNPORTED_COMPRESSION)
 _REFUSED_PHOTOMETRIC = {9: "ICC Lab", 10: "ITU Lab", 4: "transparency mask"}
-_CHUNK_TAGS = (273, 279, 324, 325)  # strip and tile offsets and byte counts
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 # putcontig8bitYCbCr*tile's subsamplings (across, down)
 _YCBCR_SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
@@ -109,27 +123,264 @@ class _Failed(Exception):
     on with the strip buffer as the decoder left it."""
 
 
-def _tags(data: bytes, order: str, ifd: int, big: bool = False) -> Dict[int, List]:
-    """Every tag of the IFD at ``ifd`` -> its values.  A BigTIFF IFD has an
-    8-byte count, 20-byte entries and values of up to 8 bytes in place."""
-    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
+def _entries(data: bytes, order: str, ifd: int, big: bool) -> List[Tuple[int, int, int, int]]:
+    """``TIFFFetchDirectory``: the IFD's entries as (tag, type, count, offset
+    of the value field).  A directory of more than 4096 entries, or one that
+    runs past the end of the file, fails."""
+    word, entry = ("Q", 20) if big else ("I", 12)
     (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, ifd)
     first = ifd + (8 if big else 2)
-    tags: Dict[int, List] = {}
+    if count > 4096 or first + entry * count > len(data):
+        raise ValueError("TIFF: directory count fails libtiff's sanity check")
+    out = []
     for k in range(count):
         tag, typ, n = struct.unpack_from(order + "HH" + word, data, first + entry * k)
-        if typ not in _TYPES or (typ == 18 and tag in _CHUNK_TAGS):
-            continue  # libtiff refuses IFD8 strip or tile offsets and counts
-        fmt = _TYPES[typ]
-        size = struct.calcsize(order + fmt) * n
-        at = first + entry * k + (12 if big else 8)  # after tag, type and count
-        if size > inline:
-            (at,) = struct.unpack_from(order + word, data, at)
-        if at + size > len(data):
-            raise ValueError("TIFF: tag data past the end of the file")
-        vals = list(struct.unpack_from(order + fmt * n, data, at))
-        tags[tag] = vals
+        out.append((tag, typ, n, first + entry * k + (12 if big else 8)))
+    return out
+
+
+class _EntryError(Exception):
+    """A ``TIFFReadDirEntry*`` error: count, type, range or I/O."""
+
+
+def _values(data: bytes, order: str, big: bool, e: Tuple[int, int, int, int],
+            limit: Optional[int] = None) -> list:
+    """An entry's values in its own type, at most ``limit`` of them; values
+    that lie past the end of the file are an I/O error."""
+    _tag, typ, count, at = e
+    n = count if limit is None else min(count, limit)
+    width = _WIDTHS[typ]
+    if width * n > 2147483647:
+        raise _EntryError("size")
+    size = width * n
+    if width * count > (8 if big else 4):  # in place or not by the whole count
+        (at,) = struct.unpack_from(order + ("Q" if big else "I"), data, at)
+    if at + size > len(data):
+        raise _EntryError("I/O")
+    fmt = _TYPES[typ]
+    vals = list(struct.unpack_from(order + fmt * n, data, at))
+    if typ in (5, 10):  # RATIONAL, SRATIONAL: pairs
+        vals = [(a, b) for a, b in zip(vals[0::2], vals[1::2])]
+    return vals
+
+
+# types each TIFFReadDirEntry* reader converts from
+_INTEGER_TYPES = {1, 3, 4, 6, 8, 9, 16, 17}  # BYTE SHORT LONG SBYTE SSHORT SLONG LONG8 SLONG8
+_FLOAT_TYPES = _INTEGER_TYPES | {5, 10, 11, 12}
+
+
+def _tags(data: bytes, order: str, ifd: int, big: bool = False) -> Dict[int, List]:
+    """Every tag of the IFD at ``ifd`` -> its raw values (a rational as two
+    numbers), skipping entries of an unknown type or whose values lie past
+    the end of the file: the tests' view of a file they wrote.  The reader
+    itself goes through :func:`_directory`."""
+    tags: Dict[int, List] = {}
+    for e in _entries(data, order, ifd, big):
+        if e[1] in _TYPES:
+            try:
+                vals = _values(data, order, big, e)
+            except _EntryError:
+                continue
+            tags[e[0]] = [v for pair in vals for v in pair] if e[1] in (5, 10) else vals
     return tags
+
+
+# the base directory's tags that TIFFReadDirectory reads in its first pass
+# (a failure fails the directory), as UINT32 or UINT16
+_FIRST_PASS = {256: "L", 257: "L", 278: "L", 322: "L", 323: "L", 32997: "L", 32998: "L",
+               284: "H"}
+# tags read per sample in the second pass, whose failure fails the directory
+_PER_SAMPLE = (258, 280, 281, 339, 32996)
+# codec tags, known only to their codec (_TIFFCheckFieldIsValidForCodec)
+_CODEC_TAGS = {317: {5, 8, 32946}, 347: {7}, 292: {3}, 293: {4}}
+# single UINT16 tags of the second pass the port reads; a failure ignores the tag
+_SHORTS = (262, 266, 274, 317, 332)
+_FLOAT_COUNTS = {318: 2, 529: 3, 532: 6}  # C0_FLOAT tags and their counts
+_MAX_COLOUR = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3,
+               5: 4}  # _TIFFGetMaxColorChannels
+
+
+def _directory(data: bytes, order: str, ifd: int, big: bool, path: str) -> Dict[int, List]:
+    """``TIFFReadDirectory`` of the IFD at ``ifd``: each tag read as its
+    ``TIFFReadDirEntry*`` reader reads it (the types it converts from, the
+    count it needs, each value in range, the values inside the file), a
+    failure failing the directory (``ValueError``) for the tags libtiff
+    needs to lay out the image and ignoring the tag for the others; the
+    values ``TIFFSetField`` refuses; the strip or tile arrays cut or padded
+    with zeros to the number of strips or tiles.  Returns tag -> values with
+    ``nstrips`` under the key -1."""
+    seen: set = set()  # a tag's later duplicates are ignored (libtiff's bugzilla 1994)
+    ents = [e for e in _entries(data, order, ifd, big) if not (e[0] in seen or seen.add(e[0]))]
+    t: Dict[int, List] = {}
+
+    def fail(what: str):
+        raise ValueError(f"{path}: TIFF directory: {what} (TIFFReadDirectory fails)")
+
+    def ints(e, top: int, limit: Optional[int] = None) -> list:
+        if e[1] not in _INTEGER_TYPES:
+            raise _EntryError("type")
+        vals = _values(data, order, big, e, limit)
+        if any(v < 0 or v > top for v in vals):
+            raise _EntryError("range")
+        return vals
+
+    def short(e) -> int:  # TIFFReadDirEntryShort
+        if e[2] != 1:
+            raise _EntryError("count")
+        return ints(e, 0xFFFF)[0]
+
+    def per_sample(e) -> int:  # ...Short, then TIFFReadDirEntryPersampleShort on a count error
+        if e[2] == 1:
+            return short(e)
+        spp = t.get(277, [1])[0]
+        if e[2] < spp:
+            raise _EntryError("count")
+        vals = ints(e, 0xFFFF)[:spp]
+        if len(set(vals)) > 1:
+            raise _EntryError("per-sample values differ")
+        return vals[0]
+
+    def find(tag):
+        return next((e for e in ents if e[0] == tag), None)
+
+    handled = set()
+    e = find(277)
+    if e is not None:
+        handled.add(id(e))
+        try:
+            spp = short(e)
+        except _EntryError as err:
+            fail(f"SamplesPerPixel: {err}")
+        if spp == 0:
+            fail("SamplesPerPixel 0")
+        t[277] = [spp]
+    e = find(259)
+    if e is not None:
+        handled.add(id(e))
+        try:
+            t[259] = [per_sample(e)]
+        except _EntryError as err:
+            fail(f"Compression: {err}")
+    compression = t.get(259, [1])[0]
+    # first pass: the layout
+    for e in ents:
+        if id(e) in handled or e[0] not in _FIRST_PASS and e[0] != 338:
+            continue
+        handled.add(id(e))
+        try:
+            if e[0] == 338:  # ExtraSamples: C16_UINT16
+                if e[2] > 0xFFFF:
+                    raise _EntryError("count")
+                vals = ints(e, 0xFFFF)
+                if len(vals) > t.get(277, [1])[0] or any(v > 2 and v != 999 for v in vals):
+                    fail(f"ExtraSamples {vals}")
+                t[338] = [2 if v == 999 else v for v in vals]
+                continue
+            if e[2] != 1:
+                raise _EntryError("count")
+            (v,) = ints(e, 0xFFFFFFFF if _FIRST_PASS[e[0]] == "L" else 0xFFFF)
+        except _EntryError as err:
+            fail(f"tag {e[0]}: {err}")
+        if e[0] == 278 and v == 0 or e[0] == 284 and v not in (1, 2):
+            fail(f"tag {e[0]} value {v}")
+        t[e[0]] = [v]
+    if 256 not in t and 257 not in t:
+        fail("no ImageLength")
+    width, height = t.setdefault(256, [0])[0], t.setdefault(257, [0])[0]
+    if width == 0 or height == 0:
+        fail("zero scanline or strip size")
+    if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
+        # OpenCV's validateInputImageSize raises before it allocates
+        raise ValueError(f"{path}: TIFF of {width} x {height} (past OpenCV's limits)")
+    spp, planar = t.get(277, [1])[0], t.get(284, [1])[0]
+    tiled = 322 in t or 323 in t
+    if tiled:
+        tw, tl = t.get(322, [0])[0], t.get(323, [0])[0]
+        depth, td = t.get(32997, [1])[0], t.get(32998, [1])[0]
+        n = 0 if 0 in (tw, tl, td) else \
+            -(-width // tw) * -(-height // tl) * -(-depth // td)
+    else:
+        rps = min(t.get(278, [2**32 - 1])[0], height)
+        n = 1 if rps == 0 else -(-height // rps)
+    if planar == 2:
+        n *= spp
+    if n == 0 or n >= 2**32:
+        fail("no strips or tiles")
+    if not ({273, 324} & {e[0] for e in ents}):
+        fail("no StripOffsets")
+    # second pass
+    for e in ents:
+        tag, typ = e[0], e[1]
+        if id(e) in handled or tag in _CODEC_TAGS and compression not in _CODEC_TAGS[tag]:
+            continue
+        try:
+            if tag in (273, 279, 324, 325):  # TIFFFetchStripThing
+                try:
+                    vals = ints(e, 2**64 - 1, n)
+                except _EntryError as err:
+                    fail(f"tag {tag}: {err}")
+                if len(vals) < n:
+                    if n > 1_000_000:
+                        fail(f"tag {tag}: {len(vals)} of {n} strips or tiles")
+                    vals += [0] * (n - len(vals))
+                t[273 if tag in (273, 324) else 279] = vals
+            elif tag in _PER_SAMPLE:
+                try:
+                    v = per_sample(e)
+                except _EntryError as err:
+                    fail(f"tag {tag}: {err}")
+                if tag == 339 and not 1 <= v <= 6 or tag == 32996 and v > 3:
+                    fail(f"tag {tag} value {v}")
+                if tag == 32996:
+                    tag, v = 339, {0: 4, 1: 2, 2: 1, 3: 3}[v]
+                t[tag] = [v]
+                if tag == 258:
+                    t[-2] = [1]  # BitsPerSample read
+            elif tag in (340, 341):  # per-sample doubles
+                if e[2] != spp or typ not in _FLOAT_TYPES:
+                    fail(f"tag {tag}")
+                _values(data, order, big, e)
+            elif tag == 320:
+                bps = t.get(258, [1])[0]
+                if -2 in t and bps <= 24:
+                    if e[2] != 3 << bps:
+                        raise _EntryError("count")
+                    t[320] = ints(e, 0xFFFF)
+            elif tag in _SHORTS:
+                v = short(e)
+                if tag == 266 and v not in (1, 2) or tag == 274 and not 1 <= v <= 8:
+                    continue  # TIFFSetField refuses it: the tag is ignored
+                t[tag] = [v]
+            elif tag in _FLOAT_COUNTS:
+                if e[2] != _FLOAT_COUNTS[tag] or typ not in _FLOAT_TYPES:
+                    continue
+                t[tag] = _values(data, order, big, e)
+                t[-tag] = [typ]
+            elif tag == 530:  # UINT16_PAIR
+                if e[2] == 2:
+                    t[530] = ints(e, 0xFFFF)
+            elif tag == 347:  # C32_UINT8
+                if typ not in _INTEGER_TYPES | {2, 7}:
+                    raise _EntryError("type")
+                vals = _values(data, order, big, e)
+                if any(v < 0 or v > 255 for v in vals):
+                    raise _EntryError("range")
+                if vals:
+                    t[347] = vals
+            elif tag in (292, 293):
+                if e[2] == 1:
+                    t[tag] = ints(e, 0xFFFFFFFF)
+        except _EntryError:
+            continue  # "...; tag ignored"
+    t.pop(-2, None)
+    if 273 not in t:
+        fail("no StripOffsets")
+    colours = _MAX_COLOUR.get(t.get(262, [None])[0], 0)
+    extra = t.get(338, [])
+    if colours and spp - len(extra) > colours:
+        t[338] = extra + [0] * (spp - colours - len(extra))
+    t[-1] = [n]
+    return t
 
 
 _WIDTHS = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
@@ -140,12 +391,10 @@ def _ifd_space(data: bytes, order: str, ifd: int, big: bool) -> int:
     """``EstimateStripByteCounts``' bytes taken by the header, the IFD and
     the values stored outside it; a tag of a type libtiff cannot size
     fails the estimate."""
-    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
-    (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, ifd)
-    space = (16 + 8 + 20 * count + 8) if big else (8 + 2 + 12 * count + 4)
-    for k in range(count):
-        _tag, typ, n = struct.unpack_from(order + "HH" + word, data,
-                                          ifd + (8 if big else 2) + entry * k)
+    ents = _entries(data, order, ifd, big)
+    inline = 8 if big else 4
+    space = (16 + 8 + 20 * len(ents) + 8) if big else (8 + 2 + 12 * len(ents) + 4)
+    for _tag, typ, n, _at in ents:
         if typ not in _WIDTHS:
             raise ValueError("TIFF: a tag of unknown type")
         size = _WIDTHS[typ] * n
@@ -254,20 +503,18 @@ class _Image:
         else:
             (ifd,) = struct.unpack_from(order + "I", data, 4)
         self.data, self.order = data, order
-        t = _tags(data, order, ifd, big)
+        t = _directory(data, order, ifd, big, path)
         self.tags = t
         self._ifd, self._big = ifd, big
         self.width, self.height = t[256][0], t[257][0]
+        self.tiled = 322 in t or 323 in t
+        self._fax = None
         self.spp = t.get(277, [1])[0]
-        # per-sample tags: libtiff reads the first spp values and needs them equal
-        bps = t.get(258, [1] * self.spp)[: self.spp]
-        self.bps = bps[0]
+        self.bps = t.get(258, [1])[0]
         self.compression = t.get(259, [1])[0]
         if 262 not in t:
             raise ValueError(f"{path}: TIFF without a photometric interpretation")
         self.photometric = t[262][0]
-        if 320 in t and len(t[320]) != 3 << self.bps:
-            del t[320]  # "Incorrect count for ColorMap; tag ignored"
         if self.photometric == 3 and 320 not in t and self.bps >= 8:
             # TIFFReadDirectory: a palette image without its map at 8 bits
             # or more is read as grey (with three samples as RGB, but it has
@@ -285,9 +532,9 @@ class _Image:
         self._jpeg_subsampling = None
         if self.photometric != 6 or self.compression == 7 or self.planar == 2:
             self.subsampling = (1, 1)  # only raw contiguous YCbCr data is packed in blocks
-        self._check(bps)
+        self._check()
 
-    def _check(self, bps: List[int]) -> None:
+    def _check(self) -> None:
         path, t, ph = self.path, self.tags, self.photometric
         if self.compression in _UNPORTED_COMPRESSION:
             raise UnsupportedFormat(f"{path}: TIFF with "
@@ -296,21 +543,23 @@ class _Image:
         if self.compression in _REFUSED_COMPRESSION:
             raise ValueError(f"{path}: TIFF {_REFUSED_COMPRESSION[self.compression]} "
                              "compression (OpenCV 5.0 reads none)")
-        formats = t.get(339, [1] * self.spp)[: self.spp]
-        if len(set(formats)) > 1 or formats[0] not in (1, 2):
+        formats = t.get(339, [1])
+        if formats[0] not in (1, 2):
             raise ValueError(f"{path}: TIFF sample format {formats} (OpenCV takes unsigned "
                              "and signed integers)")
         if ph in _REFUSED_PHOTOMETRIC:
             raise ValueError(f"{path}: TIFF {_REFUSED_PHOTOMETRIC[ph]} photometric "
                              "interpretation (libtiff's RGBA interface refuses it)")
-        if len(set(bps)) != 1:
-            raise ValueError(f"{path}: TIFF with mixed bit depths")
         if self.bps not in (1, 2, 4, 8, 16):
             raise ValueError(f"{path}: TIFF {self.bps}-bit samples (libtiff's RGBA "
                              "interface refuses them)")
         if self.spp > 4 or self.spp < 1:
             raise ValueError(f"{path}: TIFF with {self.spp} samples a pixel")
         c = self.compression
+        if c in (5, 8, 32946) and self.predictor != 1 and not (
+                self.predictor == 2 and self.bps in (8, 16)):
+            # PredictorSetup fails: "not supported" (the decoder never starts)
+            raise ValueError(f"{path}: TIFF predictor {self.predictor} at {self.bps} bits")
         if c in (2, 3, 4) and (self.bps != 1 or self.spp != 1):
             raise ValueError(f"{path}: CCITT TIFF that is not bilevel")
         if c == 32809 and self.bps != 4:
@@ -378,8 +627,12 @@ class _Image:
         if c not in _LIBTIFF_CODECS:
             raise _Failed  # libtiff's default codec: "Decoding of ... is not implemented"
         if c in (2, 3, 4):
-            bits = ccitt.rows_to_bits(ccitt.decode(raw, width, rows, c, self.t4), width)
+            if self._fax is None:  # libtiff keeps its run arrays from strip to strip
+                self._fax = ccitt.FaxState(width, c == 4 or (c == 3 and self.t4 & 1))
+            bits, ok = ccitt.decode_strip(raw, width, rows, c, self.t4, self._fax)
             buf[:expected] = np.packbits(bits, axis=1).tobytes()
+            if not ok:
+                raise _Failed
             return
         if c == 32809:
             if not tiff_codecs.thunderscan(raw, rows, width, buf):
@@ -433,8 +686,11 @@ class _Image:
         out[: got.shape[0], : got.shape[1]] = got
         return out.tobytes()
 
-    def _unpack(self, data: bytes, rows: int, width: int, spp: int) -> np.ndarray:
-        """A chunk's bytes -> samples (rows, width, spp) (uint8 or uint16)."""
+    def _unpack(self, data: bytes, rows: int, width: int, spp: int,
+                decoded: bool = True) -> np.ndarray:
+        """A chunk's bytes -> samples (rows, width, spp) (uint8 or uint16);
+        the predictor undone only where the decoder succeeded, as libtiff's
+        ``PredictorDecodeTile`` skips it after a failure."""
         hs, vs = self.subsampling
         if (hs, vs) != (1, 1):  # blocks of hs x vs Y, then Cb, Cr
             across = -(-width // hs)
@@ -454,7 +710,7 @@ class _Image:
             shifts = np.arange(8 - bps, -1, -bps, dtype=np.uint8)
             vals = (rowdata[:, :, None] >> shifts) & ((1 << bps) - 1)
             samples = vals.reshape(rows, -1)[:, : width * spp].reshape(rows, width, spp)
-        if self.predictor == 2 and bps in (8, 16) and self.compression not in (7, 34676, 34677):
+        if self.predictor == 2 and bps in (8, 16) and decoded:
             mod = np.uint16 if bps == 16 else np.uint8
             samples = np.cumsum(samples.astype(np.int64), axis=1).astype(mod)
         return samples
@@ -466,22 +722,21 @@ class _Image:
         per = 1 if self.planar == 2 else self.spp
         dtype = np.uint16 if self._depth() == 16 else np.uint8
         out = np.zeros((h, w, self.spp), dtype)
-        tiled = 322 in t
+        tiled = self.tiled
         if tiled:
             cw, ch = t[322][0], t[323][0]
-            offsets = t[324]
             across, down = -(-w // cw), -(-h // ch)
         else:
             cw, ch = w, min(t.get(278, [h])[0], h)
-            offsets = t[273]
             across, down = 1, -(-h // ch)
+        offsets = t[273]
         chunks = across * down * planes
-        counts = t.get(325 if tiled else 279)
+        counts = t.get(279)
         if counts is None:  # libtiff estimates them for one strip or tile (a plane)
             if chunks != (self.spp if self.planar == 2 else 1):
                 raise ValueError(f"{self.path}: TIFF without its byte counts")
             counts = self._estimate_counts(offsets, chunks, cw, ch, per)
-        elif not tiled and self._counts_look_bad(offsets, counts, chunks, cw):
+        elif self._counts_look_bad(offsets, counts, chunks, cw):
             counts = self._estimate_counts(offsets, chunks, cw, ch, per)
         if len(offsets) < across * down * planes or len(counts) < len(offsets):
             raise ValueError(f"{self.path}: TIFF with missing {'tiles' if tiled else 'strips'}")
@@ -502,11 +757,12 @@ class _Image:
                     # its own, whose buffer starts zeroed
                     size = self._chunk_size(rows, cw, per)
                     buf = bytearray(size)
+                    decoded = True
                     try:
                         self._decompress(self._chunk(offsets[k], counts[k]), rows, cw, per,
                                          buf, not tiled and ty == down - 1)
                     except _Failed:
-                        pass
+                        decoded = False
                     k += 1
                     if not tiled and (hs, vs) != (1, 1):
                         # gtStripContig asks for whole block rows of TIFFScanlineSize
@@ -517,24 +773,28 @@ class _Image:
                     hh, ww = min(ch, h - y0), min(cw, w - x0)
                     if tiled and (hs, vs) == (4, 4) and ww < cw:
                         buf = _skewed_44(buf, ww, cw)
-                    chunk = self._unpack(bytes(buf), rows, cw, per)
+                    chunk = self._unpack(bytes(buf), rows, cw, per, decoded)
                     out[y0 : y0 + hh, x0 : x0 + ww, p : p + per] = chunk[:hh, :ww]
         return out
 
     def _counts_look_bad(self, offsets: List[int], counts: List[int], chunks: int,
                          width: int) -> bool:
         """``TIFFReadDirectory``'s doubts about StripByteCounts, after which it
-        estimates them: one strip of no bytes at a nonzero offset, or
-        uncompressed past the end of the file or shorter than the image; or
-        three or more uncompressed contiguous strips whose first two counts
-        differ."""
+        estimates them (``ByteCountLooksBad``): one strip at a nonzero offset
+        of no bytes, or uncompressed past the end of the file or shorter than
+        the image; or three or more uncompressed contiguous strips or tiles
+        whose first two counts differ."""
         raw = self.compression == 1
         if chunks == 1:
-            return (counts[0] == 0 and offsets[0] != 0) or raw and (
-                offsets[0] > len(self.data) - counts[0]
+            if self.tiled or offsets[0] == 0:
+                return False
+            n = len(self.data)
+            return counts[0] == 0 or raw and (
+                offsets[0] <= n and counts[0] > n - offsets[0]
                 or counts[0] < self._chunk_size(self.height, width, self.spp))
         return raw and self.planar == 1 and chunks > 2 and counts[0] != counts[1] \
             and counts[0] != 0 and counts[1] != 0
+
 
     def _estimate_counts(self, offsets: List[int], chunks: int, width: int, rows: int,
                          spp: int) -> List[int]:
@@ -553,7 +813,7 @@ class _Image:
             if last + counts[-1] > n:
                 counts[-1] = n - last if last < n else 0
             return counts
-        if 322 in self.tags:
+        if self.tiled:
             return [self._chunk_size(rows, width, spp)] * chunks
         per_plane = chunks // (self.spp if self.planar == 2 else 1)
         return [self._chunk_size(self.height // per_plane, width, spp)] * chunks
@@ -609,13 +869,14 @@ class _Image:
         return rgb.astype(np.uint8)
 
     def _floats(self, tag: int, default: List[float]) -> List[np.float32]:
-        """A RATIONAL tag as libtiff reads it to floats (0 where a
-        denominator is 0), or its default."""
+        """A C0_FLOAT tag as ``TIFFReadDirEntryFloatArray`` reads it (a
+        rational of denominator 0 as 0), or its default."""
         vals = self.tags.get(tag)
-        if vals is None or len(vals) < 2 * len(default):
+        if vals is None:
             return [np.float32(v) for v in default]
-        return [np.float32(n) / np.float32(d) if d else np.float32(0)
-                for n, d in zip(vals[0::2], vals[1::2])][: len(default)]
+        if self.tags[-tag][0] in (5, 10):
+            return [np.float32(n) / np.float32(d) if d else np.float32(0) for n, d in vals]
+        return [np.float32(v) for v in vals]
 
 
 def _skewed_44(buf: bytearray, visible: int, width: int) -> bytearray:

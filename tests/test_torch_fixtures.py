@@ -58,11 +58,14 @@ against on the card, where neither JAX nor OpenCV is installed:
   ``*_lossy.jp2``), and the TIFF and JPEG forms of ``_tiff_and_jpeg_forms``
   (JPEG-in-TIFF YCbCr 4:2:0 strips and RGB tiles, YCbCr 1x1, CMYK, CIE
   Lab, signed 16-bit, ThunderScan, LogL, arithmetic sequential and
-  progressive JPEG, a cut progressive JPEG, lossless JPEG), written by
+  progressive JPEG, a cut progressive JPEG, lossless JPEG), and lossless
+  AVIF (4:4:4 GBR, grey, 10-bit, 4:2:0, alpha, tiles, screen content:
+  ``_avif_forms``), written by
   ``cv2.imwrite``, PIL and the hand encoders of ``torch_image_writers``;
-  twelve 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
+  thirteen 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
   LZW and G4, BMP RLE8, GIF, WebP lossy and lossless, JPEG 2000 5/3 and
-  9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG) for the reader timings; and
+  9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG, lossless AVIF) for the reader
+  timings; and
   ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
@@ -520,6 +523,7 @@ def build_image_forms():
                                                               101])[1].tobytes()
     files.update(_jpeg2000_forms(bgr, big))
     files.update(_tiff_and_jpeg_forms(bgr, big))
+    files.update(_avif_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -537,6 +541,41 @@ def build_image_forms():
 
 
 WEBP_QUALITY = 90  # the lossy WebP forms' quality (cv2 and PIL)
+
+
+def _avif_forms(bgr, big):
+    """demo_0.png (and the 1024 x 1024 drawing) as lossless AVIF, every one
+    at quality 100 (a coded-lossless AV1 frame): cv2's 4:4:4 GBR, grey
+    (monochrome) and 10-bit forms, Pillow's 4:2:0 BT.601 form, one with an
+    alpha item, one of 2 x 2 tiles and one with screen-content tools
+    (palette; the picture brings no intra block copy out)."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+
+    def cv(img, depth=8):
+        params = [cv2.IMWRITE_AVIF_QUALITY, 100, cv2.IMWRITE_AVIF_DEPTH, depth]
+        return cv2.imencode(".avif", img, params)[1].tobytes()
+
+    def pil(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "AVIF", quality=100, **kw)
+        return buf.getvalue()
+
+    ramp = np.tile(np.arange(rgb.shape[1], dtype=np.uint8) * 2, (rgb.shape[0], 1))
+    ten = ((bgr.astype(np.uint32) * 1023 + 127) // 255).astype(np.uint16)  # reads back to bgr
+    return {"demo_0_lossless.avif": cv(bgr),
+            "demo_0_grey_lossless.avif": cv(cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)),
+            "demo_0_10bit_lossless.avif": cv(ten, 10),
+            "demo_0_420_lossless.avif": pil(rgb),
+            "demo_0_alpha_lossless.avif": pil(np.dstack([rgb, ramp])),
+            "demo_0_tiles_lossless.avif": pil(rgb, tile_rows=1, tile_cols=1),
+            "demo_0_screen_lossless.avif": pil(rgb, speed=6,
+                                               advanced=[("tune-content", "screen")]),
+            "big_lossless.avif": cv(big)}
 
 
 def _jpeg2000_forms(bgr, big):

@@ -6,8 +6,8 @@ that read image files against their JAX counterparts.
   while 5-8, which OpenCV 5.0 fails to read (None), read turned as a JPEG's
   are (a difference by design, pinned here);
 * BMP, GIF, PNM/PAM/PFM, HDR, Sun raster, BigTIFF, WebP (lossy and
-  lossless) and JPEG 2000 read as cv2 reads them; AVIF raises
-  ``UnsupportedFormat`` naming it;
+  lossless), JPEG 2000 and lossless AVIF read as cv2 reads them; a lossy
+  AVIF raises ``UnsupportedFormat`` naming what the port lacks;
   a missing, empty, unknown or corrupt file reads as None, as in cv2;
 * on a directory holding a PNG, a JPEG, a TIFF, a missing path and a
   corrupt file: ``MolNexTR.predict_image_files`` and the predict CLI raise
@@ -138,17 +138,19 @@ def test_malformed_exif_reads_as_orientation_1():
     ("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)),
     ("AVIF", b"\x00\x00\x00\x1cftypavif" + bytes(8))])
 def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data):
-    """AVIF raises naming the format.  JPEG 2000 raised here until the port
-    read it: now this cut JP2 file reads as None and a whole one to its
-    pixels, as cv2 reads them (``test_torch_jpeg2000.py`` holds the reader).
+    """JPEG 2000 and AVIF raised here until the port read them: now this cut
+    JP2 file and this stub AVIF file read as None, as cv2 reads them, and a
+    whole JP2 file to its pixels (``test_torch_jpeg2000.py`` holds the
+    reader).  A lossy AVIF, which the port does not decode yet, raises
+    naming what it lacks (``test_torch_avif.py`` holds the lossless reader).
     The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
     held before the port read them are read to cv2's arrays (the next test
     and each format's own test file)."""
     path = tmp_path / "x.img"
     path.write_bytes(data)
     assert sniff_format(data) == name
+    assert cv2_rgb(path) is None and imread(str(path)) is None
     if name == "JPEG 2000":
-        assert cv2_rgb(path) is None and imread(str(path)) is None
         img = _picture(9, 11)
         buf = io.BytesIO()
         Image.fromarray(img).save(buf, "JPEG2000")
@@ -156,7 +158,11 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
         np.testing.assert_array_equal(cv2_rgb(path), img)
         np.testing.assert_array_equal(imread(str(path)), img)
     else:
-        with pytest.raises(UnsupportedFormat, match=name):
+        img = _picture(9, 11)
+        path = tmp_path / "lossy.avif"
+        assert cv2.imwrite(str(path), img[..., ::-1].copy(), [cv2.IMWRITE_AVIF_QUALITY, 95])
+        assert cv2_rgb(path) is not None
+        with pytest.raises(UnsupportedFormat, match="lossy AV1"):
             imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 

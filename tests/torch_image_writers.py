@@ -2594,3 +2594,134 @@ def cdef_box(defs: Sequence[Tuple[int, int, int]]) -> bytes:
     """A ``cdef`` box of (channel, type, association) entries."""
     return jp2_box(b"cdef", struct.pack(">H", len(defs)) + b"".join(
         struct.pack(">HHH", *d) for d in defs))
+
+
+# ----- AVIF (HEIF boxes around a writer's AV1 payload) ----------------------
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+
+def avif_boxes(data: bytes) -> Dict[bytes, Tuple[int, int]]:
+    """Top-level and ``meta``/``iprp``/``ipco`` boxes of an AVIF file: type
+    -> (start of the box, end), the first of each type."""
+    out: Dict[bytes, Tuple[int, int]] = {}
+
+    def walk(pos: int, end: int) -> None:
+        while pos + 8 <= end:
+            size, kind = struct.unpack_from(">I4s", data, pos)
+            out.setdefault(kind, (pos, pos + size))
+            if kind == b"meta":
+                walk(pos + 12, pos + size)
+            elif kind in (b"iprp", b"ipco"):
+                walk(pos + 8, pos + size)
+            pos += size
+
+    walk(0, len(data))
+    return out
+
+
+def avif_grid(single: bytes, rows: int, cols: int) -> bytes:
+    """A ``grid`` AVIF of ``rows`` x ``cols`` copies of a one-item AVIF's
+    image (its ``av1C``, ``colr`` and AV1 payload, every tile the same)."""
+    boxes = avif_boxes(single)
+    (iloc_at, _), (mdat_at, mdat_end) = boxes[b"iloc"], boxes[b"mdat"]
+    ispe = single[boxes[b"ispe"][0] : boxes[b"ispe"][1]]
+    w, h = struct.unpack_from(">II", ispe, 12)
+    av1c = single[boxes[b"av1C"][0] : boxes[b"av1C"][1]]
+    colr = single[boxes[b"colr"][0] : boxes[b"colr"][1]]
+    payload = single[mdat_at + 8 : mdat_end]
+    n = rows * cols
+    grid = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(">HH", w * cols, h * rows)
+    ftyp = _box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
+    hdlr = _full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full(b"pitm", 0, 0, struct.pack(">H", 1))
+    infe = [_full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"grid\0")]
+    infe += [_full(b"infe", 2, 0, struct.pack(">HH", k + 2, 0) + b"av01\0") for k in range(n)]
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", n + 1) + b"".join(infe))
+    iref = _full(b"iref", 0, 0, _box(b"dimg", struct.pack(">HH", 1, n) + b"".join(
+        struct.pack(">H", k + 2) for k in range(n))))
+    ipco = _box(b"ipco", _full(b"ispe", 0, 0, struct.pack(">II", w * cols, h * rows))
+                + ispe + av1c + colr)
+    assoc = struct.pack(">HB", 1, 2) + bytes([1, 0x84])
+    for k in range(n):
+        assoc += struct.pack(">HB", k + 2, 3) + bytes([2, 0x83, 0x84])
+    ipma = _full(b"ipma", 0, 0, struct.pack(">I", n + 1) + assoc)
+    iprp = _box(b"iprp", ipco + ipma)
+    idat = _box(b"idat", grid)
+
+    def meta(offset: int) -> bytes:
+        entries = struct.pack(">HHHH", 1, 1, 0, 1) + struct.pack(">II", 0, len(grid))
+        for k in range(n):
+            entries += struct.pack(">HHHH", k + 2, 0, 0, 1) + struct.pack(">II", offset,
+                                                                       len(payload))
+        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", n + 1) + entries)
+        return _full(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref + iprp + idat)
+
+    head = ftyp + meta(0)
+    head = ftyp + meta(len(head) + 8)
+    return head + _box(b"mdat", payload)
+
+
+def avif_rebuild(single: bytes, iloc_version: int = 0, method: int = 0, infe_version: int = 2,
+                 ipma_version: int = 0, ipma_flags: int = 0, pitm_version: int = 0,
+                 iinf_version: int = 0, extents: int = 1, extra: Sequence[bytes] = (),
+                 clap: Optional[bytes] = None) -> bytes:
+    """A one-item AVIF's image (its ``ispe``, ``pixi``, ``av1C``, ``colr``
+    and AV1 payload) in other box forms: ``iloc`` version 0, 1 or 2 and
+    construction method 0 (``mdat``) or 1 (``idat``), the payload in
+    ``extents`` pieces, ``infe`` version 2 or 3, ``ipma`` version 0 or 1 with
+    flags 0 or 1 (16-bit indices), ``pitm`` and ``iinf`` versions 0 or 1,
+    ``extra`` whole boxes appended to ``meta``, and a ``clap`` body
+    associated (essential) with the item."""
+    boxes = avif_boxes(single)
+    props = [single[boxes[k][0] : boxes[k][1]] for k in (b"ispe", b"pixi", b"av1C", b"colr")
+             if k in boxes]
+    if clap is not None:
+        props.append(_box(b"clap", clap))
+    mdat_at, mdat_end = boxes[b"mdat"]
+    payload = single[mdat_at + 8 : mdat_end]
+    wide = 4 if iloc_version == 2 else 2
+    idw = 4 if infe_version == 3 else 2
+    ftyp = _box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
+    hdlr = _full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full(b"pitm", pitm_version, 0, (1).to_bytes(2 if pitm_version == 0 else 4, "big"))
+    infe = _full(b"infe", infe_version, 0, (1).to_bytes(idw, "big") + b"\0\0av01Color\0")
+    iinf = _full(b"iinf", iinf_version, 0,
+                 (1).to_bytes(2 if iinf_version == 0 else 4, "big") + infe)
+    ipco = _box(b"ipco", b"".join(props))
+    index_bytes = 2 if ipma_flags & 1 else 1
+    assoc = b""
+    for k in range(len(props)):
+        essential = k >= 2  # av1C, colr, clap
+        v = (k + 1) | ((1 << (8 * index_bytes - 1)) if essential else 0)
+        assoc += v.to_bytes(index_bytes, "big")
+    ipma = _full(b"ipma", ipma_version, ipma_flags,
+                 struct.pack(">I", 1) + (1).to_bytes(2 if ipma_version == 0 else 4, "big")
+                 + bytes([len(props)]) + assoc)
+    iprp = _box(b"iprp", ipco + ipma)
+    pieces = np.array_split(np.arange(len(payload)), extents)
+    cuts = [(int(p[0]), len(p)) for p in pieces if len(p)]
+
+    def meta(base: int) -> bytes:
+        head = bytes([0x44, 0x00 if iloc_version == 0 else 0x00])
+        body = head + (1).to_bytes(wide, "big") + (1).to_bytes(wide, "big")
+        if iloc_version:
+            body += struct.pack(">H", method)
+        body += struct.pack(">HH", 0, len(cuts))
+        for start, length in cuts:
+            body += struct.pack(">II", base + start, length)
+        iloc = _full(b"iloc", iloc_version, 0, body)
+        idat = _box(b"idat", payload) if method == 1 else b""
+        return _full(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iprp + idat
+                     + b"".join(extra))
+
+    if method == 1:
+        return ftyp + meta(0)
+    head = ftyp + meta(0)
+    head = ftyp + meta(len(head) + 8)
+    return head + _box(b"mdat", payload)
