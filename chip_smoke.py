@@ -132,7 +132,24 @@ failure:
    ``suite_train_throughput`` at full width (batch 32, 8 workers), each
    suite's dict on a line and gated on the JAX suites' keys; and which of
    PIL, torchvision, pandas and cv2 import on the card's machine;
-15. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+15. tools: the twins of the repo's tools through their entry points.
+   ``train/overfit_chiral.py`` at the JAX script's defaults (K 4 chiral
+   molecules of ``generate_corpus(4000, seed=42, max_atoms=28)``, 400
+   epochs, embed 16, an evaluation every 50; its bundle in a temporary
+   directory): ms per train step (CUDA events), each evaluation's
+   ``canon_smiles``, ``graph`` and ``chiral`` with its launches counted
+   (zeroed before, read after); the loss falls, the last evaluation's
+   ``canon_smiles`` is above 0, the evaluations ran K1, K2 and K3-int8 and
+   never K3-dense.  ``diagnostics.ab_int8`` on the demo bundle at n 256:
+   each arm's suite dict, its launches (the dense arm K3-dense alone, the
+   int8 arm K3-int8 alone) and its SMILES against the JAX package's
+   (``fixtures/ab_int8.json``); the agreement no lower than the JAX
+   package's less 0.05.  ``diagnostics.diagnose_errors`` on the demo bundle
+   at n 64 and beam 4 (K3-int8 on 4 x the batch's rows).
+   ``diagnostics.diagnose_chirality`` on the overfit's bundle and corpus
+   (stage A's ``chiral`` 1.0, stage D logged).  The phase's summary is a
+   JSON line of its own before the kernels line;
+16. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
@@ -161,7 +178,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "recipe", "dp",
-          "cli", "convnext", "suites", "timing")
+          "cli", "convnext", "suites", "tools", "timing")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -231,6 +248,14 @@ DP_EVAL_BATCH = 4
 DP_DEMO_SMILES = ("C", "CC", "CCO", "CCC", "CCN", "CCCC", "OCCO", "CC(C)O")
 # phases cli and convnext: the train CLI's corpus (3 batches of 32) and valid set
 CLI_TRAIN_ITEMS, CLI_VALID_ITEMS = 96, 8
+# phase tools: the overfit at scripts/overfit_chiral.py's defaults (K 4, 400
+# epochs, embed 16, an evaluation every 50: a cosine schedule over 250 epochs
+# reads no molecule at its end on the card); the A/B at ab_int8_suites.py's
+# default n, its agreement held to the JAX package's (fixtures/ab_int8.json)
+# less AB_SLACK; diagnose_errors at n 64 and beam 4
+AB_SLACK = 0.05
+DIAG_N, DIAG_BEAM = 64, 4
+K3_INT8, K3_DENSE = "decode_attention_layered_q8", "decode_attention_layered"
 DEVICE = "cuda"
 
 
@@ -2055,6 +2080,9 @@ def image_forms(torch, card, bundle, work, want):
             f"(information): {json.dumps({n: same.get(n) for n in TIFF_JPEG_FORMS})}")
         log("  the AVIF forms read at all by this machine's cv2 (information): "
             f"{json.dumps(json.loads(probe.stdout)['avif_read'])}")
+        log("  the files this machine's cv2 reads otherwise, as None (null) or as other "
+            "pixels (how many differ from the stored array; information): "
+            f"{json.dumps(json.loads(probe.stdout)['differing'])}")
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
@@ -2142,14 +2170,19 @@ import cv2
 import numpy as np
 folder = sys.argv[1]
 stored = np.load(os.path.join(folder, 'arrays.npz'))
-same, shape, jpeg2000, avif = {}, {}, {}, {}
+same, shape, jpeg2000, avif, differ = {}, {}, {}, {}, {}
 for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
     try:
         img = cv2.imread(os.path.join(folder, name))
     except cv2.error:
         img = None
-    same[name] = img is not None and np.array_equal(cv2.cvtColor(img, cv2.COLOR_BGR2RGB),
-                                                    stored[name])
+    rgb = None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    same[name] = rgb is not None and np.array_equal(rgb, stored[name])
+    if not same[name]:  # None, or other pixels: how many differ from the stored array
+        differ[name] = None if rgb is None else {
+            'shape': list(rgb.shape), 'stored_shape': list(stored[name].shape),
+            'pixels_differing': int((rgb != stored[name]).any(axis=-1).sum())
+            if rgb.shape == stored[name].shape else None}
     if name.endswith('.webp'):  # turned by EXIF or not, animation read or not
         shape[name] = None if img is None else list(img.shape[:2])
     if name.endswith(('.jp2', '.j2k')):  # read at all (OpenJPEG in this build or not)
@@ -2165,7 +2198,8 @@ for name in sys.argv[2:]:  # cv2's own host ms on the readers' timing files, med
         spent.append((time.perf_counter() - t0) * 1e3)
     ms[name] = sorted(spent)[1]
 print(json.dumps({'cv2': cv2.__version__, 'same_array': same, 'webp_shape': shape,
-                  'jpeg2000_read': jpeg2000, 'avif_read': avif, 'cv2_ms': ms}))
+                  'jpeg2000_read': jpeg2000, 'avif_read': avif, 'cv2_ms': ms,
+                  'differing': differ}))
 """
 
 
@@ -2405,6 +2439,197 @@ def phase_suites(torch, results, card):
     log(f"  image libraries importable on this machine (version or false): "
         f"{json.dumps(present)}")
     results["suites"] = {"report": report, "launches": counts, "imports": present}
+
+
+def tools_overfit(torch, work):
+    """``overfit_chiral.main`` at the JAX script's defaults: each train step
+    timed by CUDA events, each evaluation's launches counted (counters
+    zeroed before it, read after); the loss falls, the last evaluation
+    reads a training molecule, and the evaluations ran K1, K2 and K3-int8,
+    never K3-dense."""
+    import numpy as np
+
+    from molnextr_tpu_torch.checkpoint import CheckpointManager
+    from molnextr_tpu_torch.train import loop, overfit_chiral
+
+    inner, inner_save, evals, saves = loop.evaluate_model, CheckpointManager.save, [], []
+
+    def counted_eval(*args, **kwargs):
+        t0 = time.perf_counter()
+        scores, counts = count_launches(torch, lambda: inner(*args, **kwargs))
+        evals.append({"launches": counts, "seconds": time.perf_counter() - t0})
+        return scores
+
+    def timed_save(*args, **kwargs):  # the epoch's checkpoint, on the host clock
+        t0 = time.perf_counter()
+        out = inner_save(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    save = os.path.join(work, "chiral_proof")
+    loop.evaluate_model, CheckpointManager.save = counted_eval, timed_save
+    report = {}
+    try:
+        timed = timed_steps(torch, lambda: report.update(
+            overfit_chiral.main(["--save-path", save, "--device", DEVICE])))
+    finally:
+        loop.evaluate_model, CheckpointManager.save = inner, inner_save
+    rows = report["epochs"]
+    first, last = rows[0]["train_loss"], rows[-1]["train_loss"]
+    step_ms = float(np.median(timed["step_ms"]))
+    launches = {k: sum(e["launches"][k] for e in evals) for k in evals[0]["launches"]}
+    ev = [{"epoch": r["epoch"], "canon_smiles": r["valid_canon_smiles"],
+           "graph": r["valid_graph"], "chiral": r["valid_chiral"]}
+          for r in rows if "valid_canon_smiles" in r]
+    split = {"train_steps": sum(timed["step_ms"]) / 1e3, "evaluations":
+             sum(e["seconds"] for e in evals), "checkpoints": sum(saves)}
+    split["other"] = timed["wall_s"] - sum(split.values())
+    log(f"  overfit (K {len(report['chiral'])}: {report['chiral']}): {len(rows)} epochs, "
+        f"{report['step']} steps in {timed['wall_s']:.1f} s; step ms median {step_ms:.2f} "
+        f"(min {min(timed['step_ms']):.2f}, max {max(timed['step_ms']):.2f}); peak "
+        f"{timed['peak_memory_gb']:.2f} GB; loss {first:.4f} -> {last:.4f}; seconds in "
+        f"{json.dumps(split)} (a checkpoint median {1e3 * float(np.median(saves)):.1f} ms)")
+    for e, c in zip(ev, evals):
+        log(f"    eval after epoch {e['epoch']}: canon_smiles {e['canon_smiles']} graph "
+            f"{e['graph']} chiral {e['chiral']} ({c['seconds']:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in c['launches'].items() if v})})")
+    if not last < first:
+        raise AssertionError(f"overfit: the loss did not fall ({first} -> {last})")
+    if not ev or not ev[-1]["canon_smiles"] > 0:
+        raise AssertionError(f"overfit: the last evaluation read no training molecule ({ev})")
+    for kname in ("fused_window_attention", "fused_ln_mlp", K3_INT8):
+        if not launches[kname]:
+            raise AssertionError(f"overfit: the evaluations never launched {kname}")
+    if launches[K3_DENSE]:
+        raise AssertionError(f"overfit: the evaluations launched {K3_DENSE} "
+                             f"{launches[K3_DENSE]} times on the int8 path")
+    return {"k": len(report["chiral"]), "steps": report["step"], "wall_s": timed["wall_s"],
+            "seconds": split, "step_ms_median": step_ms, "first_loss": first, "last_loss": last,
+            "evals": ev, "eval_launches": launches, "bundle": os.path.join(save, "ckpt_best"),
+            "corpus": os.path.join(save, "corpus_valid.txt")}
+
+
+def tools_ab_int8(torch, bundle):
+    """``diagnostics.ab_int8`` at the script's default n: each arm's launches
+    counted (the dense arm on K3-dense alone, the int8 arm on K3-int8
+    alone) and its SMILES kept; the agreement held to the JAX package's on
+    the same renders (``fixtures/ab_int8.json``) less ``AB_SLACK``."""
+    from molnextr_tpu_torch import benchmarks, diagnostics
+
+    with open(fixture_path("ab_int8.json")) as f:
+        want = json.load(f)
+    inner, arms = benchmarks.suite_batch_inference, []
+
+    def counted_suite(*args, **kwargs):
+        suite, counts = count_launches(torch, lambda: inner(*args, **kwargs))
+        arms.append({"launches": counts, "smiles": list(suite["_smiles"])})
+        return suite
+
+    benchmarks.suite_batch_inference = counted_suite
+    try:
+        report = diagnostics.ab_int8(["--model_path", bundle, "--n", str(want["n"]),
+                                      "--device", DEVICE])
+    finally:
+        benchmarks.suite_batch_inference = inner
+    out = {"smiles_agreement": report["smiles_agreement"],
+           "jax_smiles_agreement": want["smiles_agreement"]}
+    for (tag, own, other), arm in zip((("bf16", K3_DENSE, K3_INT8),
+                                       ("int8", K3_INT8, K3_DENSE)), arms):
+        same = sum(a == b for a, b in zip(arm["smiles"], want["smiles"][tag]))
+        ran = {k: v for k, v in arm["launches"].items() if v}
+        out[tag] = {**report[tag], "agree_with_jax": same / len(arm["smiles"]), "launches": ran}
+        log(f"  A/B arm {tag}: {json.dumps(report[tag])}; SMILES equal to the JAX package's "
+            f"{tag} arm on {same} of {len(arm['smiles'])}; launches {json.dumps(ran)}")
+        if not arm["launches"][own] or arm["launches"][other]:
+            raise AssertionError(f"A/B arm {tag}: launches {json.dumps(arm['launches'])}, "
+                                 f"not {own} alone")
+    log(f"  A/B agreement {report['smiles_agreement']:.4f} against the JAX package's "
+        f"{want['smiles_agreement']:.4f} on the same {want['n']} renders (gate: no lower "
+        f"than {want['smiles_agreement'] - AB_SLACK:.4f})")
+    if report["smiles_agreement"] < want["smiles_agreement"] - AB_SLACK:
+        raise AssertionError(f"A/B: agreement {report['smiles_agreement']} below the JAX "
+                             f"package's {want['smiles_agreement']} less {AB_SLACK}")
+    return out
+
+
+def tools_diagnose_errors(torch, bundle):
+    """``diagnostics.diagnose_errors`` at n 64 and beam 4: K3-int8 ran on
+    4 x the batch's rows (the rows of each launch recorded by a spy on the
+    decoder's call)."""
+    from molnextr_tpu_torch import diagnostics
+    from molnextr_tpu_torch.checkpoint import load_model
+    from molnextr_tpu_torch.models import decoder
+
+    inner, rows = decoder.decode_attention_layered_q8, {}
+
+    def spied(q, *args, **kwargs):
+        rows[q.shape[0]] = rows.get(q.shape[0], 0) + 1
+        return inner(q, *args, **kwargs)
+
+    decoder.decode_attention_layered_q8 = spied
+    try:
+        report, counts = count_launches(torch, lambda: diagnostics.diagnose_errors(
+            ["--model_path", bundle, "--n", str(DIAG_N), "--beam", str(DIAG_BEAM),
+             "--device", DEVICE]))
+    finally:
+        decoder.decode_attention_layered_q8 = inner
+    # the engine pads a batch of min(n, decode.batch_size) to a power of two
+    batch = 1 << (min(DIAG_N, load_model(bundle)[0].decode.batch_size) - 1).bit_length()
+    log(f"  diagnose_errors (n {DIAG_N}, beam {DIAG_BEAM}): {json.dumps(report)}; K3-int8 "
+        f"calls by rows {json.dumps(rows)}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    if not rows.get(DIAG_BEAM * batch) or counts[K3_INT8] != sum(rows.values()):
+        raise AssertionError(f"diagnose_errors: K3-int8 not launched on {DIAG_BEAM} x "
+                             f"{batch} rows (calls by rows {rows}, launches {counts[K3_INT8]})")
+    return {**report, "k3_int8_calls_by_rows": rows, "launches": counts}
+
+
+def tools_diagnose_chirality(torch, bundle, corpus):
+    """``diagnostics.diagnose_chirality`` on the overfit's best bundle and
+    corpus: stage A (the label oracle) reads every chiral molecule."""
+    from molnextr_tpu_torch import diagnostics
+
+    report, counts = count_launches(torch, lambda: diagnostics.diagnose_chirality(
+        ["--bundle", bundle, "--corpus", corpus, "--device", DEVICE]))
+    flags = [(r["tokens_match"], r["edges_match"]) for r in report["rows"]]
+    log(f"  diagnose_chirality: stage A {json.dumps(report['stage_a'])}, stage D "
+        f"{json.dumps(report['stage_d'])}; (tokens, edges) match per row {flags}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    if report["stage_a"]["chiral"] != 1.0:
+        raise AssertionError(f"diagnose_chirality: stage A chiral {report['stage_a']['chiral']}")
+    return {"stage_a": report["stage_a"], "stage_d": report["stage_d"], "match": flags}
+
+
+def phase_tools(torch, results, card):
+    """The twins of the repo's tools on the card, through their entry
+    points: the chiral overfit, the int8 KV-cache A/B and the two
+    diagnostics (``tools_*``); the phase's summary goes on a line before
+    the kernels line."""
+    import tempfile
+
+    bundle = os.path.join(HERE, "examples", "demo_model")
+    log("phase tools: overfit_chiral at the JAX script's defaults (K 4, 400 epochs, embed 16, "
+        "an evaluation every 50); ab_int8 on examples/demo_model (n 256); diagnose_errors on "
+        f"it (n {DIAG_N}, beam {DIAG_BEAM}); diagnose_chirality on the overfit's bundle "
+        f"({card})")
+    seconds = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        overfit = tools_overfit(torch, work)
+        seconds["overfit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ab = tools_ab_int8(torch, bundle)
+        seconds["ab_int8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        errors = tools_diagnose_errors(torch, bundle)
+        seconds["diagnose_errors"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chirality = tools_diagnose_chirality(torch, overfit.pop("bundle"), overfit.pop("corpus"))
+        seconds["diagnose_chirality"] = time.perf_counter() - t0
+    log(f"  tools seconds: {json.dumps(seconds)}")
+    torch.cuda.empty_cache()
+    results["tools"] = {"overfit": overfit, "ab_int8": ab, "diagnose_errors": errors,
+                        "diagnose_chirality": chirality, "seconds": seconds}
 
 
 def decode_ms(tm, fn):
@@ -2733,6 +2958,7 @@ def main() -> int:
         "cli": lambda: phase_cli(torch, results, card),
         "convnext": lambda: phase_convnext(torch, results, card),
         "suites": lambda: phase_suites(torch, results, card),
+        "tools": lambda: phase_tools(torch, results, card),
         "timing": lambda: phase_timing(torch, results, card),
     }
     for name in PHASES:
@@ -2741,6 +2967,8 @@ def main() -> int:
             runs[name]()
             log(f"phase {name} passed in {time.perf_counter() - t1:.1f} s")
     log(f"all phases ({','.join(phases)}) passed in {time.perf_counter() - t0:.1f} s")
+    if "tools" in results:
+        print(json.dumps({"tools": results["tools"]}, default=float))
     print(kernels_line(results))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,6 +29,10 @@ FIXTURES = os.path.join(ROOT, "molnextr_tpu_torch", "fixtures")
 # the port's scripts and walkthroughs beside the JAX package's
 PORT_SCRIPTS = [os.path.join(ROOT, "scripts", "train_druglike_torch.py"),
                 os.path.join(ROOT, "scripts", "prebuild_item_cache_torch.py"),
+                os.path.join(ROOT, "scripts", "overfit_chiral_torch.py"),
+                os.path.join(ROOT, "scripts", "ab_int8_suites_torch.py"),
+                os.path.join(ROOT, "scripts", "diagnose_errors_torch.py"),
+                os.path.join(ROOT, "scripts", "diagnose_chirality_torch.py"),
                 os.path.join(ROOT, "examples", "predict_example_torch.py"),
                 os.path.join(ROOT, "examples", "visualize_example_torch.py")]
 PORT_FILES = [os.path.join(ROOT, "chip_smoke.py")] + PORT_SCRIPTS + [
@@ -224,7 +228,7 @@ def test_port_sources_import_nothing_forbidden():
                  "data/image.py", "data/exif.py", "data/jpeg.py", "data/tiff.py",
                  "data/ccitt.py", "data/reaction.py", "native.py", "build_dir.py",
                  "data/bmp.py", "data/pnm.py", "data/gif.py", "data/sunras.py", "data/hdr.py",
-                 "train/druglike.py"):
+                 "train/druglike.py", "train/overfit_chiral.py", "diagnostics.py"):
         assert os.path.join("molnextr_tpu_torch", name) in scanned, name
     assert all(os.path.exists(p) for p in PORT_SCRIPTS)
     bad = [

@@ -76,11 +76,18 @@ against on the card, where neither JAX nor OpenCV is installed:
   ``REACTIONS`` (:func:`build_reaction`), which ``chip_smoke.py`` phase
   rerank holds the port's drawings to;
 
+* ``ab_int8.json`` — ``scripts/ab_int8_suites.py``'s A/B on the demo
+  bundle at its default n (256 of ``benchmarks._synthetic_eval_set``'s
+  renders, the bundle's bf16): each arm's batch-suite scores (the dense
+  cache, "bf16", and the int8 cache, "int8"), the per-sample SMILES
+  agreement and each arm's SMILES (:func:`build_ab_int8`), which
+  ``chip_smoke.py`` phase tools holds the card's A/B to;
 and ``molnextr_tpu_torch/chem/glyphs.npz`` is the text renderer's glyph
 table, read from the installed OpenCV (:func:`build_glyphs`).
 
 Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``
-(``--forms-only``: ``forms/`` and ``reaction.npz`` alone).
+(``--forms-only``: ``forms/`` and ``reaction.npz`` alone; ``--ab-only``:
+``ab_int8.json`` alone, about two minutes).
 The full-width fixtures run Swin-B and ConvNeXt-B in float32 on the CPU
 (a minute or more each), so their regeneration tests are marked slow.
 """
@@ -119,6 +126,8 @@ REACTIONS = [("CCO.CC(=O)O>[H+]>CCOC(C)=O", False),
              ("CC(C)(C)OC(=O)NC1CCNCC1.CS(=O)(=O)Cl>>CC(C)(C)OC(=O)NC1CCN(CC1)S(C)(=O)=O",
               True)]
 IMAGE_FORMS = os.path.join(FIXTURES, "forms")
+AB_INT8 = os.path.join(FIXTURES, "ab_int8.json")
+AB_N = 256  # scripts/ab_int8_suites.py's default --n
 RERANK_CORPUS = 9
 RERANK_SEED = 1000
 ASPIRIN = "CC(=O)Oc1ccccc1C(=O)O"
@@ -1048,6 +1057,35 @@ def build_rerank():
     return arrays
 
 
+def build_ab_int8(n: int = AB_N):
+    """``scripts/ab_int8_suites.py`` on the demo bundle, keeping each arm's
+    SMILES (the script pops them); ``img_per_s`` is left out."""
+    import dataclasses
+
+    from molnextr_tpu.api import MolNexTR
+    from molnextr_tpu.benchmarks import suite_batch_inference
+    from molnextr_tpu.checkpoint import load_model
+
+    cfg, params = load_model(BUNDLE)
+    out = {"n": n, "bf16_weights": cfg.train.bf16, "smiles": {}}
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        c = dataclasses.replace(cfg)
+        c.decoder = dataclasses.replace(cfg.decoder, kv_int8=int8)
+        suite = suite_batch_inference(c, MolNexTR(cfg=c, params=params, num_workers=0), n=n)
+        suite.pop("img_per_s")
+        out["smiles"][tag] = suite.pop("_smiles")
+        out[tag] = suite
+    a, b = out["smiles"]["bf16"], out["smiles"]["int8"]
+    out["smiles_agreement"] = sum(x == y for x, y in zip(a, b)) / max(len(a), 1)
+    return out
+
+
+def write_ab_int8():
+    with open(AB_INT8, "w") as f:
+        json.dump(build_ab_int8(), f, indent=1)
+        f.write("\n")
+
+
 def write_fixtures(full_width: bool = True):
     import cv2
 
@@ -1062,6 +1100,7 @@ def write_fixtures(full_width: bool = True):
             f.write(data)
     write_image_forms()
     np.savez_compressed(os.path.join(FIXTURES, "reaction.npz"), **build_reaction())
+    write_ab_int8()
     if full_width:
         np.savez_compressed(os.path.join(FIXTURES, "full_width.npz"), **build_full_width())
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
@@ -1100,6 +1139,41 @@ def test_demo_png_matches_render():
     want = cv2.cvtColor(cv2.imread(png), cv2.COLOR_BGR2RGB)
     np.testing.assert_array_equal(want, _load("demo.npz")["images"][0])
     np.testing.assert_array_equal(read_png(png), want)
+
+
+def test_ab_int8_fixture_is_what_chip_smoke_reads():
+    """``chip_smoke.py`` phase tools reads ``ab_int8.json``: the n of the
+    script's default, each arm's scores and SMILES, and the agreement."""
+    with open(AB_INT8) as f:
+        ab = json.load(f)
+    assert ab["n"] == AB_N and ab["bf16_weights"] is True
+    assert set(ab) == {"n", "bf16_weights", "bf16", "int8", "smiles", "smiles_agreement"}
+    for tag in ("bf16", "int8"):
+        assert set(ab[tag]) == {"suite", "n", "canon_smiles", "graph", "chiral", "chiral_ratio"}
+        assert ab[tag]["n"] == AB_N and len(ab["smiles"][tag]) == AB_N
+    a, b = ab["smiles"]["bf16"], ab["smiles"]["int8"]
+    assert ab["smiles_agreement"] == sum(x == y for x, y in zip(a, b)) / AB_N
+
+
+def test_ab_int8_fixture_regenerates(monkeypatch):
+    import multiprocessing
+
+    class SerialPool:  # a forked child of a process running JAX's threads may deadlock
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def starmap(self, fn, items, chunksize=None):
+            return [fn(*x) for x in items]
+
+    monkeypatch.setattr(multiprocessing, "Pool", SerialPool)
+    with open(AB_INT8) as f:
+        assert build_ab_int8() == json.load(f)
 
 
 def test_rerank_fixture_regenerates():
@@ -1265,6 +1339,8 @@ if __name__ == "__main__":
         np.savez_compressed(os.path.join(FIXTURES, "train.npz"), **build_train())
     elif "--convnext-only" in sys.argv:
         np.savez_compressed(os.path.join(FIXTURES, "convnext.npz"), **build_convnext())
+    elif "--ab-only" in sys.argv:
+        write_ab_int8()
     elif "--forms-only" in sys.argv:
         write_image_forms()
         np.savez_compressed(os.path.join(FIXTURES, "reaction.npz"), **build_reaction())
