@@ -99,13 +99,16 @@ failure:
    JP2 5/3, raw J2K 5/3, JP2 9/7, JP2 5/3 tiled with precincts and RPCL;
    JPEG-in-TIFF YCbCr 4:2:0 strips and RGB tiles, YCbCr 1x1, CMYK, CIE
    Lab, signed 16-bit, ThunderScan, LogL TIFF; arithmetic sequential and
-   progressive, cut progressive (block-smoothed) and lossless JPEG)
+   progressive, cut progressive (block-smoothed) and lossless JPEG; AVIF
+   lossless forms and lossy ones: cv2 at quality 90, Pillow 4:2:0 and 4:4:4,
+   loop restoration, screen content, a motif with intra block copy and
+   ``TX_MODE_SELECT``, the 1024 x 1024 drawing at cv2's default)
    read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
    demo_0.png's and to the JAX package's on that form; tokens equal to
-   demo_0.png's, the lossy JPEG, HDR, WebP, 9/7, JPEG-in-TIFF, Lab and
-   ThunderScan forms' within one coordinate bin); the new lossless forms
+   demo_0.png's, the lossy JPEG, HDR, WebP, 9/7, JPEG-in-TIFF, Lab,
+   ThunderScan and AVIF forms' within one coordinate bin); the new lossless forms
    (WebP's, JPEG 2000's, and the YCbCr 1x1, CMYK, signed, LogL and lossless
    JPEG forms too) at
    full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
@@ -116,7 +119,7 @@ failure:
    files (information only); the readers' host ms per image and per
    megapixel on 1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF
    G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
-   JPEG-in-TIFF 4:2:0 and arithmetic JPEG;
+   JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless and lossy AVIF;
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -231,7 +234,7 @@ READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
-                "big_lossless.avif")
+                "big_lossless.avif", "big_lossy.avif")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2008,8 +2011,8 @@ def image_forms(torch, card, bundle, work, want):
     bundle, bf16) with the launch counters zeroed before and read after
     (K1, K2, K3-int8 above 0), each SMILES equal to demo_0.png's and to the
     JAX package's on that form; the tokens of the lossless forms equal
-    demo_0.png's, those of the lossy JPEG, HDR, WebP and 9/7 forms equal in
-    every symbol and within one bin in every coordinate; which files this
+    demo_0.png's, those of the lossy JPEG, HDR, WebP, 9/7 and AVIF forms
+    equal in every symbol and within one bin in every coordinate; which files this
     machine's cv2 reads to the same array (information: its cv2 may not
     turn WebP by EXIF, read an animation, or read JPEG 2000 or AVIF at all) and its
     ms on the 1024 x 1024 files; and the readers' host ms on those files,
@@ -2066,8 +2069,9 @@ def image_forms(torch, card, bundle, work, want):
         if not ok or (row >= offset).tolist() != coord.tolist():
             raise AssertionError(f"forms/{name}: tokens {row.tolist()} against demo_0.png's "
                                  f"{seq[0].tolist()}")
-    log(f"  tokens against demo_0.png's (positions that differ; JPEG, HDR, lossy WebP and "
-        f"9/7 forms by one coordinate bin at most, others none): {json.dumps(token_gaps)}")
+    log(f"  tokens against demo_0.png's (positions that differ; JPEG, HDR, lossy WebP, "
+        f"9/7 and lossy AVIF forms by one coordinate bin at most, others none): "
+        f"{json.dumps(token_gaps)}")
     del api
     full_width = forms_full_width(torch, png, {n: images[n] for n in demo
                                                if n.endswith(NEW_LOSSLESS_FORMS)})
@@ -2109,11 +2113,11 @@ def image_forms(torch, card, bundle, work, want):
 
 
 # forms read with a loss that may move a coordinate by one bin (RGBE rounds
-# a grey level by at most one; the lossy WebP and 9/7 JPEG 2000 forms), and
+# a grey level by at most one; the lossy WebP, 9/7 JPEG 2000 and AVIF forms), and
 # the lossless forms of the BMP, PNM, GIF, Sun raster, BigTIFF, WebP,
 # JPEG 2000 and AVIF readers
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
-               "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif")
+               "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif", "_lossy.avif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
                       "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",

@@ -1,31 +1,51 @@
-"""The block syntax of a coded-lossless AV1 intra frame (the AV1
-specification, sections 5.11 and 6.10, with the context derivations of
-8.3.2), read tile by tile into planes of flat Python lists.
+"""The block syntax of an AV1 intra frame (the AV1 specification, sections
+5.11 and 6.10, with the context derivations of 8.3.2), read tile by tile
+into planes of flat Python lists.
 
-Per tile: the CDFs reset to their defaults (``data/av1_cdfs.py``), the above
-contexts cleared, superblocks of 64 or 128 in raster order, each split by
+Per tile: the CDFs reset to their defaults for the frame's q-context
+(``data/av1_cdfs.py``), the above contexts cleared, superblocks of 64 or 128
+in raster order, each opening with its CDEF indices cleared and its loop
+restoration units read (``read_lr``: Wiener taps and self-guided sets with
+their reference-based subexponential coding), then split by
 ``decode_partition`` (every partition type, and ``split_or_horz`` /
 ``split_or_vert`` at the frame's right and bottom edges).  Per block: the
-segment id (spatially predicted, ``neg_deinterleave``), ``skip``,
-``use_intrabc`` with its vector (the intra block copy reference stack of
-``find_mv_stack``, its fallback, joints and classes), the y mode from the
-above and left modes, angle deltas, the uv mode with the CfL signs and
-alphas, palette sizes, the colour cache and colours, the colour index map
-in its wavefront order with its context hash, and filter intra.  Every
-transform is 4 x 4 Walsh-Hadamard (``Lossless``); coefficients are read
-with their contexts (``all_zero``, ``eob_pt_16``, ``eob_extra``,
-``coeff_base_eob``, ``coeff_base``, ``coeff_br``, Golomb, ``dc_sign``),
-and prediction and reconstruction come from ``data/av1_recon.py``.
+segment id (spatially predicted, ``neg_deinterleave``), ``skip``, the CDEF
+index of its 64 x 64, ``delta_qindex`` and ``delta_lf`` at a superblock's
+first block, ``use_intrabc`` with its vector (the intra block copy
+reference stack of ``find_mv_stack``, its fallback, joints and classes),
+the y mode from the above and left modes, angle deltas, the uv mode with
+the CfL signs and alphas, palette sizes, the colour cache and colours, the
+colour index map in its wavefront order with its context hash, filter
+intra, and the transform size: 4 x 4 in a lossless segment, the largest,
+a ``tx_depth`` under ``TX_MODE_SELECT``, or for an intra block copy the
+transform tree of ``txfm_split``.  Each transform block is predicted, its
+type read (the intra sets by mode, the inter sets of an intra block copy,
+``reduced_tx_set``; chroma from the uv mode), its coefficients read in the
+default, row or column scan of its size (``all_zero``, ``eob_pt`` and
+``eob_extra``, ``coeff_base_eob``, ``coeff_base`` and ``coeff_br`` with
+their 2-D, horizontal and vertical contexts, Golomb, ``dc_sign``),
+dequantised (``data/av1_quant.py``) and inverse transformed
+(``data/av1_transform.py``, or the 4 x 4 Walsh-Hadamard of a lossless
+segment); prediction comes from ``data/av1_recon.py``.  The transform
+sizes, skips, segments and ``delta_lf`` values stay for the in-loop
+filters.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List
 
+import numpy as np
+
 from molnextr_tpu_torch.data import av1_cdfs, av1_recon
-from molnextr_tpu_torch.data.av1_obu import AV1Error, Frame, Sequence
-from molnextr_tpu_torch.data.av1_recon import DC, PAETH, SMOOTH, SMOOTH_H, SMOOTH_V
+from molnextr_tpu_torch.data.av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
+                                             TX_MODE_SELECT, AV1Error, Frame, Sequence)
+from molnextr_tpu_torch.data.av1_quant import ac_q, dc_q, dq_denom, iqmatrix, qindex
+from molnextr_tpu_torch.data.av1_recon import (D157, DC, PAETH, SMOOTH, SMOOTH_H, SMOOTH_V, H,
+                                               V)
 from molnextr_tpu_torch.data.av1_symbol import SymbolDecoder
+from molnextr_tpu_torch.data.av1_transform import inverse_transform
 
 # block sizes in the specification's order, as (width, height)
 SIZES = ((4, 4), (4, 8), (8, 4), (8, 8), (8, 16), (16, 8), (16, 16), (16, 32), (32, 16),
@@ -36,11 +56,30 @@ B8X8 = 3
 NONE, HORZ, VERT, SPLIT, HORZ_A, HORZ_B, VERT_A, VERT_B, HORZ_4, VERT_4 = range(10)
 UV_CFL = 13
 MODE_CONTEXT = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)
-SCAN_4X4 = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
-BASE_CTX_OFFSET = ((0, 1, 6, 6), (1, 6, 6, 21), (6, 6, 21, 21), (6, 21, 21, 21))
 SKIP_CTX = ((1, 2, 2, 2, 3), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5),
             (3, 5, 5, 5, 6))
 PALETTE_HASH_CTX = {2: 0, 5: 4, 6: 3, 7: 2, 8: 1}
+DCT_DCT, IDTX = 0, 9
+CLIP3 = (0, 1, 2) + (3,) * 13
+FILTER_TO_DIR = (DC, V, H, D157, DC)
+MODE_TO_TXFM = (0, 1, 2, 0, 3, 1, 2, 2, 1, 3, 1, 2, 3)  # intra mode -> chroma tx type
+# av1_ext_tx_inv: each transform set's symbols as transform types (set 0 is DCT only,
+# 1 DCT/identity, 2 and 3 the intra sets, 4 and 5 the inter sets of 12 and 16)
+TX_INV = ((0,), (9, 0), (9, 0, 3, 1, 2), (9, 0, 10, 11, 3, 1, 2),
+          (9, 10, 11, 0, 1, 2, 4, 5, 3, 6, 7, 8),
+          (9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 4, 5, 3, 6, 7, 8))
+_INTRA_ESET = {2: 2, 3: 1}
+_INTER_ESET = {1: 3, 4: 2, 5: 1}
+_EOB_PT = ("EOB_PT_16", "EOB_PT_32", "EOB_PT_64", "EOB_PT_128", "EOB_PT_256", "EOB_PT_512",
+           "EOB_PT_1024")
+WIENER_MIN, WIENER_MAX, WIENER_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
+WIENER_MID = (3, -7, 15)
+SGR_XQD_MIN, SGR_XQD_MAX, SGR_XQD_MID = (-96, -32), (31, 95), (-32, 31)
+# Sgr_Params: (r0, s0, r1, s1) of the 16 self-guided sets
+SGR_PARAMS = ((2, 140, 1, 3236), (2, 112, 1, 2158), (2, 93, 1, 1618), (2, 80, 1, 1438),
+              (2, 70, 1, 1295), (2, 58, 1, 1177), (2, 47, 1, 1079), (2, 37, 1, 996),
+              (2, 30, 1, 925), (2, 25, 1, 863), (0, -1, 1, 2589), (0, -1, 1, 1618),
+              (0, -1, 1, 1177), (0, -1, 1, 925), (2, 56, 0, -1), (2, 22, 0, -1))
 
 
 def _log2(n: int) -> int:
@@ -51,25 +90,101 @@ def _ceil_log2(n: int) -> int:
     return 0 if n < 2 else (n - 1).bit_length()
 
 
-def _neighbours_4x4(q: List[int]):
-    """For each position of a 4 x 4 block (row-major), the positions that
-    ``coeff_base`` (5) and ``coeff_br`` (3) look at, inside the block."""
-    base, br = [], []
-    for pos in range(16):
-        r, c = pos >> 2, pos & 3
-        base.append([(r + dr) * 4 + c + dc for dr, dc in ((0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
-                     if r + dr < 4 and c + dc < 4])
-        br.append([(r + dr) * 4 + c + dc for dr, dc in ((0, 1), (1, 0), (1, 1))
-                   if r + dr < 4 and c + dc < 4])
-    return base, br
+def _sqr_index(n: int) -> int:
+    """4, 8, 16, 32, 64 -> 0..4 (``TX_4X4`` .. ``TX_64X64``)."""
+    return n.bit_length() - 3
 
 
-BASE_NB, BR_NB = _neighbours_4x4([])
+def split_tx(tx):
+    """``Split_Tx_Size`` of a (w, h) transform size."""
+    w, h = tx
+    if w == h:
+        return (max(4, w >> 1), max(4, h >> 1))
+    return (w >> 1, h) if w > h else (w, h >> 1)
+
+
+def _tx_depth_to_4x4(tx) -> int:
+    depth = 0
+    while tx != (4, 4):
+        tx = split_tx(tx)
+        depth += 1
+    return depth
+
+
+def tx_set(tx, inter: bool, reduced: bool) -> int:
+    """``av1_get_ext_tx_set_type``: the set of transform types a size
+    allows (an index of ``TX_INV``)."""
+    up, sq = max(tx), min(tx)
+    if up > 32:
+        return 0
+    if up == 32:
+        return 1 if inter else 0
+    if reduced:
+        return 1 if inter else 2
+    if inter:
+        return 4 if sq == 16 else 5
+    return 2 if sq == 16 else 3
+
+
+class _ScanInfo:
+    """A transform size and type's scan (positions row-major in the size,
+    64s cut to 32), the positions' indices in a padded level buffer, the
+    context class (0 2-D, 1 horizontal, 2 vertical) and context offsets."""
+
+    __slots__ = ("scan", "pad", "stride", "aw", "ah", "area", "cls", "offs", "br_offs")
+
+
+@lru_cache(maxsize=None)
+def _scan_info(tw: int, th: int, tx_type: int) -> _ScanInfo:
+    info = _ScanInfo()
+    aw, ah = min(tw, 32), min(th, 32)
+    kind = "default"
+    if max(tw, th) < 64 and tx_type != IDTX:
+        if tx_type in (10, 12, 14):
+            kind = "mrow"
+        elif tx_type in (11, 13, 15):
+            kind = "mcol"
+    if kind == "mrow":
+        cells = [(r, c) for r in range(ah) for c in range(aw)]
+    elif kind == "mcol":
+        cells = [(r, c) for c in range(aw) for r in range(ah)]
+    else:  # diagonals: zig-zag when square, else all one way
+        cells = []
+        for d in range(aw + ah - 1):
+            diag = [(r, d - r) for r in range(ah) if 0 <= d - r < aw]
+            if (aw < ah) or (aw == ah and d & 1):
+                cells += diag
+            else:
+                cells += diag[::-1]
+    info.scan = tuple(r * aw + c for r, c in cells)
+    info.stride = stride = aw + 4
+    info.pad = [(pos // aw) * stride + pos % aw for pos in range(aw * ah)]
+    info.aw, info.ah, info.area = aw, ah, aw * ah
+    info.cls = 0 if tx_type <= IDTX else 2 if tx_type in (10, 12, 14) else 1
+    offs, br = [], []
+    for pos in range(aw * ah):
+        r, c = divmod(pos, aw)
+        if info.cls == 0:
+            if tw < th and r < 2:
+                o = 11
+            elif tw > th and c < 2:
+                o = 16
+            else:
+                o = 1 if r + c < 2 else 6 if r + c < 4 else 21
+            near = r < 2 and c < 2
+        else:
+            o = 26 + 5 * min(c if info.cls == 1 else r, 2)
+            near = (c if info.cls == 1 else r) == 0
+        offs.append(o)
+        br.append(0 if pos == 0 else 7 if near else 14)
+    info.offs, info.br_offs = offs, br
+    return info
 
 
 class FrameDecoder:
-    """Decodes every tile of a coded-lossless intra frame into ``planes``
-    (flat lists of ``stride`` samples, MI-aligned, with a margin)."""
+    """Decodes every tile of an intra frame into ``planes`` (flat lists of
+    ``stride`` samples, MI-aligned, with a margin), before the in-loop
+    filters."""
 
     def __init__(self, seq: Sequence, fr: Frame):
         self.seq, self.fr = seq, fr
@@ -103,6 +218,16 @@ class FrameDecoder:
         self.above_dc = [[0] * (cols + 64) for _ in range(self.nplanes)]
         self.left_level = [[0] * (rows + 64) for _ in range(self.nplanes)]
         self.left_dc = [[0] * (rows + 64) for _ in range(self.nplanes)]
+        self.above_txfm = [64] * (cols + 64)
+        self.left_txfm = [64] * (rows + 64)
+        self.delta_lf = [(0, 0, 0, 0)] * n
+        # each plane's transform width and height per 4 x 4 (the loop filter's)
+        self.lf_tw = [np.zeros(((rows * 4 >> sy) + 3 >> 2, (cols * 4 >> sx) + 3 >> 2), np.int32)
+                      for sx, sy in self.ss]
+        self.lf_th = [a.copy() for a in self.lf_tw]
+        self.cdef_idx = {}  # per 64 x 64, as (row, col) in 64s; -1 when never read
+        # loop restoration units per plane: (unit row, unit col) -> (type, params)
+        self.lr_units = [dict() for _ in range(self.nplanes)]
 
     # -- tiles ---------------------------------------------------------------
     def decode(self, data: bytes, tiles) -> None:
@@ -112,24 +237,45 @@ class FrameDecoder:
             tr, tc = divmod(num, ncols)
             self.r0, self.r1 = fr.row_starts[tr], fr.row_starts[tr + 1]
             self.c0, self.c1 = fr.col_starts[tc], fr.col_starts[tc + 1]
-            self.cdf = av1_cdfs.fresh()
+            self.cdf = av1_cdfs.fresh(av1_cdfs.q_context(fr.base_q_idx))
             self.sd = SymbolDecoder(data, start, size, not fr.disable_cdf_update)
             for p in range(self.nplanes):
                 self.above_level[p] = [0] * len(self.above_level[p])
                 self.above_dc[p] = [0] * len(self.above_dc[p])
+            self.above_txfm = [64] * len(self.above_txfm)
+            self.cur_q = fr.base_q_idx
+            self.cur_lf = [0, 0, 0, 0]
+            self.ref_wiener = [[list(WIENER_MID), list(WIENER_MID)] for _ in range(self.nplanes)]
+            self.ref_sgr = [list(SGR_XQD_MID) for _ in range(self.nplanes)]
             sb = self.sb4
             bsize = INDEX[(sb * 4, sb * 4)]
             for r in range(self.r0, self.r1, sb):
                 for p in range(self.nplanes):
                     self.left_level[p] = [0] * len(self.left_level[p])
                     self.left_dc[p] = [0] * len(self.left_dc[p])
+                self.left_txfm = [64] * len(self.left_txfm)
                 for c in range(self.c0, self.c1, sb):
+                    self.read_deltas = fr.delta_q_present
+                    for y in range(r >> 4, (r + sb) >> 4):
+                        for x in range(c >> 4, (c + sb) >> 4):
+                            self.cdef_idx[(y, x)] = -1
                     self._clear_decoded(r, c)
+                    self._read_lr(r, c, sb)
                     self._partition(r, c, bsize)
                     if self.sd.overflowed():
                         raise AV1Error("AV1: tile data overrun (a corrupt frame)")
             if not self.sd.trailing_ok():
                 raise AV1Error("AV1: tile without its trailing bits (a corrupt frame)")
+
+    def frame_planes(self) -> List[np.ndarray]:
+        """The decoded planes over the MI-aligned frame, as int32 arrays."""
+        out = []
+        for p in range(self.nplanes):
+            sx, sy = self.ss[p]
+            h, w = (self.fr.mi_rows * 4) >> sy, (self.fr.mi_cols * 4) >> sx
+            full = np.asarray(self.planes[p], np.int32).reshape(-1, self.strides[p])
+            out.append(full[:h, :w].copy())
+        return out
 
     def _clear_decoded(self, r: int, c: int) -> None:
         """``clear_block_decoded_flags``: per plane, rows and columns -1 to
@@ -268,6 +414,14 @@ class FrameDecoder:
                                            + (self.skip[lf] if al else 0)])
         if not fr.seg_id_pre_skip:
             b.seg = self._segment_id(b, b.skip)
+        b.lossless = fr.lossless[b.seg]
+        self._read_cdef(b)
+        if self.read_deltas:
+            if not ((w, h) == (self.sb4 * 4, self.sb4 * 4) and b.skip):
+                self._read_delta_q()
+                if fr.delta_lf_present:
+                    self._read_delta_lf()
+            self.read_deltas = False
         if fr.allow_intrabc and sd.symbol(cdf["INTRABC"]):
             b.bc = True
             self._intrabc_mv(b)
@@ -279,7 +433,7 @@ class FrameDecoder:
                 b.y_delta = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1]) - 3
             if has_chroma:
                 cw, ch = max(4, w >> ssx), max(4, h >> ssy)
-                cfl_ok = (cw, ch) == (4, 4)
+                cfl_ok = (cw, ch) == (4, 4) if b.lossless else max(w, h) <= 32
                 table = cdf["UV_MODE_CFL_ALLOWED" if cfl_ok else "UV_MODE_CFL_NOT_ALLOWED"]
                 b.uv_mode = sd.symbol(table[b.y_mode])
                 if b.uv_mode == UV_CFL:
@@ -293,6 +447,8 @@ class FrameDecoder:
                     b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"])
         if b.pal[0] or b.pal[1]:
             self._palette_tokens(b)
+        self._read_tx_size(b)
+        lf = tuple(self.cur_lf)
         # store the block's mode info
         for y in range(r, min(r + bh4, fr.mi_rows)):
             for x in range(c, min(c + bw4, fr.mi_cols)):
@@ -304,6 +460,7 @@ class FrameDecoder:
                 self.mv[i] = b.mv
                 self.skip[i] = b.skip
                 self.seg[i] = b.seg
+                self.delta_lf[i] = lf
                 self.pal_size[0][i], self.pal_size[1][i] = b.pal
                 self.pal_colors[0][i] = b.colors[0]
                 self.pal_colors[1][i] = b.colors[1]
@@ -360,6 +517,126 @@ class FrameDecoder:
         if sv:
             a = sd.symbol(cdf["CFL_ALPHA"][(sv - 1) * 3 + su]) + 1
             b.alpha_v = -a if sv == 1 else a
+
+    # -- superblock-level syntax: CDEF index, delta q and lf, restoration ----
+    def _read_cdef(self, b) -> None:
+        fr = self.fr
+        if b.skip or fr.coded_lossless or not self.seq.enable_cdef or fr.allow_intrabc:
+            return
+        r64, c64 = b.r >> 4, b.c >> 4
+        if self.cdef_idx[(r64, c64)] == -1:
+            v = self.sd.literal(fr.cdef_bits)
+            for y in range(r64, r64 + max(1, b.h >> 6)):
+                for x in range(c64, c64 + max(1, b.w >> 6)):
+                    self.cdef_idx[(y, x)] = v
+
+    def _signed_delta(self, cdf) -> int:
+        """``delta_q_abs`` / ``delta_lf_abs``, their remainder bits past 3,
+        and the sign."""
+        sd = self.sd
+        a = sd.symbol(cdf)
+        if a == 3:
+            bits = sd.literal(3) + 1
+            a = sd.literal(bits) + (1 << bits) + 1
+        return -a if a and sd.literal(1) else a
+
+    def _read_delta_q(self) -> None:
+        d = self._signed_delta(self.cdf["DELTA_Q"])
+        if d:
+            av1_recon._hit("delta_q")
+            self.cur_q = min(max(self.cur_q + (d << self.fr.delta_q_res), 1), 255)
+
+    def _read_delta_lf(self) -> None:
+        fr = self.fr
+        count = (4 if self.nplanes > 1 else 2) if fr.delta_lf_multi else 1
+        for i in range(count):
+            d = self._signed_delta(self.cdf["DELTA_LF_MULTI"][i] if fr.delta_lf_multi
+                                   else self.cdf["DELTA_LF"])
+            if d:
+                av1_recon._hit("delta_lf")
+                self.cur_lf[i] = min(max(self.cur_lf[i] + (d << fr.delta_lf_res), -63), 63)
+
+    def _read_lr(self, r: int, c: int, sb4: int) -> None:
+        """``read_lr``: the restoration units whose top-left lies in the
+        superblock at (r, c)."""
+        fr = self.fr
+        if fr.allow_intrabc:
+            return
+        for p in range(self.nplanes):
+            if fr.lr_type[p] == RESTORE_NONE:
+                continue
+            sx, sy = self.ss[p]
+            size = fr.lr_size[p]
+            rows = lr_unit_count(size, (fr.height + sy) >> sy)
+            cols = lr_unit_count(size, (fr.width + sx) >> sx)
+            r0 = (r * (4 >> sy) + size - 1) // size
+            r1 = min(rows, ((r + sb4) * (4 >> sy) + size - 1) // size)
+            c0 = (c * (4 >> sx) + size - 1) // size
+            c1 = min(cols, ((c + sb4) * (4 >> sx) + size - 1) // size)
+            for ur in range(r0, r1):
+                for uc in range(c0, c1):
+                    self.lr_units[p][(ur, uc)] = self._lr_unit(p)
+
+    def _lr_unit(self, p: int):
+        fr, sd, cdf = self.fr, self.sd, self.cdf
+        kind = fr.lr_type[p]
+        if kind == RESTORE_WIENER:
+            t = RESTORE_WIENER if sd.symbol(cdf["WIENER_RESTORE"]) else RESTORE_NONE
+        elif kind == RESTORE_SGRPROJ:
+            t = RESTORE_SGRPROJ if sd.symbol(cdf["SGRPROJ_RESTORE"]) else RESTORE_NONE
+        else:
+            av1_recon._hit("lr_switchable")
+            t = (RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ)[
+                sd.symbol(cdf["SWITCHABLE_RESTORE"])]
+        if t == RESTORE_WIENER:
+            av1_recon._hit("lr_wiener")
+            coefs = []
+            for pas in range(2):
+                ref = self.ref_wiener[p][pas]
+                taps = [0, 0, 0]
+                for j in range(1 if p else 0, 3):
+                    v = self._subexp_ref(WIENER_MIN[j], WIENER_MAX[j] + 1, WIENER_K[j], ref[j])
+                    taps[j] = ref[j] = v
+                coefs.append(tuple(taps))
+            return t, tuple(coefs)
+        if t == RESTORE_SGRPROJ:
+            av1_recon._hit("lr_sgrproj")
+            s = sd.literal(4)
+            ref = self.ref_sgr[p]
+            xqd = [0, 0]
+            for i in range(2):
+                if SGR_PARAMS[s][2 * i]:
+                    v = self._subexp_ref(SGR_XQD_MIN[i], SGR_XQD_MAX[i] + 1, 4, ref[i])
+                elif i == 1:
+                    v = min(max((1 << 7) - ref[0], SGR_XQD_MIN[1]), SGR_XQD_MAX[1])
+                else:
+                    v = 0
+                xqd[i] = ref[i] = v
+            return t, (s, tuple(xqd))
+        return RESTORE_NONE, None
+
+    def _subexp_ref(self, low: int, high: int, k: int, ref: int) -> int:
+        """``decode_signed_subexp_with_ref_bool``."""
+        mx, r = high - low, ref - low
+        v = self._subexp(mx, k)
+        if (r << 1) <= mx:
+            x = _inverse_recenter(r, v)
+        else:
+            x = mx - 1 - _inverse_recenter(mx - 1 - r, v)
+        return x + low
+
+    def _subexp(self, num: int, k: int) -> int:
+        sd = self.sd
+        i, mk = 0, 0
+        while True:
+            b2 = k + i - 1 if i else k
+            a = 1 << b2
+            if num <= mk + 3 * a:
+                return sd.ns(num - mk) + mk
+            if not sd.literal(1):
+                return sd.literal(b2) + mk
+            i += 1
+            mk += a
 
     # -- palettes --------------------------------------------------------------
     def _palette_mode_info(self, b) -> None:
@@ -664,71 +941,216 @@ class FrameDecoder:
             sx, sy = self.ss[p]
             pw, ph = max(4, b.w >> sx), max(4, b.h >> sy)
             bx, by = (b.c >> sx) * 4, (b.r >> sy) * 4
-            last_x = ((self.fr.width + sx) >> sx) - 1
-            last_y = ((self.fr.height + sy) >> sy) - 1
+            # libaom copies from its frame buffer without extending the
+            # frame's edge: the MI-aligned samples past it are read as decoded
+            last_x, last_y = self.max_x[p], self.max_y[p]
             av1_recon.predict_intrabc(self.planes[p], self.strides[p], bx, by, pw, ph,
                                       b.mv[0], b.mv[1], sx, sy, last_x, last_y, self.bd)
+
+    # -- transform size and type ---------------------------------------------
+    def _read_tx_size(self, b) -> None:
+        """``read_block_tx_size``: the block's transform size (``b.tx``), or
+        for an intra block copy with ``TX_MODE_SELECT`` the transform tree
+        (``b.inter_tx``), and the above/left transform contexts."""
+        fr, bw4, bh4 = self.fr, b.w >> 2, b.h >> 2
+        max_tx = (min(b.w, 64), min(b.h, 64))
+        if b.lossless:
+            b.tx = (4, 4)
+        elif fr.tx_mode == TX_MODE_SELECT and b.bsize and b.bc and not b.skip:
+            b.inter_tx = {}
+            for r4 in range(0, bh4, max_tx[1] >> 2):
+                for c4 in range(0, bw4, max_tx[0] >> 2):
+                    self._var_tx(b, r4, c4, max_tx, 0)
+            return
+        else:
+            b.tx = max_tx
+            if b.bsize and fr.tx_mode == TX_MODE_SELECT and not (b.bc and b.skip):
+                depth = self.sd.symbol(self.cdf["TX_SIZE"][_tx_depth_to_4x4(max_tx) - 1]
+                                       [self._tx_size_ctx(b, max_tx)])
+                av1_recon._hit("tx_mode_select")
+                for _ in range(depth):
+                    b.tx = split_tx(b.tx)
+        tw, th = (b.w, b.h) if b.skip and b.bc else b.tx
+        self.above_txfm[b.c : b.c + bw4] = [tw] * bw4
+        self.left_txfm[b.r : b.r + bh4] = [th] * bh4
+
+    def _tx_size_ctx(self, b, max_tx) -> int:
+        st = self.mi_stride
+        above = self.above_txfm[b.c] >= max_tx[0]
+        left = self.left_txfm[b.r] >= max_tx[1]
+        if b.au:
+            i = (b.r - 1) * st + b.c
+            if self.is_bc[i]:
+                above = SIZES[self.mi_size[i]][0] >= max_tx[0]
+        if b.al:
+            i = b.r * st + b.c - 1
+            if self.is_bc[i]:
+                left = SIZES[self.mi_size[i]][1] >= max_tx[1]
+        if b.au and b.al:
+            return above + left
+        return above if b.au else left if b.al else 0
+
+    def _var_tx(self, b, r4: int, c4: int, tx, depth: int) -> None:
+        """``read_var_tx_size`` as libaom's ``read_tx_size_vartx`` runs it."""
+        if b.r + r4 >= self.fr.mi_rows or b.c + c4 >= self.fr.mi_cols:
+            return
+        tw4, th4 = tx[0] >> 2, tx[1] >> 2
+        col, row = b.c + c4, b.r + r4
+        if depth < 2 and tx != (4, 4):
+            above = self.above_txfm[col] < tx[0]
+            left = self.left_txfm[row] < tx[1]
+            top = _sqr_index(min(max(b.w, b.h), 64))
+            cat = (_sqr_index(max(tx)) != top and top > 1) + (4 - top) * 2
+            ctx = cat * 3 + above + left
+            if self.sd.symbol(self.cdf["TXFM_SPLIT"][ctx]):
+                av1_recon._hit("txfm_split")
+                sub = split_tx(tx)
+                if sub == (4, 4):
+                    for i in range(th4):
+                        for j in range(tw4):
+                            b.inter_tx[(r4 + i, c4 + j)] = sub
+                    self.above_txfm[col : col + tw4] = [4] * tw4
+                    self.left_txfm[row : row + th4] = [4] * th4
+                    return
+                for i in range(0, th4, sub[1] >> 2):
+                    for j in range(0, tw4, sub[0] >> 2):
+                        self._var_tx(b, r4 + i, c4 + j, sub, depth + 1)
+                return
+        b.inter_tx[(r4, c4)] = tx
+        self.above_txfm[col : col + tw4] = [tx[0]] * tw4
+        self.left_txfm[row : row + th4] = [tx[1]] * th4
+
+    def _read_tx_type(self, b, tx) -> int:
+        """``transform_type`` of a luma transform block."""
+        fr = self.fr
+        kind = tx_set(tx, b.bc, fr.reduced_tx_set)
+        if kind == 0 or fr.qindex[b.seg] == 0:
+            return DCT_DCT
+        sqr = _sqr_index(min(tx))
+        if b.bc:
+            eset = _INTER_ESET[kind]
+            cdf = self.cdf[f"INTER_TX_SET{eset}"][sqr]
+        else:
+            eset = _INTRA_ESET[kind]
+            mode = FILTER_TO_DIR[b.filter_mode] if b.filter_mode >= 0 else b.y_mode
+            cdf = self.cdf[f"INTRA_TX_SET{eset}"][sqr][mode]
+        av1_recon._hit(f"tx_set_{'inter' if b.bc else 'intra'}_{eset}")
+        return TX_INV[kind][self.sd.symbol(cdf)]
+
+    def _plane_tx_type(self, b, p: int, tx, x4: int, y4: int) -> int:
+        """``compute_tx_type`` of a chroma transform block."""
+        if b.lossless or max(tx) > 32:
+            return DCT_DCT
+        kind = tx_set(tx, b.bc, self.fr.reduced_tx_set)
+        if b.bc:
+            sx, sy = self.ss[p]
+            t = b.tx_types.get((max(b.r, y4 << sy) - b.r, max(b.c, x4 << sx) - b.c), DCT_DCT)
+        else:
+            t = MODE_TO_TXFM[DC if b.uv_mode == UV_CFL else b.uv_mode]
+        return t if t in TX_INV[kind] else DCT_DCT
 
     # -- residual ------------------------------------------------------------
     def _residual(self, b) -> None:
         bw4, bh4 = b.w >> 2, b.h >> 2
-        sb_mask = self.sb4 - 1
+        cw, ch = min(b.w, 64), min(b.h, 64)
+        b.qidx = qindex(self.cur_q if self.fr.delta_q_present else self.fr.base_q_idx,
+                        self.fr.seg_features[b.seg][0] if self.fr.seg_enabled else None)
         for cy in range(max(1, bh4 >> 4)):
             for cx in range(max(1, bw4 >> 4)):
                 for p in range(1 + 2 * b.has_chroma):
                     sx, sy = self.ss[p]
-                    n4w = max(4, b.w >> sx) >> 2
-                    n4h = max(4, b.h >> sy) >> 2
+                    tx = (4, 4) if b.lossless else b.tx if p == 0 else self._uv_tx(b, p)
+                    pw, ph = max(4, cw >> sx), max(4, ch >> sy)
+                    if b.bc and not b.lossless and p == 0:
+                        self._tree(b, b.c * 4 + cx * 64, b.r * 4 + cy * 64, pw, ph)
+                        continue
                     bx, by = (b.c >> sx) * 4, (b.r >> sy) * 4
-                    for y in range(0, min(n4h, 16 >> sy)):
-                        for x in range(0, min(n4w, 16 >> sx)):
-                            self._tx_block(b, p, bx, by, x + ((cx << 4) >> sx),
-                                           y + ((cy << 4) >> sy), sb_mask)
+                    for y in range(0, ph >> 2, tx[1] >> 2):
+                        for x in range(0, pw >> 2, tx[0] >> 2):
+                            self._tx_block(b, p, bx, by, tx, x + ((cx << 4) >> sx),
+                                           y + ((cy << 4) >> sy))
 
-    def _tx_block(self, b, p: int, bx: int, by: int, x: int, y: int, sb_mask: int) -> None:
+    def _uv_tx(self, b, p: int):
         sx, sy = self.ss[p]
-        sx_ = (bx + 4 * x)
-        sy_ = (by + 4 * y)
+        w, h = min(max(4, b.w >> sx), 64), min(max(4, b.h >> sy), 64)
+        if w == 64 or h == 64:
+            return (16, 32) if w == 16 else (32, 16) if h == 16 else (32, 32)
+        return (w, h)
+
+    def _tree(self, b, x: int, y: int, w: int, h: int) -> None:
+        """``transform_tree`` of an intra block copy's luma."""
+        if x >= self.fr.mi_cols * 4 or y >= self.fr.mi_rows * 4:
+            return
+        tx = b.tx if b.inter_tx is None else b.inter_tx.get(((y >> 2) - b.r, (x >> 2) - b.c))
+        if tx is None or w < tx[0] or h < tx[1]:
+            raise AV1Error("AV1: a transform tree without its transform (a corrupt frame)")
+        if tx == (w, h):
+            self._tx_block(b, 0, x, y, tx, 0, 0)
+        elif w > h:
+            self._tree(b, x, y, w // 2, h)
+            self._tree(b, x + w // 2, y, w // 2, h)
+        elif w < h:
+            self._tree(b, x, y, w, h // 2)
+            self._tree(b, x, y + h // 2, w, h // 2)
+        else:
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                self._tree(b, x + dx * w // 2, y + dy * h // 2, w // 2, h // 2)
+
+    def _tx_block(self, b, p: int, bx: int, by: int, tx, x: int, y: int) -> None:
+        sx, sy = self.ss[p]
+        tw, th = tx
+        sx_ = bx + 4 * x
+        sy_ = by + 4 * y
         if sx_ > self.max_x[p] or sy_ > self.max_y[p]:
             return
-        row = ((sy_ << sy) >> 2) & sb_mask
-        col = ((sx_ << sx) >> 2) & sb_mask
+        sb_mask = self.sb4 - 1
+        row = (((sy_ << sy) >> 2) & sb_mask) >> sy
+        col = (((sx_ << sx) >> 2) & sb_mask) >> sx
+        step_x, step_y = tw >> 2, th >> 2
         flags = self.decoded[p]
         px, stride = self.planes[p], self.strides[p]
         if not b.bc:
             if b.pal[1 if p else 0]:
                 pal = b.colors[0] if p == 0 else b.colors[1][p - 1]
                 cmap = b.maps[1 if p else 0]
-                for i in range(4):
+                for i in range(th):
                     mrow = cmap[y * 4 + i]
                     at = (sy_ + i) * stride + sx_
-                    px[at : at + 4] = [pal[k] for k in mrow[x * 4 : x * 4 + 4]]
+                    px[at : at + tw] = [pal[k] for k in mrow[x * 4 : x * 4 + tw]]
             else:
                 cfl = p > 0 and b.uv_mode == UV_CFL
                 mode = b.y_mode if p == 0 else (DC if cfl else b.uv_mode)
                 have_left = (b.al if p == 0 else b.alc) or x > 0
                 have_above = (b.au if p == 0 else b.auc) or y > 0
-                have_ar = flags.get(((row >> sy) - 1, (col >> sx) + 1), False)
-                have_bl = flags.get(((row >> sy) + 1, (col >> sx) - 1), False)
+                have_ar = flags.get((row - 1, col + step_x), False)
+                have_bl = flags.get((row + step_y, col - 1), False)
                 # get_filter_type matters only to the directional modes' edges
                 smooth = self.seq.enable_intra_edge_filter and 1 <= mode <= 8 and \
                     self._smooth_neighbour(b, p)
                 av1_recon.predict_intra(
-                    px, stride, sx_, sy_, 4, 4, have_left, have_above, have_ar, have_bl,
+                    px, stride, sx_, sy_, tw, th, have_left, have_above, have_ar, have_bl,
                     self.max_x[p], self.max_y[p], self.bd, mode,
                     b.y_delta if p == 0 else b.uv_delta,
                     b.filter_mode if p == 0 else -1, self.seq.enable_intra_edge_filter, smooth)
                 if cfl:
                     av1_recon.predict_cfl(px, stride, self.planes[0], self.strides[0], sx_, sy_,
-                                          4, 4, sx, sy, b.max_luma_w, b.max_luma_h,
+                                          tw, th, sx, sy, b.max_luma_w, b.max_luma_h,
                                           b.alpha_u if p == 1 else b.alpha_v, self.bd)
         if p == 0:
-            b.max_luma_w, b.max_luma_h = sx_ + 4, sy_ + 4
+            b.max_luma_w, b.max_luma_h = sx_ + tw, sy_ + th
         if not b.skip:
-            coefs = self._coeffs(b, p, sx_ >> 2, sy_ >> 2)
+            coefs = self._coeffs(b, p, sx_ >> 2, sy_ >> 2, tx)
             if coefs is not None:
-                av1_recon.reconstruct_wht(px, stride, sx_, sy_, coefs, self.bd)
-        flags[(row >> sy, col >> sx)] = True
+                if b.lossless:
+                    av1_recon.reconstruct_wht(px, stride, sx_, sy_, coefs, self.bd)
+                else:
+                    av1_recon.add_residual(px, stride, sx_, sy_, inverse_transform(
+                        coefs, b.plane_tx_type, self.bd), self.bd)
+        for i in range(step_y):
+            for j in range(step_x):
+                flags[(row + i, col + j)] = True
+        self.lf_tw[p][sy_ >> 2 : (sy_ >> 2) + step_y, sx_ >> 2 : (sx_ >> 2) + step_x] = tw
+        self.lf_th[p][sy_ >> 2 : (sy_ >> 2) + step_y, sx_ >> 2 : (sx_ >> 2) + step_x] = th
 
     def _smooth_neighbour(self, b, p: int) -> bool:
         """``get_filter_type``: is the above or left block (of the plane's
@@ -758,74 +1180,135 @@ class FrameDecoder:
         mode = self.y_mode[i] if p == 0 else (DC if self.is_bc[i] else self.uv_mode[i])
         return mode in (SMOOTH, SMOOTH_V, SMOOTH_H)
 
-    def _coeffs(self, b, p: int, x4: int, y4: int):
-        """``coeffs`` of one 4 x 4 block: the dequantised coefficients in
-        row-major order, or None when ``all_zero``."""
+    def _coeffs(self, b, p: int, x4: int, y4: int, tx):
+        """``coeffs`` of one transform block: the dequantised coefficients,
+        a list in row-major order for a lossless 4 x 4 block, else an (h, w)
+        array (the top-left 32 x 32 of a 64-point size), or None when
+        ``all_zero``.  Sets ``b.plane_tx_type``."""
         sd, cdf = self.sd, self.cdf
+        tw, th = tx
+        w4, h4 = tw >> 2, th >> 2
+        sx, sy = self.ss[p]
+        max_x4, max_y4 = self.fr.mi_cols >> sx, self.fr.mi_rows >> sy
         al, ad = self.above_level[p], self.above_dc[p]
         ll, ld = self.left_level[p], self.left_dc[p]
-        a_lvl, l_lvl = al[x4], ll[y4]
+        nx, ny = max(0, min(w4, max_x4 - x4)), max(0, min(h4, max_y4 - y4))
+        szctx = (_sqr_index(min(tw, th)) + _sqr_index(max(tw, th)) + 1) >> 1
         if p == 0:
-            ctx = 0 if b.bsize == 0 else SKIP_CTX[min(a_lvl, 4)][min(l_lvl, 4)]
-        else:
-            sx, sy = self.ss[p]
-            pw, ph = max(4, b.w >> sx), max(4, b.h >> sy)
-            ctx = (1 if (a_lvl or ad[x4]) else 0) + (1 if (l_lvl or ld[y4]) else 0) \
-                + (10 if pw * ph > 16 else 7)
-        if sd.symbol(cdf["TXB_SKIP"][ctx]):
-            al[x4] = ad[x4] = ll[y4] = ld[y4] = 0
-            return None
-        ptype = 1 if p else 0
-        eob_pt = sd.symbol(cdf["EOB_PT_16"][ptype][0]) + 1
-        eob = eob_pt if eob_pt < 2 else (1 << (eob_pt - 2)) + 1
-        shift = eob_pt - 3
-        if shift >= 0:
-            if sd.symbol(cdf["EOB_EXTRA"][ptype][eob_pt - 3]):
-                eob += 1 << shift
-            for i in range(1, max(0, eob_pt - 2)):
-                if sd.literal(1):
-                    eob += 1 << (max(0, eob_pt - 2) - 1 - i)
-        q = [0] * 16
-        base_cdfs, br_cdfs = cdf["COEFF_BASE"][ptype], cdf["COEFF_BR"][ptype]
-        for k in range(eob - 1, -1, -1):
-            pos = SCAN_4X4[k]
-            if k == eob - 1:
-                ctx = 0 if k == 0 else 1 if k <= 2 else 2 if k <= 4 else 3
-                level = sd.symbol(cdf["COEFF_BASE_EOB"][ptype][ctx]) + 1
+            if (b.w, b.h) == tx:
+                ctx = 0
             else:
-                if pos == 0:
-                    ctx = 0
-                else:
-                    mag = 0
-                    for n in BASE_NB[pos]:
-                        v = q[n]
-                        mag += v if v < 3 else 3
-                    ctx = min((mag + 1) >> 1, 4) + BASE_CTX_OFFSET[pos >> 2][pos & 3]
+                top = max(al[x4 : x4 + nx], default=0)
+                left = max(ll[y4 : y4 + ny], default=0)
+                ctx = SKIP_CTX[min(top, 4)][min(left, 4)]
+        else:
+            above = any(al[x4 : x4 + nx]) or any(ad[x4 : x4 + nx])
+            left = any(ll[y4 : y4 + ny]) or any(ld[y4 : y4 + ny])
+            pw, ph = max(4, b.w >> sx), max(4, b.h >> sy)
+            ctx = above + left + (10 if pw * ph > tw * th else 7)
+        if sd.symbol(cdf["TXB_SKIP"][szctx][ctx]):
+            if p == 0 and b.bc:
+                b.tx_types[(y4 - b.r, x4 - b.c)] = DCT_DCT
+            al[x4 : x4 + w4] = ad[x4 : x4 + w4] = [0] * w4
+            ll[y4 : y4 + h4] = ld[y4 : y4 + h4] = [0] * h4
+            return None
+        if p == 0:
+            t = self._read_tx_type(b, tx)
+            if b.bc:
+                b.tx_types[(y4 - b.r, x4 - b.c)] = t
+            b.luma_tx_type = t
+            if b.lossless or max(tx) > 32:
+                t = DCT_DCT
+        else:
+            t = self._plane_tx_type(b, p, tx, x4, y4)
+        b.plane_tx_type = t
+        av1_recon._hit(f"tx_{tw}x{th}")
+        info = _scan_info(tw, th, t)
+        scan, pad, stride, aw, tx_class = info.scan, info.pad, info.stride, info.aw, info.cls
+        ptype = 1 if p else 0
+        multi = min(tw.bit_length() - 1, 5) + min(th.bit_length() - 1, 5) - 4
+        eob_pt = sd.symbol(cdf[_EOB_PT[multi]][ptype][0 if tx_class == 0 else 1]) + 1
+        eob = eob_pt if eob_pt < 2 else (1 << (eob_pt - 2)) + 1
+        if eob_pt >= 3:
+            if sd.symbol(cdf["EOB_EXTRA"][szctx][ptype][eob_pt - 3]):
+                eob += 1 << (eob_pt - 3)
+            for i in range(1, eob_pt - 2):
+                if sd.literal(1):
+                    eob += 1 << (eob_pt - 3 - i)
+        if eob > len(scan):
+            raise AV1Error("AV1: end of block past the transform (a corrupt frame)")
+        levels = [0] * (stride * (info.ah + 4))
+        quant = {}
+        base_cdfs = cdf["COEFF_BASE"][szctx][ptype]
+        br_cdfs = cdf["COEFF_BR"][min(szctx, 3)][ptype]
+        offs = info.offs
+        lim = info.area
+        for k in range(eob - 1, -1, -1):
+            pos = scan[k]
+            pi = pad[pos]
+            if k == eob - 1:
+                ctx = 0 if k == 0 else 1 if k <= lim >> 3 else 2 if k <= lim >> 2 else 3
+                level = sd.symbol(cdf["COEFF_BASE_EOB"][szctx][ptype][ctx]) + 1
+            else:
+                if tx_class == 0:
+                    if pos == 0:
+                        ctx = 0
+                    else:
+                        mag = (CLIP3[levels[pi + 1]] + CLIP3[levels[pi + stride]]
+                               + CLIP3[levels[pi + stride + 1]] + CLIP3[levels[pi + 2]]
+                               + CLIP3[levels[pi + 2 * stride]])
+                        ctx = min((mag + 1) >> 1, 4) + offs[pos]
+                elif tx_class == 1:  # horizontal: along the row
+                    mag = (CLIP3[levels[pi + 1]] + CLIP3[levels[pi + stride]]
+                           + CLIP3[levels[pi + 2]] + CLIP3[levels[pi + 3]] + CLIP3[levels[pi + 4]])
+                    ctx = min((mag + 1) >> 1, 4) + offs[pos]
+                else:  # vertical: down the column
+                    mag = (CLIP3[levels[pi + 1]] + CLIP3[levels[pi + stride]]
+                           + CLIP3[levels[pi + 2 * stride]] + CLIP3[levels[pi + 3 * stride]]
+                           + CLIP3[levels[pi + 4 * stride]])
+                    ctx = min((mag + 1) >> 1, 4) + offs[pos]
                 level = sd.symbol(base_cdfs[ctx])
             if level > 2:
-                mag = 0
-                for n in BR_NB[pos]:
-                    v = q[n]
-                    mag += v if v < 15 else 15
+                if tx_class == 0:
+                    mag = levels[pi + 1] + levels[pi + stride] + levels[pi + stride + 1]
+                elif tx_class == 1:
+                    mag = levels[pi + 1] + levels[pi + stride] + levels[pi + 2]
+                else:
+                    mag = levels[pi + 1] + levels[pi + stride] + levels[pi + 2 * stride]
                 mag = min((mag + 1) >> 1, 6)
-                ctx = mag if pos == 0 else (mag + 7 if (pos >> 2) < 2 and (pos & 3) < 2
-                                            else mag + 14)
+                ctx = mag + info.br_offs[pos]
                 for _ in range(4):
                     br = sd.symbol(br_cdfs[ctx])
                     level += br
                     if br < 3:
                         break
-            q[pos] = level
+            levels[pi] = level
+            quant[pos] = level
+        # signs, Golomb remainders, dequantisation
+        bd = self.bd
+        qidx = b.qidx
+        dq_dc, dq_ac = self.fr.delta_q[p]
+        dcq = dc_q(bd, qidx, dq_dc)
+        acq = ac_q(bd, qidx, dq_ac)
+        qm = None
+        level_qm = self.fr.qm[p]
+        if self.fr.using_qmatrix and not b.lossless and level_qm < 15 and t < IDTX:
+            qm = iqmatrix(level_qm, p > 0, tw, th).reshape(-1)
+            av1_recon._hit("qm")
+        shift = dq_denom(tw, th)
+        lo, hi = -(1 << (7 + bd)), (1 << (7 + bd)) - 1
         cul, dc_cat = 0, 0
-        out = [0] * 16
+        out = {}
         for k in range(eob):
-            pos = SCAN_4X4[k]
-            level = q[pos]
+            pos = scan[k]
+            level = quant[pos]
             if not level:
                 continue
             if k == 0:
                 s = 0
-                for v in (ad[x4], ld[y4]):
+                for v in ad[x4 : x4 + nx]:
+                    s += -1 if v == 1 else 1 if v == 2 else 0
+                for v in ld[y4 : y4 + ny]:
                     s += -1 if v == 1 else 1 if v == 2 else 0
                 sign = sd.symbol(cdf["DC_SIGN"][ptype][1 if s < 0 else 2 if s > 0 else 0])
             else:
@@ -847,21 +1330,33 @@ class FrameDecoder:
                 dc_cat = 1 if sign else 2
             level &= 0xFFFFF
             cul += level
-            dq = (level * 4) & 0xFFFFFF
-            out[pos] = -dq if sign else dq
-        lim = 1 << (7 + self.bd)
-        out = [min(max(v, -lim), lim - 1) for v in out]
+            q = dcq if pos == 0 else acq
+            if qm is not None:
+                q = (int(qm[pos]) * q + 16) >> 5
+            dq = ((level * q) & 0xFFFFFF) >> shift
+            out[pos] = max(-dq, lo) if sign else min(dq, hi)
         cul = min(63, cul)
-        al[x4] = ll[y4] = cul
-        ad[x4] = ld[y4] = dc_cat
-        return out
-
+        al[x4 : x4 + w4] = [cul] * w4
+        ll[y4 : y4 + h4] = [cul] * h4
+        ad[x4 : x4 + w4] = [dc_cat] * w4
+        ld[y4 : y4 + h4] = [dc_cat] * h4
+        if b.lossless:
+            coefs = [0] * 16
+            for pos, v in out.items():
+                coefs[pos] = v
+            return coefs
+        coefs = np.zeros((th, tw), np.int64)
+        flat = coefs[: info.ah, : aw]
+        for pos, v in out.items():
+            flat[pos // aw, pos % aw] = v
+        return coefs
 
 class _Block:
     __slots__ = ("r", "c", "bsize", "w", "h", "has_chroma", "au", "al", "auc", "alc", "seg",
                  "skip", "bc", "mv", "y_mode", "uv_mode", "y_delta", "uv_delta", "alpha_u",
                  "alpha_v", "pal", "colors", "maps", "filter_mode", "max_luma_w",
-                 "max_luma_h")
+                 "max_luma_h", "lossless", "tx", "inter_tx", "tx_types", "qidx",
+                 "plane_tx_type", "luma_tx_type")
 
     def __init__(self, r, c, bsize, w, h, has_chroma, au, al, auc, alc):
         self.r, self.c, self.bsize, self.w, self.h = r, c, bsize, w, h
@@ -877,6 +1372,23 @@ class _Block:
         self.maps = [None, None]
         self.filter_mode = -1
         self.max_luma_w = self.max_luma_h = 0
+        self.lossless = True
+        self.tx = (4, 4)
+        self.inter_tx = None
+        self.tx_types = {}
+        self.qidx = 0
+        self.plane_tx_type = self.luma_tx_type = DCT_DCT
+
+
+def lr_unit_count(size: int, extent: int) -> int:
+    """``count_units_in_frame``."""
+    return max((extent + (size >> 1)) // size, 1)
+
+
+def _inverse_recenter(r: int, v: int) -> int:
+    if v > 2 * r:
+        return v
+    return r - ((v + 1) >> 1) if v & 1 else r + (v >> 1)
 
 
 def _sub_size(part: int, w: int, h: int) -> int:

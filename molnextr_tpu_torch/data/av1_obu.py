@@ -12,12 +12,14 @@ render size, ``allow_screen_content_tools``, ``allow_intrabc``,
 ``tx_mode``, ``reduced_tx_set`` and film grain syntax behind them.  It
 returns the frame's tiles as byte ranges.
 
-Only a *coded lossless* frame is decoded (``base_q_idx`` 0 in every
-segment, no quantiser deltas): every transform is then the 4 x 4
-Walsh-Hadamard one and the loop filters are off.  Any other frame raises
-:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` once its header
-has been read to its end and found whole (a header libaom would refuse is
-an ``AV1Error``, None), as do superres and film grain (ROADMAP queue 1).
+Every field the decoding process reads is kept on :class:`Frame`: the
+quantiser deltas and matrix levels, the per-segment ``qindex`` and lossless
+flag, ``delta_q``/``delta_lf``, the loop filter levels, sharpness and
+deltas, the CDEF damping and strengths, the restoration types and unit
+sizes, ``TxMode`` and ``reduced_tx_set``.  Superres raises
+:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` at once; film
+grain raises once the header has been read to its end and found whole (a
+header libaom would refuse is an ``AV1Error``, None) (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from typing import List, Optional, Tuple
 
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
-LOSSY = ("lossy AV1 frames (quantised transforms, deblocking, CDEF, loop restoration, "
-         "film grain) are not decoded by the port yet (ROADMAP queue 1)")
+FILM_GRAIN = "AV1 film grain is not applied by the port yet (ROADMAP queue 1)"
+TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT = range(3)
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+_REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 _SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 _SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 _SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
@@ -271,7 +275,39 @@ class Frame:
     tile_cols_log2: int = 0
     tile_rows_log2: int = 0
     tile_size_bytes: int = 4
+    # quantisation: DC/AC deltas per plane as (dc, ac), matrix levels per plane
+    delta_q: List[Tuple[int, int]] = field(default_factory=lambda: [(0, 0)] * 3)
+    using_qmatrix: bool = False
+    qm: List[int] = field(default_factory=lambda: [15, 15, 15])
+    qindex: List[int] = field(default_factory=lambda: [0] * 8)  # per segment, no delta_q
+    lossless: List[bool] = field(default_factory=lambda: [True] * 8)
+    coded_lossless: bool = True
+    delta_q_present: bool = False
+    delta_q_res: int = 0
+    delta_lf_present: bool = False
+    delta_lf_res: int = 0
+    delta_lf_multi: bool = False
+    # loop filter: levels (luma vertical, luma horizontal, U, V)
+    lf_level: List[int] = field(default_factory=lambda: [0, 0, 0, 0])
+    lf_sharpness: int = 0
+    lf_delta_enabled: bool = False
+    lf_ref_deltas: List[int] = field(default_factory=lambda: [1, 0, 0, 0, -1, 0, -1, -1])
+    lf_mode_deltas: List[int] = field(default_factory=lambda: [0, 0])
+    # CDEF: damping, bits and the strengths as (primary, secondary) per index
+    cdef_damping: int = 3
+    cdef_bits: int = 0
+    cdef_y: List[Tuple[int, int]] = field(default_factory=lambda: [(0, 0)])
+    cdef_uv: List[Tuple[int, int]] = field(default_factory=lambda: [(0, 0)])
+    # loop restoration: type and unit size per plane
+    lr_type: List[int] = field(default_factory=lambda: [RESTORE_NONE] * 3)
+    lr_size: List[int] = field(default_factory=lambda: [64] * 3)
+    tx_mode: int = TX_MODE_ONLY_4X4
+    reduced_tx_set: bool = False
     unsupported: str = ""  # what the port does not decode in this frame, if anything
+
+    @property
+    def uses_lr(self) -> bool:
+        return any(t != RESTORE_NONE for t in self.lr_type)
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -338,17 +374,18 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
     _tile_info(r, s, fr)
     # quantization_params
     fr.base_q_idx = r.f(8)
-    deltas = [_delta_q(r)]
+    y_dc = _delta_q(r)
+    u = v = (0, 0)
     if s.planes > 1:
         diff_uv = r.f(1) if s.separate_uv_delta_q else 0
-        deltas += [_delta_q(r), _delta_q(r)]
-        if diff_uv:
-            deltas += [_delta_q(r), _delta_q(r)]
-    if r.f(1):  # using_qmatrix
-        r.f(4)
-        r.f(4)
-        if s.separate_uv_delta_q:
-            r.f(4)
+        u = (_delta_q(r), _delta_q(r))
+        v = (_delta_q(r), _delta_q(r)) if diff_uv else u
+    fr.delta_q = [(y_dc, 0), u, v]
+    fr.using_qmatrix = bool(r.f(1))
+    if fr.using_qmatrix:
+        qm_y, qm_u = r.f(4), r.f(4)
+        qm_v = r.f(4) if s.separate_uv_delta_q else qm_u
+        fr.qm = [qm_y, qm_u, qm_v]
     # segmentation_params
     fr.seg_features = [[None] * 8 for _ in range(8)]
     fr.seg_enabled = bool(r.f(1))
@@ -357,63 +394,94 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
             for j in range(8):
                 if r.f(1):
                     if _SEG_SIGNED[j]:
-                        v = max(-_SEG_MAX[j], min(_SEG_MAX[j], r.su(1 + _SEG_BITS[j])))
+                        v_ = max(-_SEG_MAX[j], min(_SEG_MAX[j], r.su(1 + _SEG_BITS[j])))
                     else:
-                        v = min(_SEG_MAX[j], r.f(_SEG_BITS[j]))
-                    fr.seg_features[i][j] = v
+                        v_ = min(_SEG_MAX[j], r.f(_SEG_BITS[j]))
+                    fr.seg_features[i][j] = v_
                     fr.last_active_seg_id = i
                     if j >= 5:
                         fr.seg_id_pre_skip = True
     # delta_q_params, delta_lf_params
-    delta_q = fr.base_q_idx > 0 and bool(r.f(1))
-    if delta_q:
-        r.f(2)  # delta_q_res
-        if not fr.allow_intrabc and r.f(1):  # delta_lf_present
-            r.f(3)  # delta_lf_res, delta_lf_multi
-    lossless = not delta_q and not any(deltas) and all(
-        _qindex(fr, seg) == 0 for seg in range(8 if fr.seg_enabled else 1))
-    fr.unsupported = "" if lossless else LOSSY
-    if not lossless:  # the rest of a lossy header, so that its end can be checked
-        _lossy_filters(r, s, fr)
+    if fr.base_q_idx > 0:
+        fr.delta_q_present = bool(r.f(1))
+    if fr.delta_q_present:
+        fr.delta_q_res = r.f(2)
+        if not fr.allow_intrabc:
+            fr.delta_lf_present = bool(r.f(1))
+        if fr.delta_lf_present:
+            fr.delta_lf_res = r.f(2)
+            fr.delta_lf_multi = bool(r.f(1))
+    no_deltas = not any(d for pair in fr.delta_q for d in pair)
+    fr.qindex = [_qindex(fr, seg) for seg in range(8)]
+    fr.lossless = [q == 0 and no_deltas for q in fr.qindex]
+    fr.coded_lossless = all(fr.lossless)
+    _loop_filter_params(r, s, fr)
+    _cdef_params(r, s, fr)
+    _lr_params(r, s, fr)
+    if not fr.coded_lossless:
+        fr.tx_mode = TX_MODE_SELECT if r.f(1) else TX_MODE_LARGEST
     # frame_reference_mode, skip_mode_params, allow_warped_motion: none in an
     # intra frame
-    r.f(1)  # reduced_tx_set: every transform of a lossless frame is the WHT
+    fr.reduced_tx_set = bool(r.f(1))
     # global_motion_params: none in an intra frame; film_grain_params
     if s.film_grain and r.f(1):
         _film_grain(r, s)
-        fr.unsupported = fr.unsupported or ("AV1 film grain is not applied by the port yet "
-                                            "(ROADMAP queue 1)")
+        fr.unsupported = FILM_GRAIN
     return fr
 
 
-def _lossy_filters(r: BitReader, s: Sequence, fr: Frame) -> None:
-    """``loop_filter_params``, ``cdef_params``, ``lr_params`` and
-    ``read_tx_mode`` of a frame that is not coded lossless."""
-    if not fr.allow_intrabc:
-        levels = [r.f(6), r.f(6)]
-        if s.planes > 1 and any(levels):
-            r.f(12)
-        r.f(3)  # sharpness
-        if r.f(1) and r.f(1):  # loop_filter_delta_enabled, _update
-            for _ in range(10):
-                if r.f(1):
-                    r.su(7)
-        if s.enable_cdef:
-            r.f(2)  # cdef_damping_minus_3
-            for _ in range(1 << r.f(2)):
-                r.f(6)
-                if s.planes > 1:
-                    r.f(6)
-        if s.enable_restoration:
-            types = [r.f(2) for _ in range(s.planes)]
-            if any(types):
-                if s.use_128:
-                    r.f(1)
-                elif r.f(1):
-                    r.f(1)
-                if s.ss_x and s.ss_y and any(types[1:]):
-                    r.f(1)
-    r.f(1)  # tx_mode_select
+def _loop_filter_params(r: BitReader, s: Sequence, fr: Frame) -> None:
+    if fr.coded_lossless or fr.allow_intrabc:
+        return
+    fr.lf_level[0], fr.lf_level[1] = r.f(6), r.f(6)
+    if s.planes > 1 and (fr.lf_level[0] or fr.lf_level[1]):
+        fr.lf_level[2], fr.lf_level[3] = r.f(6), r.f(6)
+    fr.lf_sharpness = r.f(3)
+    fr.lf_delta_enabled = bool(r.f(1))
+    if fr.lf_delta_enabled and r.f(1):  # loop_filter_delta_update
+        for i in range(8):
+            if r.f(1):
+                fr.lf_ref_deltas[i] = r.su(7)
+        for i in range(2):
+            if r.f(1):
+                fr.lf_mode_deltas[i] = r.su(7)
+
+
+def _cdef_params(r: BitReader, s: Sequence, fr: Frame) -> None:
+    if fr.coded_lossless or fr.allow_intrabc or not s.enable_cdef:
+        return
+    fr.cdef_damping = r.f(2) + 3
+    fr.cdef_bits = r.f(2)
+    fr.cdef_y, fr.cdef_uv = [], []
+    for _ in range(1 << fr.cdef_bits):
+        pri, sec = r.f(4), r.f(2)
+        fr.cdef_y.append((pri, 4 if sec == 3 else sec))
+        if s.planes > 1:
+            pri, sec = r.f(4), r.f(2)
+            fr.cdef_uv.append((pri, 4 if sec == 3 else sec))
+        else:
+            fr.cdef_uv.append((0, 0))
+
+
+def _lr_params(r: BitReader, s: Sequence, fr: Frame) -> None:
+    """``lr_params`` (AllLossless is CodedLossless: superres raises)."""
+    if fr.coded_lossless or fr.allow_intrabc or not s.enable_restoration:
+        return
+    fr.lr_type = [_REMAP_LR_TYPE[r.f(2)] for _ in range(s.planes)] + \
+        [RESTORE_NONE] * (3 - s.planes)
+    if not fr.uses_lr:
+        return
+    if s.use_128:
+        shift = r.f(1) + 1
+    else:
+        shift = r.f(1)
+        if shift:
+            shift += r.f(1)
+    uv_shift = 0
+    if s.ss_x and s.ss_y and any(t != RESTORE_NONE for t in fr.lr_type[1:]):
+        uv_shift = r.f(1)
+    size = 256 >> (2 - shift)
+    fr.lr_size = [size, size >> uv_shift, size >> uv_shift]
 
 
 def _film_grain(r: BitReader, s: Sequence) -> None:

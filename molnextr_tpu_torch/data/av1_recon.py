@@ -13,12 +13,15 @@ on planes held as flat Python lists.
   the bilinear filter (chroma of a subsampled plane may land between
   pixels) with the specification's rounding at 8, 10 and 12 bits.
 * :func:`reconstruct_wht`: the inverse 4 x 4 Walsh-Hadamard transform of a
-  lossless block and its addition, clipped to the bit depth.
+  lossless block and its addition, clipped to the bit depth;
+  :func:`add_residual` adds the residual of any other transform block.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 DC, V, H, D45, D135, D113, D157, D203, D67, SMOOTH, SMOOTH_V, SMOOTH_H, PAETH = range(13)
 MODE_ANGLE = (0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0)
@@ -437,3 +440,14 @@ def reconstruct_wht(px: List[int], stride: int, x: int, y: int, coefs: List[int]
             at = (y + i) * stride + x + j
             s = px[at] + v
             px[at] = 0 if s < 0 else top if s > top else s
+
+
+def add_residual(px: List[int], stride: int, x: int, y: int, res, bd: int) -> None:
+    """Add an (h, w) residual array to the prediction in ``px``, clipped to
+    the bit depth."""
+    h, w = res.shape
+    rows = [px[(y + i) * stride + x : (y + i) * stride + x + w] for i in range(h)]
+    out = np.clip(np.asarray(rows, np.int64) + res, 0, (1 << bd) - 1).tolist()
+    for i in range(h):
+        at = (y + i) * stride + x
+        px[at : at + w] = out[i]

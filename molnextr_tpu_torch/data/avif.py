@@ -17,11 +17,14 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   as None.  The alpha item is found (``auxl``) and not decoded: OpenCV
   drops alpha.  ``irot``, ``imir`` and ``clap`` are parsed and, as in
   OpenCV 5.0, not applied.
-* **The image**: the item's AV1 OBUs (``data/av1_obu.py``), decoded where
-  the frame is coded lossless (``data/av1_block.py``,
-  ``data/av1_recon.py``), with libaom's checks of a corrupt frame (a tile
-  that overruns its data or lacks its trailing bits, an intra block copy
-  vector outside the decoded area, a segment id past the last).
+* **The image**: the item's AV1 OBUs (``data/av1_obu.py``), decoded
+  lossless or lossy (``data/av1_block.py``, ``data/av1_recon.py``,
+  ``data/av1_quant.py``, ``data/av1_transform.py``), then deblocked
+  (``data/av1_loopfilter.py``), CDEF-filtered (``data/av1_cdef.py``) and
+  loop-restored (``data/av1_restoration.py``), with libaom's checks of a
+  corrupt frame (a tile that overruns its data or lacks its trailing bits,
+  an intra block copy vector outside the decoded area, a segment id past
+  the last).
 * **Colour** as ``avifImageYUVToRGB`` gives 8-bit BGR: matrix 0 (GBR) as
   the planes are, monochrome (the sequence header's or ``av1C``'s flag) as
   grey, BT.601 and BT.709 at full or limited
@@ -33,9 +36,9 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   subsampled YCbCr, which no writer here makes, raises naming itself.)  The matrix and range of an nclx ``colr`` box win
   over the sequence header's.
 
-A ``grid`` derived image, an ``avis`` image sequence, a lossy AV1 frame,
-superres or film grain, and a colour form whose conversion is not ported
-raise :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` naming
+A ``grid`` derived image, an ``avis`` image sequence, superres or film
+grain, and a colour form whose conversion is not ported raise
+:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` naming
 themselves (ROADMAP queue 1), and so does an ``ispe`` size other than the
 frame's (OpenCV then resamples).  An image past libavif's 32768 a side or
 OpenCV's 2^30 pixels reads as None.
@@ -399,14 +402,25 @@ def read_avif(data: bytes) -> Tuple[List[np.ndarray], int, int, int, bool, int, 
     planes = []
     av1c = f.prop(item, b"av1C")
     grey = bool(f.data[av1c[0] + 2] & 0x10)  # av1C's monochrome: libavif keeps only Y
-    for p in range(1 if grey else seq.planes):
+    for p, full in enumerate(filtered_planes(dec)[: 1 if grey else seq.planes]):
         sx, sy = dec.ss[p]
         w, h = (fr.width + sx) >> sx, (fr.height + sy) >> sy
-        full = np.asarray(dec.planes[p], np.int32).reshape(-1, dec.strides[p])
         planes.append(full[:h, :w])
     nclx = _nclx(f, item)
     matrix, full = (nclx[2], nclx[3]) if nclx is not None else (seq.matrix, seq.full_range)
     return planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, fr.width
+
+
+def filtered_planes(dec) -> List[np.ndarray]:
+    """A decoded frame's planes after the in-loop filters: deblocking, CDEF,
+    then loop restoration (which reads the deblocked frame at its stripes'
+    edges)."""
+    from molnextr_tpu_torch.data import av1_cdef, av1_loopfilter, av1_restoration
+
+    planes = dec.frame_planes()
+    deblocked = av1_loopfilter.deblock(dec, planes)
+    cdefed = av1_cdef.cdef(dec, deblocked)
+    return av1_restoration.restore(dec, deblocked, cdefed)
 
 
 def decode_avif(data: bytes, path: str = "<bytes>") -> np.ndarray:

@@ -553,11 +553,19 @@ WEBP_QUALITY = 90  # the lossy WebP forms' quality (cv2 and PIL)
 
 
 def _avif_forms(bgr, big):
-    """demo_0.png (and the 1024 x 1024 drawing) as lossless AVIF, every one
-    at quality 100 (a coded-lossless AV1 frame): cv2's 4:4:4 GBR, grey
+    """demo_0.png (and the 1024 x 1024 drawing) as AVIF.  Lossless, at
+    quality 100 (a coded-lossless AV1 frame): cv2's 4:4:4 GBR, grey
     (monochrome) and 10-bit forms, Pillow's 4:2:0 BT.601 form, one with an
     alpha item, one of 2 x 2 tiles and one with screen-content tools
-    (palette; the picture brings no intra block copy out)."""
+    (palette; the picture brings no intra block copy out).  Lossy: cv2 at
+    quality 90, Pillow at 40 in 4:2:0 and 4:4:4, Pillow's loop restoration,
+    screen-content tools with ``TX_MODE_SELECT``, cv2's default (quality
+    50: deblocking and CDEF) for the 1024 x 1024 drawing, and a repeated
+    coloured motif whose frame uses intra block copy with
+    ``TX_MODE_SELECT``.  The demo bundle's SMILES move under lossy coding
+    (cv2 at 50, 60, 75, 80, 95 or 98 reads as CC(C)C or CC(C)N, in the JAX
+    package as in the port), so the demo forms are qualities at which it
+    reads demo_0.png's CC(C)O in bf16 and float32."""
     import io
 
     import cv2
@@ -574,6 +582,21 @@ def _avif_forms(bgr, big):
         Image.fromarray(img).save(buf, "AVIF", quality=100, **kw)
         return buf.getvalue()
 
+    def lossy(img, quality=None, speed=None):
+        params = [] if quality is None else [cv2.IMWRITE_AVIF_QUALITY, quality]
+        params += [] if speed is None else [cv2.IMWRITE_AVIF_SPEED, speed]
+        return cv2.imencode(".avif", img, params)[1].tobytes()
+
+    def pil_lossy(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "AVIF", **kw)
+        return buf.getvalue()
+
+    motif = np.full((33, 35, 3), 255, np.uint8)
+    motif[4:28, 6:10] = (200, 30, 30)
+    motif[8:12, 4:28] = (20, 40, 200)
+    motif[20:26, 14:26] = (30, 160, 40)
+    motif = np.tile(motif, (5, 5, 1))[:150, :160]
     ramp = np.tile(np.arange(rgb.shape[1], dtype=np.uint8) * 2, (rgb.shape[0], 1))
     ten = ((bgr.astype(np.uint32) * 1023 + 127) // 255).astype(np.uint16)  # reads back to bgr
     return {"demo_0_lossless.avif": cv(bgr),
@@ -584,7 +607,16 @@ def _avif_forms(bgr, big):
             "demo_0_tiles_lossless.avif": pil(rgb, tile_rows=1, tile_cols=1),
             "demo_0_screen_lossless.avif": pil(rgb, speed=6,
                                                advanced=[("tune-content", "screen")]),
-            "big_lossless.avif": cv(big)}
+            "big_lossless.avif": cv(big),
+            "demo_0_lossy.avif": lossy(bgr, 90),
+            "demo_0_q40_lossy.avif": pil_lossy(rgb, quality=40),
+            "demo_0_444_lossy.avif": pil_lossy(rgb, quality=40, subsampling="4:4:4"),
+            "demo_0_restoration_lossy.avif": pil_lossy(
+                rgb, quality=50, speed=2, advanced={"enable-restoration": "1"}),
+            "demo_0_screen_lossy.avif": pil_lossy(rgb, quality=60, speed=6,
+                                                  advanced={"tune-content": "screen"}),
+            "intrabc_motif_lossy.avif": lossy(motif, 60, 6),
+            "big_lossy.avif": lossy(big)}
 
 
 def _jpeg2000_forms(bgr, big):

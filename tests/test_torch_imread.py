@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, with_jpeg_exif,
-                                 with_png_exif)
+from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, film_grain_avif,
+                                 with_jpeg_exif, with_png_exif)
 
 from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
 from molnextr_tpu_torch.data.image import UnsupportedFormat, imread, sniff_format
@@ -141,8 +141,9 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
     """JPEG 2000 and AVIF raised here until the port read them: now this cut
     JP2 file and this stub AVIF file read as None, as cv2 reads them, and a
     whole JP2 file to its pixels (``test_torch_jpeg2000.py`` holds the
-    reader).  A lossy AVIF, which the port does not decode yet, raises
-    naming what it lacks (``test_torch_avif.py`` holds the lossless reader).
+    reader).  An AVIF whose frame applies film grain, which the port does
+    not yet, raises naming it (``test_torch_avif.py`` and
+    ``test_torch_avif_lossy.py`` hold the reader).
     The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
     held before the port read them are read to cv2's arrays (the next test
     and each format's own test file)."""
@@ -158,11 +159,10 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
         np.testing.assert_array_equal(cv2_rgb(path), img)
         np.testing.assert_array_equal(imread(str(path)), img)
     else:
-        img = _picture(9, 11)
-        path = tmp_path / "lossy.avif"
-        assert cv2.imwrite(str(path), img[..., ::-1].copy(), [cv2.IMWRITE_AVIF_QUALITY, 95])
+        path = tmp_path / "grain.avif"
+        path.write_bytes(film_grain_avif())
         assert cv2_rgb(path) is not None
-        with pytest.raises(UnsupportedFormat, match="lossy AV1"):
+        with pytest.raises(UnsupportedFormat, match="film grain"):
             imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 

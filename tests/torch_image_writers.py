@@ -33,7 +33,11 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   copy distances, its code lengths written out; :func:`alph_chunk`: an
   ``ALPH`` payload, filtered, raw or lossless;
 * :func:`encode_webp`, :func:`webp_chunk`, :func:`vp8x`: a RIFF/WEBP file of
-  any chunks.
+  any chunks;
+* :func:`film_grain_avif`: a lossy AVIF whose frame applies film grain
+  (Pillow's libaom with ``denoise-noise-level``); :func:`av1_superres_obus`:
+  the OBUs of an AV1 key frame that uses superres, as far as that bit (no
+  writer here makes one), for :func:`avif_rebuild`'s ``payload``.
 """
 
 from __future__ import annotations
@@ -2670,21 +2674,23 @@ def avif_grid(single: bytes, rows: int, cols: int) -> bytes:
 def avif_rebuild(single: bytes, iloc_version: int = 0, method: int = 0, infe_version: int = 2,
                  ipma_version: int = 0, ipma_flags: int = 0, pitm_version: int = 0,
                  iinf_version: int = 0, extents: int = 1, extra: Sequence[bytes] = (),
-                 clap: Optional[bytes] = None) -> bytes:
+                 clap: Optional[bytes] = None, payload: Optional[bytes] = None) -> bytes:
     """A one-item AVIF's image (its ``ispe``, ``pixi``, ``av1C``, ``colr``
     and AV1 payload) in other box forms: ``iloc`` version 0, 1 or 2 and
     construction method 0 (``mdat``) or 1 (``idat``), the payload in
     ``extents`` pieces, ``infe`` version 2 or 3, ``ipma`` version 0 or 1 with
     flags 0 or 1 (16-bit indices), ``pitm`` and ``iinf`` versions 0 or 1,
     ``extra`` whole boxes appended to ``meta``, and a ``clap`` body
-    associated (essential) with the item."""
+    associated (essential) with the item; ``payload`` AV1 OBUs in place of
+    the file's own."""
     boxes = avif_boxes(single)
     props = [single[boxes[k][0] : boxes[k][1]] for k in (b"ispe", b"pixi", b"av1C", b"colr")
              if k in boxes]
     if clap is not None:
         props.append(_box(b"clap", clap))
     mdat_at, mdat_end = boxes[b"mdat"]
-    payload = single[mdat_at + 8 : mdat_end]
+    if payload is None:
+        payload = single[mdat_at + 8 : mdat_end]
     wide = 4 if iloc_version == 2 else 2
     idw = 4 if infe_version == 3 else 2
     ftyp = _box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
@@ -2725,3 +2731,39 @@ def avif_rebuild(single: bytes, iloc_version: int = 0, method: int = 0, infe_ver
     head = ftyp + meta(0)
     head = ftyp + meta(len(head) + 8)
     return head + _box(b"mdat", payload)
+
+
+def film_grain_avif(seed: int = 0) -> bytes:
+    """A 64 x 64 flat grey with mild Gaussian noise, written lossy by
+    Pillow's libaom with ``denoise-noise-level`` 25: the noise is modelled
+    and its frame header applies film grain."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    img = np.clip(128 + rng.normal(0, 4, (64, 64, 3)), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "AVIF", quality=60, advanced={"denoise-noise-level": "25"})
+    return buf.getvalue()
+
+
+def av1_superres_obus(size: int = 16) -> bytes:
+    """A reduced still-picture sequence header (profile 0, 8-bit 4:2:0,
+    ``enable_superres``) and a frame header OBU whose ``use_superres`` is
+    set, cut after that bit: libaom would go on to the denominator, the
+    port stops there."""
+    def obu(kind: int, bits: str) -> bytes:
+        bits += "1" + "0" * ((-len(bits) - 1) % 8)  # trailing_bits
+        body = int(bits, 2).to_bytes(len(bits) // 8, "big")
+        return bytes([(kind << 3) | 2, len(body)]) + body
+
+    side = format(size - 1, "06b")
+    seq = ("000" "1" "1" "00000"  # profile, still_picture, reduced header, level
+           "0101" "0101" + side + side  # frame size bits and sizes
+           + "000"  # 128 superblocks, filter intra, intra edge filter
+           + "1" "0" "0"  # enable_superres, enable_cdef, enable_restoration
+           + "0" "0" "0" "0" "00" "0"  # 8 bits, colour: no description, limited, 4:2:0
+           + "0")  # film_grain_params_present
+    frame = "0" "0" "1" "000"  # disable_cdf_update, screen tools, use_superres, denom
+    return obu(1, seq) + obu(3, frame)
