@@ -16,10 +16,10 @@ Every field the decoding process reads is kept on :class:`Frame`: the
 quantiser deltas and matrix levels, the per-segment ``qindex`` and lossless
 flag, ``delta_q``/``delta_lf``, the loop filter levels, sharpness and
 deltas, the CDEF damping and strengths, the restoration types and unit
-sizes, ``TxMode`` and ``reduced_tx_set``.  Superres raises
-:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` at once; film
-grain raises once the header has been read to its end and found whole (a
-header libaom would refuse is an ``AV1Error``, None) (ROADMAP queue 1).
+sizes, ``TxMode``, ``reduced_tx_set`` and the film grain parameters
+(:class:`FilmGrain`, applied by ``data/av1_grain.py``).  Superres raises
+:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` at once (ROADMAP
+queue 1); a header libaom would refuse is an ``AV1Error``, None.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from typing import List, Optional, Tuple
 
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
-FILM_GRAIN = "AV1 film grain is not applied by the port yet (ROADMAP queue 1)"
 TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT = range(3)
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
 _REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
@@ -254,6 +253,34 @@ def _color_config(r: BitReader, s: Sequence) -> None:
 
 
 @dataclass
+class FilmGrain:
+    """``film_grain_params`` of a frame that applies grain, as read (the
+    ``*_plus_128`` coefficients less 128; scaling points as (value,
+    scaling) pairs)."""
+
+    grain_seed: int = 0
+    point_y: List[Tuple[int, int]] = field(default_factory=list)
+    chroma_scaling_from_luma: bool = False
+    point_cb: List[Tuple[int, int]] = field(default_factory=list)
+    point_cr: List[Tuple[int, int]] = field(default_factory=list)
+    grain_scaling_minus_8: int = 0
+    ar_coeff_lag: int = 0
+    ar_coeffs_y: List[int] = field(default_factory=list)
+    ar_coeffs_cb: List[int] = field(default_factory=list)
+    ar_coeffs_cr: List[int] = field(default_factory=list)
+    ar_coeff_shift_minus_6: int = 0
+    grain_scale_shift: int = 0
+    cb_mult: int = 0
+    cb_luma_mult: int = 0
+    cb_offset: int = 0
+    cr_mult: int = 0
+    cr_luma_mult: int = 0
+    cr_offset: int = 0
+    overlap_flag: bool = False
+    clip_to_restricted_range: bool = False
+
+
+@dataclass
 class Frame:
     """What decoding an intra frame needs of its header."""
 
@@ -303,7 +330,10 @@ class Frame:
     lr_size: List[int] = field(default_factory=lambda: [64] * 3)
     tx_mode: int = TX_MODE_ONLY_4X4
     reduced_tx_set: bool = False
-    unsupported: str = ""  # what the port does not decode in this frame, if anything
+    grain: Optional[FilmGrain] = None  # film grain to apply when the frame is shown
+    show: bool = True
+    showable: bool = False
+    refresh: int = 0xFF  # refresh_frame_flags
 
     @property
     def uses_lr(self) -> bool:
@@ -323,17 +353,18 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
     if s.reduced:
         frame_type, show_frame = 0, True
     else:
-        if r.f(1):
-            raise UnsupportedFormat("show_existing_frame (an image sequence) is not "
-                                    "decoded by the port (ROADMAP queue 1)")
+        if r.f(1):  # show_existing_frame, with no frame decoded before it
+            raise AV1Error("AV1: show_existing_frame before any frame")
         frame_type = r.f(2)
         show_frame = bool(r.f(1))
-        if frame_type not in (0, 2) or not show_frame:
-            raise UnsupportedFormat("an inter or hidden AV1 frame (an image sequence) is not "
-                                    "decoded by the port (ROADMAP queue 1)")
-        if s.decoder_model and not s.equal_picture_interval:
-            r.f(s.presentation_bits)
-        error_resilient = True if frame_type == 0 else bool(r.f(1))
+        if frame_type not in (0, 2):
+            raise UnsupportedFormat("an inter AV1 frame (an image sequence) is not decoded "
+                                    "by the port (ROADMAP queue 1)")
+        if show_frame and s.decoder_model and not s.equal_picture_interval:
+            r.f(s.presentation_bits)  # temporal_point_info
+        fr.showable = frame_type != 0 if show_frame else bool(r.f(1))
+        error_resilient = True if frame_type == 0 and show_frame else bool(r.f(1))
+    fr.show = show_frame
     fr.intra_only = frame_type == 2
     fr.disable_cdf_update = bool(r.f(1))
     fr.screen_tools = bool(r.f(1) if s.screen_tools == 2 else s.screen_tools)
@@ -350,10 +381,11 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
                 in_s = (idc >> (spatial_id + 8)) & 1
                 if idc == 0 or (in_t and in_s):
                     r.f(s.buffer_removal_bits)
-    if fr.intra_only:
-        if r.f(8) == 0xFF:  # refresh_frame_flags
+    if fr.intra_only or not show_frame:
+        fr.refresh = r.f(8)  # refresh_frame_flags
+        if fr.intra_only and fr.refresh == 0xFF:
             raise AV1Error("AV1: an intra-only frame refreshing every reference")
-        if error_resilient and s.order_hint_bits:
+        if fr.refresh != 0xFF and error_resilient and s.order_hint_bits:
             r.f(8 * s.order_hint_bits)  # ref_order_hint[]
     # frame_size, superres_params, render_size
     if size_override:
@@ -424,9 +456,8 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
     # intra frame
     fr.reduced_tx_set = bool(r.f(1))
     # global_motion_params: none in an intra frame; film_grain_params
-    if s.film_grain and r.f(1):
-        _film_grain(r, s)
-        fr.unsupported = FILM_GRAIN
+    if s.film_grain and (fr.show or fr.showable) and r.f(1):  # apply_grain
+        fr.grain = _film_grain(r, s)
     return fr
 
 
@@ -484,34 +515,50 @@ def _lr_params(r: BitReader, s: Sequence, fr: Frame) -> None:
     fr.lr_size = [size, size >> uv_shift, size >> uv_shift]
 
 
-def _film_grain(r: BitReader, s: Sequence) -> None:
-    """``film_grain_params`` of a shown intra frame with ``apply_grain``."""
-    r.f(16)  # grain_seed
-    y_points = r.f(4)
-    r.f(16 * y_points)
-    from_luma = 0 if s.mono else r.f(1)
-    cb = cr = 0
-    if not (s.mono or from_luma or (s.ss_x == 1 and s.ss_y == 1 and y_points == 0)):
-        cb = r.f(4)
-        r.f(16 * cb)
-        cr = r.f(4)
-        r.f(16 * cr)
-    r.f(2)  # grain_scaling_minus_8
-    lag = r.f(2)
-    pos_luma = 2 * lag * (lag + 1)
-    pos_chroma = pos_luma + 1 if y_points else pos_luma
-    if y_points:
-        r.f(8 * pos_luma)
-    if from_luma or cb:
-        r.f(8 * pos_chroma)
-    if from_luma or cr:
-        r.f(8 * pos_chroma)
-    r.f(4)  # ar_coeff_shift_minus_6, grain_scale_shift
-    if cb:
-        r.f(25)
-    if cr:
-        r.f(25)
-    r.f(2)  # overlap_flag, clip_to_restricted_range
+def _film_grain(r: BitReader, s: Sequence) -> FilmGrain:
+    """``film_grain_params`` of a shown intra frame with ``apply_grain``,
+    with libaom's checks (``read_film_grain_params``)."""
+    g = FilmGrain(grain_seed=r.f(16))
+    g.point_y = _scaling_points(r, 14, "luma")
+    g.chroma_scaling_from_luma = bool(0 if s.mono else r.f(1))
+    if not (s.mono or g.chroma_scaling_from_luma
+            or (s.ss_x == 1 and s.ss_y == 1 and not g.point_y)):
+        g.point_cb = _scaling_points(r, 10, "cb")
+        g.point_cr = _scaling_points(r, 10, "cr")
+        if s.ss_x == 1 and s.ss_y == 1 and bool(g.point_cb) != bool(g.point_cr):
+            raise AV1Error("AV1: 4:2:0 film grain on one chroma plane only")
+    g.grain_scaling_minus_8 = r.f(2)
+    g.ar_coeff_lag = r.f(2)
+    pos_luma = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1)
+    pos_chroma = pos_luma + 1 if g.point_y else pos_luma
+    if g.point_y:
+        g.ar_coeffs_y = [r.f(8) - 128 for _ in range(pos_luma)]
+    if g.chroma_scaling_from_luma or g.point_cb:
+        g.ar_coeffs_cb = [r.f(8) - 128 for _ in range(pos_chroma)]
+    if g.chroma_scaling_from_luma or g.point_cr:
+        g.ar_coeffs_cr = [r.f(8) - 128 for _ in range(pos_chroma)]
+    g.ar_coeff_shift_minus_6 = r.f(2)
+    g.grain_scale_shift = r.f(2)
+    if g.point_cb:
+        g.cb_mult, g.cb_luma_mult, g.cb_offset = r.f(8), r.f(8), r.f(9)
+    if g.point_cr:
+        g.cr_mult, g.cr_luma_mult, g.cr_offset = r.f(8), r.f(8), r.f(9)
+    g.overlap_flag = bool(r.f(1))
+    g.clip_to_restricted_range = bool(r.f(1))
+    return g
+
+
+def _scaling_points(r: BitReader, most: int, plane: str) -> List[Tuple[int, int]]:
+    n = r.f(4)
+    if n > most:
+        raise AV1Error(f"AV1: {n} film grain {plane} scaling points")
+    points: List[Tuple[int, int]] = []
+    for _ in range(n):
+        x = r.f(8)
+        if points and points[-1][0] >= x:
+            raise AV1Error("AV1: film grain scaling points not increasing")
+        points.append((x, r.f(8)))
+    return points
 
 
 def _delta_q(r: BitReader) -> int:
@@ -573,8 +620,11 @@ def _tile_info(r: BitReader, s: Sequence, fr: Frame) -> None:
 
 def parse_obus(data: bytes) -> Tuple[Sequence, Frame, bytes, List[Tuple[int, int, int]]]:
     """The sequence header, the first frame's header and its tiles, as
-    (tile number, start, size) ranges of the returned bytes."""
-    pos, seq, frame, tiles, tg_data = 0, None, None, [], b""
+    (tile number, start, size) ranges of the returned bytes.  A first
+    frame that is hidden (a key or intra-only frame) is the image when a
+    later ``show_existing_frame`` of the same data shows it; any other
+    frame after it is an inter frame, which the port does not decode."""
+    pos, seq, frame, tiles = 0, None, None, []
     while pos < len(data):
         head = data[pos]
         if head & 0x80:
@@ -605,24 +655,40 @@ def parse_obus(data: bytes) -> Tuple[Sequence, Frame, bytes, List[Tuple[int, int
             frame = frame_header(r, seq, temporal_id, spatial_id)
             if obu_type == 6:
                 r.align()
+                tiles += _tile_group(data, r, end, frame)
             else:
                 r.trailing()
-            if frame.unsupported:  # the header read whole, as libaom reads it
-                raise UnsupportedFormat(frame.unsupported)
-            if obu_type == 6:
-                tiles += _tile_group(data, r, end, frame)
-        elif obu_type == 4 and frame is not None:
+        elif obu_type == 4 and frame is not None and len(tiles) < _tile_count(frame):
             tiles += _tile_group(data, BitReader(data, pos, end), end, frame)
-        elif obu_type in (3, 6, 7):  # a second frame, or a redundant header
-            pass
+        elif obu_type in (3, 6) and not frame.show and len(tiles) == _tile_count(frame):
+            _show_existing(BitReader(data, pos, end), seq, frame, obu_type)
         pos = end
-        if frame is not None and len(tiles) == _tile_count(frame):
+        if frame is not None and frame.show and len(tiles) == _tile_count(frame):
             break
     if seq is None or frame is None:
         raise AV1Error("AV1: no sequence header or no frame")
     if len(tiles) != _tile_count(frame):
         raise AV1Error("AV1: tiles missing")
+    if not frame.show:
+        raise AV1Error("AV1: no frame shown")
     return seq, frame, data, tiles
+
+
+def _show_existing(r: BitReader, s: Sequence, hidden: Frame, obu_type: int) -> None:
+    """The frame header after a hidden first frame: a ``show_existing_frame``
+    of a slot that frame refreshed shows it (with its film grain)."""
+    if obu_type == 6 or not r.f(1):
+        raise UnsupportedFormat("an inter AV1 frame after a hidden one is not decoded by the "
+                                "port (ROADMAP queue 1)")
+    slot = r.f(3)  # frame_to_show_map_idx
+    if not (hidden.refresh >> slot) & 1 or not hidden.showable:
+        raise AV1Error("AV1: show_existing_frame of a slot with no showable frame")
+    if s.decoder_model and not s.equal_picture_interval:
+        r.f(s.presentation_bits)  # temporal_point_info
+    if s.frame_id_bits:
+        r.f(s.frame_id_bits)  # display_frame_id
+    r.trailing()
+    hidden.show = True
 
 
 def _tile_count(fr: Frame) -> int:

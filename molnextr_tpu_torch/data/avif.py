@@ -6,42 +6,51 @@ OpenCV 5.0 reads AVIF through libavif 1.4 (``avifDecoderParse``, then
 primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
 
 * **The container** (ISOBMFF/HEIF, as libavif parses it): ``ftyp`` first,
-  with ``avif`` or ``avis`` as its major or a compatible brand; ``meta``
-  with ``hdlr`` ``pict`` first, ``pitm``, ``iloc`` (versions 0-2,
-  construction methods 0 and 1 with ``idat``), ``iinf``/``infe`` (versions
-  2 and 3), ``iref`` (``auxl``, ``dimg``, ``thmb``, ``cdsc``, ``prem``) and
+  with ``avif`` or ``avis`` as its major or a compatible brand (``avif``
+  needs a ``meta`` box, ``avis`` a ``moov``); ``meta`` with ``hdlr``
+  ``pict`` first, ``pitm``, ``iloc`` (versions 0-2, construction methods 0
+  and 1 with ``idat``), ``iinf``/``infe`` (versions 2 and 3), ``iref``
+  (``auxl``, ``dimg``, ``thmb``, ``cdsc``, ``prem``) and
   ``iprp``/``ipco``/``ipma`` with essential flags; properties ``ispe``,
   ``pixi``, ``av1C``, ``colr`` (nclx and ICC), ``irot``, ``imir``,
   ``clap``, ``auxC``, ``a1op``, ``lsel``.  A box cut short, a duplicate
   unique box, a missing primary item or a missing mandatory property read
   as None.  The alpha item is found (``auxl``) and not decoded: OpenCV
-  drops alpha.  ``irot``, ``imir`` and ``clap`` are parsed and, as in
-  OpenCV 5.0, not applied.
-* **The image**: the item's AV1 OBUs (``data/av1_obu.py``), decoded
-  lossless or lossy (``data/av1_block.py``, ``data/av1_recon.py``,
-  ``data/av1_quant.py``, ``data/av1_transform.py``), then deblocked
-  (``data/av1_loopfilter.py``), CDEF-filtered (``data/av1_cdef.py``) and
-  loop-restored (``data/av1_restoration.py``), with libaom's checks of a
-  corrupt frame (a tile that overruns its data or lacks its trailing bits,
-  an intra block copy vector outside the decoded area, a segment id past
-  the last).
+  drops alpha (an alpha grid's layout is checked).  ``irot``, ``imir`` and
+  ``clap`` are parsed and, as in OpenCV 5.0, not applied.
+* **The primary image**, chosen as libavif's ``AVIF_DECODER_SOURCE_AUTO``
+  chooses: the first sample of the colour track of an image sequence
+  (``moov``/``trak``: ``tkhd``, ``stsd``'s ``av01`` entry, ``stsc``,
+  ``stsz``, ``stco``/``co64``) when the major brand is ``avis``, or when it
+  is not ``avif`` and there is a track; otherwise the primary item, an
+  ``av01`` item or a ``grid`` of them (the ``ImageGrid`` box, the ``dimg``
+  tiles placed row-major and cut to the output size, with libavif's rules
+  on tile count, sizes and formats).
+* **The image**: the AV1 OBUs (``data/av1_obu.py``; a key frame hidden and
+  shown by ``show_existing_frame`` too), decoded lossless or lossy
+  (``data/av1_block.py``, ``data/av1_recon.py``, ``data/av1_quant.py``,
+  ``data/av1_transform.py``), then deblocked (``data/av1_loopfilter.py``),
+  CDEF-filtered (``data/av1_cdef.py``) and loop-restored
+  (``data/av1_restoration.py``), with libaom's checks of a corrupt frame
+  (a tile that overruns its data or lacks its trailing bits, an intra
+  block copy vector outside the decoded area, a segment id past the
+  last); then film grain added (``data/av1_grain.py``).
 * **Colour** as ``avifImageYUVToRGB`` gives 8-bit BGR: matrix 0 (GBR) as
   the planes are, monochrome (the sequence header's or ``av1C``'s flag) as
-  grey, BT.601 and BT.709 at full or limited
-  range through libyuv's fixed-point conversion, 4:2:0 and 4:2:2 chroma
-  upsampled as libavif's ``AUTOMATIC`` choice does (libyuv's bilinear
-  filter); 10- and 12-bit 4:4:4 YCbCr shifted down to 8 bits first, GBR
+  grey, BT.601 and BT.709 at full or limited range through libyuv's
+  fixed-point conversion, 4:2:0 and 4:2:2 chroma upsampled as libavif's
+  ``AUTOMATIC`` choice does (libyuv's bilinear filter); 10- and 12-bit
+  YCbCr shifted down to 8 bits first (chroma before it is upsampled), GBR
   at any depth or range through libavif's float path, grey above 8 bits
-  rounded half to even as OpenCV's ``convertTo`` does.  (10- and 12-bit
-  subsampled YCbCr, which no writer here makes, raises naming itself.)  The matrix and range of an nclx ``colr`` box win
-  over the sequence header's.
+  rounded half to even as OpenCV's ``convertTo`` does.  The matrix and
+  range of the image's nclx ``colr`` box (a grid's own, not its tiles')
+  win over the sequence header's.
 
-A ``grid`` derived image, an ``avis`` image sequence, superres or film
-grain, and a colour form whose conversion is not ported raise
-:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` naming
-themselves (ROADMAP queue 1), and so does an ``ispe`` size other than the
-frame's (OpenCV then resamples).  An image past libavif's 32768 a side or
-OpenCV's 2^30 pixels reads as None.
+Superres, an inter frame, and a colour form whose conversion is not
+ported raise :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat`
+naming themselves (ROADMAP queue 1), and so does an ``ispe`` size other
+than the frame's (OpenCV then resamples).  An image past libavif's 32768
+a side or OpenCV's 2^30 pixels reads as None.
 """
 
 from __future__ import annotations
@@ -120,6 +129,11 @@ class _Reader:
         self.pos += n
         return v
 
+    def skip(self, n: int) -> None:
+        if self.pos + n > self.end:
+            raise AVIFError("AVIF: box body cut short")
+        self.pos += n
+
     def full(self, top: int = 0) -> Tuple[int, int]:
         """A FullBox's version (at most ``top``, as libavif enforces) and
         flags."""
@@ -147,6 +161,77 @@ class _Item:
         self.refs: Dict[bytes, List[int]] = {}
 
 
+class _Track:
+    """A ``trak`` box as libavif reads it for an image sequence: ``tkhd``
+    (id and size), ``tref`` (``auxl``) and ``mdia``/``minf``'s sample table
+    (``stsd`` entries, ``stsc``, ``stsz``, ``stco``/``co64``), its samples
+    as (offset, size) in the file."""
+
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.id = self.width = self.height = 0
+        self.auxl = False
+        self.entries: List[Tuple[bytes, int, int]] = []  # (format, body start, end)
+        self.samples: List[Tuple[int, int]] = []
+        stbl = None
+        for typ, start, stop in _boxes(data, pos, end):
+            if typ == b"tkhd":
+                r = _Reader(data, start, stop)
+                version, _ = r.full(1)
+                r.skip(16 if version else 8)  # creation and modification times
+                self.id = r.u(4)
+                r.skip(4 + (8 if version else 4) + 8 + 8 + 36)  # to the width
+                self.width, self.height = r.u(4) >> 16, r.u(4) >> 16
+            elif typ == b"tref":
+                self.auxl = any(t == b"auxl" for t, _, _ in _boxes(data, start, stop))
+            elif typ == b"mdia":  # libavif reads no handler type: minf's stbl
+                for t, a, b in _boxes(data, start, stop):
+                    if t == b"minf":
+                        stbl = next(((a2, b2) for t2, a2, b2 in _boxes(data, a, b)
+                                     if t2 == b"stbl"), stbl)
+        if stbl is not None:
+            self._samples(data, *stbl)
+
+    def _samples(self, data: bytes, pos: int, end: int) -> None:
+        """``avifCodecDecodeInputFillFromSampleTable``: chunk after chunk,
+        its count of samples from ``stsc``, their sizes from ``stsz``."""
+        to_chunk, sizes, offsets, uniform = [], [], [], 0
+        for typ, start, stop in _boxes(data, pos, end):
+            r = _Reader(data, start, stop)
+            if typ == b"stsd":
+                r.full()
+                count = r.u(4)
+                entries = _boxes(data, r.pos, stop)[:count]
+                self.entries = [(t, a + 78, b) for t, a, b in entries]  # past VisualSampleEntry
+            elif typ == b"stsc":
+                r.full()
+                for _ in range(r.u(4)):
+                    first, per = r.u(4), r.u(4)
+                    r.u(4)
+                    to_chunk.append((first, per))
+            elif typ == b"stsz":
+                r.full()
+                uniform, count = r.u(4), r.u(4)
+                if not uniform:
+                    sizes = [r.u(4) for _ in range(count)]
+            elif typ in (b"stco", b"co64"):
+                r.full()
+                offsets = [r.u(8 if typ == b"co64" else 4) for _ in range(r.u(4))]
+        k = 0
+        for chunk, offset in enumerate(offsets):
+            count = next((per for first, per in reversed(to_chunk) if first <= chunk + 1), 0)
+            if count == 0:
+                raise AVIFError("AVIF: a chunk of no samples")
+            for _ in range(count):
+                if not uniform and k >= len(sizes):
+                    raise AVIFError("AVIF: sample table cut short")
+                size = uniform or sizes[k]
+                if offset + size > len(data):
+                    raise AVIFError("AVIF: sample past the end of the file")
+                self.samples.append((offset, size))
+                offset += size
+                k += 1
+
+
 class _Avif:
     def __init__(self, data: bytes):
         if not compatible(data):
@@ -158,18 +243,27 @@ class _Avif:
         brands = {data[top[0][1] : top[0][1] + 4]} | {
             data[k : k + 4] for k in range(top[0][1] + 8, top[0][2] - 3, 4)}
         metas = [b for b in top if b[0] == b"meta"]
-        if b"avis" in brands:
-            if any(b[0] == b"moov" for b in top):
-                raise UnsupportedFormat("image sequences (avis) are not decoded by the port "
-                                        "yet (ROADMAP queue 1)")
-            raise AVIFError("AVIF: an avis brand without its moov box")
-        if len(metas) != 1:
-            raise AVIFError("AVIF: no meta box, or more than one")
+        moovs = [b for b in top if b[0] == b"moov"]
+        if len(metas) > 1 or len(moovs) > 1:
+            raise AVIFError("AVIF: more than one meta or moov box")
+        if (b"avif" in brands and not metas) or (b"avis" in brands and not moovs):
+            raise AVIFError("AVIF: an avif brand without meta, or avis without moov")
         self.items: Dict[int, _Item] = {}
         self.properties: List[Tuple[bytes, int, int]] = []
         self.idat: Optional[Tuple[int, int]] = None
         self.primary = None
-        self._meta(*metas[0][1:])
+        self.tracks: List[_Track] = []
+        if metas:
+            self._meta(*metas[0][1:])
+        if moovs:
+            self.tracks = [_Track(data, start, stop)
+                           for typ, start, stop in _boxes(data, *moovs[0][1:]) if typ == b"trak"]
+        # libavif's AVIF_DECODER_SOURCE_AUTO: the major brand decides, else
+        # the tracks if there are any
+        major = data[top[0][1] : top[0][1] + 4]
+        self.from_track = major == b"avis" or (major != b"avif" and bool(self.tracks))
+        if not self.from_track and self.primary is None:
+            raise AVIFError("AVIF: no primary item")
 
     def _item(self, item_id: int) -> _Item:
         return self.items.setdefault(item_id, _Item(item_id))
@@ -208,8 +302,6 @@ class _Avif:
                 self._iprp(start, stop)
             elif typ == b"idat":
                 self.idat = (start, stop)
-        if self.primary is None:
-            raise AVIFError("AVIF: no primary item")
 
     def _iloc(self, r: _Reader) -> None:
         version, _ = r.full(2)
@@ -318,17 +410,27 @@ def _primary(f: _Avif) -> _Item:
     if item is None or not item.type:
         raise AVIFError("AVIF: primary item not found")
     if item.type == b"grid":
-        raise UnsupportedFormat("grid images (a derived item of tiles) are not decoded "
-                                "by the port yet (ROADMAP queue 1)")
-    if item.type != b"av01":
+        _check_essential(f, item)
+    elif item.type == b"av01":
+        _check_av01(f, item)
+    else:
         raise AVIFError(f"AVIF: primary item of type {item.type!r}")
+    return item
+
+
+def _check_essential(f: _Avif, item: _Item) -> None:
     for index, essential in item.props:
         typ = f.properties[index][0]
         if essential and typ not in _KNOWN_PROPS:
             raise AVIFError(f"AVIF: unsupported essential property {typ!r}")
+
+
+def _check_av01(f: _Avif, item: _Item) -> None:
+    """The properties libavif requires of an ``av01`` item."""
+    _check_essential(f, item)
     av1c = f.prop(item, b"av1C")
     if av1c is None or f.prop(item, b"ispe") is None:
-        raise AVIFError("AVIF: primary item without av1C or ispe")
+        raise AVIFError("AVIF: item without av1C or ispe")
     if av1c[1] - av1c[0] < 4 or f.data[av1c[0]] != 0x81:
         raise AVIFError("AVIF: av1C marker and version")
     kinds = []
@@ -347,13 +449,13 @@ def _primary(f: _Avif) -> _Item:
         count = r.u(1)
         if count == 0 or any(r.u(1) != depth for _ in range(count)):
             raise AVIFError("AVIF: pixi depths differ from av1C's")
-    return item
 
 
 def _alpha_item(f: _Avif, primary: _Item) -> Optional[_Item]:
-    """The ``auxl`` item whose ``auxC`` names alpha, as libavif finds it."""
+    """The ``auxl`` item (an ``av01`` image or a grid) whose ``auxC`` names
+    alpha, as libavif finds it."""
     for item in f.items.values():
-        if primary.id in item.refs.get(b"auxl", ()) and item.type == b"av01":
+        if primary.id in item.refs.get(b"auxl", ()) and item.type in (b"av01", b"grid"):
             aux = f.prop(item, b"auxC")
             if aux is not None:
                 r = _Reader(f.data, *aux)
@@ -378,18 +480,73 @@ def _nclx(f: _Avif, item: _Item) -> Optional[Tuple[int, int, int, bool]]:
 
 def read_avif(data: bytes) -> Tuple[List[np.ndarray], int, int, int, bool, int, int]:
     """The primary image's planes (Y, then U and V unless monochrome), as
-    decoded: (planes, bit depth, ss_x, ss_y, full range, matrix, width)."""
-    from molnextr_tpu_torch.data import av1_block, av1_obu
-
+    decoded: (planes, bit depth, ss_x, ss_y, full range, matrix, width).
+    The primary image is an item, a grid of items, or the first sample of
+    an image sequence's colour track."""
     f = _Avif(data)
-    item = _primary(f)
-    _alpha_item(f, item)  # located; OpenCV drops alpha, so it is not decoded
+    if f.from_track:
+        item, payload, size = _track_image(f)
+        planes, seq = _decode(payload, *size)
+        first = item
+    else:
+        item = _primary(f)
+        alpha = _alpha_item(f, item)  # located; OpenCV drops alpha, so it is not decoded
+        if alpha is not None and alpha.type == b"grid":
+            _alpha_grid(f, alpha)
+        if item.type == b"grid":
+            planes, seq, first = _grid(f, item)
+        else:
+            planes, seq = _decode(f.payload(item), *_ispe(f, item))
+            first = item
+    av1c = f.prop(first, b"av1C")
+    if f.data[av1c[0] + 2] & 0x10:  # av1C's monochrome: libavif keeps only Y
+        planes = planes[:1]
+    nclx = _nclx(f, item)
+    matrix, full = (nclx[2], nclx[3]) if nclx is not None else (seq.matrix, seq.full_range)
+    return planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, planes[0].shape[1]
+
+
+def _track_image(f: _Avif) -> Tuple[_Item, bytes, Tuple[int, int]]:
+    """The colour track as libavif picks it (the first with an id, samples
+    and an ``av01`` sample entry that is no ``auxl`` track): its sample
+    entry's boxes as an item's properties, its first sample, its size."""
+    for track in f.tracks:
+        entry = next(((a, b) for t, a, b in track.entries if t == b"av01"), None)
+        if track.id and track.samples and entry is not None and not track.auxl:
+            break
+    else:
+        raise AVIFError("AVIF: no colour track")
+    item = _Item(0)
+    item.type = b"av01"
+    for box in _boxes(f.data, *entry):
+        item.props.append((len(f.properties), False))
+        f.properties.append(box)
+    w, h = track.width, track.height
+    if not (0 < w <= _MAX_DIMENSION and 0 < h <= _MAX_DIMENSION) or w * h > _MAX_PIXELS:
+        raise AVIFError(f"AVIF: a track of {w} x {h}")
+    av1c = f.prop(item, b"av1C")
+    if av1c is None or av1c[1] - av1c[0] < 4 or f.data[av1c[0]] != 0x81:
+        raise AVIFError("AVIF: a track without its av1C")
+    offset, size = track.samples[0]
+    return item, f.data[offset : offset + size], (w, h)
+
+
+def _ispe(f: _Avif, item: _Item) -> Tuple[int, int]:
     ispe = _Reader(f.data, *f.prop(item, b"ispe"))
     ispe.full()
     iw, ih = ispe.u(4), ispe.u(4)
     if not (0 < iw <= _MAX_DIMENSION and 0 < ih <= _MAX_DIMENSION) or iw * ih > _MAX_PIXELS:
         raise AVIFError(f"AVIF: {iw} x {ih} is past libavif's or OpenCV's limits")
-    seq, fr, payload, tiles = av1_obu.parse_obus(f.payload(item))
+    return iw, ih
+
+
+def _decode(data: bytes, iw: int, ih: int):
+    """An AV1 image's planes (every plane the sequence codes, each cut to
+    its size, film grain applied) and its sequence header; ``iw`` x ``ih``
+    is the size its ``ispe`` or ``tkhd`` gives."""
+    from molnextr_tpu_torch.data import av1_block, av1_grain, av1_obu
+
+    seq, fr, payload, tiles = av1_obu.parse_obus(data)
     other_size = UnsupportedFormat(
         f"an ispe size ({iw} x {ih}) other than the AV1 frame's ({fr.width} x {fr.height}), "
         "which libavif rescales, is not read by the port (ROADMAP queue 1)")
@@ -400,15 +557,101 @@ def read_avif(data: bytes) -> Tuple[List[np.ndarray], int, int, int, bool, int, 
     if (fr.width, fr.height) != (iw, ih):  # a frame libaom decodes whole
         raise other_size
     planes = []
-    av1c = f.prop(item, b"av1C")
-    grey = bool(f.data[av1c[0] + 2] & 0x10)  # av1C's monochrome: libavif keeps only Y
-    for p, full in enumerate(filtered_planes(dec)[: 1 if grey else seq.planes]):
+    for p, full in enumerate(filtered_planes(dec)):
         sx, sy = dec.ss[p]
-        w, h = (fr.width + sx) >> sx, (fr.height + sy) >> sy
-        planes.append(full[:h, :w])
-    nclx = _nclx(f, item)
-    matrix, full = (nclx[2], nclx[3]) if nclx is not None else (seq.matrix, seq.full_range)
-    return planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, fr.width
+        planes.append(full[: (fr.height + sy) >> sy, : (fr.width + sx) >> sx])
+    if fr.grain is not None:  # libaom adds the grain to every shown frame
+        planes = av1_grain.apply_grain(planes, fr.grain, seq.bit_depth, seq.ss_x, seq.ss_y,
+                                       seq.matrix == 0)
+    return planes, seq
+
+
+def _grid_layout(f: _Avif, item: _Item) -> Tuple[int, int, int, int, List[_Item]]:
+    """A ``grid`` item's ``ImageGrid`` body and ``dimg`` tiles, as libavif
+    checks them before decoding: (rows, columns, output width, output
+    height, tiles)."""
+    body = f.payload(item)
+    r = _Reader(body, 0, len(body))
+    if r.u(1) != 0:
+        raise AVIFError("AVIF: grid version")
+    wide = r.u(1) & 1
+    rows, cols = r.u(1) + 1, r.u(1) + 1
+    out_w, out_h = r.u(4 if wide else 2), r.u(4 if wide else 2)
+    if r.pos != r.end:
+        raise AVIFError("AVIF: grid box longer than its fields")
+    if not (0 < out_w <= _MAX_DIMENSION and 0 < out_h <= _MAX_DIMENSION) \
+            or out_w * out_h > _MAX_PIXELS:
+        raise AVIFError(f"AVIF: grid of {out_w} x {out_h}")
+    if f.prop(item, b"ispe") is None or _ispe(f, item) != (out_w, out_h):
+        raise AVIFError("AVIF: a grid without ispe, or of another size than its ispe")
+    ids = item.refs.get(b"dimg", [])
+    if len(ids) != rows * cols:
+        raise AVIFError(f"AVIF: {len(ids)} grid tiles for {rows} x {cols}")
+    tiles = []
+    for i in ids:
+        tile = f.items.get(i)
+        if tile is None or tile.type != b"av01":
+            raise AVIFError("AVIF: a grid tile that is not an av01 item")
+        _check_av01(f, tile)
+        tiles.append(tile)
+    return rows, cols, out_w, out_h, tiles
+
+
+def _grid_geometry(rows: int, cols: int, out_w: int, out_h: int, tw: int, th: int, sx: int,
+                   sy: int) -> None:
+    """libavif's rules for tiles of ``tw`` x ``th`` (chroma subsampled by
+    ``sx``, ``sy``) in a grid: they cover the output, no row or column of
+    them lies wholly outside it, each is 64 a side or more, and sizes are
+    even where chroma is subsampled."""
+    if tw * cols < out_w or th * rows < out_h:
+        raise AVIFError("AVIF: grid tiles that do not cover the output")
+    if tw * (cols - 1) >= out_w or th * (rows - 1) >= out_h:
+        raise AVIFError("AVIF: a grid row or column of tiles outside the output")
+    if tw < 64 or th < 64:
+        raise AVIFError("AVIF: grid tiles below 64 a side")
+    if (sx and (out_w % 2 or tw % 2)) or (sy and (out_h % 2 or th % 2)):
+        raise AVIFError("AVIF: odd grid or tile size in a subsampled direction")
+
+
+def _alpha_grid(f: _Avif, item: _Item) -> None:
+    """An alpha grid is not decoded; its layout is checked as libavif
+    checks it, with the tiles' sizes and subsampling from their ``ispe``
+    and ``av1C``."""
+    rows, cols, out_w, out_h, tiles = _grid_layout(f, item)
+    tw, th = _ispe(f, tiles[0])
+    flags = f.data[f.prop(tiles[0], b"av1C")[0] + 2]
+    sx, sy = (0, 0) if flags & 0x10 else ((flags >> 3) & 1, (flags >> 2) & 1)
+    _grid_geometry(rows, cols, out_w, out_h, tw, th, sx, sy)
+
+
+def _grid(f: _Avif, item: _Item):
+    """A ``grid`` item's planes: its tiles decoded, placed row-major and
+    cut to the output size, with libavif's checks of the tiles against
+    each other and the output; the sequence header and the item of the
+    first tile."""
+    rows, cols, out_w, out_h, tiles = _grid_layout(f, item)
+    decoded = [_decode(f.payload(t), *_ispe(f, t)) for t in tiles]
+    planes0, seq0 = decoded[0]
+    th, tw = planes0[0].shape
+
+    def key(planes, seq):
+        return (planes[0].shape, seq.bit_depth, seq.ss_x, seq.ss_y, seq.mono, seq.full_range,
+                seq.primaries, seq.transfer, seq.matrix)
+
+    if any(key(*d) != key(*decoded[0]) for d in decoded[1:]):
+        raise AVIFError("AVIF: grid tiles that differ")
+    sx, sy = (0, 0) if seq0.mono else (seq0.ss_x, seq0.ss_y)
+    _grid_geometry(rows, cols, out_w, out_h, tw, th, sx, sy)
+    planes = []
+    for p in range(len(planes0)):
+        psx, psy = (sx, sy) if p else (0, 0)
+        canvas = np.empty((rows * (th >> psy), cols * (tw >> psx)), planes0[p].dtype)
+        for k, (tile_planes, _seq) in enumerate(decoded):
+            y, x = divmod(k, cols)
+            a = tile_planes[p]
+            canvas[y * a.shape[0] : (y + 1) * a.shape[0], x * a.shape[1] : (x + 1) * a.shape[1]] = a
+        planes.append(canvas[: (out_h + psy) >> psy, : (out_w + psx) >> psx])
+    return planes, seq0, tiles[0]
 
 
 def filtered_planes(dec) -> List[np.ndarray]:
@@ -461,13 +704,13 @@ def yuv_to_rgb(planes: List[np.ndarray], bd: int, ss_x: int, ss_y: int, full: bo
         return np.stack([_unorm8(v, bd, full), _unorm8(y, bd, full), _unorm8(u, bd, full)],
                         axis=2)
     kind = _MATRIX_CLASS.get(matrix)
-    if kind is None or (bd != 8 and (ss_x or ss_y)):
+    if kind is None:
         raise UnsupportedFormat(
             f"{path}: AVIF: colour of matrix {matrix} at {bd} bits, subsampling {ss_x}/{ss_y} "
             f"({'full' if full else 'limited'} range) is not converted by the port yet "
             "(ROADMAP queue 1)")
-    if bd != 8:  # libavif hands libyuv the samples shifted down to 8 bits
-        y, u, v = (a >> (bd - 8) for a in (y, u, v))
+    if bd != 8:  # libavif hands libyuv the samples shifted down to 8 bits, chroma
+        y, u, v = (a >> (bd - 8) for a in (y, u, v))  # before it is upsampled
     h, w = y.shape
     if ss_x and ss_y:
         u, v = _up_bilinear(u, w, h), _up_bilinear(v, w, h)

@@ -12,9 +12,9 @@ such frame is coded lossless, and every read must equal cv2's.  The
 committed ``fixtures/forms/*.avif`` files read to cv2's arrays; a test
 asserts that across the files every intra tool and both superblock sizes
 were reached.  Cut and corrupted files read as None or as cv2 reads them;
-a ``grid`` and an ``avis`` sequence raise ``UnsupportedFormat`` naming what
-the port lacks, and a lossy frame reads as cv2 reads it
-(``test_torch_avif_lossy.py`` holds the lossy reader).
+a ``grid``, an ``avis`` sequence and a lossy frame read as cv2 reads them
+(``test_torch_avif_grid.py``, ``test_torch_avif_sequence.py`` and
+``test_torch_avif_lossy.py`` hold those readers).
 """
 
 import io
@@ -286,23 +286,21 @@ def test_cut_and_corrupted_files_read_as_cv2(tmp_path):
 
 
 def test_lossy_grid_and_sequence_raise_naming_them(tmp_path):
+    """A lossy file, a ``grid`` and Pillow's ``avis`` sequence raised
+    naming themselves until the port read them: each now reads to cv2's
+    array (``test_torch_avif_grid.py`` and ``test_torch_avif_sequence.py``
+    hold the surveys)."""
     lossy = tmp_path / "lossy.avif"
     assert cv2.imwrite(str(lossy), picture("gradient", 40, 50))
     assert cv2_rgb(lossy) is not None  # now read, to cv2's pixels
     np.testing.assert_array_equal(imread(str(lossy)), cv2_rgb(lossy))
-    grid = tmp_path / "grid.avif"
-    grid.write_bytes(avif_grid(cv2_avif(picture("flat", 64, 64)), 2, 3))
-    assert cv2_rgb(grid).shape == (128, 192, 3)
-    with pytest.raises(UnsupportedFormat, match="grid"):
-        imread(str(grid))
+    grid = avif_grid(cv2_avif(picture("flat", 64, 64)), 2, 3)
+    assert check(tmp_path, grid, "grid.avif").shape == (128, 192, 3)
     frames = [Image.fromarray(picture("gradient", 20, 30, k)) for k in range(3)]
     buf = io.BytesIO()
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], quality=100)
-    seq = tmp_path / "anim.avif"
-    seq.write_bytes(buf.getvalue())
-    assert cv2_rgb(seq) is not None
-    with pytest.raises(UnsupportedFormat, match="avis"):
-        imread(str(seq))
+    assert avif._Avif(buf.getvalue()).from_track
+    check(tmp_path, buf.getvalue(), "anim.avif")
 
 
 def test_demo_avif_forms_predict_the_jax_packages_smiles():

@@ -59,13 +59,14 @@ against on the card, where neither JAX nor OpenCV is installed:
   (JPEG-in-TIFF YCbCr 4:2:0 strips and RGB tiles, YCbCr 1x1, CMYK, CIE
   Lab, signed 16-bit, ThunderScan, LogL, arithmetic sequential and
   progressive JPEG, a cut progressive JPEG, lossless JPEG), and lossless
-  AVIF (4:4:4 GBR, grey, 10-bit, 4:2:0, alpha, tiles, screen content:
+  AVIF (4:4:4 GBR, grey, 10-bit, 4:2:0, alpha, tiles, screen content,
+  lossy forms, lossy 10-bit 4:2:0, film grain, a grid, a sequence:
   ``_avif_forms``), written by
   ``cv2.imwrite``, PIL and the hand encoders of ``torch_image_writers``;
-  thirteen 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
+  fifteen 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
   LZW and G4, BMP RLE8, GIF, WebP lossy and lossless, JPEG 2000 5/3 and
-  9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG, lossless AVIF) for the reader
-  timings; and
+  9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG, lossless, lossy and grained
+  AVIF) for the reader timings; and
   ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
@@ -565,11 +566,19 @@ def _avif_forms(bgr, big):
     ``TX_MODE_SELECT``.  The demo bundle's SMILES move under lossy coding
     (cv2 at 50, 60, 75, 80, 95 or 98 reads as CC(C)C or CC(C)N, in the JAX
     package as in the port), so the demo forms are qualities at which it
-    reads demo_0.png's CC(C)O in bf16 and float32."""
+    reads demo_0.png's CC(C)O in bf16 and float32.  The forms the reader
+    gained with 10-bit 4:2:0, film grain, grids and sequences: cv2 at depth
+    10 and quality 95 (4:2:0; 50-90 read CC(C)C or CC(C)N), Pillow at 40
+    with libaom's grain test set 6 (sets 1, 4, 7, 9, 12 and 16 read
+    CC(C)C), a 2 x 2 grid of cv2's lossless 64 x 64 tiles, Pillow's
+    lossless three-frame sequence whose first frame is the picture, and
+    the 1024 x 1024 drawing with grain test set 1 for the reader
+    timings."""
     import io
 
     import cv2
     from PIL import Image
+    from torch_image_writers import avif_grid
 
     rgb = np.ascontiguousarray(bgr[..., ::-1])
 
@@ -591,6 +600,20 @@ def _avif_forms(bgr, big):
         buf = io.BytesIO()
         Image.fromarray(img).save(buf, "AVIF", **kw)
         return buf.getvalue()
+
+    def lossy10(img, quality):
+        params = [cv2.IMWRITE_AVIF_QUALITY, quality, cv2.IMWRITE_AVIF_DEPTH, 10]
+        return cv2.imencode(".avif", img, params)[1].tobytes()
+
+    def sequence(frames):
+        buf = io.BytesIO()
+        Image.fromarray(frames[0]).save(buf, "AVIF", save_all=True, quality=100,
+                                        append_images=[Image.fromarray(f) for f in frames[1:]])
+        data = bytearray(buf.getvalue())
+        for box in (b"mvhd", b"tkhd", b"mdhd"):  # the creation and modification times, 0
+            k = data.find(box)
+            data[k + 8 : k + (24 if data[k + 4] else 16)] = bytes(16 if data[k + 4] else 8)
+        return bytes(data)
 
     motif = np.full((33, 35, 3), 255, np.uint8)
     motif[4:28, 6:10] = (200, 30, 30)
@@ -616,7 +639,14 @@ def _avif_forms(bgr, big):
             "demo_0_screen_lossy.avif": pil_lossy(rgb, quality=60, speed=6,
                                                   advanced={"tune-content": "screen"}),
             "intrabc_motif_lossy.avif": lossy(motif, 60, 6),
-            "big_lossy.avif": lossy(big)}
+            "big_lossy.avif": lossy(big),
+            "demo_0_10bit.avif": lossy10(ten, 95),
+            "demo_0_grain.avif": pil_lossy(rgb, quality=40, advanced={"film-grain-test": "6"}),
+            "demo_0_grid.avif": avif_grid([cv(np.ascontiguousarray(bgr[y : y + 64, x : x + 64]))
+                                           for y in (0, 64) for x in (0, 64)], 2, 2),
+            "demo_0_anim.avif": sequence([rgb, rgb[::-1], rgb[:, ::-1]]),
+            "big_grain.avif": pil_lossy(np.ascontiguousarray(big[..., ::-1]),
+                                        advanced={"film-grain-test": "1"})}
 
 
 def _jpeg2000_forms(bgr, big):

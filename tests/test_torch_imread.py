@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, film_grain_avif,
+from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, superres_avif,
                                  with_jpeg_exif, with_png_exif)
 
 from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
@@ -141,9 +141,9 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
     """JPEG 2000 and AVIF raised here until the port read them: now this cut
     JP2 file and this stub AVIF file read as None, as cv2 reads them, and a
     whole JP2 file to its pixels (``test_torch_jpeg2000.py`` holds the
-    reader).  An AVIF whose frame applies film grain, which the port does
-    not yet, raises naming it (``test_torch_avif.py`` and
-    ``test_torch_avif_lossy.py`` hold the reader).
+    reader).  An AVIF whose frame uses superres, which the port does not
+    decode yet, raises naming it (film grain, this test's form until the
+    port applied it, reads; ``test_torch_avif*.py`` hold the reader).
     The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
     held before the port read them are read to cv2's arrays (the next test
     and each format's own test file)."""
@@ -159,10 +159,9 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
         np.testing.assert_array_equal(cv2_rgb(path), img)
         np.testing.assert_array_equal(imread(str(path)), img)
     else:
-        path = tmp_path / "grain.avif"
-        path.write_bytes(film_grain_avif())
-        assert cv2_rgb(path) is not None
-        with pytest.raises(UnsupportedFormat, match="film grain"):
+        path = tmp_path / "superres.avif"
+        path.write_bytes(superres_avif())
+        with pytest.raises(UnsupportedFormat, match="superres"):
             imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 

@@ -35,9 +35,15 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
 * :func:`encode_webp`, :func:`webp_chunk`, :func:`vp8x`: a RIFF/WEBP file of
   any chunks;
 * :func:`film_grain_avif`: a lossy AVIF whose frame applies film grain
-  (Pillow's libaom with ``denoise-noise-level``); :func:`av1_superres_obus`:
-  the OBUs of an AV1 key frame that uses superres, as far as that bit (no
-  writer here makes one), for :func:`avif_rebuild`'s ``payload``.
+  (Pillow's libaom with ``denoise-noise-level``); :func:`grain_table`: a
+  libaom film grain table for Pillow's ``film-grain-table`` option;
+  :func:`av1_with_grain` (with :func:`film_grain_bits`): an AV1 key
+  frame's OBUs given any ``film_grain_params``; :func:`av1_hidden_key`: a
+  key frame hidden and shown by ``show_existing_frame``;
+  :func:`av1_superres_obus` and :func:`superres_avif`: the OBUs of an AV1
+  key frame that uses superres, as far as that bit (no writer here makes
+  one), for :func:`avif_rebuild`'s ``payload``; :func:`avif_grid`: a
+  ``grid`` of any tiles, output size and field width, with an alpha grid.
 """
 
 from __future__ import annotations
@@ -2629,46 +2635,100 @@ def avif_boxes(data: bytes) -> Dict[bytes, Tuple[int, int]]:
     return out
 
 
-def avif_grid(single: bytes, rows: int, cols: int) -> bytes:
-    """A ``grid`` AVIF of ``rows`` x ``cols`` copies of a one-item AVIF's
-    image (its ``av1C``, ``colr`` and AV1 payload, every tile the same)."""
-    boxes = avif_boxes(single)
-    (iloc_at, _), (mdat_at, mdat_end) = boxes[b"iloc"], boxes[b"mdat"]
-    ispe = single[boxes[b"ispe"][0] : boxes[b"ispe"][1]]
-    w, h = struct.unpack_from(">II", ispe, 12)
-    av1c = single[boxes[b"av1C"][0] : boxes[b"av1C"][1]]
-    colr = single[boxes[b"colr"][0] : boxes[b"colr"][1]]
-    payload = single[mdat_at + 8 : mdat_end]
-    n = rows * cols
-    grid = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(">HH", w * cols, h * rows)
+def avif_grid(tiles, rows: int, cols: int, size: Optional[Tuple[int, int]] = None,
+              wide: bool = False, grid_colr: Optional[bytes] = None,
+              grid_data: Optional[bytes] = None, alpha=None) -> bytes:
+    """A ``grid`` AVIF of ``rows`` x ``cols`` tiles.  ``tiles`` is one
+    one-item AVIF, repeated, or a list of them in row-major order (each
+    tile item takes its file's ``ispe``, ``pixi``, ``av1C``, ``colr`` and
+    AV1 payload; a list of another length than ``rows * cols`` writes
+    that many ``dimg`` references).  The grid's output size is ``size``
+    (width, height; default the tiles' whole canvas), written in 32-bit
+    fields if ``wide``; the grid item has ``grid_colr`` as its ``colr``
+    box (default the first tile's, ``b""`` none) and ``grid_data`` in
+    place of its ``ImageGrid`` body.  ``alpha`` (one AVIF or a list, as
+    ``tiles``) adds an alpha grid of the same layout, an ``auxl`` item
+    with an ``auxC`` alpha URN."""
+    colour = [tiles] * (rows * cols) if isinstance(tiles, bytes) else list(tiles)
+    layers = [colour]
+    if alpha is not None:
+        layers.append([alpha] * (rows * cols) if isinstance(alpha, bytes) else list(alpha))
+    w, h = struct.unpack_from(">II", colour[0], avif_boxes(colour[0])[b"ispe"][0] + 12)
+    out_w, out_h = size if size is not None else (w * cols, h * rows)
+    if grid_data is None:
+        grid_data = bytes([0, int(wide), rows - 1, cols - 1]) + struct.pack(
+            ">II" if wide else ">HH", out_w, out_h)
+    if grid_colr is None:
+        boxes = avif_boxes(colour[0])
+        grid_colr = colour[0][boxes[b"colr"][0] : boxes[b"colr"][1]] if b"colr" in boxes else b""
+    props: List[bytes] = []
+
+    def prop(box: bytes) -> int:
+        if box not in props:
+            props.append(box)
+        return props.index(box) + 1
+
+    items = []  # (id, type, [(property index, essential)], data, in idat)
+    payloads = []
+    next_id = 1
+    grid_ids = []
+    refs = b""
+    for layer, files in enumerate(layers):
+        grid_id = next_id
+        grid_ids.append(grid_id)
+        tile_ids = list(range(grid_id + 1, grid_id + 1 + len(files)))
+        next_id = tile_ids[-1] + 1 if tile_ids else grid_id + 1
+        gprops = [(prop(_full(b"ispe", 0, 0, struct.pack(">II", out_w, out_h))), False)]
+        if layer == 0 and grid_colr:
+            gprops.append((prop(grid_colr), True))
+        if layer == 1:
+            gprops.append((prop(_full(b"auxC", 0, 0,
+                                      b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0")), True))
+            refs += _box(b"auxl", struct.pack(">HHH", grid_id, 1, grid_ids[0]))
+        items.append((grid_id, b"grid", gprops, grid_data, True))
+        refs += _box(b"dimg", struct.pack(">HH", grid_id, len(tile_ids)) + b"".join(
+            struct.pack(">H", k) for k in tile_ids))
+        for tid, single in zip(tile_ids, files):
+            boxes = avif_boxes(single)
+            tprops = []
+            for kind in (b"ispe", b"pixi", b"av1C", b"colr"):
+                if kind in boxes:
+                    tprops.append((prop(single[boxes[kind][0] : boxes[kind][1]]),
+                                   kind in (b"av1C", b"colr")))
+            payload = single[boxes[b"mdat"][0] + 8 : boxes[b"mdat"][1]]
+            items.append((tid, b"av01", tprops, payload, False))
     ftyp = _box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
     hdlr = _full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
     pitm = _full(b"pitm", 0, 0, struct.pack(">H", 1))
-    infe = [_full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"grid\0")]
-    infe += [_full(b"infe", 2, 0, struct.pack(">HH", k + 2, 0) + b"av01\0") for k in range(n)]
-    iinf = _full(b"iinf", 0, 0, struct.pack(">H", n + 1) + b"".join(infe))
-    iref = _full(b"iref", 0, 0, _box(b"dimg", struct.pack(">HH", 1, n) + b"".join(
-        struct.pack(">H", k + 2) for k in range(n))))
-    ipco = _box(b"ipco", _full(b"ispe", 0, 0, struct.pack(">II", w * cols, h * rows))
-                + ispe + av1c + colr)
-    assoc = struct.pack(">HB", 1, 2) + bytes([1, 0x84])
-    for k in range(n):
-        assoc += struct.pack(">HB", k + 2, 3) + bytes([2, 0x83, 0x84])
-    ipma = _full(b"ipma", 0, 0, struct.pack(">I", n + 1) + assoc)
-    iprp = _box(b"iprp", ipco + ipma)
-    idat = _box(b"idat", grid)
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", len(items)) + b"".join(
+        _full(b"infe", 2, 0, struct.pack(">HH", i, 0) + t + b"\0") for i, t, _, _, _ in items))
+    iref = _full(b"iref", 0, 0, refs)
+    assoc = b""
+    for i, _, ps, _, _ in items:
+        assoc += struct.pack(">HB", i, len(ps)) + bytes(k | (0x80 if e else 0) for k, e in ps)
+    ipma = _full(b"ipma", 0, 0, struct.pack(">I", len(items)) + assoc)
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props)) + ipma)
+    idat_body = b"".join(d for _, _, _, d, in_idat in items if in_idat)
+    idat = _box(b"idat", idat_body)
+    mdat_body = b"".join(d for _, _, _, d, in_idat in items if not in_idat)
 
     def meta(offset: int) -> bytes:
-        entries = struct.pack(">HHHH", 1, 1, 0, 1) + struct.pack(">II", 0, len(grid))
-        for k in range(n):
-            entries += struct.pack(">HHHH", k + 2, 0, 0, 1) + struct.pack(">II", offset,
-                                                                       len(payload))
-        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", n + 1) + entries)
+        entries, at_idat, at_mdat = b"", 0, offset
+        for i, _, _, d, in_idat in items:
+            start = at_idat if in_idat else at_mdat
+            entries += struct.pack(">HHHH", i, int(in_idat), 0, 1) + struct.pack(">II", start,
+                                                                              len(d))
+            if in_idat:
+                at_idat += len(d)
+            else:
+                at_mdat += len(d)
+        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", len(items))
+                     + entries)
         return _full(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref + iprp + idat)
 
     head = ftyp + meta(0)
     head = ftyp + meta(len(head) + 8)
-    return head + _box(b"mdat", payload)
+    return head + _box(b"mdat", mdat_body)
 
 
 def avif_rebuild(single: bytes, iloc_version: int = 0, method: int = 0, infe_version: int = 2,
@@ -2733,19 +2793,32 @@ def avif_rebuild(single: bytes, iloc_version: int = 0, method: int = 0, infe_ver
     return head + _box(b"mdat", payload)
 
 
-def film_grain_avif(seed: int = 0) -> bytes:
-    """A 64 x 64 flat grey with mild Gaussian noise, written lossy by
-    Pillow's libaom with ``denoise-noise-level`` 25: the noise is modelled
-    and its frame header applies film grain."""
+def film_grain_avif(seed: int = 0, level: int = 25, size: int = 64,
+                    subsampling: str = "4:2:0") -> bytes:
+    """A ``size`` x ``size`` flat grey with mild Gaussian noise, written
+    lossy by Pillow's libaom with ``denoise-noise-level`` ``level``: the
+    noise is modelled and its frame header applies film grain."""
     import io
 
     from PIL import Image
 
     rng = np.random.RandomState(seed)
-    img = np.clip(128 + rng.normal(0, 4, (64, 64, 3)), 0, 255).astype(np.uint8)
+    img = np.clip(128 + rng.normal(0, 4, (size, size, 3)), 0, 255).astype(np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(img).save(buf, "AVIF", quality=60, advanced={"denoise-noise-level": "25"})
+    Image.fromarray(img).save(buf, "AVIF", quality=60, subsampling=subsampling,
+                              advanced={"denoise-noise-level": str(level)})
     return buf.getvalue()
+
+
+def superres_avif() -> bytes:
+    """A one-item AVIF around :func:`av1_superres_obus`: a form the port
+    refuses, naming superres."""
+    import cv2
+
+    ok, buf = cv2.imencode(".avif", np.full((16, 16, 3), 200, np.uint8),
+                           [cv2.IMWRITE_AVIF_QUALITY, 50])
+    assert ok
+    return avif_rebuild(buf.tobytes(), payload=av1_superres_obus())
 
 
 def av1_superres_obus(size: int = 16) -> bytes:
@@ -2767,3 +2840,169 @@ def av1_superres_obus(size: int = 16) -> bytes:
            + "0")  # film_grain_params_present
     frame = "0" "0" "1" "000"  # disable_cdf_update, screen tools, use_superres, denom
     return obu(1, seq) + obu(3, frame)
+
+
+def grain_table(lag: int = 1, ar_shift: int = 7, scale_shift: int = 0, scaling_shift: int = 9,
+                from_luma: bool = False, overlap: bool = True, cb: Sequence[int] = (128, 192, 256),
+                cr: Sequence[int] = (128, 192, 256),
+                point_y: Sequence[Tuple[int, int]] = ((0, 20), (255, 40)),
+                point_cb: Sequence[Tuple[int, int]] = ((0, 30), (255, 10)),
+                point_cr: Sequence[Tuple[int, int]] = ((0, 10), (128, 40)), seed: int = 1234,
+                coeff_seed: int = 0) -> str:
+    """A libaom film grain table (``aom_film_grain_table_write``'s text)
+    of one entry over all time, for the encoder's ``film-grain-table``
+    option: ``ar_shift`` and ``scaling_shift`` are the shifts themselves
+    (6-9, 8-11), the AR coefficients seeded draws in [-40, 40)."""
+    n = 2 * lag * (lag + 1)
+    rng = np.random.RandomState(coeff_seed)
+
+    def row(values) -> str:
+        return " ".join(str(int(v)) for v in values)
+
+    def points(p) -> str:
+        return f"{len(p)} " + row(v for xy in p for v in xy)
+
+    return ("filmgrn1\nE 0 9223372036854775807 1 %d 1\n" % seed
+            + f"\tp {lag} {ar_shift} {scale_shift} {scaling_shift} {int(from_luma)} "
+            + f"{int(overlap)} {row(cb)} {row(cr)}\n"
+            + f"\tsY {points(point_y)}\n\tsCb {points(point_cb)}\n\tsCr {points(point_cr)}\n"
+            + f"\tcY {row(rng.randint(-40, 40, n))}\n\tcCb {row(rng.randint(-40, 40, n + 1))}\n"
+            + f"\tcCr {row(rng.randint(-40, 40, n + 1))}\n")
+
+
+def film_grain_bits(mono: bool, ss_x: int, ss_y: int, seed: int = 0,
+                    point_y: Sequence[Tuple[int, int]] = (), from_luma: bool = False,
+                    point_cb: Sequence[Tuple[int, int]] = (),
+                    point_cr: Sequence[Tuple[int, int]] = (), scaling_minus_8: int = 0,
+                    lag: int = 0, ar_y: Sequence[int] = (), ar_cb: Sequence[int] = (),
+                    ar_cr: Sequence[int] = (), ar_shift_minus_6: int = 0, scale_shift: int = 0,
+                    cb: Sequence[int] = (128, 192, 256), cr: Sequence[int] = (128, 192, 256),
+                    overlap: bool = True, clip: bool = False) -> str:
+    """``film_grain_params`` of an intra frame that applies grain, as a
+    string of bits (the AV1 specification, 5.9.30; AR coefficients given
+    less 128, as many as the lag needs)."""
+    def f(v: int, n: int) -> str:
+        return format(v, f"0{n}b")
+
+    def pts(p) -> str:
+        return f(len(p), 4) + "".join(f(x, 8) + f(y, 8) for x, y in p)
+
+    bits = "1" + f(seed, 16) + pts(point_y)
+    if not mono:
+        bits += f(int(from_luma), 1)
+    if not (mono or from_luma or (ss_x and ss_y and not point_y)):
+        bits += pts(point_cb) + pts(point_cr)
+    bits += f(scaling_minus_8, 2) + f(lag, 2)
+    n = 2 * lag * (lag + 1)
+    for on, coeffs, count in ((bool(point_y), ar_y, n),
+                              (from_luma or bool(point_cb), ar_cb, n + bool(point_y)),
+                              (from_luma or bool(point_cr), ar_cr, n + bool(point_y))):
+        if on:
+            assert len(coeffs) == count
+            bits += "".join(f(c + 128, 8) for c in coeffs)
+    bits += f(ar_shift_minus_6, 2) + f(scale_shift, 2)
+    for on, (mult, luma_mult, offset) in ((point_cb, cb), (point_cr, cr)):
+        if on:
+            bits += f(mult, 8) + f(luma_mult, 8) + f(offset, 9)
+    return bits + f(int(overlap), 1) + f(int(clip), 1)
+
+
+def _av1_units(data: bytes) -> List[Tuple[int, bytes, bytes]]:
+    """The OBUs of ``data`` as (type, header bytes without the size field,
+    body)."""
+    out, pos = [], 0
+    while pos < len(data):
+        kind, ext = (data[pos] >> 3) & 15, (data[pos] >> 2) & 1
+        head = bytes([data[pos] & ~2]) + data[pos + 1 : pos + 1 + ext]
+        k = pos + 1 + ext
+        size = shift = 0
+        while True:
+            size |= (data[k] & 0x7F) << shift
+            shift += 7
+            k += 1
+            if not data[k - 1] & 0x80:
+                break
+        out.append((kind, head, data[k : k + size]))
+        pos = k + size
+    return out
+
+
+def _av1_join(units: Sequence[Tuple[int, bytes, bytes]]) -> bytes:
+    out = b""
+    for _kind, head, body in units:
+        size, leb = len(body), b""
+        while True:
+            leb += bytes([(size & 0x7F) | (0x80 if size > 0x7F else 0)])
+            size >>= 7
+            if not size:
+                break
+        out += bytes([head[0] | 2]) + head[1:] + leb + body
+    return out
+
+
+def _bits(data: bytes) -> str:
+    return "".join(format(b, "08b") for b in data)
+
+
+def _unbits(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def av1_with_grain(payload: bytes, **params) -> bytes:
+    """An AV1 key frame's OBUs (one ``OBU_FRAME``) with film grain: the
+    sequence header's ``film_grain_params_present`` set and the frame
+    header given :func:`film_grain_bits` of ``params`` at its end.  The
+    ends of both headers are found with the port's header parser; the
+    tile data is moved, not changed."""
+    from molnextr_tpu_torch.data import av1_obu
+
+    units, seq = [], None
+    for kind, head, body in _av1_units(payload):
+        if kind == 1:
+            r = av1_obu.BitReader(body)
+            seq = av1_obu.sequence_header(r)
+            bits = _bits(body)
+            body = _unbits(bits[: r.bit - 1] + "1" + bits[r.bit :])
+        elif kind == 6:
+            r = av1_obu.BitReader(body)
+            av1_obu.frame_header(r, seq, 0, 0)
+            bits = _bits(body)[: r.bit] + film_grain_bits(seq.mono, seq.ss_x, seq.ss_y,
+                                                          **params)
+            body = _unbits(bits) + body[(r.bit + 7) // 8 :]
+        units.append((kind, head, body))
+    return _av1_join(units)
+
+
+def av1_hidden_key(payload: bytes, slot: int = 0, showable: bool = True) -> bytes:
+    """The OBUs of a shown key frame under a full sequence header (no
+    decoder model, no frame ids, no film grain), rewritten so that the key
+    frame is hidden (``showable_frame`` as given, refreshing every slot)
+    and a following ``OBU_FRAME_HEADER`` shows it with
+    ``show_existing_frame`` from ``slot``."""
+    from molnextr_tpu_torch.data import av1_obu
+
+    units, seq = [], None
+    for kind, head, body in _av1_units(payload):
+        if kind == 1:
+            seq = av1_obu.sequence_header(av1_obu.BitReader(body))
+            assert not (seq.reduced or seq.decoder_model or seq.frame_id_bits or seq.film_grain)
+        elif kind == 6:
+            r = av1_obu.BitReader(body)
+            av1_obu.frame_header(r, seq, 0, 0)
+            bits = _bits(body)
+            assert bits[:4] == "0001"  # not show_existing, KEY_FRAME, shown
+            p = 5  # past disable_cdf_update
+            screen = int(bits[p]) if seq.screen_tools == 2 else seq.screen_tools
+            p += seq.screen_tools == 2
+            p += bool(screen and seq.integer_mv == 2)
+            p += 1 + seq.order_hint_bits  # frame_size_override_flag, order_hint
+            # show_frame 0, showable_frame 1, error_resilient_mode 1; then
+            # refresh_frame_flags after the order hint
+            new = bits[:3] + "0" + str(int(showable)) + "1" + bits[4:p] + "11111111" \
+                + bits[p : r.bit]
+            units.append((kind, head, _unbits(new) + body[(r.bit + 7) // 8 :]))
+            units.append((3, bytes([3 << 3]), _unbits("1" + format(slot, "03b") + "1")))
+            continue
+        units.append((kind, head, body))
+    return _av1_join(units)
