@@ -104,13 +104,15 @@ failure:
    loop restoration, screen content, a motif with intra block copy and
    ``TX_MODE_SELECT``, the 1024 x 1024 drawing at cv2's default; cv2's
    10-bit 4:2:0, film grain, a grid of lossless tiles, the first frame of a
-   lossless sequence, the 1024 x 1024 drawing with grain)
+   lossless sequence, the 1024 x 1024 drawing with grain; libaom's superres
+   at denominators 9 and 15, at 16 with loop restoration, and the 1024 x
+   1024 drawing at 16 with restoration)
    read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
    demo_0.png's and to the JAX package's on that form; tokens equal to
    demo_0.png's, the lossy JPEG, HDR, WebP, 9/7, JPEG-in-TIFF, Lab,
-   ThunderScan and AVIF forms' within one coordinate bin); the new lossless forms
+   ThunderScan and AVIF forms' (superres too) within one coordinate bin); the new lossless forms
    (WebP's, JPEG 2000's, AVIF's with the grid and the sequence, and the
    YCbCr 1x1, CMYK, signed, LogL and lossless JPEG forms too) at
    full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
@@ -118,13 +120,13 @@ failure:
    files this machine's cv2 reads to the same arrays (the new TIFF and
    JPEG forms on a line of their own), the shapes it reads the WebP files
    to, whether it reads JPEG 2000 at all and its own ms on the 1024 x 1024
-   files (information only), the 10-bit, grain, grid and sequence AVIF forms on a
-   line of their own (None, or the pixels that differ); the readers' host
+   files (information only), the 10-bit, grain, grid, sequence and superres AVIF
+   forms on a line of their own (None, or the pixels that differ); the readers' host
    ms per image and per
    megapixel on 1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF
    G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
-   JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy and grained
-   AVIF (the grain step's ms apart);
+   JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy, grained and
+   superres AVIF (the grain step's and the superres upscaling's ms apart);
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -239,7 +241,7 @@ READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
-                "big_lossless.avif", "big_lossy.avif", "big_grain.avif")
+                "big_lossless.avif", "big_lossy.avif", "big_grain.avif", "big_superres.avif")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2090,7 +2092,8 @@ def image_forms(torch, card, bundle, work, want):
         log("  the AVIF forms read at all by this machine's cv2 (information): "
             f"{json.dumps(json.loads(probe.stdout)['avif_read'])}")
         differing = json.loads(probe.stdout)["differing"]
-        log("  the 10-bit, grain, grid and sequence AVIF forms by this machine's cv2: the "
+        log("  the 10-bit, grain, grid, sequence and superres AVIF forms by this machine's "
+            "cv2: the "
             "same array (0), None (null) or the pixels that differ (information): "
             + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
                 "pixels_differing") for n in NEW_AVIF_FORMS}))
@@ -2100,37 +2103,49 @@ def image_forms(torch, card, bundle, work, want):
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
-    from molnextr_tpu_torch.data import av1_grain
+    from molnextr_tpu_torch.data import av1_grain, av1_superres
 
-    apply_grain = av1_grain.apply_grain
-    grain_ms = []
+    steps = {"grain_ms": (av1_grain, "apply_grain"),
+             "upscale_ms": (av1_superres, "upscale_planes")}
+    step_ms = {key: [] for key in steps}
 
-    def timed_grain(*args):  # the grain step of a read, timed apart from the decode
-        t0 = time.perf_counter()
-        out = apply_grain(*args)
-        grain_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def timed_step(key, fn):  # a step of a read, timed apart from the decode
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            step_ms[key][-1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
 
     timings = {}
     for name in READER_FILES:
         path = os.path.join(folder, name)
         spent = []
-        grain_ms.clear()
-        av1_grain.apply_grain = timed_grain
+        for ms in step_ms.values():
+            ms.clear()
+        originals = {key: getattr(mod, attr) for key, (mod, attr) in steps.items()}
+        for key, (mod, attr) in steps.items():
+            setattr(mod, attr, timed_step(key, originals[key]))
         try:
             while len(spent) < READER_REPS and (not spent or spent[0] <= READER_ONE_READ_MS):
+                for ms in step_ms.values():
+                    ms.append(0.0)
                 t0 = time.perf_counter()
                 img = imread(path)
                 spent.append((time.perf_counter() - t0) * 1e3)
         finally:
-            av1_grain.apply_grain = apply_grain
+            for key, (mod, attr) in steps.items():
+                setattr(mod, attr, originals[key])
         mpix = img.shape[0] * img.shape[1] / 1e6
         timings[name] = {"ms_per_image": float(np.median(spent)),
                          "ms_per_megapixel": float(np.median(spent)) / mpix,
                          "all_ms": spent, "reads": len(spent), "size": list(img.shape[:2])}
-        if grain_ms:
-            timings[name]["grain_ms"] = float(np.median(grain_ms))
-            timings[name]["decode_ms"] = float(np.median(np.subtract(spent, grain_ms)))
+        apart = {key: ms for key, ms in step_ms.items() if any(ms)}
+        for key, ms in apart.items():
+            timings[name][key] = float(np.median(ms))
+        if apart:
+            rest = np.subtract(spent, np.sum(list(apart.values()), axis=0))
+            timings[name]["decode_ms"] = float(np.median(rest))
         if len(spent) < READER_REPS:
             log(f"  {name}: one read took {spent[0]:.0f} ms, past "
                 f"{READER_ONE_READ_MS:.0f} ms; timed once")
@@ -2147,15 +2162,17 @@ def image_forms(torch, card, bundle, work, want):
 # JPEG 2000 and AVIF readers
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
                "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif", "_lossy.avif",
-               "_10bit.avif", "_grain.avif")
+               "_10bit.avif", "_grain.avif", "_superres.avif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
                       "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",
                       "_lossless.avif", "_grid.avif", "_anim.avif")
-# the AVIF forms the reader gained with 10- and 12-bit 4:2:0, film grain, grids
-# and sequences: whether the card machine's cv2 reads them alike is logged apart
+# the AVIF forms the reader gained with 10- and 12-bit 4:2:0, film grain, grids,
+# sequences and superres: whether the card machine's cv2 reads them alike is
+# logged apart
 NEW_AVIF_FORMS = ("demo_0_10bit.avif", "demo_0_grain.avif", "demo_0_grid.avif",
-                  "demo_0_anim.avif", "big_grain.avif")
+                  "demo_0_anim.avif", "big_grain.avif", "demo_0_sr9_superres.avif",
+                  "demo_0_sr15_superres.avif", "demo_0_lr_superres.avif", "big_superres.avif")
 # the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
 # TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
 # smoothing: whether the card machine's cv2 reads them alike is logged apart

@@ -44,6 +44,7 @@ from molnextr_tpu_torch.data.av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, REST
 from molnextr_tpu_torch.data.av1_quant import ac_q, dc_q, dq_denom, iqmatrix, qindex
 from molnextr_tpu_torch.data.av1_recon import (D157, DC, PAETH, SMOOTH, SMOOTH_H, SMOOTH_V, H,
                                                V)
+from molnextr_tpu_torch.data.av1_superres import SUPERRES_NUM
 from molnextr_tpu_torch.data.av1_symbol import SymbolDecoder
 from molnextr_tpu_torch.data.av1_transform import inverse_transform
 
@@ -558,7 +559,7 @@ class FrameDecoder:
 
     def _read_lr(self, r: int, c: int, sb4: int) -> None:
         """``read_lr``: the restoration units whose top-left lies in the
-        superblock at (r, c)."""
+        superblock at (r, c), on the upscaled frame under superres."""
         fr = self.fr
         if fr.allow_intrabc:
             return
@@ -568,11 +569,14 @@ class FrameDecoder:
             sx, sy = self.ss[p]
             size = fr.lr_size[p]
             rows = lr_unit_count(size, (fr.height + sy) >> sy)
-            cols = lr_unit_count(size, (fr.width + sx) >> sx)
+            cols = lr_unit_count(size, (fr.upscaled_width + sx) >> sx)
             r0 = (r * (4 >> sy) + size - 1) // size
             r1 = min(rows, ((r + sb4) * (4 >> sy) + size - 1) // size)
-            c0 = (c * (4 >> sx) + size - 1) // size
-            c1 = min(cols, ((c + sb4) * (4 >> sx) + size - 1) // size)
+            # units lie on the upscaled frame: a superblock's columns scaled
+            denom = fr.superres_denom if fr.use_superres else SUPERRES_NUM
+            num, den = (4 >> sx) * denom, size * SUPERRES_NUM
+            c0 = (c * num + den - 1) // den
+            c1 = min(cols, ((c + sb4) * num + den - 1) // den)
             for ur in range(r0, r1):
                 for uc in range(c0, c1):
                     self.lr_units[p][(ur, uc)] = self._lr_unit(p)

@@ -103,6 +103,8 @@ def cdef(dec, planes: List[np.ndarray]) -> List[np.ndarray]:
         uv_pri = np.array([s[0] for s in fr.cdef_uv])[safe] << cs
         uv_sec = np.array([s[1] for s in fr.cdef_uv])[safe] << cs
         uv_dir = np.where(uv_pri == 0, 0, np.array(UV_DIR[(sx, sy)])[ydir])
+        if (sx, sy) == (1, 0) and (active & (uv_pri > 0)).any():
+            _hit("cdef_422")  # a 4:2:2 chroma direction through Cdef_Uv_Dir
         for plane in planes[1:]:
             out.append(_filter(plane, active, uv_pri, uv_sec, fr.cdef_damping + cs - 1, uv_dir,
                                sx, sy, cs))

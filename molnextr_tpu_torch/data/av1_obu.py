@@ -6,7 +6,9 @@ one last OBU that runs to the end), reads the sequence header
 (``reduced_still_picture_header`` or not, ``color_config`` at 8, 10 and 12
 bits, monochrome, the subsampling) and the first shown frame's
 ``uncompressed_header``: a KEY_FRAME or INTRA_ONLY frame, its size and
-render size, ``allow_screen_content_tools``, ``allow_intrabc``,
+render size, superres (``superres_params``: the frame coded at a
+reduced width, upscaled by ``data/av1_superres.py``),
+``allow_screen_content_tools``, ``allow_intrabc``,
 ``tile_info`` (uniform or not), quantisation with ``qm``, segmentation,
 ``delta_q``/``delta_lf``, and the loop filter, CDEF, loop restoration,
 ``tx_mode``, ``reduced_tx_set`` and film grain syntax behind them.  It
@@ -17,9 +19,8 @@ quantiser deltas and matrix levels, the per-segment ``qindex`` and lossless
 flag, ``delta_q``/``delta_lf``, the loop filter levels, sharpness and
 deltas, the CDEF damping and strengths, the restoration types and unit
 sizes, ``TxMode``, ``reduced_tx_set`` and the film grain parameters
-(:class:`FilmGrain`, applied by ``data/av1_grain.py``).  Superres raises
-:class:`~molnextr_tpu_torch.data.image.UnsupportedFormat` at once (ROADMAP
-queue 1); a header libaom would refuse is an ``AV1Error``, None.
+(:class:`FilmGrain`, applied by ``data/av1_grain.py``).  A header libaom
+would refuse is an ``AV1Error``, None.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
+from molnextr_tpu_torch.data.av1_superres import SUPERRES_DENOM_MIN, downscaled_width
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
 TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT = range(3)
@@ -282,9 +284,12 @@ class FilmGrain:
 
 @dataclass
 class Frame:
-    """What decoding an intra frame needs of its header."""
+    """What decoding an intra frame needs of its header (``width`` is the
+    coded ``FrameWidth``, below ``upscaled_width`` under superres)."""
 
     width: int = 0
+    upscaled_width: int = 0
+    superres_denom: int = 8  # SuperresDenom; SUPERRES_NUM without superres
     height: int = 0
     mi_cols: int = 0
     mi_rows: int = 0
@@ -339,6 +344,10 @@ class Frame:
     def uses_lr(self) -> bool:
         return any(t != RESTORE_NONE for t in self.lr_type)
 
+    @property
+    def use_superres(self) -> bool:
+        return self.upscaled_width != self.width
+
 
 def _tile_log2(blk: int, target: int) -> int:
     k = 0
@@ -392,14 +401,15 @@ def frame_header(r: BitReader, s: Sequence, temporal_id: int, spatial_id: int) -
         fr.width, fr.height = r.f(s.width_bits) + 1, r.f(s.height_bits) + 1
     else:
         fr.width, fr.height = s.max_width, s.max_height
-    if s.enable_superres and r.f(1):
-        raise UnsupportedFormat("AV1 superres frames are not decoded by the port yet "
-                                "(ROADMAP queue 1)")
+    fr.upscaled_width = fr.width
+    if s.enable_superres and r.f(1):  # use_superres, then coded_denom
+        fr.superres_denom = r.f(3) + SUPERRES_DENOM_MIN
+        fr.width = downscaled_width(fr.upscaled_width, fr.superres_denom)
     fr.mi_cols, fr.mi_rows = 2 * ((fr.width + 7) >> 3), 2 * ((fr.height + 7) >> 3)
     if r.f(1):  # render_and_frame_size_different
         r.f(16)
         r.f(16)
-    if fr.screen_tools:
+    if fr.screen_tools and not fr.use_superres:
         fr.allow_intrabc = bool(r.f(1))
     if not (s.reduced or fr.disable_cdf_update):
         r.f(1)  # disable_frame_end_update_cdf
@@ -495,8 +505,10 @@ def _cdef_params(r: BitReader, s: Sequence, fr: Frame) -> None:
 
 
 def _lr_params(r: BitReader, s: Sequence, fr: Frame) -> None:
-    """``lr_params`` (AllLossless is CodedLossless: superres raises)."""
-    if fr.coded_lossless or fr.allow_intrabc or not s.enable_restoration:
+    """``lr_params``: none when ``AllLossless`` (coded lossless and not
+    superres)."""
+    all_lossless = fr.coded_lossless and not fr.use_superres
+    if all_lossless or fr.allow_intrabc or not s.enable_restoration:
         return
     fr.lr_type = [_REMAP_LR_TYPE[r.f(2)] for _ in range(s.planes)] + \
         [RESTORE_NONE] * (3 - s.planes)
@@ -612,6 +624,9 @@ def _tile_info(r: BitReader, s: Sequence, fr: Frame) -> None:
         rows_log2 = _tile_log2(1, len(fr.row_starts))
     fr.col_starts.append(fr.mi_cols)
     fr.row_starts.append(fr.mi_rows)
+    inner = [b - a for a, b in zip(fr.col_starts[:-2], fr.col_starts[1:-1])]
+    if inner and min(inner) * 4 < 64 << fr.use_superres:  # av1_is_min_tile_width_satisfied
+        raise AV1Error("AV1: a tile column narrower than libaom's minimum")
     fr.tile_cols_log2, fr.tile_rows_log2 = cols_log2, rows_log2
     if cols_log2 or rows_log2:
         r.f(cols_log2 + rows_log2)  # context_update_tile_id

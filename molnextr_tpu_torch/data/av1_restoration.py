@@ -32,7 +32,9 @@ from molnextr_tpu_torch.data.av1_obu import RESTORE_NONE, RESTORE_SGRPROJ, RESTO
 
 
 def restore(dec, deblocked: List[np.ndarray], cdefed: List[np.ndarray]) -> List[np.ndarray]:
-    """The loop-restored planes."""
+    """The loop-restored planes; under superres ``deblocked`` and
+    ``cdefed`` are the upscaled frames (``UpscaledCurrFrame``,
+    ``UpscaledCdefFrame``) and the units lie on the upscaled width."""
     fr = dec.fr
     if not fr.uses_lr:
         return cdefed
@@ -41,7 +43,7 @@ def restore(dec, deblocked: List[np.ndarray], cdefed: List[np.ndarray]) -> List[
         if fr.lr_type[p] == RESTORE_NONE:
             continue
         sx, sy = dec.ss[p]
-        pw, ph = (fr.width + sx) >> sx, (fr.height + sy) >> sy
+        pw, ph = (fr.upscaled_width + sx) >> sx, (fr.height + sy) >> sy
         size = fr.lr_size[p]
         ucols, urows = lr_unit_count(size, pw), lr_unit_count(size, ph)
         res = src.copy()

@@ -15,9 +15,13 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   ``pixi``, ``av1C``, ``colr`` (nclx and ICC), ``irot``, ``imir``,
   ``clap``, ``auxC``, ``a1op``, ``lsel``.  A box cut short, a duplicate
   unique box, a missing primary item or a missing mandatory property read
-  as None.  The alpha item is found (``auxl``) and not decoded: OpenCV
-  drops alpha (an alpha grid's layout is checked).  ``irot``, ``imir`` and
-  ``clap`` are parsed and, as in OpenCV 5.0, not applied.
+  as None.  The alpha item (``auxl``, an ``av01`` item or a grid) is
+  decoded and its planes dropped, as libavif decodes it and OpenCV drops
+  alpha: a stream libaom refuses, an alpha grid libavif refuses, or an
+  alpha of another ``ispe`` size or decoded depth than the colour image
+  reads as None (an alpha frame of another size than its own ``ispe`` is
+  one libavif rescales, and reads).  ``irot``, ``imir`` and ``clap`` are
+  parsed and, as in OpenCV 5.0, not applied.
 * **The primary image**, chosen as libavif's ``AVIF_DECODER_SOURCE_AUTO``
   chooses: the first sample of the colour track of an image sequence
   (``moov``/``trak``: ``tkhd``, ``stsd``'s ``av01`` entry, ``stsc``,
@@ -30,7 +34,8 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   shown by ``show_existing_frame`` too), decoded lossless or lossy
   (``data/av1_block.py``, ``data/av1_recon.py``, ``data/av1_quant.py``,
   ``data/av1_transform.py``), then deblocked (``data/av1_loopfilter.py``),
-  CDEF-filtered (``data/av1_cdef.py``) and loop-restored
+  CDEF-filtered (``data/av1_cdef.py``), upscaled under superres
+  (``data/av1_superres.py``) and loop-restored
   (``data/av1_restoration.py``), with libaom's checks of a corrupt frame
   (a tile that overruns its data or lacks its trailing bits, an intra
   block copy vector outside the decoded area, a segment id past the
@@ -40,17 +45,20 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   grey, BT.601 and BT.709 at full or limited range through libyuv's
   fixed-point conversion, 4:2:0 and 4:2:2 chroma upsampled as libavif's
   ``AUTOMATIC`` choice does (libyuv's bilinear filter); 10- and 12-bit
-  YCbCr shifted down to 8 bits first (chroma before it is upsampled), GBR
-  at any depth or range through libavif's float path, grey above 8 bits
-  rounded half to even as OpenCV's ``convertTo`` does.  The matrix and
-  range of the image's nclx ``colr`` box (a grid's own, not its tiles')
-  win over the sequence header's.
+  YCbCr shifted down to 8 bits first (chroma before it is upsampled;
+  with alpha, where OpenCV asks for BGRA, libyuv's 10-bit conversion and
+  its unfiltered 12-bit 4:2:0 one), GBR, FCC, SMPTE 240, YCgCo, YCgCo-Re,
+  matrix 15 and chroma-derived NCL on other primaries through libavif's
+  float path, grey above 8 bits rounded half to even as OpenCV's
+  ``convertTo`` does; a matrix libavif refuses, and grey with alpha,
+  read as None.  The matrix, primaries and range of the image's nclx
+  ``colr`` box (a grid's own, not its tiles') win over the sequence
+  header's.
 
-Superres, an inter frame, and a colour form whose conversion is not
-ported raise :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat`
-naming themselves (ROADMAP queue 1), and so does an ``ispe`` size other
-than the frame's (OpenCV then resamples).  An image past libavif's 32768
-a side or OpenCV's 2^30 pixels reads as None.
+An inter frame raises :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat`
+naming itself (ROADMAP queue 1), and so does an ``ispe`` size other than
+the frame's (OpenCV then resamples).  An image past libavif's 32768 a
+side or OpenCV's 2^30 pixels reads as None.
 """
 
 from __future__ import annotations
@@ -170,6 +178,7 @@ class _Track:
     def __init__(self, data: bytes, pos: int, end: int):
         self.id = self.width = self.height = 0
         self.auxl = False
+        self.auxl_for: List[int] = []  # the tracks its auxl reference names
         self.entries: List[Tuple[bytes, int, int]] = []  # (format, body start, end)
         self.samples: List[Tuple[int, int]] = []
         stbl = None
@@ -182,7 +191,11 @@ class _Track:
                 r.skip(4 + (8 if version else 4) + 8 + 8 + 36)  # to the width
                 self.width, self.height = r.u(4) >> 16, r.u(4) >> 16
             elif typ == b"tref":
-                self.auxl = any(t == b"auxl" for t, _, _ in _boxes(data, start, stop))
+                for t, a, b in _boxes(data, start, stop):
+                    if t == b"auxl":
+                        self.auxl = True
+                        self.auxl_for += [int.from_bytes(data[k : k + 4], "big")
+                                          for k in range(a, b - 3, 4)]
             elif typ == b"mdia":  # libavif reads no handler type: minf's stbl
                 for t, a, b in _boxes(data, start, stop):
                     if t == b"minf":
@@ -483,35 +496,51 @@ def read_avif(data: bytes) -> Tuple[List[np.ndarray], int, int, int, bool, int, 
     decoded: (planes, bit depth, ss_x, ss_y, full range, matrix, width).
     The primary image is an item, a grid of items, or the first sample of
     an image sequence's colour track."""
+    return _read(data)[:7]
+
+
+def _read(data: bytes):
+    """:func:`read_avif`'s tuple, the colour primaries and whether an alpha
+    image was decoded beside the colour one."""
     f = _Avif(data)
     if f.from_track:
-        item, payload, size = _track_image(f)
+        item, payload, size, track = _track_image(f)
         planes, seq = _decode(payload, *size)
         first = item
+        alpha = _alpha_track(f, track)
+        if alpha is not None and _decode(alpha)[1].bit_depth != seq.bit_depth:
+            raise AVIFError("AVIF: an alpha track of another depth than the colour track")
     else:
         item = _primary(f)
-        alpha = _alpha_item(f, item)  # located; OpenCV drops alpha, so it is not decoded
-        if alpha is not None and alpha.type == b"grid":
-            _alpha_grid(f, alpha)
+        alpha = _alpha_item(f, item)
         if item.type == b"grid":
             planes, seq, first = _grid(f, item)
         else:
             planes, seq = _decode(f.payload(item), *_ispe(f, item))
             first = item
+        if alpha is not None:
+            _decode_alpha(f, alpha, _ispe(f, item), seq.bit_depth)
     av1c = f.prop(first, b"av1C")
     if f.data[av1c[0] + 2] & 0x10:  # av1C's monochrome: libavif keeps only Y
         planes = planes[:1]
     nclx = _nclx(f, item)
-    matrix, full = (nclx[2], nclx[3]) if nclx is not None else (seq.matrix, seq.full_range)
-    return planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, planes[0].shape[1]
+    primaries, matrix, full = (nclx[0], nclx[2], nclx[3]) if nclx is not None else (
+        seq.primaries, seq.matrix, seq.full_range)
+    return (planes, seq.bit_depth, seq.ss_x, seq.ss_y, full, matrix, planes[0].shape[1],
+            primaries, alpha is not None)
 
 
-def _track_image(f: _Avif) -> Tuple[_Item, bytes, Tuple[int, int]]:
+def _av01_entry(track: _Track) -> Optional[Tuple[int, int]]:
+    return next(((a, b) for t, a, b in track.entries if t == b"av01"), None)
+
+
+def _track_image(f: _Avif) -> Tuple[_Item, bytes, Tuple[int, int], _Track]:
     """The colour track as libavif picks it (the first with an id, samples
     and an ``av01`` sample entry that is no ``auxl`` track): its sample
-    entry's boxes as an item's properties, its first sample, its size."""
+    entry's boxes as an item's properties, its first sample, its size, the
+    track."""
     for track in f.tracks:
-        entry = next(((a, b) for t, a, b in track.entries if t == b"av01"), None)
+        entry = _av01_entry(track)
         if track.id and track.samples and entry is not None and not track.auxl:
             break
     else:
@@ -528,7 +557,19 @@ def _track_image(f: _Avif) -> Tuple[_Item, bytes, Tuple[int, int]]:
     if av1c is None or av1c[1] - av1c[0] < 4 or f.data[av1c[0]] != 0x81:
         raise AVIFError("AVIF: a track without its av1C")
     offset, size = track.samples[0]
-    return item, f.data[offset : offset + size], (w, h)
+    return item, f.data[offset : offset + size], (w, h), track
+
+
+def _alpha_track(f: _Avif, colour: _Track) -> Optional[bytes]:
+    """The first sample of the alpha track libavif pairs with the colour
+    track (the first with an id, samples and an ``av01`` entry whose
+    ``auxl`` reference names the colour track first), or None."""
+    for track in f.tracks:
+        if track.id and track.samples and _av01_entry(track) is not None \
+                and track.auxl_for[:1] == [colour.id]:
+            offset, size = track.samples[0]
+            return f.data[offset : offset + size]
+    return None
 
 
 def _ispe(f: _Avif, item: _Item) -> Tuple[int, int]:
@@ -540,26 +581,28 @@ def _ispe(f: _Avif, item: _Item) -> Tuple[int, int]:
     return iw, ih
 
 
-def _decode(data: bytes, iw: int, ih: int):
+def _decode(data: bytes, iw: Optional[int] = None, ih: Optional[int] = None):
     """An AV1 image's planes (every plane the sequence codes, each cut to
     its size, film grain applied) and its sequence header; ``iw`` x ``ih``
-    is the size its ``ispe`` or ``tkhd`` gives."""
+    is the size its ``ispe`` or ``tkhd`` gives, None for an alpha item
+    (whose planes libavif rescales to its ``ispe`` and OpenCV drops)."""
     from molnextr_tpu_torch.data import av1_block, av1_grain, av1_obu
 
     seq, fr, payload, tiles = av1_obu.parse_obus(data)
+    width = fr.upscaled_width  # the size libaom outputs, upscaled under superres
     other_size = UnsupportedFormat(
-        f"an ispe size ({iw} x {ih}) other than the AV1 frame's ({fr.width} x {fr.height}), "
+        f"an ispe size ({iw} x {ih}) other than the AV1 frame's ({width} x {fr.height}), "
         "which libavif rescales, is not read by the port (ROADMAP queue 1)")
-    if fr.width * fr.height > 4 * iw * ih:
+    if iw is not None and width * fr.height > 4 * iw * ih:
         raise other_size  # not decoded at all: the port would hold it in lists
     dec = av1_block.FrameDecoder(seq, fr)
     dec.decode(payload, tiles)
-    if (fr.width, fr.height) != (iw, ih):  # a frame libaom decodes whole
+    if iw is not None and (width, fr.height) != (iw, ih):  # a frame libaom decodes whole
         raise other_size
     planes = []
     for p, full in enumerate(filtered_planes(dec)):
         sx, sy = dec.ss[p]
-        planes.append(full[: (fr.height + sy) >> sy, : (fr.width + sx) >> sx])
+        planes.append(full[: (fr.height + sy) >> sy, : (width + sx) >> sx])
     if fr.grain is not None:  # libaom adds the grain to every shown frame
         planes = av1_grain.apply_grain(planes, fr.grain, seq.bit_depth, seq.ss_x, seq.ss_y,
                                        seq.matrix == 0)
@@ -613,15 +656,18 @@ def _grid_geometry(rows: int, cols: int, out_w: int, out_h: int, tw: int, th: in
         raise AVIFError("AVIF: odd grid or tile size in a subsampled direction")
 
 
-def _alpha_grid(f: _Avif, item: _Item) -> None:
-    """An alpha grid is not decoded; its layout is checked as libavif
-    checks it, with the tiles' sizes and subsampling from their ``ispe``
-    and ``av1C``."""
-    rows, cols, out_w, out_h, tiles = _grid_layout(f, item)
-    tw, th = _ispe(f, tiles[0])
-    flags = f.data[f.prop(tiles[0], b"av1C")[0] + 2]
-    sx, sy = (0, 0) if flags & 0x10 else ((flags >> 3) & 1, (flags >> 2) & 1)
-    _grid_geometry(rows, cols, out_w, out_h, tw, th, sx, sy)
+def _decode_alpha(f: _Avif, alpha: _Item, size: Tuple[int, int], depth: int) -> None:
+    """The alpha item decoded as libavif decodes it, its planes dropped: a
+    grid as a colour grid is (its tiles decoded and checked), an item with
+    the properties libavif requires; then its ``ispe`` size and decoded
+    depth against the colour image's (``size``, ``depth``)."""
+    if alpha.type == b"grid":
+        seq = _grid(f, alpha)[1]
+    else:
+        _check_av01(f, alpha)
+        seq = _decode(f.payload(alpha))[1]
+    if _ispe(f, alpha) != size or seq.bit_depth != depth:
+        raise AVIFError("AVIF: an alpha of another size or depth than the colour image")
 
 
 def _grid(f: _Avif, item: _Item):
@@ -656,13 +702,18 @@ def _grid(f: _Avif, item: _Item):
 
 def filtered_planes(dec) -> List[np.ndarray]:
     """A decoded frame's planes after the in-loop filters: deblocking, CDEF,
-    then loop restoration (which reads the deblocked frame at its stripes'
-    edges)."""
-    from molnextr_tpu_torch.data import av1_cdef, av1_loopfilter, av1_restoration
+    the superres upscaling of both the CDEF output and (for loop
+    restoration's stripe edges) the deblocked frame, then loop restoration
+    (which reads the deblocked frame at its stripes' edges)."""
+    from molnextr_tpu_torch.data import (av1_cdef, av1_loopfilter, av1_restoration,
+                                         av1_superres)
 
     planes = dec.frame_planes()
     deblocked = av1_loopfilter.deblock(dec, planes)
     cdefed = av1_cdef.cdef(dec, deblocked)
+    if dec.fr.use_superres:
+        cdefed = av1_superres.upscale_planes(dec, cdefed)
+        deblocked = av1_superres.upscale_planes(dec, deblocked) if dec.fr.uses_lr else cdefed
     return av1_restoration.restore(dec, deblocked, cdefed)
 
 
@@ -670,10 +721,10 @@ def decode_avif(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """RGB uint8 (H, W, 3) of an AVIF file's primary image, as OpenCV reads
     it (module doc)."""
     try:
-        planes, bd, ss_x, ss_y, full, matrix, _w = read_avif(data)
+        planes, bd, ss_x, ss_y, full, matrix, _w, primaries, alpha = _read(data)
     except UnsupportedFormat as err:
         raise UnsupportedFormat(f"{path}: AVIF: {err}") from None
-    return yuv_to_rgb(planes, bd, ss_x, ss_y, full, matrix, path)
+    return yuv_to_rgb(planes, bd, ss_x, ss_y, full, matrix, path, primaries, alpha)
 
 
 # libyuv's YuvConstants (YG, YB, UB, UG, VG, VR) for the matrices libavif
@@ -688,35 +739,157 @@ _LIBYUV = {
     ("2020", False): (19003, -1160, 128, 12, 42, 107),
 }
 _MATRIX_CLASS = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+# chroma-derived NCL (12) goes to libyuv for the primaries it names
+_PRIMARIES_CLASS = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+# libavif 1.4's own tables, as float32 (read out of the sandbox's libavif by
+# a scratch script): (Kr, Kb) per matrix, and the primaries' (x, y) of red,
+# green, blue and white, BT.709's for any primaries it does not list
+_KR_KB = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 5: (0.299, 0.114), 6: (0.299, 0.114),
+          7: (0.212, 0.087), 9: (0.2627, 0.0593)}
+_PRIMARIES = {
+    1: (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.329),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.329),
+    6: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    7: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.329),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.314, 0.351),
+    12: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.3127, 0.329),
+    22: (0.63, 0.34, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.329),
+}
 
 
 def yuv_to_rgb(planes: List[np.ndarray], bd: int, ss_x: int, ss_y: int, full: bool,
-               matrix: int, path: str = "<bytes>") -> np.ndarray:
-    """``avifImageYUVToRGB`` into 8-bit RGB, as OpenCV 5.0 gets it."""
+               matrix: int, path: str = "<bytes>", primaries: int = 2,
+               alpha: bool = False) -> np.ndarray:
+    """``avifImageYUVToRGB`` into 8-bit RGB, as OpenCV 5.0 gets it: libyuv
+    for the matrices it takes, libavif's float path for GBR, FCC (4), SMPTE
+    240 (7), YCgCo (8, full range), chroma-derived NCL (12) on other
+    primaries, 15 (BT.601's coefficients) and YCgCo-Re (16, full range, 10
+    bits); None (an :class:`AVIFError`) for the matrices libavif refuses.
+    With an ``alpha`` image OpenCV asks for BGRA, which libyuv converts
+    from 10 bits as they are (``I010``/``I210``/``I410AlphaToARGB``, chroma
+    filtered at 10 bits) and from 12-bit 4:2:0 unfiltered (``I012ToARGB``);
+    OpenCV refuses grey with alpha."""
+    if len(planes) == 1 and alpha:
+        raise AVIFError("AVIF: a monochrome image with alpha, which OpenCV refuses")
     if len(planes) == 1:  # grey: as stored at 8 bits, else rounded half to even
         y = planes[0]
         grey = y if bd == 8 else np.rint(y / float(1 << (bd - 8)))
         return np.repeat(np.clip(grey, 0, 255).astype(np.uint8)[..., None], 3, axis=2)
     y, u, v = planes
-    if matrix == 0 and not (ss_x or ss_y):  # GBR, through libavif's float path
+    if matrix == 0:  # GBR, through libavif's float path; refused when subsampled
+        if ss_x or ss_y:
+            raise AVIFError("AVIF: GBR with subsampled chroma")
         if bd == 8 and full:
             return np.stack([v, y, u], axis=2).astype(np.uint8)
         return np.stack([_unorm8(v, bd, full), _unorm8(y, bd, full), _unorm8(u, bd, full)],
                         axis=2)
-    kind = _MATRIX_CLASS.get(matrix)
+    kind = _PRIMARIES_CLASS.get(primaries) if matrix == 12 else _MATRIX_CLASS.get(matrix)
     if kind is None:
-        raise UnsupportedFormat(
-            f"{path}: AVIF: colour of matrix {matrix} at {bd} bits, subsampling {ss_x}/{ss_y} "
-            f"({'full' if full else 'limited'} range) is not converted by the port yet "
-            "(ROADMAP queue 1)")
-    if bd != 8:  # libavif hands libyuv the samples shifted down to 8 bits, chroma
-        y, u, v = (a >> (bd - 8) for a in (y, u, v))  # before it is upsampled
+        if matrix in (3, 10, 11, 13, 14) or matrix > 16 or (matrix in (8, 16) and not full) \
+                or (matrix == 16 and bd != 10):
+            raise AVIFError(f"AVIF: matrix {matrix} ({'full' if full else 'limited'} range, "
+                            f"{bd} bits), which libavif does not convert")
+        return _libavif_float(y, u, v, bd, ss_x, ss_y, full, matrix, primaries)
     h, w = y.shape
+    if alpha and bd == 12 and ss_x and ss_y:  # I012ToARGB: nearest chroma
+        u, v = (c[np.arange(h) >> 1][:, np.arange(w) >> 1] for c in (u, v))
+        ss_x = ss_y = 0
+    elif not (alpha and bd == 10):  # libavif hands libyuv the samples shifted down to
+        y, u, v = (a >> (bd - 8) for a in (y, u, v))  # 8 bits, chroma before it is upsampled
+        bd = 8
     if ss_x and ss_y:
         u, v = _up_bilinear(u, w, h), _up_bilinear(v, w, h)
     elif ss_x:
         u, v = _up_linear(u, w), _up_linear(v, w)
-    return _libyuv(y, u, v, *_LIBYUV[(kind, full)])
+    y = y.astype(np.int64)
+    y16 = (y << (16 - bd)) | (y >> (2 * bd - 16))  # libyuv's 16-bit luma (y * 0x0101 at 8)
+    u, v = (np.minimum(c >> (bd - 8), 255) for c in (u, v))
+    return _libyuv(y16, u, v, *_LIBYUV[(kind, full)])
+
+
+def _kr_kb(matrix: int, primaries: int) -> Tuple[np.float32, np.float32]:
+    """``avifCalcYUVCoefficients``: Kr and Kb from libavif's table (BT.601's
+    for a matrix it does not list), or for chroma-derived NCL from the
+    primaries (H.273 equations 32-37), in float32 as libavif computes them."""
+    f = np.float32
+    if matrix != 12:
+        kr, kb = _KR_KB.get(matrix, (0.299, 0.114))
+        return f(kr), f(kb)
+    rx, ry, gx, gy, bx, by, wx, wy = (f(c) for c in _PRIMARIES.get(primaries, _PRIMARIES[1]))
+    one = f(1)
+    rz, gz, bz, wz = one - (rx + ry), one - (gx + gy), one - (bx + by), one - (wx + wy)
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz) + bx * (ry * gz - gy * rz))
+    kr = ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz) + wz * (gx * by - bx * gy)) / den
+    kb = by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz) + wz * (rx * gy - gx * ry)) / den
+    return kr, kb
+
+
+def _libavif_float(y, u, v, bd: int, ss_x: int, ss_y: int, full: bool, matrix: int,
+                   primaries: int) -> np.ndarray:
+    """``avifImageYUVAnyToRGBAnySlow`` into 8 bits: samples to float32
+    through libavif's unorm tables, chroma upsampled bilinearly (9/16,
+    3/16, 3/16, 1/16 of the nearest, the adjacent column, the adjacent row
+    and the diagonal; 4:2:2 linearly), the matrix's formulas, then
+    ``0.5 + clamp(x, 0, 1) * 255`` truncated."""
+    f = np.float32
+    top = (1 << bd) - 1
+    codes = np.arange(1 << bd, dtype=f)
+    table_y = (codes - f(0 if full else 16 << (bd - 8))) / f(top if full else 219 << (bd - 8))
+    table_uv = (codes - f(1 << (bd - 1))) / f(top if full else 224 << (bd - 8))
+    h, w = y.shape
+    luma = np.minimum(y, top)
+    cb, cr = (_chroma(table_uv[np.minimum(c, top)], h, w, ss_x, ss_y) for c in (u, v))
+    big_y = table_y[luma]
+    if matrix == 8:  # YCgCo
+        t = big_y - cb
+        r, g, b = t + cr, big_y + cb, t - cr
+    elif matrix == 16:  # YCgCo-Re, in integers at the samples' depth
+        cg = _roundf(cb * f(top)).astype(np.int64)
+        co = _roundf(cr * f(top)).astype(np.int64)
+        t = luma.astype(np.int64) - (cg >> 1)
+        g = np.clip(t + cg, 0, 255)
+        b = np.clip(t - (co >> 1), 0, 255)
+        r = np.clip(b + co, 0, 255)
+        r, g, b = (a.astype(f) / f(255) for a in (r, g, b))
+    else:
+        kr, kb = _kr_kb(matrix, primaries)
+        kg = f(1) - kr - kb
+        r = big_y + (f(2) * (f(1) - kr)) * cr
+        b = big_y + (f(2) * (f(1) - kb)) * cb
+        g = big_y - (f(2) * ((kr * (f(1) - kr) * cr) + (kb * (f(1) - kb) * cb))) / kg
+    return np.stack([(f(0.5) + np.clip(a, f(0), f(1)) * f(255)).astype(np.uint8)
+                     for a in (r, g, b)], axis=2)
+
+
+def _roundf(x: np.ndarray) -> np.ndarray:
+    """libavif's ``avifRoundf``: ``floorf(x + 0.5f)``, halves up."""
+    return np.floor(x + np.float32(0.5))
+
+
+def _chroma(t: np.ndarray, h: int, w: int, ss_x: int, ss_y: int) -> np.ndarray:
+    """A chroma plane of unorm floats at the luma size, as libavif's slow
+    path upsamples it: the nearest sample, the one beside it toward the
+    pixel (none at the first column or at an odd last one), the one above
+    or below it likewise (none at 4:2:2)."""
+    f = np.float32
+    if not (ss_x or ss_y):
+        return t
+    i, j = np.arange(w), np.arange(h)
+
+    def adjacent(k, n, on):
+        if not on:
+            return np.zeros_like(k)
+        return np.where((k == 0) | ((k == n - 1) & (k % 2 == 1)), 0, np.where(k % 2 == 1, 1, -1))
+
+    ci, cj = i >> ss_x, j >> ss_y
+    ai, aj = ci + adjacent(i, w, ss_x), cj + adjacent(j, h, ss_y)
+    near, col = t[cj][:, ci], t[cj][:, ai]
+    row, diag = t[aj][:, ci], t[aj][:, ai]
+    return near * f(9 / 16) + col * f(3 / 16) + row * f(3 / 16) + diag * f(1 / 16)
 
 
 def _unorm8(a: np.ndarray, bd: int, full: bool = True) -> np.ndarray:
@@ -730,10 +903,10 @@ def _unorm8(a: np.ndarray, bd: int, full: bool = True) -> np.ndarray:
     return (np.float32(0.5) + np.clip(x, 0, 1) * np.float32(255)).astype(np.uint8)
 
 
-def _libyuv(y, u, v, yg: int, yb: int, ub: int, ug: int, vg: int, vr: int) -> np.ndarray:
-    """libyuv's ``YuvPixel``: Y scaled by ``yg`` (16.16), U and V less 128
-    times 6-bit coefficients, the sum over 64, clamped."""
-    y1 = (y.astype(np.int64) * 0x0101 * yg) >> 16
+def _libyuv(y16, u, v, yg: int, yb: int, ub: int, ug: int, vg: int, vr: int) -> np.ndarray:
+    """libyuv's ``YuvPixel``: the 16-bit luma scaled by ``yg`` (16.16), 8-bit
+    U and V less 128 times 6-bit coefficients, the sum over 64, clamped."""
+    y1 = (y16 * yg) >> 16
     u = u.astype(np.int64) - 128
     v = v.astype(np.int64) - 128
     rgb = np.stack([(y1 + v * vr + yb) >> 6, (y1 - u * ug - v * vg + yb) >> 6,

@@ -21,14 +21,14 @@ inverse transforms against a scalar transcription.
   and all three inter transform sets, ``TX_MODE_SELECT`` and the transform
   tree of an intra block copy, ``delta_q``, the 4-, 6-, 8- and 14-tap
   deblocking filters, CDEF's primary and secondary taps, Wiener,
-  self-guided and switchable restoration and quantiser matrices are
-  reached (``av1_recon.REACHED``).  ``delta_lf`` and 4:2:2 CDEF are not:
-  no writer here sets ``delta_lf_present`` (Pillow refuses
-  ``deltalf-mode``) or writes CDEF at 4:2:2 (ROADMAP queue 1).
+  self-guided and switchable restoration, quantiser matrices, ``delta_lf``
+  (libaom's ``delta-lf-mode`` under ``deltaq-mode`` 3, through
+  ``torch_image_writers.aom_encode``), CDEF at 4:2:2 and superres are
+  reached (``av1_recon.REACHED``).
 * Cut and byte-flipped lossy files read as None exactly where cv2 reads
-  None, and otherwise to its pixels; film grain reads to cv2's pixels and
-  superres raises naming itself (no writer here makes superres: a
-  hand-built frame header).
+  None, and otherwise to its pixels; film grain and superres read to
+  cv2's pixels (``test_torch_avif_superres.py`` holds the superres
+  survey).
 * On the committed lossy demo forms the port's ``predict_image_files``
   gives the JAX package's SMILES in float32 on the CPU, and so on a cv2
   form at quality 95 where the demo bundle reads another molecule.
@@ -43,7 +43,8 @@ import numpy as np
 import pytest
 from PIL import Image
 from test_torch_avif import FORMS, SIZES, check, cv2_rgb, picture
-from torch_image_writers import av1_superres_obus, avif_rebuild, film_grain_avif
+from torch_image_writers import (aom_avif, aom_encode, aom_yuv, av1_superres_obus, avif_rebuild,
+                                 film_grain_avif)
 
 from molnextr_tpu_torch.data import av1_recon, av1_transform
 from molnextr_tpu_torch.data.av1_transform import ADST, DCT, FLIPADST, IDTX, TX_TYPE_1D
@@ -403,6 +404,12 @@ def tool_files():
                   advanced={"enable-restoration": "1"}),
         pil_lossy(picture("gradient", 130, 150), 50, speed=2,
                   advanced={"enable-restoration": "1"}),
+        # libaom through ctypes: CDEF at 4:2:2, delta_lf, superres
+        aom_avif(aom_encode(aom_yuv(picture("gradient", 100, 130), "4:2:2"), subsampling="4:2:2",
+                            q=40, speed=2, options=[("enable-cdef", "1")])),
+        aom_avif(aom_encode(aom_yuv(picture("gradient", 160, 200)), q=40,
+                            options=[("deltaq-mode", "3"), ("delta-lf-mode", "1")])),
+        aom_avif(aom_encode(aom_yuv(picture("gradient", 64, 90)), q=40, superres=12)),
     ]
 
 
@@ -414,11 +421,9 @@ def test_every_tool_is_reached(tmp_path):
         "tx_set_intra_1", "tx_set_intra_2", "tx_set_inter_1", "tx_set_inter_2",
         "tx_set_inter_3", "tx_mode_select", "txfm_split", "delta_q", "qm", "deblock_4",
         "deblock_6", "deblock_8", "deblock_14", "cdef_primary", "cdef_secondary", "lr_wiener",
-        "lr_sgrproj", "lr_switchable", "intrabc"}
+        "lr_sgrproj", "lr_switchable", "intrabc", "delta_lf", "cdef_422", "superres"}
     reached = set(av1_recon.REACHED)
     assert tools <= reached, sorted(tools - reached)
-    # no writer here sets delta_lf_present or writes CDEF at 4:2:2 (ROADMAP queue 1)
-    assert "delta_lf" not in reached
 
 
 def test_intra_block_copy_reads_past_the_frame_edge(tmp_path):
@@ -460,16 +465,20 @@ def test_cut_and_flipped_lossy_files_read_as_cv2(tmp_path):
 
 
 def test_film_grain_and_superres_raise_naming_them(tmp_path):
-    """Film grain raised naming itself until the port applied it: the
-    grain file now reads to cv2's array (``test_torch_avif_grain*.py``
-    hold the survey).  Superres still raises naming itself."""
+    """Film grain and superres raised naming themselves until the port read
+    them: the grain file and a libaom superres file now read to cv2's
+    arrays (``test_torch_avif_grain*.py`` and
+    ``test_torch_avif_superres.py`` hold the surveys), and the hand-built
+    superres header, cut short after its denominator, reads as None, as
+    libaom refuses it."""
     grain = film_grain_avif()
     assert check(tmp_path, grain, "grain.avif").std() > 1  # the grain is there
-    superres = tmp_path / "superres.avif"
-    superres.write_bytes(avif_rebuild(cv2_lossy(picture("flat", 16, 16), 50),
-                                      payload=av1_superres_obus()))
-    with pytest.raises(UnsupportedFormat, match="superres"):
-        imread(str(superres))
+    superres = aom_avif(aom_encode(aom_yuv(picture("gradient", 40, 70)), q=30, superres=14))
+    assert check(tmp_path, superres, "superres.avif").shape == (40, 70, 3)
+    cut = tmp_path / "cut.avif"
+    cut.write_bytes(avif_rebuild(cv2_lossy(picture("flat", 16, 16), 50),
+                                 payload=av1_superres_obus()))
+    assert cv2_rgb(cut) is None and imread(str(cut)) is None
 
 
 # -- end to end ---------------------------------------------------------------------

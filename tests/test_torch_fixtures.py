@@ -573,14 +573,25 @@ def _avif_forms(bgr, big):
     CC(C)C), a 2 x 2 grid of cv2's lossless 64 x 64 tiles, Pillow's
     lossless three-frame sequence whose first frame is the picture, and
     the 1024 x 1024 drawing with grain test set 1 for the reader
-    timings."""
+    timings.  Superres, from libaom through ``ctypes``
+    (``torch_image_writers.aom_encode``): the picture at quantiser 3 (cv2's
+    default quality, 95) at denominators 9 and 15, at quantiser 10 and
+    denominator 16 with loop restoration (self-guided units; 10, 11, 12, 14
+    and 16 without it read CC(C)C or CC(C)N at some quantiser), and the
+    1024 x 1024 drawing at denominator 16 with switchable restoration for
+    the reader timings."""
     import io
 
     import cv2
     from PIL import Image
-    from torch_image_writers import avif_grid
+    from torch_image_writers import aom_avif, aom_encode, aom_yuv, avif_grid
 
     rgb = np.ascontiguousarray(bgr[..., ::-1])
+
+    def superres(img, q, denom, **kw):
+        return aom_avif(aom_encode(aom_yuv(np.ascontiguousarray(img)), q=q, superres=denom, **kw))
+
+    restoration = [("enable-restoration", "1")]
 
     def cv(img, depth=8):
         params = [cv2.IMWRITE_AVIF_QUALITY, 100, cv2.IMWRITE_AVIF_DEPTH, depth]
@@ -646,7 +657,11 @@ def _avif_forms(bgr, big):
                                            for y in (0, 64) for x in (0, 64)], 2, 2),
             "demo_0_anim.avif": sequence([rgb, rgb[::-1], rgb[:, ::-1]]),
             "big_grain.avif": pil_lossy(np.ascontiguousarray(big[..., ::-1]),
-                                        advanced={"film-grain-test": "1"})}
+                                        advanced={"film-grain-test": "1"}),
+            "demo_0_sr9_superres.avif": superres(rgb, 3, 9),
+            "demo_0_sr15_superres.avif": superres(rgb, 3, 15),
+            "demo_0_lr_superres.avif": superres(rgb, 10, 16, speed=2, options=restoration),
+            "big_superres.avif": superres(big[..., ::-1], 20, 16, speed=2, options=restoration)}
 
 
 def _jpeg2000_forms(bgr, big):

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, superres_avif,
+from torch_image_writers import (encode_jpeg, encode_tiff, exif_block, rescaled_avif,
                                  with_jpeg_exif, with_png_exif)
 
 from molnextr_tpu_torch.data.exif import apply_orientation, exif_orientation
@@ -141,9 +141,10 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
     """JPEG 2000 and AVIF raised here until the port read them: now this cut
     JP2 file and this stub AVIF file read as None, as cv2 reads them, and a
     whole JP2 file to its pixels (``test_torch_jpeg2000.py`` holds the
-    reader).  An AVIF whose frame uses superres, which the port does not
-    decode yet, raises naming it (film grain, this test's form until the
-    port applied it, reads; ``test_torch_avif*.py`` hold the reader).
+    reader).  An AVIF whose ``ispe`` is another size than its frame, which
+    libavif rescales and the port does not, raises naming it (film grain
+    and superres, this test's forms until the port read them, read;
+    ``test_torch_avif*.py`` hold the reader).
     The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
     held before the port read them are read to cv2's arrays (the next test
     and each format's own test file)."""
@@ -159,9 +160,10 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
         np.testing.assert_array_equal(cv2_rgb(path), img)
         np.testing.assert_array_equal(imread(str(path)), img)
     else:
-        path = tmp_path / "superres.avif"
-        path.write_bytes(superres_avif())
-        with pytest.raises(UnsupportedFormat, match="superres"):
+        path = tmp_path / "rescaled.avif"
+        path.write_bytes(rescaled_avif())
+        assert cv2_rgb(path).shape == (32, 32, 3)
+        with pytest.raises(UnsupportedFormat, match="ispe size"):
             imread(str(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 

@@ -40,14 +40,24 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   :func:`av1_with_grain` (with :func:`film_grain_bits`): an AV1 key
   frame's OBUs given any ``film_grain_params``; :func:`av1_hidden_key`: a
   key frame hidden and shown by ``show_existing_frame``;
-  :func:`av1_superres_obus` and :func:`superres_avif`: the OBUs of an AV1
-  key frame that uses superres, as far as that bit (no writer here makes
-  one), for :func:`avif_rebuild`'s ``payload``; :func:`avif_grid`: a
-  ``grid`` of any tiles, output size and field width, with an alpha grid.
+  :func:`av1_superres_obus`: the OBUs of an AV1 key frame that uses
+  superres, cut short, for :func:`avif_rebuild`'s ``payload``;
+  :func:`rescaled_avif`: an ``ispe`` twice the frame's size;
+  :func:`avif_grid`: a ``grid`` of any tiles, output size and field width,
+  with an alpha grid; :func:`avif_with_alpha`: an item with an alpha item
+  of any AVIF's stream;
+* :func:`aom_encode` (with :func:`aom_default_config`, :class:`AomEncCfg`
+  and :class:`AomImage`): one AV1 key frame from the libaom that cv2
+  ships, driven through ``ctypes``, at 8 or 10 bits, 4:2:0, 4:2:2, 4:4:4
+  or monochrome, with superres at any denominator and libaom's named
+  options (tiles, restoration, ``deltaq-mode``, ``delta-lf-mode``, film
+  grain); :func:`aom_yuv`: an RGB picture's planes for it;
+  :func:`aom_avif`: its OBUs in a one-item AVIF.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -2810,22 +2820,26 @@ def film_grain_avif(seed: int = 0, level: int = 25, size: int = 64,
     return buf.getvalue()
 
 
-def superres_avif() -> bytes:
-    """A one-item AVIF around :func:`av1_superres_obus`: a form the port
-    refuses, naming superres."""
+def rescaled_avif() -> bytes:
+    """A one-item AVIF whose ``ispe`` (32 x 32) is twice its AV1 frame's
+    size (16 x 16): libavif rescales the frame, a form the port refuses,
+    naming the ``ispe`` size."""
     import cv2
 
     ok, buf = cv2.imencode(".avif", np.full((16, 16, 3), 200, np.uint8),
                            [cv2.IMWRITE_AVIF_QUALITY, 50])
     assert ok
-    return avif_rebuild(buf.tobytes(), payload=av1_superres_obus())
+    data = bytearray(buf.tobytes())
+    k = data.find(b"ispe") + 8
+    struct.pack_into(">II", data, k, 32, 32)
+    return bytes(data)
 
 
 def av1_superres_obus(size: int = 16) -> bytes:
     """A reduced still-picture sequence header (profile 0, 8-bit 4:2:0,
     ``enable_superres``) and a frame header OBU whose ``use_superres`` is
-    set, cut after that bit: libaom would go on to the denominator, the
-    port stops there."""
+    set, cut after that bit and its denominator: a header libaom refuses
+    (it runs past its OBU)."""
     def obu(kind: int, bits: str) -> bytes:
         bits += "1" + "0" * ((-len(bits) - 1) % 8)  # trailing_bits
         body = int(bits, 2).to_bytes(len(bits) // 8, "big")
@@ -3006,3 +3020,307 @@ def av1_hidden_key(payload: bytes, slot: int = 0, showable: bool = True) -> byte
             continue
         units.append((kind, head, body))
     return _av1_join(units)
+
+
+
+# ----- libaom through ctypes: the AV1 encoder that cv2 ships ---------------------
+
+class _FixedBuf(ctypes.Structure):
+    _fields_ = [("buf", ctypes.c_void_p), ("sz", ctypes.c_size_t)]
+
+
+_U, _I = ctypes.c_uint, ctypes.c_int
+# aom_codec_enc_cfg_t as libaom 3.x's aom_encoder.h lays it out; its
+# cfg_options_t (encoder_cfg) is 35 unsigned ints
+_ENC_CFG_FIELDS = [
+    ("g_usage", _U), ("g_threads", _U), ("g_profile", _U), ("g_w", _U), ("g_h", _U),
+    ("g_limit", _U), ("g_forced_max_frame_width", _U), ("g_forced_max_frame_height", _U),
+    ("g_bit_depth", _I), ("g_input_bit_depth", _U), ("g_timebase_num", _I),
+    ("g_timebase_den", _I), ("g_error_resilient", _U), ("g_pass", _I), ("g_lag_in_frames", _U),
+    ("rc_dropframe_thresh", _U), ("rc_resize_mode", _U), ("rc_resize_denominator", _U),
+    ("rc_resize_kf_denominator", _U), ("rc_superres_mode", _U),
+    ("rc_superres_denominator", _U), ("rc_superres_kf_denominator", _U),
+    ("rc_superres_qthresh", _U), ("rc_superres_kf_qthresh", _U), ("rc_end_usage", _I),
+    ("rc_twopass_stats_in", _FixedBuf), ("rc_firstpass_mb_stats_in", _FixedBuf),
+    ("rc_target_bitrate", _U), ("rc_min_quantizer", _U), ("rc_max_quantizer", _U),
+    ("rc_undershoot_pct", _U), ("rc_overshoot_pct", _U), ("rc_buf_sz", _U),
+    ("rc_buf_initial_sz", _U), ("rc_buf_optimal_sz", _U), ("rc_2pass_vbr_bias_pct", _U),
+    ("rc_2pass_vbr_minsection_pct", _U), ("rc_2pass_vbr_maxsection_pct", _U),
+    ("fwd_kf_enabled", _I), ("kf_mode", _I), ("kf_min_dist", _U), ("kf_max_dist", _U),
+    ("sframe_dist", _U), ("sframe_mode", _U), ("large_scale_tile", _U), ("monochrome", _U),
+    ("full_still_picture_hdr", _U), ("save_as_annexb", _U), ("tile_width_count", _I),
+    ("tile_height_count", _I), ("tile_widths", _I * 64), ("tile_heights", _I * 64),
+    ("use_fixed_qp_offsets", _U), ("fixed_qp_offsets", _I * 5), ("encoder_cfg", _U * 35)]
+
+
+class AomEncCfg(ctypes.Structure):
+    """``aom_codec_enc_cfg_t`` (904 bytes)."""
+    _fields_ = _ENC_CFG_FIELDS
+
+
+class AomImage(ctypes.Structure):
+    """``aom_image_t``."""
+    _fields_ = [("fmt", _I), ("cp", _I), ("tc", _I), ("mc", _I), ("monochrome", _I),
+                ("csp", _I), ("range", _I), ("w", _U), ("h", _U), ("bit_depth", _U),
+                ("d_w", _U), ("d_h", _U), ("r_w", _U), ("r_h", _U), ("x_chroma_shift", _U),
+                ("y_chroma_shift", _U), ("planes", ctypes.c_void_p * 3), ("stride", _I * 3),
+                ("sz", ctypes.c_size_t), ("bps", _I), ("temporal_id", _I), ("spatial_id", _I),
+                ("user_priv", ctypes.c_void_p), ("img_data", ctypes.c_void_p),
+                ("img_data_owner", _I), ("self_allocd", _I), ("metadata", ctypes.c_void_p),
+                ("fb_priv", ctypes.c_void_p)]
+
+
+AOM_USAGE_ALL_INTRA = 2
+AOM_SUPERRES_FIXED = 1
+_AOM_Q = 3
+_AOM_HIGHBITDEPTH_FLAG = 0x40000  # AOM_CODEC_USE_HIGHBITDEPTH
+_AOM_ABI = {}
+
+
+def libaom():
+    """The libaom that cv2 ships (``opencv_python.libs/libaom-*.so.3.14.1``),
+    its entry points typed."""
+    if "lib" not in _AOM_ABI:
+        import glob
+        import os
+
+        import cv2
+
+        libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
+        (path,) = glob.glob(os.path.join(libs, "libaom-*.so.3.14.1"))
+        lib = ctypes.CDLL(path)
+        vp = ctypes.c_void_p
+        lib.aom_codec_av1_cx.restype = vp
+        lib.aom_codec_enc_config_default.argtypes = [vp, ctypes.POINTER(AomEncCfg), _U]
+        lib.aom_codec_enc_init_ver.argtypes = [vp, vp, ctypes.POINTER(AomEncCfg), ctypes.c_long,
+                                               _I]
+        lib.aom_codec_set_option.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+        lib.aom_img_wrap.restype = vp
+        lib.aom_img_wrap.argtypes = [ctypes.POINTER(AomImage), _I, _U, _U, _U, vp]
+        lib.aom_codec_encode.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long]
+        lib.aom_codec_get_cx_data.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.aom_codec_get_cx_data.argtypes = [vp, ctypes.POINTER(vp)]
+        lib.aom_codec_error_detail.restype = ctypes.c_char_p
+        lib.aom_codec_error_detail.argtypes = [vp]
+        lib.aom_codec_destroy.argtypes = [vp]
+        _AOM_ABI["lib"] = lib
+    return _AOM_ABI["lib"]
+
+
+def aom_default_config(usage: int = AOM_USAGE_ALL_INTRA) -> AomEncCfg:
+    """``aom_codec_enc_config_default``'s configuration, the layout checked
+    against the values libaom 3.x writes there: a wrong layout fails here
+    instead of writing a file without superres."""
+    lib = libaom()
+    cfg = AomEncCfg()
+    assert ctypes.sizeof(cfg) == 904
+    assert lib.aom_codec_enc_config_default(lib.aom_codec_av1_cx(), ctypes.byref(cfg), usage) == 0
+    assert (cfg.g_usage, cfg.g_w, cfg.g_h, cfg.g_bit_depth, cfg.g_input_bit_depth) == \
+        (usage, 320, 240, 8, 8)
+    assert (cfg.g_timebase_num, cfg.g_timebase_den) == (1, 30)
+    assert (cfg.rc_resize_mode, cfg.rc_resize_denominator, cfg.rc_resize_kf_denominator) == \
+        (0, 8, 8)
+    assert (cfg.rc_superres_mode, cfg.rc_superres_denominator, cfg.rc_superres_kf_denominator,
+            cfg.rc_superres_qthresh, cfg.rc_superres_kf_qthresh) == (0, 8, 8, 63, 32)
+    assert (cfg.rc_target_bitrate, cfg.rc_min_quantizer, cfg.rc_max_quantizer) == (256, 0, 63)
+    assert (cfg.rc_buf_sz, cfg.rc_buf_initial_sz, cfg.rc_buf_optimal_sz) == (6000, 4000, 5000)
+    assert list(cfg.fixed_qp_offsets) == [-1] * 5
+    assert list(cfg.encoder_cfg)[1:4] == [0, 128, 4]  # superblock, max and min partition
+    return cfg
+
+
+def _aom_init(lib, ctx, iface, cfg: AomEncCfg, flags: int) -> None:
+    """``aom_codec_enc_init_ver`` at the library's encoder ABI version, which
+    it establishes: any other version is refused as ABI_MISMATCH (3)."""
+    versions = [_AOM_ABI["ver"]] if "ver" in _AOM_ABI else range(1, 100)
+    for ver in versions:
+        rc = lib.aom_codec_enc_init_ver(ctx, iface, ctypes.byref(cfg), flags, ver)
+        if rc != 3:
+            break
+    assert rc == 0, (rc, lib.aom_codec_error_detail(ctx))
+    _AOM_ABI["ver"] = ver
+
+
+def aom_encode(yuv: Sequence[np.ndarray], depth: int = 8, subsampling: str = "4:2:0",
+               q: int = 30, speed: int = 6, superres: int = 8,
+               options: Sequence[Tuple[str, str]] = (), usage: int = AOM_USAGE_ALL_INTRA,
+               grain_table_text: Optional[str] = None) -> bytes:
+    """One AV1 key frame from libaom, as OBUs without the temporal
+    delimiter.  ``yuv`` is the Y plane, or Y, U and V at the chroma size
+    of ``subsampling`` (4:2:0, 4:2:2, 4:4:4; 4:0:0 is monochrome), samples
+    of ``depth`` bits (8, 10 or 12, which is profile 2); ``q`` the
+    quantiser (0-63); ``superres`` the key frame's superres denominator
+    (9-16: FIXED mode; 8 none); ``options``
+    libaom's named options (``enable-restoration``, ``tile-columns``,
+    ``deltaq-mode``, ``delta-lf-mode``, ...); ``grain_table_text`` a film
+    grain table, passed as ``film-grain-table``."""
+    import os
+    import tempfile
+
+    lib = libaom()
+    cfg = aom_default_config(usage)
+    h, w = yuv[0].shape
+    mono = subsampling == "4:0:0"
+    cfg.g_w, cfg.g_h = w, h
+    cfg.g_profile = 2 if depth == 12 else {"4:2:0": 0, "4:0:0": 0, "4:4:4": 1,
+                                           "4:2:2": 2}[subsampling]
+    cfg.g_bit_depth = cfg.g_input_bit_depth = depth
+    cfg.monochrome = int(mono)
+    cfg.g_limit, cfg.g_lag_in_frames = 1, 0
+    cfg.rc_end_usage = _AOM_Q
+    cfg.rc_min_quantizer = cfg.rc_max_quantizer = q
+    if superres != 8:
+        cfg.rc_superres_mode = AOM_SUPERRES_FIXED
+        cfg.rc_superres_denominator = cfg.rc_superres_kf_denominator = superres
+    iface = lib.aom_codec_av1_cx()
+    ctx = ctypes.create_string_buffer(512)  # aom_codec_ctx_t, with room to spare
+    _aom_init(lib, ctx, iface, cfg, _AOM_HIGHBITDEPTH_FLAG if depth > 8 else 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = [("cpu-used", str(speed)), ("cq-level", str(q))] + list(options)
+        if grain_table_text is not None:
+            path = os.path.join(tmp, "grain.tbl")
+            with open(path, "w") as f:
+                f.write(grain_table_text)
+            opts.append(("film-grain-table", path))
+        try:
+            for name, value in opts:
+                assert lib.aom_codec_set_option(ctx, name.encode(), value.encode()) == 0, \
+                    (name, lib.aom_codec_error_detail(ctx))
+            return _aom_frame(lib, ctx, yuv, depth, subsampling)
+        finally:
+            lib.aom_codec_destroy(ctx)
+
+
+def _aom_frame(lib, ctx, yuv, depth: int, subsampling: str) -> bytes:
+    h, w = yuv[0].shape
+    sx, sy = {"4:2:0": (1, 1), "4:0:0": (1, 1), "4:4:4": (0, 0), "4:2:2": (1, 0)}[subsampling]
+    if subsampling == "4:0:0":
+        mid = np.full(((h + sy) >> sy, (w + sx) >> sx), 1 << (depth - 1))
+        yuv = [yuv[0], mid, mid]
+    high = depth > 8
+    fmt = 0x100 | {(1, 1): 2, (1, 0): 5, (0, 0): 6}[(sx, sy)] | (0x800 if high else 0)
+    dtype = np.uint16 if high else np.uint8
+    buf = ctypes.create_string_buffer(6 * (w + 2) * (h + 2) * (2 if high else 1))
+    img = AomImage()
+    assert lib.aom_img_wrap(ctypes.byref(img), fmt, w, h, 1, buf)
+    assert (img.d_w, img.d_h, img.x_chroma_shift, img.y_chroma_shift) == (w, h, sx, sy)
+    assert img.planes[0] == ctypes.addressof(buf)
+    img.monochrome = int(subsampling == "4:0:0")
+    img.bit_depth = depth
+    for p, plane in enumerate(yuv):
+        a = np.ascontiguousarray(plane, dtype)
+        assert a.shape == (((h + sy) >> sy, (w + sx) >> sx) if p else (h, w))
+        for row in range(a.shape[0]):
+            ctypes.memmove(img.planes[p] + row * img.stride[p], a[row].ctypes.data, a[row].nbytes)
+    out = b""
+    for frame in (ctypes.addressof(img), None):  # the frame, then the flush
+        assert lib.aom_codec_encode(ctx, frame, 0, 1, 0) == 0, lib.aom_codec_error_detail(ctx)
+        it = ctypes.c_void_p()
+        while True:
+            pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+            if not pkt:
+                break
+            base = ctypes.addressof(pkt.contents)
+            if ctypes.c_int.from_address(base).value == 0:  # AOM_CODEC_CX_FRAME_PKT
+                ptr = ctypes.c_void_p.from_address(base + 8).value
+                size = ctypes.c_size_t.from_address(base + 16).value
+                out += ctypes.string_at(ptr, size)
+    return _av1_join([u for u in _av1_units(out) if u[0] != 2])  # no temporal delimiter
+
+
+def aom_avif(obus: bytes, full: bool = True, matrix: int = 6, **rebuild) -> bytes:
+    """A one-item AVIF around libaom's OBUs: ``av1C``, ``pixi`` and ``ispe``
+    (the upscaled size: the sequence header's) from the sequence header, an
+    nclx ``colr`` of ``matrix`` and range; ``rebuild`` goes to
+    :func:`avif_rebuild`."""
+    from molnextr_tpu_torch.data import av1_obu
+
+    seq = next(av1_obu.sequence_header(av1_obu.BitReader(body))
+               for kind, _, body in _av1_units(obus) if kind == 1)
+    flags = ((seq.bit_depth > 8) << 6) | ((seq.bit_depth == 12) << 5) | (seq.mono << 4) | \
+        (seq.ss_x << 3) | (seq.ss_y << 2)
+    av1c = _box(b"av1C", bytes([0x81, (seq.profile << 5) | 31, flags, 0]))
+    pixi = _full(b"pixi", 0, 0, bytes([seq.planes] + [seq.bit_depth] * seq.planes))
+    ispe = _full(b"ispe", 0, 0, struct.pack(">II", seq.max_width, seq.max_height))
+    colr = _box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, matrix, 0x80 if full else 0))
+    return avif_rebuild(ispe + pixi + av1c + colr + _box(b"mdat", obus), **rebuild)
+
+
+def avif_with_alpha(colour: bytes, alpha: bytes, alpha_payload: Optional[bytes] = None,
+                    alpha_ispe: Optional[Tuple[int, int]] = None) -> bytes:
+    """A one-item AVIF (``colour``) with an alpha item: the ``av01`` item
+    of ``alpha`` (its ``ispe``, ``pixi``, ``av1C`` and AV1 payload, or
+    ``alpha_payload``; its ``ispe`` replaced by ``alpha_ispe``) as an
+    ``auxl`` of the colour item, with an ``auxC`` alpha URN."""
+    props: List[bytes] = []
+
+    def prop(box: bytes) -> int:
+        if box not in props:
+            props.append(box)
+        return props.index(box) + 1
+
+    items = []  # (id, [(property index, essential)], payload)
+    for item_id, single in ((1, colour), (2, alpha)):
+        boxes = avif_boxes(single)
+        ps = []
+        for kind in (b"ispe", b"pixi", b"av1C", b"colr"):
+            if kind not in boxes or (item_id == 2 and kind == b"colr"):
+                continue
+            box = single[boxes[kind][0] : boxes[kind][1]]
+            if kind == b"ispe" and item_id == 2 and alpha_ispe is not None:
+                box = _full(b"ispe", 0, 0, struct.pack(">II", *alpha_ispe))
+            ps.append((prop(box), kind in (b"av1C", b"colr")))
+        payload = single[boxes[b"mdat"][0] + 8 : boxes[b"mdat"][1]]
+        if item_id == 2:
+            ps.append((prop(_full(b"auxC", 0, 0,
+                                  b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0")), True))
+            if alpha_payload is not None:
+                payload = alpha_payload
+        items.append((item_id, ps, payload))
+    ftyp = _box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
+    hdlr = _full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full(b"pitm", 0, 0, struct.pack(">H", 1))
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", 2) + b"".join(
+        _full(b"infe", 2, 0, struct.pack(">HH", i, 0) + b"av01\0") for i, _, _ in items))
+    iref = _full(b"iref", 0, 0, _box(b"auxl", struct.pack(">HHH", 2, 1, 1)))
+    assoc = b"".join(struct.pack(">HB", i, len(ps)) + bytes(k | (0x80 if e else 0) for k, e in ps)
+                     for i, ps, _ in items)
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props))
+                + _full(b"ipma", 0, 0, struct.pack(">I", 2) + assoc))
+
+    def meta(offset: int) -> bytes:
+        entries = b""
+        for i, _, payload in items:
+            entries += struct.pack(">HHHII", i, 0, 1, offset, len(payload))
+            offset += len(payload)
+        iloc = _full(b"iloc", 0, 0, bytes([0x44, 0x00]) + struct.pack(">H", 2) + entries)
+        return _full(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref + iprp)
+
+    head = ftyp + meta(0)
+    head = ftyp + meta(len(head) + 8)
+    return head + _box(b"mdat", b"".join(p for _, _, p in items))
+
+
+def aom_yuv(rgb: np.ndarray, subsampling: str = "4:2:0", depth: int = 8) -> List[np.ndarray]:
+    """The planes of an RGB uint8 picture for :func:`aom_encode`: BT.601 at
+    full range (the matrix :func:`aom_avif` names by default), chroma
+    averaged over its 2 x 2 or 2 x 1 blocks, scaled to ``depth`` bits."""
+    f = rgb.astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    u = (f[..., 2] - y) / 1.772 + 128
+    v = (f[..., 0] - y) / 1.402 + 128
+    top = (1 << depth) - 1
+
+    def scale(a):
+        return np.clip(np.rint(a * top / 255), 0, top).astype(np.int64)
+
+    if subsampling == "4:0:0":
+        return [scale(y)]
+    sx, sy = {"4:2:0": (1, 1), "4:2:2": (1, 0), "4:4:4": (0, 0)}[subsampling]
+    h, w = y.shape
+
+    def sub(c):
+        c = np.pad(c, ((0, (-h) % (1 << sy)), (0, (-w) % (1 << sx))), mode="edge")
+        return c.reshape(c.shape[0] >> sy, 1 << sy, c.shape[1] >> sx, 1 << sx).mean((1, 3))
+
+    return [scale(y), scale(sub(u)), scale(sub(v))]
