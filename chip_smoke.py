@@ -106,27 +106,35 @@ failure:
    10-bit 4:2:0, film grain, a grid of lossless tiles, the first frame of a
    lossless sequence, the 1024 x 1024 drawing with grain; libaom's superres
    at denominators 9 and 15, at 16 with loop restoration, and the 1024 x
-   1024 drawing at 16 with restoration)
+   1024 drawing at 16 with restoration; frames of 160 and 96 a side under
+   a 128 x 128 ``ispe``, which libavif rescales, and a 768 x 768 frame of
+   the drawing under a 1024 x 1024 one; the G4 bits as CCITT RLE/W strips
+   at odd file offsets; a JP2 with Part 2 ``CBD``/``MCT``/``MCC``/``MCO``
+   markers)
    read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
    demo_0.png's and to the JAX package's on that form; tokens equal to
    demo_0.png's, the lossy JPEG, HDR, WebP, 9/7, JPEG-in-TIFF, Lab,
-   ThunderScan and AVIF forms' (superres too) within one coordinate bin); the new lossless forms
-   (WebP's, JPEG 2000's, AVIF's with the grid and the sequence, and the
-   YCbCr 1x1, CMYK, signed, LogL and lossless JPEG forms too) at
+   ThunderScan and AVIF forms' (superres and rescaled too) within one
+   coordinate bin); the new lossless forms
+   (WebP's, JPEG 2000's with the Part 2 one, AVIF's with the grid and the
+   sequence, and the YCbCr 1x1, CMYK, signed, LogL and lossless JPEG forms
+   too) at
    full width (``Config()``, seeded weights, bf16, int8 KV cache) in one
    batch with demo_0.png, tokens all equal, launches counted; which of the
    files this machine's cv2 reads to the same arrays (the new TIFF and
    JPEG forms on a line of their own), the shapes it reads the WebP files
    to, whether it reads JPEG 2000 at all and its own ms on the 1024 x 1024
    files (information only), the 10-bit, grain, grid, sequence and superres AVIF
-   forms on a line of their own (None, or the pixels that differ); the readers' host
+   forms and the rescaled AVIF, RLE/W and Part 2 forms on lines of their
+   own (None, or the pixels that differ); the readers' host
    ms per image and per
    megapixel on 1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF
    G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
-   JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy, grained and
-   superres AVIF (the grain step's and the superres upscaling's ms apart);
+   JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy, grained,
+   superres and rescaled AVIF (the grain step's, the superres upscaling's
+   and libyuv's rescaling's ms apart);
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -241,7 +249,8 @@ READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
-                "big_lossless.avif", "big_lossy.avif", "big_grain.avif", "big_superres.avif")
+                "big_lossless.avif", "big_lossy.avif", "big_grain.avif", "big_superres.avif",
+                "big_rescaled.avif")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2077,7 +2086,7 @@ def image_forms(torch, card, bundle, work, want):
             raise AssertionError(f"forms/{name}: tokens {row.tolist()} against demo_0.png's "
                                  f"{seq[0].tolist()}")
     log(f"  tokens against demo_0.png's (positions that differ; JPEG, HDR, lossy WebP, "
-        f"9/7 and lossy AVIF forms by one coordinate bin at most, others none): "
+        f"9/7, lossy and rescaled AVIF forms by one coordinate bin at most, others none): "
         f"{json.dumps(token_gaps)}")
     del api
     full_width = forms_full_width(torch, png, {n: images[n] for n in demo
@@ -2097,16 +2106,21 @@ def image_forms(torch, card, bundle, work, want):
             "same array (0), None (null) or the pixels that differ (information): "
             + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
                 "pixels_differing") for n in NEW_AVIF_FORMS}))
+        log("  the rescaled AVIF, RLE/W and Part 2 forms by this machine's cv2: the same "
+            "array (0), None (null) or the pixels that differ (information): "
+            + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
+                "pixels_differing") for n in RESCALE_RLEW_PART2_FORMS}))
         log("  the files this machine's cv2 reads otherwise, as None (null) or as other "
             "pixels (how many differ from the stored array; information): "
             f"{json.dumps(json.loads(probe.stdout)['differing'])}")
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
-    from molnextr_tpu_torch.data import av1_grain, av1_superres
+    from molnextr_tpu_torch.data import av1_grain, av1_superres, yuv_scale
 
     steps = {"grain_ms": (av1_grain, "apply_grain"),
-             "upscale_ms": (av1_superres, "upscale_planes")}
+             "upscale_ms": (av1_superres, "upscale_planes"),
+             "scale_ms": (yuv_scale, "scale_plane")}
     step_ms = {key: [] for key in steps}
 
     def timed_step(key, fn):  # a step of a read, timed apart from the decode
@@ -2162,17 +2176,23 @@ def image_forms(torch, card, bundle, work, want):
 # JPEG 2000 and AVIF readers
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
                "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif", "_lossy.avif",
-               "_10bit.avif", "_grain.avif", "_superres.avif")
+               "_10bit.avif", "_grain.avif", "_superres.avif", "_rescaled_down.avif",
+               "_rescaled_up.avif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
                       "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",
-                      "_lossless.avif", "_grid.avif", "_anim.avif")
+                      "_lossless.avif", "_grid.avif", "_anim.avif", "_part2.jp2")
 # the AVIF forms the reader gained with 10- and 12-bit 4:2:0, film grain, grids,
 # sequences and superres: whether the card machine's cv2 reads them alike is
 # logged apart
 NEW_AVIF_FORMS = ("demo_0_10bit.avif", "demo_0_grain.avif", "demo_0_grid.avif",
                   "demo_0_anim.avif", "big_grain.avif", "demo_0_sr9_superres.avif",
                   "demo_0_sr15_superres.avif", "demo_0_lr_superres.avif", "big_superres.avif")
+# the forms the readers gained with libavif's rescaling, CCITT RLE/W and the
+# JPEG 2000 Part 2 markers: whether the card machine's cv2 reads them alike
+# is logged apart
+RESCALE_RLEW_PART2_FORMS = ("demo_0_rescaled_down.avif", "demo_0_rescaled_up.avif",
+                            "big_rescaled.avif", "demo_0_rlew.tif", "demo_0_part2.jp2")
 # the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
 # TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
 # smoothing: whether the card machine's cv2 reads them alike is logged apart

@@ -55,10 +55,17 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   ``colr`` box (a grid's own, not its tiles') win over the sequence
   header's.
 
+* **Rescaling**: a decoded frame of another size than its ``ispe`` (a
+  track's ``tkhd``, a grid tile's own ``ispe``) is rescaled to it after
+  film grain, as ``avifImageScaleWithLimit`` does: every plane through
+  libyuv's box-filtered ``ScalePlane`` / ``ScalePlane_12``
+  (``data/yuv_scale.py``), chroma to the subsampled size of the target; a
+  frame past 16384 a side is not rescaled (None).  An alpha image is
+  checked the same way and, as OpenCV drops it, not rescaled.
+
 An inter frame raises :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat`
-naming itself (ROADMAP queue 1), and so does an ``ispe`` size other than
-the frame's (OpenCV then resamples).  An image past libavif's 32768 a
-side or OpenCV's 2^30 pixels reads as None.
+naming itself (ROADMAP queue 1).  An image past libavif's limits (32768 a
+side, 16384 x 16384 pixels) reads as None.
 """
 
 from __future__ import annotations
@@ -68,9 +75,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from molnextr_tpu_torch.data import yuv_scale
 from molnextr_tpu_torch.data.image import UnsupportedFormat
 
-_MAX_PIXELS = 1 << 30  # OpenCV's CV_IO_MAX_IMAGE_PIXELS
+_MAX_PIXELS = 16384 * 16384  # libavif's imageSizeLimit (OpenCV's 2^30 is larger)
 _MAX_DIMENSION = 32768  # libavif's imageDimensionLimit
 _UNIQUE_META = (b"hdlr", b"pitm", b"iloc", b"iinf", b"iref", b"iprp", b"idat")
 _KNOWN_PROPS = (b"ispe", b"pixi", b"av1C", b"colr", b"irot", b"imir", b"clap", b"auxC",
@@ -505,18 +513,20 @@ def _read(data: bytes):
     f = _Avif(data)
     if f.from_track:
         item, payload, size, track = _track_image(f)
-        planes, seq = _decode(payload, *size)
+        planes, seq = _decode(payload, size)
         first = item
         alpha = _alpha_track(f, track)
-        if alpha is not None and _decode(alpha)[1].bit_depth != seq.bit_depth:
-            raise AVIFError("AVIF: an alpha track of another depth than the colour track")
+        if alpha is not None and (_decode(*alpha, alpha=True)[1].bit_depth != seq.bit_depth
+                                  or alpha[1] != size):  # the sizes both are rescaled to
+            raise AVIFError("AVIF: an alpha track of another depth or size than the colour "
+                            "track")
     else:
         item = _primary(f)
         alpha = _alpha_item(f, item)
         if item.type == b"grid":
             planes, seq, first = _grid(f, item)
         else:
-            planes, seq = _decode(f.payload(item), *_ispe(f, item))
+            planes, seq = _decode(f.payload(item), _ispe(f, item))
             first = item
         if alpha is not None:
             _decode_alpha(f, alpha, _ispe(f, item), seq.bit_depth)
@@ -560,15 +570,16 @@ def _track_image(f: _Avif) -> Tuple[_Item, bytes, Tuple[int, int], _Track]:
     return item, f.data[offset : offset + size], (w, h), track
 
 
-def _alpha_track(f: _Avif, colour: _Track) -> Optional[bytes]:
+def _alpha_track(f: _Avif, colour: _Track) -> Optional[Tuple[bytes, Tuple[int, int]]]:
     """The first sample of the alpha track libavif pairs with the colour
     track (the first with an id, samples and an ``av01`` entry whose
-    ``auxl`` reference names the colour track first), or None."""
+    ``auxl`` reference names the colour track first) and its ``tkhd``
+    size, or None."""
     for track in f.tracks:
         if track.id and track.samples and _av01_entry(track) is not None \
                 and track.auxl_for[:1] == [colour.id]:
             offset, size = track.samples[0]
-            return f.data[offset : offset + size]
+            return f.data[offset : offset + size], (track.width, track.height)
     return None
 
 
@@ -577,28 +588,23 @@ def _ispe(f: _Avif, item: _Item) -> Tuple[int, int]:
     ispe.full()
     iw, ih = ispe.u(4), ispe.u(4)
     if not (0 < iw <= _MAX_DIMENSION and 0 < ih <= _MAX_DIMENSION) or iw * ih > _MAX_PIXELS:
-        raise AVIFError(f"AVIF: {iw} x {ih} is past libavif's or OpenCV's limits")
+        raise AVIFError(f"AVIF: {iw} x {ih} is past libavif's limits")
     return iw, ih
 
 
-def _decode(data: bytes, iw: Optional[int] = None, ih: Optional[int] = None):
+def _decode(data: bytes, size: Tuple[int, int], alpha: bool = False):
     """An AV1 image's planes (every plane the sequence codes, each cut to
-    its size, film grain applied) and its sequence header; ``iw`` x ``ih``
-    is the size its ``ispe`` or ``tkhd`` gives, None for an alpha item
-    (whose planes libavif rescales to its ``ispe`` and OpenCV drops)."""
+    its size, film grain applied, then rescaled to ``size``, the (width,
+    height) its ``ispe`` or ``tkhd`` gives) and its sequence header.  The
+    planes of an ``alpha`` image, which OpenCV drops, are checked and not
+    rescaled."""
     from molnextr_tpu_torch.data import av1_block, av1_grain, av1_obu
 
     seq, fr, payload, tiles = av1_obu.parse_obus(data)
     width = fr.upscaled_width  # the size libaom outputs, upscaled under superres
-    other_size = UnsupportedFormat(
-        f"an ispe size ({iw} x {ih}) other than the AV1 frame's ({width} x {fr.height}), "
-        "which libavif rescales, is not read by the port (ROADMAP queue 1)")
-    if iw is not None and width * fr.height > 4 * iw * ih:
-        raise other_size  # not decoded at all: the port would hold it in lists
+    _check_rescale((width, fr.height), size)  # before decoding: None either way
     dec = av1_block.FrameDecoder(seq, fr)
     dec.decode(payload, tiles)
-    if iw is not None and (width, fr.height) != (iw, ih):  # a frame libaom decodes whole
-        raise other_size
     planes = []
     for p, full in enumerate(filtered_planes(dec)):
         sx, sy = dec.ss[p]
@@ -606,7 +612,24 @@ def _decode(data: bytes, iw: Optional[int] = None, ih: Optional[int] = None):
     if fr.grain is not None:  # libaom adds the grain to every shown frame
         planes = av1_grain.apply_grain(planes, fr.grain, seq.bit_depth, seq.ss_x, seq.ss_y,
                                        seq.matrix == 0)
+    if (width, fr.height) != size and not alpha:
+        planes = [yuv_scale.scale_plane(a, (size[0] + sx) >> sx, (size[1] + sy) >> sy,
+                                        seq.bit_depth > 8)
+                  for a, (sx, sy) in zip(planes, dec.ss)]
     return planes, seq
+
+
+def _check_rescale(frame: Tuple[int, int], size: Tuple[int, int]) -> None:
+    """``avifImageScaleWithLimit``'s refusals of a decoded frame of another
+    size than its item's or track's: an empty or too large target, or a
+    frame past 16384 a side (which libyuv is not trusted to scale)."""
+    if frame == size:
+        return
+    (w, h), (iw, ih) = frame, size
+    if not (0 < iw <= _MAX_DIMENSION and 0 < ih <= _MAX_DIMENSION) or iw * ih > _MAX_PIXELS:
+        raise AVIFError(f"AVIF: a rescaling to {iw} x {ih}")
+    if w > yuv_scale.MAX_SOURCE or h > yuv_scale.MAX_SOURCE:
+        raise AVIFError(f"AVIF: a {w} x {h} frame, which libavif does not rescale")
 
 
 def _grid_layout(f: _Avif, item: _Item) -> Tuple[int, int, int, int, List[_Item]]:
@@ -665,7 +688,7 @@ def _decode_alpha(f: _Avif, alpha: _Item, size: Tuple[int, int], depth: int) -> 
         seq = _grid(f, alpha)[1]
     else:
         _check_av01(f, alpha)
-        seq = _decode(f.payload(alpha))[1]
+        seq = _decode(f.payload(alpha), _ispe(f, alpha), alpha=True)[1]
     if _ispe(f, alpha) != size or seq.bit_depth != depth:
         raise AVIFError("AVIF: an alpha of another size or depth than the colour image")
 
@@ -676,7 +699,7 @@ def _grid(f: _Avif, item: _Item):
     each other and the output; the sequence header and the item of the
     first tile."""
     rows, cols, out_w, out_h, tiles = _grid_layout(f, item)
-    decoded = [_decode(f.payload(t), *_ispe(f, t)) for t in tiles]
+    decoded = [_decode(f.payload(t), _ispe(f, t)) for t in tiles]
     planes0, seq0 = decoded[0]
     th, tw = planes0[0].shape
 
@@ -802,9 +825,9 @@ def yuv_to_rgb(planes: List[np.ndarray], bd: int, ss_x: int, ss_y: int, full: bo
         y, u, v = (a >> (bd - 8) for a in (y, u, v))  # 8 bits, chroma before it is upsampled
         bd = 8
     if ss_x and ss_y:
-        u, v = _up_bilinear(u, w, h), _up_bilinear(v, w, h)
+        u, v = yuv_scale.up2_bilinear(u, w, h), yuv_scale.up2_bilinear(v, w, h)
     elif ss_x:
-        u, v = _up_linear(u, w), _up_linear(v, w)
+        u, v = yuv_scale.up_linear(u, w), yuv_scale.up_linear(v, w)
     y = y.astype(np.int64)
     y16 = (y << (16 - bd)) | (y >> (2 * bd - 16))  # libyuv's 16-bit luma (y * 0x0101 at 8)
     u, v = (np.minimum(c >> (bd - 8), 255) for c in (u, v))
@@ -912,44 +935,3 @@ def _libyuv(y16, u, v, yg: int, yb: int, ub: int, ug: int, vg: int, vr: int) -> 
     rgb = np.stack([(y1 + v * vr + yb) >> 6, (y1 - u * ug - v * vg + yb) >> 6,
                     (y1 + u * ub + yb) >> 6], axis=2)
     return np.clip(rgb, 0, 255).astype(np.uint8)
-
-
-def _up_linear(s: np.ndarray, w: int) -> np.ndarray:
-    """libyuv's ``ScaleRowUp2_Linear_Any``: each output pixel 3:1 between
-    the two nearest chroma samples, the first and last copied."""
-    s = s.astype(np.int64)
-    out = np.empty(s.shape[:-1] + (w,), np.int64)
-    n = (w - 1) & ~1
-    if n > 0:
-        a, b = s[..., : n // 2], s[..., 1 : n // 2 + 1]
-        out[..., 1 : n + 1 : 2] = (3 * a + b + 2) >> 2
-        out[..., 2 : n + 1 : 2] = (a + 3 * b + 2) >> 2
-    out[..., 0] = s[..., 0]
-    out[..., w - 1] = s[..., (w - 1) // 2]
-    return out
-
-
-def _up_bilinear(s: np.ndarray, w: int, h: int) -> np.ndarray:
-    """libyuv's ``I420ToRGB24MatrixFilter`` (bilinear) upsampling: the
-    first and (at an even height) last rows linear, each pair of rows
-    between two chroma rows 3:1 both ways (``ScaleRowUp2_Bilinear_Any``)."""
-    s = s.astype(np.int64)
-    out = np.empty((h, w), np.int64)
-    out[0] = _up_linear(s[0], w)
-    n = (w - 1) & ~1
-    half = n // 2
-    pairs = (h - 1) // 2
-    if pairs:
-        for offset, (p, q) in ((1, (s[:pairs], s[1 : pairs + 1])),
-                               (2, (s[1 : pairs + 1], s[:pairs]))):
-            o = out[offset : offset + 2 * pairs : 2]
-            o[:, 0] = (3 * p[:, 0] + q[:, 0] + 2) >> 2
-            if n > 0:
-                pa, pb, qa, qb = p[:, :half], p[:, 1 : half + 1], q[:, :half], q[:, 1 : half + 1]
-                o[:, 1 : n + 1 : 2] = (9 * pa + 3 * pb + 3 * qa + qb + 8) >> 4
-                o[:, 2 : n + 1 : 2] = (3 * pa + 9 * pb + qa + 3 * qb + 8) >> 4
-            last = (w - 1) // 2
-            o[:, w - 1] = (3 * p[:, last] + q[:, last] + 2) >> 2
-    if not h & 1:
-        out[h - 1] = _up_linear(s[pairs], w)
-    return out

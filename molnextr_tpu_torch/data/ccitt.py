@@ -1,5 +1,5 @@
-"""CCITT bilevel decoding for TIFF (compressions 2, 3 and 4), as libtiff's
-``tif_fax3.c`` decodes it.
+"""CCITT bilevel decoding for TIFF (compressions 2, 3, 4 and 32771), as
+libtiff's ``tif_fax3.c`` decodes it.
 
 :func:`decode_strip` is libtiff's own state machine (``Fax3DecodeRLE``,
 ``Fax3Decode1D``, ``Fax3Decode2D``, ``Fax4Decode`` over the ``tif_fax3.h``
@@ -8,6 +8,12 @@ damaged strip reads as libtiff reads it:
 
 * Modified Huffman (compression 2): each row one-dimensional, starting on
   a byte boundary, no EOL codes.
+* RLE/W (compression 32771): Modified Huffman under ``FAXMODE_WORDALIGN``.
+  At the end of a row libtiff drops the bits of its accumulator past a
+  multiple of 16; when none are left and its byte pointer ``cp`` is odd,
+  it skips a byte.  ``cp`` points into the file libtiff maps (the fax codecs
+  take the data as it lies), so the parity is that of the byte's offset in
+  the file: the strip's offset counts.
 * T.4 (compression 3): every row follows an EOL (``SYNC_EOL``: eleven zero
   bits or more, then a one); with ``T4Options`` bit 0 a tag bit after the
   EOL says whether the row is coded in 1-D or 2-D.
@@ -219,13 +225,15 @@ def _i32(v: int) -> int:
 
 
 def decode_strip(data: bytes, width: int, rows: int, compression: int, t4_options: int,
-                 state: FaxState) -> "tuple":
-    """One strip or tile as libtiff's ``Fax3DecodeRLE`` (2), ``Fax3Decode1D``
-    / ``Fax3Decode2D`` (3) or ``Fax4Decode`` (4) decode it, bad codes and
-    lengths repaired as ``tif_fax3.h`` repairs them (``CLEANUP_RUNS``, runs
-    clipped by ``_TIFFFax3fillruns``).  Returns the rows' pixels (rows,
-    width) uint8, 1 black, and whether the decoder reported success; rows it
-    never reached stay 0."""
+                 state: FaxState, odd_offset: bool = False) -> "tuple":
+    """One strip or tile as libtiff's ``Fax3DecodeRLE`` (2 and 32771),
+    ``Fax3Decode1D`` / ``Fax3Decode2D`` (3) or ``Fax4Decode`` (4) decode it,
+    bad codes and lengths repaired as ``tif_fax3.h`` repairs them
+    (``CLEANUP_RUNS``, runs clipped by ``_TIFFFax3fillruns``); ``odd_offset``
+    is the parity of the data's offset in the file, which RLE/W's word
+    alignment reads.  Returns the rows' pixels (rows, width) uint8, 1 black,
+    and whether the decoder reported success; rows it never reached stay
+    0."""
     main, white_t, black_t = _fax_tables()
     out = np.zeros((rows, width), np.uint8)
     runs, nruns = state.runs, state.nruns
@@ -465,7 +473,7 @@ def decode_strip(data: bytes, width: int, rows: int, compression: int, t4_option
                     raise
 
             try:
-                if compression == 2:
+                if compression in (2, 32771):
                     expand_1d()
                 elif compression == 3:
                     sync_eol()
@@ -493,6 +501,10 @@ def decode_strip(data: bytes, width: int, rows: int, compression: int, t4_option
             fill(row, this, st["pa"])
             if compression == 2:
                 clr(acc[1] & 7)  # FAXMODE_BYTEALIGN: the rest of the byte
+            elif compression == 32771:  # FAXMODE_WORDALIGN
+                clr(acc[1] & 15)
+                if acc[1] == 0 and (odd_offset + acc[2]) & 1:
+                    acc[2] += 1
             elif compression == 4 or st["pa"] < this + nruns:
                 setvalue(0)  # the reference's imaginary change
             if state.ref is not None:

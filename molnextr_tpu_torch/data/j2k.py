@@ -24,11 +24,18 @@ returns for a damaged or unusual file is what that code does with it:
   dequantisation, inverse wavelet, inverse RCT/ICT, DC level shift and
   clamp (``data/j2k_dwt.py``), then copied into the image's components.
 
+* Part 2's ``CBD`` (main header: each component's precision and sign,
+  which the clamp after the level shift and OpenCV's depth then use),
+  ``MCT``, ``MCC`` and ``MCO`` (main and tile-part headers), validated as
+  ``opj_j2k_read_*`` validates them.  ``MCO`` sets every level shift to 0,
+  then to the offsets of the first ``MCC`` collection when the stage names
+  it (OpenJPEG's ``opj_j2k_add_mct`` looks at no other); its decorrelation
+  matrix is only checked for its size: ``COD`` refuses the custom
+  transform (``mct`` 2) that would apply it.
+
 Failures raise :class:`J2KError` (a ``ValueError``, which ``data/image.py``
-turns into None as cv2 gives None).  What the port does not decode raises
-``UnsupportedFormat`` naming it: HTJ2K code-blocks (Part 15) and the Part
-2 markers that OpenJPEG would apply (``MCT``, ``MCC``, ``MCO``: component
-transforms and level offsets; ``CBD``: component bit depths).
+turns into None as cv2 gives None).  HTJ2K code-blocks (Part 15), which
+the port does not decode, raise ``UnsupportedFormat`` naming them.
 """
 
 from __future__ import annotations
@@ -48,7 +55,6 @@ SIZ, COD, COC, RGN, QCD, QCC, POC = 0xFF51, 0xFF52, 0xFF53, 0xFF5E, 0xFF5C, 0xFF
 TLM, PLM, PLT, PPM, PPT, SOP, CRG, COM = (0xFF55, 0xFF57, 0xFF58, 0xFF60, 0xFF61, 0xFF91,
                                          0xFF63, 0xFF64)
 CAP, CPF, CBD, MCT, MCC, MCO = 0xFF50, 0xFF59, 0xFF78, 0xFF74, 0xFF75, 0xFF77
-PART2 = {CBD: "CBD", MCT: "MCT", MCC: "MCC", MCO: "MCO"}
 
 # decoder states (J2K_STATE_*)
 ST_MHSIZ, ST_MH, ST_TPHSOT, ST_TPH, ST_NEOC, ST_EOC = 2, 4, 8, 16, 64, 256
@@ -143,6 +149,29 @@ class TCP:
         self.data: Optional[bytearray] = None
         self.current_part = -1
         self.nb_parts = 0
+        self.mct_records: List[MCTRecord] = []
+        self.mcc_slots: List[MCCRecord] = []  # records, then slots a new one reuses
+        self.nb_mcc = 0
+
+
+class MCTRecord:
+    """An ``MCT`` array (``opj_mct_data_t``): index, array and element
+    types, its bytes (None where a second ``Ymct`` left it without)."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self.array_type = self.element_type = 0
+        self.data: Optional[bytes] = None
+
+
+class MCCRecord:
+    """An ``MCC`` collection (``opj_simple_mcc_decorrelation_data_t``)."""
+
+    def __init__(self):
+        self.index = self.nb_comps = 0
+        self.irreversible = False
+        self.decorrelation: Optional[MCTRecord] = None
+        self.offset: Optional[MCTRecord] = None
 
 
 # ----- marker segments -----------------------------------------------------
@@ -419,14 +448,171 @@ def _read_cap(d, seg: bytes) -> None:
         raise J2KError("Error reading CAP marker")
 
 
-def _read_part2(d, seg: bytes) -> None:
-    raise _unsupported(f"Part 2 marker {PART2[d.marker]}")
+# ----- Part 2: component bit depths and component transforms -----------------
+
+_MCT_ELEMENT = (2, 4, 4, 8)  # int16, int32, float32, float64
+
+
+def _read_cbd(d, seg: bytes) -> None:
+    """``opj_j2k_read_cbd``: ``Ncbd`` (the component count) and each
+    component's depth and sign byte, in place of ``SIZ``'s."""
+    n = len(d.comps)
+    if len(seg) != n + 2 or _be(seg, 0, 2) != n:
+        raise J2KError("Error reading CBD marker")
+    for comp, v in zip(d.comps, seg[2:]):
+        comp.sgnd, comp.prec = v >> 7, (v & 0x7F) + 1
+        if comp.prec > 31:
+            raise J2KError(f"Invalid values for comp : prec={comp.prec}")
+
+
+def _read_mct(d, seg: bytes) -> None:
+    """``opj_j2k_read_mct``: a record of ``Zmct`` 0 and ``Ymct`` 0 keeps its
+    array (a second ``Zmct`` or ``Ymct`` is ignored)."""
+    tcp = _tcp(d)
+    if len(seg) < 2:
+        raise J2KError("Error reading MCT marker")
+    if _be(seg, 0, 2) != 0:
+        return  # "Cannot take in charge mct data within multiple MCT records"
+    if len(seg) <= 6:
+        raise J2KError("Error reading MCT marker")
+    imct = _be(seg, 2, 2)
+    rec = next((r for r in tcp.mct_records if r.index == imct & 0xFF), None)
+    if rec is None:
+        rec = MCTRecord(imct & 0xFF)
+        tcp.mct_records.append(rec)
+    rec.data = None
+    rec.array_type, rec.element_type = (imct >> 8) & 3, (imct >> 10) & 3
+    if _be(seg, 4, 2) != 0:
+        return  # "Cannot take in charge multiple MCT markers"
+    rec.data = bytes(seg[6:])
+
+
+def _read_mcc(d, seg: bytes) -> None:
+    """``opj_j2k_read_mcc``: one collection of array decorrelation over
+    components 0, 1, ... in order, naming its ``MCT`` arrays by index.
+    What OpenJPEG does not take in charge is ignored, after the fields it
+    has set by then."""
+    tcp = _tcp(d)
+    if len(seg) < 2:
+        raise J2KError("Error reading MCC marker")
+    if _be(seg, 0, 2) != 0:
+        return  # "Cannot take in charge multiple data spanning"
+    if len(seg) < 7:
+        raise J2KError("Error reading MCC marker")
+    index = seg[2]
+    new = False
+    rec = next((r for r in tcp.mcc_slots[: tcp.nb_mcc] if r.index == index), None)
+    if rec is None:
+        if len(tcp.mcc_slots) == tcp.nb_mcc:
+            tcp.mcc_slots.append(MCCRecord())
+        rec, new = tcp.mcc_slots[tcp.nb_mcc], True
+    rec.index = index
+    if _be(seg, 3, 2) != 0 or _be(seg, 5, 2) > 1:
+        return  # Ymcc: "multiple data spanning"; Qmcc: "multiple collections"
+    collections = _be(seg, 5, 2)
+    pos, size = 7, len(seg) - 7
+    for _ in range(collections):
+        if size < 3:
+            raise J2KError("Error reading MCC marker")
+        if seg[pos] != 1:
+            return  # "collections other than array decorrelation"
+        n = _be(seg, pos + 1, 2)
+        pos, size = pos + 3, size - 3
+        width = 1 + (n >> 15)
+        rec.nb_comps = n & 0x7FFF
+        if size < width * rec.nb_comps + 2:
+            raise J2KError("Error reading MCC marker")
+        size -= width * rec.nb_comps + 2
+        for j in range(rec.nb_comps):
+            if _be(seg, pos, width) != j:
+                return  # "collections with indix shuffle"
+            pos += width
+        m = _be(seg, pos, 2)
+        pos += 2
+        width = 1 + (m >> 15)
+        if m & 0x7FFF != rec.nb_comps:
+            return  # "collections without same number of indixes"
+        if size < width * rec.nb_comps + 3:
+            raise J2KError("Error reading MCC marker")
+        size -= width * rec.nb_comps + 3
+        for j in range(rec.nb_comps):
+            if _be(seg, pos, width) != j:
+                return
+            pos += width
+        t = _be(seg, pos, 3)
+        pos += 3
+        rec.irreversible = not (t >> 16) & 1
+        rec.decorrelation = rec.offset = None
+        for attr, i in (("decorrelation", t & 0xFF), ("offset", (t >> 8) & 0xFF)):
+            if i:
+                found = next((r for r in tcp.mct_records if r.index == i), None)
+                if found is None:
+                    raise J2KError("Error reading MCC marker")
+                setattr(rec, attr, found)
+    if size != 0:
+        raise J2KError("Error reading MCC marker")
+    if new:
+        tcp.nb_mcc += 1
+
+
+def _read_mco(d, seg: bytes) -> None:
+    """``opj_j2k_read_mco``: one stage at most; every level shift to 0, then
+    the stage's collection applied (``opj_j2k_add_mct``)."""
+    tcp = _tcp(d)
+    if len(seg) < 1:
+        raise J2KError("Error reading MCO marker")
+    stages = seg[0]
+    if stages > 1:
+        return  # "Cannot take in charge multiple transformation stages"
+    if len(seg) != stages + 1:
+        raise J2KError("Error reading MCO marker")
+    for tccp in tcp.tccps:
+        tccp.dc_shift = 0
+    for k in range(stages):
+        _add_mct(tcp, len(d.comps), seg[1 + k])
+
+
+def _add_mct(tcp: TCP, ncomp: int, index: int) -> None:
+    """``opj_j2k_add_mct``.  Its search for the collection never moves past
+    the first record, so only a first collection of this index counts; one
+    of another component count is discarded.  Arrays of the wrong size
+    fail (the matrix is never applied); the offsets become the level
+    shifts."""
+    if not tcp.nb_mcc or tcp.mcc_slots[0].index != index:
+        return  # "element discarded"
+    rec = tcp.mcc_slots[0]
+    if rec.nb_comps != ncomp:
+        return
+    deco = rec.decorrelation
+    if deco is not None and \
+            len(deco.data or b"") != _MCT_ELEMENT[deco.element_type] * ncomp * ncomp:
+        raise J2KError("MCT decorrelation array of the wrong size")
+    off = rec.offset
+    if off is not None:
+        if len(off.data or b"") != _MCT_ELEMENT[off.element_type] * ncomp:
+            raise J2KError("MCT offset array of the wrong size")
+        for tccp, v in zip(tcp.tccps, _mct_offsets(off)):
+            tccp.dc_shift = int(v)
+
+
+def _mct_offsets(rec: MCTRecord) -> np.ndarray:
+    """An array's elements as ``j2k_mct_read_functions_to_int32`` reads
+    them: int16 and int32 big-endian read as unsigned bytes, then cast to
+    int32; floats cast to int32 by truncation (x86's 0x80000000 where out
+    of range)."""
+    v = np.frombuffer(rec.data, (">u2", ">u4", ">f4", ">f8")[rec.element_type])
+    if rec.element_type < 2:
+        return v.astype(np.int64).astype(np.uint32).view(np.int32).astype(np.int64)
+    f = v.astype(np.float64)
+    ok = np.isfinite(f) & (f > -2.0 ** 31 - 1) & (f < 2.0 ** 31)
+    return np.where(ok, np.trunc(np.where(ok, f, 0)), -2 ** 31).astype(np.int64)
 
 
 _HANDLERS = {SIZ: _read_siz, COD: _read_cod, COC: _read_coc, QCD: _read_qcd, QCC: _read_qcc,
              RGN: _read_rgn, POC: _read_poc, PPM: _read_ppm, PPT: _read_ppt, TLM: _read_tlm,
              PLM: _read_plm, PLT: _read_plt, CRG: _read_crg, COM: lambda d, seg: None,
-             CAP: _read_cap, CPF: lambda d, seg: None, **{m: _read_part2 for m in PART2}}
+             CAP: _read_cap, CPF: lambda d, seg: None, CBD: _read_cbd, MCT: _read_mct,
+             MCC: _read_mcc, MCO: _read_mco}
 
 
 # ----- the decoder ---------------------------------------------------------

@@ -154,4 +154,5 @@ def dc_shift(data: np.ndarray, shift: int, prec: int, sgnd: bool) -> np.ndarray:
         v = np.clip(v, lo, hi)
         v = np.where(big, hi, np.where(small, lo, v))
         return v.astype(np.int32)
-    return np.clip(data.astype(np.int64) + shift, lo, hi).astype(np.int32)
+    v = data.astype(np.int64) + shift  # in int32, as OpenJPEG adds (a Part 2 offset may wrap)
+    return np.clip((v + 2 ** 31) % 2 ** 32 - 2 ** 31, lo, hi).astype(np.int32)

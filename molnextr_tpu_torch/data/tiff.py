@@ -13,8 +13,8 @@ first page the same way and returns RGB uint8 ``(H, W, 3)``, or raises
   counts missing or doubtful estimated as ``EstimateStripByteCounts``
   does; a strip or tile whose RGBA buffer would reach 1 GiB read as None,
   as OpenCV refuses it;
-* compressions: none (1), CCITT MH (2), T.4 1-D and 2-D (3) and T.6 (4)
-  (``data/ccitt.py``), LZW (5, old-style codes too), Deflate (8 and 32946),
+* compressions: none (1), CCITT MH (2), T.4 1-D and 2-D (3), T.6 (4) and
+  RLE/W (32771) (``data/ccitt.py``), LZW (5, old-style codes too), Deflate (8 and 32946),
   PackBits (32773), JPEG (7: each strip or tile an abbreviated stream read
   after ``JPEGTables`` by ``data/jpeg.py``, YCbCr converted by libjpeg as
   ``JPEGCOLORMODE_RGB`` asks, other photometrics raw), ThunderScan (32809)
@@ -59,11 +59,12 @@ void ones, or formats that differ between samples; ICC Lab (9), ITU Lab
 sample count, CMYK of another ink set, planar subsampled YCbCr, planar or
 non-3-sample Lab; more than four samples a pixel.
 
-CCITT RLE/W (32771), which OpenCV reads, raises :class:`UnsupportedFormat`
-naming it (ROADMAP queue 1): libtiff aligns its rows by how many bytes its
-bit accumulator happened to load.  The other CCITT codecs are read by
-libtiff's own state machine (``data/ccitt.py``), so a bad code, a row of
-the wrong length or a strip cut short is repaired as libtiff repairs it.
+The CCITT codecs, RLE/W (32771) among them, are read by libtiff's own
+state machine (``data/ccitt.py``), so a bad code, a row of the wrong
+length or a strip cut short is repaired as libtiff repairs it.  RLE/W
+aligns its rows by how many bytes its bit accumulator happened to load and
+by the parity of the byte it stopped at in the mapped file, so each
+strip's or tile's file offset goes to the decoder.
 
 The directory is read as ``TIFFReadDirectory`` reads it (``_directory``):
 each tag through its ``TIFFReadDirEntry*`` reader's rules (the types it
@@ -92,7 +93,6 @@ import numpy as np
 
 from molnextr_tpu_torch.data import ccitt, jpeg, tiff_codecs, tiff_colour
 from molnextr_tpu_torch.data.exif import apply_orientation
-from molnextr_tpu_torch.data.image import UnsupportedFormat
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
@@ -105,11 +105,8 @@ _REFUSED_COMPRESSION = {
 }
 # compressions the port decodes; any code libtiff does not know decodes to
 # nothing (libtiff's default codec fails every strip)
-_DECODED = {1, 2, 3, 4, 5, 7, 8, 32773, 32809, 32946, 34676, 34677}
-# read by OpenCV, not by the port: RLE/W aligns its rows by how many bytes
-# tif_fax3.c's bit accumulator happened to load (ROADMAP queue 1)
-_UNPORTED_COMPRESSION = {32771: "CCITT RLE/W"}
-_LIBTIFF_CODECS = _DECODED | set(_REFUSED_COMPRESSION) | set(_UNPORTED_COMPRESSION)
+_DECODED = {1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677}
+_LIBTIFF_CODECS = _DECODED | set(_REFUSED_COMPRESSION)
 _REFUSED_PHOTOMETRIC = {9: "ICC Lab", 10: "ITU Lab", 4: "transparency mask"}
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 # putcontig8bitYCbCr*tile's subsamplings (across, down)
@@ -536,10 +533,6 @@ class _Image:
 
     def _check(self) -> None:
         path, t, ph = self.path, self.tags, self.photometric
-        if self.compression in _UNPORTED_COMPRESSION:
-            raise UnsupportedFormat(f"{path}: TIFF with "
-                                    f"{_UNPORTED_COMPRESSION[self.compression]} compression is "
-                                    "not decoded by the port yet (ROADMAP queue 1)")
         if self.compression in _REFUSED_COMPRESSION:
             raise ValueError(f"{path}: TIFF {_REFUSED_COMPRESSION[self.compression]} "
                              "compression (OpenCV 5.0 reads none)")
@@ -617,19 +610,20 @@ class _Image:
         return ((width * spp * self._depth() + 7) // 8) * rows
 
     def _decompress(self, raw: bytes, rows: int, width: int, spp: int, buf: bytearray,
-                    last: bool = True) -> None:
-        """One strip or tile into ``buf``; raises ``_Failed`` where libtiff's
-        decoder fails and the RGBA interface carries on."""
+                    last: bool = True, offset: int = 0) -> None:
+        """One strip or tile (at ``offset`` in the file) into ``buf``; raises
+        ``_Failed`` where libtiff's decoder fails and the RGBA interface
+        carries on."""
         if self.fill_order == 2:
             raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
         expected = self._chunk_size(rows, width, spp)
         c = self.compression
         if c not in _LIBTIFF_CODECS:
             raise _Failed  # libtiff's default codec: "Decoding of ... is not implemented"
-        if c in (2, 3, 4):
+        if c in (2, 3, 4, 32771):
             if self._fax is None:  # libtiff keeps its run arrays from strip to strip
                 self._fax = ccitt.FaxState(width, c == 4 or (c == 3 and self.t4 & 1))
-            bits, ok = ccitt.decode_strip(raw, width, rows, c, self.t4, self._fax)
+            bits, ok = ccitt.decode_strip(raw, width, rows, c, self.t4, self._fax, offset & 1)
             buf[:expected] = np.packbits(bits, axis=1).tobytes()
             if not ok:
                 raise _Failed
@@ -760,7 +754,7 @@ class _Image:
                     decoded = True
                     try:
                         self._decompress(self._chunk(offsets[k], counts[k]), rows, cw, per,
-                                         buf, not tiled and ty == down - 1)
+                                         buf, not tiled and ty == down - 1, offsets[k])
                     except _Failed:
                         decoded = False
                     k += 1

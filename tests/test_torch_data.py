@@ -219,10 +219,12 @@ def test_file_samples_read_png_and_refuse_other_files(tmp_path):
     write_png(png, img)
     corrupt = tmp_path / "mol.jpg"
     corrupt.write_bytes(b"\xff\xd8\xff\xe0not a jpeg")
-    other = tmp_path / "mol.avif"  # a form the port does not decode: a rescaled ispe
-    from torch_image_writers import rescaled_avif
+    other = tmp_path / "mol.j2k"  # a form the port does not decode: HTJ2K code-blocks
+    from torch_image_writers import encode_j2k
 
-    other.write_bytes(rescaled_avif())
+    htj2k = bytearray(encode_j2k([img[..., k] for k in range(3)]))
+    htj2k[htj2k.index(b"\xff\x52") + 4 + 5 + 3] = 0x40  # SPcod code-block style: HT
+    other.write_bytes(bytes(htj2k))
     samples = [pds.Sample("CC", image_path=png, coords=np.array([[0.4, 0.2], [0.5, 0.7]])),
                pds.Sample("CC", image_path=str(other)), pds.Sample("CC", image_path=str(corrupt))]
     ds = pds.TrainDataset(cfg, samples, get_tokenizer(cfg.data), split="valid")
@@ -231,7 +233,7 @@ def test_file_samples_read_png_and_refuse_other_files(tmp_path):
     assert (item["atom_grid"] == -2).all()  # a file sample has no atom symbols: unlabeled
     # a format the port does not decode is refused, never whitened
     assert ds[1] is None
-    with pytest.raises(ValueError, match="ispe size"):
+    with pytest.raises(ValueError, match="HTJ2K"):
         ds._build(samples[1])
     # a corrupt file reads as None, as cv2.imread's: the JAX package's white placeholder
     assert ds[2]["image"].shape == (64, 64, 3) and (ds[2]["image"] == 255).all()

@@ -534,6 +534,7 @@ def build_image_forms():
     files.update(_jpeg2000_forms(bgr, big))
     files.update(_tiff_and_jpeg_forms(bgr, big))
     files.update(_avif_forms(bgr, big))
+    files.update(_rescaled_rlew_part2_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -662,6 +663,57 @@ def _avif_forms(bgr, big):
             "demo_0_sr15_superres.avif": superres(rgb, 3, 15),
             "demo_0_lr_superres.avif": superres(rgb, 10, 16, speed=2, options=restoration),
             "big_superres.avif": superres(big[..., ::-1], 20, 16, speed=2, options=restoration)}
+
+
+def _rescaled_rlew_part2_forms(bgr, big):
+    """demo_0.png (and the 1024 x 1024 drawing) in the forms the readers
+    gained with libavif's rescaling, CCITT RLE/W and the JPEG 2000 Part 2
+    markers: AV1 frames of 160 x 160 (the picture resized by cv2's cubic
+    filter) and 96 x 96 (its area filter), lossless 4:2:0 from libaom,
+    under a 128 x 128 ``ispe`` (libavif scales them down and up; both read
+    demo_0.png's CC(C)O tokens in the JAX package); the G4 form's bits as
+    RLE/W in four strips at odd file offsets, each row where libtiff reads
+    it at an odd offset (``rlew_strips(..., odd=True)``, so the file reads
+    to the G4 form's pixels); a lossless codestream from
+    PIL with ``part2_identity``'s segments (``CBD`` at ``SIZ``'s 8 bits, an
+    identity matrix, offsets of the level shift, their ``MCC`` and ``MCO``)
+    in a JP2 file, pixel-equal to demo_0.png; and the drawing resized to
+    768 x 768 by cv2's area filter, libaom at quantiser 20, under a
+    1024 x 1024 ``ispe`` for the reader timings."""
+    import io
+
+    import cv2
+    from PIL import Image
+    from torch_image_writers import (aom_avif, aom_encode, aom_yuv, encode_jp2,
+                                     part2_identity, rescaled_avif, rlew_strips, rlew_tiff,
+                                     with_ispe)
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    h, w = rgb.shape[:2]
+
+    def resized(img, side, interpolation):
+        return cv2.resize(np.ascontiguousarray(img), (side, side), interpolation=interpolation)
+
+    bits = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY) >= 128
+    strips, photometric = rlew_strips(bits, 32, odd=True)
+    offsets, at = [], 8
+    for strip in strips:
+        at += 1 - at % 2  # odd
+        offsets.append(at)
+        at += len(strip)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, "JPEG2000", no_jp2=True)
+    code = buf.getvalue()
+    sot = code.index(b"\xff\x90")
+    code = code[:sot] + b"".join(part2_identity()) + code[sot:]
+    big_frame = resized(big[..., ::-1], 768, cv2.INTER_AREA)
+    return {"demo_0_rescaled_down.avif": rescaled_avif(resized(rgb, 160, cv2.INTER_CUBIC),
+                                                       (w, h)),
+            "demo_0_rescaled_up.avif": rescaled_avif(resized(rgb, 96, cv2.INTER_AREA), (w, h)),
+            "demo_0_rlew.tif": rlew_tiff(strips, w, h, 32, photometric, offsets),
+            "demo_0_part2.jp2": encode_jp2(code, w, h, 3),
+            "big_rescaled.avif": with_ispe(aom_avif(aom_encode(aom_yuv(big_frame), q=20)),
+                                           (1024, 1024))}
 
 
 def _jpeg2000_forms(bgr, big):

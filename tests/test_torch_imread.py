@@ -6,8 +6,8 @@ that read image files against their JAX counterparts.
   while 5-8, which OpenCV 5.0 fails to read (None), read turned as a JPEG's
   are (a difference by design, pinned here);
 * BMP, GIF, PNM/PAM/PFM, HDR, Sun raster, BigTIFF, WebP (lossy and
-  lossless), JPEG 2000 and lossless AVIF read as cv2 reads them; a lossy
-  AVIF raises ``UnsupportedFormat`` naming what the port lacks;
+  lossless), JPEG 2000 and AVIF (an ``ispe`` of another size than the
+  frame's too) read as cv2 reads them;
   a missing, empty, unknown or corrupt file reads as None, as in cv2;
 * on a directory holding a PNG, a JPEG, a TIFF, a missing path and a
   corrupt file: ``MolNexTR.predict_image_files`` and the predict CLI raise
@@ -142,9 +142,10 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
     JP2 file and this stub AVIF file read as None, as cv2 reads them, and a
     whole JP2 file to its pixels (``test_torch_jpeg2000.py`` holds the
     reader).  An AVIF whose ``ispe`` is another size than its frame, which
-    libavif rescales and the port does not, raises naming it (film grain
-    and superres, this test's forms until the port read them, read;
-    ``test_torch_avif*.py`` hold the reader).
+    raised naming the ``ispe`` size until the port rescaled it as libavif
+    does, reads to cv2's array (film grain and superres, this test's forms
+    before, read too; ``test_torch_avif*.py`` hold the reader,
+    ``test_torch_avif_rescale.py`` the rescaling).
     The BMP, GIF, PNM, HDR, Sun raster, BigTIFF and WebP cases this test
     held before the port read them are read to cv2's arrays (the next test
     and each format's own test file)."""
@@ -163,8 +164,7 @@ def test_formats_the_port_does_not_decode_raise_naming_them(tmp_path, name, data
         path = tmp_path / "rescaled.avif"
         path.write_bytes(rescaled_avif())
         assert cv2_rgb(path).shape == (32, 32, 3)
-        with pytest.raises(UnsupportedFormat, match="ispe size"):
-            imread(str(path))
+        np.testing.assert_array_equal(imread(str(path)), cv2_rgb(path))
     assert isinstance(UnsupportedFormat("x"), ValueError)
 
 
@@ -467,6 +467,25 @@ def test_dataset_eval_suite_skips_the_rows_jax_skips(image_dir, tmp_path, monkey
     assert got == want and got["n"] == 3
     for g, w in zip(prec.images, jrec.images):
         np.testing.assert_array_equal(g, w)
+
+
+def test_rescaled_rlew_and_part2_demo_forms_predict_as_the_jax_package():
+    """The demo forms of the AVIF frames libavif rescales, the RLE/W strips
+    at odd offsets and the Part 2 JP2, through ``predict_image_files`` in
+    the JAX package (``cv2.imread``) and in the port (float32, the CPU)."""
+    from molnextr_tpu.api import MolNexTR as JaxMolNexTR
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+
+    names = ("demo_0_rescaled_down.avif", "demo_0_rescaled_up.avif", "demo_0_rlew.tif",
+             "demo_0_part2.jp2")
+    paths = [os.path.join(FIXTURES, "forms", n) for n in names]
+    jax = JaxMolNexTR(model_path=BUNDLE).predict_image_files(paths)
+    port = MolNexTR(model_path=BUNDLE, device="cpu", num_workers=1).predict_image_files(paths)
+    got = [canonicalize_smiles(p["predicted_smiles"])[0] for p in port]
+    want = [canonicalize_smiles(p["predicted_smiles"])[0] for p in jax]
+    assert got == want == [canonicalize_smiles("CC(C)O")[0]] * len(paths)
 
 
 def test_image_call_sites_import_no_format_reader_but_imread():

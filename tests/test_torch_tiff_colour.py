@@ -10,8 +10,8 @@ it with no tolerance, or read None where it reads None:
 
 * ThunderScan 4-bit palettes (runs, 2- and 3-bit deltas, raw values, runs
   that reach the row end, short and long rows) and SGILog LogL, LogLuv
-  (run-length) and LogLuv 24-bit, hand-encoded and fuzzed; CCITT RLE/W,
-  which raises naming it;
+  (run-length) and LogLuv 24-bit, hand-encoded and fuzzed; CCITT RLE/W
+  (``test_torch_tiff_rlew.py`` holds its survey);
 * JPEG-in-TIFF (compression 7): YCbCr at every subsampling, in strips and
   tiles, with and without the subsampling tag, RGB, grey and CMYK, planar
   2, streams smaller than their strips, and what libtiff refuses (None);
@@ -33,7 +33,7 @@ from PIL import Image
 from torch_image_writers import (encode_jpeg, encode_tiff, jpeg_tables_and_body, lzw_compat,
                                  mh_to_rlew, sgilog_rle, thunderscan, ycbcr_blocks)
 
-from molnextr_tpu_torch.data.image import UnsupportedFormat, imread
+from molnextr_tpu_torch.data.image import imread
 from molnextr_tpu_torch.data.tiff import decode_tiff
 
 SIZES = [(1, 1), (5, 7), (17, 33), (40, 37)]
@@ -445,9 +445,10 @@ def test_other_predictors_on_integers_are_ignored(tmp_path, predictor):
 
 
 def test_ccitt_rle_w_raises_naming_it(tmp_path):
-    """CCITT RLE/W (32771), which cv2 reads, is not decoded yet: libtiff
-    aligns its rows by how many bytes its bit accumulator happened to load
-    (ROADMAP queue 1)."""
+    """CCITT RLE/W (32771) raised naming it until the port decoded it: it
+    now reads to cv2's array (libtiff aligns its rows by how many bytes its
+    bit accumulator happened to load and by the parity of the strip's
+    offset in the file; ``test_torch_tiff_rlew.py`` holds the survey)."""
     from molnextr_tpu_torch.data.tiff import _tags as read_tags
 
     h, w = 30, 77
@@ -460,9 +461,9 @@ def test_ccitt_rle_w_raises_naming_it(tmp_path):
     path = tmp_path / "x.tif"
     path.write_bytes(encode_tiff([mh_to_rlew(strip, w, h)], w, h,
                                  _tags(1, 1, t[262][0], {259: (3, [32771])})))
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(UnsupportedFormat, match="RLE/W"):
-        imread(str(path))
+    want = cv2.imread(str(path))
+    assert want is not None
+    np.testing.assert_array_equal(imread(str(path)), cv2.cvtColor(want, cv2.COLOR_BGR2RGB))
 
 
 # -- None where OpenCV refuses, zeros where libtiff knows no codec ---------------------

@@ -1,7 +1,7 @@
 """The TIFF reader's directory (``data/tiff.py::_directory``) against
 ``cv2.imread`` on corrupted directories.
 
-A seeded survey writes 400 files from the committed ``demo_0_*.tif`` forms,
+A seeded survey writes 400 files from the 15 committed ``demo_0_*.tif`` forms,
 each with one or two bytes of one IFD entry replaced (tag, type, count or
 value), and requires every read to equal cv2's: the same array, or None
 where cv2 gives None or raises ``cv2.error``; no exception may leave
@@ -61,7 +61,7 @@ def same_as_cv2(path):
 
 
 def test_seeded_directory_survey_reads_as_cv2(tmp_path):
-    assert len(TIFFS) == 14
+    assert len(TIFFS) == 15
     rng = np.random.RandomState(0)
     blobs = [p.read_bytes() for p in TIFFS]
     outcome = {"none": 0, "read": 0}

@@ -5,7 +5,8 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   strips or tiles and any tags (both byte orders, a second page on
   request); :func:`thunderscan`, :func:`sgilog_rle`, :func:`ycbcr_blocks`,
   :func:`mh_to_rlew` and :func:`lzw_compat`: ThunderScan, SGILog, packed
-  YCbCr, CCITT RLE/W and old-style LZW strip data;
+  YCbCr, CCITT RLE/W and old-style LZW strip data; :func:`rlew_strips` and
+  :func:`rlew_tiff`: an RLE/W TIFF whose strips lie at chosen file offsets;
 * :func:`encode_jpeg`: a baseline JPEG from component planes at any
   sampling factors (1-4), with any component ids, an Adobe APP14 marker
   and restart markers; fixed-length Huffman codes, so no table needs
@@ -42,7 +43,10 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   key frame hidden and shown by ``show_existing_frame``;
   :func:`av1_superres_obus`: the OBUs of an AV1 key frame that uses
   superres, cut short, for :func:`avif_rebuild`'s ``payload``;
-  :func:`rescaled_avif`: an ``ispe`` twice the frame's size;
+  :func:`rescaled_avif`: an ``ispe`` (or ``tkhd``) of another size than
+  the frame's, at any depth and subsampling, with alpha, in a grid or an
+  ``avis`` sequence; :func:`with_ispe`: any one-item AVIF's ``ispe``
+  replaced;
   :func:`avif_grid`: a ``grid`` of any tiles, output size and field width,
   with an alpha grid; :func:`avif_with_alpha`: an item with an alpha item
   of any AVIF's stream;
@@ -52,7 +56,12 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   or monochrome, with superres at any denominator and libaom's named
   options (tiles, restoration, ``deltaq-mode``, ``delta-lf-mode``, film
   grain); :func:`aom_yuv`: an RGB picture's planes for it;
-  :func:`aom_avif`: its OBUs in a one-item AVIF.
+  :func:`aom_avif`: its OBUs in a one-item AVIF;
+* :func:`cbd_segment`, :func:`mct_segment`, :func:`mcc_segment`,
+  :func:`mco_segment` and :func:`part2_identity`: JPEG 2000 Part 2 marker
+  segments for :func:`encode_j2k`'s ``main_markers`` and ``tile_header``;
+  :func:`openjpeg_part2`: a Part 2 file from OpenJPEG's own encoder
+  (Pillow's ``libopenjp2`` through ``ctypes``, ``opj_set_MCT``).
 """
 
 from __future__ import annotations
@@ -246,22 +255,113 @@ def ycbcr_blocks(ycc: np.ndarray, hs: int, vs: int) -> bytes:
     return np.concatenate([y, chroma], axis=2).astype(np.uint8).tobytes()
 
 
-def mh_to_rlew(strip: bytes, width: int, rows: int) -> bytes:
+def mh_to_rlew(strip: bytes, width: int, rows: int, odd: Optional[bool] = None) -> bytes:
     """A CCITT MH strip (compression 2, rows on byte boundaries) re-aligned
-    to 16-bit words, as CCITT RLE/W (32771) lays its rows out."""
+    to 16-bit words, as CCITT RLE/W (32771) lays its rows out: each row
+    padded to a word of the strip (``odd`` None), a layout libtiff misreads
+    wherever its accumulator holds a word past a row's end; or each row
+    placed where libtiff's ``Fax3DecodeRLE`` looks for it in a strip at an
+    even or ``odd`` file offset (its 12- and 13-bit look-ups load bytes
+    ahead; at a row's end it keeps a whole word it holds, else drops the
+    bits and moves to an even address), so the strip reads intact."""
     from molnextr_tpu_torch.data import ccitt
 
     white, black, _ = ccitt._tables()
     reader = ccitt._Reader(strip)
     bits = np.unpackbits(np.frombuffer(strip, np.uint8))
-    out = []
+    out = np.zeros(0, np.uint8)
+    avail = cp = 0  # libtiff's BitsAvail and byte pointer (from the strip's start)
     for _ in range(rows):
         start = reader.pos
-        ccitt._row_1d(reader, width, white, black)
+        codes, a0, colour = [], 0, 0
+        while a0 < width:  # each code's look-up width and length, as _row_1d walks
+            table = black if colour else white
+            while True:
+                entry = table[reader.peek(ccitt.PEEK)]
+                codes.append((13 if colour else 12, entry & 31))
+                reader.pos += entry & 31
+                a0 += entry >> 5
+                if entry >> 5 < 64:
+                    break
+            colour ^= 1
         row = bits[start : reader.pos]
-        out.append(np.concatenate([row, np.zeros((-len(row)) % 16, np.uint8)]))
         reader.pos = (reader.pos + 7) & ~7
-    return np.packbits(np.concatenate(out)).tobytes()
+        if odd is None:
+            out = np.concatenate([out, row, np.zeros((-len(row)) % 16, np.uint8)])
+            continue
+        at = cp * 8 - avail  # the row's first bit
+        out = np.concatenate([out, np.zeros(at - len(out), np.uint8), row])
+        for need, length in codes:
+            while avail < need:
+                avail, cp = avail + 8, cp + 1
+            avail -= length
+        avail -= avail & 15
+        if avail == 0 and (cp + odd) & 1:
+            cp += 1
+    if odd is not None:
+        out = np.concatenate([out, np.zeros(max(cp * 8 - len(out), 0), np.uint8)])
+    return np.packbits(out).tobytes()
+
+
+def rlew_strips(bits: np.ndarray, rows_per_strip: int, odd=None) -> Tuple[List[bytes], int]:
+    """``bits`` (rows, width; True where Pillow's mode ``1`` is set) as CCITT
+    RLE/W strips of ``rows_per_strip`` rows (Pillow's MH strips through
+    :func:`mh_to_rlew`, laid out for libtiff at ``odd`` offsets: None, a
+    bool, or one a strip), and the photometric Pillow writes with them."""
+    import io
+
+    from PIL import Image
+
+    from molnextr_tpu_torch.data.tiff import _tags
+
+    h, w = bits.shape
+    strips, photometric = [], 0
+    for y in range(0, h, rows_per_strip):
+        part = bits[y : y + rows_per_strip]
+        buf = io.BytesIO()
+        Image.fromarray(part).convert("1").save(buf, "TIFF", compression="tiff_ccitt")
+        mh = buf.getvalue()
+        t = _tags(mh, "<", int.from_bytes(mh[4:8], "little"))
+        photometric = t[262][0]
+        strip = b"".join(mh[o : o + n] for o, n in zip(t[273], t[279]))
+        parity = odd[len(strips)] if isinstance(odd, (list, tuple)) else odd
+        strips.append(mh_to_rlew(strip, w, part.shape[0], parity))
+    return strips, photometric
+
+
+def rlew_tiff(strips: Sequence[bytes], width: int, height: int, rows_per_strip: int,
+              photometric: int = 0, offsets: Optional[Sequence[int]] = None,
+              fill_order: int = 1) -> bytes:
+    """A little-endian CCITT RLE/W (32771) TIFF whose ``strips`` lie at the
+    file ``offsets`` given (ascending, 8 or more; default each right after
+    the header or the strip before), the IFD after them.  ``fill_order`` 2
+    reverses the bits of each strip byte and says so (tag 266)."""
+    if offsets is None:
+        offsets = list(np.cumsum([8] + [len(c) for c in strips[:-1]]))
+    out = bytearray(b"II*\x00" + bytes(4))
+    for strip, at in zip(strips, offsets):
+        assert at >= len(out)
+        out += bytes(at - len(out))
+        if fill_order == 2:
+            strip = bytes(int(f"{b:08b}"[::-1], 2) for b in strip)
+        out += strip
+    out += bytes(len(out) % 2)
+    ifd = len(out)
+    struct.pack_into("<I", out, 4, ifd)
+    n = len(strips)
+    tags = {256: (3, [width]), 257: (3, [height]), 258: (3, [1]), 259: (3, [32771]),
+            262: (3, [photometric]), 266: (3, [fill_order]), 273: (4, list(offsets)),
+            277: (3, [1]), 278: (3, [rows_per_strip]), 279: (4, [len(c) for c in strips])}
+    extra_at = ifd + 2 + 12 * len(tags) + 4
+    body, extra = struct.pack("<H", len(tags)), b""
+    for tag, (typ, vals) in sorted(tags.items()):
+        raw = struct.pack("<" + _TYPES[typ] * len(vals), *[int(v) for v in vals])
+        if len(raw) <= 4:
+            body += struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\x00")
+        else:
+            body += struct.pack("<HHII", tag, typ, len(vals), extra_at + len(extra))
+            extra += raw
+    return bytes(out) + body + bytes(4) + extra
 
 
 def exif_block(orientation: int, order: str = ">") -> bytes:
@@ -2217,6 +2317,167 @@ def j2k_segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">HH", marker, len(body) + 2) + body
 
 
+def cbd_segment(depths: Sequence[Tuple[int, bool]], count: Optional[int] = None) -> bytes:
+    """A Part 2 ``CBD`` segment: ``Ncbd`` (``count``, default the number of
+    ``depths``) and each component's (bits, signed)."""
+    ncbd = len(depths) if count is None else count
+    return j2k_segment(0xFF78, struct.pack(">H", ncbd) + bytes(
+        (bits - 1) | (0x80 if signed else 0) for bits, signed in depths))
+
+
+_MCT_DTYPES = (">i2", ">i4", ">f4", ">f8")
+
+
+def mct_segment(index: int, array_type: int, element_type: int, values=(), zmct: int = 0,
+                ymct: int = 0, body: Optional[bytes] = None) -> bytes:
+    """A Part 2 ``MCT`` segment: ``Zmct``, ``Imct`` (index, array type 0
+    dependency / 1 decorrelation / 2 offset, element type 0 int16 / 1
+    int32 / 2 float32 / 3 float64), ``Ymct`` and ``values`` in that type
+    (or ``body`` as given)."""
+    if body is None:
+        body = np.asarray(values).astype(_MCT_DTYPES[element_type]).tobytes()
+    imct = index | (array_type << 8) | (element_type << 10)
+    return j2k_segment(0xFF74, struct.pack(">HHH", zmct, imct, ymct) + body)
+
+
+def mcc_segment(index: int, ncomp: int, decorrelation: int = 0, offset: int = 0,
+                reversible: bool = False, collections: int = 1, kind: int = 1,
+                order: Optional[Sequence[int]] = None, wide: bool = False, zmcc: int = 0,
+                ymcc: int = 0, outputs: Optional[int] = None, tail: bytes = b"") -> bytes:
+    """A Part 2 ``MCC`` segment: ``Zmcc``, ``Imcc``, ``Ymcc``, ``Qmcc``
+    (``collections``), then each collection: ``Xmcc`` (``kind``, 1 array
+    decorrelation), ``Nmcc`` input components (``order``, default 0, 1,
+    ...; 16-bit numbers if ``wide``), ``Mmcc`` outputs (``outputs``
+    components, default ``ncomp``) in the same order, and ``Tmcc`` (the
+    reversible bit, the offset and decorrelation arrays' indices);
+    ``tail`` bytes after."""
+    order = list(range(ncomp)) if order is None else list(order)
+    width = 2 if wide else 1
+    comps = b"".join(k.to_bytes(width, "big") for k in order)
+    out = ncomp if outputs is None else outputs
+    one = (bytes([kind]) + struct.pack(">H", ncomp | (0x8000 if wide else 0)) + comps
+           + struct.pack(">H", out | (0x8000 if wide else 0)) + comps
+           + bytes([int(reversible), offset, decorrelation]))
+    return j2k_segment(0xFF75, struct.pack(">HBHH", zmcc, index, ymcc, collections)
+                       + one * collections + tail)
+
+
+def mco_segment(stages: Sequence[int], count: Optional[int] = None) -> bytes:
+    """A Part 2 ``MCO`` segment: ``Nmco`` (``count``, default the number of
+    ``stages``) and the ``MCC`` index of each stage."""
+    return j2k_segment(0xFF77, bytes([len(stages) if count is None else count]) + bytes(stages))
+
+
+def part2_identity(ncomp: int = 3, prec: int = 8, element_type: int = 2) -> List[bytes]:
+    """``CBD`` at ``prec`` unsigned bits, an identity decorrelation matrix
+    (index 1), offsets of the level shift ``2 ** (prec - 1)`` (index 2),
+    the ``MCC`` collection that names both (index 1) and the ``MCO`` stage
+    that applies it: segments that leave a lossless image as it was."""
+    return [cbd_segment([(prec, False)] * ncomp),
+            mct_segment(1, 1, element_type, np.eye(ncomp).ravel()),
+            mct_segment(2, 2, element_type, [1 << (prec - 1)] * ncomp),
+            mcc_segment(1, ncomp, decorrelation=1, offset=2),
+            mco_segment([1])]
+
+
+class OpjCmptParm(ctypes.Structure):
+    """``opj_image_cmptparm_t`` (OpenJPEG 2.5)."""
+    _fields_ = [(name, ctypes.c_uint32)
+                for name in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+
+class OpjImageComp(ctypes.Structure):
+    """``opj_image_comp_t`` (OpenJPEG 2.5)."""
+    _fields_ = [(name, ctypes.c_uint32) for name in (
+        "dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd", "resno_decoded", "factor")] + [
+        ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+
+class OpjImage(ctypes.Structure):
+    """``opj_image_t`` (OpenJPEG 2.5)."""
+    _fields_ = [("x0", ctypes.c_uint32), ("y0", ctypes.c_uint32), ("x1", ctypes.c_uint32),
+                ("y1", ctypes.c_uint32), ("numcomps", ctypes.c_uint32),
+                ("color_space", ctypes.c_int), ("comps", ctypes.POINTER(OpjImageComp)),
+                ("icc_profile_buf", ctypes.c_void_p), ("icc_profile_len", ctypes.c_uint32)]
+
+
+def libopenjp2():
+    """The OpenJPEG 2.5 that Pillow ships, through ``ctypes``."""
+    import glob
+    import os
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libopenjp2-*.so*"))[0])
+    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    for name, args, res in (
+            ("opj_set_default_encoder_parameters", [ptr], None),
+            ("opj_set_MCT", [ptr, ptr, ptr, u32], i32),
+            ("opj_image_create", [u32, ctypes.POINTER(OpjCmptParm), i32],
+             ctypes.POINTER(OpjImage)),
+            ("opj_image_destroy", [ctypes.POINTER(OpjImage)], None),
+            ("opj_create_compress", [i32], ptr),
+            ("opj_destroy_codec", [ptr], None),
+            ("opj_stream_create_default_file_stream", [ctypes.c_char_p, i32], ptr),
+            ("opj_stream_destroy", [ptr], None),
+            ("opj_setup_encoder", [ptr, ptr, ctypes.POINTER(OpjImage)], i32),
+            ("opj_start_compress", [ptr, ctypes.POINTER(OpjImage), ptr], i32),
+            ("opj_encode", [ptr, ptr], i32),
+            ("opj_end_compress", [ptr, ptr], i32)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
+    return lib
+
+
+def openjpeg_part2(planes: Sequence[np.ndarray], matrix: np.ndarray,
+                   shifts: Optional[Sequence[int]] = None, jp2: bool = False) -> bytes:
+    """A Part 2 file from OpenJPEG's own encoder: ``opj_set_MCT`` with the
+    encoding ``matrix`` (float32, components x components) and the level
+    ``shifts`` (default ``2 ** 7`` each), which writes ``MCT``, ``MCC`` and
+    ``MCO`` and a ``COD`` of the custom transform (``mct`` 2), 9/7, on the
+    encoder's other defaults (six resolutions: 32 x 32 pixels or more).
+    ``planes``: 8-bit unsigned, one a component;
+    ``jp2`` wraps the codestream in a JP2 file.  The parameters are
+    ``opj_cparameters_t``, which the library lays out and fills itself
+    (``opj_set_default_encoder_parameters`` into a buffer larger than it)."""
+    import os
+    import tempfile
+
+    lib = libopenjp2()
+    n = len(planes)
+    h, w = planes[0].shape
+    params = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_encoder_parameters(params)
+    mat = np.ascontiguousarray(matrix, np.float32)
+    dc = np.ascontiguousarray([128] * n if shifts is None else shifts, np.int32)
+    assert lib.opj_set_MCT(params, mat.ctypes.data_as(ctypes.c_void_p),
+                           dc.ctypes.data_as(ctypes.c_void_p), n)
+    cmpt = (OpjCmptParm * n)(*[OpjCmptParm(1, 1, w, h, 0, 0, 8, 8, 0) for _ in range(n)])
+    image = lib.opj_image_create(n, cmpt, 1 if n >= 3 else 2)  # sRGB, grey
+    assert image
+    img = image.contents
+    img.x0, img.y0, img.x1, img.y1 = 0, 0, w, h
+    for k, plane in enumerate(planes):
+        data = np.ascontiguousarray(plane, np.int32).ravel()
+        ctypes.memmove(img.comps[k].data, data.ctypes.data, data.nbytes)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.jp2" if jp2 else "out.j2k")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        try:
+            assert lib.opj_setup_encoder(codec, params, image)
+            assert lib.opj_start_compress(codec, image, stream)
+            assert lib.opj_encode(codec, stream)
+            assert lib.opj_end_compress(codec, stream)
+        finally:
+            lib.opj_stream_destroy(stream)
+            lib.opj_destroy_codec(codec)
+            lib.opj_image_destroy(image)
+        with open(path, "rb") as f:
+            return f.read()
+
+
 def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=None,
                numres: int = 3, cblk: Tuple[int, int] = (4, 4), style: int = 0,
                reversible: bool = True, mct: int = 0, layers: int = 1, progression: int = 0,
@@ -2820,18 +3081,73 @@ def film_grain_avif(seed: int = 0, level: int = 25, size: int = 64,
     return buf.getvalue()
 
 
-def rescaled_avif() -> bytes:
-    """A one-item AVIF whose ``ispe`` (32 x 32) is twice its AV1 frame's
-    size (16 x 16): libavif rescales the frame, a form the port refuses,
-    naming the ``ispe`` size."""
-    import cv2
+def rescaled_avif(frame: Optional[np.ndarray] = None, ispe: Tuple[int, int] = (32, 32),
+                  depth: int = 8, subsampling: str = "4:2:0", q: int = 0,
+                  alpha: Optional[Tuple[int, int]] = None,
+                  alpha_ispe: Optional[Tuple[int, int]] = None,
+                  grid: Optional[Tuple[int, int]] = None, sequence: bool = False) -> bytes:
+    """An AVIF whose ``ispe`` (width, height) differs from its AV1 frame's
+    size, which libavif rescales to the ``ispe``: ``frame`` (RGB uint8,
+    default a 16 x 16 flat grey) coded by libaom at ``depth`` bits (8, 10,
+    12) and ``subsampling`` (4:2:0, 4:2:2, 4:4:4, 4:0:0) with quantiser
+    ``q`` (0 is lossless).  ``alpha`` (width, height) adds an alpha item
+    coded at that size, its ``ispe`` ``alpha_ispe`` (default ``ispe``);
+    ``grid`` (rows, columns) makes the primary item a grid of that many
+    copies of the rescaled item; ``sequence`` writes Pillow's ``avis``
+    sequence of the frame (8 bits; ``depth`` and ``q`` unused) with its
+    colour track's ``tkhd`` size set to ``ispe`` (and, with ``alpha``, an
+    alpha track of the frame's size whose ``tkhd`` is ``alpha_ispe``)."""
+    if frame is None:
+        frame = np.full((16, 16, 3), 200, np.uint8)
+    if sequence:
+        return _rescaled_sequence(frame, ispe, subsampling,
+                                  None if alpha is None else alpha_ispe or ispe)
+    obus = aom_encode(aom_yuv(frame, subsampling, depth), depth, subsampling, q=q)
+    single = with_ispe(aom_avif(obus), ispe)
+    if alpha is not None:
+        a = (np.indices(alpha[::-1]).sum(axis=0) * 7) % 256
+        a = np.clip(np.rint(a * ((1 << depth) - 1) / 255), 0, (1 << depth) - 1)
+        matte = aom_avif(aom_encode([a.astype(np.int64)], depth, "4:0:0", q=q))
+        single = avif_with_alpha(single, matte, alpha_ispe=alpha_ispe or ispe)
+    if grid is not None:
+        return avif_grid(single, *grid)
+    return single
 
-    ok, buf = cv2.imencode(".avif", np.full((16, 16, 3), 200, np.uint8),
-                           [cv2.IMWRITE_AVIF_QUALITY, 50])
-    assert ok
-    data = bytearray(buf.tobytes())
-    k = data.find(b"ispe") + 8
-    struct.pack_into(">II", data, k, 32, 32)
+
+def with_ispe(single: bytes, ispe: Tuple[int, int]) -> bytes:
+    """A one-item AVIF with its ``ispe`` (width, height) replaced."""
+    data = bytearray(single)
+    k = avif_boxes(single)[b"ispe"][0] + 12
+    struct.pack_into(">II", data, k, *ispe)
+    return bytes(data)
+
+
+def _rescaled_sequence(frame: np.ndarray, ispe: Tuple[int, int], subsampling: str,
+                       alpha_ispe: Optional[Tuple[int, int]]) -> bytes:
+    """Pillow's two-frame ``avis`` of ``frame`` (and its mirror), with an
+    alpha ramp where ``alpha_ispe`` is given; the colour track's ``tkhd``
+    width and height (16.16) set to ``ispe``, the alpha track's (Pillow
+    writes it second) to ``alpha_ispe``."""
+    import io
+
+    from PIL import Image
+
+    if alpha_ispe is not None:
+        ramp = (np.indices(frame.shape[:2]).sum(axis=0) * 5 % 256).astype(np.uint8)
+        frame = np.dstack([frame, ramp])
+    frames = [Image.fromarray(frame), Image.fromarray(np.ascontiguousarray(frame[:, ::-1]))]
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], quality=100,
+                   subsampling=subsampling)
+    data = bytearray(buf.getvalue())
+    k = data.find(b"tkhd")
+    for size in (ispe, alpha_ispe):
+        if size is None:
+            break
+        version = data[k + 4]
+        at = k + 8 + (16 if version else 8) + 4 + 4 + (8 if version else 4) + 8 + 8 + 36
+        struct.pack_into(">II", data, at, size[0] << 16, size[1] << 16)
+        k = data.find(b"tkhd", k + 4)
     return bytes(data)
 
 
