@@ -250,7 +250,7 @@ READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
                 "big_lossless.avif", "big_lossy.avif", "big_grain.avif", "big_superres.avif",
-                "big_rescaled.avif")
+                "big_rescaled.avif", "big_inter.avif")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2032,8 +2032,8 @@ def image_forms(torch, card, bundle, work, want):
     machine's cv2 reads to the same array (information: its cv2 may not
     turn WebP by EXIF, read an animation, or read JPEG 2000 or AVIF at all) and its
     ms on the 1024 x 1024 files; and the readers' host ms on those files,
-    the median of ``READER_REPS`` reads (one where the first passes
-    ``READER_ONE_READ_MS``)."""
+    the median of ``READER_REPS`` reads, the check's read the first of them
+    (one where it passes ``READER_ONE_READ_MS``)."""
     import numpy as np
 
     from molnextr_tpu_torch import predict
@@ -2046,9 +2046,45 @@ def image_forms(torch, card, bundle, work, want):
     stored = np.load(os.path.join(folder, "arrays.npz"))
     fmeta = json.loads(str(stored["meta"]))
     names = sorted(f for f in os.listdir(folder) if f != "arrays.npz")
+    from molnextr_tpu_torch.data import av1_grain, av1_inter, av1_refs, av1_superres, yuv_scale
+
+    steps = {"grain_ms": [(av1_grain, "apply_grain")],
+             "upscale_ms": [(av1_superres, "upscale_planes")],
+             "scale_ms": [(yuv_scale, "scale_plane")],
+             "inter_ms": [(av1_inter, "predict_block")],
+             "refs_ms": [(av1_refs, "load_state"), (av1_refs, "save_state")]}
+    reads = {name: {"ms": [], "steps": {key: [] for key in steps}} for name in READER_FILES}
+
+    def timed_read(name):  # one read, each step of it timed apart from the decode
+        record = reads[name]
+
+        def timed_step(key, fn):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                record["steps"][key][-1] += (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+
+        targets = [(key, mod, attr) for key, fns in steps.items() for mod, attr in fns]
+        originals = {(mod, attr): getattr(mod, attr) for _, mod, attr in targets}
+        for key, mod, attr in targets:
+            setattr(mod, attr, timed_step(key, originals[(mod, attr)]))
+        try:
+            for ms in record["steps"].values():
+                ms.append(0.0)
+            t0 = time.perf_counter()
+            img = imread(os.path.join(folder, name))
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+        return img
+
     images = {}
-    for name in names:
-        images[name] = imread(os.path.join(folder, name))
+    for name in names:  # a timed file's check is the first of its timed reads
+        images[name] = (timed_read(name) if name in reads
+                        else imread(os.path.join(folder, name)))
         if images[name] is None or not np.array_equal(images[name], stored[name]):
             raise AssertionError(f"forms/{name}: imread differs from cv2.imread's array")
     demo = fmeta["names"]
@@ -2110,51 +2146,27 @@ def image_forms(torch, card, bundle, work, want):
             "array (0), None (null) or the pixels that differ (information): "
             + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
                 "pixels_differing") for n in RESCALE_RLEW_PART2_FORMS}))
+        log("  the key-frame-filtered (inter frame) AVIF forms by this machine's cv2: the "
+            "same array (0), None (null) or the pixels that differ (information): "
+            + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
+                "pixels_differing") for n in INTER_FORMS}))
         log("  the files this machine's cv2 reads otherwise, as None (null) or as other "
             "pixels (how many differ from the stored array; information): "
             f"{json.dumps(json.loads(probe.stdout)['differing'])}")
     else:
         log(f"  this machine's cv2 was not compared (exit {probe.returncode}: "
             f"{(probe.stderr.strip().splitlines() or [''])[-1]})")
-    from molnextr_tpu_torch.data import av1_grain, av1_superres, yuv_scale
-
-    steps = {"grain_ms": (av1_grain, "apply_grain"),
-             "upscale_ms": (av1_superres, "upscale_planes"),
-             "scale_ms": (yuv_scale, "scale_plane")}
-    step_ms = {key: [] for key in steps}
-
-    def timed_step(key, fn):  # a step of a read, timed apart from the decode
-        def run(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            step_ms[key][-1] += (time.perf_counter() - t0) * 1e3
-            return out
-        return run
-
     timings = {}
     for name in READER_FILES:
-        path = os.path.join(folder, name)
-        spent = []
-        for ms in step_ms.values():
-            ms.clear()
-        originals = {key: getattr(mod, attr) for key, (mod, attr) in steps.items()}
-        for key, (mod, attr) in steps.items():
-            setattr(mod, attr, timed_step(key, originals[key]))
-        try:
-            while len(spent) < READER_REPS and (not spent or spent[0] <= READER_ONE_READ_MS):
-                for ms in step_ms.values():
-                    ms.append(0.0)
-                t0 = time.perf_counter()
-                img = imread(path)
-                spent.append((time.perf_counter() - t0) * 1e3)
-        finally:
-            for key, (mod, attr) in steps.items():
-                setattr(mod, attr, originals[key])
+        spent, steps_ms = reads[name]["ms"], reads[name]["steps"]
+        while len(spent) < READER_REPS and spent[0] <= READER_ONE_READ_MS:
+            timed_read(name)
+        img = images[name]
         mpix = img.shape[0] * img.shape[1] / 1e6
         timings[name] = {"ms_per_image": float(np.median(spent)),
                          "ms_per_megapixel": float(np.median(spent)) / mpix,
                          "all_ms": spent, "reads": len(spent), "size": list(img.shape[:2])}
-        apart = {key: ms for key, ms in step_ms.items() if any(ms)}
+        apart = {key: ms for key, ms in steps_ms.items() if any(ms)}
         for key, ms in apart.items():
             timings[name][key] = float(np.median(ms))
         if apart:
@@ -2177,7 +2189,7 @@ def image_forms(torch, card, bundle, work, want):
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
                "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif", "_lossy.avif",
                "_10bit.avif", "_grain.avif", "_superres.avif", "_rescaled_down.avif",
-               "_rescaled_up.avif")
+               "_rescaled_up.avif", "_inter.avif")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
                       "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",
@@ -2193,6 +2205,10 @@ NEW_AVIF_FORMS = ("demo_0_10bit.avif", "demo_0_grain.avif", "demo_0_grid.avif",
 # is logged apart
 RESCALE_RLEW_PART2_FORMS = ("demo_0_rescaled_down.avif", "demo_0_rescaled_up.avif",
                             "big_rescaled.avif", "demo_0_rlew.tif", "demo_0_part2.jp2")
+# the key-frame-filtered AVIF forms (a hidden key frame, then a shown inter
+# frame) the reader gained with AV1 inter frames: whether the card machine's
+# cv2 reads them alike is logged apart
+INTER_FORMS = ("demo_0_inter.avif", "demo_0_inter_lossless.avif", "big_inter.avif")
 # the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
 # TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
 # smoothing: whether the card machine's cv2 reads them alike is logged apart

@@ -1,9 +1,11 @@
-"""The block syntax of an AV1 intra frame (the AV1 specification, sections
-5.11 and 6.10, with the context derivations of 8.3.2), read tile by tile
-into planes of flat Python lists.
+"""The block syntax of an AV1 frame, intra or inter (the AV1 specification,
+sections 5.11 and 6.10, with the context derivations of 8.3.2), read tile
+by tile into planes of flat Python lists.
 
-Per tile: the CDFs reset to their defaults for the frame's q-context
-(``data/av1_cdfs.py``), the above contexts cleared, superblocks of 64 or 128
+Per tile: the CDFs of the frame's start (the defaults of its q-context,
+``data/av1_cdfs.py``, or those its primary reference frame saved), those
+of tile ``context_update_tile_id`` kept at its end, the above contexts
+cleared, superblocks of 64 or 128
 in raster order, each opening with its CDEF indices cleared and its loop
 restoration units read (``read_lr``: Wiener taps and self-guided sets with
 their reference-based subexponential coding), then split by
@@ -29,6 +31,20 @@ dequantised (``data/av1_quant.py``) and inverse transformed
 segment); prediction comes from ``data/av1_recon.py``.  The transform
 sizes, skips, segments and ``delta_lf`` values stay for the in-loop
 filters.
+
+An inter frame's blocks (``inter_frame_mode_info``): the segment id
+predicted from the previous map (``seg_id_predicted``), ``skip_mode``,
+``is_inter``; intra blocks with the size-group y mode CDFs; inter blocks
+with their reference frames (single, unidirectional and bidirectional
+compound, each with the neighbour counts' contexts), the mode from the
+motion vector stack's contexts (``data/av1_mvpred.py``), ``drl_mode``, the
+vectors (classes, fractions, ``allow_high_precision_mv``,
+``force_integer_mv``), inter-intra, the motion mode (OBMC, local warp), the
+compound type (average, distance, wedge, difference) and the
+interpolation filters; the variable transform split, the inter transform
+sets (chroma types from luma's at the co-located 4 x 4).  Prediction is
+``data/av1_inter.py``'s; per MI the references, vectors, modes and
+filters stay for later blocks, the loop filter and the motion field.
 """
 
 from __future__ import annotations
@@ -38,9 +54,10 @@ from typing import List
 
 import numpy as np
 
-from molnextr_tpu_torch.data import av1_cdfs, av1_recon
+from molnextr_tpu_torch.data import av1_cdfs, av1_inter, av1_recon
 from molnextr_tpu_torch.data.av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
-                                             TX_MODE_SELECT, AV1Error, Frame, Sequence)
+                                             SWITCHABLE, TX_MODE_SELECT, AV1Error, Frame,
+                                             Sequence, relative_dist)
 from molnextr_tpu_torch.data.av1_quant import ac_q, dc_q, dq_denom, iqmatrix, qindex
 from molnextr_tpu_torch.data.av1_recon import (D157, DC, PAETH, SMOOTH, SMOOTH_H, SMOOTH_V, H,
                                                V)
@@ -57,6 +74,19 @@ B8X8 = 3
 NONE, HORZ, VERT, SPLIT, HORZ_A, HORZ_B, VERT_A, VERT_B, HORZ_4, VERT_4 = range(10)
 UV_CFL = 13
 MODE_CONTEXT = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)
+SIZE_GROUP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2)
+NEARESTMV, NEARMV, GLOBALMV, NEWMV = 13, 14, 15, 16
+NEAREST_NEARESTMV, NEAR_NEARMV, NEAR_NEWMV, NEW_NEARMV, GLOBAL_GLOBALMV, NEW_NEWMV = \
+    17, 18, 21, 22, 23, 24
+# the single modes of each inter mode's two vectors (compound modes 17-24)
+_COMPONENT_MODE = {13: (13, 13), 14: (14, 14), 15: (15, 15), 16: (16, 16), 17: (13, 13),
+                   18: (14, 14), 19: (13, 16), 20: (16, 13), 21: (14, 16), 22: (16, 14),
+                   23: (15, 15), 24: (16, 16)}
+COMPOUND_MODE_CTX = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
+COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_INTRA, COMPOUND_DISTANCE = range(5)
+WEDGE_BITS = {(8, 8): 4, (8, 16): 4, (16, 8): 4, (16, 16): 4, (16, 32): 4, (32, 16): 4,
+              (32, 32): 4, (8, 32): 4, (32, 8): 4}
+_NO_FEATURES = (None,) * 8
 SKIP_CTX = ((1, 2, 2, 2, 3), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5),
             (3, 5, 5, 5, 6))
 PALETTE_HASH_CTX = {2: 0, 5: 4, 6: 3, 7: 2, 8: 1}
@@ -183,12 +213,21 @@ def _scan_info(tw: int, th: int, tx_type: int) -> _ScanInfo:
 
 
 class FrameDecoder:
-    """Decodes every tile of an intra frame into ``planes`` (flat lists of
-    ``stride`` samples, MI-aligned, with a margin), before the in-loop
-    filters."""
+    """Decodes every tile of a frame, intra or inter, into ``planes`` (flat
+    lists of ``stride`` samples, MI-aligned, with a margin), before the
+    in-loop filters; an inter frame reads its references' planes from the
+    slots of ``refs``."""
 
-    def __init__(self, seq: Sequence, fr: Frame):
+    def __init__(self, seq: Sequence, fr: Frame, cdfs, refs, prev_seg, motion_field):
         self.seq, self.fr = seq, fr
+        # the frame's CDFs at its start (the defaults of its q-context, or
+        # those loaded from its primary reference frame), the reference
+        # slots, the previous segment map and the projected motion field
+        self.init_cdfs = cdfs
+        self.end_cdfs = None
+        self.refs = refs
+        self.prev_seg = prev_seg
+        self.mf = motion_field
         self.bd = seq.bit_depth
         self.nplanes = seq.planes
         self.ss = [(0, 0)] + [(seq.ss_x, seq.ss_y)] * (self.nplanes - 1)
@@ -200,7 +239,17 @@ class FrameDecoder:
         self.y_mode = [0] * n
         self.uv_mode = [0] * n
         self.is_bc = [False] * n
+        self.is_inter = [False] * n
+        self.ref0 = [0] * n  # RefFrames[][][0]: 0 intra, 1-7 LAST..ALTREF
+        self.ref1 = [-1] * n  # RefFrames[][][1]: -1 none, 0 inter-intra
         self.mv = [(0, 0)] * n
+        self.mv1 = [(0, 0)] * n
+        self.interp = [(0, 0)] * n  # (vertical, horizontal) interpolation filters
+        self.skip_mode = [0] * n
+        self.comp_group = [0] * n
+        self.comp_idx = [0] * n
+        self.seg_pred = [0] * n
+        self.seg_map = None  # the segment map this frame saves, when it differs from seg
         self.skip = [0] * n
         self.seg = [0] * n
         self.pal_size = [[0] * n, [0] * n]
@@ -238,7 +287,7 @@ class FrameDecoder:
             tr, tc = divmod(num, ncols)
             self.r0, self.r1 = fr.row_starts[tr], fr.row_starts[tr + 1]
             self.c0, self.c1 = fr.col_starts[tc], fr.col_starts[tc + 1]
-            self.cdf = av1_cdfs.fresh(av1_cdfs.q_context(fr.base_q_idx))
+            self.cdf = av1_cdfs.copied(self.init_cdfs)
             self.sd = SymbolDecoder(data, start, size, not fr.disable_cdf_update)
             for p in range(self.nplanes):
                 self.above_level[p] = [0] * len(self.above_level[p])
@@ -267,6 +316,8 @@ class FrameDecoder:
                         raise AV1Error("AV1: tile data overrun (a corrupt frame)")
             if not self.sd.trailing_ok():
                 raise AV1Error("AV1: tile without its trailing bits (a corrupt frame)")
+            if num == fr.context_update_tile_id:
+                self.end_cdfs = self.cdf  # this tile's CDFs, which no later tile touches
 
     def frame_planes(self) -> List[np.ndarray]:
         """The decoded planes over the MI-aligned frame, as int32 arrays."""
@@ -387,7 +438,7 @@ class FrameDecoder:
 
     # -- blocks ------------------------------------------------------------------
     def _block(self, r: int, c: int, bsize: int) -> None:
-        seq, fr, sd, cdf = self.seq, self.fr, self.sd, self.cdf
+        seq, fr = self.seq, self.fr
         w, h = SIZES[bsize]
         bw4, bh4 = w >> 2, h >> 2
         ssx, ssy = seq.ss_x, seq.ss_y
@@ -403,51 +454,11 @@ class FrameDecoder:
             auc = self._inside(r - 2, c) if ssy and bh4 == 1 else au
             alc = self._inside(r, c - 2) if ssx and bw4 == 1 else al
         st = self.mi_stride
-        up, lf = (r - 1) * st + c, r * st + c - 1
         b = _Block(r, c, bsize, w, h, has_chroma, au, al, auc, alc)
-        # intra_frame_mode_info
-        if fr.seg_id_pre_skip:
-            b.seg = self._segment_id(b, 0)
-        if fr.seg_id_pre_skip and fr.seg_features[b.seg][6] is not None:
-            b.skip = 1
+        if fr.is_intra:
+            self._intra_frame_mode_info(b)
         else:
-            b.skip = sd.symbol(cdf["SKIP"][(self.skip[up] if au else 0)
-                                           + (self.skip[lf] if al else 0)])
-        if not fr.seg_id_pre_skip:
-            b.seg = self._segment_id(b, b.skip)
-        b.lossless = fr.lossless[b.seg]
-        self._read_cdef(b)
-        if self.read_deltas:
-            if not ((w, h) == (self.sb4 * 4, self.sb4 * 4) and b.skip):
-                self._read_delta_q()
-                if fr.delta_lf_present:
-                    self._read_delta_lf()
-            self.read_deltas = False
-        if fr.allow_intrabc and sd.symbol(cdf["INTRABC"]):
-            b.bc = True
-            self._intrabc_mv(b)
-        else:
-            ya = MODE_CONTEXT[self.y_mode[up]] if au else 0
-            yl = MODE_CONTEXT[self.y_mode[lf]] if al else 0
-            b.y_mode = sd.symbol(cdf["KF_Y_MODE"][ya][yl])
-            if bsize >= B8X8 and 1 <= b.y_mode <= 8:
-                b.y_delta = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1]) - 3
-            if has_chroma:
-                cw, ch = max(4, w >> ssx), max(4, h >> ssy)
-                cfl_ok = (cw, ch) == (4, 4) if b.lossless else max(w, h) <= 32
-                table = cdf["UV_MODE_CFL_ALLOWED" if cfl_ok else "UV_MODE_CFL_NOT_ALLOWED"]
-                b.uv_mode = sd.symbol(table[b.y_mode])
-                if b.uv_mode == UV_CFL:
-                    self._cfl_alphas(b)
-                if bsize >= B8X8 and 1 <= b.uv_mode <= 8:
-                    b.uv_delta = sd.symbol(cdf["ANGLE_DELTA"][b.uv_mode - 1]) - 3
-            if bsize >= B8X8 and w <= 64 and h <= 64 and fr.screen_tools:
-                self._palette_mode_info(b)
-            if seq.enable_filter_intra and b.y_mode == DC and not b.pal[0] and max(w, h) <= 32:
-                if sd.symbol(cdf["FILTER_INTRA"][bsize]):
-                    b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"])
-        if b.pal[0] or b.pal[1]:
-            self._palette_tokens(b)
+            self._inter_frame_mode_info(b)
         self._read_tx_size(b)
         lf = tuple(self.cur_lf)
         # store the block's mode info
@@ -458,7 +469,13 @@ class FrameDecoder:
                 self.y_mode[i] = b.y_mode
                 self.uv_mode[i] = b.uv_mode if has_chroma else DC
                 self.is_bc[i] = b.bc
-                self.mv[i] = b.mv
+                self.is_inter[i] = b.inter
+                self.ref0[i], self.ref1[i] = b.ref
+                self.mv[i], self.mv1[i] = b.mv, b.mv1
+                self.interp[i] = b.interp
+                self.skip_mode[i] = b.skip_mode
+                self.comp_group[i], self.comp_idx[i] = b.comp_group, b.comp_idx
+                self.seg_pred[i] = b.seg_pred
                 self.skip[i] = b.skip
                 self.seg[i] = b.seg
                 self.delta_lf[i] = lf
@@ -475,7 +492,404 @@ class FrameDecoder:
                     self.left_level[p][i] = self.left_dc[p][i] = 0
         if b.bc:
             self._predict_bc(b)
+        elif b.inter:
+            av1_inter.predict_block(self, b)
         self._residual(b)
+
+    def _intra_frame_mode_info(self, b) -> None:
+        fr, sd, cdf, st = self.fr, self.sd, self.cdf, self.mi_stride
+        up = (b.r - 1) * st + b.c
+        if fr.seg_id_pre_skip:
+            b.seg = self._segment_id(b, 0)
+        if fr.seg_id_pre_skip and fr.seg_features[b.seg][6] is not None:
+            b.skip = 1
+        else:
+            b.skip = sd.symbol(cdf["SKIP"][(self.skip[up] if b.au else 0)
+                                           + (self.skip[b.r * st + b.c - 1] if b.al else 0)])
+        if not fr.seg_id_pre_skip:
+            b.seg = self._segment_id(b, b.skip)
+        self._block_deltas(b)
+        if fr.allow_intrabc and sd.symbol(cdf["INTRABC"]):
+            b.bc = b.inter = True
+            self._intrabc_mv(b)
+        else:
+            ya = MODE_CONTEXT[self.y_mode[up]] if b.au else 0
+            yl = MODE_CONTEXT[self.y_mode[b.r * st + b.c - 1]] if b.al else 0
+            self._intra_modes(b, cdf["KF_Y_MODE"][ya][yl])
+
+    def _block_deltas(self, b) -> None:
+        """The lossless flag, the CDEF index and the superblock's deltas."""
+        b.lossless = self.fr.lossless[b.seg]
+        self._read_cdef(b)
+        if self.read_deltas:
+            if not ((b.w, b.h) == (self.sb4 * 4, self.sb4 * 4) and b.skip):
+                self._read_delta_q()
+                if self.fr.delta_lf_present:
+                    self._read_delta_lf()
+            self.read_deltas = False
+
+    def _intra_modes(self, b, y_cdf) -> None:
+        """``intra_frame_mode_info``'s and ``intra_block_mode_info``'s modes:
+        y (from ``y_cdf``), angle deltas, uv and CfL, palette, filter intra."""
+        seq, fr, sd, cdf = self.seq, self.fr, self.sd, self.cdf
+        w, h, bsize = b.w, b.h, b.bsize
+        b.y_mode = sd.symbol(y_cdf)
+        if bsize >= B8X8 and 1 <= b.y_mode <= 8:
+            b.y_delta = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1]) - 3
+        if b.has_chroma:
+            cw, ch = max(4, w >> seq.ss_x), max(4, h >> seq.ss_y)
+            cfl_ok = (cw, ch) == (4, 4) if b.lossless else max(w, h) <= 32
+            table = cdf["UV_MODE_CFL_ALLOWED" if cfl_ok else "UV_MODE_CFL_NOT_ALLOWED"]
+            b.uv_mode = sd.symbol(table[b.y_mode])
+            if b.uv_mode == UV_CFL:
+                self._cfl_alphas(b)
+            if bsize >= B8X8 and 1 <= b.uv_mode <= 8:
+                b.uv_delta = sd.symbol(cdf["ANGLE_DELTA"][b.uv_mode - 1]) - 3
+        if bsize >= B8X8 and w <= 64 and h <= 64 and fr.screen_tools:
+            self._palette_mode_info(b)
+        if seq.enable_filter_intra and b.y_mode == DC and not b.pal[0] and max(w, h) <= 32:
+            if sd.symbol(cdf["FILTER_INTRA"][bsize]):
+                b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"])
+        if b.pal[0] or b.pal[1]:
+            self._palette_tokens(b)
+
+    # -- inter frames ----------------------------------------------------------
+    def _inter_frame_mode_info(self, b) -> None:
+        """``inter_frame_mode_info``."""
+        fr, sd, cdf, st = self.fr, self.sd, self.cdf, self.mi_stride
+        up, lf = (b.r - 1) * st + b.c, b.r * st + b.c - 1
+        b.nb = ((self.ref0[up], self.ref1[up]) if b.au else None,
+                (self.ref0[lf], self.ref1[lf]) if b.al else None)
+        self._inter_segment_id(b, True)
+        feat = fr.seg_features[b.seg] if fr.seg_enabled else _NO_FEATURES
+        if fr.skip_mode_present and min(b.w, b.h) >= 8 and feat[5] is None and \
+                feat[6] is None and feat[7] is None:
+            ctx = (self.skip_mode[up] if b.au else 0) + (self.skip_mode[lf] if b.al else 0)
+            b.skip_mode = sd.symbol(cdf["SKIP_MODE"][ctx])
+        if b.skip_mode:
+            b.skip = 1
+        elif fr.seg_id_pre_skip and feat[6] is not None:
+            b.skip = 1
+        else:
+            b.skip = sd.symbol(cdf["SKIP"][(self.skip[up] if b.au else 0)
+                                           + (self.skip[lf] if b.al else 0)])
+        if not fr.seg_id_pre_skip:
+            self._inter_segment_id(b, False)
+        feat = fr.seg_features[b.seg] if fr.seg_enabled else _NO_FEATURES
+        self._block_deltas(b)
+        if b.skip_mode:
+            b.inter = True
+        elif feat[5] is not None:
+            b.inter = feat[5] != 0
+        elif feat[7] is not None:
+            b.inter = True
+        else:
+            a_intra = b.nb[0] is not None and b.nb[0][0] <= 0
+            l_intra = b.nb[1] is not None and b.nb[1][0] <= 0
+            if b.au and b.al:
+                ctx = 3 if a_intra and l_intra else int(a_intra or l_intra)
+            elif b.au or b.al:
+                ctx = 2 * (a_intra if b.au else l_intra)
+            else:
+                ctx = 0
+            b.inter = bool(sd.symbol(cdf["IS_INTER"][ctx]))
+        if b.inter:
+            self._inter_block_mode_info(b, feat)
+        else:
+            av1_recon._hit("intra_in_inter_frame")
+            self._intra_modes(b, cdf["Y_MODE"][SIZE_GROUP[b.bsize]])
+
+    def _inter_segment_id(self, b, pre_skip: bool) -> None:
+        fr = self.fr
+        if not fr.seg_enabled:
+            return
+        if not fr.seg_update_map:
+            b.seg = self._predicted_segment(b)
+            return
+        if pre_skip and not fr.seg_id_pre_skip:
+            b.seg = 0
+            return
+        if not pre_skip and b.skip:
+            b.seg_pred = 0
+            b.seg = self._segment_id(b, 1)
+            return
+        if fr.seg_temporal_update:
+            st = self.mi_stride
+            ctx = (self.seg_pred[(b.r - 1) * st + b.c] if b.au else 0) + \
+                (self.seg_pred[b.r * st + b.c - 1] if b.al else 0)
+            b.seg_pred = self.sd.symbol(self.cdf["SEGMENT_ID_PREDICTED"][ctx])
+            if b.seg_pred:
+                b.seg = self._predicted_segment(b)
+                return
+        b.seg = self._segment_id(b, 0)
+
+    def _predicted_segment(self, b) -> int:
+        """``get_segment_id``: the least previous segment under the block."""
+        if self.prev_seg is None:
+            return 0
+        fr = self.fr
+        return int(self.prev_seg[b.r : min(fr.mi_rows, b.r + (b.h >> 2)),
+                                 b.c : min(fr.mi_cols, b.c + (b.w >> 2))].min())
+
+    def _ref_counts(self, b) -> List[int]:
+        counts = [0] * 8
+        for nb in b.nb:
+            if nb is not None and nb[0] > 0:
+                counts[nb[0]] += 1
+                if nb[1] > 0:
+                    counts[nb[1]] += 1
+        return counts
+
+    def _read_ref_frames(self, b, feat) -> None:
+        fr, sd, cdf = self.fr, self.sd, self.cdf
+        if b.skip_mode:
+            b.ref = fr.skip_mode_frames
+            return
+        if feat[5] is not None:
+            b.ref = (feat[5], -1)
+            return
+        if feat[6] is not None or feat[7] is not None:
+            b.ref = (1, -1)
+            return
+        n = self._ref_counts(b)
+
+        def cmp(a: int, c: int) -> int:
+            return 1 if a == c else 0 if a < c else 2
+
+        fwd, bwd = n[1] + n[2] + n[3] + n[4], n[5] + n[6] + n[7]
+        compound = False
+        if fr.reference_select and min(b.w, b.h) >= 8:
+            compound = bool(sd.symbol(cdf["COMP_MODE"][self._comp_mode_ctx(b)]))
+        if compound:
+            if sd.symbol(cdf["COMP_REF_TYPE"][self._comp_ref_type_ctx(b)]):  # bidirectional
+                if sd.symbol(cdf["COMP_REF"][cmp(n[1] + n[2], n[3] + n[4])][0]):
+                    r0 = 4 if sd.symbol(cdf["COMP_REF"][cmp(n[3], n[4])][2]) else 3
+                else:
+                    r0 = 2 if sd.symbol(cdf["COMP_REF"][cmp(n[1], n[2])][1]) else 1
+                if sd.symbol(cdf["COMP_BWDREF"][cmp(n[5] + n[6], n[7])][0]):
+                    r1 = 7
+                else:
+                    r1 = 6 if sd.symbol(cdf["COMP_BWDREF"][cmp(n[5], n[6])][1]) else 5
+                b.ref = (r0, r1)
+            elif sd.symbol(cdf["UNI_COMP_REF"][cmp(fwd, bwd)][0]):
+                b.ref = (5, 7)
+            elif sd.symbol(cdf["UNI_COMP_REF"][cmp(n[2], n[3] + n[4])][1]):
+                b.ref = (1, 4) if sd.symbol(cdf["UNI_COMP_REF"][cmp(n[3], n[4])][2]) else (1, 3)
+            else:
+                b.ref = (1, 2)
+            return
+        single = cdf["SINGLE_REF"]
+        if sd.symbol(single[cmp(fwd, bwd)][0]):
+            if sd.symbol(single[cmp(n[5] + n[6], n[7])][1]):
+                r0 = 7
+            else:
+                r0 = 6 if sd.symbol(single[cmp(n[5], n[6])][5]) else 5
+        elif sd.symbol(single[cmp(n[1] + n[2], n[3] + n[4])][2]):
+            r0 = 4 if sd.symbol(single[cmp(n[3], n[4])][4]) else 3
+        else:
+            r0 = 2 if sd.symbol(single[cmp(n[1], n[2])][3]) else 1
+        b.ref = (r0, -1)
+
+    def _comp_mode_ctx(self, b) -> int:
+        a, l_ = b.nb
+        if a is not None and l_ is not None:
+            if a[1] <= 0 and l_[1] <= 0:
+                return int(a[0] >= 5) ^ int(l_[0] >= 5)
+            if a[1] <= 0:
+                return 2 + int(a[0] >= 5 or a[0] <= 0)
+            if l_[1] <= 0:
+                return 2 + int(l_[0] >= 5 or l_[0] <= 0)
+            return 4
+        if a is not None or l_ is not None:
+            e = a if a is not None else l_
+            return int(e[0] >= 5) if e[1] <= 0 else 3
+        return 1
+
+    def _comp_ref_type_ctx(self, b) -> int:
+        a, l_ = b.nb
+
+        def uni(e) -> bool:
+            return e[1] > 0 and (e[0] >= 5) == (e[1] >= 5)
+
+        if a is not None and l_ is not None:
+            ai, li = a[0] <= 0, l_[0] <= 0
+            if ai and li:
+                return 2
+            if ai or li:
+                e = l_ if ai else a
+                return 2 if e[1] <= 0 else 1 + 2 * uni(e)
+            a_sg, l_sg = a[1] <= 0, l_[1] <= 0
+            same = (a[0] >= 5) == (l_[0] >= 5)
+            if a_sg and l_sg:
+                return 1 + 2 * same
+            if a_sg or l_sg:
+                e = l_ if a_sg else a
+                return 1 if not uni(e) else 3 + same
+            ua, ul = uni(a), uni(l_)
+            if not ua and not ul:
+                return 0
+            if not ua or not ul:
+                return 2
+            return 3 + int((a[0] == 5) == (l_[0] == 5))
+        if a is not None or l_ is not None:
+            e = a if a is not None else l_
+            if e[0] <= 0 or e[1] <= 0:
+                return 2
+            return 4 * uni(e)
+        return 2
+
+    def _inter_block_mode_info(self, b, feat) -> None:
+        """``inter_block_mode_info``: references, the mode, the vectors,
+        inter-intra, the motion mode, the compound type and the filters."""
+        fr, sd, cdf, seq = self.fr, self.sd, self.cdf, self.seq
+        self._read_ref_frames(b, feat)
+        compound = b.ref[1] > 0
+        stack = av1_mvpred.find_mv_stack(self, b, b.ref)
+        if b.skip_mode:
+            b.y_mode = NEAREST_NEARESTMV
+        elif feat[6] is not None or feat[7] is not None:
+            b.y_mode = GLOBALMV
+        elif compound:
+            ctx = COMPOUND_MODE_CTX[stack.ref_ctx >> 1][min(stack.new_ctx, 4)]
+            b.y_mode = NEAREST_NEARESTMV + sd.symbol(cdf["COMPOUND_MODE"][ctx])
+        elif sd.symbol(cdf["NEW_MV"][stack.new_ctx]) == 0:
+            b.y_mode = NEWMV
+        elif sd.symbol(cdf["ZERO_MV"][stack.zero_ctx]) == 0:
+            b.y_mode = GLOBALMV
+        else:
+            b.y_mode = NEARMV if sd.symbol(cdf["REF_MV"][stack.ref_ctx]) else NEARESTMV
+        idx = 0
+        if b.y_mode in (NEWMV, NEW_NEWMV):
+            for k in range(2):
+                if stack.num > k + 1:
+                    idx = k + sd.symbol(cdf["DRL_MODE"][stack.drl_ctx[k]])
+                    if idx == k:
+                        break
+        elif b.y_mode in (NEARMV, NEAR_NEARMV, NEAR_NEWMV, NEW_NEARMV):
+            idx = 1
+            for k in range(1, 3):
+                if stack.num > k + 1:
+                    idx = k + sd.symbol(cdf["DRL_MODE"][stack.drl_ctx[k]])
+                    if idx == k:
+                        break
+        mvs = []
+        for k in range(1 + compound):
+            mode = _COMPONENT_MODE[b.y_mode][k]
+            if mode == GLOBALMV:
+                pred = stack.gm[k]
+            else:
+                pos = 0 if mode == NEARESTMV else idx
+                if mode == NEWMV and stack.num <= 1:
+                    pos = 0
+                pred = stack.mvs[pos][k]
+            if mode == NEWMV:
+                mvc = cdf["MV"][0]
+                joint = sd.symbol(mvc["joint"])
+                dr = self._mv_component(mvc["comp"][0]) if joint in (2, 3) else 0
+                dc = self._mv_component(mvc["comp"][1]) if joint in (1, 3) else 0
+                pred = (pred[0] + dr, pred[1] + dc)
+                if not (abs(pred[0]) < 1 << 14 and abs(pred[1]) < 1 << 14):
+                    raise AV1Error("AV1: a motion vector out of range (a corrupt frame)")
+            mvs.append(pred)
+        b.mv = mvs[0]
+        b.mv1 = mvs[1] if compound else (0, 0)
+        # inter-intra
+        if seq.enable_interintra and not b.skip_mode and not compound and \
+                B8X8 <= b.bsize <= INDEX[(32, 32)]:
+            group = SIZE_GROUP[b.bsize]
+            if sd.symbol(cdf["INTERINTRA"][group]):
+                b.interintra = sd.symbol(cdf["INTERINTRA_MODE"][group]) + 1
+                b.ref = (b.ref[0], 0)
+                if sd.symbol(cdf["WEDGE_INTERINTRA"][b.bsize]):
+                    b.wedge = (sd.symbol(cdf["WEDGE_INDEX"][b.bsize]), 0)
+        # motion mode
+        samples = []
+        if fr.motion_switchable and not b.skip_mode and min(b.w, b.h) >= 8 and \
+                not (not fr.force_integer_mv and b.y_mode == GLOBALMV
+                     and fr.gm_type[b.ref[0]] > 1) and \
+                b.ref[1] == -1 and av1_mvpred.has_overlappable_candidates(self, b):
+            samples = av1_mvpred.find_warp_samples(self, b, b.mv)
+            slot = self.refs[fr.ref_frame_idx[b.ref[0] - 1]]
+            if fr.force_integer_mv or not samples or not fr.allow_warped or \
+                    av1_inter.is_scaled(slot, fr):
+                b.motion_mode = sd.symbol(cdf["USE_OBMC"][b.bsize])
+            else:
+                b.motion_mode = sd.symbol(cdf["MOTION_MODE"][b.bsize])
+        if b.motion_mode == 2:
+            params = av1_inter.warp_estimation(samples, b.w, b.h, b.mv, b.r, b.c)
+            shear = av1_inter.setup_shear(params) if params is not None else None
+            b.local_warp = (params, shear) if shear is not None else None
+        # compound type
+        if compound and not b.skip_mode:
+            if seq.enable_masked:
+                st = self.mi_stride
+                ctx = 0
+                for nb, i in ((b.nb[0], (b.r - 1) * st + b.c), (b.nb[1], b.r * st + b.c - 1)):
+                    if nb is not None:
+                        ctx += self.comp_group[i] if nb[1] > 0 else 3 * (nb[0] == 7)
+                b.comp_group = sd.symbol(cdf["COMP_GROUP_IDX"][min(5, ctx)])
+            if b.comp_group == 0:
+                if seq.enable_jnt_comp:
+                    b.comp_idx = sd.symbol(cdf["COMPOUND_IDX"][self._compound_idx_ctx(b)])
+                    b.compound = COMPOUND_AVERAGE if b.comp_idx else COMPOUND_DISTANCE
+            else:
+                if WEDGE_BITS.get((b.w, b.h), 0):
+                    b.compound = sd.symbol(cdf["COMPOUND_TYPE"][b.bsize])  # wedge 0, diff 1
+                else:
+                    b.compound = COMPOUND_DIFFWTD
+                if b.compound == COMPOUND_WEDGE:
+                    b.wedge = (sd.symbol(cdf["WEDGE_INDEX"][b.bsize]), sd.literal(1))
+                else:
+                    b.mask_type = sd.literal(1)
+        elif b.interintra:
+            b.compound = COMPOUND_WEDGE if b.wedge is not None else COMPOUND_INTRA
+        # interpolation filters
+        if fr.interp_filter != SWITCHABLE:
+            b.interp = (fr.interp_filter, fr.interp_filter)
+        elif self._needs_interp_filter(b):
+            filters = []
+            for direction in range(2 if seq.enable_dual_filter else 1):
+                filters.append(sd.symbol(cdf["INTERP_FILTER"][self._interp_ctx(b, direction)]))
+            b.interp = (filters[0], filters[-1])
+
+    def _compound_idx_ctx(self, b) -> int:
+        fr, st = self.fr, self.mi_stride
+        fwd = abs(relative_dist(self.seq, fr.order_hints[b.ref[0]], fr.order_hint))
+        bck = abs(relative_dist(self.seq, fr.order_hints[b.ref[1]], fr.order_hint))
+        ctx = 3 if fwd == bck else 0
+        for nb, i in ((b.nb[0], (b.r - 1) * st + b.c), (b.nb[1], b.r * st + b.c - 1)):
+            if nb is not None:
+                ctx += self.comp_idx[i] if nb[1] > 0 else int(nb[0] == 7)
+        return ctx
+
+    def _needs_interp_filter(self, b) -> bool:
+        fr = self.fr
+        large = min(b.w, b.h) >= 8
+        if b.skip_mode or b.motion_mode == 2:
+            return False
+        if large and b.y_mode == GLOBALMV:
+            return fr.gm_type[b.ref[0]] == 1
+        if large and b.y_mode == GLOBAL_GLOBALMV:
+            return fr.gm_type[b.ref[0]] == 1 or fr.gm_type[b.ref[1]] == 1
+        return True
+
+    def _interp_ctx(self, b, direction: int) -> int:
+        st = self.mi_stride
+        ctx = ((direction & 1) * 2 + (b.ref[1] > 0)) * 4
+        types = []
+        for nb, i in ((b.nb[1], b.r * st + b.c - 1), (b.nb[0], (b.r - 1) * st + b.c)):
+            if nb is not None and b.ref[0] in nb:
+                types.append(self.interp[i][direction])
+            else:
+                types.append(3)
+        left, above = types
+        if left == above:
+            return ctx + left
+        if left == 3:
+            return ctx + above
+        if above == 3:
+            return ctx + left
+        return ctx + 3
 
     def _segment_id(self, b, skip: int) -> int:
         fr = self.fr
@@ -832,16 +1246,24 @@ class FrameDecoder:
         return not (src_row > active_row or src_col64 >= active_col64 - 4 + wf)
 
     def _mv_component(self, comp) -> int:
-        sd = self.sd
+        """``read_mv_component``: the fraction 3 and the eighth 1 where
+        ``force_integer_mv`` and ``allow_high_precision_mv`` leave them
+        unread."""
+        sd, fr = self.sd, self.fr
         sign = sd.symbol(comp["MV_SIGN"])
         cls = sd.symbol(comp["MV_CLASS"])
         if cls == 0:
-            mag = ((sd.symbol(comp["MV_CLASS0_BIT"]) << 3) | 7) + 1
+            d = sd.symbol(comp["MV_CLASS0_BIT"])
+            frac = 3 if fr.force_integer_mv else sd.symbol(comp["MV_CLASS0_FR"][d])
+            hp = sd.symbol(comp["MV_CLASS0_HP"]) if fr.allow_hp else 1
+            mag = ((d << 3) | (frac << 1) | hp) + 1
         else:
             d = 0
             for i in range(cls):
                 d |= sd.symbol(comp["MV_BIT"][i]) << i
-            mag = (2 << (cls + 2)) + ((d << 3) | 7) + 1
+            frac = 3 if fr.force_integer_mv else sd.symbol(comp["MV_FR"])
+            hp = sd.symbol(comp["MV_HP"]) if fr.allow_hp else 1
+            mag = (2 << (cls + 2)) + ((d << 3) | (frac << 1) | hp) + 1
         return -mag if sign else mag
 
     def _ref_mv_stack(self, b) -> List[tuple]:
@@ -960,7 +1382,7 @@ class FrameDecoder:
         max_tx = (min(b.w, 64), min(b.h, 64))
         if b.lossless:
             b.tx = (4, 4)
-        elif fr.tx_mode == TX_MODE_SELECT and b.bsize and b.bc and not b.skip:
+        elif fr.tx_mode == TX_MODE_SELECT and b.bsize and b.inter and not b.skip:
             b.inter_tx = {}
             for r4 in range(0, bh4, max_tx[1] >> 2):
                 for c4 in range(0, bw4, max_tx[0] >> 2):
@@ -968,13 +1390,13 @@ class FrameDecoder:
             return
         else:
             b.tx = max_tx
-            if b.bsize and fr.tx_mode == TX_MODE_SELECT and not (b.bc and b.skip):
+            if b.bsize and fr.tx_mode == TX_MODE_SELECT and not (b.inter and b.skip):
                 depth = self.sd.symbol(self.cdf["TX_SIZE"][_tx_depth_to_4x4(max_tx) - 1]
                                        [self._tx_size_ctx(b, max_tx)])
                 av1_recon._hit("tx_mode_select")
                 for _ in range(depth):
                     b.tx = split_tx(b.tx)
-        tw, th = (b.w, b.h) if b.skip and b.bc else b.tx
+        tw, th = (b.w, b.h) if b.skip and b.inter else b.tx
         self.above_txfm[b.c : b.c + bw4] = [tw] * bw4
         self.left_txfm[b.r : b.r + bh4] = [th] * bh4
 
@@ -984,11 +1406,11 @@ class FrameDecoder:
         left = self.left_txfm[b.r] >= max_tx[1]
         if b.au:
             i = (b.r - 1) * st + b.c
-            if self.is_bc[i]:
+            if self.is_inter[i]:
                 above = SIZES[self.mi_size[i]][0] >= max_tx[0]
         if b.al:
             i = b.r * st + b.c - 1
-            if self.is_bc[i]:
+            if self.is_inter[i]:
                 left = SIZES[self.mi_size[i]][1] >= max_tx[1]
         if b.au and b.al:
             return above + left
@@ -1027,26 +1449,36 @@ class FrameDecoder:
     def _read_tx_type(self, b, tx) -> int:
         """``transform_type`` of a luma transform block."""
         fr = self.fr
-        kind = tx_set(tx, b.bc, fr.reduced_tx_set)
+        kind = tx_set(tx, b.inter, fr.reduced_tx_set)
         if kind == 0 or fr.qindex[b.seg] == 0:
             return DCT_DCT
         sqr = _sqr_index(min(tx))
-        if b.bc:
+        if b.inter:
             eset = _INTER_ESET[kind]
             cdf = self.cdf[f"INTER_TX_SET{eset}"][sqr]
         else:
             eset = _INTRA_ESET[kind]
             mode = FILTER_TO_DIR[b.filter_mode] if b.filter_mode >= 0 else b.y_mode
             cdf = self.cdf[f"INTRA_TX_SET{eset}"][sqr][mode]
-        av1_recon._hit(f"tx_set_{'inter' if b.bc else 'intra'}_{eset}")
+        av1_recon._hit(f"tx_set_{'inter' if b.inter else 'intra'}_{eset}")
+        if fr.reduced_tx_set and b.inter:
+            av1_recon._hit("reduced_tx_set")
         return TX_INV[kind][self.sd.symbol(cdf)]
+
+    @staticmethod
+    def _luma_tx_type(b, x4: int, y4: int, w4: int, h4: int, t: int) -> None:
+        """``TxTypes`` of a luma transform block over its 4 x 4s, which the
+        chroma of an inter block reads at the co-located position."""
+        for i in range(h4):
+            for j in range(w4):
+                b.tx_types[(y4 - b.r + i, x4 - b.c + j)] = t
 
     def _plane_tx_type(self, b, p: int, tx, x4: int, y4: int) -> int:
         """``compute_tx_type`` of a chroma transform block."""
         if b.lossless or max(tx) > 32:
             return DCT_DCT
-        kind = tx_set(tx, b.bc, self.fr.reduced_tx_set)
-        if b.bc:
+        kind = tx_set(tx, b.inter, self.fr.reduced_tx_set)
+        if b.inter:
             sx, sy = self.ss[p]
             t = b.tx_types.get((max(b.r, y4 << sy) - b.r, max(b.c, x4 << sx) - b.c), DCT_DCT)
         else:
@@ -1065,7 +1497,7 @@ class FrameDecoder:
                     sx, sy = self.ss[p]
                     tx = (4, 4) if b.lossless else b.tx if p == 0 else self._uv_tx(b, p)
                     pw, ph = max(4, cw >> sx), max(4, ch >> sy)
-                    if b.bc and not b.lossless and p == 0:
+                    if b.inter and not b.lossless and p == 0:
                         self._tree(b, b.c * 4 + cx * 64, b.r * 4 + cy * 64, pw, ph)
                         continue
                     bx, by = (b.c >> sx) * 4, (b.r >> sy) * 4
@@ -1113,7 +1545,7 @@ class FrameDecoder:
         step_x, step_y = tw >> 2, th >> 2
         flags = self.decoded[p]
         px, stride = self.planes[p], self.strides[p]
-        if not b.bc:
+        if not b.inter:
             if b.pal[1 if p else 0]:
                 pal = b.colors[0] if p == 0 else b.colors[1][p - 1]
                 cmap = b.maps[1 if p else 0]
@@ -1181,7 +1613,7 @@ class FrameDecoder:
         return out
 
     def _is_smooth(self, i: int, p: int) -> bool:
-        mode = self.y_mode[i] if p == 0 else (DC if self.is_bc[i] else self.uv_mode[i])
+        mode = self.y_mode[i] if p == 0 else (DC if self.is_inter[i] else self.uv_mode[i])
         return mode in (SMOOTH, SMOOTH_V, SMOOTH_H)
 
     def _coeffs(self, b, p: int, x4: int, y4: int, tx):
@@ -1211,15 +1643,15 @@ class FrameDecoder:
             pw, ph = max(4, b.w >> sx), max(4, b.h >> sy)
             ctx = above + left + (10 if pw * ph > tw * th else 7)
         if sd.symbol(cdf["TXB_SKIP"][szctx][ctx]):
-            if p == 0 and b.bc:
-                b.tx_types[(y4 - b.r, x4 - b.c)] = DCT_DCT
+            if p == 0 and b.inter:
+                self._luma_tx_type(b, x4, y4, w4, h4, DCT_DCT)
             al[x4 : x4 + w4] = ad[x4 : x4 + w4] = [0] * w4
             ll[y4 : y4 + h4] = ld[y4 : y4 + h4] = [0] * h4
             return None
         if p == 0:
             t = self._read_tx_type(b, tx)
-            if b.bc:
-                b.tx_types[(y4 - b.r, x4 - b.c)] = t
+            if b.inter:
+                self._luma_tx_type(b, x4, y4, w4, h4, t)
             b.luma_tx_type = t
             if b.lossless or max(tx) > 32:
                 t = DCT_DCT
@@ -1360,7 +1792,9 @@ class _Block:
                  "skip", "bc", "mv", "y_mode", "uv_mode", "y_delta", "uv_delta", "alpha_u",
                  "alpha_v", "pal", "colors", "maps", "filter_mode", "max_luma_w",
                  "max_luma_h", "lossless", "tx", "inter_tx", "tx_types", "qidx",
-                 "plane_tx_type", "luma_tx_type")
+                 "plane_tx_type", "luma_tx_type", "inter", "ref", "mv1", "interp", "skip_mode",
+                 "comp_group", "comp_idx", "seg_pred", "nb", "interintra", "wedge",
+                 "motion_mode", "local_warp", "compound", "mask_type", "mask")
 
     def __init__(self, r, c, bsize, w, h, has_chroma, au, al, auc, alc):
         self.r, self.c, self.bsize, self.w, self.h = r, c, bsize, w, h
@@ -1382,6 +1816,16 @@ class _Block:
         self.tx_types = {}
         self.qidx = 0
         self.plane_tx_type = self.luma_tx_type = DCT_DCT
+        self.inter = False
+        self.ref = (0, -1)
+        self.mv1 = (0, 0)
+        self.interp = (0, 0)
+        self.skip_mode = self.comp_group = self.seg_pred = self.interintra = 0
+        self.comp_idx = 1
+        self.nb = (None, None)
+        self.wedge = self.local_warp = self.mask = None
+        self.motion_mode = self.mask_type = 0
+        self.compound = COMPOUND_AVERAGE
 
 
 def lr_unit_count(size: int, extent: int) -> int:
@@ -1421,3 +1865,6 @@ def _neg_deinterleave(diff: int, ref: int, top: int) -> int:
     if diff <= 2 * (top - ref - 1):
         return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
     return top - (diff + 1)
+
+
+from molnextr_tpu_torch.data import av1_mvpred  # noqa: E402  (it reads SIZES from here)

@@ -22,6 +22,7 @@ from typing import List
 
 import numpy as np
 
+from molnextr_tpu_torch.data.av1_block import SIZES
 from molnextr_tpu_torch.data.av1_recon import _hit
 
 PAD = 8
@@ -45,7 +46,13 @@ def levels(dec, plane: int, pas: int) -> np.ndarray:
             if data is not None:
                 lvl[seg == s] = np.clip(lvl[seg == s] + data, 0, 63)
     if fr.lf_delta_enabled:
-        lvl = np.clip(lvl + fr.lf_ref_deltas[0] * (1 << (lvl >> 5)), 0, 63)
+        ref = np.maximum(np.asarray(dec.ref0, np.int64).reshape(rows, cols), 0)
+        mode = np.asarray(dec.y_mode, np.int64).reshape(rows, cols)
+        ref_d = np.asarray(fr.lf_ref_deltas, np.int64)[ref]
+        mode_d = np.where((mode >= 13) & (mode != 15) & (mode != 23), fr.lf_mode_deltas[1],
+                          fr.lf_mode_deltas[0])
+        delta = np.where(ref > 0, ref_d + mode_d, ref_d)
+        lvl = np.clip(lvl + delta * (1 << (lvl >> 5)), 0, 63)
     return lvl
 
 
@@ -61,21 +68,31 @@ def deblock(dec, planes: List[np.ndarray]) -> List[np.ndarray]:
             continue
         sx, sy = dec.ss[p]
         work = np.pad(plane.astype(np.int32), PAD, mode="edge")
+        skipped = (np.asarray(dec.skip, bool) & np.asarray(dec.is_inter, bool)).reshape(
+            fr.mi_rows, fr.mi_cols)[sy::1 << sy, sx::1 << sx]
+        size = np.asarray(SIZES, np.int64)[np.asarray(dec.mi_size).reshape(
+            fr.mi_rows, fr.mi_cols)][sy::1 << sy, sx::1 << sx]
         for pas in range(2):
             lvl_mi = levels(dec, p, pas)
             lvl = lvl_mi[sy::1 << sy, sx::1 << sx] if (sx or sy) else lvl_mi
             tx = dec.lf_tw[p] if pas == 0 else dec.lf_th[p]
             h4, w4 = tx.shape
             lvl = lvl[:h4, :w4]
+            skip = skipped[:h4, :w4]
+            # the block's width (height) in the plane: an edge inside a
+            # skipped inter block, between two of its transforms, is not filtered
+            extent = np.maximum(size[:h4, :w4, pas] >> (sy if pas else sx), 4)
             if pas == 0:
-                _edges(work, tx, lvl, fr, dec.bd, p, sx, sy, vertical=True)
+                _edges(work, tx, lvl, skip, extent, fr, dec.bd, p, sx, sy, vertical=True)
             else:
-                _edges(work.T, tx.T, lvl.T, fr, dec.bd, p, sy, sx, vertical=False)
+                _edges(work.T, tx.T, lvl.T, skip.T, extent.T, fr, dec.bd, p, sy, sx,
+                       vertical=False)
         out.append(work[PAD:-PAD, PAD:-PAD])
     return out
 
 
-def _edges(work, tx, lvl, fr, bd: int, plane: int, sx: int, sy: int, vertical: bool) -> None:
+def _edges(work, tx, lvl, skip, extent, fr, bd: int, plane: int, sx: int, sy: int,
+           vertical: bool) -> None:
     """Filter the vertical edges of ``work`` (padded) left to right; the
     horizontal pass hands in transposed views."""
     h4, w4 = tx.shape
@@ -91,6 +108,7 @@ def _edges(work, tx, lvl, fr, bd: int, plane: int, sx: int, sy: int, vertical: b
         edge = on_rows & ((x4 * 4) % cur == 0)
         lv = np.where(lvl[:, x4] > 0, lvl[:, x4], lvl[:, x4 - 1])
         edge &= lv > 0
+        edge &= ~(skip[:, x4] & skip[:, x4 - 1]) | ((x4 * 4) % extent[:, x4] == 0)
         if not edge.any():
             continue
         size = np.minimum(np.minimum(cur, tx[:, x4 - 1]), cap)[edge]

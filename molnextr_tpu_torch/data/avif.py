@@ -30,8 +30,12 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   ``av01`` item or a ``grid`` of them (the ``ImageGrid`` box, the ``dimg``
   tiles placed row-major and cut to the output size, with libavif's rules
   on tile count, sizes and formats).
-* **The image**: the AV1 OBUs (``data/av1_obu.py``; a key frame hidden and
-  shown by ``show_existing_frame`` too), decoded lossless or lossy
+* **The image**: the first shown frame of the AV1 OBUs (``data/av1_obu.py``
+  and ``data/av1_refs.py``: every frame up to it decoded against the
+  reference slots, a key frame hidden and shown by ``show_existing_frame``,
+  or a hidden key frame and an inter frame, as libaom's key frame
+  filtering writes them; inter prediction by ``data/av1_mvpred.py`` and
+  ``data/av1_inter.py``), decoded lossless or lossy
   (``data/av1_block.py``, ``data/av1_recon.py``, ``data/av1_quant.py``,
   ``data/av1_transform.py``), then deblocked (``data/av1_loopfilter.py``),
   CDEF-filtered (``data/av1_cdef.py``), upscaled under superres
@@ -63,9 +67,8 @@ primary image, or raises ``ValueError`` where ``cv2.imread`` returns None:
   frame past 16384 a side is not rescaled (None).  An alpha image is
   checked the same way and, as OpenCV drops it, not rescaled.
 
-An inter frame raises :class:`~molnextr_tpu_torch.data.image.UnsupportedFormat`
-naming itself (ROADMAP queue 1).  An image past libavif's limits (32768 a
-side, 16384 x 16384 pixels) reads as None.
+An image past libavif's limits (32768 a side, 16384 x 16384 pixels) reads
+as None.
 """
 
 from __future__ import annotations
@@ -76,7 +79,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from molnextr_tpu_torch.data import yuv_scale
-from molnextr_tpu_torch.data.image import UnsupportedFormat
 
 _MAX_PIXELS = 16384 * 16384  # libavif's imageSizeLimit (OpenCV's 2^30 is larger)
 _MAX_DIMENSION = 32768  # libavif's imageDimensionLimit
@@ -598,24 +600,18 @@ def _decode(data: bytes, size: Tuple[int, int], alpha: bool = False):
     height) its ``ispe`` or ``tkhd`` gives) and its sequence header.  The
     planes of an ``alpha`` image, which OpenCV drops, are checked and not
     rescaled."""
-    from molnextr_tpu_torch.data import av1_block, av1_grain, av1_obu
+    from molnextr_tpu_torch.data import av1_grain, av1_refs
 
-    seq, fr, payload, tiles = av1_obu.parse_obus(data)
-    width = fr.upscaled_width  # the size libaom outputs, upscaled under superres
-    _check_rescale((width, fr.height), size)  # before decoding: None either way
-    dec = av1_block.FrameDecoder(seq, fr)
-    dec.decode(payload, tiles)
-    planes = []
-    for p, full in enumerate(filtered_planes(dec)):
-        sx, sy = dec.ss[p]
-        planes.append(full[: (fr.height + sy) >> sy, : (width + sx) >> sx])
-    if fr.grain is not None:  # libaom adds the grain to every shown frame
-        planes = av1_grain.apply_grain(planes, fr.grain, seq.bit_depth, seq.ss_x, seq.ss_y,
+    shown = av1_refs.first_shown(data, lambda w, h: _check_rescale((w, h), size))
+    seq, planes, width = shown.seq, shown.planes, shown.width
+    ss = [(0, 0)] + [(seq.ss_x, seq.ss_y)] * (len(planes) - 1)
+    if shown.grain is not None:  # libaom adds the grain to every shown frame
+        planes = av1_grain.apply_grain(planes, shown.grain, seq.bit_depth, seq.ss_x, seq.ss_y,
                                        seq.matrix == 0)
-    if (width, fr.height) != size and not alpha:
+    if (width, shown.height) != size and not alpha:
         planes = [yuv_scale.scale_plane(a, (size[0] + sx) >> sx, (size[1] + sy) >> sy,
                                         seq.bit_depth > 8)
-                  for a, (sx, sy) in zip(planes, dec.ss)]
+                  for a, (sx, sy) in zip(planes, ss)]
     return planes, seq
 
 
@@ -743,10 +739,7 @@ def filtered_planes(dec) -> List[np.ndarray]:
 def decode_avif(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """RGB uint8 (H, W, 3) of an AVIF file's primary image, as OpenCV reads
     it (module doc)."""
-    try:
-        planes, bd, ss_x, ss_y, full, matrix, _w, primaries, alpha = _read(data)
-    except UnsupportedFormat as err:
-        raise UnsupportedFormat(f"{path}: AVIF: {err}") from None
+    planes, bd, ss_x, ss_y, full, matrix, _w, primaries, alpha = _read(data)
     return yuv_to_rgb(planes, bd, ss_x, ss_y, full, matrix, path, primaries, alpha)
 
 

@@ -16,8 +16,9 @@ PPM, PAM, PFM), ``data/gif.py``, ``data/sunras.py``, ``data/hdr.py``,
 ``data/webp.py`` (lossy, lossless, alpha, animated: the first frame) and
 ``data/jp2.py`` (JPEG 2000: the JP2 file and the raw codestream, over
 ``data/j2k*.py``) and ``data/avif.py`` (AVIF: the HEIF container over the
-AV1 intra decoder of ``data/av1_*.py``, lossless and lossy frames at 8, 10
-and 12 bits, film grain, superres, grids, the first frame of a sequence,
+AV1 decoder of ``data/av1_*.py``, lossless and lossy, intra and inter
+frames at 8, 10 and 12 bits, film grain, superres, grids, the first shown
+frame of a sequence,
 frames rescaled to their ``ispe`` by ``data/yuv_scale.py``); PNG, JPEG,
 TIFF and WebP apply the EXIF orientation as OpenCV does
 (``data/exif.py``).
@@ -25,8 +26,8 @@ Each reader module names the few forms where it reads a file that OpenCV
 5.0 returns None for (differences by design, pinned by tests).
 
 A form that OpenCV reads and the port does not decode yet raises
-:class:`UnsupportedFormat` (a ``ValueError``) naming it: AV1 inter frames
-and HTJ2K code-blocks (ROADMAP queue 1).  Such a file is never silently
+:class:`UnsupportedFormat` (a ``ValueError``) naming it: HTJ2K
+code-blocks (ROADMAP queue 1).  Such a file is never silently
 dropped or whitened.  The call sites do on None
 what their JAX counterparts do on ``cv2.imread``'s None:
 ``predict_image_files`` raises ``FileNotFoundError``, the dataset

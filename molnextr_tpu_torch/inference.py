@@ -60,11 +60,17 @@ def resolve_device(device) -> torch.device:
 
 
 class InferenceEngine:
-    """Owns the model on its device and the host-side assembly."""
+    """Owns the model on its device and the host-side assembly.  With
+    ``pad_batch`` (the default) a batch is padded to the next power of two,
+    as the JAX engine pads it to bound its recompilations; without it the
+    encoder, the decoder and the edge head run on the batch's own rows.
+    The port compiles nothing per batch size: the switch is here so the
+    engine takes the JAX engine's arguments, and goes if the padding does."""
 
     def __init__(self, cfg: Config, tokenizers: Dict[str, Any], model: MolNexTRModel,
-                 device="cuda"):
+                 device="cuda", pad_batch: bool = True):
         self.cfg = cfg
+        self.pad_batch = pad_batch
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.fmt = primary_format(cfg)
@@ -154,7 +160,9 @@ class InferenceEngine:
 
     def _pad_to_pow2(self, images: np.ndarray) -> np.ndarray:
         """Repeat the last image up to the next power of two, as the JAX
-        engine does to bound its recompilations."""
+        engine does to bound its recompilations (not without ``pad_batch``)."""
+        if not self.pad_batch:
+            return images
         n = images.shape[0]
         target = 1
         while target < n:

@@ -27,7 +27,7 @@ import pytest
 from PIL import Image
 from torch_image_writers import avif_boxes, avif_grid, avif_rebuild
 
-from molnextr_tpu_torch.data import av1_recon, avif
+from molnextr_tpu_torch.data import av1_obu, av1_recon, avif
 from molnextr_tpu_torch.data.image import UnsupportedFormat, decode, imread, sniff_format
 
 FORMS = Path(__file__).resolve().parents[1] / "molnextr_tpu_torch" / "fixtures" / "forms"
@@ -88,6 +88,19 @@ def cv2_avif(img, depth=8):
     ok, buf = cv2.imencode(".avif", img[..., ::-1].copy() if img.ndim == 3 else img, params)
     assert ok
     return buf.tobytes()
+
+
+def first_headers(payload):
+    """The sequence header and the first frame's header of an AV1 payload,
+    that frame read against empty reference slots."""
+    seq = None
+    for obu_type, temporal_id, spatial_id, pos, end in av1_obu.obus(payload):
+        r = av1_obu.BitReader(payload, pos, end)
+        if obu_type == 1:
+            seq = av1_obu.sequence_header(r)
+        elif obu_type in (3, 6):
+            return seq, av1_obu.frame_header(r, seq, temporal_id, spatial_id)
+    raise AssertionError("no frame header")
 
 
 @pytest.mark.parametrize("path", sorted(FORMS.glob("*.avif")), ids=lambda p: p.name)
@@ -246,10 +259,8 @@ def test_tools_and_superblock_sizes_are_reached(tmp_path):
              cv2_avif(picture("flat", 256, 256))]
     for k, data in enumerate(files):
         check(tmp_path, data, f"{k}.avif")
-        from molnextr_tpu_torch.data.av1_obu import parse_obus
-
         f = avif._Avif(data)
-        sb.add(128 if parse_obus(f.payload(avif._primary(f)))[0].use_128 else 64)
+        sb.add(128 if first_headers(f.payload(avif._primary(f)))[0].use_128 else 64)
     tools = {"dc", "paeth", "smooth", "smooth_v", "smooth_h", "cfl", "filter_intra",
              "palette", "intrabc", "intrabc_subpel", "edge_filter", "edge_upsample",
              "angle_delta"} | {f"mode_{m}" for m in range(1, 9)}
@@ -315,7 +326,7 @@ def test_demo_avif_forms_predict_the_jax_packages_smiles():
 
     bundle = str(Path(__file__).resolve().parents[1] / "examples" / "demo_model")
     paths = [str(p) for p in sorted(FORMS.glob("demo_0_*lossless.avif"))]
-    assert len(paths) == 7
+    assert len(paths) == 8  # the key-frame-filtered inter form among them
     jax = JaxMolNexTR(model_path=bundle).predict_image_files(paths)
     port = MolNexTR(model_path=bundle, device="cpu", num_workers=1).predict_image_files(paths)
     got = [canonicalize_smiles(p["predicted_smiles"])[0] for p in port]

@@ -15,9 +15,9 @@ import io
 
 import pytest
 from PIL import Image
-from test_torch_avif import check, picture
+from test_torch_avif import check, first_headers, picture
 
-from molnextr_tpu_torch.data import av1_obu, avif
+from molnextr_tpu_torch.data import avif
 
 SIZES = [(16, 16), (71, 89), (200, 130)]
 
@@ -34,7 +34,7 @@ def grain_test_avif(test, h, w, subsampling, quality=50):
 
 def frame_grain(data):
     f = avif._Avif(data)
-    return av1_obu.parse_obus(f.payload(avif._primary(f)))[1].grain
+    return first_headers(f.payload(avif._primary(f)))[1].grain
 
 
 @pytest.mark.parametrize("subsampling", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])

@@ -31,11 +31,11 @@ import cv2
 import numpy as np
 import pytest
 from PIL import Image
-from test_torch_avif import check, cv2_rgb, picture
+from test_torch_avif import check, cv2_rgb, first_headers, picture
 from torch_image_writers import (av1_with_grain, avif_boxes, avif_rebuild, film_grain_avif,
                                  grain_table)
 
-from molnextr_tpu_torch.data import av1_grain, av1_obu, avif
+from molnextr_tpu_torch.data import av1_grain, avif
 from molnextr_tpu_torch.data.image import imread
 
 
@@ -72,7 +72,7 @@ def regrained(data, **params):
 
 def header(data):
     f = avif._Avif(data)
-    seq, fr = av1_obu.parse_obus(f.payload(avif._primary(f)))[:2]
+    seq, fr = first_headers(f.payload(avif._primary(f)))
     return seq, fr.grain
 
 

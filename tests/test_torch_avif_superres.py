@@ -34,11 +34,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from test_torch_avif import FORMS, check, cv2_rgb, picture
+from test_torch_avif import FORMS, check, cv2_rgb, first_headers, picture
 from torch_image_writers import (AOM_USAGE_ALL_INTRA, aom_avif, aom_default_config, aom_encode,
                                  aom_yuv, avif_boxes, avif_grid, grain_table)
 
-from molnextr_tpu_torch.data import av1_obu, av1_recon, av1_superres, avif
+from molnextr_tpu_torch.data import av1_recon, av1_superres, avif
 from molnextr_tpu_torch.data.image import UnsupportedFormat, imread
 
 LR = [("enable-cdef", "1"), ("enable-restoration", "1")]
@@ -50,8 +50,7 @@ def write(rgb, subsampling="4:2:0", depth=8, **kw):
 
 def headers(data):
     f = avif._Avif(data)
-    seq, fr, _, _ = av1_obu.parse_obus(f.payload(avif._primary(f)))
-    return seq, fr
+    return first_headers(f.payload(avif._primary(f)))
 
 
 def quad(seed, h, w):

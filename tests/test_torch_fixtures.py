@@ -535,6 +535,7 @@ def build_image_forms():
     files.update(_tiff_and_jpeg_forms(bgr, big))
     files.update(_avif_forms(bgr, big))
     files.update(_rescaled_rlew_part2_forms(bgr, big))
+    files.update(_inter_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -714,6 +715,43 @@ def _rescaled_rlew_part2_forms(bgr, big):
             "demo_0_part2.jp2": encode_jp2(code, w, h, 3),
             "big_rescaled.avif": with_ispe(aom_avif(aom_encode(aom_yuv(big_frame), q=20)),
                                            (1024, 1024))}
+
+
+def _inter_forms(bgr, big):
+    """demo_0.png (and the 1024 x 1024 drawing) as key-frame-filtered AVIF
+    sequences, Pillow's writer with libaom's ``enable-keyframe-filtering``
+    2: the first sample a hidden key frame and a shown inter frame.  The
+    picture then moved by (1.5, 0.5) and (3, 1) pixels, at quality 90 and
+    at 100 (lossless: the shown frame is demo_0.png's pixels); the drawing
+    then moved by (2.5, 1.5), at quality 95 (cv2's default AVIF quality),
+    for the reader timings."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    def moved(img, dx, dy):
+        m = np.float32([[1, 0, dx], [0, 1, dy]])
+        return cv2.warpAffine(img, m, (img.shape[1], img.shape[0]),
+                              borderMode=cv2.BORDER_REPLICATE)
+
+    def filtered(frames, quality):
+        buf = io.BytesIO()
+        Image.fromarray(frames[0]).save(buf, "AVIF", save_all=True, quality=quality,
+                                        append_images=[Image.fromarray(f) for f in frames[1:]],
+                                        advanced={"enable-keyframe-filtering": "2"})
+        data = bytearray(buf.getvalue())
+        for box in (b"mvhd", b"tkhd", b"mdhd"):  # the creation and modification times, 0
+            k = data.find(box)
+            data[k + 8 : k + (24 if data[k + 4] else 16)] = bytes(16 if data[k + 4] else 8)
+        return bytes(data)
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    frames = [rgb, moved(rgb, 1.5, 0.5), moved(rgb, 3, 1)]
+    drawing = np.ascontiguousarray(big[..., ::-1])
+    return {"demo_0_inter.avif": filtered(frames, 90),
+            "demo_0_inter_lossless.avif": filtered(frames, 100),
+            "big_inter.avif": filtered([drawing, moved(drawing, 2.5, 1.5)], 95)}
 
 
 def _jpeg2000_forms(bgr, big):

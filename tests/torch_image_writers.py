@@ -3386,7 +3386,7 @@ class AomImage(ctypes.Structure):
                 ("fb_priv", ctypes.c_void_p)]
 
 
-AOM_USAGE_ALL_INTRA = 2
+AOM_USAGE_GOOD_QUALITY, AOM_USAGE_ALL_INTRA = 0, 2
 AOM_SUPERRES_FIXED = 1
 _AOM_Q = 3
 _AOM_HIGHBITDEPTH_FLAG = 0x40000  # AOM_CODEC_USE_HIGHBITDEPTH
@@ -3470,24 +3470,43 @@ def aom_encode(yuv: Sequence[np.ndarray], depth: int = 8, subsampling: str = "4:
     libaom's named options (``enable-restoration``, ``tile-columns``,
     ``deltaq-mode``, ``delta-lf-mode``, ...); ``grain_table_text`` a film
     grain table, passed as ``film-grain-table``."""
+    units = aom_encode_frames([yuv], depth, subsampling, q, speed, superres, options, usage,
+                              grain_table_text=grain_table_text)
+    return _av1_join([u for u in _av1_units(b"".join(units)) if u[0] != 2])
+
+
+def aom_encode_frames(frames: Sequence[Sequence[np.ndarray]], depth: int = 8,
+                      subsampling: str = "4:2:0", q: int = 30, speed: int = 6,
+                      superres: int = 8, options: Sequence[Tuple[str, str]] = (),
+                      usage: int = AOM_USAGE_GOOD_QUALITY, lag: int = 0,
+                      grain_table_text: Optional[str] = None,
+                      config: Optional[dict] = None) -> List[bytes]:
+    """A sequence of frames through libaom: the temporal units it writes
+    (each with its temporal delimiter), in order.  ``usage`` good quality
+    (0) writes inter frames; ``lag`` is ``g_lag_in_frames`` (hidden
+    ALTREF frames need it); ``superres`` sets FIXED superres on every
+    frame; ``config`` other fields of ``aom_codec_enc_cfg_t`` by name
+    (``rc_resize_mode``, ...); the rest as :func:`aom_encode`."""
     import os
     import tempfile
 
     lib = libaom()
     cfg = aom_default_config(usage)
-    h, w = yuv[0].shape
+    h, w = frames[0][0].shape
     mono = subsampling == "4:0:0"
     cfg.g_w, cfg.g_h = w, h
     cfg.g_profile = 2 if depth == 12 else {"4:2:0": 0, "4:0:0": 0, "4:4:4": 1,
                                            "4:2:2": 2}[subsampling]
     cfg.g_bit_depth = cfg.g_input_bit_depth = depth
     cfg.monochrome = int(mono)
-    cfg.g_limit, cfg.g_lag_in_frames = 1, 0
+    cfg.g_limit, cfg.g_lag_in_frames = len(frames), lag
     cfg.rc_end_usage = _AOM_Q
     cfg.rc_min_quantizer = cfg.rc_max_quantizer = q
     if superres != 8:
         cfg.rc_superres_mode = AOM_SUPERRES_FIXED
         cfg.rc_superres_denominator = cfg.rc_superres_kf_denominator = superres
+    for name, value in (config or {}).items():
+        setattr(cfg, name, value)
     iface = lib.aom_codec_av1_cx()
     ctx = ctypes.create_string_buffer(512)  # aom_codec_ctx_t, with room to spare
     _aom_init(lib, ctx, iface, cfg, _AOM_HIGHBITDEPTH_FLAG if depth > 8 else 0)
@@ -3502,17 +3521,14 @@ def aom_encode(yuv: Sequence[np.ndarray], depth: int = 8, subsampling: str = "4:
             for name, value in opts:
                 assert lib.aom_codec_set_option(ctx, name.encode(), value.encode()) == 0, \
                     (name, lib.aom_codec_error_detail(ctx))
-            return _aom_frame(lib, ctx, yuv, depth, subsampling)
+            return _aom_frames(lib, ctx, frames, depth, subsampling)
         finally:
             lib.aom_codec_destroy(ctx)
 
 
-def _aom_frame(lib, ctx, yuv, depth: int, subsampling: str) -> bytes:
-    h, w = yuv[0].shape
+def _aom_frames(lib, ctx, frames, depth: int, subsampling: str) -> List[bytes]:
+    h, w = frames[0][0].shape
     sx, sy = {"4:2:0": (1, 1), "4:0:0": (1, 1), "4:4:4": (0, 0), "4:2:2": (1, 0)}[subsampling]
-    if subsampling == "4:0:0":
-        mid = np.full(((h + sy) >> sy, (w + sx) >> sx), 1 << (depth - 1))
-        yuv = [yuv[0], mid, mid]
     high = depth > 8
     fmt = 0x100 | {(1, 1): 2, (1, 0): 5, (0, 0): 6}[(sx, sy)] | (0x800 if high else 0)
     dtype = np.uint16 if high else np.uint8
@@ -3523,14 +3539,9 @@ def _aom_frame(lib, ctx, yuv, depth: int, subsampling: str) -> bytes:
     assert img.planes[0] == ctypes.addressof(buf)
     img.monochrome = int(subsampling == "4:0:0")
     img.bit_depth = depth
-    for p, plane in enumerate(yuv):
-        a = np.ascontiguousarray(plane, dtype)
-        assert a.shape == (((h + sy) >> sy, (w + sx) >> sx) if p else (h, w))
-        for row in range(a.shape[0]):
-            ctypes.memmove(img.planes[p] + row * img.stride[p], a[row].ctypes.data, a[row].nbytes)
-    out = b""
-    for frame in (ctypes.addressof(img), None):  # the frame, then the flush
-        assert lib.aom_codec_encode(ctx, frame, 0, 1, 0) == 0, lib.aom_codec_error_detail(ctx)
+    out: List[bytes] = []
+
+    def drain() -> None:
         it = ctypes.c_void_p()
         while True:
             pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
@@ -3540,8 +3551,28 @@ def _aom_frame(lib, ctx, yuv, depth: int, subsampling: str) -> bytes:
             if ctypes.c_int.from_address(base).value == 0:  # AOM_CODEC_CX_FRAME_PKT
                 ptr = ctypes.c_void_p.from_address(base + 8).value
                 size = ctypes.c_size_t.from_address(base + 16).value
-                out += ctypes.string_at(ptr, size)
-    return _av1_join([u for u in _av1_units(out) if u[0] != 2])  # no temporal delimiter
+                out.append(ctypes.string_at(ptr, size))
+
+    for pts, yuv in enumerate(frames):
+        if subsampling == "4:0:0":
+            mid = np.full(((h + sy) >> sy, (w + sx) >> sx), 1 << (depth - 1))
+            yuv = [yuv[0], mid, mid]
+        for p, plane in enumerate(yuv):
+            a = np.ascontiguousarray(plane, dtype)
+            assert a.shape == (((h + sy) >> sy, (w + sx) >> sx) if p else (h, w))
+            for row in range(a.shape[0]):
+                ctypes.memmove(img.planes[p] + row * img.stride[p], a[row].ctypes.data,
+                               a[row].nbytes)
+        assert lib.aom_codec_encode(ctx, ctypes.addressof(img), pts, 1, 0) == 0, \
+            lib.aom_codec_error_detail(ctx)
+        drain()
+    while True:  # flush
+        before = len(out)
+        assert lib.aom_codec_encode(ctx, None, 0, 1, 0) == 0, lib.aom_codec_error_detail(ctx)
+        drain()
+        if len(out) == before:
+            break
+    return out
 
 
 def aom_avif(obus: bytes, full: bool = True, matrix: int = 6, **rebuild) -> bytes:
@@ -3640,3 +3671,133 @@ def aom_yuv(rgb: np.ndarray, subsampling: str = "4:2:0", depth: int = 8) -> List
         return c.reshape(c.shape[0] >> sy, 1 << sy, c.shape[1] >> sx, 1 << sx).mean((1, 3))
 
     return [scale(y), scale(sub(u)), scale(sub(v))]
+
+
+class _AomDecCfg(ctypes.Structure):
+    """``aom_codec_dec_cfg_t``."""
+    _fields_ = [("threads", _U), ("w", _U), ("h", _U), ("allow_lowbitdepth", _U)]
+
+
+def aom_decode_frames(obus: bytes, units: Optional[Sequence[bytes]] = None) -> List[List[np.ndarray]]:
+    """Every frame libaom's own decoder (``aom_codec_av1_dx``) outputs for
+    ``obus`` (one temporal unit), or for each temporal unit of ``units``:
+    a list of the planes (Y, or Y, U and V, at the coded bit depth) per
+    shown frame, in output order."""
+    lib = libaom()
+    vp = ctypes.c_void_p
+    if "dx" not in _AOM_ABI:
+        lib.aom_codec_av1_dx.restype = vp
+        lib.aom_codec_dec_init_ver.argtypes = [vp, vp, ctypes.POINTER(_AomDecCfg), ctypes.c_long,
+                                               _I]
+        lib.aom_codec_decode.argtypes = [vp, ctypes.c_char_p, ctypes.c_size_t, vp]
+        lib.aom_codec_get_frame.restype = ctypes.POINTER(AomImage)
+        lib.aom_codec_get_frame.argtypes = [vp, ctypes.POINTER(vp)]
+        _AOM_ABI["dx"] = None
+    ctx = ctypes.create_string_buffer(512)
+    cfg = _AomDecCfg(1, 0, 0, 0)
+    versions = [_AOM_ABI["dx"]] if _AOM_ABI["dx"] is not None else range(1, 100)
+    for ver in versions:
+        rc = lib.aom_codec_dec_init_ver(ctx, lib.aom_codec_av1_dx(), ctypes.byref(cfg), 0, ver)
+        if rc != 3:
+            break
+    assert rc == 0, rc
+    _AOM_ABI["dx"] = ver
+    out = []
+    try:
+        for tu in ([obus] if units is None else units):
+            if lib.aom_codec_decode(ctx, tu, len(tu), None) != 0:
+                out.append(None)
+                continue
+            it = ctypes.c_void_p()
+            while True:
+                img = lib.aom_codec_get_frame(ctx, ctypes.byref(it))
+                if not img:
+                    break
+                im = img.contents
+                high = bool(im.fmt & 0x800)
+                planes = []
+                for p in range(1 if im.monochrome else 3):
+                    sx, sy = (im.x_chroma_shift, im.y_chroma_shift) if p else (0, 0)
+                    w, h = (im.d_w + sx) >> sx, (im.d_h + sy) >> sy
+                    rows = []
+                    for y in range(h):
+                        raw = ctypes.string_at(im.planes[p] + y * im.stride[p], w * (2 if high else 1))
+                        rows.append(np.frombuffer(raw, np.uint16 if high else np.uint8))
+                    planes.append(np.stack(rows).astype(np.int32))
+                out.append(planes)
+    finally:
+        lib.aom_codec_destroy(ctx)
+    return out
+
+
+def moving_drawing(n: int, h: int, w: int, kind: str = "shift", seed: int = 0) -> List[np.ndarray]:
+    """``n`` RGB frames of a seeded drawing (anti-aliased lines and discs,
+    lightly blurred) moved from frame to frame: ``shift`` by sub-pixel
+    steps (0.7, 0.45), ``rotate`` by 1.5 degrees, ``zoom`` by 3 percent."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    hh, ww = h + 32, w + 32
+    base = np.full((hh, ww, 3), 255, np.uint8)
+    for _ in range(12):
+        c = tuple(int(v) for v in rng.randint(0, 255, 3))
+        p = rng.randint(0, max(hh, ww), 4)
+        cv2.line(base, (int(p[0]), int(p[1])), (int(p[2]), int(p[3])), c,
+                 int(rng.randint(1, 5)), cv2.LINE_AA)
+        cv2.circle(base, (int(rng.randint(0, ww)), int(rng.randint(0, hh))),
+                   int(rng.randint(3, 20)), c, -1, cv2.LINE_AA)
+    base = cv2.GaussianBlur(base, (3, 3), 0)
+    frames = []
+    for k in range(n):
+        if kind == "shift":
+            m = np.float32([[1, 0, -16 + 0.7 * k], [0, 1, -16 + 0.45 * k]])
+        else:
+            m = cv2.getRotationMatrix2D((ww / 2, hh / 2), 1.5 * k if kind == "rotate" else 0,
+                                        1.0 if kind == "rotate" else 1 + 0.03 * k)
+            m[:, 2] -= 16
+        frames.append(cv2.warpAffine(base, m, (w, h), flags=cv2.INTER_LINEAR,
+                                     borderMode=cv2.BORDER_REFLECT))
+    return frames
+
+
+def av1_hidden_before(units: Sequence[bytes], count: int = 2) -> bytes:
+    """The first ``count`` temporal units of a libaom stream (a shown key
+    frame, then units that may hold hidden frames, an ALTREF among them)
+    as one, with the key frame hidden (``showable_frame`` 1, refreshing
+    every slot) and no temporal delimiters: its first shown frame is then
+    an inter frame after a hidden key frame and whatever hidden frames
+    libaom wrote before it (compound prediction, skip mode)."""
+    first = av1_hidden_key(b"".join(u for u in units[:1]))
+    key = [u for u in _av1_units(first) if u[0] != 3]  # without the show_existing
+    rest = [u for tu in units[1:count] for u in _av1_units(tu) if u[0] not in (1, 2)]
+    return _av1_join([u for u in key if u[0] != 2] + rest)
+
+
+def av1_intra_only(payload: bytes, refresh: int = 0x01) -> bytes:
+    """A shown key frame's OBUs (``OBU_FRAME``, full sequence header, no
+    frame ids or decoder model) rewritten as a shown INTRA_ONLY frame:
+    ``frame_type`` 2, ``error_resilient_mode`` 1, ``refresh_frame_flags``
+    as given, every ``ref_order_hint`` 0 (an intra-only frame codes its
+    tiles as a key frame does)."""
+    from molnextr_tpu_torch.data import av1_obu
+
+    units, seq = [], None
+    for kind, head, body in _av1_units(payload):
+        if kind == 1:
+            seq = av1_obu.sequence_header(av1_obu.BitReader(body))
+        elif kind == 6:
+            r = av1_obu.BitReader(body)
+            av1_obu.frame_header(r, seq, 0, 0)
+            bits = _bits(body)
+            assert bits[:4] == "0001"
+            p = 5
+            p += seq.screen_tools == 2
+            screen = int(bits[5]) if seq.screen_tools == 2 else seq.screen_tools
+            p += bool(screen and seq.integer_mv == 2)
+            p += 1 + seq.order_hint_bits
+            hints = "0" * (8 * seq.order_hint_bits)  # ref_order_hint[]: every slot's is 0
+            new = "0" + "10" + "1" + "1" + bits[4:p] + format(refresh, "08b") + hints + \
+                bits[p : r.bit]
+            body = _unbits(new) + body[(r.bit + 7) // 8 :]
+        units.append((kind, head, body))
+    return _av1_join(units)
