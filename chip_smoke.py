@@ -110,7 +110,8 @@ failure:
    a 128 x 128 ``ispe``, which libavif rescales, and a 768 x 768 frame of
    the drawing under a 1024 x 1024 one; the G4 bits as CCITT RLE/W strips
    at odd file offsets; a JP2 with Part 2 ``CBD``/``MCT``/``MCC``/``MCO``
-   markers)
+   markers; HTJ2K (Part 15) 5/3 cleanup passes as a codestream and as JPH,
+   9/7 with refinement passes, and the 1024 x 1024 drawing as the first)
    read by ``imread`` to the arrays ``cv2.imread`` gave (``arrays.npz``), and
    ``predict.main`` on the ``demo_0_*`` forms with the counters zeroed
    before and read after (K1, K2, K3-int8 above 0; each SMILES equal to
@@ -127,14 +128,14 @@ failure:
    JPEG forms on a line of their own), the shapes it reads the WebP files
    to, whether it reads JPEG 2000 at all and its own ms on the 1024 x 1024
    files (information only), the 10-bit, grain, grid, sequence and superres AVIF
-   forms and the rescaled AVIF, RLE/W and Part 2 forms on lines of their
-   own (None, or the pixels that differ); the readers' host
+   forms, the rescaled AVIF, RLE/W and Part 2 forms and the HTJ2K forms on
+   lines of their own (None, or the pixels that differ); the readers' host
    ms per image and per
    megapixel on 1024 x 1024 JPEG 4:2:0, progressive JPEG, TIFF LZW, TIFF
    G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
    JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy, grained,
-   superres and rescaled AVIF (the grain step's, the superres upscaling's
-   and libyuv's rescaling's ms apart);
+   superres and rescaled AVIF and HTJ2K (the grain step's, the superres
+   upscaling's, libyuv's rescaling's and the HT code-blocks' ms apart);
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -250,7 +251,7 @@ READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
                 "big_lossless.avif", "big_lossy.avif", "big_grain.avif", "big_superres.avif",
-                "big_rescaled.avif", "big_inter.avif")
+                "big_rescaled.avif", "big_inter.avif", "big_htj2k.j2k")
 # phase recipe: scripts/train_druglike_torch.py at its own width, cut in
 # corpus, steps and epochs only (8 loader workers, as the host needs them)
 RECIPE_FLAGS = ("--corpus", "1024", "--valid", "64", "--steps-per-epoch", "3", "--epochs", "1",
@@ -2046,13 +2047,15 @@ def image_forms(torch, card, bundle, work, want):
     stored = np.load(os.path.join(folder, "arrays.npz"))
     fmeta = json.loads(str(stored["meta"]))
     names = sorted(f for f in os.listdir(folder) if f != "arrays.npz")
-    from molnextr_tpu_torch.data import av1_grain, av1_inter, av1_refs, av1_superres, yuv_scale
+    from molnextr_tpu_torch.data import (av1_grain, av1_inter, av1_refs, av1_superres, j2k,
+                                         yuv_scale)
 
     steps = {"grain_ms": [(av1_grain, "apply_grain")],
              "upscale_ms": [(av1_superres, "upscale_planes")],
              "scale_ms": [(yuv_scale, "scale_plane")],
              "inter_ms": [(av1_inter, "predict_block")],
-             "refs_ms": [(av1_refs, "load_state"), (av1_refs, "save_state")]}
+             "refs_ms": [(av1_refs, "load_state"), (av1_refs, "save_state")],
+             "ht_ms": [(j2k, "decode_ht_cblk")]}
     reads = {name: {"ms": [], "steps": {key: [] for key in steps}} for name in READER_FILES}
 
     def timed_read(name):  # one read, each step of it timed apart from the decode
@@ -2150,6 +2153,10 @@ def image_forms(torch, card, bundle, work, want):
             "same array (0), None (null) or the pixels that differ (information): "
             + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
                 "pixels_differing") for n in INTER_FORMS}))
+        log("  the HTJ2K forms by this machine's cv2: the same array (0), None (null) or the "
+            "pixels that differ (information): "
+            + json.dumps({n: 0 if same.get(n) else (differing.get(n) or {}).get(
+                "pixels_differing") for n in HTJ2K_FORMS}))
         log("  the files this machine's cv2 reads otherwise, as None (null) or as other "
             "pixels (how many differ from the stored array; information): "
             f"{json.dumps(json.loads(probe.stdout)['differing'])}")
@@ -2189,11 +2196,12 @@ def image_forms(torch, card, bundle, work, want):
 LOSSY_FORMS = (".jpg", ".hdr", "_lossy.webp", "_lossy.jp2", "_jpeg_ycc420.tif",
                "_jpeg_rgb_tiled.tif", "_lab.tif", "_thunderscan.tif", "_lossy.avif",
                "_10bit.avif", "_grain.avif", "_superres.avif", "_rescaled_down.avif",
-               "_rescaled_up.avif", "_inter.avif")
+               "_rescaled_up.avif", "_inter.avif", "_htj2k_refine.j2k")
 NEW_LOSSLESS_FORMS = (".bmp", ".pgm", ".ppm", ".pam", ".pfm", ".gif", ".ras", ".btf",
                       "_lossless.webp", "_lossless.jp2", "_lossless.j2k", "_ycbcr11.tif",
                       "_cmyk.tif", "_signed16.tif", "_logl.tif", "_lossless.jpg",
-                      "_lossless.avif", "_grid.avif", "_anim.avif", "_part2.jp2")
+                      "_lossless.avif", "_grid.avif", "_anim.avif", "_part2.jp2",
+                      "_htj2k.j2k", "_htj2k.jph")
 # the AVIF forms the reader gained with 10- and 12-bit 4:2:0, film grain, grids,
 # sequences and superres: whether the card machine's cv2 reads them alike is
 # logged apart
@@ -2209,6 +2217,10 @@ RESCALE_RLEW_PART2_FORMS = ("demo_0_rescaled_down.avif", "demo_0_rescaled_up.avi
 # frame) the reader gained with AV1 inter frames: whether the card machine's
 # cv2 reads them alike is logged apart
 INTER_FORMS = ("demo_0_inter.avif", "demo_0_inter_lossless.avif", "big_inter.avif")
+# the HTJ2K (Part 15) forms the JPEG 2000 reader gained with HT code-blocks:
+# whether the card machine's cv2 reads them alike is logged apart
+HTJ2K_FORMS = ("demo_0_htj2k.j2k", "demo_0_htj2k_refine.j2k", "demo_0_htj2k.jph",
+               "big_htj2k.j2k")
 # the TIFF and JPEG forms the readers gained with JPEG-in-TIFF, the colour
 # TIFFs, the rarer TIFF codecs, arithmetic coding, lossless JPEG and block
 # smoothing: whether the card machine's cv2 reads them alike is logged apart
@@ -2276,7 +2288,7 @@ for name in sorted(f for f in os.listdir(folder) if f != 'arrays.npz'):
             if rgb.shape == stored[name].shape else None}
     if name.endswith('.webp'):  # turned by EXIF or not, animation read or not
         shape[name] = None if img is None else list(img.shape[:2])
-    if name.endswith(('.jp2', '.j2k')):  # read at all (OpenJPEG in this build or not)
+    if name.endswith(('.jp2', '.j2k', '.jph')):  # read at all (OpenJPEG in this build or not)
         jpeg2000[name] = img is not None
     if name.endswith('.avif'):  # read at all (libavif in this build or not)
         avif[name] = img is not None

@@ -25,10 +25,10 @@ TIFF and WebP apply the EXIF orientation as OpenCV does
 Each reader module names the few forms where it reads a file that OpenCV
 5.0 returns None for (differences by design, pinned by tests).
 
-A form that OpenCV reads and the port does not decode yet raises
-:class:`UnsupportedFormat` (a ``ValueError``) naming it: HTJ2K
-code-blocks (ROADMAP queue 1).  Such a file is never silently
-dropped or whitened.  The call sites do on None
+A form that OpenCV reads and the port does not decode would raise
+:class:`UnsupportedFormat` (a ``ValueError``) naming it, never None: none
+is left since HTJ2K code-blocks (``data/j2k_ht.py``).  Such a file is never
+silently dropped or whitened.  The call sites do on None
 what their JAX counterparts do on ``cv2.imread``'s None:
 ``predict_image_files`` raises ``FileNotFoundError``, the dataset
 substitutes a white placeholder, evaluation and the dataset-eval suite skip

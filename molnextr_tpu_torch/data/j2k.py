@@ -6,8 +6,9 @@ returns for a damaged or unusual file is what that code does with it:
 
 * the main header: ``SOC``, then ``SIZ`` first, then ``COD``, ``COC``,
   ``QCD``, ``QCC``, ``RGN``, ``POC``, ``PPM``, ``TLM``, ``PLM``, ``CRG``,
-  ``COM`` (and Part 15's ``CAP`` and ``CPF``, read and not used) in any
-  order up to the first ``SOT``; an unknown
+  ``COM`` (and Part 15's ``CAP`` and ``CPF``, read and not used: HT
+  code-blocks are told by the code-block style alone, as OpenJPEG tells
+  them) in any order up to the first ``SOT``; an unknown
   marker is skipped two bytes at a time up to the next known one.
   ``COD``/``QCD`` set every component, ``COC``/``QCC`` one; scalar-derived
   steps are expanded per band; each tile starts with a copy of the main
@@ -20,9 +21,11 @@ returns for a damaged or unusual file is what that code does with it:
 * tile geometry from ``SIZ`` down: tile, tile-component (``XRsiz``/``YRsiz``),
   resolution, band, precinct (``PPx``/``PPy``) and code-block, by the
   standard's ceil-division rules (``opj_tcd_init_tile``).
-* each tile: packets (``data/j2k_t2.py``), code-blocks (``data/j2k_t1.py``),
-  dequantisation, inverse wavelet, inverse RCT/ICT, DC level shift and
-  clamp (``data/j2k_dwt.py``), then copied into the image's components.
+* each tile: packets (``data/j2k_t2.py``), code-blocks (``data/j2k_t1.py``,
+  or ``data/j2k_ht.py`` for HTJ2K's, Part 15, each chunk's place in the
+  tile's data kept for OpenJPEG's MEL check), dequantisation, inverse
+  wavelet, inverse RCT/ICT, DC level shift and clamp
+  (``data/j2k_dwt.py``), then copied into the image's components.
 
 * Part 2's ``CBD`` (main header: each component's precision and sign,
   which the clamp after the level shift and OpenCV's depth then use),
@@ -34,8 +37,8 @@ returns for a damaged or unusual file is what that code does with it:
   transform (``mct`` 2) that would apply it.
 
 Failures raise :class:`J2KError` (a ``ValueError``, which ``data/image.py``
-turns into None as cv2 gives None).  HTJ2K code-blocks (Part 15), which
-the port does not decode, raise ``UnsupportedFormat`` naming them.
+turns into None as cv2 gives None).  ``SPcod``'s mixed HT style (``0x80``)
+is refused, as OpenJPEG refuses it.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import numpy as np
 
 from molnextr_tpu_torch.data.j2k_dwt import (band_stepsize, dc_shift, dequantise, idwt53,
                                              idwt97, inverse_ict, inverse_rct)
+from molnextr_tpu_torch.data.j2k_ht import decode_ht_cblk
 from molnextr_tpu_torch.data.j2k_t1 import HT, T1Error, decode_cblk
 from molnextr_tpu_torch.data.j2k_t2 import HeaderSource, T2Error, TagTree, decode_packets
 
@@ -70,12 +74,6 @@ MAXRLVLS, MAXBANDS, MAX_POCS = 33, 3 * 33 - 2, 32
 
 class J2KError(ValueError):
     """A codestream OpenJPEG refuses."""
-
-
-def _unsupported(feature: str):
-    from molnextr_tpu_torch.data.image import UnsupportedFormat
-
-    return UnsupportedFormat(f"JPEG 2000 {feature} is not decoded by the port (ROADMAP queue 1)")
 
 
 def _be(data, pos: int, n: int) -> int:
@@ -925,9 +923,6 @@ class Decoder:
         elif tcp.ppt:
             merged = b"".join(tcp.ppt_markers[z] for z in sorted(tcp.ppt_markers))
             headers = HeaderSource(merged, 0, len(merged))
-        for tccp in tcp.tccps:
-            if tccp.cblksty & HT:
-                raise _unsupported("HTJ2K (Part 15) code-blocks")
         tile = _tile_geometry(self, tileno, tcp)
         try:
             decode_packets(tile, tcp, tcp.data, headers, self.resno_decoded)
@@ -995,15 +990,16 @@ class Precinct:
 
 
 class Cblk:
-    __slots__ = ("x0", "y0", "x1", "y1", "numbps", "numlenbits", "segs", "numsegs",
-                 "real_num_segs", "numnewpasses", "chunks")
+    __slots__ = ("x0", "y0", "x1", "y1", "numbps", "mb", "numlenbits", "segs", "numsegs",
+                 "real_num_segs", "numnewpasses", "chunks", "offsets")
 
     def __init__(self, x0, y0, x1, y1):
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
-        self.numbps = self.numlenbits = self.numsegs = self.real_num_segs = 0
+        self.numbps = self.mb = self.numlenbits = self.numsegs = self.real_num_segs = 0
         self.numnewpasses = 0
         self.segs = []
-        self.chunks = []
+        self.chunks = []  # the bytes of each segment part, and where each was in the tile's data
+        self.offsets = []
 
 
 def _window(tc, resno: int, numres: int, bandno: int, margin: int):
@@ -1109,15 +1105,24 @@ def _decode_tilecomp(tc: TileComp, tccp: TCCP, comp: Component, resno_decoded: i
             for prc in band.precincts:
                 for cblk in prc.cblks:
                     cw, ch = cblk.x1 - cblk.x0, cblk.y1 - cblk.y0
-                    segments = []
                     data = b"".join(cblk.chunks)
-                    pos = 0
-                    for seg in cblk.segs[: cblk.real_num_segs]:
-                        segments.append((data[pos : pos + seg.len], seg.real_num_passes))
-                        pos += seg.len
                     try:
-                        coeffs = decode_cblk(cw, ch, band.bandno, tccp.cblksty, cblk.numbps,
-                                             tccp.roishift, segments)
+                        if tccp.cblksty & HT:
+                            # one chunk is read where it lies in the tile's data, more
+                            # from a buffer of their own (aligned)
+                            align = cblk.offsets[0] % 4 if len(cblk.chunks) == 1 else 0
+                            coeffs = decode_ht_cblk(
+                                cw, ch, tccp.cblksty, cblk.numbps, cblk.mb, tccp.roishift, data,
+                                [(s.len, s.real_num_passes) for s in cblk.segs[:2]],
+                                cblk.numsegs, align)
+                        else:
+                            segments = []
+                            pos = 0
+                            for seg in cblk.segs[: cblk.real_num_segs]:
+                                segments.append((data[pos : pos + seg.len], seg.real_num_passes))
+                                pos += seg.len
+                            coeffs = decode_cblk(cw, ch, band.bandno, tccp.cblksty, cblk.numbps,
+                                                 tccp.roishift, segments)
                     except T1Error as e:
                         raise J2KError(str(e)) from e
                     x, y = cblk.x0 - band.x0, cblk.y0 - band.y0

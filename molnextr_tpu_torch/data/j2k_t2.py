@@ -12,7 +12,10 @@
   as OpenJPEG treats it) and ``EPH`` (required where ``COD`` announces
   it), the zero-length bit, inclusion, zero
   bit-planes, the number of passes, ``Lblock`` increments and segment
-  lengths (with the segment rules of the code-block style), headers taken
+  lengths (with the segment rules of the code-block style; HTJ2K's, as
+  OpenJPEG 2.5.3 reads them: the cleanup segment's first pass alone, the
+  next segment every other pass of the packet, with no segment limit of
+  HT's own, so a later layer's first pass joins the cleanup), headers taken
   from ``PPM``/``PPT`` where the tile has them, and attaches each
   segment's bytes to its code-block.  A segment that runs past the tile's
   data fails the tile (OpenJPEG's strict mode).
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 from typing import Iterator, Tuple
 
-from molnextr_tpu_torch.data.j2k_t1 import LAZY, TERMALL
+from molnextr_tpu_torch.data.j2k_t1 import HT, LAZY, TERMALL
 
 
 class T2Error(ValueError):
@@ -354,6 +357,7 @@ def _read_header(tile, tcp, packet, data, pos: int, end: int, headers):
                     while not prc.imsb.decode(bio, cblkno, i):
                         i += 1
                     cblk.numbps = (band.numbps + 1 - i) & 0xFFFFFFFF
+                    cblk.mb = band.numbps
                     cblk.numlenbits = 3
                 cblk.numnewpasses = _numpasses(bio)
                 increment = 0
@@ -371,7 +375,10 @@ def _read_header(tile, tcp, packet, data, pos: int, end: int, headers):
                         seg = _init_seg(cblk, segno, cblksty, False)
                 n = cblk.numnewpasses
                 while True:
-                    seg.numnewpasses = min(seg.maxpasses - seg.numpasses, n)
+                    if cblksty & HT:  # the cleanup segment 1 pass, the next all the rest
+                        seg.numnewpasses = 1 if segno == 0 else n
+                    else:
+                        seg.numnewpasses = min(seg.maxpasses - seg.numpasses, n)
                     bit_number = cblk.numlenbits + (seg.numnewpasses.bit_length() - 1
                                                     if seg.numnewpasses > 0 else 0)
                     if bit_number > 32:
@@ -418,6 +425,7 @@ def _read_data(res, precno: int, data, pos: int, end: int, keep: bool) -> int:
                     raise T2Error(f"segment too long ({seg.newlen}) with max ({end - pos})")
                 if keep:
                     cblk.chunks.append(bytes(data[pos : pos + seg.newlen]))
+                    cblk.offsets.append(pos)
                     seg.len += seg.newlen
                 pos += seg.newlen
                 seg.numpasses += seg.numnewpasses

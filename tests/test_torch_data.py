@@ -209,7 +209,8 @@ def test_item_cache_round_trip(tmp_path):
     assert not pds.TrainDataset(cfg, [pds.Sample(s) for s in smiles[:2]], tok).load_item_cache(path)
 
 
-def test_file_samples_read_png_and_refuse_other_files(tmp_path):
+def test_file_samples_read_png_and_refuse_other_files(tmp_path, monkeypatch):
+    from molnextr_tpu_torch.data.image import UnsupportedFormat
     from molnextr_tpu_torch.data.png import write_png
 
     _, cfg = _cfgs()
@@ -219,21 +220,26 @@ def test_file_samples_read_png_and_refuse_other_files(tmp_path):
     write_png(png, img)
     corrupt = tmp_path / "mol.jpg"
     corrupt.write_bytes(b"\xff\xd8\xff\xe0not a jpeg")
-    other = tmp_path / "mol.j2k"  # a form the port does not decode: HTJ2K code-blocks
-    from torch_image_writers import encode_j2k
+    other = tmp_path / "mol.j2k"  # HTJ2K code-blocks, 5/3 cleanup passes: the same pixels
+    from torch_image_writers import J2K_HT, encode_j2k
 
-    htj2k = bytearray(encode_j2k([img[..., k] for k in range(3)]))
-    htj2k[htj2k.index(b"\xff\x52") + 4 + 5 + 3] = 0x40  # SPcod code-block style: HT
-    other.write_bytes(bytes(htj2k))
+    other.write_bytes(encode_j2k([img[..., k] for k in range(3)], style=J2K_HT, mct=1))
     samples = [pds.Sample("CC", image_path=png, coords=np.array([[0.4, 0.2], [0.5, 0.7]])),
                pds.Sample("CC", image_path=str(other)), pds.Sample("CC", image_path=str(corrupt))]
     ds = pds.TrainDataset(cfg, samples, get_tokenizer(cfg.data), split="valid")
     item = ds[0]
     assert item["image"].shape == (64, 64, 3)
     assert (item["atom_grid"] == -2).all()  # a file sample has no atom symbols: unlabeled
+    np.testing.assert_array_equal(ds[1]["image"], item["image"])
     # a format the port does not decode is refused, never whitened
+    def unported(path):
+        raise UnsupportedFormat("a form the port does not decode")
+
+    monkeypatch.setattr(pds, "imread", unported)
+    ds = pds.TrainDataset(cfg, samples, get_tokenizer(cfg.data), split="valid")
     assert ds[1] is None
-    with pytest.raises(ValueError, match="HTJ2K"):
+    with pytest.raises(ValueError, match="does not decode"):
         ds._build(samples[1])
+    monkeypatch.undo()
     # a corrupt file reads as None, as cv2.imread's: the JAX package's white placeholder
     assert ds[2]["image"].shape == (64, 64, 3) and (ds[2]["image"] == 255).all()

@@ -66,7 +66,9 @@ against on the card, where neither JAX nor OpenCV is installed:
   fifteen 1024 x 1024 files (``big_*``: JPEG 4:2:0 and progressive, TIFF
   LZW and G4, BMP RLE8, GIF, WebP lossy and lossless, JPEG 2000 5/3 and
   9/7, JPEG-in-TIFF 4:2:0, arithmetic JPEG, lossless, lossy and grained
-  AVIF) for the reader timings; and
+  AVIF) for the reader timings, and HTJ2K (Part 15, the hand HT encoder:
+  5/3 cleanup passes as a raw codestream and as JPH, 9/7 with refinement
+  passes, and the 1024 x 1024 drawing: :func:`_htj2k_forms`); and
   ``arrays.npz``: the
   array ``cv2.imread`` reads each file to (for the run-length Sun raster,
   which OpenCV 5 refuses, the array of the standard file of its pixels),
@@ -84,7 +86,9 @@ against on the card, where neither JAX nor OpenCV is installed:
   agreement and each arm's SMILES (:func:`build_ab_int8`), which
   ``chip_smoke.py`` phase tools holds the card's A/B to;
 and ``molnextr_tpu_torch/chem/glyphs.npz`` is the text renderer's glyph
-table, read from the installed OpenCV (:func:`build_glyphs`).
+table, read from the installed OpenCV (:func:`build_glyphs`), and
+``molnextr_tpu_torch/data/j2k_ht.npz`` the HTJ2K decoder's VLC tables, read
+out of the OpenJPEG linked into it (:func:`build_ht_tables`).
 
 Regenerate them all with ``JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py``
 (``--forms-only``: ``forms/`` and ``reaction.npz`` alone; ``--ab-only``:
@@ -111,6 +115,7 @@ BUNDLE = os.path.join(ROOT, "examples", "demo_model")
 DEMO_SMILES = ["CC(C)O", "c1ccccc1", "CC(=O)O", "C1CCCCC1", "CCOC", "CC=O"]
 FULL_SMILES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C"]
 GLYPHS = os.path.join(ROOT, "molnextr_tpu_torch", "chem", "glyphs.npz")
+HT_TABLES = os.path.join(ROOT, "molnextr_tpu_torch", "data", "j2k_ht.npz")
 # text pixel sizes the renderer's options reach (scale 0.45-0.8 is 12-22 px
 # for font ids 0/2/3/4 and 7-12 px for id 1), with a margin either side
 GLYPH_SIZES = range(6, 25)
@@ -536,6 +541,7 @@ def build_image_forms():
     files.update(_avif_forms(bgr, big))
     files.update(_rescaled_rlew_part2_forms(bgr, big))
     files.update(_inter_forms(bgr, big))
+    files.update(_htj2k_forms(bgr, big))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, data in files.items():
@@ -777,6 +783,30 @@ def _jpeg2000_forms(bgr, big):
             "big_lossless.jp2": pil(big),
             "big_lossy.jp2": pil(big, irreversible=True, quality_mode="rates",
                                  quality_layers=[20])}
+
+
+def _htj2k_forms(bgr, big):
+    """demo_0.png and the 1024 x 1024 drawing (both BGR) as HTJ2K (JPEG 2000
+    Part 15) by the hand writer (``torch_image_writers.encode_j2k`` with
+    ``J2K_HT``): 5/3 with RCT, HT cleanup passes alone, 64 x 64 code-blocks,
+    six resolutions and RPCL, as OpenJPH writes HTJ2K by default (a raw
+    codestream, and the JP2-family JPH file of brand ``jph ``); 9/7 with the
+    SigProp and MagRef passes (three resolutions: at four to six, or with
+    SigProp alone, or a bit-plane dropped, the demo bundle reads CC(C)C or
+    CC(C)N, in the JAX package as in the port); and the drawing as the
+    first, for the reader timings."""
+    from torch_image_writers import J2K_HT, encode_j2k, encode_jp2
+
+    def ht(img, **kw):
+        planes = [np.ascontiguousarray(img[..., k]) for k in (2, 1, 0)]
+        return encode_j2k(planes, style=J2K_HT, mct=1, cblk=(6, 6), **kw)
+
+    h, w = bgr.shape[:2]
+    lossless = dict(numres=6, progression=2)
+    return {"demo_0_htj2k.j2k": ht(bgr, **lossless),
+            "demo_0_htj2k_refine.j2k": ht(bgr, numres=3, reversible=False, ht_passes=3),
+            "demo_0_htj2k.jph": encode_jp2(ht(bgr, numres=4), w, h, 3, brand=b"jph "),
+            "big_htj2k.j2k": ht(big, **lossless)}
 
 
 # the arithmetic progressive forms' scan script: DC (point transform 1),
@@ -1253,6 +1283,48 @@ def write_ab_int8():
         f.write("\n")
 
 
+# the opening words of OpenJPEG's two context VLC tables of the HT cleanup
+# pass (``t1_ht_luts.h``), in the order the library's read-only data holds them
+HT_TABLE_OPENINGS = ((0x0013, 0x0065, 0x0043, 0x00DE),
+                     (0x0023, 0x00A5, 0x0043, 0x0066, 0x0083, 0xA8EE))
+
+
+def build_ht_tables():
+    """``data/j2k_ht.npz``: the two 1024-entry context VLC tables of the
+    HTJ2K cleanup pass, read out of the OpenJPEG 2.5.3 linked into the
+    installed ``cv2``.  Found by content: two adjacent runs of 1024
+    little-endian ``uint16`` words that open with ``HT_TABLE_OPENINGS`` and
+    whose every entry reads as ``e_k << 12 | e_1 << 8 | rho << 4 |
+    u_off << 3 | cwd_len`` with ``cwd_len`` in 1..7 and ``e_1`` within
+    ``e_k`` within ``rho``.  The second serves the first line pair of
+    quads and the first the others: the assignment under which files
+    written with them read as intended through ``cv2.imread``, and the
+    port's decoder with them agrees with it (``tests/test_torch_htj2k.py``
+    holds the other assignment to disagree)."""
+    import cv2
+
+    path = os.path.join(os.path.dirname(cv2.__file__), "cv2.abi3.so")
+    with open(path, "rb") as f:
+        blob = f.read()
+
+    def valid(at):
+        t = np.frombuffer(blob, "<u2", 1024, at).astype(np.int64)
+        length, rho, e1, ek = t & 7, (t >> 4) & 15, (t >> 8) & 15, t >> 12
+        return (length >= 1).all() and (e1 & ~ek == 0).all() and (ek & ~rho == 0).all()
+
+    first, second = (np.array(w, "<u2").tobytes() for w in HT_TABLE_OPENINGS)
+    found, at = [], blob.find(first)
+    while at >= 0:
+        if (at % 2 == 0 and blob[at + 2048 : at + 2048 + len(second)] == second
+                and valid(at) and valid(at + 2048)):
+            found.append(at)
+        at = blob.find(first, at + 1)
+    assert len(found) == 1, found
+    at = found[0]
+    return {"vlc_initial": np.frombuffer(blob, "<u2", 1024, at + 2048).copy(),
+            "vlc_later": np.frombuffer(blob, "<u2", 1024, at).copy()}
+
+
 def write_fixtures(full_width: bool = True):
     import cv2
 
@@ -1262,6 +1334,7 @@ def write_fixtures(full_width: bool = True):
     cv2.imwrite(os.path.join(FIXTURES, "demo_0.png"), cv2.cvtColor(images[0], cv2.COLOR_RGB2BGR))
     np.savez_compressed(os.path.join(FIXTURES, "rerank.npz"), **build_rerank())
     np.savez_compressed(GLYPHS, **build_glyphs())
+    np.savez_compressed(HT_TABLES, **build_ht_tables())
     for name, data in build_png_forms().items():
         with open(os.path.join(FIXTURES, f"demo_0_{name}.png"), "wb") as f:
             f.write(data)

@@ -488,6 +488,24 @@ def test_rescaled_rlew_and_part2_demo_forms_predict_as_the_jax_package():
     assert got == want == [canonicalize_smiles("CC(C)O")[0]] * len(paths)
 
 
+def test_htj2k_demo_forms_predict_as_the_jax_package():
+    """The HTJ2K demo forms (5/3 cleanup passes as a codestream and as JPH,
+    9/7 with refinement passes), through ``predict_image_files`` in the
+    JAX package (``cv2.imread``) and in the port (float32, the CPU)."""
+    from molnextr_tpu.api import MolNexTR as JaxMolNexTR
+
+    from molnextr_tpu_torch.api import MolNexTR
+    from molnextr_tpu_torch.chem import canonicalize_smiles
+
+    names = ("demo_0_htj2k.j2k", "demo_0_htj2k.jph", "demo_0_htj2k_refine.j2k")
+    paths = [os.path.join(FIXTURES, "forms", n) for n in names]
+    jax = JaxMolNexTR(model_path=BUNDLE).predict_image_files(paths)
+    port = MolNexTR(model_path=BUNDLE, device="cpu", num_workers=1).predict_image_files(paths)
+    got = [canonicalize_smiles(p["predicted_smiles"])[0] for p in port]
+    want = [canonicalize_smiles(p["predicted_smiles"])[0] for p in jax]
+    assert got == want == [canonicalize_smiles("CC(C)O")[0]] * len(paths)
+
+
 def test_image_call_sites_import_no_format_reader_but_imread():
     """Every call site reads through ``imread`` (no PNG-only read is left)."""
     import ast

@@ -40,7 +40,7 @@ from torch_image_writers import (J2K_LAZY, J2K_PTERM, J2K_RESET, J2K_SEGSYM, J2K
                                  cdef_box, cmap_box, encode_j2k, encode_jp2, j2k_segment, jp2_box,
                                  pclr_box)
 
-from molnextr_tpu_torch.data.image import UnsupportedFormat, decode, imread
+from molnextr_tpu_torch.data.image import decode, imread
 from molnextr_tpu_torch.data.j2k_dwt import idwt53
 from molnextr_tpu_torch.data.j2k_t1 import MQDecoder, _reset_states
 from molnextr_tpu_torch.data.j2k_t2 import BitReader, TagTree
@@ -415,16 +415,17 @@ def test_box_forms(tmp_path):
 
 
 def test_unported_features_raise_naming_them(tmp_path):
-    """HTJ2K code-blocks raise ``UnsupportedFormat``.  Part 2 markers raised
-    too until the port read them as OpenJPEG does: this ``MCT`` of no array
-    now reads as None, as in cv2 (``test_torch_jpeg2000_part2.py`` holds
-    the Part 2 survey)."""
+    """No JPEG 2000 form raises ``UnsupportedFormat`` any more.  A Part 1
+    codestream whose ``SPcod`` says HT code-blocks raised it until the port
+    decoded HTJ2K (``test_torch_htj2k.py``): it now reads as cv2 reads it.
+    Part 2 markers raised too until the port read them as OpenJPEG does:
+    this ``MCT`` of no array reads as None, as in cv2
+    (``test_torch_jpeg2000_part2.py`` holds the Part 2 survey)."""
     _, p = planes(12, 10, 13)
     data = bytearray(encode_j2k(p))
     cod = data.index(b"\xff\x52") + 4
     data[cod + 5 + 3] = 0x40  # SPcod code-block style: HT
-    with pytest.raises(UnsupportedFormat, match="HTJ2K"):
-        decode(bytes(data))
+    check(tmp_path, bytes(data), "x.j2k")
     data = encode_j2k(p)
     qcd = data.index(b"\xff\x5c")
     part2 = data[:qcd] + struct.pack(">HHH", 0xFF74, 4, 0) + data[qcd:]

@@ -61,12 +61,22 @@ PIL do not write, read back by ``cv2.imread`` as the reference.
   :func:`mco_segment` and :func:`part2_identity`: JPEG 2000 Part 2 marker
   segments for :func:`encode_j2k`'s ``main_markers`` and ``tile_header``;
   :func:`openjpeg_part2`: a Part 2 file from OpenJPEG's own encoder
-  (Pillow's ``libopenjp2`` through ``ctypes``, ``opj_set_MCT``).
+  (Pillow's ``libopenjp2`` through ``ctypes``, ``opj_set_MCT``);
+* :func:`ht_encode`: an HTJ2K (Part 15) code-block, the cleanup pass
+  (:func:`ht_cleanup`: :class:`HTMel`, the VLC codes of
+  :func:`ht_codewords` turned round from the decoder's tables, u-VLC,
+  MagSgn) and the SigProp and MagRef passes (:func:`ht_sigprop`,
+  :func:`ht_magref`; :class:`HTForward` and :class:`HTBackward` stuff
+  bits as each stream's reader unstuffs them), which :func:`encode_j2k`
+  writes for ``style`` ``J2K_HT`` with a ``CAP`` marker; precincts; and
+  :func:`encode_jp2`'s ``brand`` for a JPH file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 import struct
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -2478,6 +2488,358 @@ def openjpeg_part2(planes: Sequence[np.ndarray], matrix: np.ndarray,
             return f.read()
 
 
+# ----- HTJ2K (ISO/IEC 15444-15) code-blocks --------------------------------------
+
+J2K_HT = 0x40
+HT_TABLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "molnextr_tpu_torch", "data", "j2k_ht.npz")
+_MEL_EXP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
+
+
+def ht_codewords(initial: bool) -> Dict[Tuple[int, int, int, int, int], Tuple[int, int]]:
+    """The cleanup pass's context VLC codes for writing: (context, rho,
+    u_off, e_k, e_1) -> (codeword, length), the decoder's 1024-entry table
+    of the first line pair of quads (``initial``) or of the others turned
+    round (``data/j2k_ht.npz``: entries ``e_k << 12 | e_1 << 8 | rho << 4 |
+    u_off << 3 | length`` indexed by context and the next 7 bits)."""
+    with np.load(HT_TABLES) as z:
+        table = z["vlc_initial" if initial else "vlc_later"].astype(np.int64)
+    codes = {}
+    for index, entry in enumerate(table):
+        length = int(entry & 7)
+        key = (index >> 7, int(entry >> 4) & 15, int(entry >> 3) & 1, int(entry >> 12),
+               int(entry >> 8) & 15)
+        codes[key] = ((index & 127) & ((1 << length) - 1), length)
+    return codes
+
+
+def _ht_choices(codes) -> Dict[Tuple[int, int, int, int], Tuple[int, int, int]]:
+    """(context, rho, u_off, EMB pattern) -> (codeword, length, e_k): the
+    code whose e_k covers most samples among those that fit (OpenJPH's
+    choice), the shorter of equals."""
+    best = {}
+    for (c, rho, u_off, e_k, e_1), (cwd, length) in codes.items():
+        for emb in range(16) if u_off else (0,):
+            if emb & ~rho or (emb & e_k) != e_1 or (u_off and not emb):
+                continue
+            rank = (bin(e_k).count("1"), -length)
+            key = (c, rho, u_off, emb)
+            if key not in best or rank > best[key][0]:
+                best[key] = (rank, cwd, length, e_k)
+    return {k: v[1:] for k, v in best.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def ht_tables():
+    """The writer's codes for the first line pair and for the others."""
+    return _ht_choices(ht_codewords(True)), _ht_choices(ht_codewords(False))
+
+
+class HTMel:
+    """The MEL coder (T.814 clause 7.3.3): runs of events, MSB first, seven
+    bits in the byte after a 0xFF."""
+
+    def __init__(self):
+        self.out, self.tmp, self.rem, self.run, self.k = bytearray(), 0, 8, 0, 0
+
+    def _bit(self, bit: int) -> None:
+        self.tmp = (self.tmp << 1) | bit
+        self.rem -= 1
+        if self.rem == 0:
+            self.out.append(self.tmp)
+            self.rem = 7 if self.tmp == 0xFF else 8
+            self.tmp = 0
+
+    def encode(self, event: int) -> None:
+        e = _MEL_EXP[self.k]
+        if not event:
+            self.run += 1
+            if self.run == 1 << e:
+                self._bit(1)
+                self.run, self.k = 0, min(12, self.k + 1)
+            return
+        self._bit(0)
+        for t in range(e - 1, -1, -1):
+            self._bit((self.run >> t) & 1)
+        self.run, self.k = 0, max(0, self.k - 1)
+
+
+class HTBackward:
+    """A stream written from the end of its segment towards its start, LSB
+    first (the cleanup's VLC and the MagRef pass): a byte that follows one
+    above 0x8F in reading order holds seven bits if they are all ones (its
+    MSB a stuffed 0).  The VLC stream opens in the low nibble of the byte
+    before the segment's last, both kept for ``Scup`` (``vlc=True``)."""
+
+    def __init__(self, vlc: bool):
+        self.out = bytearray([0xFF]) if vlc else bytearray()
+        self.tmp, self.used, self.gt8f = (0xF, 4, True) if vlc else (0, 0, True)
+
+    def put(self, cwd: int, n: int) -> None:
+        while n > 0:
+            avail = 8 - self.gt8f - self.used
+            t = min(avail, n)
+            self.tmp |= (cwd & ((1 << t) - 1)) << self.used
+            self.used += t
+            cwd >>= t
+            n -= t
+            if avail == t:
+                if self.gt8f and self.tmp != 0x7F:
+                    self.gt8f = False
+                    continue
+                self.out.append(self.tmp)
+                self.gt8f = self.tmp > 0x8F
+                self.tmp = self.used = 0
+
+    def flush(self) -> bytes:
+        """The stream in segment order (MagRef: its last byte zero-padded)."""
+        if self.used:
+            self.out.append(self.tmp)
+            self.tmp = self.used = 0
+        return bytes(self.out[::-1])
+
+
+class HTForward:
+    """A stream written forward, LSB first, seven bits in the byte after a
+    0xFF (the cleanup's MagSgn and the SigProp pass)."""
+
+    def __init__(self):
+        self.out, self.tmp, self.used, self.max = bytearray(), 0, 0, 8
+
+    def put(self, cwd: int, n: int) -> None:
+        while n > 0:
+            t = min(self.max - self.used, n)
+            self.tmp |= (cwd & ((1 << t) - 1)) << self.used
+            self.used += t
+            cwd >>= t
+            n -= t
+            if self.used == self.max:
+                self.out.append(self.tmp)
+                self.max = 7 if self.tmp == 0xFF else 8
+                self.tmp = self.used = 0
+
+    def flush(self, pad_ones: bool) -> bytes:
+        """MagSgn is padded with ones and never ends in 0xFF; SigProp's last
+        byte is padded with zeros."""
+        if self.used:
+            if pad_ones:
+                self.tmp |= ((1 << (self.max - self.used)) - 1) << self.used
+            if self.tmp != 0xFF or not pad_ones:
+                self.out.append(self.tmp)
+        elif pad_ones and self.max == 7:
+            self.out.pop()
+        self.used = 0
+        return bytes(self.out)
+
+
+def _uvlc(u: int) -> Tuple[int, int, int, int]:
+    """(prefix, its length, suffix, its length) of u_q >= 1 (T.814 table 3:
+    "1", "01", "001" with one suffix bit, "000" with five)."""
+    if u <= 2:
+        return (1, 1, 0, 0) if u == 1 else (2, 2, 0, 0)
+    if u <= 4:
+        return 4, 3, u - 3, 1
+    assert u - 5 < 28, "u_q past the suffix (u_ext) is not written"
+    return 0, 3, u - 5, 5
+
+
+def _ht_join(mel: HTMel, vlc: HTBackward) -> Tuple[bytes, bytes]:
+    """The MEL and VLC streams' last bytes, fused into one where their bits
+    fit (OpenJPH's ``terminate_mel_vlc``)."""
+    if mel.run:
+        mel._bit(1)
+    mel_tmp = (mel.tmp << mel.rem) & 0xFF
+    mel_mask = (0xFF << mel.rem) & 0xFF
+    vlc_mask = 0xFF >> (8 - vlc.used)
+    if mel_mask | vlc_mask:
+        fuse = mel_tmp | vlc.tmp
+        if (not ((fuse ^ mel_tmp) & mel_mask | (fuse ^ vlc.tmp) & vlc_mask)
+                and fuse != 0xFF and len(vlc.out) > 1):
+            mel.out.append(fuse)
+        else:
+            mel.out.append(mel_tmp)
+            vlc.out.append(vlc.tmp)
+        vlc.used = 0
+    return bytes(mel.out), bytes(vlc.out[::-1])
+
+
+def ht_cleanup(mu: np.ndarray, neg: np.ndarray, codes=None) -> bytes:
+    """The HT cleanup segment of magnitudes ``mu`` (the bits of each sample
+    from the cleanup's plane up) and signs ``neg``: MagSgn, MEL and VLC
+    streams, ``Scup`` in the last two bytes (T.814 clause 7)."""
+    h, w = mu.shape
+    qh, qw = (h + 1) // 2, (w + 1) // 2
+    m = np.zeros((2 * qh, 2 * qw), np.int64)
+    m[:h, :w] = mu
+    s = np.zeros(m.shape, np.int64)
+    s[:h, :w] = neg
+    e = np.zeros(m.shape, np.int64)
+    nz = m > 0
+    e[nz] = np.array([int(v).bit_length() for v in (2 * m[nz] - 1)], np.int64)
+    codes = codes or ht_tables()
+    mel, vlc, ms = HTMel(), HTBackward(True), HTForward()
+    # per quad: samples in the order TL, BL, TR, BR
+    def quad(y, x):
+        return [(2 * y, 2 * x), (2 * y + 1, 2 * x), (2 * y, 2 * x + 1), (2 * y + 1, 2 * x + 1)]
+
+    for qy in range(qh):
+        first = qy == 0
+        table = codes[0] if first else codes[1]
+        up = e[2 * qy - 1] if not first else None
+        prev_rho = 0
+        for qx0 in range(0, qw, 2):
+            pair = []
+            for qx in (qx0, qx0 + 1):
+                if qx >= qw:
+                    continue
+                cells = quad(qy, qx)
+                rho = sum(1 << n for n, (y, x) in enumerate(cells) if m[y, x])
+                if first:
+                    c_q = (prev_rho & 1 | (prev_rho >> 1) & 1) | ((prev_rho >> 2) & 3) << 1
+                else:
+                    nw = [2 * qx - 1, 2 * qx]
+                    ne = [2 * qx + 1, 2 * qx + 2]
+                    above = lambda cols: any(0 <= c < 2 * qw and up[c] for c in cols)
+                    c_q = (int(above(nw)) | (2 if prev_rho & 12 else 0)
+                           | (4 if above(ne) else 0))
+                es = [int(e[y, x]) for y, x in cells]
+                emax = max(es)
+                kappa = 1
+                if not first and rho & (rho - 1):
+                    eup = max(int(up[c]) for c in range(max(2 * qx - 1, 0),
+                                                        min(2 * qx + 3, 2 * qw)))
+                    kappa = max(1, eup - 1)
+                big_u = max(emax, kappa)
+                u_q = big_u - kappa
+                u_off = int(u_q > 0)
+                emb = sum(1 << n for n in range(4) if u_off and es[n] == big_u)
+                if c_q == 0:
+                    mel.encode(int(rho != 0))
+                e_k = 0
+                if c_q or rho:
+                    cwd, length, e_k = table[(c_q, rho, u_off, emb)]
+                    vlc.put(cwd, length)
+                pair.append((cells, rho, big_u, u_q, u_off, e_k))
+                prev_rho = rho
+            # u_q of the pair
+            uo = [p[4] for p in pair] + [0]
+            if uo[0] and uo[1]:
+                u1, u2 = pair[0][3], pair[1][3]
+                if first:
+                    both = u1 > 2 and u2 > 2
+                    mel.encode(int(both))
+                    if both:
+                        a, b = _uvlc(u1 - 2), _uvlc(u2 - 2)
+                        vlc.put(a[0], a[1]), vlc.put(b[0], b[1])
+                        vlc.put(a[2], a[3]), vlc.put(b[2], b[3])
+                    elif u1 > 2:
+                        a = _uvlc(u1)
+                        vlc.put(a[0], a[1])
+                        vlc.put(u2 - 1, 1)
+                        vlc.put(a[2], a[3])
+                    else:
+                        a, b = _uvlc(u1), _uvlc(u2)
+                        vlc.put(a[0], a[1]), vlc.put(b[0], b[1])
+                        vlc.put(a[2], a[3]), vlc.put(b[2], b[3])
+                else:
+                    a, b = _uvlc(u1), _uvlc(u2)
+                    vlc.put(a[0], a[1]), vlc.put(b[0], b[1])
+                    vlc.put(a[2], a[3]), vlc.put(b[2], b[3])
+            elif uo[0] or uo[1]:
+                a = _uvlc(pair[0][3] if uo[0] else pair[1][3])
+                vlc.put(a[0], a[1])
+                vlc.put(a[2], a[3])
+            # magnitudes and signs
+            for cells, rho, big_u, u_q, u_off, e_k in pair:
+                for n, (y, x) in enumerate(cells):
+                    if rho >> n & 1:
+                        bits = big_u - (e_k >> n & 1)
+                        vlc_val = ((int(m[y, x]) - 1) << 1) | int(s[y, x])
+                        ms.put(vlc_val & ((1 << bits) - 1), bits)
+    magsgn = ms.flush(True)
+    mel_bytes, vlc_bytes = _ht_join(mel, vlc)
+    seg = bytearray(magsgn + mel_bytes + vlc_bytes)
+    scup = len(mel_bytes) + len(vlc_bytes)
+    assert 2 <= scup <= 4079, scup
+    seg[-1] = scup >> 4
+    seg[-2] = (seg[-2] & 0xF0) | (scup & 0xF)
+    return bytes(seg)
+
+
+def ht_sigprop(mag: np.ndarray, sig: np.ndarray, neg: np.ndarray, plane: int,
+               vsc: bool) -> Tuple[bytes, np.ndarray, int]:
+    """The HT SigProp pass of bit-plane ``plane``: stripes of four rows,
+    each in groups of four columns, a significance bit for every sample
+    not significant in the cleanup that has a significant neighbour (the
+    cleanup's anywhere, this pass's before it; with ``vsc`` none from the
+    stripe below), then the signs of the group's new ones.  Returns the
+    bytes, the new significance and how many set bits had no member."""
+    h, w = mag.shape
+    old = np.zeros((h + 2, w + 2), bool)
+    old[1:-1, 1:-1] = sig
+    new = np.zeros_like(old)
+    out, lost = HTForward(), 0
+    for y0 in range(0, h, 4):
+        y1 = min(y0 + 4, h)
+        for x0 in range(0, w, 4):
+            found = []
+            for x in range(x0, min(x0 + 4, w)):
+                for y in range(y0, y1):
+                    if sig[y, x]:
+                        continue
+                    win = old[y : y + 3, x : x + 3] | new[y : y + 3, x : x + 3]
+                    if vsc and y == y0 + 3:
+                        win = win[:2]
+                    bit = int(mag[y, x] >> plane) & 1
+                    if not win.any():
+                        lost += bit
+                        continue
+                    out.put(bit, 1)
+                    if bit:
+                        new[y + 1, x + 1] = True
+                        found.append((y, x))
+            for y, x in found:
+                out.put(int(neg[y, x]), 1)
+    return out.flush(False), new[1:-1, 1:-1], lost
+
+
+def ht_magref(mag: np.ndarray, sig: np.ndarray, plane: int) -> bytes:
+    """The HT MagRef pass of bit-plane ``plane``: a bit for each sample
+    significant in the cleanup, stripe by stripe, column by column,
+    written backward from the refinement segment's end."""
+    h, w = mag.shape
+    out = HTBackward(False)
+    for y0 in range(0, h, 4):
+        for x in range(w):
+            for y in range(y0, min(y0 + 4, h)):
+                if sig[y, x]:
+                    out.put(int(mag[y, x] >> plane) & 1, 1)
+    return out.flush()
+
+
+def ht_encode(q: np.ndarray, p: int, passes: int = 1, vsc: bool = False, codes=None):
+    """One HT code-block of signed integers ``q`` whose cleanup pass codes
+    the bits from plane ``p - 1`` up (OpenJPEG's ``p``: the block's
+    zero bit-planes are Mb - p), with the SigProp (``passes`` 2) and MagRef
+    (3) passes of plane ``p - 2``: (cleanup segment, SigProp bytes, MagRef
+    bytes, set bits SigProp could not reach), or None for a block with
+    nothing to code."""
+    mag = np.abs(q).astype(np.int64)
+    neg = q < 0
+    mu = mag >> (p - 1)
+    sig = mu > 0
+    if not sig.any():
+        return None
+    cleanup = ht_cleanup(mu, neg & sig, codes)
+    sp = mr = b""
+    lost = 0
+    if passes >= 2:
+        sp, _, lost = ht_sigprop(mag, sig, neg, p - 2, vsc)
+    if passes >= 3:
+        mr = ht_magref(mag, sig, p - 2)
+    return cleanup, sp, mr, lost
+
+
 def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=None,
                numres: int = 3, cblk: Tuple[int, int] = (4, 4), style: int = 0,
                reversible: bool = True, mct: int = 0, layers: int = 1, progression: int = 0,
@@ -2488,9 +2850,13 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
                roi: Optional[Dict[int, Tuple[int, int, int, int]]] = None,
                tile_markers: bool = False, comment: Optional[bytes] = None,
                main_markers: Sequence[bytes] = (), tile_header: Sequence[bytes] = (),
-               eoc: bool = True) -> bytes:
+               eoc: bool = True, ht_passes: int = 1, ht_drop: int = 0,
+               cap: bool = True,
+               precincts: Optional[Sequence[Tuple[int, int]]] = None) -> bytes:
     """A JPEG 2000 codestream (Part 1) of unsigned ``planes`` of ``prec``
-    bits, one precinct per resolution:
+    bits, one precinct per resolution unless ``precincts`` gives each
+    resolution's (log2 width, log2 height), lowest first (then LRCP or
+    RLCP only):
 
     * ``sub``: per component (XRsiz, YRsiz), each plane already at its size;
       ``tile``: (width, height) of the tiles;
@@ -2510,7 +2876,15 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
       headers instead of the main header; ``main_markers``: whole marker
       segments put at the end of the main header (``TLM``, ``PLM``, ``CRG``,
       unknown ones), ``tile_header`` at the start of each tile's first
-      tile-part header."""
+      tile-part header;
+    * HTJ2K (``style`` with ``J2K_HT``, Part 15): each code-block's cleanup
+      pass codes its bits down to plane ``ht_drop`` (``ht_passes`` 1) or
+      ``ht_drop + 1``, with the SigProp (``ht_passes`` 2) and MagRef (3)
+      passes of plane ``ht_drop``, at most up to the band's top plane; a
+      5/3 block whose SigProp would miss a set bit is coded by its cleanup
+      alone, so 5/3 stays lossless at ``ht_drop`` 0.  A ``CAP`` marker
+      (``Pcap`` bit 15, ``Ccap15``) follows ``SIZ`` unless ``cap`` is
+      False."""
     ncomp = len(planes)
     sub = sub or [(1, 1)] * ncomp
     height = max(p.shape[0] * s[1] for p, s in zip(planes, sub))
@@ -2631,33 +3005,77 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
                     struct.pack(">H", e << 11 | p["mant"]) for e in ex)
         qcd.append((body, mbs))
 
+    ht_codes = ht_tables() if any(p["style"] & J2K_HT for p in cp) else None
+
     def spcod(p):
         return bytes([p["numres"] - 1, p["cblk"][0] - 2, p["cblk"][1] - 2, p["style"],
-                      int(p["reversible"])])
+                      int(p["reversible"])]) + bytes(
+            ppx | ppy << 4 for ppx, ppy in (precincts or [])[: p["numres"]])
+
+    def precinct_grid(c, r, x0, y0, x1, y1):
+        """Resolution ``r`` of a tile-component: (precincts across, down,
+        their origin and log2 size in the coordinates of its bands)."""
+        lvl = cp[c]["numres"] - 1 - r
+        ppx, ppy = precincts[r] if precincts else (15, 15)
+        rx0, ry0, rx1, ry1 = (-(-v >> lvl) for v in (x0, y0, x1, y1))
+        pw = 0 if rx0 == rx1 else -(-rx1 >> ppx) - (rx0 >> ppx)
+        ph = 0 if ry0 == ry1 else -(-ry1 >> ppy) - (ry0 >> ppy)
+        gx0, gy0 = (rx0 >> ppx) << ppx, (ry0 >> ppy) << ppy
+        if r:
+            return pw, ph, -(-gx0 >> 1), -(-gy0 >> 1), ppx - 1, ppy - 1
+        return pw, ph, gx0, gy0, ppx, ppy
 
     # code-blocks, passes and layers per tile
-    def code_blocks(t, c, i, rect):
+    def code_blocks(t, c, i, rect, grid):
+        """The band's code-blocks, row by row, each with its precinct."""
         p = cp[c]
         bx0, by0, bx1, by1 = rect
-        cw, ch = p["cblk"]
+        pw, _, gx0, gy0, ppx, ppy = grid
+        cw, ch = min(p["cblk"][0], ppx), min(p["cblk"][1], ppy)
         band = blocks[(t, c, i)]
         out = []
         for gy in range((by0 >> ch) << ch, by1, 1 << ch):
             row = []
             for gx in range((bx0 >> cw) << cw, bx1, 1 << cw):
+                k = ((max(gy, by0) - gy0) >> ppy) * pw + ((max(gx, bx0) - gx0) >> ppx)
                 ya, yb = max(gy, by0), min(gy + (1 << ch), by1)
                 xa, xb = max(gx, bx0), min(gx + (1 << cw), bx1)
                 q = band[ya - by0 : yb - by0, xa - bx0 : xb - bx0]
                 r, b = bands(c, 0, 0, 1, 1)[i][:2]
-                row.append(_t1_encode(q, b, p["style"]))
+                if not q.size:  # an empty band's: never written
+                    row.append((k, (0, [], [], 0)))
+                elif p["style"] & J2K_HT:
+                    row.append((k, ht_block(q, qcd[c][1][i] + shifts.get(c, 0), p)))
+                else:
+                    nbits, segs, ends = _t1_encode(q, b, p["style"])
+                    row.append((k, (nbits, segs, ends, 1 + 3 * (nbits - 1) if nbits else 0)))
             out.append(row)
         return out
+
+    def ht_block(q, mb, p):
+        """(p, segments, ends, passes) of an HT code-block."""
+        passes = ht_passes
+        top = min(1 + ht_drop + (passes > 1), mb)
+        if top < 2:
+            passes = 1
+        coded = ht_encode(q, top, passes, bool(p["style"] & J2K_VSC), ht_codes)
+        missed = coded[3] if coded else q.any()
+        if passes > 1 and missed and p["reversible"] and ht_drop == 0:
+            top, passes = 1, 1
+            coded = ht_encode(q, top, passes, False, ht_codes)
+        if coded is None:
+            return 0, [], [], 0
+        cleanup, sp, mr, _ = coded
+        segs = [(cleanup, 1)] + ([(sp + mr, passes - 1)] if passes > 1 else [])
+        ends = [len(cleanup), len(sp), len(sp) + len(mr)][:passes]
+        return top, segs, ends, passes
 
     def split_layers(npasses):
         return [(l * npasses // layers, (l + 1) * npasses // layers) for l in range(layers)]
 
-    def segment_pieces(nbits, segments, ends, u, v):
-        """(passes, bytes) of each segment part in passes [u, v)."""
+    def segment_pieces(nbits, segments, ends, u, v, exact):
+        """(passes, bytes) of each segment part in passes [u, v); a cut
+        inside an MQ segment keeps 3 bytes more, an HT one (``exact``) none."""
         pieces, first = [], 0
         for data, n in segments:
             lo, hi = max(u, first), min(v, first + n)
@@ -2667,45 +3085,50 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
                         return 0
                     if k == first + n:
                         return len(data)
-                    return min(len(data), ends[k - 1] + 3)
+                    return min(len(data), ends[k - 1] + (0 if exact else 3))
                 pieces.append((hi - lo, data[cut(lo) : cut(hi)]))
             first += n
         return pieces
 
-    order_names = []
+    def precinct_state(c, i, r, rect, cbs):
+        """A precinct's code-blocks of one band, with its tag trees."""
+        ny, nx = len(cbs), len(cbs[0]) if cbs else 0
+        first = np.full((max(ny, 1), max(nx, 1)), layers, np.int64)
+        zero = np.zeros((max(ny, 1), max(nx, 1)), np.int64)
+        for y, row in enumerate(cbs):
+            for x, (nbits, segs, ends, npass) in enumerate(row):
+                if nbits:
+                    first[y, x] = next(l for l, (u, v) in enumerate(split_layers(npass))
+                                       if v > u)
+                    zero[y, x] = qcd[c][1][i] + shifts.get(c, 0) - nbits
+        return dict(cbs=cbs, incl=_TagEncoder(first), zbp=_TagEncoder(zero), lblock={},
+                    done=set(), r=r, empty=rect[0] >= rect[2] or rect[1] >= rect[3])
+
     tile_streams = []
     for t, ((tx0, ty0, tx1, ty1), comps) in enumerate(tiles):
         state = {}
+        nprec = {}
         for c, (x0, y0, x1, y1, _) in enumerate(comps):
             for i, (r, b, rect, _) in enumerate(bands(c, x0, y0, x1, y1)):
-                cbs = code_blocks(t, c, i, rect)
-                ny, nx = len(cbs), len(cbs[0]) if cbs else 0
-                first = np.full((max(ny, 1), max(nx, 1)), layers, np.int64)
-                zero = np.zeros((max(ny, 1), max(nx, 1)), np.int64)
-                for y, row in enumerate(cbs):
-                    for x, (nbits, segs, ends) in enumerate(row):
-                        if nbits:
-                            npass = 1 + 3 * (nbits - 1)
-                            first[y, x] = next(l for l, (u, v) in enumerate(split_layers(npass))
-                                               if v > u)
-                            zero[y, x] = qcd[c][1][i] + shifts.get(c, 0) - nbits
-                state[(c, i)] = dict(cbs=cbs, incl=_TagEncoder(first), zbp=_TagEncoder(zero),
-                                     lblock={}, done=set(), r=r, empty=rect[0] >= rect[2]
-                                     or rect[1] >= rect[3])
+                grid = precinct_grid(c, r, x0, y0, x1, y1)
+                nprec[(c, r)] = grid[0] * grid[1]
+                every = code_blocks(t, c, i, rect, grid)
+                for k in range(grid[0] * grid[1]):
+                    cbs = [[blk for kk, blk in row if kk == k] for row in every]
+                    state[(c, i, k)] = precinct_state(c, i, r, rect, [row for row in cbs if row])
         nres = [cp[c]["numres"] for c in range(ncomp)]
 
-        def packet(l, r, c):
+        def packet(l, r, c, k):
             bits, body = _HeaderBits(), bytearray()
             pieces_all = []
             for i, (rr, b, rect, _) in enumerate(bands(c, *comps[c][:4])):
                 if rr != r:
                     continue
-                st = state[(c, i)]
+                st = state[(c, i, k)]
                 if st["empty"]:
                     continue
                 for y, row in enumerate(st["cbs"]):
-                    for x, (nbits, segs, ends) in enumerate(row):
-                        npass = 1 + 3 * (nbits - 1) if nbits else 0
+                    for x, (nbits, segs, ends, npass) in enumerate(row):
                         u, v = split_layers(npass)[l] if nbits else (0, 0)
                         pieces_all.append((st, y, x, nbits, segs, ends, u, v))
             if not any(v > u for *_, u, v in pieces_all):
@@ -2725,7 +3148,8 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
                     if not included:
                         continue
                 _passes_code(bits, v - u)
-                pieces = segment_pieces(nbits, segs, ends, u, v)
+                pieces = segment_pieces(nbits, segs, ends, u, v,
+                                        bool(cp[c]["style"] & J2K_HT))
                 lb = st["lblock"][(y, x)]
                 inc = max([0] + [len(d).bit_length() - (n.bit_length() - 1) - lb
                                  for n, d in pieces])
@@ -2739,16 +3163,19 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
 
         def walk(order, r0, c0, l1, r1, c1):
             if order == 0:
-                return [(l, r, c) for l in range(l1) for r in range(r0, r1) for c in range(c0, c1)
-                        if r < nres[c]]
-            if order == 1:
-                return [(l, r, c) for r in range(r0, r1) for l in range(l1) for c in range(c0, c1)
-                        if r < nres[c]]
-            if order == 2:
-                return [(l, r, c) for r in range(r0, r1) for c in range(c0, c1) for l in range(l1)
-                        if r < nres[c]]
-            return [(l, r, c) for c in range(c0, c1) for r in range(r0, min(r1, nres[c]))
-                    for l in range(l1)]
+                keys = [(l, r, c) for l in range(l1) for r in range(r0, r1)
+                        for c in range(c0, c1) if r < nres[c]]
+            elif order == 1:
+                keys = [(l, r, c) for r in range(r0, r1) for l in range(l1)
+                        for c in range(c0, c1) if r < nres[c]]
+            elif order == 2:
+                keys = [(l, r, c) for r in range(r0, r1) for c in range(c0, c1)
+                        for l in range(l1) if r < nres[c]]
+            else:
+                keys = [(l, r, c) for c in range(c0, c1) for r in range(r0, min(r1, nres[c]))
+                        for l in range(l1)]
+            assert order < 2 or not precincts, "precincts are written in LRCP or RLCP only"
+            return [(l, r, c, k) for l, r, c in keys for k in range(nprec[(c, r)])]
 
         seq = []
         seen = set()
@@ -2759,8 +3186,8 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
                     seen.add(key)
                     seq.append(key)
         pkts = []
-        for n, (l, r, c) in enumerate(seq):
-            _, head, body = packet(l, r, c)
+        for n, key in enumerate(seq):
+            _, head, body = packet(*key)
             if eph:
                 head += b"\xff\x92"
             pre = struct.pack(">HHH", 0xFF91, 4, n & 0xFFFF) if sop else b""
@@ -2771,15 +3198,17 @@ def encode_j2k(planes: Sequence[np.ndarray], *, prec: int = 8, sub=None, tile=No
     siz = struct.pack(">HIIIIIIIIH", 0, width, height, 0, 0, tw, th, 0, 0, ncomp)
     for c in range(ncomp):
         siz += bytes([prec - 1, sub[c][0], sub[c][1]])
-    scod = (2 if sop else 0) | (4 if eph else 0)
+    scod = (2 if sop else 0) | (4 if eph else 0) | (1 if precincts else 0)
     main = j2k_segment(0xFF51, siz)
+    if cap and any(p["style"] & J2K_HT for p in cp):
+        main += j2k_segment(0xFF50, struct.pack(">IH", 1 << (32 - 15), 0))
     main += j2k_segment(0xFF52, bytes([scod, progression]) + struct.pack(">H", layers)
                          + bytes([mct]) + spcod(cp[0]))
     main += j2k_segment(0xFF5C, qcd[0][0])
     extra = b""
     for c in range(1, ncomp):
         if spcod(cp[c]) != spcod(cp[0]):
-            extra += j2k_segment(0xFF53, bytes([c, 0]) + spcod(cp[c]))
+            extra += j2k_segment(0xFF53, bytes([c, 1 if precincts else 0]) + spcod(cp[c]))
         if qcd[c][0] != qcd[0][0]:
             extra += j2k_segment(0xFF5D, bytes([c]) + qcd[c][0])
     for c in sorted(shifts):
@@ -2843,8 +3272,9 @@ def jp2_box(kind: bytes, body: bytes, form: str = "plain") -> bytes:
 def encode_jp2(codestream: bytes, width: int, height: int, ncomp: int, bpc: int = 7, *,
                colr: Optional[bytes] = b"\x01\x00\x00" + struct.pack(">I", 16),
                header_boxes: Sequence[bytes] = (), before: Sequence[bytes] = (),
-               jp2c_form: str = "plain") -> bytes:
-    """A JP2 file around ``codestream``: the signature and ``ftyp`` boxes,
+               jp2c_form: str = "plain", brand: bytes = b"jp2 ") -> bytes:
+    """A JP2 file around ``codestream``: the signature and ``ftyp`` boxes
+    (``brand``, also the one compatible brand: ``jph `` for Part 15's JPH),
     ``jp2h`` with ``ihdr``, ``colr`` (a box body; None for none) and
     ``header_boxes`` (whole boxes: ``pclr``, ``cmap``, ``cdef``, ``res ``),
     ``before`` (whole boxes before ``jp2c``) and the ``jp2c`` box in
@@ -2852,7 +3282,7 @@ def encode_jp2(codestream: bytes, width: int, height: int, ncomp: int, bpc: int 
     ihdr = struct.pack(">IIHBBBB", height, width, ncomp, bpc, 7, 0, 0)
     jp2h = jp2_box(b"ihdr", ihdr) + (jp2_box(b"colr", colr) if colr is not None else b"")
     jp2h += b"".join(header_boxes)
-    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", brand + bytes(4) + brand)
             + jp2_box(b"jp2h", jp2h) + b"".join(before) + jp2_box(b"jp2c", codestream, jp2c_form))
 
 
