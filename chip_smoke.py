@@ -50,7 +50,7 @@ failure:
    rerank are logged; the reactions of ``fixtures/reaction.npz`` drawn by
    ``generate_reaction_image`` must equal the JAX package's drawings pixel
    for pixel, with the same labels and graphs; the one-thread augmenting
-   data pipeline's items/s over 64 ``generate_corpus(seed=0)`` SMILES with
+   data pipeline's items/s over 32 ``generate_corpus(seed=0)`` SMILES with
    the native matcher and with ``MOLNEXTR_NO_NATIVE=1`` (each after a
    warm-up; both must build the same items);
 9. train: the training path at full width.  ``Config()`` in float32 with
@@ -135,7 +135,8 @@ failure:
    G4, BMP RLE8, GIF, lossy and lossless WebP, 5/3 and 9/7 JPEG 2000,
    JPEG-in-TIFF 4:2:0, arithmetic JPEG and lossless, lossy, grained,
    superres and rescaled AVIF and HTJ2K (the grain step's, the superres
-   upscaling's, libyuv's rescaling's and the HT code-blocks' ms apart);
+   upscaling's, libyuv's rescaling's and the HT code-blocks' ms apart; the
+   median of 3 reads, or one read where it takes more than 2 s);
    ``evaluate_cli.main`` on
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
@@ -174,7 +175,18 @@ failure:
    version and a library call, and K3-dense with its split forced to one
    CTA per (b, h); then the beam-4 decode of the same batch (480 forced
    steps on 128 rows): ms per step, the cache reorder's ms per step, and
-   K3-int8's launches and time at 128 rows beside their bound.
+   K3-int8's launches and time at 128 rows beside their bound;
+17. bench: ``bench_torch.py`` and ``scripts/bench_decode_torch.py`` at
+   batch 256.  K1 and K2 at batch 256's stage-1 and stage-3 shapes and K3
+   in both forms at B 256 (positions 0, 255, 479) against their plain
+   versions, in float32 and bf16; ``bench_torch.run`` at its defaults
+   (batch 256, 3 timed runs after a warm-up, int8 cache, 480 forced steps,
+   the edge head on 128 slots) and once dense at 1 timed run, each with
+   the launch counters zeroed before and read after (K1 and K2 24 a run,
+   its K3 form 6 x 480 a run, the other form 0), images/s, the
+   encode/decode/edges split and peak memory; the unroll sweep (1, 2, 4)
+   at 1 timed run; ``python3 bench_torch.py --batch 32 --iters 1`` in a
+   process of its own, its last line parsed.
 
 The build's ``nvcc -Xptxas -v`` report (registers, spills) is logged per
 kernel; each phase logs its seconds.
@@ -189,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -197,7 +210,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "recipe", "dp",
-          "cli", "convnext", "suites", "tools", "timing")
+          "cli", "convnext", "suites", "tools", "timing", "bench")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -242,11 +255,13 @@ TRAIN_SMILES = ("CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CCCCC1", "CCOC", "CN", "
                 "CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C)C(=O)N2C",
                 "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "OC(=O)c1ccccc1O")
 # the data pipeline's rate: drug-like SMILES from generate_corpus, timed
-# after a warm-up, in one thread and in a spawn pool of up to 8 workers
-DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 256, 8, 8
-MATCHER_ITEMS, MATCHER_WARMUP_ITEMS = 64, 8
+# after a warm-up, in one thread and in a spawn pool of up to 8 workers.
+# These host timings and the readers' are cut in depth (items; repeated
+# reads of the slow files) so that every phase fits the run's time limit
+DATA_ITEMS, DATA_WARMUP_ITEMS, DATA_POOL_WORKERS = 128, 8, 8
+MATCHER_ITEMS, MATCHER_WARMUP_ITEMS = 32, 8
 READER_REPS = 3  # reads of each 1024 x 1024 file for the reader timings
-READER_ONE_READ_MS = 10000.0  # a first read past this is timed alone
+READER_ONE_READ_MS = 2000.0  # a first read past this is timed alone
 READER_FILES = ("big_420.jpg", "big_progressive.jpg", "big_lzw.tif", "big_g4.tif",
                 "big_rle8.bmp", "big.gif", "big_lossy.webp", "big_lossless.webp",
                 "big_lossless.jp2", "big_lossy.jp2", "big_jpeg.tif", "big_arith.jpg",
@@ -276,19 +291,17 @@ CLI_TRAIN_ITEMS, CLI_VALID_ITEMS = 96, 8
 AB_SLACK = 0.05
 DIAG_N, DIAG_BEAM = 64, 4
 K3_INT8, K3_DENSE = "decode_attention_layered_q8", "decode_attention_layered"
+# phase bench: bench_torch.py at its defaults (batch 256, 3 timed runs), the
+# unroll sweep of scripts/bench_decode_torch.py; K3 held at 256 rows (2048
+# (b, h) groups) at these positions
+BENCH_BATCH, BENCH_ITERS, BENCH_UNROLLS = 256, 3, (1, 2, 4)
+BENCH_BLOCKS = sum(depth for _, _, _, depth in STAGES)  # K1 and K2 launches an encode
+BENCH_CHECK_POS = (0, 255, 479)
 DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 class Timer:
@@ -2182,8 +2195,8 @@ def image_forms(torch, card, bundle, work, want):
         if len(spent) < READER_REPS:
             log(f"  {name}: one read took {spent[0]:.0f} ms, past "
                 f"{READER_ONE_READ_MS:.0f} ms; timed once")
-    log("  readers on the host, median of "
-        f"{READER_REPS} reads (host of {card}): " + json.dumps(timings))
+    log(f"  readers on the host, median of {READER_REPS} reads, or one read past "
+        f"{READER_ONE_READ_MS:.0f} ms (host of {card}): " + json.dumps(timings))
     return {"files": names, "predict_launches": counts, "predict_s": predict_s,
             "token_gaps": token_gaps, "full_width": full_width, "cv2": probe.stdout.strip(),
             "readers": timings}
@@ -2964,6 +2977,125 @@ def phase_timing(torch, results, card):
     log(f"  per-kernel times on {card}")
 
 
+def bench_kernel_checks(torch, results):
+    """K1 and K2 at batch 256's stage-1 and stage-3 shapes and K3 in both
+    forms at B 256, each against its plain version, in float32 and bf16."""
+    from molnextr_tpu_torch.ops import swin_fused as sf
+
+    da = importlib.import_module(DA_MODULE)
+    gen = torch.Generator(device=DEVICE).manual_seed(BENCH_BATCH)
+    errs = results.setdefault("max_abs_err", {})
+    b = BENCH_BATCH
+
+    def hold(key, label, kernel, plain, args, dtype):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs[key] = max(errs.get(key, 0.0), check_close(label, got, want, torch, dtype))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for res, c, heads, _ in (STAGES[0], STAGES[2]):
+            for shifted in (False, True):
+                hold("fused_window_attention",
+                     f"K1 {dn} B {b} res {res} C {c} heads {heads} "
+                     f"{'shifted' if shifted else 'unshifted'}",
+                     sf.fused_window_attention, sf.window_attention_reference,
+                     window_inputs(torch, gen, b, res, c, heads, WS, shifted, dtype), dtype)
+                torch.cuda.empty_cache()
+            hold("fused_ln_mlp", f"K2 {dn} T {b * res * res} C {c}", sf.fused_ln_mlp,
+                 sf.ln_mlp_reference, mlp_inputs(torch, gen, b * res * res, c, dtype), dtype)
+            torch.cuda.empty_cache()
+        for q8 in (True, False):
+            ins = cache_inputs(torch, gen, dtype, q8, batch=b)
+            kernel = da.decode_attention_layered_q8 if q8 else da.decode_attention_layered
+            plain = (da.decode_attention_layered_q8_reference if q8
+                     else da.decode_attention_layered_reference)
+            for pos in BENCH_CHECK_POS:
+                hold(K3_INT8 if q8 else K3_DENSE,
+                     f"K3 {'int8' if q8 else 'dense'} q {dn} B {b} pos {pos} layer {DEC_L - 1}",
+                     kernel, plain, (*ins, pos, DEC_L - 1), dtype)
+            del ins
+            torch.cuda.empty_cache()
+
+
+def bench_launches(label, counts, iters, k3):
+    """The bench run's launches: K1 and K2 once a block of each encode, ``k3``
+    once a layer of every forced step, the other K3 form never."""
+    runs = iters + 1  # the warm-up and the timed runs
+    want = {"fused_window_attention": BENCH_BLOCKS * runs, "fused_ln_mlp": BENCH_BLOCKS * runs,
+            k3: DEC_L * DEC_STEPS * runs, ({K3_INT8, K3_DENSE} - {k3}).pop(): 0}
+    got = {name: counts[name] for name in want}
+    log(f"  {label} launches {json.dumps(got)} (want {json.dumps(want)})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def phase_bench(torch, results, card):
+    """``bench_torch.py`` and ``scripts/bench_decode_torch.py`` on the card at
+    batch 256: the kernels at its shapes, the bench in both cache forms with
+    its launches counted, the unroll sweep, and the script in a process of
+    its own."""
+    import bench_torch
+    from molnextr_tpu_torch.config import Config
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_decode_torch", os.path.join(HERE, "scripts", "bench_decode_torch.py"))
+    bench_decode = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_decode)
+    log(f"phase bench: Config() bf16 at batch {BENCH_BATCH} ({card})")
+    seconds = {}
+    t0 = time.perf_counter()
+    bench_kernel_checks(torch, results)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    out = {}
+    for kv, iters in ((None, BENCH_ITERS), (False, 1)):  # the default (int8), then dense
+        t0 = time.perf_counter()
+        res, counts = count_launches(torch, lambda: bench_torch.run(
+            Config(), BENCH_BATCH, iters, DEC_STEPS, kv, DEVICE))
+        form = res["kv_cache"]
+        seq, avg, edges = res["outputs"]
+        k = Config().data.max_atoms
+        if (tuple(seq.shape) != (BENCH_BATCH, DEC_STEPS) or bool((seq == 0).any())
+                or tuple(edges.shape) != (BENCH_BATCH, 7, k, k)
+                or not bool(torch.isfinite(avg).all()) or not bool(torch.isfinite(edges).all())):
+            raise AssertionError(f"bench {form}: outputs {tuple(seq.shape)}, {tuple(edges.shape)}")
+        bench_launches(f"bench {form}", counts, iters, K3_INT8 if form == "int8" else K3_DENSE)
+        out[form] = dict(res["split"], images_per_s=res["images_per_s"],
+                         seconds_per_batch=res["seconds_per_batch"], iters=iters,
+                         peak_memory_gb=res["peak_memory_bytes"] / 1e9, card=card)
+        log(f"  bench {form}: " + json.dumps(out[form]))
+        del res, seq, avg, edges
+        torch.cuda.empty_cache()
+        seconds[f"bench_{form}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep = bench_decode.run(Config(), BENCH_BATCH, 1, BENCH_UNROLLS, DEVICE,
+                             log=lambda msg: log("  " + msg))
+    out["unroll"] = {"encode_s": sweep["encode_s"], "best": sweep["best"], "card": card,
+                     **{f"unroll={u}": {"ms_per_step": r["ms_per_step"], "steps": r["steps"],
+                                        "ms_per_step_run": r["ms_per_step_run"],
+                                        "seconds": r["seconds"]}
+                        for u, r in sweep["unrolls"].items()}}
+    log("  unroll sweep: " + json.dumps(out["unroll"]))
+    del sweep
+    torch.cuda.empty_cache()
+    seconds["unroll_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py"), "--batch", "32",
+                           "--iters", "1"], cwd=HERE, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py failed:\n{proc.stderr[-3000:]}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (last.get("metric") != "inference_images_per_sec_per_chip" or not last.get("value", 0) > 0
+            or last.get("batch") != 32 or last.get("card") != card):
+        raise AssertionError(f"bench_torch.py's last line: {last}")
+    log(f"  python3 bench_torch.py --batch 32 --iters 1: {proc.stdout.strip().splitlines()[-2]}")
+    log(f"  last line: {json.dumps(last)}")
+    out["script_batch_32"] = last
+    seconds["script"] = time.perf_counter() - t0
+    log(f"  bench seconds: {json.dumps(seconds)}")
+    results["bench"] = out
+
+
 # kernel -> (source, the JAX function it replaces, the run whose launches count)
 SOURCES = {
     "fused_window_attention": ("molnextr_tpu_torch/ops/csrc/swin_fused.cu",
@@ -3024,11 +3156,12 @@ def main() -> int:
             HERE, "molnextr_tpu_torch"):
         print("chip_smoke: run from the root of a molnextr-tpu checkout", file=sys.stderr)
         return 2
+    from bench_torch import card_line
     from molnextr_tpu_torch.inference import resolve_device
     from molnextr_tpu_torch.ops._build import BUILD_LOG, build_all
 
     resolve_device("cuda")  # raises unless the card is compute capability 9.x
-    card = card_line()
+    card = card_line(DEVICE)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"capability {torch.cuda.get_device_capability(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3063,6 +3196,7 @@ def main() -> int:
         "suites": lambda: phase_suites(torch, results, card),
         "tools": lambda: phase_tools(torch, results, card),
         "timing": lambda: phase_timing(torch, results, card),
+        "bench": lambda: phase_bench(torch, results, card),
     }
     for name in PHASES:
         if name in phases:

@@ -90,6 +90,7 @@ SMEM_TWO_BLOCKS = 110 * 1024  # at most this each (and their barriers), two bloc
 STATIC_SMEM = 1024  # room left for the kernels' static shared memory (mbarriers, LN statistics)
 SMS = 132
 GEMM_BM, GEMM_BN, GEMM_BK = 64, 128, 64  # the bf16 GEMMs' tile: 2 warpgroups x 64 columns
+GRID_Y_MAX = 65535  # a CUDA grid's y limit: the encoder GEMMs' row blocks of GEMM_BM rows
 LN_GEMM_MIN_BLOCKS = 4 * SMS  # LN GEMM blocks wanted: split the columns until there are
 MLP_FUSED_MAX_C = 128  # widths the fused K2 kernel takes: one accumulator slab a warpgroup
 ATTN_KEY_TILES = (1, 2, 4, 9, 16)  # 16-key tiles the attention kernel is built for
@@ -173,6 +174,17 @@ def _column_tiles(rows: int, n: int) -> int:
     row_blocks, col_tiles = -(-rows // GEMM_BM), -(-n // GEMM_BN)
     splits = min(col_tiles, -(-LN_GEMM_MIN_BLOCKS // row_blocks))
     return -(-col_tiles // splits)
+
+
+def check_gemm_rows(name: str, rows: int) -> None:
+    """The encoder GEMMs (bf16 and float32 alike) launch one grid row per
+    ``GEMM_BM`` rows: ``rows`` past ``GRID_Y_MAX`` of them raise here,
+    before the launch (at 384 px, Swin's stage maps hold 9,216 tokens an
+    image, so a batch of 456 or more)."""
+    if -(-rows // GEMM_BM) > GRID_Y_MAX:
+        raise ValueError(f"{name}: {rows} rows need {-(-rows // GEMM_BM)} GEMM row blocks of "
+                         f"{GEMM_BM}, past the CUDA grid limit of {GRID_Y_MAX} "
+                         f"({GRID_Y_MAX * GEMM_BM} rows); run a smaller batch")
 
 
 def encoder_plan(c: int, tokens: int, num_heads: Optional[int] = None, ws: int = 1,

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from molnextr_tpu_torch.ops._build import check, load_library
 from molnextr_tpu_torch.ops._launch import (
-    LAUNCHES, SMEM_LIMIT, STATIC_SMEM, EncoderPlan, dtype_code, encoder_plan, require_cuda,
+    LAUNCHES, SMEM_LIMIT, STATIC_SMEM, EncoderPlan, check_gemm_rows, dtype_code, encoder_plan,
+    require_cuda,
 )
 
 LN_EPS = 1e-5
@@ -145,6 +146,7 @@ def fused_window_attention(
     if x.dtype == torch.bfloat16:
         _check_bf16_operands("fused_window_attention", c, plan, ("ln_gemm", "gemm", "attention"),
                              x, wqkv, wproj, ln_scale, ln_bias)
+    check_gemm_rows("fused_window_attention", b * hres * wres)
     stream = require_cuda(
         "fused_window_attention", x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, bias,
         *(() if mask is None else (mask,)),
@@ -205,6 +207,8 @@ def fused_ln_mlp(
     if x.dtype == torch.bfloat16:
         _check_bf16_operands("fused_ln_mlp", math.gcd(c, f), plan,
                              ("mlp",) if fused else ("ln_gemm", "gemm"), x, w1, w2, ln_scale, ln_bias)
+    if not fused:  # the fused kernel's row blocks run along the grid's x
+        check_gemm_rows("fused_ln_mlp", t)
     stream = require_cuda("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2)
     # the 4C intermediate goes through device memory only where K2 is two GEMMs
     h = None if fused else torch.empty((t, f), dtype=x.dtype, device=x.device)

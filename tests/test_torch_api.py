@@ -33,6 +33,8 @@ PORT_SCRIPTS = [os.path.join(ROOT, "scripts", "train_druglike_torch.py"),
                 os.path.join(ROOT, "scripts", "ab_int8_suites_torch.py"),
                 os.path.join(ROOT, "scripts", "diagnose_errors_torch.py"),
                 os.path.join(ROOT, "scripts", "diagnose_chirality_torch.py"),
+                os.path.join(ROOT, "scripts", "bench_decode_torch.py"),
+                os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "examples", "predict_example_torch.py"),
                 os.path.join(ROOT, "examples", "visualize_example_torch.py")]
 PORT_FILES = [os.path.join(ROOT, "chip_smoke.py")] + PORT_SCRIPTS + [
@@ -240,9 +242,9 @@ def test_port_sources_import_nothing_forbidden():
 
 
 def test_port_imports_with_forbidden_modules_blocked():
-    """Import every module of the port, draw a molecule and rerank against
-    it, and run the demo bundle through it, in a process where importing any
-    forbidden module fails."""
+    """Import every module of the port and the bench scripts, draw a
+    molecule and rerank against it, and run the demo bundle through it, in a
+    process where importing any forbidden module fails."""
     code = f"""
 import importlib, pkgutil, sys
 class Block:
@@ -264,6 +266,10 @@ assert set(['molnextr_tpu_torch.train.loop', 'molnextr_tpu_torch.data.dataset',
             'molnextr_tpu_torch.data.pnm', 'molnextr_tpu_torch.data.gif',
             'molnextr_tpu_torch.data.sunras', 'molnextr_tpu_torch.data.hdr',
             'molnextr_tpu_torch.train.druglike', 'molnextr_tpu_torch.build_dir']) <= set(mods)
+import importlib.util
+for path in {[p for p in PORT_SCRIPTS if "bench" in os.path.basename(p)]!r}:
+    spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import torch
 torch.set_num_threads(2)
 from molnextr_tpu_torch.api import MolNexTR
