@@ -30,16 +30,30 @@ failure:
    ``folded_decode_attention_bb``) over every position and layer of one
    full-width bf16 decode, with the counters zeroed before and read after,
    and their outputs at a few positions against the plain versions;
-6. demo: the trained demo bundle through the public API, hits against gold
+6. flash: the decoder's causal flash attention.  K7 (output and lse), and
+   K8 and K9 through ``autograd.grad`` of ``ops.flash_attention``, against
+   the plain version at the drug-like recipe's shape (B 256, H 8, T 256,
+   d 32) and at T 128, in float32 and bf16, q, k and v as strided head
+   views of one projection; each kernel's ms beside its bound, its plain
+   version and ``scaled_dot_product_attention(is_causal=True)`` (forward,
+   and forward with backward against the dispatcher's); the recipe's config
+   (attention dropout 0) with ``use_flash_attention`` on and off, the same
+   seeded weights and a batch of 256 renders: an eval step and a train
+   step of each with the launch counters zeroed before and read after (K7
+   4 an eval step; K7 8, K8 4, K9 4 a train step, forward and remat
+   recompute; 0 with the flag off), the losses equal within the bf16
+   tolerance, and train steps timed in turns; ``Config()``'s decoder at
+   T 480, where the route declines (0 launches);
+7. demo: the trained demo bundle through the public API, hits against gold
    and agreement with the JAX package's SMILES, and ``get_predictions`` on
    a PNG file;
-7. beam: beam search (beam 4) held against the JAX fixture at full width
+8. beam: beam search (beam 4) held against the JAX fixture at full width
    in float32 (all 4 hypotheses of a 12-step search); the full-width bf16
    serving path at ``beam_size=4, n_best=4`` on 32 images (128 decode
    rows) through ``MolNexTR.predict_images`` in both cache forms, with the
    launch counters zeroed before and read after; the demo bundle's n-best
    lists against the JAX package's in float32, and its hits in bf16;
-8. rerank: the port draws the demo SMILES itself (``generate_synthetic_image``,
+9. rerank: the port draws the demo SMILES itself (``generate_synthetic_image``,
    default style, 128 px; pixel-equal to the JAX package's renders in
    ``demo.npz``), the demo bundle reads them at bf16 with the int8 KV
    cache, beam 4, n-best 4 and ``rerank="roundtrip"`` through
@@ -53,7 +67,7 @@ failure:
    data pipeline's items/s over 32 ``generate_corpus(seed=0)`` SMILES with
    the native matcher and with ``MOLNEXTR_NO_NATIVE=1`` (each after a
    warm-up; both must build the same items);
-9. train: the training path at full width.  ``Config()`` in float32 with
+10. train: the training path at full width.  ``Config()`` in float32 with
    ``seeded_flax_params(seed=0)``, dropout 0 and remat on, against the JAX
    package's loss terms, per-group gradient norms, gradient leaves and the
    leaves after two optimizer updates on ``fixtures/train.npz``'s batch of
@@ -66,13 +80,13 @@ failure:
    a profiler window; the host's augmented 384 px items per second over
    ``generate_corpus(seed=0)``'s drug-like SMILES, in one thread and in
    the spawn pool, each after a warm-up;
-10. recipe: ``scripts/train_druglike_torch.py`` unchanged in width (192
+11. recipe: ``scripts/train_druglike_torch.py`` unchanged in width (192
    px, Swin of embed 64 and depths 2/2/6/2, batch 256, a 4 x 256 x 8
    decoder), cut to 1024 train and 64 valid SMILES, 3 steps and 1 epoch:
    ms per train step (CUDA events), images/s, peak memory, its per-epoch
    ``evaluate_model`` with the launch counters zeroed before and read after
    (K1, K2, K3-int8 above 0), and its bundle read back by ``MolNexTR``;
-11. dp: data parallel at full width (``Config()``, remat on).  A world of
+12. dp: data parallel at full width (``Config()``, remat on).  A world of
    one rank over NCCL in this process: two float32 steps on
    ``train.npz``'s batch against the step with no process group (expected
    0 apart), then bf16 steps at batch 32 of both forms in turns, and the
@@ -84,7 +98,7 @@ failure:
    a global batch of 32, the ranks' parameters equal bit for bit and rank
    0's held to one process on all 32 rows; step ms, reduction ms and peak
    memory a rank;
-12. cli: the console entry points.  ``predict.main`` (the demo bundle,
+13. cli: the console entry points.  ``predict.main`` (the demo bundle,
    bf16) on every PNG form of ``fixtures/demo_0.png`` (grey, grey+alpha,
    RGB, RGBA at 8 and 16 bits, palette, Adam7), which must read to the
    same pixels and give ``demo.npz``'s SMILES, with the launch counters
@@ -141,18 +155,18 @@ failure:
    the PNG forms' output (exact match 1.0); ``train.main`` at full width (Swin-B 384,
    batch 32, 3 steps, 8 workers, evaluation on 8 SMILES), whose bundle
    ``MolNexTR`` reads back and predicts with;
-13. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
+14. convnext: ``Config()`` with ``encoder.name = "convnext_base"``
    (ConvNeXt-B, depths 3/3/27/3, dims 128-1024, 384 px) in float32
    against ``fixtures/convnext.npz``; bf16 serving with the int8 KV cache
    at batch 32 through ``MolNexTR.predict_images`` (launch counters: K1 =
    K2 = 0, K3-int8 = 6 x the decode steps taken); encode ms per batch;
    three train steps through ``train.main --encoder convnext_base`` at
    batch 32, ms per step and peak memory;
-14. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
+15. suites: ``benchmarks.run_all`` on the demo bundle (n 16) and
    ``suite_train_throughput`` at full width (batch 32, 8 workers), each
    suite's dict on a line and gated on the JAX suites' keys; and which of
    PIL, torchvision, pandas and cv2 import on the card's machine;
-15. tools: the twins of the repo's tools through their entry points.
+16. tools: the twins of the repo's tools through their entry points.
    ``train/overfit_chiral.py`` at the JAX script's defaults (K 4 chiral
    molecules of ``generate_corpus(4000, seed=42, max_atoms=28)``, 400
    epochs, embed 16, an evaluation every 50; its bundle in a temporary
@@ -169,14 +183,14 @@ failure:
    ``diagnostics.diagnose_chirality`` on the overfit's bundle and corpus
    (stage A's ``chiral`` 1.0, stage D logged).  The phase's summary is a
    JSON line of its own before the kernels line;
-16. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
+17. timing: batch 32, bf16, int8 cache, 480 forced decode steps, the edge
    head on all 128 atom slots; then each kernel's time over one batch's
    launches (K3-K6: one 480-step decode) beside its bound, its plain
    version and a library call, and K3-dense with its split forced to one
    CTA per (b, h); then the beam-4 decode of the same batch (480 forced
    steps on 128 rows): ms per step, the cache reorder's ms per step, and
    K3-int8's launches and time at 128 rows beside their bound;
-17. bench: ``bench_torch.py`` and ``scripts/bench_decode_torch.py`` at
+18. bench: ``bench_torch.py`` and ``scripts/bench_decode_torch.py`` at
    batch 256.  K1 and K2 at batch 256's stage-1 and stage-3 shapes and K3
    in both forms at B 256 (positions 0, 255, 479) against their plain
    versions, in float32 and bf16; ``bench_torch.run`` at its defaults
@@ -209,8 +223,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("kernels", "parity", "paths", "ops", "demo", "beam", "rerank", "train", "recipe", "dp",
-          "cli", "convnext", "suites", "tools", "timing", "bench")
+PHASES = ("kernels", "parity", "paths", "ops", "flash", "demo", "beam", "rerank", "train", "recipe",
+          "dp", "cli", "convnext", "suites", "tools", "timing", "bench")
 # the ops package exports the K4 function under its module's name
 DA_MODULE = "molnextr_tpu_torch.ops.decode_attention"
 
@@ -297,6 +311,13 @@ K3_INT8, K3_DENSE = "decode_attention_layered_q8", "decode_attention_layered"
 BENCH_BATCH, BENCH_ITERS, BENCH_UNROLLS = 256, 3, (1, 2, 4)
 BENCH_BLOCKS = sum(depth for _, _, _, depth in STAGES)  # K1 and K2 launches an encode
 BENCH_CHECK_POS = (0, 255, 479)
+# phase flash: K7-K9 at the drug-like recipe's decoder (batch 256, 8 heads,
+# T = max_len 256, d 32) and at T 128; the recipe's train step with the flag
+# on and off, steps timed in turns after a warm-up of each
+FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 8, 256, 32
+FLASH_CHECK_T = (256, 128)
+FLASH_TIMED_STEPS = 3
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 DEVICE = "cuda"
 
 
@@ -377,6 +398,18 @@ def k3_work(b, h, d, pos, es, q8):
 def folded_work(b, d_model, pos, es):
     """K5/K6: q and out (B, D), K and V rows 0..pos of one layer."""
     return b * ((pos + 1) * 2 * d_model * es + 2 * d_model * es), 4 * b * (pos + 1) * d_model
+
+
+def flash_work(b, h, t, d, es, kernel):
+    """K7-K9 on (B, H, T, d) operands: the causal pairs j <= i of each
+    (b, h), 2 operations a multiply-add, 2 products in K7 (s, o), 4 in K8
+    (s, dp, dv, dk), 3 in K9 (s, dp, dq); each (B, H, T, d) operand moved
+    once, lse and di (float32) once."""
+    pairs = b * h * t * (t + 1) // 2
+    rows, vec = b * h * t * d * es, b * h * t * 4
+    return {"flash_attention_fwd": (4 * rows + vec, 2 * 2 * pairs * d),
+            "flash_attention_bwd_dkv": (6 * rows + 2 * vec, 4 * 2 * pairs * d),
+            "flash_attention_bwd_dq": (5 * rows + 2 * vec, 3 * 2 * pairs * d)}[kernel]
 
 
 class Bound:
@@ -767,6 +800,220 @@ def phase_ops(torch, results):
     results["ops"] = counts
     del kc, vc, kf, vf, qs, kept
     torch.cuda.empty_cache()
+
+
+def flash_inputs(torch, gen, b, t, dtype):
+    """q, k, v (B, H, T, d) as head views of one (B, T, 3 H d) projection,
+    as the decoder hands them to the route, and a cotangent."""
+    width = FLASH_H * FLASH_D
+    qkv = torch.randn(b, t, 3 * width, generator=gen, device=DEVICE).to(dtype)
+    q, k, v = (x.reshape(b, t, FLASH_H, FLASH_D).transpose(1, 2) for x in qkv.split(width, dim=-1))
+    return q, k, v, torch.randn(b, FLASH_H, t, FLASH_D, generator=gen, device=DEVICE).to(dtype)
+
+
+def flash_checks(torch, fl, results):
+    """K7 (and its lse), and K8 with K9 through ``autograd.grad`` of the
+    dispatcher, against the plain version in float32 and bf16."""
+    errs = results.setdefault("max_abs_err", {})
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    scale = FLASH_D ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for t in FLASH_CHECK_T:
+            q, k, v, do = flash_inputs(torch, gen, FLASH_B, t, dtype)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = fl.flash_attention(*leaves, causal=True, sm_scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, do)
+            _, lse = fl.flash_attention_fwd(q, k, v, scale)
+            o_ref, lse_ref = fl.flash_attention_reference(q, k, v, scale)
+            di = (o_ref.float() * do.float()).sum(-1)
+            dk_ref, dv_ref = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse_ref, di, scale)
+            dq_ref = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale)
+            torch.cuda.synchronize()
+            label = f"{dn} B {FLASH_B} H {FLASH_H} T {t} d {FLASH_D}"
+            found = {
+                "flash_attention_fwd": max(
+                    check_close(f"K7 o {label}", out.detach(), o_ref, torch, dtype),
+                    check_close(f"K7 lse {label}", lse, lse_ref, torch, torch.float32)),
+                "flash_attention_bwd_dkv": max(
+                    check_close(f"K8 dk {label}", dk, dk_ref, torch, dtype),
+                    check_close(f"K8 dv {label}", dv, dv_ref, torch, dtype)),
+                "flash_attention_bwd_dq": check_close(f"K9 dq {label}", dq, dq_ref, torch, dtype),
+            }
+            for name, e in found.items():
+                errs[name] = max(errs.get(name, 0.0), e)
+            del q, k, v, do, leaves, out, dq, dk, dv, o_ref, dk_ref, dv_ref, dq_ref
+            torch.cuda.empty_cache()
+
+
+def flash_timing(torch, fl, results, card):
+    """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
+    beside their bounds, their plain versions and
+    ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
+    with backward against the dispatcher's K7 + K8 + K9)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tm = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    scale = FLASH_D ** -0.5
+    q, k, v, do = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16)
+    o, lse = fl.flash_attention_fwd(q, k, v, scale)
+    di = (o.float() * do.float()).sum(-1)
+    lib_fwd = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
+    runs = {
+        "flash_attention_fwd": (lambda: fl.flash_attention_fwd(q, k, v, scale),
+                                lambda: fl.flash_attention_reference(q, k, v, scale), lib_fwd),
+        "flash_attention_bwd_dkv": (
+            lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale),
+            lambda: fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, scale), None),
+        "flash_attention_bwd_dq": (
+            lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, di, scale),
+            lambda: fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, di, scale), None),
+    }
+    kern = {}
+    for name, (kfn, pfn, lib) in runs.items():
+        t_k = tm.ms(kfn, reps=20, graph=True)
+        t_p = tm.ms(pfn, reps=5)
+        bound = Bound()
+        bound.add(*flash_work(FLASH_B, FLASH_H, FLASH_T, FLASH_D, 2, name), "bfloat16")
+        kern[name] = {"ms": t_k, "plain_ms": t_p, "bound": bound, "library_ms": lib}
+        log(f"    {name}: {t_k:.4f} ms (bound {bound.ms:.4f} ms by {bound.by}; plain "
+            f"{t_p:.4f} ms" + (f"; SDPA forward {lib:.4f} ms" if lib is not None else "") + ")")
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def both(fn):
+        def run():
+            torch.autograd.grad(fn(*leaves), leaves, do)
+        return run
+
+    t_ours = tm.ms(both(lambda *a: fl.flash_attention(*a, sm_scale=scale)), reps=10)
+    t_lib = tm.ms(both(lambda *a: sdpa(*a, is_causal=True)), reps=10)
+    log(f"    forward + backward: the dispatcher (K7, di, K8, K9) {t_ours:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms (B {FLASH_B}, H {FLASH_H}, T {FLASH_T}, d {FLASH_D}, bf16; {card})")
+    results["flash_timing"] = kern
+    return {"fwd_bwd_ms": t_ours, "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": t_lib}
+
+
+def flash_steps(torch, results, card):
+    """The drug-like recipe's config (attention dropout 0) with the flag on
+    and off, the same seeded weights and batch of 256 renders: one eval step
+    and one train step of each with the launch counters zeroed before and
+    read after, the losses compared, then train steps timed in turns; and
+    ``Config()``'s decoder at T 480, which the route declines."""
+    import copy
+
+    import numpy as np
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.models.decoder import Decoder
+    from molnextr_tpu_torch.models.model import MolNexTRModel
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.druglike import build_config, make_parser
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.step import eval_step, train_step
+
+    base = build_config(make_parser().parse_args([]))
+    base.decoder.attn_dropout = 0.0
+    layers = base.decoder.num_layers
+    toks = get_tokenizer(base.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    criterion = _criterion(base, toks)
+    batch = overfit_batch(base, toks, base.train.batch_size)
+    t_labels = batch["refs"]["chartok_coords"].shape[1]
+    states = {}
+    for flag in (True, False):
+        cfg = copy.deepcopy(base)
+        cfg.decoder.use_flash_attention = flag
+        states[flag] = (cfg, create_train_state(cfg, MolNexTRModel(cfg, vocab), 10, seed=0,
+                                                device=DEVICE))
+    out = {"eval_loss": {}, "train_loss": {}, "eval_launches": {}, "train_launches": {}}
+    for flag, (cfg, state) in states.items():
+        key = "on" if flag else "off"
+        metrics, counts = count_launches(torch, lambda: eval_step(cfg, criterion, state.model,
+                                                                  batch))
+        out["eval_loss"][key] = float(metrics["loss"])
+        out["eval_launches"][key] = {n: counts[n] for n in FLASH_KERNELS}
+        metrics, counts = count_launches(torch, lambda: train_step(cfg, criterion, state, batch,
+                                                                   seed=1))
+        out["train_loss"][key] = float(metrics["loss"])
+        out["train_launches"][key] = {n: counts[n] for n in FLASH_KERNELS}
+    log(f"  recipe config, batch {base.train.batch_size}, T {t_labels}, flag on / off: "
+        + json.dumps(out))
+    want_on = {"train": {"flash_attention_fwd": 2 * layers, "flash_attention_bwd_dkv": layers,
+                         "flash_attention_bwd_dq": layers},
+               "eval": {"flash_attention_fwd": layers, "flash_attention_bwd_dkv": 0,
+                        "flash_attention_bwd_dq": 0}}
+    none = dict.fromkeys(FLASH_KERNELS, 0)
+    for phase in ("train", "eval"):
+        if out[f"{phase}_launches"]["on"] != want_on[phase]:
+            raise AssertionError(f"flag on, {phase} step: launches "
+                                 f"{out[f'{phase}_launches']['on']}, want {want_on[phase]}")
+        if out[f"{phase}_launches"]["off"] != none:
+            raise AssertionError(f"flag off, {phase} step: flash launches "
+                                 f"{out[f'{phase}_launches']['off']}")
+        on, off = out[f"{phase}_loss"]["on"], out[f"{phase}_loss"]["off"]
+        tol = BF16_RTOL * max(1.0, abs(off))
+        if not (np.isfinite(on) and abs(on - off) <= tol):
+            raise AssertionError(f"{phase} loss with the flag on {on} against off {off} "
+                                 f"(tol {tol:.3g})")
+    step_ms = {"on": [], "off": []}
+    for _ in range(FLASH_TIMED_STEPS):
+        for flag, (cfg, state) in states.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            train_step(cfg, criterion, state, batch, seed=1)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms["on" if flag else "off"].append(start.elapsed_time(end))
+    out["step_ms"] = step_ms
+    log(f"  train step ms, in turns after a warm-up: flag on {step_ms['on']}, off "
+        f"{step_ms['off']} (median {float(np.median(step_ms['on'])):.2f} / "
+        f"{float(np.median(step_ms['off'])):.2f}; {card})")
+    del states
+    torch.cuda.empty_cache()
+
+    # Config()'s max_len 480 is no multiple of 128: the route declines
+    c480 = Config()
+    c480.decoder.use_flash_attention, c480.decoder.attn_dropout = True, 0.0
+    dec = Decoder(c480.decoder, vocab["chartok_coords"]).to(DEVICE).train()
+    tokens = torch.ones(8, c480.decoder.max_len, dtype=torch.long, device=DEVICE)
+    memory = torch.randn(8, 144, c480.decoder.hidden_size, device=DEVICE, requires_grad=True)
+
+    def t480():
+        dec(tokens, memory, tokens == 0, dropout_seed=1).float().sum().backward()
+        with torch.no_grad():
+            dec.eval()(tokens, memory, tokens == 0)
+
+    _, counts = count_launches(torch, t480)
+    got = {n: counts[n] for n in FLASH_KERNELS}
+    log(f"  Config() decoder at T {c480.decoder.max_len}, flag on: launches {json.dumps(got)}")
+    if got != none:
+        raise AssertionError(f"T {c480.decoder.max_len} took the flash route: {got}")
+    del dec, memory
+    torch.cuda.empty_cache()
+    out["t480_launches"] = got
+    return out
+
+
+def phase_flash(torch, results, card):
+    """The decoder's causal flash attention: K7-K9 against their plain
+    versions at the recipe's shape and at T 128, their times, and the
+    recipe's train and eval steps through them."""
+    fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
+    log(f"phase flash: K7-K9 at B {FLASH_B}, H {FLASH_H}, T {FLASH_CHECK_T}, d {FLASH_D}")
+    t0 = time.perf_counter()
+    flash_checks(torch, fl, results)
+    seconds = {"checks": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out = flash_timing(torch, fl, results, card)
+    seconds["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(flash_steps(torch, results, card))
+    seconds["steps"] = time.perf_counter() - t0
+    out["launches"] = out["train_launches"]["on"]
+    log(f"  flash seconds: {json.dumps(seconds)}")
+    results["flash"] = out
 
 
 def phase_demo(torch):
@@ -3096,6 +3343,7 @@ def phase_bench(torch, results, card):
     results["bench"] = out
 
 
+FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # kernel -> (source, the JAX function it replaces, the run whose launches count)
 SOURCES = {
     "fused_window_attention": ("molnextr_tpu_torch/ops/csrc/swin_fused.cu",
@@ -3114,12 +3362,21 @@ SOURCES = {
                                 "molnextr_tpu/ops/folded_attention.py:91", "ops"),
     "folded_decode_attention_bb": ("molnextr_tpu_torch/ops/csrc/folded_attention.cu",
                                    "molnextr_tpu/ops/folded_attention.py:214", "ops"),
+    # JAX's library kernel (JAX 0.9.0), which molnextr_tpu/models/decoder.py
+    # calls; launches from the recipe's train step with the flag on
+    "flash_attention_fwd": ("molnextr_tpu_torch/ops/csrc/flash_attention.cu",
+                            FLASH_LIBRARY + ":589", "flash"),
+    "flash_attention_bwd_dkv": ("molnextr_tpu_torch/ops/csrc/flash_attention.cu",
+                                FLASH_LIBRARY + ":941", "flash"),
+    "flash_attention_bwd_dq": ("molnextr_tpu_torch/ops/csrc/flash_attention.cu",
+                               FLASH_LIBRARY + ":1287", "flash"),
 }
 
 
 def kernels_line(results):
-    runs = dict(results.get("paths", {}), ops=results.get("ops", {}))
-    timing = results.get("timing", {})
+    runs = dict(results.get("paths", {}), ops=results.get("ops", {}),
+                flash=results.get("flash", {}).get("launches", {}))
+    timing = dict(results.get("timing", {}), **results.get("flash_timing", {}))
     out = []
     for name, (src, replaces, run) in SOURCES.items():
         t = timing.get(name)
@@ -3185,6 +3442,7 @@ def main() -> int:
         "parity": lambda: phase_parity(torch),
         "paths": lambda: phase_paths(torch, results),
         "ops": lambda: phase_ops(torch, results),
+        "flash": lambda: phase_flash(torch, results, card),
         "demo": lambda: phase_demo(torch),
         "beam": lambda: phase_beam(torch),
         "rerank": lambda: phase_rerank(torch, results, card),

@@ -67,10 +67,13 @@ class DecoderConfig:
     enc_pos_emb: bool = False  # optional 144-slot encoder pos emb (`components.py:187`)
     max_len: int = 480  # FORMAT_INFO cap (`utils.py:24-25`)
     use_remat: bool = True  # rematerialize decoder layers in training
-    # the JAX package's switch to JAX's library flash kernel for the
-    # teacher-forced self-attention (off there by default).  Kept so a
-    # config.json of either package loads in the other; the port reads it
-    # nowhere: its teacher-forced attention is plain PyTorch.
+    # the teacher-forced self-attention through the causal flash kernels
+    # (ops/flash_attention.py: K7 forward, K8 and K9 backward), as the JAX
+    # package's flag sends it through JAX's library flash kernel.  Taken
+    # where the JAX package takes it: attention dropout inactive, T a
+    # multiple of 128, MOLNEXTR_NO_FLASH unset, and the tensors on the card.
+    # The route drops the padding mask (causal only), which changes PAD
+    # query rows only, whose loss is ignored.  Off by default.
     use_flash_attention: bool = False
     # int8 KV caches for the decode loop (inference only; training's
     # teacher-forced pass never builds a cache).  K/V are quantized per

@@ -18,6 +18,17 @@ probabilities, the two residual branches of a layer and the two inside the
 FFN; ``hidden_dropout``/``attn_dropout``) as seeded masks
 (``layers.Dropout``), and with ``use_remat`` it checkpoints each layer.
 
+With ``use_flash_attention`` a layer's self-attention goes through
+``ops.flash_attention`` (K7, and K8 and K9 in the backward) wherever the
+JAX package's ``MHA._can_flash`` would send it to JAX's library flash
+kernel: attention dropout inactive (eval mode, no ``dropout_seed``, or
+``attn_dropout`` 0), ``T`` a multiple of 128, ``MOLNEXTR_NO_FLASH`` unset,
+and the tensors on the card (:func:`flash_device`, the counterpart of the
+JAX package's TPU backend; on the CPU the route is not taken).  As in the
+JAX package the route is causal only and drops the padding mask: PAD only
+follows EOS, so a real query never sees a PAD key, and only PAD query
+rows, whose loss is ignored, come out otherwise.
+
 Decode caches (``init_cache``): the self cache is ``(L, B, H, T, hd)`` with
 ``T = max_len`` rounded up to a multiple of 128, int8 with per-token f32
 scales ``(L, B, H, T, 1)`` when ``kv_int8`` (the default) or in the model
@@ -32,6 +43,7 @@ exactly 0 to the reference softmax, so the results are the same.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +62,15 @@ from molnextr_tpu_torch.ops.decode_attention import (
     decode_attention_layered_q8,
     quantize_per_token,
 )
+from molnextr_tpu_torch.ops.flash_attention import flash_attention
+
+FLASH_MIN_T = 128  # the JAX package's _can_flash: T a multiple of 128, at least 128
+
+
+def flash_device(x: torch.Tensor) -> bool:
+    """The flash route's device condition: a CUDA tensor, as the JAX
+    package's is ``jax.default_backend() == "tpu"``."""
+    return x.is_cuda
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -120,13 +141,32 @@ class DecoderLayer(nn.Module):
         self.ffn = FeedForward(d, d * cfg.ffn_mult, cfg.hidden_dropout)
         self.drop1 = Dropout(cfg.hidden_dropout)
         self.drop2 = Dropout(cfg.hidden_dropout)
+        self.use_flash_attention = cfg.use_flash_attention
+
+    def can_flash(self, x: torch.Tensor, dropout_seed) -> bool:
+        """Whether the self-attention of ``x`` (B, T, D) takes the flash
+        route: the JAX package's ``MHA._can_flash`` in the port's terms."""
+        drop = self.self_attn.attn_drop
+        if self.training and drop.rate > 0 and dropout_seed is not None:
+            return False  # the kernels have no attention-dropout path
+        t = x.shape[1]
+        if t < FLASH_MIN_T or t % FLASH_MIN_T:
+            return False
+        if os.environ.get("MOLNEXTR_NO_FLASH"):
+            return False
+        return flash_device(x)
 
     def forward(self, x, memory, self_mask, dropout_seed=None):
         d = self.self_attn.hidden
         qkv = self.self_attn.qkv(self.ln1(x))
         sa = self.self_attn
-        q = sa.attend(sa.split(qkv[..., :d]), sa.split(qkv[..., d:2 * d]),
-                      sa.split(qkv[..., 2 * d:]), self_mask, dropout_seed)
+        q, k, v = sa.split(qkv[..., :d]), sa.split(qkv[..., d:2 * d]), sa.split(qkv[..., 2 * d:])
+        if self.use_flash_attention and self.can_flash(x, dropout_seed):
+            # causal only: the padding mask is dropped, as in the JAX package
+            ctx = flash_attention(q, k, v, causal=True, sm_scale=(d // sa.heads) ** -0.5)
+            q = sa.out(ctx.transpose(1, 2).reshape(x.shape[0], x.shape[1], d))
+        else:
+            q = sa.attend(q, k, v, self_mask, dropout_seed)
         q = self.drop1(q, dropout_seed) + x
         ca = self.cross_attn
         mk, mv = ca.project_kv(memory)

@@ -8,7 +8,9 @@ kernel for every CUDA tensor.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
 
 The names below are those of ``molnextr_tpu.ops`` (without ``use_pallas``
-and the kernels' ``interpret`` argument), plus ``folded_decode_attention_bb``.
+and the kernels' ``interpret`` argument), plus ``folded_decode_attention_bb``
+and the causal flash attention of the decoder's teacher-forced pass
+(``flash_attention``: K7, K8 and K9, the port of JAX's library kernel).
 ``decode_attention`` names the K4 function, as in the JAX package: reach
 the module of that name through :func:`importlib.import_module`.
 """
@@ -25,6 +27,15 @@ from molnextr_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_layered,
     decode_attention_reference,
+)
+from molnextr_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference,
+    flash_attention_fwd,
+    flash_attention_reference,
 )
 from molnextr_tpu_torch.ops.folded_attention import (
     cached_folded_attention,
@@ -47,4 +58,11 @@ __all__ = [
     "folded_decode_attention",
     "folded_decode_attention_bb",
     "folded_decode_attention_reference",
+    "flash_attention",
+    "flash_attention_fwd",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_reference",
+    "flash_attention_bwd_dkv_reference",
+    "flash_attention_bwd_dq_reference",
 ]

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel library name -> C functions and their ctypes signatures
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "swin_fused": {
         "mnx_fused_window_attention": [_I] + [_P] * 12 + [_I] * 14 + [_P],
@@ -42,6 +42,11 @@ SIGNATURES = {
     },
     "folded_attention": {
         "mnx_folded_decode_attention": [_I] + [_P] * 4 + [_I] * 9 + [_P],
+    },
+    "flash_attention": {
+        "mnx_flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_P, _F, _P],
+        "mnx_flash_attention_bwd_dkv": [_I] + [_P] * 8 + [_I] * 4 + [_P, _F, _P],
+        "mnx_flash_attention_bwd_dq": [_I] + [_P] * 7 + [_I] * 4 + [_P, _F, _P],
     },
 }
 

@@ -16,6 +16,9 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "folded_decode_attention": 0,
     "folded_decode_attention_bb": 0,
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd_dkv": 0,
+    "flash_attention_bwd_dq": 0,
 }
 
 

@@ -768,3 +768,152 @@ def test_nccl_ranks_sharing_a_card_are_refused(dev, tmp_path):
     name = torch.cuda.get_device_name(0)
     for (message,) in refusals:
         assert message is not None and "share cuda:0" in message and name in message
+
+
+# ---------------------------------------------------------------------------
+# K7, K8 and K9: the decoder's causal flash attention
+# ---------------------------------------------------------------------------
+
+fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def _flash_inputs(dev, dtype, b, h, t, seed, strided):
+    """q, k, v (B, H, T, 32) and a cotangent; ``strided``: q, k and v are
+    head views of one (B, T, 3 * H * 32) projection, as the decoder's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        qkv = torch.randn(b, t, 3 * h * 32, generator=g, device=dev).to(dtype)
+        q, k, v = (x.reshape(b, t, h, 32).transpose(1, 2) for x in qkv.split(h * 32, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, t, 32, generator=g, device=dev).to(dtype) for _ in range(3))
+    return q, k, v, torch.randn(b, h, t, 32, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,strided", [(1, 1, 64, False), (2, 3, 128, True),
+                                           (3, 8, 256, False), (2, 8, 256, True),
+                                           (1, 2, 448, False)])
+def test_flash_attention_kernels(dev, dtype, b, h, t, strided):
+    """K7, K8 and K9 each against its plain version on the same inputs (the
+    backward kernels given the plain lse and di), one launch each."""
+    q, k, v, do = _flash_inputs(dev, dtype, b, h, t, b + h + t, strided)
+    scale = 32 ** -0.5
+    reset_launch_counts()
+    o, lse = fl.flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = fl.flash_attention_reference(q, k, v, scale)
+    di = (o_ref.float() * do.float()).sum(-1)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_ref, di, scale)
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_ref, di, scale)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] for n in FLASH_KERNELS} == dict.fromkeys(FLASH_KERNELS, 1)
+    _close(o, o_ref, dtype)
+    _close(lse, lse_ref, torch.float32)
+    dk_ref, dv_ref = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse_ref, di, scale)
+    _close(dk, dk_ref, dtype)
+    _close(dv, dv_ref, dtype)
+    _close(dq, fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale), dtype)
+    assert o.dtype == dk.dtype == dv.dtype == dq.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_card(dev, dtype):
+    """The dispatcher on CUDA tensors (strided head views) under autograd:
+    the output and dQ, dK, dV against the plain forward's autograd on the
+    same tensors; K7 once, K8 and K9 once each."""
+    q, k, v, do = _flash_inputs(dev, dtype, 2, 8, 256, 11, True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=True, sm_scale=32 ** -0.5)
+    got = torch.autograd.grad(out, leaves, do)
+    assert {n: LAUNCHES[n] for n in FLASH_KERNELS} == dict.fromkeys(FLASH_KERNELS, 1)
+    plain = [x.detach().requires_grad_() for x in (q, k, v)]
+    want_out = fl.flash_attention_reference(*plain, 32 ** -0.5)[0]
+    want = torch.autograd.grad(want_out, plain, do)
+    _close(out, want_out, dtype)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype
+        _close(g_, w_, dtype)
+
+
+def test_flash_kernels_refuse_bad_operands(dev):
+    q = torch.zeros(2, 2, 128, 32, device=dev)
+    with pytest.raises(ValueError, match="d = 32"):
+        fl.flash_attention_fwd(*(torch.zeros(2, 2, 128, 64, device=dev),) * 3, 1.0)
+    with pytest.raises(ValueError, match="64-row tile"):
+        fl.flash_attention_fwd(*(torch.zeros(2, 2, 96, 32, device=dev),) * 3, 1.0)
+    with pytest.raises(TypeError):
+        fl.flash_attention_fwd(q, q.half(), q, 1.0)
+    with pytest.raises(ValueError, match="must be on"):
+        fl.flash_attention_fwd(q, q.cpu(), q, 1.0)
+
+
+def _flash_config():
+    """The tiny config with a decoder the flash route takes: 2 layers,
+    hidden 64, 2 heads (d 32), T 128, remat on, every dropout rate 0."""
+    from molnextr_tpu_torch.config import DecoderConfig
+
+    cfg = tiny_test_config()
+    cfg.decoder = DecoderConfig(num_layers=2, hidden_size=64, attn_heads=2, max_len=128,
+                                hidden_dropout=0.0, attn_dropout=0.0, use_remat=True,
+                                use_flash_attention=True)
+    cfg.encoder.drop_path_rate = 0.0
+    return cfg
+
+
+def _flash_batch(cfg):
+    batch = _tiny_train_batch(cfg)
+    rng = np.random.RandomState(1)
+    labels = rng.randint(3, 60, (4, 128)).astype(np.int32)
+    labels[:, 0] = 1
+    labels[1, 90:] = 0  # PAD after the sequence's end
+    batch["refs"]["chartok_coords"] = labels
+    return batch
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bf16"])
+def test_flash_route_train_and_eval_steps_on_card(dev, dtype_name):
+    """The train step (remat on) and the eval step of a model whose decoder
+    takes the flash route, against the same model with the flag off, on the
+    card: K7 twice a layer in a train step (forward and remat recompute), K8
+    and K9 once, K7 once a layer in the eval step, none with the flag off."""
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.state import create_train_state
+    from molnextr_tpu_torch.train.step import eval_step, train_step
+
+    layers = 2
+    runs = {}
+    for flag in (True, False):
+        cfg = _flash_config()
+        cfg.train.bf16 = dtype_name == "bf16"
+        cfg.decoder.use_flash_attention = flag
+        toks = get_tokenizer(cfg.data)
+        vocab = {f: len(t) for f, t in toks.items()}
+        batch = _flash_batch(cfg)
+        state = create_train_state(cfg, MolNexTRModel(cfg, vocab), 10, seed=0, device="cuda")
+        criterion = _criterion(cfg, toks)
+        reset_launch_counts()
+        loss = float(train_step(cfg, criterion, state, batch, seed=3)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        train_counts = {n: LAUNCHES[n] for n in FLASH_KERNELS}
+        reset_launch_counts()
+        ev = float(eval_step(cfg, criterion, state.model, batch)["loss"])
+        eval_counts = {n: LAUNCHES[n] for n in FLASH_KERNELS}
+        runs[flag] = (loss, ev, grads)
+        if flag:
+            assert train_counts == {"flash_attention_fwd": 2 * layers,
+                                    "flash_attention_bwd_dkv": layers,
+                                    "flash_attention_bwd_dq": layers}
+            assert eval_counts == {"flash_attention_fwd": layers, "flash_attention_bwd_dkv": 0,
+                                   "flash_attention_bwd_dq": 0}
+        else:
+            assert not any(train_counts.values()) and not any(eval_counts.values())
+    tol = 1e-5 if dtype_name == "float32" else 3e-2
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=tol)
+    np.testing.assert_allclose(runs[True][1], runs[False][1], rtol=tol)
+    if dtype_name == "float32":
+        for name, want in runs[False][2].items():
+            got = runs[True][2][name]
+            scale = max(want.abs().max().item(), 1e-6)
+            assert (got - want).abs().max().item() <= 1e-4 * scale + 1e-7, name

@@ -1,0 +1,382 @@
+"""The decoder's causal flash attention (``ops/flash_attention.py``: K7, K8,
+K9 and their plain version) and its route in the decoder, on the CPU,
+against the JAX package and JAX's library kernel.
+
+* The plain forward and its log-sum-exp against the library's
+  ``mha_reference_no_custom_vjp(..., causal=True, sm_scale=32 ** -0.5)``,
+  the plain backward against ``jax.vjp`` of that function (its
+  ``mha_reference`` raises for ``sm_scale != 1`` in the backward), float32
+  within 1e-5 of each array's largest magnitude.
+* The route: with ``use_flash_attention`` and the route's device condition
+  monkeypatched (on the CPU the JAX package does not take its flash path
+  either), the port's decoder against the JAX decoder's masked path on
+  non-PAD rows and its causal-only path on every row; the port's
+  ``train_step`` and ``eval_step`` against ``train_step_fn`` /
+  ``eval_step_fn`` with every dropout rate 0 (PAD rows carry no loss, so
+  losses and gradients agree).
+* The route declines wherever the JAX package's ``MHA._can_flash`` does,
+  shown by a spy on the dispatcher, and the kernels' wrappers refuse a head
+  width or length they do not take (meta tensors).
+
+The kernels themselves run on the card only: ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference_no_custom_vjp
+
+from molnextr_tpu.config import DecoderConfig as JDecoderConfig
+from molnextr_tpu.config import tiny_test_config as jax_tiny_config
+from molnextr_tpu.models.model import MolNexTRModel as JModel
+from molnextr_tpu.train import losses as jlosses
+from molnextr_tpu.train.step import eval_step_fn, train_step_fn
+from molnextr_tpu.train.state import TrainState as JState
+from molnextr_tpu.train.state import make_optimizer
+from molnextr_tpu_torch import ops
+from molnextr_tpu_torch.config import Config, DecoderConfig
+from molnextr_tpu_torch.models import decoder as dm
+from molnextr_tpu_torch.models.heads import HEATMAP_ELEMENTS
+from molnextr_tpu_torch.models.model import MolNexTRModel
+from molnextr_tpu_torch.tokenization import get_tokenizer
+from molnextr_tpu_torch.train import losses as plosses
+from molnextr_tpu_torch.train.state import create_train_state
+from molnextr_tpu_torch.train.step import eval_step, train_step
+from molnextr_tpu_torch.weights import (
+    _flatten, load_flax_params, seeded_flax_params, state_dict_to_flax,
+)
+
+torch.set_num_threads(2)
+# the ops package exports the dispatcher under its module's name
+fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
+
+SCALE = 32 ** -0.5
+REL = 1e-5  # float32, relative to the array's largest magnitude
+FMT = "chartok_coords"
+SHAPES = [(1, 1, 128), (2, 3, 128), (3, 8, 128), (1, 8, 256), (2, 2, 256), (3, 1, 256)]
+
+
+def _qkv(b, h, t, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, h, t, 32).astype(np.float32) for _ in range(4)]  # q, k, v, cotangent
+
+
+def _close(got, want, rel=REL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, (err, scale)
+
+
+def _library(q, k, v, residuals=False):
+    return mha_reference_no_custom_vjp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                                       None, causal=True, sm_scale=SCALE,
+                                       save_residuals=residuals)
+
+
+# ---------------------------------------------------------------------------
+# the plain version against the library's reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,t", SHAPES)
+def test_plain_forward_and_lse_match_library_reference(b, h, t):
+    q, k, v, _ = _qkv(b, h, t, b * 100 + h * 10 + t)
+    out, lse = fl.flash_attention_reference(*(torch.from_numpy(x) for x in (q, k, v)), SCALE)
+    want, l, m = _library(q, k, v, residuals=True)
+    _close(out.numpy(), want)
+    _close(lse.numpy(), np.asarray(m) + np.log(np.asarray(l)))
+    # the dispatcher on CPU tensors: the plain forward
+    _close(ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+                               sm_scale=SCALE).numpy(), want)
+
+
+@pytest.mark.parametrize("b,h,t", SHAPES)
+def test_plain_backward_matches_jax_vjp(b, h, t):
+    q, k, v, do = _qkv(b, h, t, b * 100 + h * 10 + t + 1)
+    _, vjp = jax.vjp(lambda *a: _library(*a), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    # the library's formulas, written out
+    o, lse = fl.flash_attention_reference(tq, tk, tv, SCALE)
+    di = (o * tdo).sum(-1)
+    dk, dv = fl.flash_attention_bwd_dkv_reference(tq, tk, tv, tdo, lse, di, SCALE)
+    dq = fl.flash_attention_bwd_dq_reference(tq, tk, tv, tdo, lse, di, SCALE)
+    for got, w in zip((dq, dk, dv), want):
+        _close(got.numpy(), w)
+    # the autograd function on CPU tensors
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    grads = torch.autograd.grad(ops.flash_attention(*leaves, sm_scale=SCALE), leaves, tdo)
+    for got, w in zip(grads, want):
+        _close(got.numpy(), w)
+
+
+@pytest.mark.parametrize("b,h,t", [(2, 3, 128), (1, 8, 256)])
+def test_plain_backward_equals_autograd_of_the_forward(b, h, t):
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(b, h, t, 7))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(fl.flash_attention_reference(*leaves, SCALE)[0], leaves, do)
+    o, lse = fl.flash_attention_reference(q, k, v, SCALE)
+    di = (o * do).sum(-1)
+    got = (fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, di, SCALE),
+           *fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, SCALE))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy())
+
+
+def test_dispatcher_under_checkpoint_and_bf16_autocast():
+    """Under ``torch.utils.checkpoint(use_reentrant=False)`` the gradients
+    equal the plain call's; under bf16 autocast bf16 inputs give bf16
+    outputs and gradients (the plain version computes in float32)."""
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(2, 2, 128, 5))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ops.flash_attention(*leaves, sm_scale=SCALE), leaves, do)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = checkpoint(lambda *a: ops.flash_attention(*a, sm_scale=SCALE), *leaves,
+                     use_reentrant=False)
+    got = torch.autograd.grad(out, leaves, do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    leaves = [x.bfloat16().requires_grad_() for x in (q, k, v)]
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out = ops.flash_attention(*leaves, sm_scale=SCALE)
+    assert out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out, leaves, do.bfloat16())
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    ref = fl.flash_attention_reference(*(x.float() for x in leaves), SCALE)[0]
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """Meta tensors: no data, the shape checks alone."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    with pytest.raises(ValueError, match="d = 32"):
+        fl.flash_attention_fwd(*(meta(2, 2, 128, 64),) * 3, SCALE)
+    with pytest.raises(ValueError, match="64-row tile"):
+        fl.flash_attention_fwd(*(meta(2, 2, 96, 32),) * 3, SCALE)
+    with pytest.raises(ValueError, match="64-row tile"):
+        fl.flash_attention_bwd_dq(*(meta(2, 2, 32, 32),) * 4, meta(2, 2, 32), meta(2, 2, 32),
+                                  SCALE)
+    with pytest.raises(ValueError, match="d = 32"):
+        fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, 16),) * 4, meta(1, 1, 128),
+                                   meta(1, 1, 128), SCALE)
+    with pytest.raises(ValueError, match="grid"):
+        fl.flash_attention_fwd(*(meta(65536, 1, 128, 32),) * 3, SCALE)
+    with pytest.raises(TypeError):
+        fl.flash_attention_fwd(*(meta(2, 2, 128, 32, dtype=torch.float16),) * 3, SCALE)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(*(torch.zeros(1, 1, 128, 32),) * 3, causal=False)
+
+
+# ---------------------------------------------------------------------------
+# the route in the decoder
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Counts the decoder's calls of the dispatcher."""
+    calls = []
+    real = dm.flash_attention
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(dm, "flash_attention", counted)
+    return calls
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    """The route's device condition held true for CPU tensors."""
+    monkeypatch.setattr(dm, "flash_device", lambda x: True)
+
+
+def _jcfg(layers=2, t=128, flash=True, dropout=0.0):
+    c = jax_tiny_config()
+    c.encoder = dataclasses.replace(c.encoder, drop_path_rate=dropout)
+    c.decoder = JDecoderConfig(num_layers=layers, hidden_size=64, attn_heads=2, max_len=t,
+                               hidden_dropout=dropout, attn_dropout=dropout, use_remat=True,
+                               use_flash_attention=flash)
+    return c
+
+
+def _pair(jcfg, seed=0):
+    cfg = Config.from_dict(jcfg.to_dict())
+    vocab = {f: len(t) for f, t in get_tokenizer(cfg.data).items()}
+    params = seeded_flax_params(cfg, vocab, seed)
+    return cfg, vocab, params, JModel(jcfg, vocab, dtype=jnp.float32)
+
+
+def _tokens(b, t, seed, pad_from=(None, 90, 40)):
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(4, 60, size=(b, t)).astype(np.int32)
+    tokens[:, 0] = 1
+    for i, start in enumerate(pad_from[:b]):
+        if start is not None:
+            tokens[i, start:] = 0  # PAD only follows the sequence's end
+    return tokens
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_route_matches_jax_decoder(layers, spy, on_card):
+    """Decoder.forward with the route taken: non-PAD rows equal the JAX
+    decoder's (masked path, as it runs on the CPU); every row equals its
+    causal-only path (no padding mask), which is what the route computes."""
+    jcfg = _jcfg(layers)
+    cfg, vocab, params, jm = _pair(jcfg, seed=layers)
+    port = load_flax_params(MolNexTRModel(cfg, vocab), params).eval()
+    tokens = _tokens(3, 128, layers)
+    pad = tokens == 0
+    memory = np.random.RandomState(9).randn(3, 4, 64).astype(np.float32)
+
+    def fwd(mdl, t, m, p):
+        return mdl.decoders[FMT](t, m, p)
+
+    masked = np.asarray(jm.apply(params, jnp.asarray(tokens), jnp.asarray(memory),
+                                 jnp.asarray(pad), method=fwd))
+    causal = np.asarray(jm.apply(params, jnp.asarray(tokens), jnp.asarray(memory), None,
+                                 method=fwd))
+    with torch.no_grad():
+        got = port.decoders[FMT](torch.from_numpy(tokens).long(), torch.from_numpy(memory),
+                                 torch.from_numpy(pad)).numpy()
+    assert len(spy) == layers
+    np.testing.assert_allclose(got[~pad], masked[~pad], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, causal, rtol=1e-4, atol=1e-4)
+    assert np.abs(got[pad] - masked[pad]).max() > 1e-3  # PAD rows do differ
+
+
+def _batch(cfg, vocab, seed):
+    rng = np.random.RandomState(seed)
+    s, k = cfg.data.input_size, cfg.data.max_atoms
+    labels = _tokens(2, 128, seed, pad_from=(None, 70))
+    labels[:, 1:] = np.where(labels[:, 1:] == 0, 0, rng.randint(3, vocab[FMT], (2, 127)))
+    idx = np.full((2, k), -1, np.int32)
+    idx[:, :4] = [2, 5, 7, 9]
+    edges = np.full((2, k, k), -100, np.int8)
+    edges[:, :4, :4] = rng.randint(0, 7, (2, 4, 4))
+    g = s // cfg.train.aux_heatmap_stride
+    grid = rng.randint(-1, len(HEATMAP_ELEMENTS) + 1, (2, g, g)).astype(np.int8)
+    return {"images": rng.randint(0, 256, (2, s, s, 1)).astype(np.uint8),
+            "refs": {FMT: labels, "atom_indices": idx, "edges": edges, "atom_grid": grid}}
+
+
+def _criteria(cfg):
+    tok = get_tokenizer(cfg.data)[FMT]
+    cv = (tok.offset, tok.maxx, tok.maxy, tok.sep_xy)
+    return (jlosses.Criterion(cfg.data.formats, 0.1, cv, 1.0),
+            plosses.Criterion(cfg.data.formats, 0.1, cv, 1.0))
+
+
+def test_train_and_eval_steps_match_jax_steps(spy, on_card):
+    """The port's train step (remat on, the route taken forward and in the
+    recompute) and eval step against ``train_step_fn`` / ``eval_step_fn`` on
+    the same converted weights, every dropout rate 0: loss within 1e-5,
+    every gradient leaf within 1e-4 of its largest magnitude."""
+    jcfg = _jcfg()
+    cfg, vocab, params, jm = _pair(jcfg, seed=3)
+    batch = _batch(cfg, vocab, 6)
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    jc, pc = _criteria(cfg)
+    tx = make_optimizer(jcfg, 10)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = JState(step=jnp.asarray(0, jnp.int32), params=jp, opt_state=tx.init(jp), tx=tx)
+    _, jmetrics = jax.jit(train_step_fn(jm, jc))(jstate, jbatch, jax.random.PRNGKey(0))
+    from molnextr_tpu.train import wire as jwire
+
+    def loss_fn(p):
+        refs = jwire.as_model_refs(jbatch["refs"])
+        out = jm.apply(p, jwire.as_model_images(jbatch["images"]), refs, deterministic=False,
+                       rngs={"dropout": jax.random.PRNGKey(0)})
+        return jc(out, refs)[0]
+
+    want = _flatten(jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss_fn))(jp)))
+    state = create_train_state(cfg, MolNexTRModel(cfg, vocab), 10, seed=3, device="cpu")
+    metrics = train_step(cfg, pc, state, batch, seed=0)
+    assert len(spy) == 2 * cfg.decoder.num_layers  # the forward and the remat recompute
+    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
+    got = _flatten(state_dict_to_flax({n: p.grad.numpy()
+                                       for n, p in state.model.named_parameters()}))
+    assert set(got) == set(want)
+    for path in want:
+        scale = float(np.abs(want[path]).max())
+        # the key projection's bias has no gradient (softmax ignores a shift
+        # of every score in a row): both sides give rounding noise there
+        floor = 1e-7 if path.endswith(("k/bias", "qkv/bias")) else 0.0
+        err = float(np.abs(got[path] - want[path]).max())
+        assert err <= 1e-4 * scale + floor, (path, err, scale)
+
+    del spy[:]
+    jeval = jax.jit(eval_step_fn(jm, jc))(params, jbatch)
+    model = load_flax_params(MolNexTRModel(cfg, vocab), params)
+    peval = eval_step(cfg, pc, model, batch)
+    assert len(spy) == cfg.decoder.num_layers
+    for name in jeval:
+        np.testing.assert_allclose(float(peval[name]), float(jeval[name]), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
+def _decoder(t=128, flash=True, attn_dropout=0.0):
+    cfg = DecoderConfig(num_layers=2, hidden_size=64, attn_heads=2, max_len=max(t, 128),
+                        hidden_dropout=0.0, attn_dropout=attn_dropout, use_flash_attention=flash)
+    dec = dm.Decoder(cfg, 60)
+    gen = torch.Generator().manual_seed(0)
+    for p in dec.parameters():
+        p.data = torch.randn(p.shape, generator=gen) * 0.1
+    return dec
+
+
+def _run(dec, t=128, seed=None):
+    tokens = torch.from_numpy(_tokens(2, t, 1, pad_from=(None, t - 20))).long()
+    memory = torch.from_numpy(np.random.RandomState(2).randn(2, 4, 64).astype(np.float32))
+    with torch.no_grad():
+        return dec(tokens, memory, tokens == 0, dropout_seed=seed)
+
+
+def test_route_taken_where_can_flash_accepts(spy, on_card):
+    _run(_decoder().eval())
+    _run(_decoder().train(), seed=5)  # training, attention dropout rate 0
+    _run(_decoder(attn_dropout=0.1).eval())  # eval mode: dropout inactive
+    _run(_decoder(t=256).eval(), t=256)
+    assert len(spy) == 4 * 2
+    # training with no dropout seed: the attention dropout is inactive (the
+    # JAX package's "no dropout rng"); the port's other dropout sites refuse
+    # such a forward, so the layer's condition is asked directly
+    layer = _decoder(attn_dropout=0.1).train().layers[0]
+    x = torch.zeros(2, 128, 64)
+    assert layer.can_flash(x, None) and not layer.can_flash(x, 5)
+
+
+@pytest.mark.parametrize("case", ["flag_off", "attn_dropout", "t480", "t64", "no_flash_env"])
+def test_route_declines_where_can_flash_does(case, spy, on_card, monkeypatch):
+    if case == "flag_off":
+        _run(_decoder(flash=False).eval())
+    elif case == "attn_dropout":
+        _run(_decoder(attn_dropout=0.1).train(), seed=5)
+    elif case == "t480":  # Config()'s max_len
+        _run(_decoder(t=480).eval(), t=480)
+    elif case == "t64":
+        _run(_decoder(t=64).eval(), t=64)
+    else:
+        monkeypatch.setenv("MOLNEXTR_NO_FLASH", "1")
+        _run(_decoder().eval())
+    assert spy == []
+
+
+def test_route_declines_a_cpu_tensor(spy):
+    """Without the monkeypatch a CPU tensor never takes the route, as the
+    JAX package on the CPU never takes its flash path."""
+    out = _run(_decoder().eval())
+    assert spy == []
+    assert torch.isfinite(out).all()
