@@ -365,8 +365,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    from bench_torch import card_line
 
-    print(cs.card_line(), flush=True)
+    print(card_line("cuda"), flush=True)
     tm = cs.Timer(torch)
     if "sweep" in parts:
         part_sweep(torch, cs, tm)

@@ -33,10 +33,14 @@ failure:
 6. flash: the decoder's causal flash attention.  K7 (output and lse), and
    K8 and K9 through ``autograd.grad`` of ``ops.flash_attention``, against
    the plain version at the drug-like recipe's shape (B 256, H 8, T 256,
-   d 32) and at T 128, in float32 and bf16, q, k and v as strided head
-   views of one projection; each kernel's ms beside its bound, its plain
-   version and ``scaled_dot_product_attention(is_causal=True)`` (forward,
-   and forward with backward against the dispatcher's); the recipe's config
+   d 32), at T 128 and at B 4, T 1024, in float32 and bf16 (bf16 also row
+   by row, ``check_rows``), q, k and v as strided head views of one
+   projection; each kernel's ms beside its bound
+   and its share of it, its plain version and
+   ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
+   with backward against the dispatcher's), and PyTorch's flash backward
+   alone (``_scaled_dot_product_flash_attention_backward``, fed by its own
+   forward) beside K8 + K9; the recipe's config
    (attention dropout 0) with ``use_flash_attention`` on and off, the same
    seeded weights and a batch of 256 renders: an eval step and a train
    step of each with the launch counters zeroed before and read after (K7
@@ -239,6 +243,14 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # round at the same points, a one-ulp flip of an intermediate propagates)
 F32_TOL = 1e-4
 BF16_RTOL = 3e-2
+# and each row of a bf16 flash output (its last axis) against that row's own
+# norm, floored at 1 % of the head's rms row norm (a row can be zero by
+# construction: dq's first, whose query sees only its own key), so a term
+# missing from a row of small values shows where the max-scaled tolerance
+# above would hide it.  On an H100, sound kernels reach 6.6e-3 and a build
+# that leaves one streamed tile out reaches 0.85 and more (PERF.md)
+BF16_ROW_RTOL = 2e-2
+ROW_FLOOR = 1e-2
 
 STAGES = ((96, 128, 4, 2), (48, 256, 8, 2), (24, 512, 16, 18), (12, 1024, 32, 2))  # res, C, heads, depth
 # the drug-like recipe's encoder (192 px, embed 64) at its evaluation batch:
@@ -312,10 +324,12 @@ BENCH_BATCH, BENCH_ITERS, BENCH_UNROLLS = 256, 3, (1, 2, 4)
 BENCH_BLOCKS = sum(depth for _, _, _, depth in STAGES)  # K1 and K2 launches an encode
 BENCH_CHECK_POS = (0, 255, 479)
 # phase flash: K7-K9 at the drug-like recipe's decoder (batch 256, 8 heads,
-# T = max_len 256, d 32) and at T 128; the recipe's train step with the flag
-# on and off, steps timed in turns after a warm-up of each
+# T = max_len 256, d 32), at T 128, and at T 1024 on a small batch (four
+# rounds of tile pairs a head through K7's and K8's rings); the recipe's
+# train step with the flag on and off, steps timed in turns after a warm-up
+# of each
 FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 8, 256, 32
-FLASH_CHECK_T = (256, 128)
+FLASH_CHECKS = ((FLASH_B, 256), (FLASH_B, 128), (4, 1024))  # (B, T)
 FLASH_TIMED_STEPS = 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 DEVICE = "cuda"
@@ -369,6 +383,21 @@ def check_close(name: str, got, want, torch, dtype) -> float:
     log(f"  {name}: max_abs_err {e:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return e
+
+
+def check_rows(name: str, got, want, torch) -> float:
+    """The largest ``||got_r - want_r|| / (||want_r|| + ROW_FLOOR * rms)``
+    over the rows r of the last axis, rms the root mean square of the row
+    norms of r's (B, H) head; held to ``BF16_ROW_RTOL``."""
+    g, w = got.float(), want.float()
+    norms = w.norm(dim=-1)
+    floor = ROW_FLOOR * norms.pow(2).mean(-1, keepdim=True).sqrt()
+    e = float(((g - w).norm(dim=-1) / (norms + floor).clamp_min(1e-30)).max())
+    ok = e <= BF16_ROW_RTOL
+    log(f"  {name}: max_row_rel_err {e:.3e} (tol {BF16_ROW_RTOL:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: a row of the kernel's output disagrees with its plain version")
     return e
 
 
@@ -813,14 +842,15 @@ def flash_inputs(torch, gen, b, t, dtype):
 
 def flash_checks(torch, fl, results):
     """K7 (and its lse), and K8 with K9 through ``autograd.grad`` of the
-    dispatcher, against the plain version in float32 and bf16."""
+    dispatcher, against the plain version in float32 and bf16; in bf16 also
+    row by row (``check_rows``), K8 and K9 then given the plain lse and di."""
     errs = results.setdefault("max_abs_err", {})
     gen = torch.Generator(device=DEVICE).manual_seed(24)
     scale = FLASH_D ** -0.5
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for t in FLASH_CHECK_T:
-            q, k, v, do = flash_inputs(torch, gen, FLASH_B, t, dtype)
+        for b, t in FLASH_CHECKS:
+            q, k, v, do = flash_inputs(torch, gen, b, t, dtype)
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = fl.flash_attention(*leaves, causal=True, sm_scale=scale)
             dq, dk, dv = torch.autograd.grad(out, leaves, do)
@@ -830,7 +860,7 @@ def flash_checks(torch, fl, results):
             dk_ref, dv_ref = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse_ref, di, scale)
             dq_ref = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale)
             torch.cuda.synchronize()
-            label = f"{dn} B {FLASH_B} H {FLASH_H} T {t} d {FLASH_D}"
+            label = f"{dn} B {b} H {FLASH_H} T {t} d {FLASH_D}"
             found = {
                 "flash_attention_fwd": max(
                     check_close(f"K7 o {label}", out.detach(), o_ref, torch, dtype),
@@ -842,15 +872,28 @@ def flash_checks(torch, fl, results):
             }
             for name, e in found.items():
                 errs[name] = max(errs.get(name, 0.0), e)
+            if dtype == torch.bfloat16:
+                # rows against K8 and K9 given the plain lse and di: the
+                # dispatcher's di, from K7's rounded o, moves the rows that
+                # are near zero by construction
+                dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_ref, di, scale)
+                dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_ref, di, scale)
+                for name, got, want in (("K7 o", out.detach(), o_ref), ("K8 dk", dk, dk_ref),
+                                        ("K8 dv", dv, dv_ref), ("K9 dq", dq, dq_ref)):
+                    check_rows(f"{name} {label}", got, want, torch)
             del q, k, v, do, leaves, out, dq, dk, dv, o_ref, dk_ref, dv_ref, dq_ref
             torch.cuda.empty_cache()
 
 
 def flash_timing(torch, fl, results, card):
     """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
-    beside their bounds, their plain versions and
-    ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
-    with backward against the dispatcher's K7 + K8 + K9)."""
+    beside their bounds (and the share of the bound each reaches), their
+    plain versions and ``scaled_dot_product_attention(is_causal=True)``
+    (forward, and forward with backward against the dispatcher's K7 + K8 +
+    K9); and PyTorch's flash backward alone, fed by the output and
+    log-sum-exp of its own forward on contiguous copies made outside the
+    timed region, beside K8 + K9 (a yardstick: it computes dq too, so it is
+    no kernel's ``library_ms``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     tm = Timer(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(25)
@@ -876,8 +919,20 @@ def flash_timing(torch, fl, results, card):
         bound = Bound()
         bound.add(*flash_work(FLASH_B, FLASH_H, FLASH_T, FLASH_D, 2, name), "bfloat16")
         kern[name] = {"ms": t_k, "plain_ms": t_p, "bound": bound, "library_ms": lib}
-        log(f"    {name}: {t_k:.4f} ms (bound {bound.ms:.4f} ms by {bound.by}; plain "
-            f"{t_p:.4f} ms" + (f"; SDPA forward {lib:.4f} ms" if lib is not None else "") + ")")
+        log(f"    {name}: {t_k:.4f} ms (bound {bound.ms:.4f} ms by {bound.by}, share of the "
+            f"bound {bound.ms / t_k:.3f}; plain {t_p:.4f} ms"
+            + (f"; SDPA forward {lib:.4f} ms" if lib is not None else "") + ")")
+    aten = torch.ops.aten
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    fwd = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True, False, scale=scale)
+    out_l, lse_l, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    lib_bwd = tm.ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        doc, qc, kc, vc, out_l, lse_l, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset,
+        scale=scale), reps=20)
+    ours_bwd = kern["flash_attention_bwd_dkv"]["ms"] + kern["flash_attention_bwd_dq"]["ms"]
+    log(f"    PyTorch's flash backward alone (dq, dk, dv): {lib_bwd:.4f} ms; K8 + K9 "
+        f"{ours_bwd:.4f} ms")
+    del qc, kc, vc, doc, fwd, out_l, lse_l
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
     def both(fn):
@@ -890,7 +945,8 @@ def flash_timing(torch, fl, results, card):
     log(f"    forward + backward: the dispatcher (K7, di, K8, K9) {t_ours:.4f} ms, SDPA "
         f"{t_lib:.4f} ms (B {FLASH_B}, H {FLASH_H}, T {FLASH_T}, d {FLASH_D}, bf16; {card})")
     results["flash_timing"] = kern
-    return {"fwd_bwd_ms": t_ours, "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": t_lib}
+    return {"fwd_bwd_ms": t_ours, "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": t_lib,
+            "sdpa_bwd_ms": lib_bwd, "k8_k9_ms": ours_bwd}
 
 
 def flash_steps(torch, results, card):
@@ -998,10 +1054,10 @@ def flash_steps(torch, results, card):
 
 def phase_flash(torch, results, card):
     """The decoder's causal flash attention: K7-K9 against their plain
-    versions at the recipe's shape and at T 128, their times, and the
-    recipe's train and eval steps through them."""
+    versions at the recipe's shape, at T 128 and at T 1024, their times, and
+    the recipe's train and eval steps through them."""
     fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
-    log(f"phase flash: K7-K9 at B {FLASH_B}, H {FLASH_H}, T {FLASH_CHECK_T}, d {FLASH_D}")
+    log(f"phase flash: K7-K9 at (B, T) {FLASH_CHECKS}, H {FLASH_H}, d {FLASH_D}")
     t0 = time.perf_counter()
     flash_checks(torch, fl, results)
     seconds = {"checks": time.perf_counter() - t0}

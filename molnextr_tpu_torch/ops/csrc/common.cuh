@@ -905,11 +905,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A TMA descriptor of a row-major bf16 (rows, cols) matrix read in boxes of
-// 64 columns x box_rows rows, 128-byte swizzled; boxes past the edge are
-// zero-filled.  cuTensorMapEncodeTiled is a driver function: it is taken
-// from the runtime's driver entry point, so the library needs no -lcuda.
-inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// cuTensorMapEncodeTiled, a driver function, taken from the runtime's
+// driver entry point, so the libraries need no -lcuda
+inline cudaError_t tensor_map_encoder(EncodeTiledFn* out) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -920,6 +918,17 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int col
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A TMA descriptor of a row-major bf16 (rows, cols) matrix read in boxes of
+// 64 columns x box_rows rows, 128-byte swizzled; boxes past the edge are
+// zero-filled.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiledFn encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};

@@ -126,12 +126,15 @@ def _check(name: str, *ts) -> None:
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernels can read it through its strides (rows contiguous,
-    every row 16-byte aligned), else a contiguous copy."""
+    every row 16-byte aligned, the batch, head and row strides positive, as
+    the bf16 kernels' tensor maps take them), else a contiguous, aligned
+    copy."""
     es = t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
-            (s * es) % 16 == 0 for s in t.stride()[:3]):
+            s > 0 and (s * es) % 16 == 0 for s in t.stride()[:3]):
         return t
-    return t.contiguous()
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bhtd_empty(like: torch.Tensor) -> torch.Tensor:
@@ -147,10 +150,12 @@ def _strides(*ts):
 
 
 def _vec(name: str, x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """lse or di: (B, H, T) float32, contiguous."""
+    """lse or di: (B, H, T) float32, contiguous and 16-byte aligned (K8 reads
+    each tile's 64 values by one bulk copy)."""
     if x.dtype != torch.float32 or tuple(x.shape) != tuple(like.shape[:3]):
         raise ValueError(f"{name}: lse and di are (B, H, T) float32")
-    return x.contiguous()
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _stream(name: str, *ts) -> int:

@@ -34,6 +34,8 @@ da = importlib.import_module("molnextr_tpu_torch.ops.decode_attention")
 
 F32_TOL = 1e-4  # float32 kernel against float32 plain version: summation order only
 BF16_RTOL = 3e-2  # relative to the output's largest magnitude
+BF16_ROW_RTOL = 2e-2  # a flash output's row against its own norm (chip_smoke.check_rows)
+ROW_FLOOR = 1e-2  # of the head's rms row norm: dq's first row is zero by construction
 
 
 @pytest.fixture
@@ -51,6 +53,17 @@ def _close(got, want, dtype):
     tol = F32_TOL if dtype == torch.float32 else BF16_RTOL * max(1.0, want.float().abs().max().item())
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _close_rows(got, want):
+    """Each row (last axis) of a bf16 flash output against that row's norm,
+    floored at ``ROW_FLOOR`` of its head's rms row norm, so an error in a
+    row of small values is not hidden by the output's largest value."""
+    g, w = got.float(), want.float()
+    norms = w.norm(dim=-1)
+    floor = ROW_FLOOR * norms.pow(2).mean(-1, keepdim=True).sqrt()
+    err = ((g - w).norm(dim=-1) / (norms + floor).clamp_min(1e-30)).max().item()
+    assert err <= BF16_ROW_RTOL, f"max row relative error {err:.3e}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -797,6 +810,24 @@ def _flash_inputs(dev, dtype, b, h, t, seed, strided):
 def test_flash_attention_kernels(dev, dtype, b, h, t, strided):
     """K7, K8 and K9 each against its plain version on the same inputs (the
     backward kernels given the plain lse and di), one launch each."""
+    _check_flash_kernels(dev, dtype, b, h, t, strided)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,strided", [(1, 1, 1024, False), (1, 1, 2048, True),
+                                           (7, 19, 256, True), (7, 19, 448, False),
+                                           (2, 3, 64, True), (1, 1, 448, True),
+                                           (2, 2, 1024, True)])
+def test_flash_attention_kernel_edges(dev, dtype, b, h, t, strided):
+    """The edges of K7's and K8's persistent bf16 design, each kernel against
+    its plain version: one head (B * H = 1); 133 heads, no multiple of the
+    persistent grid; T 1024 and 2048, several rounds of tile pairs a head
+    through the ring; odd tile counts (T 64 and 448: a pair of one tile, a
+    warpgroup idle for a round); strided and contiguous operands."""
+    _check_flash_kernels(dev, dtype, b, h, t, strided)
+
+
+def _check_flash_kernels(dev, dtype, b, h, t, strided):
     q, k, v, do = _flash_inputs(dev, dtype, b, h, t, b + h + t, strided)
     scale = 32 ** -0.5
     reset_launch_counts()
@@ -812,8 +843,12 @@ def test_flash_attention_kernels(dev, dtype, b, h, t, strided):
     dk_ref, dv_ref = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse_ref, di, scale)
     _close(dk, dk_ref, dtype)
     _close(dv, dv_ref, dtype)
-    _close(dq, fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale), dtype)
+    dq_ref = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale)
+    _close(dq, dq_ref, dtype)
     assert o.dtype == dk.dtype == dv.dtype == dq.dtype == dtype
+    if dtype == torch.bfloat16:
+        for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
+            _close_rows(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -178,6 +178,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.flash_attention(*(torch.zeros(1, 1, 128, 32),) * 3, causal=False)
 
 
+def test_operands_read_in_place_or_copied_as_the_kernels_need():
+    """``_rows`` hands the kernels a (B, H, T, d) operand as it is where its
+    tensor maps can read it (rows contiguous, the batch, head and row
+    strides positive multiples of 16 bytes, the address 16-byte aligned),
+    else a contiguous copy; ``_vec`` hands K8 lse and di contiguous and
+    16-byte aligned, as its bulk copies read them."""
+    qkv = torch.randn(2, 128, 3 * 8 * 32)
+    q = qkv[..., :256].reshape(2, 128, 8, 32).transpose(1, 2)  # the decoder's head view
+    assert fl._rows(q) is q
+    for bad in (torch.randn(2, 8, 128, 33)[..., :32],  # 132-byte rows
+                torch.randn(2, 1, 128, 32).expand(2, 8, 128, 32),  # head stride 0
+                qkv.reshape(-1)[2:2 + 2 * 8 * 128 * 32].view(2, 8, 128, 32),  # 8 bytes off
+                torch.randn(2, 8, 32, 128).transpose(-1, -2)):  # columns apart
+        got = fl._rows(bad)
+        assert got is not bad and got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, bad)
+    lse = torch.randn(2, 8, 128)
+    assert fl._vec("k", lse, q) is lse
+    shifted = torch.randn(2 * 8 * 128 + 1)[1:].view(2, 8, 128)
+    got = fl._vec("k", shifted, q)
+    assert shifted.data_ptr() % 16 and got.data_ptr() % 16 == 0 and torch.equal(got, shifted)
+    got = fl._vec("k", lse.transpose(0, 1).contiguous().transpose(0, 1), q)
+    assert got.is_contiguous() and torch.equal(got, lse)
+
+
 # ---------------------------------------------------------------------------
 # the route in the decoder
 # ---------------------------------------------------------------------------
