@@ -33,10 +33,12 @@ failure:
 6. flash: the decoder's causal flash attention.  K7 (output and lse), and
    K8 and K9 through ``autograd.grad`` of ``ops.flash_attention``, against
    the plain version at the drug-like recipe's shape (B 256, H 8, T 256,
-   d 32), at T 128 and at B 4, T 1024, in float32 and bf16 (bf16 also row
+   d 32), at T 128 and at B 4, T 1024, and at head widths 16, 64 and 128
+   on (B 16, T 256) and (B 4, T 1024), in float32 and bf16 (bf16 also row
    by row, ``check_rows``), q, k and v as strided head views of one
-   projection; each kernel's ms beside its bound
-   and its share of it, its plain version and
+   projection; a head width above 128 refused; each kernel's ms beside its
+   bound and its share of it at d 32 (and at d 64 and 128), its plain
+   version and
    ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
    with backward against the dispatcher's), and PyTorch's flash backward
    alone (``_scaled_dot_product_flash_attention_backward``, fed by its own
@@ -330,6 +332,12 @@ BENCH_CHECK_POS = (0, 255, 479)
 # of each
 FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 8, 256, 32
 FLASH_CHECKS = ((FLASH_B, 256), (FLASH_B, 128), (4, 1024))  # (B, T)
+# the other head widths: 16 (padded to the kernels' 32), 64 and 128 (the
+# kernels' other widths), held on small batches and timed at the recipe's
+# B, H and T
+FLASH_WIDTHS = (16, 64, 128)
+FLASH_WIDTH_CHECKS = ((16, 256), (4, 1024))  # (B, T)
+FLASH_TIMED_WIDTHS = (64, 128)
 FLASH_TIMED_STEPS = 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 DEVICE = "cuda"
@@ -831,26 +839,30 @@ def phase_ops(torch, results):
     torch.cuda.empty_cache()
 
 
-def flash_inputs(torch, gen, b, t, dtype):
+def flash_inputs(torch, gen, b, t, dtype, d=FLASH_D):
     """q, k, v (B, H, T, d) as head views of one (B, T, 3 H d) projection,
     as the decoder hands them to the route, and a cotangent."""
-    width = FLASH_H * FLASH_D
+    width = FLASH_H * d
     qkv = torch.randn(b, t, 3 * width, generator=gen, device=DEVICE).to(dtype)
-    q, k, v = (x.reshape(b, t, FLASH_H, FLASH_D).transpose(1, 2) for x in qkv.split(width, dim=-1))
-    return q, k, v, torch.randn(b, FLASH_H, t, FLASH_D, generator=gen, device=DEVICE).to(dtype)
+    q, k, v = (x.reshape(b, t, FLASH_H, d).transpose(1, 2) for x in qkv.split(width, dim=-1))
+    return q, k, v, torch.randn(b, FLASH_H, t, d, generator=gen, device=DEVICE).to(dtype)
 
 
 def flash_checks(torch, fl, results):
     """K7 (and its lse), and K8 with K9 through ``autograd.grad`` of the
-    dispatcher, against the plain version in float32 and bf16; in bf16 also
-    row by row (``check_rows``), K8 and K9 then given the plain lse and di."""
+    dispatcher, against the plain version in float32 and bf16, at d 32 on
+    ``FLASH_CHECKS`` and at ``FLASH_WIDTHS`` on ``FLASH_WIDTH_CHECKS``; in
+    bf16 also row by row (``check_rows``), K8 and K9 then given the plain
+    lse and di.  A head width above 128 raises, naming the limit."""
     errs = results.setdefault("max_abs_err", {})
     gen = torch.Generator(device=DEVICE).manual_seed(24)
-    scale = FLASH_D ** -0.5
+    cases = [(FLASH_D, b, t) for b, t in FLASH_CHECKS]
+    cases += [(d, b, t) for d in FLASH_WIDTHS for b, t in FLASH_WIDTH_CHECKS]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for b, t in FLASH_CHECKS:
-            q, k, v, do = flash_inputs(torch, gen, b, t, dtype)
+        for d, b, t in cases:
+            scale = d ** -0.5
+            q, k, v, do = flash_inputs(torch, gen, b, t, dtype, d)
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = fl.flash_attention(*leaves, causal=True, sm_scale=scale)
             dq, dk, dv = torch.autograd.grad(out, leaves, do)
@@ -860,7 +872,7 @@ def flash_checks(torch, fl, results):
             dk_ref, dv_ref = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse_ref, di, scale)
             dq_ref = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, di, scale)
             torch.cuda.synchronize()
-            label = f"{dn} B {b} H {FLASH_H} T {t} d {FLASH_D}"
+            label = f"{dn} B {b} H {FLASH_H} T {t} d {d}"
             found = {
                 "flash_attention_fwd": max(
                     check_close(f"K7 o {label}", out.detach(), o_ref, torch, dtype),
@@ -883,25 +895,25 @@ def flash_checks(torch, fl, results):
                     check_rows(f"{name} {label}", got, want, torch)
             del q, k, v, do, leaves, out, dq, dk, dv, o_ref, dk_ref, dv_ref, dq_ref
             torch.cuda.empty_cache()
+    wide = torch.zeros(1, 1, 128, 256, device=DEVICE, dtype=torch.bfloat16)
+    try:
+        fl.flash_attention_fwd(wide, wide, wide, 1.0)
+    except ValueError as e:
+        if "up to 128" not in str(e):
+            raise
+        log(f"  d 256 refused: {e}")
+    else:
+        raise AssertionError("K7 took a head width above 128")
 
 
-def flash_timing(torch, fl, results, card):
-    """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
-    beside their bounds (and the share of the bound each reaches), their
-    plain versions and ``scaled_dot_product_attention(is_causal=True)``
-    (forward, and forward with backward against the dispatcher's K7 + K8 +
-    K9); and PyTorch's flash backward alone, fed by the output and
-    log-sum-exp of its own forward on contiguous copies made outside the
-    timed region, beside K8 + K9 (a yardstick: it computes dq too, so it is
-    no kernel's ``library_ms``)."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    tm = Timer(torch)
-    gen = torch.Generator(device=DEVICE).manual_seed(25)
-    scale = FLASH_D ** -0.5
-    q, k, v, do = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16)
+def flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd=None):
+    """K7-K9 on bf16 q, k, v, do (B, H, T, d): each kernel's ms (20
+    launches in a CUDA graph) beside its bound, the share of the bound it
+    reaches and its plain version's ms."""
+    b, h, t, d = q.shape
+    scale = d ** -0.5
     o, lse = fl.flash_attention_fwd(q, k, v, scale)
     di = (o.float() * do.float()).sum(-1)
-    lib_fwd = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
     runs = {
         "flash_attention_fwd": (lambda: fl.flash_attention_fwd(q, k, v, scale),
                                 lambda: fl.flash_attention_reference(q, k, v, scale), lib_fwd),
@@ -917,11 +929,38 @@ def flash_timing(torch, fl, results, card):
         t_k = tm.ms(kfn, reps=20, graph=True)
         t_p = tm.ms(pfn, reps=5)
         bound = Bound()
-        bound.add(*flash_work(FLASH_B, FLASH_H, FLASH_T, FLASH_D, 2, name), "bfloat16")
+        bound.add(*flash_work(b, h, t, d, 2, name), "bfloat16")
         kern[name] = {"ms": t_k, "plain_ms": t_p, "bound": bound, "library_ms": lib}
-        log(f"    {name}: {t_k:.4f} ms (bound {bound.ms:.4f} ms by {bound.by}, share of the "
-            f"bound {bound.ms / t_k:.3f}; plain {t_p:.4f} ms"
+        log(f"    {name} (d {d}): {t_k:.4f} ms (bound {bound.ms:.4f} ms by {bound.by}, share of "
+            f"the bound {bound.ms / t_k:.3f}; plain {t_p:.4f} ms"
             + (f"; SDPA forward {lib:.4f} ms" if lib is not None else "") + ")")
+    return kern
+
+
+def flash_timing(torch, fl, results, card):
+    """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
+    beside their bounds (and the share of the bound each reaches), their
+    plain versions and ``scaled_dot_product_attention(is_causal=True)``
+    (forward, and forward with backward against the dispatcher's K7 + K8 +
+    K9), and at ``FLASH_TIMED_WIDTHS`` beside theirs; and PyTorch's flash
+    backward alone, fed by the output and log-sum-exp of its own forward on
+    contiguous copies made outside the timed region, beside K8 + K9 (a
+    yardstick: it computes dq too, so it is no kernel's ``library_ms``)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tm = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    scale = FLASH_D ** -0.5
+    q, k, v, do = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16)
+    lib_fwd = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
+    kern = flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd)
+    widths = {}
+    for d in FLASH_TIMED_WIDTHS:
+        wide = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16, d)
+        widths[d] = {n: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"].ms,
+                         "bound_by": r["bound"].by}
+                     for n, r in flash_kernel_times(torch, tm, fl, *wide).items()}
+        del wide
+        torch.cuda.empty_cache()
     aten = torch.ops.aten
     qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
     fwd = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True, False, scale=scale)
@@ -946,7 +985,7 @@ def flash_timing(torch, fl, results, card):
         f"{t_lib:.4f} ms (B {FLASH_B}, H {FLASH_H}, T {FLASH_T}, d {FLASH_D}, bf16; {card})")
     results["flash_timing"] = kern
     return {"fwd_bwd_ms": t_ours, "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": t_lib,
-            "sdpa_bwd_ms": lib_bwd, "k8_k9_ms": ours_bwd}
+            "sdpa_bwd_ms": lib_bwd, "k8_k9_ms": ours_bwd, "widths": widths}
 
 
 def flash_steps(torch, results, card):
@@ -1054,10 +1093,12 @@ def flash_steps(torch, results, card):
 
 def phase_flash(torch, results, card):
     """The decoder's causal flash attention: K7-K9 against their plain
-    versions at the recipe's shape, at T 128 and at T 1024, their times, and
-    the recipe's train and eval steps through them."""
+    versions at the recipe's shape, at T 128 and at T 1024, and at head
+    widths 16, 64 and 128; their times at d 32, 64 and 128; and the
+    recipe's train and eval steps through them."""
     fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
-    log(f"phase flash: K7-K9 at (B, T) {FLASH_CHECKS}, H {FLASH_H}, d {FLASH_D}")
+    log(f"phase flash: K7-K9 at (B, T) {FLASH_CHECKS}, H {FLASH_H}, d {FLASH_D}; at d "
+        f"{FLASH_WIDTHS} on (B, T) {FLASH_WIDTH_CHECKS}")
     t0 = time.perf_counter()
     flash_checks(torch, fl, results)
     seconds = {"checks": time.perf_counter() - t0}
@@ -3490,7 +3531,8 @@ def main() -> int:
         f"({native.get_lib()._name})")
     for name, text in BUILD_LOG.items():
         for line in text.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "error")):
+            if any(w in line for w in ("entry function", "registers", "spill", "serialized",
+                                       "error")):
                 log(f"  nvcc {name}: {line.strip()}")
     results = {}
     runs = {

@@ -275,7 +275,7 @@ __device__ __forceinline__ void warp_ml(float& m, float& l) {
 // ---------------------------------------------------------------------------
 // Warp-level bf16 products on the tensor cores (mma.sync m16n8k16, f32
 // accumulation) with their operands read by ldmatrix: the window attention
-// of swin_fused.cu and the flash attention of flash_attention.cu.
+// of swin_fused.cu.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

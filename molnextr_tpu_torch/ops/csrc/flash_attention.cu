@@ -21,92 +21,101 @@
 // in natural units, float32, (B, H, T).  p and ds are rounded to bf16
 // before their second products, where the library rounds them.
 //
+// Head widths: every kernel is a template on the head width D, 32, 64 or
+// 128; the wrapper gives any other width up to 128 zero columns up to the
+// next of these (a zero column adds nothing to q k^T and gives zero
+// columns of o, dq, dk and dv) and cuts the outputs back.
+//
 // What bounds them on the card: bytes.  At the recipe's shape (B 256, H 8,
 // T 256, d 32, bf16) K7 reads q, k and v and writes o (33.5 MB each) for
 // 2 * 2 * T (T + 1) / 2 * d operations per (b, h), about 64 operations per
-// byte, under the H100's ridge of 295; K8 reads q, k, v, do, lse and di and
-// writes dk and dv; K9 reads the same and writes dq.  The (B, H, T, T)
-// scores and probabilities that the plain version materialises (537 MB each
-// in float32 at that shape) never leave the SM.  So the kernels have to
-// read each operand once, keep enough loads in flight to cover the latency
-// of device memory, and write whole rows; the tensor cores are far from
-// their limit.
+// byte, under the H100's ridge of 295 (the ratio does not depend on d);
+// K8 reads q, k, v, do, lse and di and writes dk and dv; K9 reads the same
+// and writes dq.  The (B, H, T, T) scores and probabilities that the plain
+// version materialises (537 MB each in float32 at that shape) never leave
+// the SM.  So the kernels have to read each operand once, keep enough
+// loads in flight to cover the latency of device memory, and write whole
+// rows; the tensor cores are far from their limit.
 //
-// bf16 K7 and K8 (TMA and wgmma):
+// bf16 K7, K8 and K9 (TMA and wgmma):
 //   * One pass over each head's operands.  A persistent block (two consumer
-//     warpgroups and one producer warp, one block an SM) walks the (b, h)
+//     warpgroups and a producer warpgroup, one block an SM) walks the (b, h)
 //     heads from blockIdx.x in steps of gridDim.x.  It owns every query
-//     tile of a head in K7 and every key tile in K8, so each K and V tile
-//     (K7), or each Q, dO, lse and di tile (K8), is loaded once per head
-//     into a ring of shared-memory stages and read there by every tile that
-//     needs it.
+//     tile of a head in K7 and K9 and every key tile in K8, so each K and V
+//     tile (K7, K9), or each Q, dO, lse and di tile (K8), is loaded once per
+//     head into a ring of shared-memory stages and read there by every tile
+//     that needs it.
 //   * Balanced tile pairs.  With nt = T / 64 tiles, warpgroup g of round r
 //     takes pair p = 2 r + g: tiles p and nt - 1 - p (one tile when they
 //     are the same, for odd nt).  A round streams the tiles its pairs need,
-//     K7 key tiles 0 .. nt - 1 - 2 r, K8 query tiles 2 r .. nt - 1, and
-//     each warpgroup applies a streamed tile to those of its pair that see
-//     it: nt + 1 tile-steps a round (5 at T 256, one round a head), where a
-//     block per tile would walk 1 to 4.  At T 256 and T 128 a head is
-//     one round and each tile is loaded once; a longer T takes more rounds,
-//     each streaming its tiles again (from L2, mostly).
-//   * TMA into mbarrier rings, fed by the producer warp.  Each input has a
+//     K7 and K9 key tiles 0 .. nt - 1 - 2 r, K8 query tiles 2 r .. nt - 1,
+//     and each warpgroup applies a streamed tile to those of its pair that
+//     see it: nt + 1 tile-steps a round (5 at T 256, one round a head),
+//     where a block per tile would walk 1 to 4.  At T 256 and T 128 a head
+//     is one round and each tile is loaded once; a longer T takes more
+//     rounds, each streaming its tiles again (from L2, mostly).  Where a
+//     pair's accumulators do not fit in registers (K7 and K9 at D 128, K8
+//     above D 32) a round takes two passes, each warpgroup taking one tile
+//     of its pair in each: the first pass streams what the tile that needs
+//     most needs, the second what the other needs (nt + 2 tile loads a
+//     round instead of nt - 2 r).
+//   * TMA into mbarrier rings, fed by one thread of the producer warpgroup,
+//     which hands the consumers its registers where they need them
+//     (setmaxnreg: 40 a thread for it, 232 for them, where ptxas gives each
+//     168).  Each input has a
 //     4-D tensor map over (d, T, H, B) with its own row, head and batch
 //     strides (the decoder's q, k and v are read in place from its qkv
-//     projection); a box is 64 rows of 64 bytes, 64-byte swizzled.  The
-//     stream's ring (K7: 12 stages of a K and a V box; K8: 8 stages of a Q
-//     and a dO box and 64 lse and 64 di, the vectors by bulk copy) and each
-//     warpgroup's two slots for its pair's own tiles (K7: Q; K8: K and V)
-//     take the next round's and the next head's loads while the consumers
-//     finish the current one.  A long T streams through the ring; nothing
-//     needs the whole head in shared memory.
-//   * wgmma.  K7: S = Q K^T by m64n64k16 (two k16 steps over d = 32, both
-//     operands K-major boxes), the online softmax in float32 on the
-//     accumulator fragments, then O += P V by m64n32k16 with P from
-//     registers as the A operand and V an MN-major B; where a key tile
-//     reaches both tiles of the pair, the two run in lockstep (one wait for
-//     both products).  K8: S^T = K Q^T and dP^T = V dO^T by m64n64k16, then
-//     dV += P^T dO and dK += dS^T Q by m64n32k16 with P^T and dS^T from
-//     registers and dO and Q as MN-major B; dK and dV accumulate in
-//     registers for both tiles of the pair and are written once: no
-//     atomics.  The causal mask applies on the diagonal tile only.
-//   * Whole-row epilogues: each warp stages its 16 rows of o, dk or dv in
-//     shared memory and writes them as whole 64-byte rows, 16 bytes a lane,
-//     into the (B, T, H, d) buffers the wrapper allocates; K7's lse goes out
-//     as runs of contiguous floats.
-//   * What is left: at the recipe's shape both kernels take about twice
-//     their bound (PERF.md).  Their operands arrive ahead of use; each
+//     projection); a box is 64 rows of min(D, 64) columns, swizzled over
+//     its row (64 bytes at D 32, 128 above), two boxes a tile at D 128.
+//     The stream's ring (K7, K9: stages of a K and a V tile; K8: of a Q and
+//     a dO tile and 64 lse and 64 di, the vectors by bulk copy) and each
+//     warpgroup's two slots for its pass's own tiles (K7: Q; K8: K and V;
+//     K9: Q, dO, lse and di) take the next round's and the next head's
+//     loads while the consumers finish the current one.  The ring's depth
+//     is what shared memory leaves at each width.  A long T streams through
+//     the ring; nothing needs the whole head in shared memory.
+//   * wgmma.  K7: S = Q K^T by m64n64k16 (D / 16 k16 steps, both operands
+//     K-major), the online softmax in float32 on the accumulator fragments,
+//     then O += P V by m64nDk16 with P from registers as the A operand and V
+//     an MN-major B; where a key tile reaches both tiles of the pair, the
+//     two run in lockstep (one wait for both products).  K8: S^T = K Q^T
+//     and dP^T = V dO^T by m64n64k16, then dV += P^T dO and dK += dS^T Q by
+//     m64nDk16 with P^T and dS^T from registers and dO and Q as MN-major B.
+//     K9: S = Q K^T and dP = dO V^T by m64n64k16, dS = P (dP - di) scale,
+//     then dQ += dS K by m64nDk16 with dS from registers and K an MN-major
+//     B, the two tiles of a pair in lockstep as in K7.  The accumulators
+//     (o, dk and dv, dq) stay in registers for the pass's tiles and are
+//     written once: no atomics.  The causal mask applies on the diagonal
+//     tile only.
+//   * Whole-row epilogues: once all four warps of a warpgroup are past
+//     their last product, each warp stages its 16 rows of o, dk, dv or dq
+//     in the warpgroup's own slot (the operand tile they replace) and
+//     writes them as whole rows, 16 bytes a lane, into the (B, T, H, d)
+//     buffers the wrapper allocates; K7's lse goes out as runs of
+//     contiguous floats.  The slot is then released to the producer.
+//   * What is left: at the recipe's shape K7 and K8 take about twice their
+//     bound (PERF.md).  Their operands arrive ahead of use; each
 //     warpgroup's steps are a chain (products, then the softmax's 32
 //     exponentials a lane on the SM's 16-a-clock special-function units,
-//     then products), and two warpgroups an SM, all the registers allow
-//     (K7 168 a thread, K8 168), do not hide it.
+//     then products), and two warpgroups an SM, all the registers allow,
+//     do not hide it.
 //
-// bf16 K9: one block of 4 warps
-// per 64-row query tile of one (b, h), each warp 16 rows, walking the key
-// tiles 0 .. diagonal through a two-slot cp.async ring (rows padded to 80
-// bytes, read by ldmatrix), the products by mma.sync m16n8k16 with f32
-// accumulation, the tile's own operands and ds as A fragments in
-// registers; dq accumulates in registers.
-//
-// float32 (the parity runs): the same tiles on the CUDA cores, a thread per
-// row (K7, K9: a query row; K8: a key row) with its row's operands and
-// accumulators in registers, the walked tile in shared memory read by every
-// thread at one address (a broadcast).  K7 updates its online softmax per
-// key.
+// float32 (the parity runs): the same tiles on the CUDA cores, one block
+// per 64-row tile of one (b, h) on grid x, D / 32 threads a row (K7, K9: a
+// query row; K8: a key row), each with 32 of the row's columns of its
+// operands and accumulators in registers and the row's dot products summed
+// over those threads by shuffles; the walked tile in shared memory.  K7
+// updates its online softmax per key.
 //
 // Strides: every (B, H, T, d) operand is read and written through its own
 // batch, head and row strides (the last dimension contiguous); rows, strides
-// and lse and di are 16-byte aligned (the wrapper checks).  d = 32 only (the
-// head width of both decoder configs), T a multiple of 64 and B * H at most
-// 65535; the launchers refuse anything else.
+// and lse and di are 16-byte aligned (the wrapper checks).  D 32, 64 or
+// 128 and T a multiple of 64; the launchers refuse anything else.
 #include "common.cuh"
 
 namespace mnx {
 
-constexpr int kFlashD = 32;              // head width
-constexpr int kFlashTile = 64;           // rows of a tile (queries or keys)
-constexpr int kFlashPitch = 40;          // bf16 elements of a staged row: 32 + 8 of padding
-constexpr int kFlashThreads = 128;       // K9's bf16 blocks: 4 warps of 16 rows
-constexpr int kFlashF32Threads = 64;     // float32 blocks: a thread per row
+constexpr int kFlashTile = 64;  // rows of a tile (queries or keys)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -123,51 +132,10 @@ __device__ __forceinline__ P head_ptr(P base, const FlashLayout& lay, int op, in
   return base + b * lay.s[op][0] + h * lay.s[op][1];
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-// rows r0 .. r0 + 63 of a (T, 32) bf16 head at row stride st into a padded
-// tile: 4 copies of 16 bytes a row, 2 a thread
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long st, int r0) {
-  for (int i = threadIdx.x; i < kFlashTile * 4; i += kFlashThreads) {
-    const int r = i >> 2, c = (i & 3) * 8;
-    cp_async16(dst + r * kFlashPitch + c, src + (r0 + r) * st + c);
-  }
-}
-
-// A fragments of rows warp * 16 .. + 15 of a staged tile, both 16-wide
-// halves of d
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* tile, int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    ldsm_x4(a[kk], tile + (warp * 16 + (lane & 15)) * kFlashPitch + kk * 16 + 8 * (lane >> 4));
-}
-
-// acc (16 x 64, c[4 * nt + e]: column 8 nt + 2 (lane & 3) + (e & 1), row
-// (lane >> 2) + 8 (e >> 1)) = A (16 x 32) times the staged tile's rows
-// transposed: acc[i][j] = sum_c a[i][c] tile[j][c]
-__device__ __forceinline__ void mma_rows_t(float (&acc)[32], const uint32_t (&a)[2][4],
-                                           const bf16* tile, int lane) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kFlashPitch + kk * 16 +
-                     8 * ((lane >> 3) & 1));
-      mma_16816(acc + 8 * np, a[kk], b[0], b[1]);
-      mma_16816(acc + 8 * np + 4, a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// the 16 x 64 values x (layout of mma_rows_t, which is also a warp's share
-// of a wgmma m64n64 accumulator) rounded to bf16 as A fragments over 4
-// steps of 16 columns (mma.sync's layout, and wgmma's for A in registers)
+// the 16 x 64 values x (a warp's share of a wgmma m64n64 accumulator: c[4 j
+// + e] at row (lane >> 2) + 8 (e >> 1), column 8 j + 2 (lane & 3) + (e &
+// 1)) rounded to bf16 as A fragments over 4 steps of 16 columns (wgmma's
+// layout for A in registers)
 __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -178,69 +146,108 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) 
   }
 }
 
-// acc (16 x 32, c[4 * dn + e]) += A (16 x 64) times the staged tile (64 x 32)
-__device__ __forceinline__ void mma_tile(float (&acc)[16], const uint32_t (&a)[4][4],
-                                         const bf16* tile, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + (j * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kFlashPitch + dp * 16 +
-                       8 * (lane >> 4));
-      mma_16816(acc + 8 * dp, a[j], b[0], b[1]);
-      mma_16816(acc + 8 * dp + 4, a[j], b[2], b[3]);
-    }
-  }
-}
-
-// rows r and r + 8 (r = the lane's row of the warp's 16) of a 16 x 32
-// accumulator, times f0 and f1, to a bf16 (T, 32) head at row stride st
-__device__ __forceinline__ void store_rows(bf16* dst, long long st, int r, const float (&acc)[16],
-                                           float f0, float f1, int lane) {
-#pragma unroll
-  for (int dn = 0; dn < 4; ++dn) {
-    const int c = 8 * dn + 2 * (lane & 3);
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * st + c) =
-        __floats2bfloat162_rn(acc[4 * dn] * f0, acc[4 * dn + 1] * f0);
-    *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * st + c) =
-        __floats2bfloat162_rn(acc[4 * dn + 2] * f1, acc[4 * dn + 3] * f1);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 K7 and K8 on Hopper: 64 x 32 bf16 boxes (64-byte rows, 8-row groups
-// 512 bytes apart) landed by TMA with CU_TENSOR_MAP_SWIZZLE_64B and read by
-// wgmma through descriptors of that swizzle.  The same box serves as a
-// K-major operand (rows = M or N, the 64 bytes = d: a k16 step is the box's
-// address + 32 bytes) and as an MN-major B (rows = K, the 64 bytes = N =
-// d: a k16 step is the next 16 rows, + 1024 bytes).
+// bf16 tiles on Hopper: a tile is 64 rows of D bf16 values, landed by TMA
+// in boxes of 64 rows by min(D, 64) columns (64- or 128-byte rows, 8-row
+// groups 512 or 1024 bytes apart, swizzled over the row:
+// CU_TENSOR_MAP_SWIZZLE_64B at D 32, _128B above), two boxes at D 128, and
+// read by wgmma through descriptors of that swizzle.  The same tile serves
+// as a K-major operand (rows = M or N, d = K: a k16 step is 32 bytes on in
+// the row, in the next box after the row's end) and as an MN-major B (rows
+// = K, d = N: a k16 step is the next 16 rows; the boxes along N a box
+// apart).
 // ---------------------------------------------------------------------------
 
-constexpr int kBoxBytes = kFlashTile * kFlashD * 2;   // 4096
+template <int D>
+struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "the kernels' head widths");
+  static constexpr int kBoxCols = D < 64 ? D : 64;     // bf16 columns of a box
+  static constexpr int kRowBytes = 2 * kBoxCols;        // the swizzle's span
+  static constexpr int kBoxes = D / kBoxCols;           // boxes a tile
+  static constexpr int kBoxBytes = kFlashTile * kRowBytes;
+  static constexpr int kBytes = kBoxes * kBoxBytes;     // 128 D
+  static constexpr int kSteps = D / 16;                 // k16 steps over d
+  static constexpr uint64_t kLayout = D == 32 ? 2 : 1;  // descriptor: 64- or 128-byte swizzle
+
+  static __device__ __forceinline__ uint64_t desc(const uint8_t* p, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
+  }
+  // k16 step kk of a K-major operand (the leading offset is not read)
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* t, int kk) {
+    return desc(t + (kk * 32 / kRowBytes) * kBoxBytes + kk * 32 % kRowBytes, 16, 8 * kRowBytes);
+  }
+  // k16 step kk of an MN-major B: the leading offset steps along N from box
+  // to box (read at D 128 only, where N spans two swizzle widths)
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t, int kk) {
+    return desc(t + kk * 16 * kRowBytes, kBoxes > 1 ? kBoxBytes : 8 * kRowBytes, 8 * kRowBytes);
+  }
+};
+
 constexpr int kConsumers = 2;                          // consumer warpgroups a block
-constexpr int kHopperThreads = 128 * kConsumers + 32;  // and one producer warp
-constexpr int kProducer = 4 * kConsumers;              // the producer's warp
-constexpr int kFwdStages = 12;                         // K7's ring: a K and a V box a stage
-constexpr int kFwdStage = 2 * kBoxBytes;
-constexpr int kBwdStages = 8;                          // K8's ring: Q, dO, lse and di
-constexpr int kBwdStage = 2 * kBoxBytes + 1024;        // lse at 8192, di at 8448
+constexpr int kHopperThreads = 128 * (kConsumers + 1);  // and a producer warpgroup
+constexpr int kProducer = 4 * kConsumers;              // the producer's first warp, the one that loads
+// Registers a thread: ptxas gives a block of three warpgroups 168 each (it
+// counts whole warpgroups); where a kernel's consumers need more (kRaise)
+// the producer warpgroup gives all but 40 of its own to them, which then
+// have 232.  Where 168 suffice, the kernel keeps them (K7 at d 32 read no
+// faster with 232: PERF.md)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert((kProducerRegs + kConsumers * kConsumerRegs) * 128 <= 65536, "the SM's registers");
 constexpr int kVecBytes = kFlashTile * 4;              // 64 floats
 constexpr int kOwnSlots = 2;                           // slots of a warpgroup's own tiles
+constexpr int kMaxFlashStages = 12;
+// dynamic shared memory a block may take: the SM's 227 KB less 1024 bytes
+// of alignment and room for the static mbarriers
+constexpr int kSmemLimit = 232448 - 2048;
 
 static_assert(kEmptyArrivals == 4 * kConsumers, "a stage is released by every consumer warp");
 
-__device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+// stages of `stage` bytes that fit beside the own slots, at most `cap`
+constexpr int ring_stages(int stage, int slot, int cap) {
+  return (kSmemLimit - 1024 - kConsumers * kOwnSlots * slot) / stage < cap
+             ? (kSmemLimit - 1024 - kConsumers * kOwnSlots * slot) / stage
+             : cap;
 }
-// K-major (the leading offset is not read for a swizzled K-major operand)
-__device__ __forceinline__ uint64_t kmajor(const void* p) { return sw64_desc(p, 16); }
-// MN-major: N = 32 is one swizzle width, so only the 8-row stride is read
-__device__ __forceinline__ uint64_t mnmajor(const void* p) { return sw64_desc(p, 512); }
+
+// Per width: whether a warpgroup takes both tiles of its pair in one pass
+// (kPair) or one tile a pass, whether its consumers take the producer's
+// registers (kRaise: where 168 a thread would spill or serialise wgmma),
+// the bytes of a ring stage and of an own slot, the ring's depth and the
+// block's dynamic shared memory (1024 of it for alignment).  K7: a stage is a K and a V tile, a slot the pass's Q tiles.
+// K8: a stage is a Q and a dO tile, lse and di; a slot the pass's K and V
+// tiles.  K9: a stage is a K and a V tile; a slot the pass's Q, dO, lse and
+// di (a unit a tile).
+template <int STAGE, int SLOT, int CAP>
+struct RingCfg {
+  static constexpr int kStage = STAGE, kSlot = SLOT;
+  static constexpr int kStages = ring_stages(STAGE, SLOT, CAP);
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * STAGE + kConsumers * kOwnSlots * SLOT;
+  static_assert(kStages >= 2 && kStages <= kMaxFlashStages, "the ring's depth");
+  static_assert(kSmem <= (size_t)kSmemLimit, "shared memory");
+  // more than half an SM's 228 KB: the persistent grid assumes one block an SM
+  static_assert(2 * (kSmem + 1024) > 228 * 1024, "one block an SM");
+};
+template <int D>
+struct FwdCfg : RingCfg<2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * Tile<D>::kBytes, 12> {
+  static constexpr bool kPair = D <= 64;
+  static constexpr bool kRaise = D == 64;
+};
+template <int D>
+struct DkvCfg : RingCfg<2 * Tile<D>::kBytes + 1024, (D == 32 ? 2 : 1) * 2 * Tile<D>::kBytes, 8> {
+  static constexpr bool kPair = D == 32;
+  static constexpr bool kRaise = D > 32;
+};
+template <int D>
+struct DqCfg
+    : RingCfg<2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * (2 * Tile<D>::kBytes + 1024), 12> {
+  static constexpr bool kPair = D <= 64;
+  static constexpr bool kRaise = true;
+  static constexpr int kUnit = 2 * Tile<D>::kBytes + 1024;  // Q, dO, lse at 2 kBytes, di + 256
+};
 
 // d (64 x 64, f32) = A (64 x 16) B (16 x 64) + (accumulate ? d : 0), both
-// K-major boxes in shared memory
+// K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
@@ -260,8 +267,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 32, f32) += A (64 x 16, bf16 fragments in registers, the layout
-// of to_a) B (16 x 32, an MN-major box)
+// d (64 x N, f32, N = 32, 64 or 128: N / 2 values a lane) += A (64 x 16,
+// bf16 fragments in registers, the layout of to_a) B (16 x N, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n"
@@ -271,10 +278,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// a warpgroup's registers a thread, lowered (the producer) or raised (the
+// consumers, which wait until the producer has lowered its own)
+template <int N> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // registers that an asynchronous wgmma reads or writes are held in place
@@ -290,14 +344,24 @@ __device__ __forceinline__ void hold(uint32_t (&r)[4][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// rows row .. row + 63 of the (b, h) head of `map` into `dst`
+// the box at column col, rows row .. row + 63 of the (b, h) head of `map`
+// into `dst`
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int h, int b) {
+                                              int col, int row, int h, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(h), "r"(b)
       : "memory");
+}
+
+// the tile at rows row .. row + 63, box by box
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int h, int b) {
+#pragma unroll
+  for (int x = 0; x < Tile<D>::kBoxes; ++x)
+    tma_load_rows(dst + x * Tile<D>::kBoxBytes, map, bar, x * Tile<D>::kBoxCols, row, h, b);
 }
 
 // `bytes` contiguous bytes (16-byte aligned) into `dst`
@@ -309,43 +373,47 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// The epilogue of a 64 x 32 accumulator, a warp at a time: the warp's 16
+// The epilogue of a 64 x D accumulator, a warp at a time: the warp's 16
 // rows of wgmma's fragments (c[4 j + e] at row 16 w + (lane >> 2) + 8 (e >>
 // 1), column 8 j + 2 (lane & 3) + (e & 1)), rows scaled by f0 and f1,
-// rounded to bf16 into rows 16 w .. 16 w + 15 of a box of plain 64-byte
-// rows (stage_box); then those rows out as whole 64-byte rows, 16 bytes a
-// lane (store_rows16).  The warp reads only its own rows, so __syncwarp
-// orders it all.
-__device__ __forceinline__ void stage_box(uint8_t* box, const float (&acc)[16], float f0, float f1,
-                                          int w, int lane) {
+// rounded to bf16 into rows 16 w .. 16 w + 15 of a tile laid out as the
+// boxes are but unswizzled (stage_rows); then those rows out as whole rows,
+// 16 bytes a lane (write_rows).  The warp reads only its own rows, so
+// __syncwarp orders it all.
+template <int D>
+__device__ __forceinline__ void stage_rows(uint8_t* t, const float (&acc)[D / 2], float f0,
+                                           float f1, int w, int lane) {
+  using L = Tile<D>;
   const int r = 16 * w + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
-    *reinterpret_cast<__nv_bfloat162*>(box + r * 64 + 2 * c) =
+    uint8_t* p = t + (c / L::kBoxCols) * L::kBoxBytes + 2 * (c % L::kBoxCols);
+    *reinterpret_cast<__nv_bfloat162*>(p + r * L::kRowBytes) =
         __floats2bfloat162_rn(acc[4 * j] * f0, acc[4 * j + 1] * f0);
-    *reinterpret_cast<__nv_bfloat162*>(box + (r + 8) * 64 + 2 * c) =
+    *reinterpret_cast<__nv_bfloat162*>(p + (r + 8) * L::kRowBytes) =
         __floats2bfloat162_rn(acc[4 * j + 2] * f1, acc[4 * j + 3] * f1);
   }
 }
-// rows 16 w .. 16 w + 15 of a staged box to rows row0 + 16 w .. of a (T, 32)
+// rows 16 w .. 16 w + 15 of a staged tile to rows row0 + 16 w .. of a (T, D)
 // head at row stride st
-__device__ __forceinline__ void store_rows16(bf16* __restrict__ head, long long st, int row0,
-                                             const uint8_t* box, int w, int lane) {
+template <int D>
+__device__ __forceinline__ void write_rows(bf16* __restrict__ head, long long st, int row0,
+                                           const uint8_t* t, int w, int lane) {
+  using L = Tile<D>;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = lane; i < 64; i += 32) {
-    const int r = 16 * w + (i >> 2), c = i & 3;
-    *reinterpret_cast<uint4*>(head + (row0 + r) * st + 8 * c) =
-        *reinterpret_cast<const uint4*>(box + r * 64 + 16 * c);
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = 16 * w + i / kChunks, c = 8 * (i % kChunks);
+    *reinterpret_cast<uint4*>(head + (row0 + r) * st + c) = *reinterpret_cast<const uint4*>(
+        t + (c / L::kBoxCols) * L::kBoxBytes + r * L::kRowBytes + 2 * (c % L::kBoxCols));
   }
 }
 
-constexpr int kMaxFlashStages = kFwdStages > kBwdStages ? kFwdStages : kBwdStages;
-
 // The mbarriers of a block: the stream's ring (full: the producer's arrival
 // and the bytes; empty: lane 0 of every consumer warp) and each consumer
-// warpgroup's kOwnSlots slots for its pair's own tiles (empty: lane 0 of
-// each of its warps), so that the producer runs a head ahead.
+// warpgroup's kOwnSlots slots for its passes' own tiles (empty: lane 0 of
+// each of its warps), so that the producer runs a pass ahead.
 struct FlashBars {
   uint64_t full[kMaxFlashStages], empty[kMaxFlashStages];
   uint64_t own_full[kConsumers][kOwnSlots], own_empty[kConsumers][kOwnSlots];
@@ -364,8 +432,8 @@ struct FlashBars {
     }
     __syncthreads();
   }
-  // producer: own slot of warpgroup g's n-th pair, once its use kOwnSlots
-  // pairs before is released, armed for `bytes`
+  // producer: own slot of warpgroup g's n-th pass, once its use kOwnSlots
+  // passes before is released, armed for `bytes`
   __device__ __forceinline__ int own_acquire(int g, int n, uint32_t bytes) {
     const int s = n % kOwnSlots, use = n / kOwnSlots;
     if (use > 0) mbar_wait(&own_empty[g][s], (use - 1) & 1);
@@ -376,7 +444,55 @@ struct FlashBars {
     mbar_wait_warp(&own_full[g][n % kOwnSlots], (n / kOwnSlots) & 1);
     return n % kOwnSlots;
   }
+  // a warp of warpgroup g done with its n-th slot, the staged rows in it
+  // included: its generic loads and stores ordered before the producer's
+  // next TMA writes there
+  __device__ __forceinline__ void own_release(int g, int n, int lane) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&own_empty[g][n % kOwnSlots]);
+  }
 };
+
+// Warpgroup g's tiles in one pass of round r: with kPair (one pass) its
+// pair, `a` first and `b` the other (-1 for none); else, one tile a pass,
+// `a` the pair's first in pass 0 and its other in pass 1.  The first is
+// the tile that sees most of the stream: the later query tile where query
+// tiles are owned (K7, K9), the earlier key tile where key tiles are (K8).
+// An idle warpgroup (a round past the last pair) has a = -1.
+struct Job {
+  int a, b;
+};
+template <bool PAIR, bool KEYS>
+__device__ __forceinline__ Job job(int nt, int r, int g, int pass) {
+  const int lo = r * kConsumers + g, hi = nt - 1 - lo;
+  if (lo > hi) return {-1, -1};
+  const int first = KEYS ? lo : hi, other = lo == hi ? -1 : (KEYS ? hi : lo);
+  if (PAIR) return {first, other};
+  return pass == 0 ? Job{first, -1} : Job{other, -1};
+}
+// K7, K9: the pass streams key tiles 0 .. the returned count - 1
+template <bool PAIR>
+__device__ __forceinline__ int key_tiles(int nt, int r, int pass) {
+  int len = 0;
+#pragma unroll
+  for (int g = 0; g < kConsumers; ++g) {
+    const Job j = job<PAIR, false>(nt, r, g, pass);
+    if (j.a >= 0) len = max(len, max(j.a, j.b) + 1);
+  }
+  return len;
+}
+// K8: the pass streams query tiles from the returned one to nt - 1
+template <bool PAIR>
+__device__ __forceinline__ int first_query(int nt, int r, int pass) {
+  int first = nt;
+#pragma unroll
+  for (int g = 0; g < kConsumers; ++g) {
+    const Job j = job<PAIR, true>(nt, r, g, pass);
+    if (j.a >= 0) first = min(first, j.b >= 0 ? min(j.a, j.b) : j.a);
+  }
+  return first;
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -421,15 +537,23 @@ __device__ __forceinline__ void row_sum(const float (&s)[32], float& r0, float& 
   r1 = b[0];
 }
 
+// whether element i of a lane's share of a 64 x 64 tile lies past the
+// diagonal: its column (8 (i >> 2) + 2 t4 + (i & 1)) after its row (`row`,
+// or row + 8 where i & 2)
+__device__ __forceinline__ bool past_diagonal(int i, int row, int t4) {
+  return 8 * (i >> 2) + 2 * t4 + (i & 1) > row + 8 * ((i >> 1) & 1);
+}
+
 // K7's running state of one query tile in a lane: its share of the o
 // accumulator, and of its two rows the running maxima (log2 units) and
 // this lane's partial sums
+template <int D>
 struct FwdTile {
-  float o[16];
+  float o[D / 2];
   float m0, m1, l0, l1;
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     m0 = m1 = -INFINITY;
     l0 = l1 = 0.f;
   }
@@ -444,7 +568,7 @@ struct FwdTile {
     if (diag) {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
-        if (8 * (i >> 2) + 2 * t4 + (i & 1) > row + 8 * ((i >> 1) & 1)) s[i] = -INFINITY;
+        if (past_diagonal(i, row, t4)) s[i] = -INFINITY;
     }
     float r0, r1;
     row_max(s, r0, r1);
@@ -464,153 +588,167 @@ struct FwdTile {
     l0 = l0 * a0 + sum0;  // reduced over the quad at the end
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
     to_a(pa, s);
   }
 };
 
-// One key tile of K7 against the warpgroup's later query tile `hi` and,
-// with BOTH, its earlier tile `lo`, in lockstep: S = Q K^T for each, one
-// wait, the online softmax of each, O += P V for each, one wait.
-// `diag_*`: the key tile is that query tile.  (BOTH is a template argument
-// so that no wgmma sits in a branch of its own: ptxas serialises wgmma
-// whose registers a divergent path defines.)
-template <bool BOTH>
-__device__ __forceinline__ void fwd_step(const uint8_t* qh, const uint8_t* ql, const uint8_t* kb,
-                                         const uint8_t* vb, bool diag_h, bool diag_l, FwdTile& hi,
-                                         FwdTile& lo, float scale_log2, int row, int t4) {
-  float sh[32], sl[32];
-  uint32_t ph[4][4], pl[4][4];
+// One key tile of K7 against the warpgroup's tile `a` and, with BOTH, its
+// tile `b`, in lockstep: S = Q K^T for each, one wait, the online softmax
+// of each, O += P V for each, one wait.  `diag_*`: the key tile is that
+// query tile.  (BOTH is a template argument so that no wgmma sits in a
+// branch of its own: ptxas serialises wgmma whose registers a divergent
+// path defines.)
+template <int D, bool BOTH>
+__device__ __forceinline__ void fwd_step(const uint8_t* qa, const uint8_t* qb, const uint8_t* kb,
+                                         const uint8_t* vb, bool diag_a, bool diag_b,
+                                         FwdTile<D>& ta, FwdTile<D>& tb, float scale_log2, int row,
+                                         int t4) {
+  using L = Tile<D>;
+  float sa[32], sb[32];
+  uint32_t pa[4][4], pb[4][4];
   wgmma_fence();
-  wgmma_ss(sh, kmajor(qh), kmajor(kb), 0);
-  wgmma_ss(sh, kmajor(qh + 32), kmajor(kb + 32), 1);
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk) wgmma_ss(sa, L::kmajor(qa, kk), L::kmajor(kb, kk), kk > 0);
   if constexpr (BOTH) {
-    wgmma_ss(sl, kmajor(ql), kmajor(kb), 0);
-    wgmma_ss(sl, kmajor(ql + 32), kmajor(kb + 32), 1);
+#pragma unroll
+    for (int kk = 0; kk < L::kSteps; ++kk)
+      wgmma_ss(sb, L::kmajor(qb, kk), L::kmajor(kb, kk), kk > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
-  hold(sh);
-  if constexpr (BOTH) hold(sl);
-  hi.update(sh, ph, diag_h, scale_log2, row, t4);
-  if constexpr (BOTH) lo.update(sl, pl, diag_l, scale_log2, row, t4);
+  hold(sa);
+  if constexpr (BOTH) hold(sb);
+  ta.update(sa, pa, diag_a, scale_log2, row, t4);
+  if constexpr (BOTH) tb.update(sb, pb, diag_b, scale_log2, row, t4);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(hi.o, ph[kk], mnmajor(vb + kk * 1024));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(ta.o, pa[kk], L::mnmajor(vb, kk));
   if constexpr (BOTH) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(lo.o, pl[kk], mnmajor(vb + kk * 1024));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(tb.o, pb[kk], L::mnmajor(vb, kk));
   }
   wgmma_commit();
   wgmma_wait<0>();
-  hold(hi.o);
-  hold(ph);
+  hold(ta.o);
+  hold(pa);
   if constexpr (BOTH) {
-    hold(lo.o);
-    hold(pl);
+    hold(tb.o);
+    hold(pb);
   }
 }
 
 // K7's end of one query tile in a warp: its 16 rows of o normalised into
-// the warp's rows of the staging box, and their lse to `lse_tile`
-__device__ __forceinline__ void fwd_finish(uint8_t* box, float* __restrict__ lse_tile,
-                                           FwdTile& t, int w, int lane) {
+// the warp's rows of the staged tile `t`, and their lse to `lse_tile`
+template <int D>
+__device__ __forceinline__ void fwd_finish(uint8_t* t, float* __restrict__ lse_tile,
+                                           FwdTile<D>& ft, int w, int lane) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
-    t.l0 += __shfl_xor_sync(0xffffffffu, t.l0, off);
-    t.l1 += __shfl_xor_sync(0xffffffffu, t.l1, off);
+    ft.l0 += __shfl_xor_sync(0xffffffffu, ft.l0, off);
+    ft.l1 += __shfl_xor_sync(0xffffffffu, ft.l1, off);
   }
-  stage_box(box, t.o, 1.f / t.l0, 1.f / t.l1, w, lane);
+  stage_rows<D>(t, ft.o, 1.f / ft.l0, 1.f / ft.l1, w, lane);
   if ((lane & 3) == 0) {
     const int r = 16 * w + (lane >> 2);
-    lse_tile[r] = (t.m0 + __log2f(t.l0)) * kLn2;
-    lse_tile[r + 8] = (t.m1 + __log2f(t.l1)) * kLn2;
+    lse_tile[r] = (ft.m0 + __log2f(ft.l0)) * kLn2;
+    lse_tile[r + 8] = (ft.m1 + __log2f(ft.l1)) * kLn2;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K7, bf16.  Shared memory: the ring (kFwdStages x [K box, V box]), each
-// consumer warpgroup's two slots of its pair's Q boxes ([later tile, earlier
-// tile]) and its staging boxes for o.
+// K7, bf16.  Shared memory: the ring (stages of [K tile, V tile]) and each
+// consumer warpgroup's own slots ([Q of a, Q of b]), where o is staged.
 // ---------------------------------------------------------------------------
+template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
                  float* __restrict__ lse, FlashLayout lay, int H, int BH, int T, float scale_log2) {
+  using L = Tile<D>;
+  using C = FwdCfg<D>;
+  constexpr int kPasses = C::kPair ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) FlashBars bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + kFwdStages * kFwdStage;                  // [g][slot][2 boxes]
-  uint8_t* staging = own + kConsumers * kOwnSlots * 2 * kBoxBytes;  // [g][2 boxes]
-  const int nt = T / kFlashTile, pairs = (nt + 1) / 2;
-  const int rounds = (pairs + kConsumers - 1) / kConsumers;
+  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
+  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bars.init(kFwdStages);
-  const Ring stream{bars.full, bars.empty, kFwdStages};
+  bars.init(C::kStages);
+  const Ring stream{bars.full, bars.empty, C::kStages};
 
-  if (warp == kProducer) {
-    if (lane == 0) {
+  if (warp >= kProducer) {
+    if constexpr (C::kRaise) regs_dec<kProducerRegs>();
+    if (warp == kProducer && lane == 0) {
       int it = 0, n[kConsumers] = {};
       for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
         const int b = bh / H, h = bh % H;
-        for (int r = 0; r < rounds; ++r) {
+        for (int r = 0; r < rounds; ++r)
+          for (int pass = 0; pass < kPasses; ++pass) {
 #pragma unroll
-          for (int g = 0; g < kConsumers; ++g) {
-            const int lo = r * kConsumers + g, hi = nt - 1 - lo;  // the pair's tiles
-            if (lo >= pairs) continue;
-            const int s = bars.own_acquire(g, n[g]++, (lo == hi ? 1 : 2) * kBoxBytes);
-            uint8_t* dst = own + (g * kOwnSlots + s) * 2 * kBoxBytes;
-            tma_load_rows(dst, &map_q, &bars.own_full[g][s], hi * kFlashTile, h, b);
-            if (lo != hi) tma_load_rows(dst + kBoxBytes, &map_q, &bars.own_full[g][s], lo * kFlashTile, h, b);
+            for (int g = 0; g < kConsumers; ++g) {
+              const Job j = job<C::kPair, false>(nt, r, g, pass);
+              if (j.a < 0) continue;
+              const int s = bars.own_acquire(g, n[g]++, (j.b >= 0 ? 2 : 1) * L::kBytes);
+              uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot;
+              tma_tile<D>(dst, &map_q, &bars.own_full[g][s], j.a * kFlashTile, h, b);
+              if (j.b >= 0)
+                tma_tile<D>(dst + L::kBytes, &map_q, &bars.own_full[g][s], j.b * kFlashTile, h, b);
+            }
+            const int len = key_tiles<C::kPair>(nt, r, pass);
+            for (int kt = 0; kt < len; ++kt, ++it) {
+              const int s = stream.acquire(it, C::kStage);
+              uint8_t* st = ring + s * C::kStage;
+              tma_tile<D>(st, &map_k, &bars.full[s], kt * kFlashTile, h, b);
+              tma_tile<D>(st + L::kBytes, &map_v, &bars.full[s], kt * kFlashTile, h, b);
+            }
           }
-          for (int kt = 0; kt < nt - r * kConsumers; ++kt, ++it) {
-            const int s = stream.acquire(it, kFwdStage);
-            uint8_t* st = ring + s * kFwdStage;
-            tma_load_rows(st, &map_k, &bars.full[s], kt * kFlashTile, h, b);
-            tma_load_rows(st + kBoxBytes, &map_v, &bars.full[s], kt * kFlashTile, h, b);
-          }
-        }
       }
     }
     return;
   }
 
+  if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
-  uint8_t* box = staging + g * 2 * kBoxBytes;  // the warp's rows: w * 1024 of each box
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
-    for (int r = 0; r < rounds; ++r) {
-      const int lo = r * kConsumers + g, hi = nt - 1 - lo, len = nt - r * kConsumers;
-      const bool active = lo < pairs, two = lo != hi;
-      const uint8_t* qb =
-          active ? own + (g * kOwnSlots + bars.own_wait(g, n)) * 2 * kBoxBytes : nullptr;
-      FwdTile th, tl;
-      th.reset();
-      tl.reset();
-      for (int kt = 0; kt < len; ++kt, ++it) {
-        const uint8_t* st = ring + stream.wait(it) * kFwdStage;
-        if (active && two && kt <= lo)
-          fwd_step<true>(qb, qb + kBoxBytes, st, st + kBoxBytes, kt == hi, kt == lo, th, tl,
-                         scale_log2, row, t4);
-        else if (active && kt <= hi)
-          fwd_step<false>(qb, nullptr, st, st + kBoxBytes, kt == hi, false, th, tl, scale_log2,
-                          row, t4);
-        stream.release(it, lane);
+    for (int r = 0; r < rounds; ++r)
+      for (int pass = 0; pass < kPasses; ++pass) {
+        const Job j = job<C::kPair, false>(nt, r, g, pass);
+        const int len = key_tiles<C::kPair>(nt, r, pass);
+        uint8_t* qs = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
+        FwdTile<D> ta, tb;
+        ta.reset();
+        tb.reset();
+        for (int kt = 0; kt < len; ++kt, ++it) {
+          const uint8_t* st = ring + stream.wait(it) * C::kStage;
+          if constexpr (C::kPair) {
+            if (j.b >= 0 && kt <= j.b)
+              fwd_step<D, true>(qs, qs + L::kBytes, st, st + L::kBytes, kt == j.a, kt == j.b, ta,
+                                tb, scale_log2, row, t4);
+            else if (j.a >= 0 && kt <= j.a)
+              fwd_step<D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
+                                 scale_log2, row, t4);
+          } else {
+            if (j.a >= 0 && kt <= j.a)
+              fwd_step<D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
+                                 scale_log2, row, t4);
+          }
+          stream.release(it, lane);
+        }
+        if (j.a < 0) continue;
+        float* lh = lse + (long long)bh * T;
+        bf16* oh = head_ptr(o, lay, 3, b, h);
+        named_bar_sync(1 + g, 128);  // every warp past its last product: Q may be overwritten
+        fwd_finish<D>(qs, lh + j.a * kFlashTile, ta, w, lane);
+        if (j.b >= 0) fwd_finish<D>(qs + L::kBytes, lh + j.b * kFlashTile, tb, w, lane);
+        __syncwarp();
+        write_rows<D>(oh, lay.s[3][2], j.a * kFlashTile, qs, w, lane);
+        if (j.b >= 0) write_rows<D>(oh, lay.s[3][2], j.b * kFlashTile, qs + L::kBytes, w, lane);
+        bars.own_release(g, n++, lane);
       }
-      if (!active) continue;
-      if (lane == 0) mbar_arrive(&bars.own_empty[g][n % kOwnSlots]);
-      ++n;
-      float* lh = lse + (long long)bh * T;
-      bf16* oh = head_ptr(o, lay, 3, b, h);
-      __syncwarp();  // the warp's last stores have read its staging rows
-      fwd_finish(box, lh + hi * kFlashTile, th, w, lane);
-      if (two) fwd_finish(box + kBoxBytes, lh + lo * kFlashTile, tl, w, lane);
-      __syncwarp();
-      store_rows16(oh, lay.s[3][2], hi * kFlashTile, box, w, lane);
-      if (two) store_rows16(oh, lay.s[3][2], lo * kFlashTile, box + kBoxBytes, w, lane);
-    }
   }
 }
 
@@ -618,19 +756,22 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
 // P^T from lse, dS^T = P^T (dP^T - di) scale, dV += P^T dO, dK += dS^T Q.
 // `key` is the lane's first key row in the tile; `diag`: the query tile is
 // the key tile, queries before the key are masked.
+template <int D>
 __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, const uint8_t* st,
-                                         bool diag, float (&dk)[16], float (&dv)[16], float scale,
-                                         float scale_log2, int key, int t4) {
+                                         bool diag, float (&dk)[D / 2], float (&dv)[D / 2],
+                                         float scale, float scale_log2, int key, int t4) {
+  using L = Tile<D>;
   const uint8_t* qb = st;
-  const uint8_t* dob = st + kBoxBytes;
-  const float* ls = reinterpret_cast<const float*>(st + 2 * kBoxBytes);
+  const uint8_t* dob = st + L::kBytes;
+  const float* ls = reinterpret_cast<const float*>(st + 2 * L::kBytes);
   const float* dis = ls + kFlashTile;
   float sp[32], dp[32];
   wgmma_fence();
-  wgmma_ss(sp, kmajor(kb), kmajor(qb), 0);
-  wgmma_ss(sp, kmajor(kb + 32), kmajor(qb + 32), 1);
-  wgmma_ss(dp, kmajor(vb), kmajor(dob), 0);
-  wgmma_ss(dp, kmajor(vb + 32), kmajor(dob + 32), 1);
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk) wgmma_ss(sp, L::kmajor(kb, kk), L::kmajor(qb, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk)
+    wgmma_ss(dp, L::kmajor(vb, kk), L::kmajor(dob, kk), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   hold(sp);
@@ -652,9 +793,9 @@ __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, c
   to_a(dsa, dp);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, pa[kk], mnmajor(dob + kk * 1024));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, pa[kk], L::mnmajor(dob, kk));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, dsa[kk], mnmajor(qb + kk * 1024));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, dsa[kk], L::mnmajor(qb, kk));
   wgmma_commit();
   wgmma_wait<0>();
   hold(dv);
@@ -664,331 +805,508 @@ __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, c
 }
 
 // ---------------------------------------------------------------------------
-// K8, bf16.  Shared memory: the ring (kBwdStages x [Q box, dO box, lse,
-// di]), each consumer warpgroup's two slots of its pair's K and V boxes
-// ([K, V of the earlier tile, K, V of the later]) and its staging boxes for
-// dk and dv (the same order).
+// K8, bf16.  Shared memory: the ring (stages of [Q tile, dO tile, lse, di])
+// and each consumer warpgroup's own slots ([K, V of a, K, V of b]), where
+// dk and dv are staged.
 // ---------------------------------------------------------------------------
+template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, const float* __restrict__ lse,
                      const float* __restrict__ di, FlashLayout lay, int H, int BH, int T,
                      float scale, float scale_log2) {
+  using L = Tile<D>;
+  using C = DkvCfg<D>;
+  constexpr int kPasses = C::kPair ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) FlashBars bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + kBwdStages * kBwdStage;                     // [g][slot][4 boxes]
-  uint8_t* staging = own + kConsumers * kOwnSlots * 4 * kBoxBytes;  // [g][4 boxes]
-  const int nt = T / kFlashTile, pairs = (nt + 1) / 2;
-  const int rounds = (pairs + kConsumers - 1) / kConsumers;
+  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
+  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bars.init(kBwdStages);
-  const Ring stream{bars.full, bars.empty, kBwdStages};
+  bars.init(C::kStages);
+  const Ring stream{bars.full, bars.empty, C::kStages};
 
-  if (warp == kProducer) {
-    if (lane == 0) {
+  if (warp >= kProducer) {
+    if constexpr (C::kRaise) regs_dec<kProducerRegs>();
+    if (warp == kProducer && lane == 0) {
       int it = 0, n[kConsumers] = {};
       for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
         const int b = bh / H, h = bh % H;
         const float* lh = lse + (long long)bh * T;
         const float* dh = di + (long long)bh * T;
-        for (int r = 0; r < rounds; ++r) {
+        for (int r = 0; r < rounds; ++r)
+          for (int pass = 0; pass < kPasses; ++pass) {
 #pragma unroll
-          for (int g = 0; g < kConsumers; ++g) {
-            const int lo = r * kConsumers + g, hi = nt - 1 - lo;  // the pair's tiles
-            if (lo >= pairs) continue;
-            const int s = bars.own_acquire(g, n[g]++, (lo == hi ? 2 : 4) * kBoxBytes);
-            uint8_t* dst = own + (g * kOwnSlots + s) * 4 * kBoxBytes;
-            uint64_t* bar = &bars.own_full[g][s];
-            tma_load_rows(dst, &map_k, bar, lo * kFlashTile, h, b);
-            tma_load_rows(dst + kBoxBytes, &map_v, bar, lo * kFlashTile, h, b);
-            if (lo != hi) {
-              tma_load_rows(dst + 2 * kBoxBytes, &map_k, bar, hi * kFlashTile, h, b);
-              tma_load_rows(dst + 3 * kBoxBytes, &map_v, bar, hi * kFlashTile, h, b);
+            for (int g = 0; g < kConsumers; ++g) {
+              const Job j = job<C::kPair, true>(nt, r, g, pass);
+              if (j.a < 0) continue;
+              const int s = bars.own_acquire(g, n[g]++, (j.b >= 0 ? 4 : 2) * L::kBytes);
+              uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot;
+              uint64_t* bar = &bars.own_full[g][s];
+              tma_tile<D>(dst, &map_k, bar, j.a * kFlashTile, h, b);
+              tma_tile<D>(dst + L::kBytes, &map_v, bar, j.a * kFlashTile, h, b);
+              if (j.b >= 0) {
+                tma_tile<D>(dst + 2 * L::kBytes, &map_k, bar, j.b * kFlashTile, h, b);
+                tma_tile<D>(dst + 3 * L::kBytes, &map_v, bar, j.b * kFlashTile, h, b);
+              }
+            }
+            for (int qt = first_query<C::kPair>(nt, r, pass); qt < nt; ++qt, ++it) {
+              const int s = stream.acquire(it, 2 * L::kBytes + 2 * kVecBytes);
+              uint8_t* st = ring + s * C::kStage;
+              uint64_t* bar = &bars.full[s];
+              tma_tile<D>(st, &map_q, bar, qt * kFlashTile, h, b);
+              tma_tile<D>(st + L::kBytes, &map_do, bar, qt * kFlashTile, h, b);
+              bulk_load(st + 2 * L::kBytes, lh + qt * kFlashTile, kVecBytes, bar);
+              bulk_load(st + 2 * L::kBytes + kVecBytes, dh + qt * kFlashTile, kVecBytes, bar);
             }
           }
-          for (int qt = r * kConsumers; qt < nt; ++qt, ++it) {
-            const int s = stream.acquire(it, 2 * kBoxBytes + 2 * kVecBytes);
-            uint8_t* st = ring + s * kBwdStage;
-            uint64_t* bar = &bars.full[s];
-            tma_load_rows(st, &map_q, bar, qt * kFlashTile, h, b);
-            tma_load_rows(st + kBoxBytes, &map_do, bar, qt * kFlashTile, h, b);
-            bulk_load(st + 2 * kBoxBytes, lh + qt * kFlashTile, kVecBytes, bar);
-            bulk_load(st + 2 * kBoxBytes + kVecBytes, dh + qt * kFlashTile, kVecBytes, bar);
-          }
-        }
       }
     }
     return;
   }
 
+  if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int key = 16 * w + (lane >> 2);  // the lane's key rows of a tile: key, key + 8
-  uint8_t* box = staging + g * 4 * kBoxBytes;  // the warp's rows: w * 1024 of each box
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
-    for (int r = 0; r < rounds; ++r) {
-      const int lo = r * kConsumers + g, hi = nt - 1 - lo;
-      const bool active = lo < pairs, two = lo != hi;
-      const uint8_t* kv =
-          active ? own + (g * kOwnSlots + bars.own_wait(g, n)) * 4 * kBoxBytes : nullptr;
-      float dkl[16], dvl[16], dkh[16], dvh[16];
+    for (int r = 0; r < rounds; ++r)
+      for (int pass = 0; pass < kPasses; ++pass) {
+        const Job j = job<C::kPair, true>(nt, r, g, pass);
+        uint8_t* kv = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
+        float dka[D / 2], dva[D / 2], dkb[D / 2], dvb[D / 2];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) dkl[i] = dvl[i] = dkh[i] = dvh[i] = 0.f;
-      for (int qt = r * kConsumers; qt < nt; ++qt, ++it) {
-        const uint8_t* st = ring + stream.wait(it) * kBwdStage;
-        if (active && qt >= lo)
-          bwd_step(kv, kv + kBoxBytes, st, qt == lo, dkl, dvl, scale, scale_log2, key, t4);
-        if (active && two && qt >= hi)
-          bwd_step(kv + 2 * kBoxBytes, kv + 3 * kBoxBytes, st, qt == hi, dkh, dvh, scale,
-                   scale_log2, key, t4);
-        stream.release(it, lane);
+        for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = dkb[i] = dvb[i] = 0.f;
+        for (int qt = first_query<C::kPair>(nt, r, pass); qt < nt; ++qt, ++it) {
+          const uint8_t* st = ring + stream.wait(it) * C::kStage;
+          if (j.a >= 0 && qt >= j.a)
+            bwd_step<D>(kv, kv + L::kBytes, st, qt == j.a, dka, dva, scale, scale_log2, key, t4);
+          if constexpr (C::kPair) {
+            if (j.b >= 0 && qt >= j.b)
+              bwd_step<D>(kv + 2 * L::kBytes, kv + 3 * L::kBytes, st, qt == j.b, dkb, dvb, scale,
+                          scale_log2, key, t4);
+          }
+          stream.release(it, lane);
+        }
+        if (j.a < 0) continue;
+        bf16* dkh = head_ptr(dk, lay, 4, b, h);
+        bf16* dvh = head_ptr(dv, lay, 5, b, h);
+        named_bar_sync(1 + g, 128);  // every warp past its last product: K, V may be overwritten
+        stage_rows<D>(kv, dka, 1.f, 1.f, w, lane);
+        stage_rows<D>(kv + L::kBytes, dva, 1.f, 1.f, w, lane);
+        if (j.b >= 0) {
+          stage_rows<D>(kv + 2 * L::kBytes, dkb, 1.f, 1.f, w, lane);
+          stage_rows<D>(kv + 3 * L::kBytes, dvb, 1.f, 1.f, w, lane);
+        }
+        __syncwarp();
+        write_rows<D>(dkh, lay.s[4][2], j.a * kFlashTile, kv, w, lane);
+        write_rows<D>(dvh, lay.s[5][2], j.a * kFlashTile, kv + L::kBytes, w, lane);
+        if (j.b >= 0) {
+          write_rows<D>(dkh, lay.s[4][2], j.b * kFlashTile, kv + 2 * L::kBytes, w, lane);
+          write_rows<D>(dvh, lay.s[5][2], j.b * kFlashTile, kv + 3 * L::kBytes, w, lane);
+        }
+        bars.own_release(g, n++, lane);
       }
-      if (!active) continue;
-      if (lane == 0) mbar_arrive(&bars.own_empty[g][n % kOwnSlots]);
-      ++n;
-      bf16* dkh_ = head_ptr(dk, lay, 4, b, h);
-      bf16* dvh_ = head_ptr(dv, lay, 5, b, h);
-      __syncwarp();  // the warp's last stores have read its staging rows
-      stage_box(box, dkl, 1.f, 1.f, w, lane);
-      stage_box(box + kBoxBytes, dvl, 1.f, 1.f, w, lane);
-      if (two) {
-        stage_box(box + 2 * kBoxBytes, dkh, 1.f, 1.f, w, lane);
-        stage_box(box + 3 * kBoxBytes, dvh, 1.f, 1.f, w, lane);
-      }
-      __syncwarp();
-      store_rows16(dkh_, lay.s[4][2], lo * kFlashTile, box, w, lane);
-      store_rows16(dvh_, lay.s[5][2], lo * kFlashTile, box + kBoxBytes, w, lane);
-      if (two) {
-        store_rows16(dkh_, lay.s[4][2], hi * kFlashTile, box + 2 * kBoxBytes, w, lane);
-        store_rows16(dvh_, lay.s[5][2], hi * kFlashTile, box + 3 * kBoxBytes, w, lane);
+  }
+}
+
+// a lane's two rows of a K9 tile: lse in log2 units, and di
+struct DqRows {
+  float l0, l1, d0, d1;
+};
+
+// K9's dS of one query tile against one key tile, from S (s) and dP (dp):
+// p = exp2(s scale_log2 - lse), masked past the diagonal on the diagonal
+// tile, dS = p (dP - di) scale, rounded to bf16 as A fragments
+__device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32], uint32_t (&ds)[4][4],
+                                      bool diag, const DqRows& rows, float scale, float scale_log2,
+                                      int row, int t4) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool second = (i >> 1) & 1;
+    const float p = ex2(fmaf(s[i], scale_log2, second ? -rows.l1 : -rows.l0));
+    s[i] = p * (dp[i] - (second ? rows.d1 : rows.d0)) * scale;
+  }
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (past_diagonal(i, row, t4)) s[i] = 0.f;
+  }
+  to_a(ds, s);
+}
+
+// One key tile of K9 against the warpgroup's tile `a` (its unit `ua`: Q,
+// dO) and, with BOTH, its tile `b` (`ub`), in lockstep: S = Q K^T and dP =
+// dO V^T for each, one wait, dS of each, dQ += dS K for each, one wait.
+template <int D, bool BOTH>
+__device__ __forceinline__ void dq_step(const uint8_t* ua, const uint8_t* ub, const uint8_t* st,
+                                        bool diag_a, bool diag_b, float (&dqa)[D / 2],
+                                        float (&dqb)[D / 2], const DqRows& ra, const DqRows& rb,
+                                        float scale, float scale_log2, int row, int t4) {
+  using L = Tile<D>;
+  const uint8_t* kb = st;
+  const uint8_t* vb = st + L::kBytes;
+  float sa[32], pa[32], sb[32], pb[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk) wgmma_ss(sa, L::kmajor(ua, kk), L::kmajor(kb, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk)
+    wgmma_ss(pa, L::kmajor(ua + L::kBytes, kk), L::kmajor(vb, kk), kk > 0);
+  if constexpr (BOTH) {
+#pragma unroll
+    for (int kk = 0; kk < L::kSteps; ++kk)
+      wgmma_ss(sb, L::kmajor(ub, kk), L::kmajor(kb, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < L::kSteps; ++kk)
+      wgmma_ss(pb, L::kmajor(ub + L::kBytes, kk), L::kmajor(vb, kk), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold(sa);
+  hold(pa);
+  if constexpr (BOTH) {
+    hold(sb);
+    hold(pb);
+  }
+  uint32_t dsa[4][4], dsb[4][4];
+  dq_ds(sa, pa, dsa, diag_a, ra, scale, scale_log2, row, t4);
+  if constexpr (BOTH) dq_ds(sb, pb, dsb, diag_b, rb, scale, scale_log2, row, t4);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqa, dsa[kk], L::mnmajor(kb, kk));
+  if constexpr (BOTH) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqb, dsb[kk], L::mnmajor(kb, kk));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold(dqa);
+  hold(dsa);
+  if constexpr (BOTH) {
+    hold(dqb);
+    hold(dsb);
+  }
+}
+
+// a lane's two rows of the K9 unit `u`
+template <int D>
+__device__ __forceinline__ DqRows dq_rows(const uint8_t* u, int row) {
+  const float* v = reinterpret_cast<const float*>(u + 2 * Tile<D>::kBytes);
+  return {v[row] * kLog2e, v[row + 8] * kLog2e, v[kFlashTile + row], v[kFlashTile + row + 8]};
+}
+
+// ---------------------------------------------------------------------------
+// K9, bf16.  Shared memory: the ring (stages of [K tile, V tile], K7's
+// stream) and each consumer warpgroup's own slots (a unit [Q, dO, lse, di]
+// for a and one for b), where dq is staged over Q.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                    bf16* __restrict__ dq, const float* __restrict__ lse,
+                    const float* __restrict__ di, FlashLayout lay, int H, int BH, int T,
+                    float scale, float scale_log2) {
+  using L = Tile<D>;
+  using C = DqCfg<D>;
+  constexpr int kPasses = C::kPair ? 1 : 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) FlashBars bars;
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
+  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bars.init(C::kStages);
+  const Ring stream{bars.full, bars.empty, C::kStages};
+
+  if (warp >= kProducer) {
+    if constexpr (C::kRaise) regs_dec<kProducerRegs>();
+    if (warp == kProducer && lane == 0) {
+      int it = 0, n[kConsumers] = {};
+      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
+        const int b = bh / H, h = bh % H;
+        const float* lh = lse + (long long)bh * T;
+        const float* dh = di + (long long)bh * T;
+        for (int r = 0; r < rounds; ++r)
+          for (int pass = 0; pass < kPasses; ++pass) {
+#pragma unroll
+            for (int g = 0; g < kConsumers; ++g) {
+              const Job j = job<C::kPair, false>(nt, r, g, pass);
+              if (j.a < 0) continue;
+              const int s = bars.own_acquire(g, n[g]++,
+                                             (j.b >= 0 ? 2 : 1) * (2 * L::kBytes + 2 * kVecBytes));
+              uint64_t* bar = &bars.own_full[g][s];
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int t = u == 0 ? j.a : j.b;
+                if (t < 0) continue;
+                uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot + u * C::kUnit;
+                tma_tile<D>(dst, &map_q, bar, t * kFlashTile, h, b);
+                tma_tile<D>(dst + L::kBytes, &map_do, bar, t * kFlashTile, h, b);
+                bulk_load(dst + 2 * L::kBytes, lh + t * kFlashTile, kVecBytes, bar);
+                bulk_load(dst + 2 * L::kBytes + kVecBytes, dh + t * kFlashTile, kVecBytes, bar);
+              }
+            }
+            const int len = key_tiles<C::kPair>(nt, r, pass);
+            for (int kt = 0; kt < len; ++kt, ++it) {
+              const int s = stream.acquire(it, C::kStage);
+              uint8_t* st = ring + s * C::kStage;
+              tma_tile<D>(st, &map_k, &bars.full[s], kt * kFlashTile, h, b);
+              tma_tile<D>(st + L::kBytes, &map_v, &bars.full[s], kt * kFlashTile, h, b);
+            }
+          }
       }
     }
+    return;
+  }
+
+  if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
+  const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
+  const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
+  int it = 0, n = 0;
+  for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
+    const int b = bh / H, h = bh % H;
+    for (int r = 0; r < rounds; ++r)
+      for (int pass = 0; pass < kPasses; ++pass) {
+        const Job j = job<C::kPair, false>(nt, r, g, pass);
+        const int len = key_tiles<C::kPair>(nt, r, pass);
+        uint8_t* ua = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
+        uint8_t* ub = C::kPair && j.b >= 0 ? ua + C::kUnit : nullptr;
+        DqRows ra{}, rb{};
+        if (j.a >= 0) ra = dq_rows<D>(ua, row);
+        if (C::kPair && j.b >= 0) rb = dq_rows<D>(ub, row);
+        float dqa[D / 2], dqb[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dqa[i] = dqb[i] = 0.f;
+        for (int kt = 0; kt < len; ++kt, ++it) {
+          const uint8_t* st = ring + stream.wait(it) * C::kStage;
+          if constexpr (C::kPair) {
+            if (j.b >= 0 && kt <= j.b)
+              dq_step<D, true>(ua, ub, st, kt == j.a, kt == j.b, dqa, dqb, ra, rb, scale,
+                               scale_log2, row, t4);
+            else if (j.a >= 0 && kt <= j.a)
+              dq_step<D, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
+                                scale_log2, row, t4);
+          } else {
+            if (j.a >= 0 && kt <= j.a)
+              dq_step<D, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
+                                scale_log2, row, t4);
+          }
+          stream.release(it, lane);
+        }
+        if (j.a < 0) continue;
+        bf16* dqh = head_ptr(dq, lay, 4, b, h);
+        named_bar_sync(1 + g, 128);  // every warp past its last product: Q may be overwritten
+        stage_rows<D>(ua, dqa, 1.f, 1.f, w, lane);
+        if (j.b >= 0) stage_rows<D>(ub, dqb, 1.f, 1.f, w, lane);
+        __syncwarp();
+        write_rows<D>(dqh, lay.s[4][2], j.a * kFlashTile, ua, w, lane);
+        if (j.b >= 0) write_rows<D>(dqh, lay.s[4][2], j.b * kFlashTile, ub, w, lane);
+        bars.own_release(g, n++, lane);
+      }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K9, bf16.  Operands: 0 q, 1 k, 2 v, 3 do, 4 dq.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFlashThreads)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ di,
-                  bf16* __restrict__ dq, int H, int T, FlashLayout lay, float scale,
-                  float scale_log2) {
-  __shared__ __align__(16) bf16 qs[kFlashTile * kFlashPitch];
-  __shared__ __align__(16) bf16 dos[kFlashTile * kFlashPitch];
-  __shared__ __align__(16) bf16 ks[2][kFlashTile * kFlashPitch];
-  __shared__ __align__(16) bf16 vs[2][kFlashTile * kFlashPitch];
-  const int nt_q = T / kFlashTile, qt = nt_q - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
-  const bf16* kh = head_ptr(k, lay, 1, b, h);
-  const bf16* vh = head_ptr(v, lay, 2, b, h);
-  const long long sk = lay.s[1][2], sv = lay.s[2][2];
-
-  stage_tile(qs, head_ptr(q, lay, 0, b, h), lay.s[0][2], qt * kFlashTile);
-  stage_tile(dos, head_ptr(dout, lay, 3, b, h), lay.s[3][2], qt * kFlashTile);
-  stage_tile(ks[0], kh, sk, 0);
-  stage_tile(vs[0], vh, sv, 0);
-  cp_async_commit();
-
-  const int row = qt * kFlashTile + warp * 16 + g;
-  const float lse0 = lse[(long long)bh * T + row] * kLog2e;
-  const float lse1 = lse[(long long)bh * T + row + 8] * kLog2e;
-  const float di0 = di[(long long)bh * T + row], di1 = di[(long long)bh * T + row + 8];
-  float dqa[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dqa[i] = 0.f;
-  uint32_t qa[2][4], da[2][4];
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int cur = kt & 1;
-    if (kt < qt) {
-      stage_tile(ks[cur ^ 1], kh, sk, (kt + 1) * kFlashTile);
-      stage_tile(vs[cur ^ 1], vh, sv, (kt + 1) * kFlashTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-      load_a(qa, qs, warp, lane);
-      load_a(da, dos, warp, lane);
-    }
-    float s[32], dp[32];  // S and dP: 16 queries x 64 keys
-    mma_rows_t(s, qa, ks[cur], lane);
-    mma_rows_t(dp, da, vs[cur], lane);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi = (i >> 1) & 1;
-      float p = exp2f(s[i] * scale_log2 - (hi ? lse1 : lse0));
-      if (kt == qt) {
-        const int key = kt * kFlashTile + 8 * (i >> 2) + 2 * t4 + (i & 1);
-        if (key > row + 8 * hi) p = 0.f;
-      }
-      s[i] = p * (dp[i] - (hi ? di1 : di0)) * scale;
-    }
-    uint32_t dsa[4][4];
-    to_a(dsa, s);
-    mma_tile(dqa, dsa, ks[cur], lane);
-    __syncthreads();
-  }
-  store_rows(head_ptr(dq, lay, 4, b, h), lay.s[4][2], row, dqa, 1.f, 1.f, lane);
-}
-
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores: a thread per row, the walked 64-row tiles in
-// shared memory ([64][32] floats, read at one address by every thread).
+// float32 on the CUDA cores: one block per 64-row tile of one (b, h) (grid
+// x = bh * nt + tile index), kTpr = D / 32 threads a row, thread `part` of
+// a row holding its columns c * kTpr + part (c < 32); the walked 64-row
+// tiles ([64][D] floats) in dynamic shared memory.
 // ---------------------------------------------------------------------------
 
-// rows r0 .. r0 + 63 of a (T, 32) float32 head into a [64][32] tile
+template <int D>
+struct F32Cfg {
+  static constexpr int kTpr = D / 32;                // threads a row
+  static constexpr int kThreads = kFlashTile * kTpr;
+  static constexpr int kTileBytes = kFlashTile * D * 4;
+};
+
+// rows r0 .. r0 + 63 of a (T, D) float32 head into a [64][D] tile
+template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long st, int r0) {
-  for (int i = threadIdx.x; i < kFlashTile * 8; i += kFlashF32Threads) {
-    const int r = i >> 3, c = (i & 7) * 4;
-    *reinterpret_cast<float4*>(dst + r * kFlashD + c) =
+  for (int i = threadIdx.x; i < kFlashTile * D / 4; i += F32Cfg<D>::kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + r * D + c) =
         *reinterpret_cast<const float4*>(src + (r0 + r) * st + c);
   }
 }
 
-__device__ __forceinline__ void load_row_f32(float (&x)[kFlashD], const float* src, float f) {
+// a thread's 32 columns of a row, times f
+template <int TPR>
+__device__ __forceinline__ void load_row_f32(float (&x)[32], const float* src, int part, float f) {
+  if constexpr (TPR == 1) {
 #pragma unroll
-  for (int c = 0; c < kFlashD; c += 4) {
-    const float4 v4 = *reinterpret_cast<const float4*>(src + c);
-    x[c] = v4.x * f;
-    x[c + 1] = v4.y * f;
-    x[c + 2] = v4.z * f;
-    x[c + 3] = v4.w * f;
+    for (int c = 0; c < 32; c += 4) {
+      const float4 v4 = *reinterpret_cast<const float4*>(src + c);
+      x[c] = v4.x * f;
+      x[c + 1] = v4.y * f;
+      x[c + 2] = v4.z * f;
+      x[c + 3] = v4.w * f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) x[c] = src[c * TPR + part] * f;
   }
 }
 
-__device__ __forceinline__ void store_row_f32(float* dst, const float (&x)[kFlashD], float f) {
+template <int TPR>
+__device__ __forceinline__ void store_row_f32(float* dst, const float (&x)[32], int part, float f) {
+  if constexpr (TPR == 1) {
 #pragma unroll
-  for (int c = 0; c < kFlashD; c += 4)
-    *reinterpret_cast<float4*>(dst + c) = make_float4(x[c] * f, x[c + 1] * f, x[c + 2] * f, x[c + 3] * f);
+    for (int c = 0; c < 32; c += 4)
+      *reinterpret_cast<float4*>(dst + c) =
+          make_float4(x[c] * f, x[c + 1] * f, x[c + 2] * f, x[c + 3] * f);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) dst[c * TPR + part] = x[c] * f;
+  }
 }
 
-__device__ __forceinline__ float dot32(const float (&x)[kFlashD], const float* y) {
+// the dot product of a row with row y of a tile, summed over the row's
+// TPR threads (neighbouring lanes; the butterfly gives each the same sum)
+template <int TPR>
+__device__ __forceinline__ float dot_row(const float (&x)[32], const float* y, int part) {
   float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < kFlashD; ++c) s = fmaf(x[c], y[c], s);
+  for (int c = 0; c < 32; ++c) s = fmaf(x[c], y[c * TPR + part], s);
+  if constexpr (TPR > 1) {
+    const unsigned lanes = ((1u << TPR) - 1) << ((threadIdx.x & 31) & ~(TPR - 1));
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) s += __shfl_xor_sync(lanes, s, off);
+  }
   return s;
 }
 
 // K7, float32
-__global__ void __launch_bounds__(kFlashF32Threads)
+template <int D>
+__global__ void __launch_bounds__(F32Cfg<D>::kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int H,
               int T, FlashLayout lay, float scale_log2) {
-  __shared__ __align__(16) float ks[kFlashTile * kFlashD];
-  __shared__ __align__(16) float vs[kFlashTile * kFlashD];
-  const int qt = T / kFlashTile - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int row = qt * kFlashTile + threadIdx.x;
+  constexpr int kTpr = F32Cfg<D>::kTpr;
+  extern __shared__ uint8_t smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + kFlashTile * D;
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int rt = threadIdx.x / kTpr, part = threadIdx.x % kTpr;
+  const int row = qt * kFlashTile + rt;
   const float* kh = head_ptr(k, lay, 1, b, h);
   const float* vh = head_ptr(v, lay, 2, b, h);
-  float qr[kFlashD], acc[kFlashD];
-  load_row_f32(qr, head_ptr(q, lay, 0, b, h) + row * lay.s[0][2], scale_log2);
+  float qr[32], acc[32];
+  load_row_f32<kTpr>(qr, head_ptr(q, lay, 0, b, h) + row * lay.s[0][2], part, scale_log2);
 #pragma unroll
-  for (int c = 0; c < kFlashD; ++c) acc[c] = 0.f;
+  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();
-    load_tile_f32(ks, kh, lay.s[1][2], kt * kFlashTile);
-    load_tile_f32(vs, vh, lay.s[2][2], kt * kFlashTile);
+    load_tile_f32<D>(ks, kh, lay.s[1][2], kt * kFlashTile);
+    load_tile_f32<D>(vs, vh, lay.s[2][2], kt * kFlashTile);
     __syncthreads();
-    const int nk = kt == qt ? threadIdx.x + 1 : kFlashTile;
+    const int nk = kt == qt ? rt + 1 : kFlashTile;
     for (int j = 0; j < nk; ++j) {
-      const float s = dot32(qr, ks + j * kFlashD);
+      const float s = dot_row<kTpr>(qr, ks + j * D, part);
       const float mn = fmaxf(m, s), a = exp2f(m - mn), p = exp2f(s - mn);
       l = l * a + p;
 #pragma unroll
-      for (int c = 0; c < kFlashD; ++c) acc[c] = fmaf(p, vs[j * kFlashD + c], acc[c] * a);
+      for (int c = 0; c < 32; ++c) acc[c] = fmaf(p, vs[j * D + c * kTpr + part], acc[c] * a);
       m = mn;
     }
   }
-  store_row_f32(head_ptr(o, lay, 3, b, h) + row * lay.s[3][2], acc, 1.f / l);
-  lse[(long long)bh * T + row] = (m + log2f(l)) * kLn2;
+  store_row_f32<kTpr>(head_ptr(o, lay, 3, b, h) + row * lay.s[3][2], acc, part, 1.f / l);
+  if (part == 0) lse[(long long)bh * T + row] = (m + log2f(l)) * kLn2;
 }
 
-// K8, float32: a thread per key row
-__global__ void __launch_bounds__(kFlashF32Threads)
+// K8, float32: kTpr threads a key row
+template <int D>
+__global__ void __launch_bounds__(F32Cfg<D>::kThreads)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ di,
                   float* __restrict__ dk, float* __restrict__ dv, int H, int T, FlashLayout lay,
                   float scale, float scale_log2) {
-  __shared__ __align__(16) float qs[kFlashTile * kFlashD];
-  __shared__ __align__(16) float dos[kFlashTile * kFlashD];
-  __shared__ float ls[kFlashTile], dis[kFlashTile];
-  const int nt_q = T / kFlashTile, kt = blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int key = kt * kFlashTile + threadIdx.x;
+  constexpr int kTpr = F32Cfg<D>::kTpr;
+  extern __shared__ uint8_t smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + kFlashTile * D;
+  float* ls = dos + kFlashTile * D;
+  float* dis = ls + kFlashTile;
+  const int nt = T / kFlashTile, kt = blockIdx.x % nt;
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int rt = threadIdx.x / kTpr, part = threadIdx.x % kTpr;
+  const int key = kt * kFlashTile + rt;
   const float* qh = head_ptr(q, lay, 0, b, h);
   const float* doh = head_ptr(dout, lay, 3, b, h);
-  float kr[kFlashD], vr[kFlashD], dka[kFlashD], dva[kFlashD];
-  load_row_f32(kr, head_ptr(k, lay, 1, b, h) + key * lay.s[1][2], scale_log2);
-  load_row_f32(vr, head_ptr(v, lay, 2, b, h) + key * lay.s[2][2], 1.f);
+  float kr[32], vr[32], dka[32], dva[32];
+  load_row_f32<kTpr>(kr, head_ptr(k, lay, 1, b, h) + key * lay.s[1][2], part, scale_log2);
+  load_row_f32<kTpr>(vr, head_ptr(v, lay, 2, b, h) + key * lay.s[2][2], part, 1.f);
 #pragma unroll
-  for (int c = 0; c < kFlashD; ++c) dka[c] = dva[c] = 0.f;
-  for (int qt = kt; qt < nt_q; ++qt) {
+  for (int c = 0; c < 32; ++c) dka[c] = dva[c] = 0.f;
+  for (int qt = kt; qt < nt; ++qt) {
     __syncthreads();
-    load_tile_f32(qs, qh, lay.s[0][2], qt * kFlashTile);
-    load_tile_f32(dos, doh, lay.s[3][2], qt * kFlashTile);
-    ls[threadIdx.x] = lse[(long long)bh * T + qt * kFlashTile + threadIdx.x] * kLog2e;
-    dis[threadIdx.x] = di[(long long)bh * T + qt * kFlashTile + threadIdx.x];
+    load_tile_f32<D>(qs, qh, lay.s[0][2], qt * kFlashTile);
+    load_tile_f32<D>(dos, doh, lay.s[3][2], qt * kFlashTile);
+    if (threadIdx.x < kFlashTile) {
+      ls[threadIdx.x] = lse[(long long)bh * T + qt * kFlashTile + threadIdx.x] * kLog2e;
+      dis[threadIdx.x] = di[(long long)bh * T + qt * kFlashTile + threadIdx.x];
+    }
     __syncthreads();
-    for (int i = qt == kt ? threadIdx.x : 0; i < kFlashTile; ++i) {
-      const float p = exp2f(dot32(kr, qs + i * kFlashD) - ls[i]);
-      const float ds = p * (dot32(vr, dos + i * kFlashD) - dis[i]) * scale;
+    for (int i = qt == kt ? rt : 0; i < kFlashTile; ++i) {
+      const float p = exp2f(dot_row<kTpr>(kr, qs + i * D, part) - ls[i]);
+      const float ds = p * (dot_row<kTpr>(vr, dos + i * D, part) - dis[i]) * scale;
 #pragma unroll
-      for (int c = 0; c < kFlashD; ++c) {
-        dva[c] = fmaf(p, dos[i * kFlashD + c], dva[c]);
-        dka[c] = fmaf(ds, qs[i * kFlashD + c], dka[c]);
+      for (int c = 0; c < 32; ++c) {
+        dva[c] = fmaf(p, dos[i * D + c * kTpr + part], dva[c]);
+        dka[c] = fmaf(ds, qs[i * D + c * kTpr + part], dka[c]);
       }
     }
   }
-  store_row_f32(head_ptr(dk, lay, 4, b, h) + key * lay.s[4][2], dka, 1.f);
-  store_row_f32(head_ptr(dv, lay, 5, b, h) + key * lay.s[5][2], dva, 1.f);
+  store_row_f32<kTpr>(head_ptr(dk, lay, 4, b, h) + key * lay.s[4][2], dka, part, 1.f);
+  store_row_f32<kTpr>(head_ptr(dv, lay, 5, b, h) + key * lay.s[5][2], dva, part, 1.f);
 }
 
-// K9, float32: a thread per query row
-__global__ void __launch_bounds__(kFlashF32Threads)
+// K9, float32: kTpr threads a query row
+template <int D>
+__global__ void __launch_bounds__(F32Cfg<D>::kThreads)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  float* __restrict__ dq, int H, int T, FlashLayout lay, float scale,
                  float scale_log2) {
-  __shared__ __align__(16) float ks[kFlashTile * kFlashD];
-  __shared__ __align__(16) float vs[kFlashTile * kFlashD];
-  const int qt = T / kFlashTile - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int row = qt * kFlashTile + threadIdx.x;
+  constexpr int kTpr = F32Cfg<D>::kTpr;
+  extern __shared__ uint8_t smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + kFlashTile * D;
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int rt = threadIdx.x / kTpr, part = threadIdx.x % kTpr;
+  const int row = qt * kFlashTile + rt;
   const float* kh = head_ptr(k, lay, 1, b, h);
   const float* vh = head_ptr(v, lay, 2, b, h);
-  float qr[kFlashD], dor[kFlashD], dqa[kFlashD];
-  load_row_f32(qr, head_ptr(q, lay, 0, b, h) + row * lay.s[0][2], scale_log2);
-  load_row_f32(dor, head_ptr(dout, lay, 3, b, h) + row * lay.s[3][2], 1.f);
+  float qr[32], dor[32], dqa[32];
+  load_row_f32<kTpr>(qr, head_ptr(q, lay, 0, b, h) + row * lay.s[0][2], part, scale_log2);
+  load_row_f32<kTpr>(dor, head_ptr(dout, lay, 3, b, h) + row * lay.s[3][2], part, 1.f);
 #pragma unroll
-  for (int c = 0; c < kFlashD; ++c) dqa[c] = 0.f;
+  for (int c = 0; c < 32; ++c) dqa[c] = 0.f;
   const float l2 = lse[(long long)bh * T + row] * kLog2e, dir = di[(long long)bh * T + row];
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();
-    load_tile_f32(ks, kh, lay.s[1][2], kt * kFlashTile);
-    load_tile_f32(vs, vh, lay.s[2][2], kt * kFlashTile);
+    load_tile_f32<D>(ks, kh, lay.s[1][2], kt * kFlashTile);
+    load_tile_f32<D>(vs, vh, lay.s[2][2], kt * kFlashTile);
     __syncthreads();
-    const int nk = kt == qt ? threadIdx.x + 1 : kFlashTile;
+    const int nk = kt == qt ? rt + 1 : kFlashTile;
     for (int j = 0; j < nk; ++j) {
-      const float p = exp2f(dot32(qr, ks + j * kFlashD) - l2);
-      const float ds = p * (dot32(dor, vs + j * kFlashD) - dir) * scale;
+      const float p = exp2f(dot_row<kTpr>(qr, ks + j * D, part) - l2);
+      const float ds = p * (dot_row<kTpr>(dor, vs + j * D, part) - dir) * scale;
 #pragma unroll
-      for (int c = 0; c < kFlashD; ++c) dqa[c] = fmaf(ds, ks[j * kFlashD + c], dqa[c]);
+      for (int c = 0; c < 32; ++c) dqa[c] = fmaf(ds, ks[j * D + c * kTpr + part], dqa[c]);
     }
   }
-  store_row_f32(head_ptr(dq, lay, 4, b, h) + row * lay.s[4][2], dqa, 1.f);
+  store_row_f32<kTpr>(head_ptr(dq, lay, 4, b, h) + row * lay.s[4][2], dqa, part, 1.f);
 }
 
 FlashLayout flash_layout(const long long* strides, int ops) {
@@ -998,41 +1316,44 @@ FlashLayout flash_layout(const long long* strides, int ops) {
   return lay;
 }
 
+// D 32, 64 or 128; T a multiple of 64; the float32 grid's B * H * T / 64
+// blocks within grid x
 bool flash_shape_ok(int B, int H, int T, int d) {
-  return d == kFlashD && T > 0 && T % kFlashTile == 0 && B > 0 && H > 0 &&
-         (long long)B * H <= 65535;
+  return (d == 32 || d == 64 || d == 128) && T > 0 && T % kFlashTile == 0 && B > 0 && H > 0 &&
+         (long long)B * H * (T / kFlashTile) <= 0x7fffffffLL;
 }
 
-// A 4-D map over (d, T, H, B) of a bf16 (B, H, T, 32) operand whose batch,
+// A 4-D map over (d, T, H, B) of a bf16 (B, H, T, D) operand whose batch,
 // head and row strides (elements) are st[0..2], in boxes of a tile's 64
-// rows, 64-byte swizzled for wgmma.
+// rows by min(D, 64) columns, swizzled for wgmma.
+template <int D>
 inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
                             const long long* st) {
+  using L = Tile<D>;
   EncodeTiledFn encode;
   const cudaError_t err = tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)kFlashD, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kFlashD, (cuuint32_t)kFlashTile, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)kFlashTile, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_64B,
+                            D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of the Hopper kernels (1024 of it for alignment)
-constexpr size_t kFwdSmem =
-    1024 + kFwdStages * kFwdStage + kConsumers * (kOwnSlots * 2 + 2) * (size_t)kBoxBytes;
-constexpr size_t kBwdSmem =
-    1024 + kBwdStages * kBwdStage + kConsumers * (kOwnSlots * 4 + 4) * (size_t)kBoxBytes;
-
-// Each Hopper block takes more than half an SM's 228 KB of shared memory,
-// so one block an SM.
-static_assert(2 * (kFwdSmem + 1024) > 228 * 1024 && 2 * (kBwdSmem + 1024) > 228 * 1024,
-              "the persistent grid assumes one block an SM");
+template <int D>
+inline cudaError_t head_maps(CUtensorMap* maps, const void* const* ptrs, int count, int B, int H,
+                             int T, const long long* strides) {
+  for (int i = 0; i < count; ++i) {
+    const cudaError_t err = head_map<D>(&maps[i], ptrs[i], B, H, T, strides + 3 * i);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 // The persistent grid: a block an SM, at most one a head.  The
 // shared-memory attribute is set before every launch.
@@ -1047,118 +1368,145 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, int heads, int* g
   return err;
 }
 
-// K7 in bf16: q, k, v, o through strides[0..11]
-inline cudaError_t launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
-                                     float* lse, int B, int H, int T, const long long* strides,
-                                     float scale_log2, cudaStream_t stream) {
-  CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = head_map(&maps[i], ptrs[i], B, H, T, strides + 3 * i);
+// A float32 kernel's dynamic shared memory, allowed past the default 48 KB
+// where it needs more (D 128)
+template <typename Kernel>
+inline cudaError_t f32_smem(Kernel kernel, size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaSuccess;
+}
+
+// K7: q, k, v, o through strides[0..11]
+template <int D>
+cudaError_t flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                      int B, int H, int T, const long long* strides, float scale_log2,
+                      cudaStream_t stream) {
+  if (dtype == kBF16) {
+    CUtensorMap maps[3];
+    const void* ptrs[3] = {q, k, v};
+    cudaError_t err = head_maps<D>(maps, ptrs, 3, B, H, T, strides);
+    int grid;
+    if (err == cudaSuccess)
+      err = persistent_grid(flash_fwd_hopper<D>, FwdCfg<D>::kSmem, B * H, &grid);
     if (err != cudaSuccess) return err;
+    flash_fwd_hopper<D><<<grid, kHopperThreads, FwdCfg<D>::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H, B * H,
+        T, scale_log2);
+    return cudaGetLastError();
   }
-  int grid;
-  const cudaError_t err = persistent_grid(flash_fwd_hopper, kFwdSmem, B * H, &grid);
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = 2 * F32Cfg<D>::kTileBytes;
+  const cudaError_t err = f32_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_hopper<<<grid, kHopperThreads, kFwdSmem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H, B * H, T,
-      scale_log2);
+  flash_fwd_f32<D><<<B * H * (T / kFlashTile), F32Cfg<D>::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, T, flash_layout(strides, 4), scale_log2);
   return cudaGetLastError();
 }
 
-// K8 in bf16: q, k, v, do, dk, dv through strides[0..17]
-inline cudaError_t launch_bwd_dkv_hopper(const void* q, const void* k, const void* v,
-                                         const void* dout, const float* lse, const float* di,
-                                         void* dk, void* dv, int B, int H, int T,
-                                         const long long* strides, float scale, float scale_log2,
-                                         cudaStream_t stream) {
-  CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = head_map(&maps[i], ptrs[i], B, H, T, strides + 3 * i);
+// K8: q, k, v, do, dk, dv through strides[0..17]
+template <int D>
+cudaError_t flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* di, void* dk, void* dv,
+                          int B, int H, int T, const long long* strides, float scale,
+                          float scale_log2, cudaStream_t stream) {
+  if (dtype == kBF16) {
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, dout};
+    cudaError_t err = head_maps<D>(maps, ptrs, 4, B, H, T, strides);
+    int grid;
+    if (err == cudaSuccess)
+      err = persistent_grid(flash_bwd_dkv_hopper<D>, DkvCfg<D>::kSmem, B * H, &grid);
     if (err != cudaSuccess) return err;
+    flash_bwd_dkv_hopper<D><<<grid, kHopperThreads, DkvCfg<D>::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse,
+        di, flash_layout(strides, 6), H, B * H, T, scale, scale_log2);
+    return cudaGetLastError();
   }
-  int grid;
-  const cudaError_t err = persistent_grid(flash_bwd_dkv_hopper, kBwdSmem, B * H, &grid);
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = 2 * F32Cfg<D>::kTileBytes + 2 * kVecBytes;
+  const cudaError_t err = f32_smem(flash_bwd_dkv_f32<D>, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_hopper<<<grid, kHopperThreads, kBwdSmem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, di,
-      flash_layout(strides, 6), H, B * H, T, scale, scale_log2);
+  flash_bwd_dkv_f32<D><<<B * H * (T / kFlashTile), F32Cfg<D>::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
+      H, T, flash_layout(strides, 6), scale, scale_log2);
+  return cudaGetLastError();
+}
+
+// K9: q, k, v, do, dq through strides[0..14]
+template <int D>
+cudaError_t flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* di, void* dq, int B, int H, int T,
+                         const long long* strides, float scale, float scale_log2,
+                         cudaStream_t stream) {
+  if (dtype == kBF16) {
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, dout};
+    cudaError_t err = head_maps<D>(maps, ptrs, 4, B, H, T, strides);
+    int grid;
+    if (err == cudaSuccess)
+      err = persistent_grid(flash_bwd_dq_hopper<D>, DqCfg<D>::kSmem, B * H, &grid);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_hopper<D><<<grid, kHopperThreads, DqCfg<D>::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dq), lse, di,
+        flash_layout(strides, 5), H, B * H, T, scale, scale_log2);
+    return cudaGetLastError();
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = 2 * F32Cfg<D>::kTileBytes;
+  const cudaError_t err = f32_smem(flash_bwd_dq_f32<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32<D><<<B * H * (T / kFlashTile), F32Cfg<D>::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, T,
+      flash_layout(strides, 5), scale, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace mnx
 
+// each launcher at the head width d (flash_shape_ok has taken it)
+#define MNX_FLASH_AT_WIDTH(fn, ...)                                 \
+  (d == 32 ? mnx::fn<32>(__VA_ARGS__)                               \
+           : d == 64 ? mnx::fn<64>(__VA_ARGS__) : mnx::fn<128>(__VA_ARGS__))
+
 extern "C" {
 
-// q, k, v, o (B, H, T, 32) in one dtype through their (batch, head, row)
+// q, k, v, o (B, H, T, d) in one dtype through their (batch, head, row)
 // strides in `strides` (4 x 3 elements), each row contiguous and every
-// stride and address 16-byte aligned; lse (B, H, T) float32 contiguous; T a
-// multiple of 64, B * H at most 65535.  The wrapper checks these.  Returns
-// a cudaError_t code.
+// stride and address 16-byte aligned; lse (B, H, T) float32 contiguous; d
+// 32, 64 or 128, T a multiple of 64.  The wrapper checks these.  Returns a
+// cudaError_t code.
 int mnx_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                             float* lse, int B, int H, int T, int d, const long long* strides,
                             float sm_scale, void* stream) {
   if (!mnx::flash_shape_ok(B, H, T, d)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float sl = sm_scale * mnx::kLog2e;
-  if (dtype == mnx::kBF16)
-    return mnx::launch_fwd_hopper(q, k, v, o, lse, B, H, T, strides, sl, st);
-  if (dtype != mnx::kF32) return cudaErrorInvalidValue;
-  const mnx::FlashLayout lay = mnx::flash_layout(strides, 4);
-  const dim3 grid(T / mnx::kFlashTile, B * H);
-  mnx::flash_fwd_f32<<<grid, mnx::kFlashF32Threads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, T, lay, sl);
-  return cudaGetLastError();
+  return MNX_FLASH_AT_WIDTH(flash_fwd, dtype, q, k, v, o, lse, B, H, T, strides,
+                            sm_scale * mnx::kLog2e, static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, do, dk, dv (B, H, T, 32) through their strides (6 x 3); lse and
+// q, k, v, do, dk, dv (B, H, T, d) through their strides (6 x 3); lse and
 // di (B, H, T) float32 contiguous, 16-byte aligned.
 int mnx_flash_attention_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* di, void* dk,
                                 void* dv, int B, int H, int T, int d, const long long* strides,
                                 float sm_scale, void* stream) {
   if (!mnx::flash_shape_ok(B, H, T, d)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float sl = sm_scale * mnx::kLog2e;
-  if (dtype == mnx::kBF16)
-    return mnx::launch_bwd_dkv_hopper(q, k, v, dout, lse, di, dk, dv, B, H, T, strides, sm_scale,
-                                      sl, st);
-  if (dtype != mnx::kF32) return cudaErrorInvalidValue;
-  const mnx::FlashLayout lay = mnx::flash_layout(strides, 6);
-  const dim3 grid(T / mnx::kFlashTile, B * H);
-  mnx::flash_bwd_dkv_f32<<<grid, mnx::kFlashF32Threads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
-      H, T, lay, sm_scale, sl);
-  return cudaGetLastError();
+  return MNX_FLASH_AT_WIDTH(flash_bwd_dkv, dtype, q, k, v, dout, lse, di, dk, dv, B, H, T, strides,
+                            sm_scale, sm_scale * mnx::kLog2e, static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, do, dq (B, H, T, 32) through their strides (5 x 3); lse and di
-// (B, H, T) float32 contiguous.
+// q, k, v, do, dq (B, H, T, d) through their strides (5 x 3); lse and di
+// (B, H, T) float32 contiguous, 16-byte aligned.
 int mnx_flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* di, void* dq,
                                int B, int H, int T, int d, const long long* strides,
                                float sm_scale, void* stream) {
   if (!mnx::flash_shape_ok(B, H, T, d)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mnx::FlashLayout lay = mnx::flash_layout(strides, 5);
-  const dim3 grid(T / mnx::kFlashTile, B * H);
-  const float sl = sm_scale * mnx::kLog2e;
-  if (dtype == mnx::kBF16)
-    mnx::flash_bwd_dq_bf16<<<grid, mnx::kFlashThreads, 0, st>>>(
-        static_cast<const mnx::bf16*>(q), static_cast<const mnx::bf16*>(k),
-        static_cast<const mnx::bf16*>(v), static_cast<const mnx::bf16*>(dout), lse, di,
-        static_cast<mnx::bf16*>(dq), H, T, lay, sm_scale, sl);
-  else if (dtype == mnx::kF32)
-    mnx::flash_bwd_dq_f32<<<grid, mnx::kFlashF32Threads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, T, lay, sm_scale,
-        sl);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return MNX_FLASH_AT_WIDTH(flash_bwd_dq, dtype, q, k, v, dout, lse, di, dq, B, H, T, strides,
+                            sm_scale, sm_scale * mnx::kLog2e, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -27,13 +27,17 @@ here a :class:`torch.autograd.Function`.
   autograd function computes outside the kernels, as the library does.
 * :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dkv`,
   :func:`flash_attention_bwd_dq` — K7, K8 and K9: hold their inputs to what
-  the kernels take (one dtype, float32 or bfloat16; d = 32; T a multiple
-  of 64) on every device, then dispatch on it: a CPU tensor runs the plain
-  version, any other launches ``csrc/flash_attention.cu``.  The kernels
-  read every operand through its batch, head and row strides, so the
-  decoder's q, k and v are read in place from its qkv projection, and the
-  outputs are views of ``(B, T, H, d)`` buffers, the layout the output
-  projection reads.
+  the kernels take (one dtype, float32 or bfloat16; d at most 128; T a
+  multiple of 64) on every device, then dispatch on it: a CPU tensor runs
+  the plain version, any other launches ``csrc/flash_attention.cu``.  The
+  kernels are built for the head widths 32, 64 and 128; any other d runs
+  at the next of these through :func:`at_native_width`, which gives the
+  operands zero columns and cuts the outputs back (exact: a zero column
+  adds nothing to ``q k^T`` and gives zero columns of o, dq, dk and dv).
+  The kernels read every operand through its batch, head and row strides,
+  so the decoder's q, k and v are read in place from its qkv projection,
+  and the outputs are views of ``(B, T, H, d)`` buffers, the layout the
+  output projection reads.
 """
 
 from __future__ import annotations
@@ -48,9 +52,9 @@ from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code
 
 # the library's mask value (flash_attention.py:29)
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
-HEAD_DIM = 32  # the only head width of either decoder config
+NATIVE_WIDTHS = (32, 64, 128)  # the head widths the kernels are built for
+MAX_HEAD_DIM = NATIVE_WIDTHS[-1]
 TILE = 64  # rows of the kernels' query and key tiles: T is a multiple of it
-MAX_HEADS = 65535  # B * H: the kernels' grid y
 
 
 def _no_autocast(t: torch.Tensor):
@@ -115,13 +119,34 @@ def _check(name: str, *ts) -> None:
             raise ValueError(f"{name}: q, k, v (and do) must share one (B, H, T, d) shape")
     if q.dim() != 4:
         raise ValueError(f"{name}: operands are (B, H, T, d), got {tuple(q.shape)}")
-    b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"{name}: the kernels take head width d = {HEAD_DIM} only, got {d}")
+    t, d = q.shape[2:]
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the kernels take head widths d up to {MAX_HEAD_DIM}, got {d}")
     if t < TILE or t % TILE:
         raise ValueError(f"{name}: the kernels take T a multiple of their {TILE}-row tile, got {t}")
-    if b * h > MAX_HEADS:
-        raise ValueError(f"{name}: B * H = {b * h} (b, h) groups exceed the grid's {MAX_HEADS}")
+
+
+def native_width(d: int) -> int:
+    """The head width the kernels run d at: the least of NATIVE_WIDTHS not
+    below it."""
+    return next(w for w in NATIVE_WIDTHS if d <= w)
+
+
+def at_native_width(run, heads, *rest):
+    """``run(*heads, *rest)`` at the kernels' width: each (B, H, T, d)
+    operand of ``heads`` given zero columns up to ``native_width(d)``, each
+    (B, H, T, w) output of ``run`` cut back to d (lse stays whole).  The
+    caller passes ``sm_scale`` itself, so the padding never moves it."""
+    d = heads[0].shape[-1]
+    w = native_width(d)
+    if w == d:
+        return run(*heads, *rest)
+    out = run(*(torch.nn.functional.pad(t, (0, w - d)) for t in heads), *rest)
+
+    def cut(x):
+        return x[..., :d] if x.dim() == 4 else x
+
+    return tuple(cut(x) for x in out) if isinstance(out, tuple) else cut(out)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -176,15 +201,19 @@ def flash_attention_fwd(q, k, v, sm_scale: float):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, sm_scale)
     stream = _stream(name, q, k, v)
-    q, k, v = (_rows(t) for t in (q, k, v))
-    b, h, t, d = q.shape
-    o = _bhtd_empty(q)
-    lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-    check(load_library("flash_attention").mnx_flash_attention_fwd(
-        dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, h, t, d, _strides(q, k, v, o), float(sm_scale), stream), name)
-    LAUNCHES[name] += 1
-    return o, lse
+
+    def launch(q, k, v):
+        q, k, v = (_rows(t) for t in (q, k, v))
+        b, h, t, d = q.shape
+        o = _bhtd_empty(q)
+        lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+        check(load_library("flash_attention").mnx_flash_attention_fwd(
+            dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, t, d, _strides(q, k, v, o), float(sm_scale), stream), name)
+        LAUNCHES[name] += 1
+        return o, lse
+
+    return at_native_width(launch, (q, k, v))
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
@@ -195,15 +224,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, sm_scale)
     stream = _stream(name, q, k, v, do, lse, di)
-    q, k, v, do = (_rows(t) for t in (q, k, v, do))
-    b, h, t, d = q.shape
-    dk, dv = _bhtd_empty(k), _bhtd_empty(v)
-    check(load_library("flash_attention").mnx_flash_attention_bwd_dkv(
-        dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
-        _strides(q, k, v, do, dk, dv), float(sm_scale), stream), name)
-    LAUNCHES[name] += 1
-    return dk, dv
+
+    def launch(q, k, v, do):
+        q, k, v, do = (_rows(t) for t in (q, k, v, do))
+        b, h, t, d = q.shape
+        dk, dv = _bhtd_empty(k), _bhtd_empty(v)
+        check(load_library("flash_attention").mnx_flash_attention_bwd_dkv(
+            dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+            _strides(q, k, v, do, dk, dv), float(sm_scale), stream), name)
+        LAUNCHES[name] += 1
+        return dk, dv
+
+    return at_native_width(launch, (q, k, v, do))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
@@ -214,15 +247,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, di, sm_scale)
     stream = _stream(name, q, k, v, do, lse, di)
-    q, k, v, do = (_rows(t) for t in (q, k, v, do))
-    b, h, t, d = q.shape
-    dq = _bhtd_empty(q)
-    check(load_library("flash_attention").mnx_flash_attention_bwd_dq(
-        dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), b, h, t, d, _strides(q, k, v, do, dq), float(sm_scale),
-        stream), name)
-    LAUNCHES[name] += 1
-    return dq
+
+    def launch(q, k, v, do):
+        q, k, v, do = (_rows(t) for t in (q, k, v, do))
+        b, h, t, d = q.shape
+        dq = _bhtd_empty(q)
+        check(load_library("flash_attention").mnx_flash_attention_bwd_dq(
+            dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, t, d,
+            _strides(q, k, v, do, dq), float(sm_scale), stream), name)
+        LAUNCHES[name] += 1
+        return dq
+
+    return at_native_width(launch, (q, k, v, do))
 
 
 class _FlashAttention(torch.autograd.Function):

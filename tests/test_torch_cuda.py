@@ -791,16 +791,16 @@ fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
-def _flash_inputs(dev, dtype, b, h, t, seed, strided):
-    """q, k, v (B, H, T, 32) and a cotangent; ``strided``: q, k and v are
-    head views of one (B, T, 3 * H * 32) projection, as the decoder's."""
+def _flash_inputs(dev, dtype, b, h, t, seed, strided, d=32):
+    """q, k, v (B, H, T, d) and a cotangent; ``strided``: q, k and v are
+    head views of one (B, T, 3 * H * d) projection, as the decoder's."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if strided:
-        qkv = torch.randn(b, t, 3 * h * 32, generator=g, device=dev).to(dtype)
-        q, k, v = (x.reshape(b, t, h, 32).transpose(1, 2) for x in qkv.split(h * 32, dim=-1))
+        qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(dtype)
+        q, k, v = (x.reshape(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
     else:
-        q, k, v = (torch.randn(b, h, t, 32, generator=g, device=dev).to(dtype) for _ in range(3))
-    return q, k, v, torch.randn(b, h, t, 32, generator=g, device=dev).to(dtype)
+        q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev).to(dtype) for _ in range(3))
+    return q, k, v, torch.randn(b, h, t, d, generator=g, device=dev).to(dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -819,7 +819,7 @@ def test_flash_attention_kernels(dev, dtype, b, h, t, strided):
                                            (2, 3, 64, True), (1, 1, 448, True),
                                            (2, 2, 1024, True)])
 def test_flash_attention_kernel_edges(dev, dtype, b, h, t, strided):
-    """The edges of K7's and K8's persistent bf16 design, each kernel against
+    """The edges of K7's, K8's and K9's persistent bf16 design, each kernel against
     its plain version: one head (B * H = 1); 133 heads, no multiple of the
     persistent grid; T 1024 and 2048, several rounds of tile pairs a head
     through the ring; odd tile counts (T 64 and 448: a pair of one tile, a
@@ -827,9 +827,29 @@ def test_flash_attention_kernel_edges(dev, dtype, b, h, t, strided):
     _check_flash_kernels(dev, dtype, b, h, t, strided)
 
 
-def _check_flash_kernels(dev, dtype, b, h, t, strided):
-    q, k, v, do = _flash_inputs(dev, dtype, b, h, t, b + h + t, strided)
-    scale = 32 ** -0.5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 48, 64, 128])
+@pytest.mark.parametrize("b,h,t,strided", [(1, 1, 128, False), (7, 19, 256, True),
+                                           (1, 1, 1024, True), (7, 19, 128, False)])
+def test_flash_attention_kernel_widths(dev, dtype, d, b, h, t, strided):
+    """Head widths other than the decoders' 32: 64 and 128 (the kernels'
+    other widths) and 16 and 48 (given zero columns up to 32 and 64 by the
+    wrappers), each kernel against its plain version, one launch each; one
+    head and 133, T 128 to 1024, strided and contiguous operands."""
+    _check_flash_kernels(dev, dtype, b, h, t, strided, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_take_any_number_of_heads(dev, dtype):
+    """B * H = 70000 (b, h) heads of one 64-row tile, more than a grid's y
+    takes: the bf16 kernels walk the heads persistently, the float32 ones
+    put (b, h) on grid x."""
+    _check_flash_kernels(dev, dtype, 7000, 10, 64, True)
+
+
+def _check_flash_kernels(dev, dtype, b, h, t, strided, d=32):
+    q, k, v, do = _flash_inputs(dev, dtype, b, h, t, b + h + t, strided, d)
+    scale = d ** -0.5
     reset_launch_counts()
     o, lse = fl.flash_attention_fwd(q, k, v, scale)
     o_ref, lse_ref = fl.flash_attention_reference(q, k, v, scale)
@@ -873,8 +893,8 @@ def test_flash_attention_autograd_on_card(dev, dtype):
 
 def test_flash_kernels_refuse_bad_operands(dev):
     q = torch.zeros(2, 2, 128, 32, device=dev)
-    with pytest.raises(ValueError, match="d = 32"):
-        fl.flash_attention_fwd(*(torch.zeros(2, 2, 128, 64, device=dev),) * 3, 1.0)
+    with pytest.raises(ValueError, match="head widths d up to 128, got 256"):
+        fl.flash_attention_fwd(*(torch.zeros(2, 2, 128, 256, device=dev),) * 3, 1.0)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_fwd(*(torch.zeros(2, 2, 96, 32, device=dev),) * 3, 1.0)
     with pytest.raises(TypeError):
@@ -883,13 +903,14 @@ def test_flash_kernels_refuse_bad_operands(dev):
         fl.flash_attention_fwd(q, q.cpu(), q, 1.0)
 
 
-def _flash_config():
+def _flash_config(hidden=64):
     """The tiny config with a decoder the flash route takes: 2 layers,
-    hidden 64, 2 heads (d 32), T 128, remat on, every dropout rate 0."""
+    hidden 64 (or ``hidden``), 2 heads (d 32, or hidden / 2), T 128, remat
+    on, every dropout rate 0."""
     from molnextr_tpu_torch.config import DecoderConfig
 
     cfg = tiny_test_config()
-    cfg.decoder = DecoderConfig(num_layers=2, hidden_size=64, attn_heads=2, max_len=128,
+    cfg.decoder = DecoderConfig(num_layers=2, hidden_size=hidden, attn_heads=2, max_len=128,
                                 hidden_dropout=0.0, attn_dropout=0.0, use_remat=True,
                                 use_flash_attention=True)
     cfg.encoder.drop_path_rate = 0.0
@@ -906,12 +927,15 @@ def _flash_batch(cfg):
     return batch
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bf16"])
-def test_flash_route_train_and_eval_steps_on_card(dev, dtype_name):
+@pytest.mark.parametrize("dtype_name,hidden", [
+    pytest.param("float32", 64, id="float32"), pytest.param("bf16", 64, id="bf16"),
+    pytest.param("float32", 128, id="float32-d64"), pytest.param("bf16", 128, id="bf16-d64")])
+def test_flash_route_train_and_eval_steps_on_card(dev, dtype_name, hidden):
     """The train step (remat on) and the eval step of a model whose decoder
     takes the flash route, against the same model with the flag off, on the
-    card: K7 twice a layer in a train step (forward and remat recompute), K8
-    and K9 once, K7 once a layer in the eval step, none with the flag off."""
+    card (head width 32, and 64 at hidden 128): K7 twice a layer in a train
+    step (forward and remat recompute), K8 and K9 once, K7 once a layer in
+    the eval step, none with the flag off."""
     from molnextr_tpu_torch.train.loop import _criterion
     from molnextr_tpu_torch.train.state import create_train_state
     from molnextr_tpu_torch.train.step import eval_step, train_step
@@ -919,7 +943,7 @@ def test_flash_route_train_and_eval_steps_on_card(dev, dtype_name):
     layers = 2
     runs = {}
     for flag in (True, False):
-        cfg = _flash_config()
+        cfg = _flash_config(hidden)
         cfg.train.bf16 = dtype_name == "bf16"
         cfg.decoder.use_flash_attention = flag
         toks = get_tokenizer(cfg.data)

@@ -3,12 +3,14 @@ K9 and their plain version) and its route in the decoder, on the CPU,
 against the JAX package and JAX's library kernel.
 
 * The plain forward and its log-sum-exp against the library's
-  ``mha_reference_no_custom_vjp(..., causal=True, sm_scale=32 ** -0.5)``,
+  ``mha_reference_no_custom_vjp(..., causal=True, sm_scale=d ** -0.5)``,
   the plain backward against ``jax.vjp`` of that function (its
   ``mha_reference`` raises for ``sm_scale != 1`` in the backward), float32
-  within 1e-5 of each array's largest magnitude.
-* The route: with ``use_flash_attention`` and the route's device condition
-  monkeypatched (on the CPU the JAX package does not take its flash path
+  within 1e-5 of each array's largest magnitude, at head widths 32, 16,
+  24, 64 and 128; the wrappers' zero columns up to the kernels' width
+  (``at_native_width``) equal to the unpadded plain version exactly.
+* The route (at head widths 32, 16 and 64): with ``use_flash_attention``
+  and the route's device condition monkeypatched (on the CPU the JAX package does not take its flash path
   either), the port's decoder against the JAX decoder's masked path on
   non-PAD rows and its causal-only path on every row; the port's
   ``train_step`` and ``eval_step`` against ``train_step_fn`` /
@@ -16,7 +18,8 @@ against the JAX package and JAX's library kernel.
   losses and gradients agree).
 * The route declines wherever the JAX package's ``MHA._can_flash`` does,
   shown by a spy on the dispatcher, and the kernels' wrappers refuse a head
-  width or length they do not take (meta tensors).
+  width or length they do not take (meta tensors): d above 128, T not a
+  multiple of 64.
 
 The kernels themselves run on the card only: ``tests/test_torch_cuda.py``.
 """
@@ -59,11 +62,16 @@ SCALE = 32 ** -0.5
 REL = 1e-5  # float32, relative to the array's largest magnitude
 FMT = "chartok_coords"
 SHAPES = [(1, 1, 128), (2, 3, 128), (3, 8, 128), (1, 8, 256), (2, 2, 256), (3, 1, 256)]
+# (b, h, t, d): SHAPES at the decoders' d 32 under their own ids, and two
+# shapes at each other width JAX's library kernel takes up to 128
+WIDE_SHAPES = ([pytest.param(b, h, t, 32, id=f"{b}-{h}-{t}") for b, h, t in SHAPES]
+               + [pytest.param(b, h, t, d, id=f"{b}-{h}-{t}-d{d}") for d in (16, 24, 64, 128)
+                  for b, h, t in ((2, 3, 128), (1, 2, 256))])
 
 
-def _qkv(b, h, t, seed):
+def _qkv(b, h, t, seed, d=32):
     rng = np.random.RandomState(seed)
-    return [rng.randn(b, h, t, 32).astype(np.float32) for _ in range(4)]  # q, k, v, cotangent
+    return [rng.randn(b, h, t, d).astype(np.float32) for _ in range(4)]  # q, k, v, cotangent
 
 
 def _close(got, want, rel=REL):
@@ -76,7 +84,7 @@ def _close(got, want, rel=REL):
 
 def _library(q, k, v, residuals=False):
     return mha_reference_no_custom_vjp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
-                                       None, causal=True, sm_scale=SCALE,
+                                       None, causal=True, sm_scale=q.shape[-1] ** -0.5,
                                        save_residuals=residuals)
 
 
@@ -85,34 +93,36 @@ def _library(q, k, v, residuals=False):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,h,t", SHAPES)
-def test_plain_forward_and_lse_match_library_reference(b, h, t):
-    q, k, v, _ = _qkv(b, h, t, b * 100 + h * 10 + t)
-    out, lse = fl.flash_attention_reference(*(torch.from_numpy(x) for x in (q, k, v)), SCALE)
+@pytest.mark.parametrize("b,h,t,d", WIDE_SHAPES)
+def test_plain_forward_and_lse_match_library_reference(b, h, t, d):
+    q, k, v, _ = _qkv(b, h, t, b * 100 + h * 10 + t + d - 32, d)
+    scale = d ** -0.5
+    out, lse = fl.flash_attention_reference(*(torch.from_numpy(x) for x in (q, k, v)), scale)
     want, l, m = _library(q, k, v, residuals=True)
     _close(out.numpy(), want)
     _close(lse.numpy(), np.asarray(m) + np.log(np.asarray(l)))
     # the dispatcher on CPU tensors: the plain forward
     _close(ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True,
-                               sm_scale=SCALE).numpy(), want)
+                               sm_scale=scale).numpy(), want)
 
 
-@pytest.mark.parametrize("b,h,t", SHAPES)
-def test_plain_backward_matches_jax_vjp(b, h, t):
-    q, k, v, do = _qkv(b, h, t, b * 100 + h * 10 + t + 1)
+@pytest.mark.parametrize("b,h,t,d", WIDE_SHAPES)
+def test_plain_backward_matches_jax_vjp(b, h, t, d):
+    q, k, v, do = _qkv(b, h, t, b * 100 + h * 10 + t + 1 + d - 32, d)
+    scale = d ** -0.5
     _, vjp = jax.vjp(lambda *a: _library(*a), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     # the library's formulas, written out
-    o, lse = fl.flash_attention_reference(tq, tk, tv, SCALE)
+    o, lse = fl.flash_attention_reference(tq, tk, tv, scale)
     di = (o * tdo).sum(-1)
-    dk, dv = fl.flash_attention_bwd_dkv_reference(tq, tk, tv, tdo, lse, di, SCALE)
-    dq = fl.flash_attention_bwd_dq_reference(tq, tk, tv, tdo, lse, di, SCALE)
+    dk, dv = fl.flash_attention_bwd_dkv_reference(tq, tk, tv, tdo, lse, di, scale)
+    dq = fl.flash_attention_bwd_dq_reference(tq, tk, tv, tdo, lse, di, scale)
     for got, w in zip((dq, dk, dv), want):
         _close(got.numpy(), w)
     # the autograd function on CPU tensors
     leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
-    grads = torch.autograd.grad(ops.flash_attention(*leaves, sm_scale=SCALE), leaves, tdo)
+    grads = torch.autograd.grad(ops.flash_attention(*leaves, sm_scale=scale), leaves, tdo)
     for got, w in zip(grads, want):
         _close(got.numpy(), w)
 
@@ -156,22 +166,27 @@ def test_dispatcher_under_checkpoint_and_bf16_autocast():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """Meta tensors: no data, the shape checks alone."""
+    """Meta tensors: no data, the shape checks alone.  A head width above
+    128 is refused naming the limit (JAX's library kernel also takes the
+    multiples of 128 above it); every d up to 128 is taken."""
     def meta(*shape, dtype=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dtype)
 
-    with pytest.raises(ValueError, match="d = 32"):
-        fl.flash_attention_fwd(*(meta(2, 2, 128, 64),) * 3, SCALE)
+    with pytest.raises(ValueError, match="head widths d up to 128, got 256"):
+        fl.flash_attention_fwd(*(meta(2, 2, 128, 256),) * 3, SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_fwd(*(meta(2, 2, 96, 32),) * 3, SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_bwd_dq(*(meta(2, 2, 32, 32),) * 4, meta(2, 2, 32), meta(2, 2, 32),
                                   SCALE)
-    with pytest.raises(ValueError, match="d = 32"):
-        fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, 16),) * 4, meta(1, 1, 128),
+    with pytest.raises(ValueError, match="head widths d up to 128, got 256"):
+        fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, 256),) * 4, meta(1, 1, 128),
                                    meta(1, 1, 128), SCALE)
-    with pytest.raises(ValueError, match="grid"):
-        fl.flash_attention_fwd(*(meta(65536, 1, 128, 32),) * 3, SCALE)
+    with pytest.raises(ValueError, match="head widths d up to 128, got 129"):
+        fl.flash_attention_bwd_dq(*(meta(1, 1, 128, 129),) * 4, meta(1, 1, 128),
+                                  meta(1, 1, 128), SCALE)
+    assert [fl.native_width(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 128]
     with pytest.raises(TypeError):
         fl.flash_attention_fwd(*(meta(2, 2, 128, 32, dtype=torch.float16),) * 3, SCALE)
     with pytest.raises(NotImplementedError):
@@ -203,6 +218,28 @@ def test_operands_read_in_place_or_copied_as_the_kernels_need():
     assert got.is_contiguous() and torch.equal(got, lse)
 
 
+@pytest.mark.parametrize("d", [16, 24, 48])
+def test_native_width_padding_is_exact(d):
+    """A head width the kernels are not built for runs at the next one:
+    ``at_native_width`` gives q, k, v (and do) zero columns and cuts the
+    outputs back.  Through the plain versions in float32 that is the
+    unpadded call exactly: o, lse, dk, dv and dq."""
+    assert fl.native_width(d) > d
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(2, 3, 128, d, d))
+    scale = d ** -0.5
+    o, lse = fl.flash_attention_reference(q, k, v, scale)
+    got = fl.at_native_width(fl.flash_attention_reference, (q, k, v), scale)
+    assert got[0].shape == o.shape and torch.equal(got[0], o) and torch.equal(got[1], lse)
+    di = (o * do).sum(-1)
+    want = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, scale)
+    got = fl.at_native_width(fl.flash_attention_bwd_dkv_reference, (q, k, v, do), lse, di, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    want = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, di, scale)
+    got = fl.at_native_width(fl.flash_attention_bwd_dq_reference, (q, k, v, do), lse, di, scale)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the route in the decoder
 # ---------------------------------------------------------------------------
@@ -228,10 +265,10 @@ def on_card(monkeypatch):
     monkeypatch.setattr(dm, "flash_device", lambda x: True)
 
 
-def _jcfg(layers=2, t=128, flash=True, dropout=0.0):
+def _jcfg(layers=2, t=128, flash=True, dropout=0.0, hidden=64):
     c = jax_tiny_config()
     c.encoder = dataclasses.replace(c.encoder, drop_path_rate=dropout)
-    c.decoder = JDecoderConfig(num_layers=layers, hidden_size=64, attn_heads=2, max_len=t,
+    c.decoder = JDecoderConfig(num_layers=layers, hidden_size=hidden, attn_heads=2, max_len=t,
                                hidden_dropout=dropout, attn_dropout=dropout, use_remat=True,
                                use_flash_attention=flash)
     return c
@@ -254,17 +291,24 @@ def _tokens(b, t, seed, pad_from=(None, 90, 40)):
     return tokens
 
 
-@pytest.mark.parametrize("layers", [1, 2])
-def test_route_matches_jax_decoder(layers, spy, on_card):
+# 2 heads of hidden 64 (d 32, the decoders' width), 32 (d 16, the tiny
+# config's) and 128 (d 64)
+HIDDEN = [pytest.param(64, id="d32"), pytest.param(32, id="d16"), pytest.param(128, id="d64")]
+
+
+@pytest.mark.parametrize("layers,hidden", [
+    pytest.param(1, 64, id="1"), pytest.param(2, 64, id="2"),
+    pytest.param(2, 32, id="2-d16"), pytest.param(2, 128, id="2-d64")])
+def test_route_matches_jax_decoder(layers, hidden, spy, on_card):
     """Decoder.forward with the route taken: non-PAD rows equal the JAX
     decoder's (masked path, as it runs on the CPU); every row equals its
     causal-only path (no padding mask), which is what the route computes."""
-    jcfg = _jcfg(layers)
+    jcfg = _jcfg(layers, hidden=hidden)
     cfg, vocab, params, jm = _pair(jcfg, seed=layers)
     port = load_flax_params(MolNexTRModel(cfg, vocab), params).eval()
     tokens = _tokens(3, 128, layers)
     pad = tokens == 0
-    memory = np.random.RandomState(9).randn(3, 4, 64).astype(np.float32)
+    memory = np.random.RandomState(9).randn(3, 4, hidden).astype(np.float32)
 
     def fwd(mdl, t, m, p):
         return mdl.decoders[FMT](t, m, p)
@@ -304,12 +348,13 @@ def _criteria(cfg):
             plosses.Criterion(cfg.data.formats, 0.1, cv, 1.0))
 
 
-def test_train_and_eval_steps_match_jax_steps(spy, on_card):
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_train_and_eval_steps_match_jax_steps(hidden, spy, on_card):
     """The port's train step (remat on, the route taken forward and in the
     recompute) and eval step against ``train_step_fn`` / ``eval_step_fn`` on
     the same converted weights, every dropout rate 0: loss within 1e-5,
     every gradient leaf within 1e-4 of its largest magnitude."""
-    jcfg = _jcfg()
+    jcfg = _jcfg(hidden=hidden)
     cfg, vocab, params, jm = _pair(jcfg, seed=3)
     batch = _batch(cfg, vocab, 6)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
