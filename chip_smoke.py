@@ -33,11 +33,12 @@ failure:
 6. flash: the decoder's causal flash attention.  K7 (output and lse), and
    K8 and K9 through ``autograd.grad`` of ``ops.flash_attention``, against
    the plain version at the drug-like recipe's shape (B 256, H 8, T 256,
-   d 32), at T 128 and at B 4, T 1024, and at head widths 16, 64 and 128
-   on (B 16, T 256) and (B 4, T 1024), in float32 and bf16 (bf16 also row
-   by row, ``check_rows``), q, k and v as strided head views of one
-   projection; a head width above 128 refused; each kernel's ms beside its
-   bound and its share of it at d 32 (and at d 64 and 128), its plain
+   d 32), at T 128 and at B 4, T 1024, at head widths 16, 64, 128 and
+   256 on (B 16, T 256) and (B 4, T 1024), and at d 256 on the recipe's
+   B 256, H 8, T 256 (many heads a block), in float32 and bf16 (bf16 also
+   row by row, ``check_rows``), q, k and v as strided head views of one
+   projection; head widths 384 and 192 refused; each kernel's ms beside its
+   bound and its share of it at d 32 (and at d 64, 128 and 256), its plain
    version and
    ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
    with backward against the dispatcher's), and PyTorch's flash backward
@@ -48,8 +49,9 @@ failure:
    step of each with the launch counters zeroed before and read after (K7
    4 an eval step; K7 8, K8 4, K9 4 a train step, forward and remat
    recompute; 0 with the flag off), the losses equal within the bf16
-   tolerance, and train steps timed in turns; ``Config()``'s decoder at
-   T 480, where the route declines (0 launches);
+   tolerance, and train steps timed in turns; the same eval and train step
+   counted for a 4-layer decoder of 2 heads of 256 (hidden 512);
+   ``Config()``'s decoder at T 480, where the route declines (0 launches);
 7. demo: the trained demo bundle through the public API, hits against gold
    and agreement with the JAX package's SMILES, and ``get_predictions`` on
    a PNG file;
@@ -332,12 +334,18 @@ BENCH_CHECK_POS = (0, 255, 479)
 # of each
 FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 8, 256, 32
 FLASH_CHECKS = ((FLASH_B, 256), (FLASH_B, 128), (4, 1024))  # (B, T)
-# the other head widths: 16 (padded to the kernels' 32), 64 and 128 (the
-# kernels' other widths), held on small batches and timed at the recipe's
-# B, H and T
-FLASH_WIDTHS = (16, 64, 128)
+# the other head widths: 16 (padded to the kernels' 32), 64, 128 and 256
+# (the kernels' other widths), held on small batches and timed at the
+# recipe's B, H and T, each beside SDPA's forward and PyTorch's flash
+# backward; at 256, the widest head the kernels take (no repo config has
+# it), also held at the recipe's B, H and T (2048 heads, so each block of
+# the persistent grid walks many heads through its one own slot), the
+# dispatcher's forward and backward timed, and the recipe's 4-layer
+# decoder run with 2 heads of 256 at its T
+FLASH_WIDTHS = (16, 64, 128, 256)
 FLASH_WIDTH_CHECKS = ((16, 256), (4, 1024))  # (B, T)
-FLASH_TIMED_WIDTHS = (64, 128)
+FLASH_TIMED_WIDTHS = (64, 128, 256)
+FLASH_WIDE, FLASH_WIDE_HEADS = 256, 2
 FLASH_TIMED_STEPS = 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 DEVICE = "cuda"
@@ -851,13 +859,16 @@ def flash_inputs(torch, gen, b, t, dtype, d=FLASH_D):
 def flash_checks(torch, fl, results):
     """K7 (and its lse), and K8 with K9 through ``autograd.grad`` of the
     dispatcher, against the plain version in float32 and bf16, at d 32 on
-    ``FLASH_CHECKS`` and at ``FLASH_WIDTHS`` on ``FLASH_WIDTH_CHECKS``; in
+    ``FLASH_CHECKS``, at ``FLASH_WIDTHS`` on ``FLASH_WIDTH_CHECKS`` and at
+    ``FLASH_WIDE`` on the recipe's B and T; in
     bf16 also row by row (``check_rows``), K8 and K9 then given the plain
-    lse and di.  A head width above 128 raises, naming the limit."""
+    lse and di.  A head width above 256, or above 128 and no multiple of
+    128, raises, naming the reason."""
     errs = results.setdefault("max_abs_err", {})
     gen = torch.Generator(device=DEVICE).manual_seed(24)
     cases = [(FLASH_D, b, t) for b, t in FLASH_CHECKS]
     cases += [(d, b, t) for d in FLASH_WIDTHS for b, t in FLASH_WIDTH_CHECKS]
+    cases.append((FLASH_WIDE, FLASH_B, FLASH_T))
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for d, b, t in cases:
@@ -895,15 +906,16 @@ def flash_checks(torch, fl, results):
                     check_rows(f"{name} {label}", got, want, torch)
             del q, k, v, do, leaves, out, dq, dk, dv, o_ref, dk_ref, dv_ref, dq_ref
             torch.cuda.empty_cache()
-    wide = torch.zeros(1, 1, 128, 256, device=DEVICE, dtype=torch.bfloat16)
-    try:
-        fl.flash_attention_fwd(wide, wide, wide, 1.0)
-    except ValueError as e:
-        if "up to 128" not in str(e):
-            raise
-        log(f"  d 256 refused: {e}")
-    else:
-        raise AssertionError("K7 took a head width above 128")
+    for d, reason in ((384, "up to 256"), (192, "multiple of 128")):
+        wide = torch.zeros(1, 1, 128, d, device=DEVICE, dtype=torch.bfloat16)
+        try:
+            fl.flash_attention_fwd(wide, wide, wide, 1.0)
+        except ValueError as e:
+            if reason not in str(e):
+                raise
+            log(f"  d {d} refused: {e}")
+        else:
+            raise AssertionError(f"K7 took head width {d}")
 
 
 def flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd=None):
@@ -937,41 +949,29 @@ def flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd=None):
     return kern
 
 
-def flash_timing(torch, fl, results, card):
-    """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
-    beside their bounds (and the share of the bound each reaches), their
-    plain versions and ``scaled_dot_product_attention(is_causal=True)``
-    (forward, and forward with backward against the dispatcher's K7 + K8 +
-    K9), and at ``FLASH_TIMED_WIDTHS`` beside theirs; and PyTorch's flash
+def library_times(torch, tm, q, k, v, do):
+    """SDPA's causal forward on q, k, v as they are, and PyTorch's flash
     backward alone, fed by the output and log-sum-exp of its own forward on
-    contiguous copies made outside the timed region, beside K8 + K9 (a
-    yardstick: it computes dq too, so it is no kernel's ``library_ms``)."""
+    contiguous copies made outside the timed region (a yardstick beside K8
+    + K9: it computes dq too, so it is no kernel's ``library_ms``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    tm = Timer(torch)
-    gen = torch.Generator(device=DEVICE).manual_seed(25)
-    scale = FLASH_D ** -0.5
-    q, k, v, do = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16)
-    lib_fwd = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
-    kern = flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd)
-    widths = {}
-    for d in FLASH_TIMED_WIDTHS:
-        wide = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16, d)
-        widths[d] = {n: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"].ms,
-                         "bound_by": r["bound"].by}
-                     for n, r in flash_kernel_times(torch, tm, fl, *wide).items()}
-        del wide
-        torch.cuda.empty_cache()
+    scale = q.shape[-1] ** -0.5
+    fwd_ms = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
     aten = torch.ops.aten
     qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
     fwd = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True, False, scale=scale)
     out_l, lse_l, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
-    lib_bwd = tm.ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+    bwd_ms = tm.ms(lambda: aten._scaled_dot_product_flash_attention_backward(
         doc, qc, kc, vc, out_l, lse_l, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset,
         scale=scale), reps=20)
-    ours_bwd = kern["flash_attention_bwd_dkv"]["ms"] + kern["flash_attention_bwd_dq"]["ms"]
-    log(f"    PyTorch's flash backward alone (dq, dk, dv): {lib_bwd:.4f} ms; K8 + K9 "
-        f"{ours_bwd:.4f} ms")
-    del qc, kc, vc, doc, fwd, out_l, lse_l
+    return fwd_ms, bwd_ms
+
+
+def fwd_bwd_times(torch, tm, fl, q, k, v, do):
+    """Forward and backward under autograd, 10 calls each: the dispatcher
+    (K7, di, K8, K9) and ``scaled_dot_product_attention(is_causal=True)``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = q.shape[-1] ** -0.5
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
     def both(fn):
@@ -979,8 +979,48 @@ def flash_timing(torch, fl, results, card):
             torch.autograd.grad(fn(*leaves), leaves, do)
         return run
 
-    t_ours = tm.ms(both(lambda *a: fl.flash_attention(*a, sm_scale=scale)), reps=10)
-    t_lib = tm.ms(both(lambda *a: sdpa(*a, is_causal=True)), reps=10)
+    return (tm.ms(both(lambda *a: fl.flash_attention(*a, sm_scale=scale)), reps=10),
+            tm.ms(both(lambda *a: sdpa(*a, is_causal=True)), reps=10))
+
+
+def flash_timing(torch, fl, results, card):
+    """K7-K9 at the recipe's shape in bf16 (20 launches in a CUDA graph)
+    beside their bounds (and the share of the bound each reaches), their
+    plain versions and ``scaled_dot_product_attention(is_causal=True)``
+    (forward, and forward with backward against the dispatcher's K7 + K8 +
+    K9), and at ``FLASH_TIMED_WIDTHS`` beside theirs and SDPA's forward;
+    PyTorch's flash backward alone beside K8 + K9 at each width; at
+    ``FLASH_WIDE`` the dispatcher's forward and backward against SDPA's
+    too."""
+    tm = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    q, k, v, do = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16)
+    lib_fwd, lib_bwd = library_times(torch, tm, q, k, v, do)
+    kern = flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd)
+    widths = {}
+    for d in FLASH_TIMED_WIDTHS:
+        wide = flash_inputs(torch, gen, FLASH_B, FLASH_T, torch.bfloat16, d)
+        w_fwd, w_bwd = library_times(torch, tm, *wide)
+        times = flash_kernel_times(torch, tm, fl, *wide, w_fwd)
+        entry = {n: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"].ms,
+                     "bound_by": r["bound"].by} for n, r in times.items()}
+        entry.update(sdpa_fwd_ms=w_fwd, sdpa_bwd_ms=w_bwd,
+                     k8_k9_ms=sum(times[n]["ms"] for n in FLASH_KERNELS[1:]))
+        log(f"    PyTorch's flash backward alone (d {d}): {w_bwd:.4f} ms; K8 + K9 "
+            f"{entry['k8_k9_ms']:.4f} ms")
+        if d == FLASH_WIDE:
+            entry["fwd_bwd_ms"], entry["sdpa_fwd_bwd_ms"] = fwd_bwd_times(torch, tm, fl, *wide)
+            entry["k7_k8_k9_ms"] = sum(times[n]["ms"] for n in FLASH_KERNELS)
+            log(f"    forward + backward (d {d}): the dispatcher (K7, di, K8, K9) "
+                f"{entry['fwd_bwd_ms']:.4f} ms against K7 + K8 + K9 {entry['k7_k8_k9_ms']:.4f} "
+                f"ms; SDPA {entry['sdpa_fwd_bwd_ms']:.4f} ms")
+        widths[d] = entry
+        del wide
+        torch.cuda.empty_cache()
+    ours_bwd = kern["flash_attention_bwd_dkv"]["ms"] + kern["flash_attention_bwd_dq"]["ms"]
+    log(f"    PyTorch's flash backward alone (dq, dk, dv): {lib_bwd:.4f} ms; K8 + K9 "
+        f"{ours_bwd:.4f} ms")
+    t_ours, t_lib = fwd_bwd_times(torch, tm, fl, q, k, v, do)
     log(f"    forward + backward: the dispatcher (K7, di, K8, K9) {t_ours:.4f} ms, SDPA "
         f"{t_lib:.4f} ms (B {FLASH_B}, H {FLASH_H}, T {FLASH_T}, d {FLASH_D}, bf16; {card})")
     results["flash_timing"] = kern
@@ -988,33 +1028,22 @@ def flash_timing(torch, fl, results, card):
             "sdpa_bwd_ms": lib_bwd, "k8_k9_ms": ours_bwd, "widths": widths}
 
 
-def flash_steps(torch, results, card):
-    """The drug-like recipe's config (attention dropout 0) with the flag on
-    and off, the same seeded weights and batch of 256 renders: one eval step
-    and one train step of each with the launch counters zeroed before and
-    read after, the losses compared, then train steps timed in turns; and
-    ``Config()``'s decoder at T 480, which the route declines."""
+def flag_steps(torch, base, vocab, criterion, batch, label):
+    """Models of ``base`` with the flash flag on and off, the same seeded
+    weights: one eval step and one train step of each with the launch
+    counters zeroed before and read after; fails unless the flag's steps
+    launch K7 once a layer in the eval step and twice (forward and remat
+    recompute) in the train step, K8 and K9 once, none without it, and the
+    losses agree.  Returns the steps' numbers and the two (cfg, state)."""
     import copy
 
     import numpy as np
 
-    from molnextr_tpu_torch.config import Config
-    from molnextr_tpu_torch.models.decoder import Decoder
     from molnextr_tpu_torch.models.model import MolNexTRModel
-    from molnextr_tpu_torch.tokenization import get_tokenizer
-    from molnextr_tpu_torch.train.druglike import build_config, make_parser
-    from molnextr_tpu_torch.train.loop import _criterion
     from molnextr_tpu_torch.train.state import create_train_state
     from molnextr_tpu_torch.train.step import eval_step, train_step
 
-    base = build_config(make_parser().parse_args([]))
-    base.decoder.attn_dropout = 0.0
     layers = base.decoder.num_layers
-    toks = get_tokenizer(base.data)
-    vocab = {f: len(t) for f, t in toks.items()}
-    criterion = _criterion(base, toks)
-    batch = overfit_batch(base, toks, base.train.batch_size)
-    t_labels = batch["refs"]["chartok_coords"].shape[1]
     states = {}
     for flag in (True, False):
         cfg = copy.deepcopy(base)
@@ -1032,7 +1061,8 @@ def flash_steps(torch, results, card):
                                                                    seed=1))
         out["train_loss"][key] = float(metrics["loss"])
         out["train_launches"][key] = {n: counts[n] for n in FLASH_KERNELS}
-    log(f"  recipe config, batch {base.train.batch_size}, T {t_labels}, flag on / off: "
+    t_labels = batch["refs"]["chartok_coords"].shape[1]
+    log(f"  {label}, batch {len(batch['images'])}, T {t_labels}, flag on / off: "
         + json.dumps(out))
     want_on = {"train": {"flash_attention_fwd": 2 * layers, "flash_attention_bwd_dkv": layers,
                          "flash_attention_bwd_dq": layers},
@@ -1041,16 +1071,45 @@ def flash_steps(torch, results, card):
     none = dict.fromkeys(FLASH_KERNELS, 0)
     for phase in ("train", "eval"):
         if out[f"{phase}_launches"]["on"] != want_on[phase]:
-            raise AssertionError(f"flag on, {phase} step: launches "
+            raise AssertionError(f"{label}, flag on, {phase} step: launches "
                                  f"{out[f'{phase}_launches']['on']}, want {want_on[phase]}")
         if out[f"{phase}_launches"]["off"] != none:
-            raise AssertionError(f"flag off, {phase} step: flash launches "
+            raise AssertionError(f"{label}, flag off, {phase} step: flash launches "
                                  f"{out[f'{phase}_launches']['off']}")
         on, off = out[f"{phase}_loss"]["on"], out[f"{phase}_loss"]["off"]
         tol = BF16_RTOL * max(1.0, abs(off))
         if not (np.isfinite(on) and abs(on - off) <= tol):
-            raise AssertionError(f"{phase} loss with the flag on {on} against off {off} "
+            raise AssertionError(f"{label}, {phase} loss with the flag on {on} against off {off} "
                                  f"(tol {tol:.3g})")
+    return out, states
+
+
+def flash_steps(torch, results, card):
+    """The drug-like recipe's config (attention dropout 0) with the flag on
+    and off, the same seeded weights and batch of 256 renders: one eval step
+    and one train step of each, counted (``flag_steps``), then train steps
+    timed in turns; the same with a 4-layer decoder of 2 heads of 256,
+    counted (no repo config has that width, which JAX's library kernel
+    takes); and ``Config()``'s decoder at T 480, which the route declines."""
+    import copy
+
+    import numpy as np
+
+    from molnextr_tpu_torch.config import Config
+    from molnextr_tpu_torch.models.decoder import Decoder
+    from molnextr_tpu_torch.tokenization import get_tokenizer
+    from molnextr_tpu_torch.train.druglike import build_config, make_parser
+    from molnextr_tpu_torch.train.loop import _criterion
+    from molnextr_tpu_torch.train.step import train_step
+
+    base = build_config(make_parser().parse_args([]))
+    base.decoder.attn_dropout = 0.0
+    toks = get_tokenizer(base.data)
+    vocab = {f: len(t) for f, t in toks.items()}
+    criterion = _criterion(base, toks)
+    batch = overfit_batch(base, toks, base.train.batch_size)
+    out, states = flag_steps(torch, base, vocab, criterion, batch, "recipe config")
+    none = dict.fromkeys(FLASH_KERNELS, 0)
     step_ms = {"on": [], "off": []}
     for _ in range(FLASH_TIMED_STEPS):
         for flag, (cfg, state) in states.items():
@@ -1065,6 +1124,18 @@ def flash_steps(torch, results, card):
     log(f"  train step ms, in turns after a warm-up: flag on {step_ms['on']}, off "
         f"{step_ms['off']} (median {float(np.median(step_ms['on'])):.2f} / "
         f"{float(np.median(step_ms['off'])):.2f}; {card})")
+    del states
+    torch.cuda.empty_cache()
+
+    wide = copy.deepcopy(base)
+    wide.decoder.hidden_size = FLASH_WIDE * FLASH_WIDE_HEADS
+    wide.decoder.attn_heads = FLASH_WIDE_HEADS
+    t0 = time.perf_counter()
+    out["wide"], states = flag_steps(
+        torch, wide, vocab, criterion, batch,
+        f"decoder of {FLASH_WIDE_HEADS} heads of d {FLASH_WIDE} (hidden "
+        f"{wide.decoder.hidden_size}, {wide.decoder.num_layers} layers; no repo config)")
+    out["wide"]["seconds"] = time.perf_counter() - t0
     del states
     torch.cuda.empty_cache()
 
@@ -1094,11 +1165,13 @@ def flash_steps(torch, results, card):
 def phase_flash(torch, results, card):
     """The decoder's causal flash attention: K7-K9 against their plain
     versions at the recipe's shape, at T 128 and at T 1024, and at head
-    widths 16, 64 and 128; their times at d 32, 64 and 128; and the
-    recipe's train and eval steps through them."""
+    widths 16, 64, 128 and 256 (256 also at the recipe's shape); their times at d 32, 64, 128 and 256; and
+    the recipe's train and eval steps through them, and those of a decoder
+    of d 256."""
     fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
     log(f"phase flash: K7-K9 at (B, T) {FLASH_CHECKS}, H {FLASH_H}, d {FLASH_D}; at d "
-        f"{FLASH_WIDTHS} on (B, T) {FLASH_WIDTH_CHECKS}")
+        f"{FLASH_WIDTHS} on (B, T) {FLASH_WIDTH_CHECKS}; at d {FLASH_WIDE} on "
+        f"{(FLASH_B, FLASH_T)}")
     t0 = time.perf_counter()
     flash_checks(torch, fl, results)
     seconds = {"checks": time.perf_counter() - t0}

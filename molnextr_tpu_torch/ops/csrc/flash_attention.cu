@@ -21,10 +21,14 @@
 // in natural units, float32, (B, H, T).  p and ds are rounded to bf16
 // before their second products, where the library rounds them.
 //
-// Head widths: every kernel is a template on the head width D, 32, 64 or
-// 128; the wrapper gives any other width up to 128 zero columns up to the
-// next of these (a zero column adds nothing to q k^T and gives zero
-// columns of o, dq, dk and dv) and cuts the outputs back.
+// Head widths: every kernel is a template on the head width D, 32, 64, 128
+// or 256; the wrapper gives any other width up to 128 zero columns up to
+// the next of these (a zero column adds nothing to q k^T and gives zero
+// columns of o, dq, dk and dv) and cuts the outputs back.  Above 128 the
+// library takes multiples of 128 only, and the port 256 alone: at 384 one
+// 64-row bf16 tile is 48 KB, and K8's K and V tiles with one Q and dO stage
+// pass the 225 KB a block has, so those widths would need the head width
+// streamed through the ring.
 //
 // What bounds them on the card: bytes.  At the recipe's shape (B 256, H 8,
 // T 256, d 32, bf16) K7 reads q, k and v and writes o (33.5 MB each) for
@@ -66,7 +70,7 @@
 //     4-D tensor map over (d, T, H, B) with its own row, head and batch
 //     strides (the decoder's q, k and v are read in place from its qkv
 //     projection); a box is 64 rows of min(D, 64) columns, swizzled over
-//     its row (64 bytes at D 32, 128 above), two boxes a tile at D 128.
+//     its row (64 bytes at D 32, 128 above), D / 64 boxes a tile above.
 //     The stream's ring (K7, K9: stages of a K and a V tile; K8: of a Q and
 //     a dO tile and 64 lse and 64 di, the vectors by bulk copy) and each
 //     warpgroup's two slots for its pass's own tiles (K7: Q; K8: K and V;
@@ -93,24 +97,49 @@
 //     writes them as whole rows, 16 bytes a lane, into the (B, T, H, d)
 //     buffers the wrapper allocates; K7's lse goes out as runs of
 //     contiguous floats.  The slot is then released to the producer.
+//   * D 256, the column split.  A 64-row tile is 32 KB there, so a
+//     warpgroup's own tiles at 128 (two slots of Q, or of K and V, or of
+//     Q, dO, lse and di) leave no room for a ring of two stages, and K8's
+//     dk and dv of one tile alone would take 256 registers a thread.  So
+//     the two consumer warpgroups take the same tile, one a round (no
+//     pairs: a round streams what that tile needs), from one set of own
+//     slots (K7 two, K8 and K9 one, then the ring's two stages: 193 to 195
+//     KB), and each owns 128 of the 256 accumulator columns, its o, dk and
+//     dv, or dq half by m64n128k16 on its half of the MN-major B.  Each
+//     computes S and dP (S^T and dP^T in K8) over the whole d itself,
+//     which doubles those products and the exponentials but hands nothing
+//     between the warpgroups (no handover of P and dS through shared
+//     memory; whether one would pay is not measured, and K7 at d 256 is
+//     slower than PyTorch's own flash forward, PERF.md).  A warpgroup then
+//     holds what K8 and K9 hold at 128 (K8: 128 accumulator registers and
+//     the 64 of S^T and dP^T; K9: 64 and 64; K7: 64 and 32).  Both
+//     warpgroups stage into the one own slot, each its half of the
+//     columns, once both are past their last product (one barrier of 256
+//     threads).  K7's and K9's producers load a round's own tiles, then
+//     its stream, as at D <= 128; K8's issues the stream's first stages
+//     before it waits for the one own slot, which gains there and loses in
+//     K7 and K9 (PERF.md).
 //   * What is left: at the recipe's shape K7 and K8 take about twice their
 //     bound (PERF.md).  Their operands arrive ahead of use; each
 //     warpgroup's steps are a chain (products, then the softmax's 32
 //     exponentials a lane on the SM's 16-a-clock special-function units,
 //     then products), and two warpgroups an SM, all the registers allow,
-//     do not hide it.
+//     do not hide it.  At D 256 the two warpgroups walk one tile's steps
+//     side by side, so neither's exponentials hide behind the other's
+//     products: K7 there is slower than PyTorch's flash forward (PERF.md).
 //
 // float32 (the parity runs): the same tiles on the CUDA cores, one block
 // per 64-row tile of one (b, h) on grid x, D / 32 threads a row (K7, K9: a
 // query row; K8: a key row), each with 32 of the row's columns of its
 // operands and accumulators in registers and the row's dot products summed
-// over those threads by shuffles; the walked tile in shared memory.  K7
-// updates its online softmax per key.
+// over those threads by shuffles; the walked tile in shared memory (at D
+// 256, 512 threads and 128 or 129 KB).  K7 updates its online softmax per
+// key.
 //
 // Strides: every (B, H, T, d) operand is read and written through its own
 // batch, head and row strides (the last dimension contiguous); rows, strides
-// and lse and di are 16-byte aligned (the wrapper checks).  D 32, 64 or
-// 128 and T a multiple of 64; the launchers refuse anything else.
+// and lse and di are 16-byte aligned (the wrapper checks).  D 32, 64, 128
+// or 256 and T a multiple of 64; the launchers refuse anything else.
 #include "common.cuh"
 
 namespace mnx {
@@ -150,7 +179,7 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) 
 // bf16 tiles on Hopper: a tile is 64 rows of D bf16 values, landed by TMA
 // in boxes of 64 rows by min(D, 64) columns (64- or 128-byte rows, 8-row
 // groups 512 or 1024 bytes apart, swizzled over the row:
-// CU_TENSOR_MAP_SWIZZLE_64B at D 32, _128B above), two boxes at D 128, and
+// CU_TENSOR_MAP_SWIZZLE_64B at D 32, _128B above), D / 64 boxes above, and
 // read by wgmma through descriptors of that swizzle.  The same tile serves
 // as a K-major operand (rows = M or N, d = K: a k16 step is 32 bytes on in
 // the row, in the next box after the row's end) and as an MN-major B (rows
@@ -160,7 +189,7 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) 
 
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "the kernels' head widths");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "the kernels' head widths");
   static constexpr int kBoxCols = D < 64 ? D : 64;     // bf16 columns of a box
   static constexpr int kRowBytes = 2 * kBoxCols;        // the swizzle's span
   static constexpr int kBoxes = D / kBoxCols;           // boxes a tile
@@ -178,7 +207,8 @@ struct Tile {
     return desc(t + (kk * 32 / kRowBytes) * kBoxBytes + kk * 32 % kRowBytes, 16, 8 * kRowBytes);
   }
   // k16 step kk of an MN-major B: the leading offset steps along N from box
-  // to box (read at D 128 only, where N spans two swizzle widths)
+  // to box (read where N spans two swizzle widths: D 128, and a warpgroup's
+  // half at 256, from the box of its first column)
   static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t, int kk) {
     return desc(t + kk * 16 * kRowBytes, kBoxes > 1 ? kBoxBytes : 8 * kRowBytes, 8 * kRowBytes);
   }
@@ -203,44 +233,51 @@ constexpr int kSmemLimit = 232448 - 2048;
 
 static_assert(kEmptyArrivals == 4 * kConsumers, "a stage is released by every consumer warp");
 
-// stages of `stage` bytes that fit beside the own slots, at most `cap`
-constexpr int ring_stages(int stage, int slot, int cap) {
-  return (kSmemLimit - 1024 - kConsumers * kOwnSlots * slot) / stage < cap
-             ? (kSmemLimit - 1024 - kConsumers * kOwnSlots * slot) / stage
-             : cap;
+// stages of `stage` bytes that fit beside `own` bytes of own slots, at most `cap`
+constexpr int ring_stages(int stage, int own, int cap) {
+  return (kSmemLimit - 1024 - own) / stage < cap ? (kSmemLimit - 1024 - own) / stage : cap;
 }
 
 // Per width: whether a warpgroup takes both tiles of its pair in one pass
-// (kPair) or one tile a pass, whether its consumers take the producer's
-// registers (kRaise: where 168 a thread would spill or serialise wgmma),
-// the bytes of a ring stage and of an own slot, the ring's depth and the
-// block's dynamic shared memory (1024 of it for alignment).  K7: a stage is a K and a V tile, a slot the pass's Q tiles.
-// K8: a stage is a Q and a dO tile, lse and di; a slot the pass's K and V
-// tiles.  K9: a stage is a K and a V tile; a slot the pass's Q, dO, lse and
-// di (a unit a tile).
-template <int STAGE, int SLOT, int CAP>
+// (kPair) or one tile a pass, whether the two warpgroups split one tile's
+// accumulator columns instead (kSplit: D 256, one set of kSlots own slots
+// for both, each owning kCols columns), whether its consumers take the
+// producer's registers (kRaise: where 168 a thread would spill or serialise
+// wgmma), the bytes of a ring stage and of an own slot, the ring's depth and
+// the block's dynamic shared memory (1024 of it for alignment).  K7: a stage
+// is a K and a V tile, a slot the pass's Q tiles.  K8: a stage is a Q and a
+// dO tile, lse and di; a slot the pass's K and V tiles.  K9: a stage is a K
+// and a V tile; a slot the pass's Q, dO, lse and di (a unit a tile).
+template <int D, int STAGE, int SLOT, int CAP, int SLOTS = kOwnSlots>
 struct RingCfg {
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kOwners = kSplit ? 1 : kConsumers;  // sets of own slots
+  static constexpr int kSlots = SLOTS;
+  static constexpr int kCols = kSplit ? D / kConsumers : D;  // accumulator columns a warpgroup owns
   static constexpr int kStage = STAGE, kSlot = SLOT;
-  static constexpr int kStages = ring_stages(STAGE, SLOT, CAP);
-  static constexpr size_t kSmem = 1024 + (size_t)kStages * STAGE + kConsumers * kOwnSlots * SLOT;
+  static constexpr int kOwnBytes = kOwners * SLOTS * SLOT;
+  static constexpr int kStages = ring_stages(STAGE, kOwnBytes, CAP);
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * STAGE + kOwnBytes;
+  static_assert(SLOTS >= 1 && SLOTS <= kOwnSlots, "own slots");
   static_assert(kStages >= 2 && kStages <= kMaxFlashStages, "the ring's depth");
   static_assert(kSmem <= (size_t)kSmemLimit, "shared memory");
   // more than half an SM's 228 KB: the persistent grid assumes one block an SM
   static_assert(2 * (kSmem + 1024) > 228 * 1024, "one block an SM");
 };
 template <int D>
-struct FwdCfg : RingCfg<2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * Tile<D>::kBytes, 12> {
+struct FwdCfg : RingCfg<D, 2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * Tile<D>::kBytes, 12> {
   static constexpr bool kPair = D <= 64;
   static constexpr bool kRaise = D == 64;
 };
 template <int D>
-struct DkvCfg : RingCfg<2 * Tile<D>::kBytes + 1024, (D == 32 ? 2 : 1) * 2 * Tile<D>::kBytes, 8> {
+struct DkvCfg : RingCfg<D, 2 * Tile<D>::kBytes + 1024, (D == 32 ? 2 : 1) * 2 * Tile<D>::kBytes, 8,
+                        D == 256 ? 1 : kOwnSlots> {
   static constexpr bool kPair = D == 32;
   static constexpr bool kRaise = D > 32;
 };
 template <int D>
-struct DqCfg
-    : RingCfg<2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * (2 * Tile<D>::kBytes + 1024), 12> {
+struct DqCfg : RingCfg<D, 2 * Tile<D>::kBytes, (D <= 64 ? 2 : 1) * (2 * Tile<D>::kBytes + 1024), 12,
+                       D == 256 ? 1 : kOwnSlots> {
   static constexpr bool kPair = D <= 64;
   static constexpr bool kRaise = true;
   static constexpr int kUnit = 2 * Tile<D>::kBytes + 1024;  // Q, dO, lse at 2 kBytes, di + 256
@@ -373,21 +410,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// The epilogue of a 64 x D accumulator, a warp at a time: the warp's 16
-// rows of wgmma's fragments (c[4 j + e] at row 16 w + (lane >> 2) + 8 (e >>
-// 1), column 8 j + 2 (lane & 3) + (e & 1)), rows scaled by f0 and f1,
-// rounded to bf16 into rows 16 w .. 16 w + 15 of a tile laid out as the
-// boxes are but unswizzled (stage_rows); then those rows out as whole rows,
-// 16 bytes a lane (write_rows).  The warp reads only its own rows, so
+// The epilogue of a 64 x N accumulator (N = D, or a warpgroup's half at D
+// 256 from column col0), a warp at a time: the warp's 16 rows of wgmma's
+// fragments (c[4 j + e] at row 16 w + (lane >> 2) + 8 (e >> 1), column col0
+// + 8 j + 2 (lane & 3) + (e & 1)), rows scaled by f0 and f1, rounded to bf16
+// into rows 16 w .. 16 w + 15 of a tile laid out as the boxes are but
+// unswizzled (stage_rows); then those rows' columns out as whole runs, 16
+// bytes a lane (write_rows).  The warp reads only what it wrote, so
 // __syncwarp orders it all.
-template <int D>
-__device__ __forceinline__ void stage_rows(uint8_t* t, const float (&acc)[D / 2], float f0,
-                                           float f1, int w, int lane) {
+template <int D, int N>
+__device__ __forceinline__ void stage_rows(uint8_t* t, const float (&acc)[N / 2], float f0,
+                                           float f1, int w, int lane, int col0) {
   using L = Tile<D>;
   const int r = 16 * w + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = 8 * j + 2 * (lane & 3);
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * (lane & 3);
     uint8_t* p = t + (c / L::kBoxCols) * L::kBoxBytes + 2 * (c % L::kBoxCols);
     *reinterpret_cast<__nv_bfloat162*>(p + r * L::kRowBytes) =
         __floats2bfloat162_rn(acc[4 * j] * f0, acc[4 * j + 1] * f0);
@@ -395,62 +433,65 @@ __device__ __forceinline__ void stage_rows(uint8_t* t, const float (&acc)[D / 2]
         __floats2bfloat162_rn(acc[4 * j + 2] * f1, acc[4 * j + 3] * f1);
   }
 }
-// rows 16 w .. 16 w + 15 of a staged tile to rows row0 + 16 w .. of a (T, D)
-// head at row stride st
-template <int D>
+// columns col0 .. col0 + N - 1 of rows 16 w .. 16 w + 15 of a staged tile
+// to rows row0 + 16 w .. of a (T, D) head at row stride st
+template <int D, int N>
 __device__ __forceinline__ void write_rows(bf16* __restrict__ head, long long st, int row0,
-                                           const uint8_t* t, int w, int lane) {
+                                           const uint8_t* t, int w, int lane, int col0) {
   using L = Tile<D>;
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kChunks = N / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = 16 * w + i / kChunks, c = 8 * (i % kChunks);
+    const int r = 16 * w + i / kChunks, c = col0 + 8 * (i % kChunks);
     *reinterpret_cast<uint4*>(head + (row0 + r) * st + c) = *reinterpret_cast<const uint4*>(
         t + (c / L::kBoxCols) * L::kBoxBytes + r * L::kRowBytes + 2 * (c % L::kBoxCols));
   }
 }
 
 // The mbarriers of a block: the stream's ring (full: the producer's arrival
-// and the bytes; empty: lane 0 of every consumer warp) and each consumer
-// warpgroup's kOwnSlots slots for its passes' own tiles (empty: lane 0 of
-// each of its warps), so that the producer runs a pass ahead.
+// and the bytes; empty: lane 0 of every consumer warp) and each owner's
+// C::kSlots slots for its passes' own tiles (an owner is a consumer
+// warpgroup, or both where they split a tile; empty: lane 0 of each of the
+// owner's warps), so that the producer runs a pass ahead.
+template <class C>
 struct FlashBars {
+  static constexpr int kOwners = C::kOwners, kSlots = C::kSlots;
   uint64_t full[kMaxFlashStages], empty[kMaxFlashStages];
-  uint64_t own_full[kConsumers][kOwnSlots], own_empty[kConsumers][kOwnSlots];
-  __device__ __forceinline__ void init(int stages) {
+  uint64_t own_full[kOwners][kSlots], own_empty[kOwners][kSlots];
+  __device__ __forceinline__ void init() {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < stages; ++s) {
+      for (int s = 0; s < C::kStages; ++s) {
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], kEmptyArrivals);
       }
-      for (int g = 0; g < kConsumers; ++g)
-        for (int s = 0; s < kOwnSlots; ++s) {
+      for (int g = 0; g < kOwners; ++g)
+        for (int s = 0; s < kSlots; ++s) {
           mbar_init(&own_full[g][s], 1);
-          mbar_init(&own_empty[g][s], 4);
+          mbar_init(&own_empty[g][s], kEmptyArrivals / kOwners);
         }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
   }
-  // producer: own slot of warpgroup g's n-th pass, once its use kOwnSlots
-  // passes before is released, armed for `bytes`
+  // producer: own slot of owner g's n-th pass, once its use kSlots passes
+  // before is released, armed for `bytes`
   __device__ __forceinline__ int own_acquire(int g, int n, uint32_t bytes) {
-    const int s = n % kOwnSlots, use = n / kOwnSlots;
+    const int s = n % kSlots, use = n / kSlots;
     if (use > 0) mbar_wait(&own_empty[g][s], (use - 1) & 1);
     mbar_expect_tx(&own_full[g][s], bytes);
     return s;
   }
   __device__ __forceinline__ int own_wait(int g, int n) {
-    mbar_wait_warp(&own_full[g][n % kOwnSlots], (n / kOwnSlots) & 1);
-    return n % kOwnSlots;
+    mbar_wait_warp(&own_full[g][n % kSlots], (n / kSlots) & 1);
+    return n % kSlots;
   }
-  // a warp of warpgroup g done with its n-th slot, the staged rows in it
+  // a warp of owner g done with its n-th slot, the staged rows in it
   // included: its generic loads and stores ordered before the producer's
   // next TMA writes there
   __device__ __forceinline__ void own_release(int g, int n, int lane) {
     fence_proxy_async();
     __syncwarp();
-    if (lane == 0) mbar_arrive(&own_empty[g][n % kOwnSlots]);
+    if (lane == 0) mbar_arrive(&own_empty[g][n % kSlots]);
   }
 };
 
@@ -459,39 +500,57 @@ struct FlashBars {
 // `a` the pair's first in pass 0 and its other in pass 1.  The first is
 // the tile that sees most of the stream: the later query tile where query
 // tiles are owned (K7, K9), the earlier key tile where key tiles are (K8).
-// An idle warpgroup (a round past the last pair) has a = -1.
+// An idle warpgroup (a round past the last pair) has a = -1.  With kSplit
+// a round is one tile, both warpgroups', in one pass: key tile r (K8), or
+// query tile nt - 1 - r (K7, K9).
 struct Job {
   int a, b;
 };
-template <bool PAIR, bool KEYS>
+template <class C>
+__device__ __forceinline__ int flash_rounds(int nt) {
+  return C::kSplit ? nt : ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
+}
+template <class C, bool KEYS>
 __device__ __forceinline__ Job job(int nt, int r, int g, int pass) {
+  if constexpr (C::kSplit) return {KEYS ? r : nt - 1 - r, -1};
   const int lo = r * kConsumers + g, hi = nt - 1 - lo;
   if (lo > hi) return {-1, -1};
   const int first = KEYS ? lo : hi, other = lo == hi ? -1 : (KEYS ? hi : lo);
-  if (PAIR) return {first, other};
+  if (C::kPair) return {first, other};
   return pass == 0 ? Job{first, -1} : Job{other, -1};
 }
 // K7, K9: the pass streams key tiles 0 .. the returned count - 1
-template <bool PAIR>
+template <class C>
 __device__ __forceinline__ int key_tiles(int nt, int r, int pass) {
   int len = 0;
 #pragma unroll
   for (int g = 0; g < kConsumers; ++g) {
-    const Job j = job<PAIR, false>(nt, r, g, pass);
+    const Job j = job<C, false>(nt, r, g, pass);
     if (j.a >= 0) len = max(len, max(j.a, j.b) + 1);
   }
   return len;
 }
 // K8: the pass streams query tiles from the returned one to nt - 1
-template <bool PAIR>
+template <class C>
 __device__ __forceinline__ int first_query(int nt, int r, int pass) {
   int first = nt;
 #pragma unroll
   for (int g = 0; g < kConsumers; ++g) {
-    const Job j = job<PAIR, true>(nt, r, g, pass);
+    const Job j = job<C, true>(nt, r, g, pass);
     if (j.a >= 0) first = min(first, j.b >= 0 ? min(j.a, j.b) : j.a);
   }
   return first;
+}
+
+// every consumer warp on the pass's own tiles past its last product, so
+// they may be overwritten: the warpgroup's four, or both warpgroups' eight
+// where they split the tiles
+template <class C>
+__device__ __forceinline__ void owners_sync(int g) {
+  if constexpr (C::kSplit)
+    named_bar_sync(1, 128 * kConsumers);
+  else
+    named_bar_sync(1 + g, 128);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -545,15 +604,15 @@ __device__ __forceinline__ bool past_diagonal(int i, int row, int t4) {
 }
 
 // K7's running state of one query tile in a lane: its share of the o
-// accumulator, and of its two rows the running maxima (log2 units) and
-// this lane's partial sums
-template <int D>
+// accumulator (N of its columns), and of its two rows the running maxima
+// (log2 units) and this lane's partial sums
+template <int N>
 struct FwdTile {
-  float o[D / 2];
+  float o[N / 2];
   float m0, m1, l0, l1;
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) o[i] = 0.f;
     m0 = m1 = -INFINITY;
     l0 = l1 = 0.f;
   }
@@ -588,21 +647,21 @@ struct FwdTile {
     l0 = l0 * a0 + sum0;  // reduced over the quad at the end
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < N / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
     to_a(pa, s);
   }
 };
 
 // One key tile of K7 against the warpgroup's tile `a` and, with BOTH, its
 // tile `b`, in lockstep: S = Q K^T for each, one wait, the online softmax
-// of each, O += P V for each, one wait.  `diag_*`: the key tile is that
-// query tile.  (BOTH is a template argument so that no wgmma sits in a
-// branch of its own: ptxas serialises wgmma whose registers a divergent
-// path defines.)
-template <int D, bool BOTH>
+// of each, O += P V for each (V's N columns from `vb`), one wait.
+// `diag_*`: the key tile is that query tile.  (BOTH is a template argument
+// so that no wgmma sits in a branch of its own: ptxas serialises wgmma
+// whose registers a divergent path defines.)
+template <int D, int N, bool BOTH>
 __device__ __forceinline__ void fwd_step(const uint8_t* qa, const uint8_t* qb, const uint8_t* kb,
                                          const uint8_t* vb, bool diag_a, bool diag_b,
-                                         FwdTile<D>& ta, FwdTile<D>& tb, float scale_log2, int row,
+                                         FwdTile<N>& ta, FwdTile<N>& tb, float scale_log2, int row,
                                          int t4) {
   using L = Tile<D>;
   float sa[32], sb[32];
@@ -638,27 +697,55 @@ __device__ __forceinline__ void fwd_step(const uint8_t* qa, const uint8_t* qb, c
   }
 }
 
-// K7's end of one query tile in a warp: its 16 rows of o normalised into
-// the warp's rows of the staged tile `t`, and their lse to `lse_tile`
-template <int D>
+// K7's end of one query tile in a warp: its 16 rows of o (columns col0 ..
+// col0 + N - 1) normalised into the warp's rows of the staged tile `t`,
+// and, with `with_lse`, their lse to `lse_tile`
+template <int D, int N>
 __device__ __forceinline__ void fwd_finish(uint8_t* t, float* __restrict__ lse_tile,
-                                           FwdTile<D>& ft, int w, int lane) {
+                                           FwdTile<N>& ft, int w, int lane, int col0,
+                                           bool with_lse) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     ft.l0 += __shfl_xor_sync(0xffffffffu, ft.l0, off);
     ft.l1 += __shfl_xor_sync(0xffffffffu, ft.l1, off);
   }
-  stage_rows<D>(t, ft.o, 1.f / ft.l0, 1.f / ft.l1, w, lane);
-  if ((lane & 3) == 0) {
+  stage_rows<D, N>(t, ft.o, 1.f / ft.l0, 1.f / ft.l1, w, lane, col0);
+  if (with_lse && (lane & 3) == 0) {
     const int r = 16 * w + (lane >> 2);
     lse_tile[r] = (ft.m0 + __log2f(ft.l0)) * kLn2;
     lse_tile[r + 8] = (ft.m1 + __log2f(ft.l1)) * kLn2;
   }
 }
 
+// The producer's loads into the ring's next stage (load `it` of the
+// stream): K7's and K9's key tile kt (K, V), or K8's query tile qt (Q, dO,
+// and the tile's lse and di of the head's lse_h, di_h)
+template <int D>
+__device__ __forceinline__ void stream_kv(const Ring& stream, int it, uint8_t* ring, int stage,
+                                          uint64_t* full, const CUtensorMap* map_k,
+                                          const CUtensorMap* map_v, int kt, int h, int b) {
+  const int s = stream.acquire(it, stage);
+  uint8_t* st = ring + s * stage;
+  tma_tile<D>(st, map_k, &full[s], kt * kFlashTile, h, b);
+  tma_tile<D>(st + Tile<D>::kBytes, map_v, &full[s], kt * kFlashTile, h, b);
+}
+template <int D>
+__device__ __forceinline__ void stream_qdo(const Ring& stream, int it, uint8_t* ring, int stage,
+                                           uint64_t* full, const CUtensorMap* map_q,
+                                           const CUtensorMap* map_do, const float* lse_h,
+                                           const float* di_h, int qt, int h, int b) {
+  using L = Tile<D>;
+  const int s = stream.acquire(it, 2 * L::kBytes + 2 * kVecBytes);
+  uint8_t* st = ring + s * stage;
+  tma_tile<D>(st, map_q, &full[s], qt * kFlashTile, h, b);
+  tma_tile<D>(st + L::kBytes, map_do, &full[s], qt * kFlashTile, h, b);
+  bulk_load(st + 2 * L::kBytes, lse_h + qt * kFlashTile, kVecBytes, &full[s]);
+  bulk_load(st + 2 * L::kBytes + kVecBytes, di_h + qt * kFlashTile, kVecBytes, &full[s]);
+}
+
 // ---------------------------------------------------------------------------
 // K7, bf16.  Shared memory: the ring (stages of [K tile, V tile]) and each
-// consumer warpgroup's own slots ([Q of a, Q of b]), where o is staged.
+// owner's own slots ([Q of a, Q of b]), where o is staged.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
@@ -667,41 +754,37 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
                  float* __restrict__ lse, FlashLayout lay, int H, int BH, int T, float scale_log2) {
   using L = Tile<D>;
   using C = FwdCfg<D>;
-  constexpr int kPasses = C::kPair ? 1 : 2;
+  constexpr int kPasses = C::kPair || C::kSplit ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) FlashBars bars;
+  __shared__ __align__(8) FlashBars<C> bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
-  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
+  uint8_t* own = ring + C::kStages * C::kStage;  // [owner][slot]
+  const int nt = T / kFlashTile, rounds = flash_rounds<C>(nt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bars.init(C::kStages);
+  bars.init();
   const Ring stream{bars.full, bars.empty, C::kStages};
 
   if (warp >= kProducer) {
     if constexpr (C::kRaise) regs_dec<kProducerRegs>();
     if (warp == kProducer && lane == 0) {
-      int it = 0, n[kConsumers] = {};
+      int it = 0, n[C::kOwners] = {};
       for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
         const int b = bh / H, h = bh % H;
         for (int r = 0; r < rounds; ++r)
           for (int pass = 0; pass < kPasses; ++pass) {
 #pragma unroll
-            for (int g = 0; g < kConsumers; ++g) {
-              const Job j = job<C::kPair, false>(nt, r, g, pass);
+            for (int g = 0; g < C::kOwners; ++g) {
+              const Job j = job<C, false>(nt, r, g, pass);
               if (j.a < 0) continue;
               const int s = bars.own_acquire(g, n[g]++, (j.b >= 0 ? 2 : 1) * L::kBytes);
-              uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot;
+              uint8_t* dst = own + (g * C::kSlots + s) * C::kSlot;
               tma_tile<D>(dst, &map_q, &bars.own_full[g][s], j.a * kFlashTile, h, b);
               if (j.b >= 0)
                 tma_tile<D>(dst + L::kBytes, &map_q, &bars.own_full[g][s], j.b * kFlashTile, h, b);
             }
-            const int len = key_tiles<C::kPair>(nt, r, pass);
-            for (int kt = 0; kt < len; ++kt, ++it) {
-              const int s = stream.acquire(it, C::kStage);
-              uint8_t* st = ring + s * C::kStage;
-              tma_tile<D>(st, &map_k, &bars.full[s], kt * kFlashTile, h, b);
-              tma_tile<D>(st + L::kBytes, &map_v, &bars.full[s], kt * kFlashTile, h, b);
-            }
+            const int len = key_tiles<C>(nt, r, pass);
+            for (int kt = 0; kt < len; ++kt, ++it)
+              stream_kv<D>(stream, it, ring, C::kStage, bars.full, &map_k, &map_v, kt, h, b);
           }
       }
     }
@@ -711,55 +794,61 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
+  const int og = C::kSplit ? 0 : g;                   // the owner of its own slots
+  const int col0 = C::kSplit ? g * C::kCols : 0;      // its first accumulator column
+  const int off = col0 / L::kBoxCols * L::kBoxBytes;  // that column's box in a tile
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
     for (int r = 0; r < rounds; ++r)
       for (int pass = 0; pass < kPasses; ++pass) {
-        const Job j = job<C::kPair, false>(nt, r, g, pass);
-        const int len = key_tiles<C::kPair>(nt, r, pass);
-        uint8_t* qs = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
-        FwdTile<D> ta, tb;
+        const Job j = job<C, false>(nt, r, g, pass);
+        const int len = key_tiles<C>(nt, r, pass);
+        uint8_t* qs = j.a >= 0 ? own + (og * C::kSlots + bars.own_wait(og, n)) * C::kSlot : nullptr;
+        FwdTile<C::kCols> ta, tb;
         ta.reset();
         tb.reset();
         for (int kt = 0; kt < len; ++kt, ++it) {
           const uint8_t* st = ring + stream.wait(it) * C::kStage;
           if constexpr (C::kPair) {
             if (j.b >= 0 && kt <= j.b)
-              fwd_step<D, true>(qs, qs + L::kBytes, st, st + L::kBytes, kt == j.a, kt == j.b, ta,
-                                tb, scale_log2, row, t4);
+              fwd_step<D, C::kCols, true>(qs, qs + L::kBytes, st, st + L::kBytes, kt == j.a,
+                                          kt == j.b, ta, tb, scale_log2, row, t4);
             else if (j.a >= 0 && kt <= j.a)
-              fwd_step<D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
-                                 scale_log2, row, t4);
+              fwd_step<D, C::kCols, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta,
+                                           tb, scale_log2, row, t4);
           } else {
             if (j.a >= 0 && kt <= j.a)
-              fwd_step<D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
-                                 scale_log2, row, t4);
+              fwd_step<D, C::kCols, false>(qs, nullptr, st, st + L::kBytes + off, kt == j.a, false,
+                                           ta, tb, scale_log2, row, t4);
           }
           stream.release(it, lane);
         }
         if (j.a < 0) continue;
         float* lh = lse + (long long)bh * T;
         bf16* oh = head_ptr(o, lay, 3, b, h);
-        named_bar_sync(1 + g, 128);  // every warp past its last product: Q may be overwritten
-        fwd_finish<D>(qs, lh + j.a * kFlashTile, ta, w, lane);
-        if (j.b >= 0) fwd_finish<D>(qs + L::kBytes, lh + j.b * kFlashTile, tb, w, lane);
+        owners_sync<C>(g);  // every warp on these tiles past its last product: Q may be overwritten
+        fwd_finish<D, C::kCols>(qs, lh + j.a * kFlashTile, ta, w, lane, col0, g == og);
+        if (j.b >= 0)
+          fwd_finish<D, C::kCols>(qs + L::kBytes, lh + j.b * kFlashTile, tb, w, lane, col0, true);
         __syncwarp();
-        write_rows<D>(oh, lay.s[3][2], j.a * kFlashTile, qs, w, lane);
-        if (j.b >= 0) write_rows<D>(oh, lay.s[3][2], j.b * kFlashTile, qs + L::kBytes, w, lane);
-        bars.own_release(g, n++, lane);
+        write_rows<D, C::kCols>(oh, lay.s[3][2], j.a * kFlashTile, qs, w, lane, col0);
+        if (j.b >= 0)
+          write_rows<D, C::kCols>(oh, lay.s[3][2], j.b * kFlashTile, qs + L::kBytes, w, lane, col0);
+        bars.own_release(og, n++, lane);
       }
   }
 }
 
 // One query tile of K8 against one key tile: S^T = K Q^T and dP^T = V dO^T,
-// P^T from lse, dS^T = P^T (dP^T - di) scale, dV += P^T dO, dK += dS^T Q.
+// P^T from lse, dS^T = P^T (dP^T - di) scale, dV += P^T dO, dK += dS^T Q,
+// dK and dV over the N columns of dO and Q from byte `off` of their tiles.
 // `key` is the lane's first key row in the tile; `diag`: the query tile is
 // the key tile, queries before the key are masked.
-template <int D>
+template <int D, int N>
 __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, const uint8_t* st,
-                                         bool diag, float (&dk)[D / 2], float (&dv)[D / 2],
-                                         float scale, float scale_log2, int key, int t4) {
+                                         bool diag, float (&dk)[N / 2], float (&dv)[N / 2],
+                                         float scale, float scale_log2, int key, int t4, int off) {
   using L = Tile<D>;
   const uint8_t* qb = st;
   const uint8_t* dob = st + L::kBytes;
@@ -793,9 +882,9 @@ __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, c
   to_a(dsa, dp);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, pa[kk], L::mnmajor(dob, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, pa[kk], L::mnmajor(dob + off, kk));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, dsa[kk], L::mnmajor(qb, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, dsa[kk], L::mnmajor(qb + off, kk));
   wgmma_commit();
   wgmma_wait<0>();
   hold(dv);
@@ -806,8 +895,8 @@ __device__ __forceinline__ void bwd_step(const uint8_t* kb, const uint8_t* vb, c
 
 // ---------------------------------------------------------------------------
 // K8, bf16.  Shared memory: the ring (stages of [Q tile, dO tile, lse, di])
-// and each consumer warpgroup's own slots ([K, V of a, K, V of b]), where
-// dk and dv are staged.
+// and each owner's own slots ([K, V of a, K, V of b]), where dk and dv are
+// staged.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
@@ -818,32 +907,40 @@ flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_con
                      float scale, float scale_log2) {
   using L = Tile<D>;
   using C = DkvCfg<D>;
-  constexpr int kPasses = C::kPair ? 1 : 2;
+  constexpr int kPasses = C::kPair || C::kSplit ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) FlashBars bars;
+  __shared__ __align__(8) FlashBars<C> bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
-  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
+  uint8_t* own = ring + C::kStages * C::kStage;  // [owner][slot]
+  const int nt = T / kFlashTile, rounds = flash_rounds<C>(nt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bars.init(C::kStages);
+  bars.init();
   const Ring stream{bars.full, bars.empty, C::kStages};
 
   if (warp >= kProducer) {
     if constexpr (C::kRaise) regs_dec<kProducerRegs>();
     if (warp == kProducer && lane == 0) {
-      int it = 0, n[kConsumers] = {};
+      int it = 0, n[C::kOwners] = {};
       for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
         const int b = bh / H, h = bh % H;
         const float* lh = lse + (long long)bh * T;
         const float* dh = di + (long long)bh * T;
         for (int r = 0; r < rounds; ++r)
           for (int pass = 0; pass < kPasses; ++pass) {
+            // with kSplit's one own slot, the stages the last round released
+            // go out before the slot is waited for (PERF.md: 4 % at d 256,
+            // where K7 and K9 lose 1-2 % by it)
+            const int q0 = first_query<C>(nt, r, pass);
+            const int early = C::kSplit ? q0 + min(nt - q0, C::kStages) : q0;
+            for (int qt = q0; qt < early; ++qt, ++it)
+              stream_qdo<D>(stream, it, ring, C::kStage, bars.full, &map_q, &map_do, lh, dh, qt, h,
+                            b);
 #pragma unroll
-            for (int g = 0; g < kConsumers; ++g) {
-              const Job j = job<C::kPair, true>(nt, r, g, pass);
+            for (int g = 0; g < C::kOwners; ++g) {
+              const Job j = job<C, true>(nt, r, g, pass);
               if (j.a < 0) continue;
               const int s = bars.own_acquire(g, n[g]++, (j.b >= 0 ? 4 : 2) * L::kBytes);
-              uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot;
+              uint8_t* dst = own + (g * C::kSlots + s) * C::kSlot;
               uint64_t* bar = &bars.own_full[g][s];
               tma_tile<D>(dst, &map_k, bar, j.a * kFlashTile, h, b);
               tma_tile<D>(dst + L::kBytes, &map_v, bar, j.a * kFlashTile, h, b);
@@ -852,15 +949,9 @@ flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_con
                 tma_tile<D>(dst + 3 * L::kBytes, &map_v, bar, j.b * kFlashTile, h, b);
               }
             }
-            for (int qt = first_query<C::kPair>(nt, r, pass); qt < nt; ++qt, ++it) {
-              const int s = stream.acquire(it, 2 * L::kBytes + 2 * kVecBytes);
-              uint8_t* st = ring + s * C::kStage;
-              uint64_t* bar = &bars.full[s];
-              tma_tile<D>(st, &map_q, bar, qt * kFlashTile, h, b);
-              tma_tile<D>(st + L::kBytes, &map_do, bar, qt * kFlashTile, h, b);
-              bulk_load(st + 2 * L::kBytes, lh + qt * kFlashTile, kVecBytes, bar);
-              bulk_load(st + 2 * L::kBytes + kVecBytes, dh + qt * kFlashTile, kVecBytes, bar);
-            }
+            for (int qt = early; qt < nt; ++qt, ++it)
+              stream_qdo<D>(stream, it, ring, C::kStage, bars.full, &map_q, &map_do, lh, dh, qt, h,
+                            b);
           }
       }
     }
@@ -870,45 +961,50 @@ flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_con
   if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int key = 16 * w + (lane >> 2);  // the lane's key rows of a tile: key, key + 8
+  const int og = C::kSplit ? 0 : g;                   // the owner of its own slots
+  const int col0 = C::kSplit ? g * C::kCols : 0;      // its first accumulator column
+  const int off = col0 / L::kBoxCols * L::kBoxBytes;  // that column's box in a tile
+  constexpr int N = C::kCols;
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
     for (int r = 0; r < rounds; ++r)
       for (int pass = 0; pass < kPasses; ++pass) {
-        const Job j = job<C::kPair, true>(nt, r, g, pass);
-        uint8_t* kv = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
-        float dka[D / 2], dva[D / 2], dkb[D / 2], dvb[D / 2];
+        const Job j = job<C, true>(nt, r, g, pass);
+        uint8_t* kv = j.a >= 0 ? own + (og * C::kSlots + bars.own_wait(og, n)) * C::kSlot : nullptr;
+        float dka[N / 2], dva[N / 2], dkb[N / 2], dvb[N / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = dkb[i] = dvb[i] = 0.f;
-        for (int qt = first_query<C::kPair>(nt, r, pass); qt < nt; ++qt, ++it) {
+        for (int i = 0; i < N / 2; ++i) dka[i] = dva[i] = dkb[i] = dvb[i] = 0.f;
+        for (int qt = first_query<C>(nt, r, pass); qt < nt; ++qt, ++it) {
           const uint8_t* st = ring + stream.wait(it) * C::kStage;
           if (j.a >= 0 && qt >= j.a)
-            bwd_step<D>(kv, kv + L::kBytes, st, qt == j.a, dka, dva, scale, scale_log2, key, t4);
+            bwd_step<D, N>(kv, kv + L::kBytes, st, qt == j.a, dka, dva, scale, scale_log2, key, t4,
+                           off);
           if constexpr (C::kPair) {
             if (j.b >= 0 && qt >= j.b)
-              bwd_step<D>(kv + 2 * L::kBytes, kv + 3 * L::kBytes, st, qt == j.b, dkb, dvb, scale,
-                          scale_log2, key, t4);
+              bwd_step<D, N>(kv + 2 * L::kBytes, kv + 3 * L::kBytes, st, qt == j.b, dkb, dvb, scale,
+                             scale_log2, key, t4, off);
           }
           stream.release(it, lane);
         }
         if (j.a < 0) continue;
         bf16* dkh = head_ptr(dk, lay, 4, b, h);
         bf16* dvh = head_ptr(dv, lay, 5, b, h);
-        named_bar_sync(1 + g, 128);  // every warp past its last product: K, V may be overwritten
-        stage_rows<D>(kv, dka, 1.f, 1.f, w, lane);
-        stage_rows<D>(kv + L::kBytes, dva, 1.f, 1.f, w, lane);
+        owners_sync<C>(g);  // every warp on these tiles past its last product: K, V may be overwritten
+        stage_rows<D, N>(kv, dka, 1.f, 1.f, w, lane, col0);
+        stage_rows<D, N>(kv + L::kBytes, dva, 1.f, 1.f, w, lane, col0);
         if (j.b >= 0) {
-          stage_rows<D>(kv + 2 * L::kBytes, dkb, 1.f, 1.f, w, lane);
-          stage_rows<D>(kv + 3 * L::kBytes, dvb, 1.f, 1.f, w, lane);
+          stage_rows<D, N>(kv + 2 * L::kBytes, dkb, 1.f, 1.f, w, lane, col0);
+          stage_rows<D, N>(kv + 3 * L::kBytes, dvb, 1.f, 1.f, w, lane, col0);
         }
         __syncwarp();
-        write_rows<D>(dkh, lay.s[4][2], j.a * kFlashTile, kv, w, lane);
-        write_rows<D>(dvh, lay.s[5][2], j.a * kFlashTile, kv + L::kBytes, w, lane);
+        write_rows<D, N>(dkh, lay.s[4][2], j.a * kFlashTile, kv, w, lane, col0);
+        write_rows<D, N>(dvh, lay.s[5][2], j.a * kFlashTile, kv + L::kBytes, w, lane, col0);
         if (j.b >= 0) {
-          write_rows<D>(dkh, lay.s[4][2], j.b * kFlashTile, kv + 2 * L::kBytes, w, lane);
-          write_rows<D>(dvh, lay.s[5][2], j.b * kFlashTile, kv + 3 * L::kBytes, w, lane);
+          write_rows<D, N>(dkh, lay.s[4][2], j.b * kFlashTile, kv + 2 * L::kBytes, w, lane, col0);
+          write_rows<D, N>(dvh, lay.s[5][2], j.b * kFlashTile, kv + 3 * L::kBytes, w, lane, col0);
         }
-        bars.own_release(g, n++, lane);
+        bars.own_release(og, n++, lane);
       }
   }
 }
@@ -940,12 +1036,13 @@ __device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32], uin
 
 // One key tile of K9 against the warpgroup's tile `a` (its unit `ua`: Q,
 // dO) and, with BOTH, its tile `b` (`ub`), in lockstep: S = Q K^T and dP =
-// dO V^T for each, one wait, dS of each, dQ += dS K for each, one wait.
-template <int D, bool BOTH>
+// dO V^T for each, one wait, dS of each, dQ += dS K for each (over the N
+// columns of K from byte `off` of its tile), one wait.
+template <int D, int N, bool BOTH>
 __device__ __forceinline__ void dq_step(const uint8_t* ua, const uint8_t* ub, const uint8_t* st,
-                                        bool diag_a, bool diag_b, float (&dqa)[D / 2],
-                                        float (&dqb)[D / 2], const DqRows& ra, const DqRows& rb,
-                                        float scale, float scale_log2, int row, int t4) {
+                                        bool diag_a, bool diag_b, float (&dqa)[N / 2],
+                                        float (&dqb)[N / 2], const DqRows& ra, const DqRows& rb,
+                                        float scale, float scale_log2, int row, int t4, int off) {
   using L = Tile<D>;
   const uint8_t* kb = st;
   const uint8_t* vb = st + L::kBytes;
@@ -977,10 +1074,10 @@ __device__ __forceinline__ void dq_step(const uint8_t* ua, const uint8_t* ub, co
   if constexpr (BOTH) dq_ds(sb, pb, dsb, diag_b, rb, scale, scale_log2, row, t4);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqa, dsa[kk], L::mnmajor(kb, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqa, dsa[kk], L::mnmajor(kb + off, kk));
   if constexpr (BOTH) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqb, dsb[kk], L::mnmajor(kb, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqb, dsb[kk], L::mnmajor(kb + off, kk));
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -1001,8 +1098,8 @@ __device__ __forceinline__ DqRows dq_rows(const uint8_t* u, int row) {
 
 // ---------------------------------------------------------------------------
 // K9, bf16.  Shared memory: the ring (stages of [K tile, V tile], K7's
-// stream) and each consumer warpgroup's own slots (a unit [Q, dO, lse, di]
-// for a and one for b), where dq is staged over Q.
+// stream) and each owner's own slots (a unit [Q, dO, lse, di] for a and one
+// for b), where dq is staged over Q.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
@@ -1013,20 +1110,20 @@ flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_cons
                     float scale, float scale_log2) {
   using L = Tile<D>;
   using C = DqCfg<D>;
-  constexpr int kPasses = C::kPair ? 1 : 2;
+  constexpr int kPasses = C::kPair || C::kSplit ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) FlashBars bars;
+  __shared__ __align__(8) FlashBars<C> bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + C::kStages * C::kStage;  // [g][slot]
-  const int nt = T / kFlashTile, rounds = ((nt + 1) / 2 + kConsumers - 1) / kConsumers;
+  uint8_t* own = ring + C::kStages * C::kStage;  // [owner][slot]
+  const int nt = T / kFlashTile, rounds = flash_rounds<C>(nt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bars.init(C::kStages);
+  bars.init();
   const Ring stream{bars.full, bars.empty, C::kStages};
 
   if (warp >= kProducer) {
     if constexpr (C::kRaise) regs_dec<kProducerRegs>();
     if (warp == kProducer && lane == 0) {
-      int it = 0, n[kConsumers] = {};
+      int it = 0, n[C::kOwners] = {};
       for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
         const int b = bh / H, h = bh % H;
         const float* lh = lse + (long long)bh * T;
@@ -1034,8 +1131,8 @@ flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_cons
         for (int r = 0; r < rounds; ++r)
           for (int pass = 0; pass < kPasses; ++pass) {
 #pragma unroll
-            for (int g = 0; g < kConsumers; ++g) {
-              const Job j = job<C::kPair, false>(nt, r, g, pass);
+            for (int g = 0; g < C::kOwners; ++g) {
+              const Job j = job<C, false>(nt, r, g, pass);
               if (j.a < 0) continue;
               const int s = bars.own_acquire(g, n[g]++,
                                              (j.b >= 0 ? 2 : 1) * (2 * L::kBytes + 2 * kVecBytes));
@@ -1044,20 +1141,16 @@ flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_cons
               for (int u = 0; u < 2; ++u) {
                 const int t = u == 0 ? j.a : j.b;
                 if (t < 0) continue;
-                uint8_t* dst = own + (g * kOwnSlots + s) * C::kSlot + u * C::kUnit;
+                uint8_t* dst = own + (g * C::kSlots + s) * C::kSlot + u * C::kUnit;
                 tma_tile<D>(dst, &map_q, bar, t * kFlashTile, h, b);
                 tma_tile<D>(dst + L::kBytes, &map_do, bar, t * kFlashTile, h, b);
                 bulk_load(dst + 2 * L::kBytes, lh + t * kFlashTile, kVecBytes, bar);
                 bulk_load(dst + 2 * L::kBytes + kVecBytes, dh + t * kFlashTile, kVecBytes, bar);
               }
             }
-            const int len = key_tiles<C::kPair>(nt, r, pass);
-            for (int kt = 0; kt < len; ++kt, ++it) {
-              const int s = stream.acquire(it, C::kStage);
-              uint8_t* st = ring + s * C::kStage;
-              tma_tile<D>(st, &map_k, &bars.full[s], kt * kFlashTile, h, b);
-              tma_tile<D>(st + L::kBytes, &map_v, &bars.full[s], kt * kFlashTile, h, b);
-            }
+            const int len = key_tiles<C>(nt, r, pass);
+            for (int kt = 0; kt < len; ++kt, ++it)
+              stream_kv<D>(stream, it, ring, C::kStage, bars.full, &map_k, &map_v, kt, h, b);
           }
       }
     }
@@ -1067,46 +1160,50 @@ flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_cons
   if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
+  const int og = C::kSplit ? 0 : g;                   // the owner of its own slots
+  const int col0 = C::kSplit ? g * C::kCols : 0;      // its first accumulator column
+  const int off = col0 / L::kBoxCols * L::kBoxBytes;  // that column's box in a tile
+  constexpr int N = C::kCols;
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
     for (int r = 0; r < rounds; ++r)
       for (int pass = 0; pass < kPasses; ++pass) {
-        const Job j = job<C::kPair, false>(nt, r, g, pass);
-        const int len = key_tiles<C::kPair>(nt, r, pass);
-        uint8_t* ua = j.a >= 0 ? own + (g * kOwnSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
+        const Job j = job<C, false>(nt, r, g, pass);
+        const int len = key_tiles<C>(nt, r, pass);
+        uint8_t* ua = j.a >= 0 ? own + (og * C::kSlots + bars.own_wait(og, n)) * C::kSlot : nullptr;
         uint8_t* ub = C::kPair && j.b >= 0 ? ua + C::kUnit : nullptr;
         DqRows ra{}, rb{};
         if (j.a >= 0) ra = dq_rows<D>(ua, row);
         if (C::kPair && j.b >= 0) rb = dq_rows<D>(ub, row);
-        float dqa[D / 2], dqb[D / 2];
+        float dqa[N / 2], dqb[N / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dqa[i] = dqb[i] = 0.f;
+        for (int i = 0; i < N / 2; ++i) dqa[i] = dqb[i] = 0.f;
         for (int kt = 0; kt < len; ++kt, ++it) {
           const uint8_t* st = ring + stream.wait(it) * C::kStage;
           if constexpr (C::kPair) {
             if (j.b >= 0 && kt <= j.b)
-              dq_step<D, true>(ua, ub, st, kt == j.a, kt == j.b, dqa, dqb, ra, rb, scale,
-                               scale_log2, row, t4);
+              dq_step<D, N, true>(ua, ub, st, kt == j.a, kt == j.b, dqa, dqb, ra, rb, scale,
+                                  scale_log2, row, t4, off);
             else if (j.a >= 0 && kt <= j.a)
-              dq_step<D, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
-                                scale_log2, row, t4);
+              dq_step<D, N, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
+                                   scale_log2, row, t4, off);
           } else {
             if (j.a >= 0 && kt <= j.a)
-              dq_step<D, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
-                                scale_log2, row, t4);
+              dq_step<D, N, false>(ua, nullptr, st, kt == j.a, false, dqa, dqb, ra, rb, scale,
+                                   scale_log2, row, t4, off);
           }
           stream.release(it, lane);
         }
         if (j.a < 0) continue;
         bf16* dqh = head_ptr(dq, lay, 4, b, h);
-        named_bar_sync(1 + g, 128);  // every warp past its last product: Q may be overwritten
-        stage_rows<D>(ua, dqa, 1.f, 1.f, w, lane);
-        if (j.b >= 0) stage_rows<D>(ub, dqb, 1.f, 1.f, w, lane);
+        owners_sync<C>(g);  // every warp on these tiles past its last product: Q may be overwritten
+        stage_rows<D, N>(ua, dqa, 1.f, 1.f, w, lane, col0);
+        if (j.b >= 0) stage_rows<D, N>(ub, dqb, 1.f, 1.f, w, lane, col0);
         __syncwarp();
-        write_rows<D>(dqh, lay.s[4][2], j.a * kFlashTile, ua, w, lane);
-        if (j.b >= 0) write_rows<D>(dqh, lay.s[4][2], j.b * kFlashTile, ub, w, lane);
-        bars.own_release(g, n++, lane);
+        write_rows<D, N>(dqh, lay.s[4][2], j.a * kFlashTile, ua, w, lane, col0);
+        if (j.b >= 0) write_rows<D, N>(dqh, lay.s[4][2], j.b * kFlashTile, ub, w, lane, col0);
+        bars.own_release(og, n++, lane);
       }
   }
 }
@@ -1316,11 +1413,11 @@ FlashLayout flash_layout(const long long* strides, int ops) {
   return lay;
 }
 
-// D 32, 64 or 128; T a multiple of 64; the float32 grid's B * H * T / 64
-// blocks within grid x
+// D 32, 64, 128 or 256; T a multiple of 64; the float32 grid's B * H * T /
+// 64 blocks within grid x
 bool flash_shape_ok(int B, int H, int T, int d) {
-  return (d == 32 || d == 64 || d == 128) && T > 0 && T % kFlashTile == 0 && B > 0 && H > 0 &&
-         (long long)B * H * (T / kFlashTile) <= 0x7fffffffLL;
+  return (d == 32 || d == 64 || d == 128 || d == 256) && T > 0 && T % kFlashTile == 0 &&
+         B > 0 && H > 0 && (long long)B * H * (T / kFlashTile) <= 0x7fffffffLL;
 }
 
 // A 4-D map over (d, T, H, B) of a bf16 (B, H, T, D) operand whose batch,
@@ -1369,7 +1466,7 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, int heads, int* g
 }
 
 // A float32 kernel's dynamic shared memory, allowed past the default 48 KB
-// where it needs more (D 128)
+// where it needs more (D 128 and 256)
 template <typename Kernel>
 inline cudaError_t f32_smem(Kernel kernel, size_t smem) {
   return smem > 48 * 1024
@@ -1468,16 +1565,18 @@ cudaError_t flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
 }  // namespace mnx
 
 // each launcher at the head width d (flash_shape_ok has taken it)
-#define MNX_FLASH_AT_WIDTH(fn, ...)                                 \
-  (d == 32 ? mnx::fn<32>(__VA_ARGS__)                               \
-           : d == 64 ? mnx::fn<64>(__VA_ARGS__) : mnx::fn<128>(__VA_ARGS__))
+#define MNX_FLASH_AT_WIDTH(fn, ...)                                            \
+  (d == 32    ? mnx::fn<32>(__VA_ARGS__)                                       \
+   : d == 64  ? mnx::fn<64>(__VA_ARGS__)                                       \
+   : d == 128 ? mnx::fn<128>(__VA_ARGS__)                                      \
+              : mnx::fn<256>(__VA_ARGS__))
 
 extern "C" {
 
 // q, k, v, o (B, H, T, d) in one dtype through their (batch, head, row)
 // strides in `strides` (4 x 3 elements), each row contiguous and every
 // stride and address 16-byte aligned; lse (B, H, T) float32 contiguous; d
-// 32, 64 or 128, T a multiple of 64.  The wrapper checks these.  Returns a
+// 32, 64, 128 or 256, T a multiple of 64.  The wrapper checks these.  Returns a
 // cudaError_t code.
 int mnx_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                             float* lse, int B, int H, int T, int d, const long long* strides,

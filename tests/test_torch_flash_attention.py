@@ -7,9 +7,9 @@ against the JAX package and JAX's library kernel.
   the plain backward against ``jax.vjp`` of that function (its
   ``mha_reference`` raises for ``sm_scale != 1`` in the backward), float32
   within 1e-5 of each array's largest magnitude, at head widths 32, 16,
-  24, 64 and 128; the wrappers' zero columns up to the kernels' width
+  24, 64, 128 and 256; the wrappers' zero columns up to the kernels' width
   (``at_native_width``) equal to the unpadded plain version exactly.
-* The route (at head widths 32, 16 and 64): with ``use_flash_attention``
+* The route (at head widths 32, 16, 64 and 256): with ``use_flash_attention``
   and the route's device condition monkeypatched (on the CPU the JAX package does not take its flash path
   either), the port's decoder against the JAX decoder's masked path on
   non-PAD rows and its causal-only path on every row; the port's
@@ -18,7 +18,8 @@ against the JAX package and JAX's library kernel.
   losses and gradients agree).
 * The route declines wherever the JAX package's ``MHA._can_flash`` does,
   shown by a spy on the dispatcher, and the kernels' wrappers refuse a head
-  width or length they do not take (meta tensors): d above 128, T not a
+  width or length they do not take (meta tensors): d above 128 but no
+  multiple of 128 (as JAX's library kernel does), d above 256, T not a
   multiple of 64.
 
 The kernels themselves run on the card only: ``tests/test_torch_cuda.py``.
@@ -63,10 +64,10 @@ REL = 1e-5  # float32, relative to the array's largest magnitude
 FMT = "chartok_coords"
 SHAPES = [(1, 1, 128), (2, 3, 128), (3, 8, 128), (1, 8, 256), (2, 2, 256), (3, 1, 256)]
 # (b, h, t, d): SHAPES at the decoders' d 32 under their own ids, and two
-# shapes at each other width JAX's library kernel takes up to 128
+# shapes at other widths JAX's library kernel takes: up to 128, and 256
 WIDE_SHAPES = ([pytest.param(b, h, t, 32, id=f"{b}-{h}-{t}") for b, h, t in SHAPES]
-               + [pytest.param(b, h, t, d, id=f"{b}-{h}-{t}-d{d}") for d in (16, 24, 64, 128)
-                  for b, h, t in ((2, 3, 128), (1, 2, 256))])
+               + [pytest.param(b, h, t, d, id=f"{b}-{h}-{t}-d{d}")
+                  for d in (16, 24, 64, 128, 256) for b, h, t in ((2, 3, 128), (1, 2, 256))])
 
 
 def _qkv(b, h, t, seed, d=32):
@@ -166,27 +167,46 @@ def test_dispatcher_under_checkpoint_and_bf16_autocast():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """Meta tensors: no data, the shape checks alone.  A head width above
-    128 is refused naming the limit (JAX's library kernel also takes the
-    multiples of 128 above it); every d up to 128 is taken."""
+    """Meta tensors: no data, the shape checks alone.  Above 128 a head
+    width that is no multiple of 128 is refused with JAX's library kernel's
+    reason (129, 192, 255), and 384 and 512, which the library takes, with
+    the port's limit of 256; every d up to 128 is taken, and 256.  A width
+    above 128 is never padded up to 256."""
     def meta(*shape, dtype=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dtype)
 
-    with pytest.raises(ValueError, match="head widths d up to 128, got 256"):
-        fl.flash_attention_fwd(*(meta(2, 2, 128, 256),) * 3, SCALE)
+    lse = meta(1, 1, 128)  # and di
+    library = "above 128 the head width must be a multiple of 128"
+    for d in (129, 192, 255):
+        with pytest.raises(ValueError, match=f"{library}, as JAX's library flash attention "
+                                             f"requires, got {d}"):
+            fl.flash_attention_fwd(*(meta(2, 2, 128, d),) * 3, SCALE)
+        with pytest.raises(ValueError, match=f"{library}.*got {d}"):
+            fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
+        with pytest.raises(ValueError, match=f"{library}.*got {d}"):
+            fl.flash_attention_bwd_dq(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
+        with pytest.raises(ValueError, match=f"{library}.*got {d}"):
+            fl.native_width(d)
+    for d in (384, 512):
+        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
+            fl.flash_attention_fwd(*(meta(2, 2, 128, d),) * 3, SCALE)
+        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
+            fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
+        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
+            fl.flash_attention_bwd_dq(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
+        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
+            fl.native_width(d)
+    with pytest.raises(ValueError, match="positive, got 0"):
+        fl.flash_attention_fwd(*(meta(2, 2, 128, 0),) * 3, SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_fwd(*(meta(2, 2, 96, 32),) * 3, SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_bwd_dq(*(meta(2, 2, 32, 32),) * 4, meta(2, 2, 32), meta(2, 2, 32),
                                   SCALE)
-    with pytest.raises(ValueError, match="head widths d up to 128, got 256"):
-        fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, 256),) * 4, meta(1, 1, 128),
-                                   meta(1, 1, 128), SCALE)
-    with pytest.raises(ValueError, match="head widths d up to 128, got 129"):
-        fl.flash_attention_bwd_dq(*(meta(1, 1, 128, 129),) * 4, meta(1, 1, 128),
-                                  meta(1, 1, 128), SCALE)
-    assert [fl.native_width(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128)] == [
-        32, 32, 32, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="64-row tile"):
+        fl.flash_attention_fwd(*(meta(2, 2, 96, 256),) * 3, SCALE)
+    assert [fl.native_width(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128, 256)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 128, 256]
     with pytest.raises(TypeError):
         fl.flash_attention_fwd(*(meta(2, 2, 128, 32, dtype=torch.float16),) * 3, SCALE)
     with pytest.raises(NotImplementedError):
@@ -292,13 +312,15 @@ def _tokens(b, t, seed, pad_from=(None, 90, 40)):
 
 
 # 2 heads of hidden 64 (d 32, the decoders' width), 32 (d 16, the tiny
-# config's) and 128 (d 64)
-HIDDEN = [pytest.param(64, id="d32"), pytest.param(32, id="d16"), pytest.param(128, id="d64")]
+# config's), 128 (d 64) and 512 (d 256, the widest head the kernels take)
+HIDDEN = [pytest.param(64, id="d32"), pytest.param(32, id="d16"), pytest.param(128, id="d64"),
+          pytest.param(512, id="d256")]
 
 
 @pytest.mark.parametrize("layers,hidden", [
     pytest.param(1, 64, id="1"), pytest.param(2, 64, id="2"),
-    pytest.param(2, 32, id="2-d16"), pytest.param(2, 128, id="2-d64")])
+    pytest.param(2, 32, id="2-d16"), pytest.param(2, 128, id="2-d64"),
+    pytest.param(2, 512, id="2-d256")])
 def test_route_matches_jax_decoder(layers, hidden, spy, on_card):
     """Decoder.forward with the route taken: non-PAD rows equal the JAX
     decoder's (masked path, as it runs on the CPU); every row equals its
