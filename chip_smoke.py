@@ -33,24 +33,26 @@ failure:
 6. flash: the decoder's causal flash attention.  K7 (output and lse), and
    K8 and K9 through ``autograd.grad`` of ``ops.flash_attention``, against
    the plain version at the drug-like recipe's shape (B 256, H 8, T 256,
-   d 32), at T 128 and at B 4, T 1024, at head widths 16, 64, 128 and
-   256 on (B 16, T 256) and (B 4, T 1024), and at d 256 on the recipe's
-   B 256, H 8, T 256 (many heads a block), in float32 and bf16 (bf16 also
-   row by row, ``check_rows``), q, k and v as strided head views of one
-   projection; head widths 384 and 192 refused; each kernel's ms beside its
-   bound and its share of it at d 32 (and at d 64, 128 and 256), its plain
-   version and
-   ``scaled_dot_product_attention(is_causal=True)`` (forward, and forward
-   with backward against the dispatcher's), and PyTorch's flash backward
-   alone (``_scaled_dot_product_flash_attention_backward``, fed by its own
-   forward) beside K8 + K9; the recipe's config
+   d 32), at T 128 and at B 4, T 1024, at head widths 16, 64, 128, 256,
+   384 and 512 on (B 16, T 256) and (B 4, T 1024), at d 1024 on (B 2, T
+   256), and at d 256 on the recipe's B 256, H 8, T 256 (many heads a
+   block), in float32 and bf16 (bf16 also row by row, ``check_rows``), q, k
+   and v as strided head views of one projection; head width 192 refused;
+   each kernel's ms beside its bound and its share of it at d 32 (and at d
+   64, 128, 256, 384 and 512), its plain version and
+   ``scaled_dot_product_attention(is_causal=True)`` (forward, the backend
+   it picks named, and forward with backward against the dispatcher's),
+   and PyTorch's flash backward alone
+   (``_scaled_dot_product_flash_attention_backward``, fed by its own
+   forward, to d 256, the widest it takes) beside K8 + K9; the recipe's config
    (attention dropout 0) with ``use_flash_attention`` on and off, the same
    seeded weights and a batch of 256 renders: an eval step and a train
    step of each with the launch counters zeroed before and read after (K7
    4 an eval step; K7 8, K8 4, K9 4 a train step, forward and remat
    recompute; 0 with the flag off), the losses equal within the bf16
    tolerance, and train steps timed in turns; the same eval and train step
-   counted for a 4-layer decoder of 2 heads of 256 (hidden 512);
+   counted for 4-layer decoders of 2 heads of 256 (hidden 512) and of 512
+   (hidden 1024, streamed);
    ``Config()``'s decoder at T 480, where the route declines (0 launches);
 7. demo: the trained demo bundle through the public API, hits against gold
    and agreement with the JAX package's SMILES, and ``get_predictions`` on
@@ -335,17 +337,19 @@ BENCH_CHECK_POS = (0, 255, 479)
 FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 8, 256, 32
 FLASH_CHECKS = ((FLASH_B, 256), (FLASH_B, 128), (4, 1024))  # (B, T)
 # the other head widths: 16 (padded to the kernels' 32), 64, 128 and 256
-# (the kernels' other widths), held on small batches and timed at the
-# recipe's B, H and T, each beside SDPA's forward and PyTorch's flash
-# backward; at 256, the widest head the kernels take (no repo config has
-# it), also held at the recipe's B, H and T (2048 heads, so each block of
-# the persistent grid walks many heads through its one own slot), the
-# dispatcher's forward and backward timed, and the recipe's 4-layer
-# decoder run with 2 heads of 256 at its T
-FLASH_WIDTHS = (16, 64, 128, 256)
+# (the kernels' other widths), 384 and 512 (streamed through shared
+# memory), held on small batches and timed at the recipe's B, H and T, each
+# beside SDPA's forward and, to 256, PyTorch's flash backward; 1024 held on
+# a small batch; at 256, the widest head the kernels are built for (no repo
+# config has it), also held at the recipe's B, H and T (2048 heads, so each
+# block of the persistent grid walks many heads through its Q slots), the
+# dispatcher's forward and backward timed, and the recipe's 4-layer decoder
+# run with 2 heads of 256, and of 512, at its T
+FLASH_WIDTHS = (16, 64, 128, 256, 384, 512)
 FLASH_WIDTH_CHECKS = ((16, 256), (4, 1024))  # (B, T)
-FLASH_TIMED_WIDTHS = (64, 128, 256)
-FLASH_WIDE, FLASH_WIDE_HEADS = 256, 2
+FLASH_XWIDE_CHECK = (1024, 2, 256)  # (d, B, T)
+FLASH_TIMED_WIDTHS = (64, 128, 256, 384, 512)
+FLASH_WIDE, FLASH_STREAMED, FLASH_WIDE_HEADS = 256, 512, 2
 FLASH_TIMED_STEPS = 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 DEVICE = "cuda"
@@ -859,16 +863,16 @@ def flash_inputs(torch, gen, b, t, dtype, d=FLASH_D):
 def flash_checks(torch, fl, results):
     """K7 (and its lse), and K8 with K9 through ``autograd.grad`` of the
     dispatcher, against the plain version in float32 and bf16, at d 32 on
-    ``FLASH_CHECKS``, at ``FLASH_WIDTHS`` on ``FLASH_WIDTH_CHECKS`` and at
-    ``FLASH_WIDE`` on the recipe's B and T; in
+    ``FLASH_CHECKS``, at ``FLASH_WIDTHS`` on ``FLASH_WIDTH_CHECKS``, at
+    ``FLASH_XWIDE_CHECK`` and at ``FLASH_WIDE`` on the recipe's B and T; in
     bf16 also row by row (``check_rows``), K8 and K9 then given the plain
-    lse and di.  A head width above 256, or above 128 and no multiple of
-    128, raises, naming the reason."""
+    lse and di.  A head width above 128 and no multiple of 128 raises,
+    naming the reason."""
     errs = results.setdefault("max_abs_err", {})
     gen = torch.Generator(device=DEVICE).manual_seed(24)
     cases = [(FLASH_D, b, t) for b, t in FLASH_CHECKS]
     cases += [(d, b, t) for d in FLASH_WIDTHS for b, t in FLASH_WIDTH_CHECKS]
-    cases.append((FLASH_WIDE, FLASH_B, FLASH_T))
+    cases += [FLASH_XWIDE_CHECK, (FLASH_WIDE, FLASH_B, FLASH_T)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for d, b, t in cases:
@@ -906,16 +910,15 @@ def flash_checks(torch, fl, results):
                     check_rows(f"{name} {label}", got, want, torch)
             del q, k, v, do, leaves, out, dq, dk, dv, o_ref, dk_ref, dv_ref, dq_ref
             torch.cuda.empty_cache()
-    for d, reason in ((384, "up to 256"), (192, "multiple of 128")):
-        wide = torch.zeros(1, 1, 128, d, device=DEVICE, dtype=torch.bfloat16)
-        try:
-            fl.flash_attention_fwd(wide, wide, wide, 1.0)
-        except ValueError as e:
-            if reason not in str(e):
-                raise
-            log(f"  d {d} refused: {e}")
-        else:
-            raise AssertionError(f"K7 took head width {d}")
+    wide = torch.zeros(1, 1, 128, 192, device=DEVICE, dtype=torch.bfloat16)
+    try:
+        fl.flash_attention_fwd(wide, wide, wide, 1.0)
+    except ValueError as e:
+        if "multiple of 128" not in str(e):
+            raise
+        log(f"  d 192 refused: {e}")
+    else:
+        raise AssertionError("K7 took head width 192")
 
 
 def flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd=None):
@@ -949,14 +952,25 @@ def flash_kernel_times(torch, tm, fl, q, k, v, do, lib_fwd=None):
     return kern
 
 
+def sdpa_backend(torch, q, k, v):
+    """The backend ``scaled_dot_product_attention(is_causal=True)`` picks
+    for q, k, v (PyTorch's own choice function), by name."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
 def library_times(torch, tm, q, k, v, do):
     """SDPA's causal forward on q, k, v as they are, and PyTorch's flash
     backward alone, fed by the output and log-sum-exp of its own forward on
     contiguous copies made outside the timed region (a yardstick beside K8
-    + K9: it computes dq too, so it is no kernel's ``library_ms``)."""
+    + K9: it computes dq too, so it is no kernel's ``library_ms``); None
+    above d 256, which PyTorch's flash attention does not take."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     scale = q.shape[-1] ** -0.5
     fwd_ms = tm.ms(lambda: sdpa(q, k, v, is_causal=True), reps=20)
+    if q.shape[-1] > 256:
+        return fwd_ms, None
     aten = torch.ops.aten
     qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
     fwd = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True, False, scale=scale)
@@ -1005,9 +1019,11 @@ def flash_timing(torch, fl, results, card):
         entry = {n: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"].ms,
                      "bound_by": r["bound"].by} for n, r in times.items()}
         entry.update(sdpa_fwd_ms=w_fwd, sdpa_bwd_ms=w_bwd,
+                     sdpa_backend=sdpa_backend(torch, *wide[:3]),
                      k8_k9_ms=sum(times[n]["ms"] for n in FLASH_KERNELS[1:]))
-        log(f"    PyTorch's flash backward alone (d {d}): {w_bwd:.4f} ms; K8 + K9 "
-            f"{entry['k8_k9_ms']:.4f} ms")
+        log(f"    SDPA's backend (d {d}): {entry['sdpa_backend']}; PyTorch's flash backward alone: "
+            + (f"{w_bwd:.4f} ms" if w_bwd is not None else "none above d 256")
+            + f"; K8 + K9 {entry['k8_k9_ms']:.4f} ms")
         if d == FLASH_WIDE:
             entry["fwd_bwd_ms"], entry["sdpa_fwd_bwd_ms"] = fwd_bwd_times(torch, tm, fl, *wide)
             entry["k7_k8_k9_ms"] = sum(times[n]["ms"] for n in FLASH_KERNELS)
@@ -1088,9 +1104,10 @@ def flash_steps(torch, results, card):
     """The drug-like recipe's config (attention dropout 0) with the flag on
     and off, the same seeded weights and batch of 256 renders: one eval step
     and one train step of each, counted (``flag_steps``), then train steps
-    timed in turns; the same with a 4-layer decoder of 2 heads of 256,
-    counted (no repo config has that width, which JAX's library kernel
-    takes); and ``Config()``'s decoder at T 480, which the route declines."""
+    timed in turns; the same with 4-layer decoders of 2 heads of 256 and of
+    512, counted (no repo config has those widths, which JAX's library
+    kernel takes); and ``Config()``'s decoder at T 480, which the route
+    declines."""
     import copy
 
     import numpy as np
@@ -1127,17 +1144,18 @@ def flash_steps(torch, results, card):
     del states
     torch.cuda.empty_cache()
 
-    wide = copy.deepcopy(base)
-    wide.decoder.hidden_size = FLASH_WIDE * FLASH_WIDE_HEADS
-    wide.decoder.attn_heads = FLASH_WIDE_HEADS
-    t0 = time.perf_counter()
-    out["wide"], states = flag_steps(
-        torch, wide, vocab, criterion, batch,
-        f"decoder of {FLASH_WIDE_HEADS} heads of d {FLASH_WIDE} (hidden "
-        f"{wide.decoder.hidden_size}, {wide.decoder.num_layers} layers; no repo config)")
-    out["wide"]["seconds"] = time.perf_counter() - t0
-    del states
-    torch.cuda.empty_cache()
+    for key, d in (("wide", FLASH_WIDE), ("streamed", FLASH_STREAMED)):
+        wide = copy.deepcopy(base)
+        wide.decoder.hidden_size = d * FLASH_WIDE_HEADS
+        wide.decoder.attn_heads = FLASH_WIDE_HEADS
+        t0 = time.perf_counter()
+        out[key], states = flag_steps(
+            torch, wide, vocab, criterion, batch,
+            f"decoder of {FLASH_WIDE_HEADS} heads of d {d} (hidden "
+            f"{wide.decoder.hidden_size}, {wide.decoder.num_layers} layers; no repo config)")
+        out[key]["seconds"] = time.perf_counter() - t0
+        del states
+        torch.cuda.empty_cache()
 
     # Config()'s max_len 480 is no multiple of 128: the route declines
     c480 = Config()
@@ -1165,13 +1183,13 @@ def flash_steps(torch, results, card):
 def phase_flash(torch, results, card):
     """The decoder's causal flash attention: K7-K9 against their plain
     versions at the recipe's shape, at T 128 and at T 1024, and at head
-    widths 16, 64, 128 and 256 (256 also at the recipe's shape); their times at d 32, 64, 128 and 256; and
-    the recipe's train and eval steps through them, and those of a decoder
-    of d 256."""
+    widths 16 to 1024 (256 also at the recipe's shape); their times at d
+    32, 64, 128, 256, 384 and 512; and the recipe's train and eval steps
+    through them, and those of decoders of d 256 and 512."""
     fl = importlib.import_module("molnextr_tpu_torch.ops.flash_attention")
     log(f"phase flash: K7-K9 at (B, T) {FLASH_CHECKS}, H {FLASH_H}, d {FLASH_D}; at d "
-        f"{FLASH_WIDTHS} on (B, T) {FLASH_WIDTH_CHECKS}; at d {FLASH_WIDE} on "
-        f"{(FLASH_B, FLASH_T)}")
+        f"{FLASH_WIDTHS} on (B, T) {FLASH_WIDTH_CHECKS}; (d, B, T) {FLASH_XWIDE_CHECK}; at d "
+        f"{FLASH_WIDE} on {(FLASH_B, FLASH_T)}")
     t0 = time.perf_counter()
     flash_checks(torch, fl, results)
     seconds = {"checks": time.perf_counter() - t0}

@@ -21,14 +21,15 @@
 // in natural units, float32, (B, H, T).  p and ds are rounded to bf16
 // before their second products, where the library rounds them.
 //
-// Head widths: every kernel is a template on the head width D, 32, 64, 128
-// or 256; the wrapper gives any other width up to 128 zero columns up to
-// the next of these (a zero column adds nothing to q k^T and gives zero
-// columns of o, dq, dk and dv) and cuts the outputs back.  Above 128 the
-// library takes multiples of 128 only, and the port 256 alone: at 384 one
-// 64-row bf16 tile is 48 KB, and K8's K and V tiles with one Q and dO stage
-// pass the 225 KB a block has, so those widths would need the head width
-// streamed through the ring.
+// Head widths: the kernels below are templates on the head width D, 32,
+// 64, 128 or 256; the wrapper gives any other width up to 128 zero columns
+// up to the next of these (a zero column adds nothing to q k^T and gives
+// zero columns of o, dq, dk and dv) and cuts the outputs back.  Above 128
+// the library takes multiples of 128 only.  Above 256 whole-width tiles no
+// longer fit (at 384 one 64-row bf16 tile is 48 KB, and K8's K and V tiles
+// with one Q and dO stage pass the 225 KB a block has), so every multiple
+// of 128 above 256 runs in the wide kernels (flash_*_wide, D at run time),
+// which stream the head width (below).
 //
 // What bounds them on the card: bytes.  At the recipe's shape (B 256, H 8,
 // T 256, d 32, bf16) K7 reads q, k and v and writes o (33.5 MB each) for
@@ -39,7 +40,7 @@
 // version materialises (537 MB each in float32 at that shape) never leave
 // the SM.  So the kernels have to read each operand once, keep enough
 // loads in flight to cover the latency of device memory, and write whole
-// rows; the tensor cores are far from their limit.
+// rows.
 //
 // bf16 K7, K8 and K9 (TMA and wgmma):
 //   * One pass over each head's operands.  A persistent block (two consumer
@@ -97,49 +98,63 @@
 //     writes them as whole rows, 16 bytes a lane, into the (B, T, H, d)
 //     buffers the wrapper allocates; K7's lse goes out as runs of
 //     contiguous floats.  The slot is then released to the producer.
-//   * D 256, the column split.  A 64-row tile is 32 KB there, so a
-//     warpgroup's own tiles at 128 (two slots of Q, or of K and V, or of
-//     Q, dO, lse and di) leave no room for a ring of two stages, and K8's
-//     dk and dv of one tile alone would take 256 registers a thread.  So
-//     the two consumer warpgroups take the same tile, one a round (no
-//     pairs: a round streams what that tile needs), from one set of own
-//     slots (K7 two, K8 and K9 one, then the ring's two stages: 193 to 195
-//     KB), and each owns 128 of the 256 accumulator columns, its o, dk and
-//     dv, or dq half by m64n128k16 on its half of the MN-major B.  Each
-//     computes S and dP (S^T and dP^T in K8) over the whole d itself,
-//     which doubles those products and the exponentials but hands nothing
-//     between the warpgroups (no handover of P and dS through shared
-//     memory; whether one would pay is not measured, and K7 at d 256 is
-//     slower than PyTorch's own flash forward, PERF.md).  A warpgroup then
-//     holds what K8 and K9 hold at 128 (K8: 128 accumulator registers and
-//     the 64 of S^T and dP^T; K9: 64 and 64; K7: 64 and 32).  Both
+//   * K8 and K9 at D 256, the column split.  A 64-row tile is 32 KB there,
+//     so a warpgroup's own tiles at 128 (two slots of K and V, or of Q,
+//     dO, lse and di) leave no room for a ring of two stages, and K8's dk
+//     and dv of one tile alone would take 256 registers a thread.  So the
+//     two consumer warpgroups take the same tile, one a round (no pairs: a
+//     round streams what that tile needs), from one own slot beside the
+//     ring's two stages (193 to 195 KB), and each owns 128 of the 256
+//     accumulator columns, its dk and dv, or dq half by m64n128k16 on its
+//     half of the MN-major B.  Each computes S and dP (S^T and dP^T in K8)
+//     over the whole d itself, which doubles those products and the
+//     exponentials but hands nothing between the warpgroups.  Both
 //     warpgroups stage into the one own slot, each its half of the
 //     columns, once both are past their last product (one barrier of 256
-//     threads).  K7's and K9's producers load a round's own tiles, then
-//     its stream, as at D <= 128; K8's issues the stream's first stages
-//     before it waits for the one own slot, which gains there and loses in
-//     K7 and K9 (PERF.md).
+//     threads).  K9's producer loads a round's own tiles, then its stream,
+//     as at D <= 128; K8's issues the stream's first stages before it
+//     waits for the one own slot, which gains there and loses in K9
+//     (PERF.md).
+//   * K7 at D 256 does not split (flash_fwd_d256; the split took 1.45x
+//     PyTorch's flash forward, PERF.md): a 64 x 256 o is 128 float32
+//     registers a thread, which with S (32) and P (16) fits the 232 that
+//     setmaxnreg gives, so each warpgroup owns its query tiles, balanced
+//     pairs over two passes as at D 128, and computes S and the
+//     exponentials once a tile.  See the kernel.
 //   * What is left: at the recipe's shape K7 and K8 take about twice their
 //     bound (PERF.md).  Their operands arrive ahead of use; each
 //     warpgroup's steps are a chain (products, then the softmax's 32
 //     exponentials a lane on the SM's 16-a-clock special-function units,
 //     then products), and two warpgroups an SM, all the registers allow,
-//     do not hide it.  At D 256 the two warpgroups walk one tile's steps
-//     side by side, so neither's exponentials hide behind the other's
-//     products: K7 there is slower than PyTorch's flash forward (PERF.md).
+//     do not hide it.
+//
+// bf16 wide heads (D a multiple of 128 above 256): a simple, non-persistent
+// form, right before fast.  A block is one 64-row tile of one (b, h) with
+// one consumer warpgroup and a producer warp; the head width streams as
+// 64-column chunks through a ring of four 16 KB stages, so shared memory
+// (65 KB) and registers do not grow with D.  S = sum_c Q_c K_c^T (and dP),
+// chunk by chunk; the outputs go a column chunk at a time (K7 128, K9 128,
+// K8 64 columns of dk and of dv), each chunk's pass recomputing S (and dP)
+// on the tensor cores, K7 after a first pass for lse.  That costs (D / 128
+// + 1), D / 128 and D / 64 times the products of S (and dP) in K7, K9 and
+// K8: first forms, 2 to 8 times their bounds at D 384 and 512 (PERF.md).
 //
 // float32 (the parity runs): the same tiles on the CUDA cores, one block
-// per 64-row tile of one (b, h) on grid x, D / 32 threads a row (K7, K9: a
-// query row; K8: a key row), each with 32 of the row's columns of its
-// operands and accumulators in registers and the row's dot products summed
-// over those threads by shuffles; the walked tile in shared memory (at D
-// 256, 512 threads and 128 or 129 KB).  K7 updates its online softmax per
-// key.
+// per 64-row tile of one (b, h) on grid x.  To D 256, D / 32 threads a row
+// (K7, K9: a query row; K8: a key row), each with 32 of the row's columns
+// of its operands and accumulators in registers and the row's dot products
+// summed over those threads by shuffles; the walked tile in shared memory
+// (at D 256, 512 threads and 128 or 129 KB).  K7 updates its online
+// softmax per key.  Above 256 (flash_*_f32_wide), 256 threads a block each
+// hold a 4 x 4 share of every 64 x 64 product, the head width streams
+// through shared memory 32 columns at a time and the outputs go 64 columns
+// at a time, as the bf16 wide kernels do.
 //
 // Strides: every (B, H, T, d) operand is read and written through its own
 // batch, head and row strides (the last dimension contiguous); rows, strides
-// and lse and di are 16-byte aligned (the wrapper checks).  D 32, 64, 128
-// or 256 and T a multiple of 64; the launchers refuse anything else.
+// and lse and di are 16-byte aligned (the wrapper checks).  D 32, 64, 128,
+// or a multiple of 128, and T a multiple of 64; the launchers refuse
+// anything else.
 #include "common.cuh"
 
 namespace mnx {
@@ -240,14 +255,15 @@ constexpr int ring_stages(int stage, int own, int cap) {
 
 // Per width: whether a warpgroup takes both tiles of its pair in one pass
 // (kPair) or one tile a pass, whether the two warpgroups split one tile's
-// accumulator columns instead (kSplit: D 256, one set of kSlots own slots
-// for both, each owning kCols columns), whether its consumers take the
-// producer's registers (kRaise: where 168 a thread would spill or serialise
-// wgmma), the bytes of a ring stage and of an own slot, the ring's depth and
-// the block's dynamic shared memory (1024 of it for alignment).  K7: a stage
-// is a K and a V tile, a slot the pass's Q tiles.  K8: a stage is a Q and a
-// dO tile, lse and di; a slot the pass's K and V tiles.  K9: a stage is a K
-// and a V tile; a slot the pass's Q, dO, lse and di (a unit a tile).
+// accumulator columns instead (kSplit: K8 and K9 at D 256, one set of
+// kSlots own slots for both, each owning kCols columns), whether its
+// consumers take the producer's registers (kRaise: where 168 a thread
+// would spill or serialise wgmma), the bytes of a ring stage and of an own
+// slot, the ring's depth and the block's dynamic shared memory (1024 of it
+// for alignment).  K7: a stage is a K and a V tile, a slot the pass's Q
+// tiles.  K8: a stage is a Q and a dO tile, lse and di; a slot the pass's K
+// and V tiles.  K9: a stage is a K and a V tile; a slot the pass's Q, dO,
+// lse and di (a unit a tile).
 template <int D, int STAGE, int SLOT, int CAP, int SLOTS = kOwnSlots>
 struct RingCfg {
   static constexpr bool kSplit = D == 256;
@@ -304,7 +320,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x N, f32, N = 32, 64 or 128: N / 2 values a lane) += A (64 x 16,
+// d (64 x N, f32, N = 32, 64, 128 or 256: N / 2 values a lane) += A (64 x 16,
 // bf16 fragments in registers, the layout of to_a) B (16 x N, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -355,6 +371,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -448,6 +501,24 @@ __device__ __forceinline__ void write_rows(bf16* __restrict__ head, long long st
   }
 }
 
+// a 64 x N accumulator's fragments (N / 2 a lane, as stage_rows reads
+// them), rows scaled by f0 and f1, rounded to bf16, into rows row0 + row
+// and row0 + row + 8, columns col0 .. col0 + N - 1 of a (T, D) head at row
+// stride st, from the registers
+template <int N>
+__device__ __forceinline__ void store_frags(bf16* __restrict__ head, long long st, int row0,
+                                            int col0, const float (&acc)[N / 2], float f0,
+                                            float f1, int row, int t4) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(head + (row0 + row) * st + c) =
+        __floats2bfloat162_rn(acc[4 * j] * f0, acc[4 * j + 1] * f0);
+    *reinterpret_cast<__nv_bfloat162*>(head + (row0 + row + 8) * st + c) =
+        __floats2bfloat162_rn(acc[4 * j + 2] * f1, acc[4 * j + 3] * f1);
+  }
+}
+
 // The mbarriers of a block: the stream's ring (full: the producer's arrival
 // and the bytes; empty: lane 0 of every consumer warp) and each owner's
 // C::kSlots slots for its passes' own tiles (an owner is a consumer
@@ -502,7 +573,7 @@ struct FlashBars {
 // tiles are owned (K7, K9), the earlier key tile where key tiles are (K8).
 // An idle warpgroup (a round past the last pair) has a = -1.  With kSplit
 // a round is one tile, both warpgroups', in one pass: key tile r (K8), or
-// query tile nt - 1 - r (K7, K9).
+// query tile nt - 1 - r (K9).
 struct Job {
   int a, b;
 };
@@ -744,8 +815,9 @@ __device__ __forceinline__ void stream_qdo(const Ring& stream, int it, uint8_t* 
 }
 
 // ---------------------------------------------------------------------------
-// K7, bf16.  Shared memory: the ring (stages of [K tile, V tile]) and each
-// owner's own slots ([Q of a, Q of b]), where o is staged.
+// K7, bf16, D 32 to 128.  Shared memory: the ring (stages of [K tile, V
+// tile]) and each warpgroup's own slots ([Q of a, Q of b]), where o is
+// staged.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
@@ -754,11 +826,12 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
                  float* __restrict__ lse, FlashLayout lay, int H, int BH, int T, float scale_log2) {
   using L = Tile<D>;
   using C = FwdCfg<D>;
-  constexpr int kPasses = C::kPair || C::kSplit ? 1 : 2;
+  static_assert(!C::kSplit, "D 256 runs flash_fwd_d256");
+  constexpr int kPasses = C::kPair ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) FlashBars<C> bars;
   uint8_t* ring = align1024(smem_raw);
-  uint8_t* own = ring + C::kStages * C::kStage;  // [owner][slot]
+  uint8_t* own = ring + C::kStages * C::kStage;  // [warpgroup][slot]
   const int nt = T / kFlashTile, rounds = flash_rounds<C>(nt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bars.init();
@@ -794,9 +867,6 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   if constexpr (C::kRaise) regs_inc<kConsumerRegs>();
   const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
   const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
-  const int og = C::kSplit ? 0 : g;                   // the owner of its own slots
-  const int col0 = C::kSplit ? g * C::kCols : 0;      // its first accumulator column
-  const int off = col0 / L::kBoxCols * L::kBoxBytes;  // that column's box in a tile
   int it = 0, n = 0;
   for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
     const int b = bh / H, h = bh % H;
@@ -804,23 +874,23 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       for (int pass = 0; pass < kPasses; ++pass) {
         const Job j = job<C, false>(nt, r, g, pass);
         const int len = key_tiles<C>(nt, r, pass);
-        uint8_t* qs = j.a >= 0 ? own + (og * C::kSlots + bars.own_wait(og, n)) * C::kSlot : nullptr;
-        FwdTile<C::kCols> ta, tb;
+        uint8_t* qs = j.a >= 0 ? own + (g * C::kSlots + bars.own_wait(g, n)) * C::kSlot : nullptr;
+        FwdTile<D> ta, tb;
         ta.reset();
         tb.reset();
         for (int kt = 0; kt < len; ++kt, ++it) {
           const uint8_t* st = ring + stream.wait(it) * C::kStage;
           if constexpr (C::kPair) {
             if (j.b >= 0 && kt <= j.b)
-              fwd_step<D, C::kCols, true>(qs, qs + L::kBytes, st, st + L::kBytes, kt == j.a,
-                                          kt == j.b, ta, tb, scale_log2, row, t4);
+              fwd_step<D, D, true>(qs, qs + L::kBytes, st, st + L::kBytes, kt == j.a, kt == j.b,
+                                   ta, tb, scale_log2, row, t4);
             else if (j.a >= 0 && kt <= j.a)
-              fwd_step<D, C::kCols, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta,
-                                           tb, scale_log2, row, t4);
+              fwd_step<D, D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
+                                    scale_log2, row, t4);
           } else {
             if (j.a >= 0 && kt <= j.a)
-              fwd_step<D, C::kCols, false>(qs, nullptr, st, st + L::kBytes + off, kt == j.a, false,
-                                           ta, tb, scale_log2, row, t4);
+              fwd_step<D, D, false>(qs, nullptr, st, st + L::kBytes, kt == j.a, false, ta, tb,
+                                    scale_log2, row, t4);
           }
           stream.release(it, lane);
         }
@@ -828,15 +898,151 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap map_q, const __grid_constan
         float* lh = lse + (long long)bh * T;
         bf16* oh = head_ptr(o, lay, 3, b, h);
         owners_sync<C>(g);  // every warp on these tiles past its last product: Q may be overwritten
-        fwd_finish<D, C::kCols>(qs, lh + j.a * kFlashTile, ta, w, lane, col0, g == og);
-        if (j.b >= 0)
-          fwd_finish<D, C::kCols>(qs + L::kBytes, lh + j.b * kFlashTile, tb, w, lane, col0, true);
+        fwd_finish<D, D>(qs, lh + j.a * kFlashTile, ta, w, lane, 0, true);
+        if (j.b >= 0) fwd_finish<D, D>(qs + L::kBytes, lh + j.b * kFlashTile, tb, w, lane, 0, true);
         __syncwarp();
-        write_rows<D, C::kCols>(oh, lay.s[3][2], j.a * kFlashTile, qs, w, lane, col0);
-        if (j.b >= 0)
-          write_rows<D, C::kCols>(oh, lay.s[3][2], j.b * kFlashTile, qs + L::kBytes, w, lane, col0);
-        bars.own_release(og, n++, lane);
+        write_rows<D, D>(oh, lay.s[3][2], j.a * kFlashTile, qs, w, lane, 0);
+        if (j.b >= 0) write_rows<D, D>(oh, lay.s[3][2], j.b * kFlashTile, qs + L::kBytes, w, lane, 0);
+        bars.own_release(g, n++, lane);
       }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7, bf16, D 256: each consumer warpgroup owns its query tiles and the
+// whole 64 x 256 o of one (128 float32 registers a thread), so S and the
+// exponentials are computed once a tile.  A round's pairs take two passes
+// of one tile each (job<Fwd256Cfg>, as at D 128), each warpgroup with one
+// 32 KB slot for its pass's Q, where o is staged.  The stream, for both
+// warpgroups, runs a pass's key tiles from the last down (the diagonal
+// tile first, which the online softmax takes in any order), in two stages
+// of a K and a V tile; where the second pass needs no more key tiles than
+// the ring holds (T 256: key tiles 1 and 0), it reads them where the first
+// pass left them, so each K and V tile of a head is loaded once.  No
+// faster, on the card (PERF.md): the two warpgroups taking turns at their
+// products (named barriers), a third Q slot, o stored from the registers,
+// K and V in stages of their own, a pass's stream loads before its Q, and
+// the next key tile's S issued before the softmax (it spills).
+// ---------------------------------------------------------------------------
+struct Fwd256Cfg {
+  static constexpr bool kSplit = false, kPair = false;
+  static constexpr int kOwners = kConsumers, kSlots = 1;  // a Q slot a warpgroup
+  static constexpr int kSlot = Tile<256>::kBytes, kStage = 2 * Tile<256>::kBytes;
+  static constexpr int kStages = ring_stages(kStage, kOwners * kSlot, kMaxFlashStages);
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + (size_t)kOwners * kSlot;
+  static_assert(kStages >= 2, "the ring's depth");
+  static_assert(kSmem <= (size_t)kSmemLimit, "shared memory");
+};
+
+// The key tiles a pass of round r streams (len) and the stream item of its
+// last key tile, from the round's first item `it`: the first pass's from
+// `it` on; the second pass's after them, or, where they fit the ring, the
+// first pass's last `len` items again (reuse)
+struct Pass256 {
+  int len, first, reuse;
+};
+__device__ __forceinline__ Pass256 pass256(int nt, int r, int pass) {
+  using C = Fwd256Cfg;
+  const int len0 = key_tiles<C>(nt, r, 0), len1 = key_tiles<C>(nt, r, 1);
+  const int reuse = len1 <= C::kStages ? len1 : 0;
+  if (pass == 0) return {len0, 0, reuse};
+  return {len1, reuse ? len0 - len1 : len0, reuse};
+}
+
+// One key tile of K7 at D 256 against the warpgroup's query tile: S = Q K^T
+// (16 k16 steps), the online softmax, O += P V (4 steps of m64n256k16).
+__device__ __forceinline__ void fwd_step256(const uint8_t* qs, const uint8_t* st, bool diag,
+                                            FwdTile<256>& ta, float scale_log2, int row, int t4) {
+  using L = Tile<256>;
+  float s[32];
+  uint32_t pa[4][4];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk) wgmma_ss(s, L::kmajor(qs, kk), L::kmajor(st, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold(s);
+  ta.update(s, pa, diag, scale_log2, row, t4);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(ta.o, pa[kk], L::mnmajor(st + L::kBytes, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold(ta.o);
+  hold(pa);
+}
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_d256(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+               float* __restrict__ lse, FlashLayout lay, int H, int BH, int T, float scale_log2) {
+  using L = Tile<256>;
+  using C = Fwd256Cfg;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) FlashBars<C> bars;
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* own = ring + C::kStages * C::kStage;  // [warpgroup]
+  const int nt = T / kFlashTile, rounds = flash_rounds<C>(nt);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bars.init();
+  const Ring stream{bars.full, bars.empty, C::kStages};
+
+  if (warp >= kProducer) {
+    regs_dec<kProducerRegs>();
+    if (warp == kProducer && lane == 0) {
+      int it = 0, n[kConsumers] = {};
+      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
+        const int b = bh / H, h = bh % H;
+        for (int r = 0; r < rounds; ++r)
+          for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+            for (int g = 0; g < kConsumers; ++g) {
+              const Job j = job<C, false>(nt, r, g, pass);
+              if (j.a < 0) continue;
+              const int s = bars.own_acquire(g, n[g]++, L::kBytes);
+              tma_tile<256>(own + g * C::kSlot, &map_q, &bars.own_full[g][s], j.a * kFlashTile, h, b);
+            }
+            const Pass256 p = pass256(nt, r, pass);
+            if (pass == 1 && p.reuse) continue;
+            for (int kt = p.len - 1; kt >= 0; --kt, ++it)
+              stream_kv<256>(stream, it, ring, C::kStage, bars.full, &map_k, &map_v, kt, h, b);
+          }
+      }
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int g = warp >> 2, w = warp & 3, t4 = lane & 3;
+  const int row = 16 * w + (lane >> 2);  // the lane's rows of a tile: row, row + 8
+  uint8_t* qs = own + g * C::kSlot;
+  int it = 0, n = 0;  // the round's first stream item; the warpgroup's passes
+  for (int bh = blockIdx.x; bh < BH; bh += gridDim.x) {
+    const int b = bh / H, h = bh % H;
+    for (int r = 0; r < rounds; ++r) {
+      for (int pass = 0; pass < 2; ++pass) {
+        const Job j = job<C, false>(nt, r, g, pass);
+        const Pass256 p = pass256(nt, r, pass);
+        if (j.a >= 0) bars.own_wait(g, n);
+        FwdTile<256> ta;
+        ta.reset();
+        for (int kt = p.len - 1, i = it + p.first; kt >= 0; --kt, ++i) {
+          // a reused item was waited for in the first pass and is released in the second
+          if (pass == 0 || !p.reuse) stream.wait(i);
+          if (j.a >= 0 && kt <= j.a)
+            fwd_step256(qs, ring + (i % C::kStages) * C::kStage, kt == j.a, ta, scale_log2, row, t4);
+          if (pass == 1 || kt >= p.reuse) stream.release(i, lane);
+        }
+        if (j.a < 0) continue;
+        named_bar_sync(1 + g, 128);  // every warp past its last product: Q may be overwritten
+        fwd_finish<256, 256>(qs, lse + (long long)bh * T + j.a * kFlashTile, ta, w, lane, 0, true);
+        __syncwarp();
+        write_rows<256, 256>(head_ptr(o, lay, 3, b, h), lay.s[3][2], j.a * kFlashTile, qs, w, lane, 0);
+        bars.own_release(g, n++, lane);
+      }
+      const Pass256 p = pass256(nt, r, 1);
+      it += p.first + p.len;
+    }
   }
 }
 
@@ -1406,6 +1612,587 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   store_row_f32<kTpr>(head_ptr(dq, lay, 4, b, h) + row * lay.s[4][2], dqa, part, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// Wide heads (D a multiple of 128 above 256; D at run time), bf16: the head
+// width streams through a ring of 16 KB stages (two 64 x 64 boxes), so
+// shared memory and registers do not grow with D.  A block is one consumer
+// warpgroup and a producer warp (one thread of it loads), one 64-row tile
+// of one (b, h) on grid x (query tiles latest first in K7 and K9, key tiles
+// earliest first in K8).  S = sum over 64-column chunks c of Q_c K_c^T
+// (and dP = sum dO_c V_c^T, in K8 transposed), each chunk's boxes a stage;
+// the outputs are produced a column chunk at a time, each chunk's pass
+// recomputing S (and dP) on the tensor cores: K7 first a pass for lse (the
+// row maxima and sums), then a pass per 128 columns of o with p = exp2(s
+// scale_log2 - lse), so every pass uses the same rounded p; K9 a pass per
+// 128 columns of dq; K8 a pass per 64 columns of dk and dv.  Each pass
+// streams the operand columns its products need (K7: V, K9: K, K8: dO and
+// Q) a stage after the tile's S.  Outputs go to device memory from the
+// accumulator fragments.
+// ---------------------------------------------------------------------------
+constexpr int kWideThreads = 160;                     // a consumer warpgroup and a producer warp
+constexpr int kWideBox = Tile<64>::kBytes;            // a 64 x 64 box: 8 KB
+constexpr int kWideStage = 2 * kWideBox;
+constexpr int kWideStages = 4;
+constexpr size_t kWideSmem = 1024 + (size_t)kWideStages * kWideStage;
+
+// the ring's mbarriers: full (the producer's arrival and the bytes), empty
+// (lane 0 of each consumer warp)
+struct WideBars {
+  uint64_t full[kWideStages], empty[kWideStages];
+  __device__ __forceinline__ void init() {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kWideStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], 4);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+};
+
+// the producer: boxes (col_a of rows row_a of map_a, col_b of rows row_b of
+// map_b) into the ring's next stage
+__device__ __forceinline__ void wide_load(const Ring& ring, int it, uint8_t* base, uint64_t* full,
+                                          const CUtensorMap* map_a, int col_a, int row_a,
+                                          const CUtensorMap* map_b, int col_b, int row_b, int h,
+                                          int b) {
+  const int s = ring.acquire(it, kWideStage);
+  tma_load_rows(base + s * kWideStage, map_a, &full[s], col_a, row_a, h, b);
+  tma_load_rows(base + s * kWideStage + kWideBox, map_b, &full[s], col_b, row_b, h, b);
+}
+
+// the consumers: acc (+)= A_c B_c^T of the ring's next stage ([A box | B
+// box], both K-major), the stage released once read
+__device__ __forceinline__ void wide_abt(float (&acc)[32], const Ring& ring, int& it,
+                                         const uint8_t* base, bool accumulate, int lane) {
+  using L = Tile<64>;
+  const uint8_t* st = base + ring.wait(it) * kWideStage;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::kSteps; ++kk)
+    wgmma_ss(acc, L::kmajor(st, kk), L::kmajor(st + kWideBox, kk), accumulate || kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold(acc);
+  ring.release(it++, lane);
+}
+
+// K7, bf16, wide heads
+__global__ void __launch_bounds__(kWideThreads)
+flash_fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+               float* __restrict__ lse, FlashLayout lay, int H, int T, int D, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) WideBars bars;
+  uint8_t* base = align1024(smem_raw);
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int chunks = D / 64, passes = 1 + D / 128;  // the lse pass, then one per 128 columns of o
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bars.init();
+  const Ring ring{bars.full, bars.empty, kWideStages};
+  if (warp == 4) {
+    if (lane == 0) {
+      int it = 0;
+      for (int p = 0; p < passes; ++p)
+        for (int kt = 0; kt <= qt; ++kt) {
+          for (int c = 0; c < chunks; ++c, ++it)
+            wide_load(ring, it, base, bars.full, &map_q, 64 * c, qt * kFlashTile, &map_k, 64 * c,
+                      kt * kFlashTile, h, b);
+          if (p > 0)
+            wide_load(ring, it++, base, bars.full, &map_v, 128 * (p - 1), kt * kFlashTile, &map_v,
+                      128 * (p - 1) + 64, kt * kFlashTile, h, b);
+        }
+    }
+    return;
+  }
+  const int t4 = lane & 3, row = 16 * warp + (lane >> 2);  // the lane's rows: row, row + 8
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // log2 units
+  int it = 0;
+  for (int p = 0; p < passes; ++p) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt <= qt; ++kt) {
+      float s[32];
+      for (int c = 0; c < chunks; ++c) wide_abt(s, ring, it, base, c > 0, lane);
+      if (kt == qt) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (past_diagonal(i, row, t4)) s[i] = -INFINITY;
+      }
+      if (p == 0) {  // the online maxima and sums
+        float r0, r1;
+        row_max(s, r0, r1);
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, off));
+          r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, off));
+        }
+        const float mx0 = fmaxf(m0, r0 * scale_log2), mx1 = fmaxf(m1, r1 * scale_log2);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], scale_log2, (i & 2) ? -mx1 : -mx0));
+        float sum0, sum1;
+        row_sum(s, sum0, sum1);
+        l0 = l0 * ex2(m0 - mx0) + sum0;
+        l1 = l1 * ex2(m1 - mx1) + sum1;
+        m0 = mx0;
+        m1 = mx1;
+      } else {  // o's columns 128 (p - 1) ..: p = exp2(s scale_log2 - lse) times V's
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], scale_log2, (i & 2) ? -m1 : -m0));
+        uint32_t pa[4][4];
+        to_a(pa, s);
+        const uint8_t* st = base + ring.wait(it) * kWideStage;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pa[kk], Tile<128>::mnmajor(st, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(pa);
+        ring.release(it++, lane);
+      }
+    }
+    if (p == 0) {  // lse, natural units, out; m0, m1 hold it in log2 units from here on
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      m0 += __log2f(l0);
+      m1 += __log2f(l1);
+      if (t4 == 0) {
+        float* lh = lse + (long long)bh * T + qt * kFlashTile;
+        lh[row] = m0 * kLn2;
+        lh[row + 8] = m1 * kLn2;
+      }
+    } else {
+      store_frags<128>(head_ptr(o, lay, 3, b, h), lay.s[3][2], qt * kFlashTile, 128 * (p - 1), acc,
+                       1.f, 1.f, row, t4);
+    }
+  }
+}
+
+// K8, bf16, wide heads: key tile kt against query tiles kt .. nt - 1
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkv_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, const float* __restrict__ lse,
+                   const float* __restrict__ di, FlashLayout lay, int H, int T, int D, float scale,
+                   float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) WideBars bars;
+  uint8_t* base = align1024(smem_raw);
+  const int nt = T / kFlashTile, kt = (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int chunks = D / 64;  // also the passes: one per 64 columns of dk and dv
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bars.init();
+  const Ring ring{bars.full, bars.empty, kWideStages};
+  if (warp == 4) {
+    if (lane == 0) {
+      int it = 0;
+      for (int p = 0; p < chunks; ++p)
+        for (int qt = kt; qt < nt; ++qt) {
+          for (int c = 0; c < chunks; ++c) {
+            wide_load(ring, it++, base, bars.full, &map_k, 64 * c, kt * kFlashTile, &map_q, 64 * c,
+                      qt * kFlashTile, h, b);
+            wide_load(ring, it++, base, bars.full, &map_v, 64 * c, kt * kFlashTile, &map_do, 64 * c,
+                      qt * kFlashTile, h, b);
+          }
+          wide_load(ring, it++, base, bars.full, &map_do, 64 * p, qt * kFlashTile, &map_q, 64 * p,
+                    qt * kFlashTile, h, b);
+        }
+    }
+    return;
+  }
+  const int t4 = lane & 3, key = 16 * warp + (lane >> 2);  // the lane's key rows: key, key + 8
+  const float* lh = lse + (long long)bh * T;
+  const float* dh = di + (long long)bh * T;
+  int it = 0;
+  for (int p = 0; p < chunks; ++p) {
+    float dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+    for (int qt = kt; qt < nt; ++qt) {
+      float sp[32], dp[32];
+      for (int c = 0; c < chunks; ++c) {
+        wide_abt(sp, ring, it, base, c > 0, lane);  // S^T += K_c Q_c^T
+        wide_abt(dp, ring, it, base, c > 0, lane);  // dP^T += V_c dO_c^T
+      }
+      // element i is key row key + 8 ((i >> 1) & 1), query column q(i) of the tile
+      const float* lq = lh + qt * kFlashTile;
+      const float* dd = dh + qt * kFlashTile;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        float pv = ex2(fmaf(sp[i], scale_log2, -__ldg(lq + q) * kLog2e));
+        if (qt == kt && q < key + 8 * ((i >> 1) & 1)) pv = 0.f;
+        sp[i] = pv;
+        dp[i] = pv * (dp[i] - __ldg(dd + q)) * scale;
+      }
+      uint32_t pa[4][4], dsa[4][4];
+      to_a(pa, sp);
+      to_a(dsa, dp);
+      const uint8_t* st = base + ring.wait(it) * kWideStage;  // [dO box p | Q box p]
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dva, pa[kk], Tile<64>::mnmajor(st, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dka, dsa[kk], Tile<64>::mnmajor(st + kWideBox, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dva);
+      hold(dka);
+      hold(pa);
+      hold(dsa);
+      ring.release(it++, lane);
+    }
+    store_frags<64>(head_ptr(dk, lay, 4, b, h), lay.s[4][2], kt * kFlashTile, 64 * p, dka, 1.f, 1.f,
+                    key, t4);
+    store_frags<64>(head_ptr(dv, lay, 5, b, h), lay.s[5][2], kt * kFlashTile, 64 * p, dva, 1.f, 1.f,
+                    key, t4);
+  }
+}
+
+// K9, bf16, wide heads: query tile qt against key tiles 0 .. qt
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                  bf16* __restrict__ dq, const float* __restrict__ lse, const float* __restrict__ di,
+                  FlashLayout lay, int H, int T, int D, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) WideBars bars;
+  uint8_t* base = align1024(smem_raw);
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int chunks = D / 64, passes = D / 128;  // a pass per 128 columns of dq
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bars.init();
+  const Ring ring{bars.full, bars.empty, kWideStages};
+  if (warp == 4) {
+    if (lane == 0) {
+      int it = 0;
+      for (int p = 0; p < passes; ++p)
+        for (int kt = 0; kt <= qt; ++kt) {
+          for (int c = 0; c < chunks; ++c) {
+            wide_load(ring, it++, base, bars.full, &map_q, 64 * c, qt * kFlashTile, &map_k, 64 * c,
+                      kt * kFlashTile, h, b);
+            wide_load(ring, it++, base, bars.full, &map_do, 64 * c, qt * kFlashTile, &map_v, 64 * c,
+                      kt * kFlashTile, h, b);
+          }
+          wide_load(ring, it++, base, bars.full, &map_k, 128 * p, kt * kFlashTile, &map_k,
+                    128 * p + 64, kt * kFlashTile, h, b);
+        }
+    }
+    return;
+  }
+  const int t4 = lane & 3, row = 16 * warp + (lane >> 2);  // the lane's rows: row, row + 8
+  const long long r0 = (long long)bh * T + qt * kFlashTile;
+  const DqRows rows{lse[r0 + row] * kLog2e, lse[r0 + row + 8] * kLog2e, di[r0 + row],
+                    di[r0 + row + 8]};
+  int it = 0;
+  for (int p = 0; p < passes; ++p) {
+    float dqa[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+    for (int kt = 0; kt <= qt; ++kt) {
+      float s[32], dp[32];
+      for (int c = 0; c < chunks; ++c) {
+        wide_abt(s, ring, it, base, c > 0, lane);   // S += Q_c K_c^T
+        wide_abt(dp, ring, it, base, c > 0, lane);  // dP += dO_c V_c^T
+      }
+      uint32_t ds[4][4];
+      dq_ds(s, dp, ds, kt == qt, rows, scale, scale_log2, row, t4);
+      const uint8_t* st = base + ring.wait(it) * kWideStage;  // K's columns 128 p ..
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqa, ds[kk], Tile<128>::mnmajor(st, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dqa);
+      hold(ds);
+      ring.release(it++, lane);
+    }
+    store_frags<128>(head_ptr(dq, lay, 4, b, h), lay.s[4][2], qt * kFlashTile, 128 * p, dqa, 1.f, 1.f,
+                     row, t4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32, wide heads, on the CUDA cores: 256 threads a block, one 64-row
+// tile of one (b, h) on grid x, as the bf16 wide kernels.  Thread (ty, tx)
+// = (tid / 16, tid % 16) holds rows ty + 16 i and columns tx + 16 j (i, j <
+// 4) of each 64 x 64 product; the head width streams through shared memory
+// 32 columns at a time for S (and dP), the outputs' columns 64 at a time,
+// each output pass recomputing S (and dP) as the bf16 ones do.
+// ---------------------------------------------------------------------------
+constexpr int kF32WideThreads = 256;
+constexpr int kChunkPitch = 33;                 // a [64][32] chunk, padded
+constexpr int kChunkFloats = kFlashTile * kChunkPitch;
+constexpr int kSqPitch = 65;                    // a [64][64] tile, padded
+constexpr int kSqFloats = kFlashTile * kSqPitch;
+
+// columns c0 .. c0 + 31 of rows r0 .. r0 + 63 of a (T, D) head into a chunk
+__device__ __forceinline__ void f32_chunk(float* dst, const float* src, long long st, int r0,
+                                          int c0) {
+  for (int i = threadIdx.x; i < kFlashTile * 32; i += kF32WideThreads)
+    dst[(i >> 5) * kChunkPitch + (i & 31)] = src[(r0 + (i >> 5)) * st + c0 + (i & 31)];
+}
+// columns c0 .. c0 + 63 of rows r0 .. r0 + 63 into a square tile
+__device__ __forceinline__ void f32_square(float* dst, const float* src, long long st, int r0,
+                                           int c0) {
+  for (int i = threadIdx.x; i < kFlashTile * 64; i += kF32WideThreads)
+    dst[(i >> 6) * kSqPitch + (i & 63)] = src[(r0 + (i >> 6)) * st + c0 + (i & 63)];
+}
+// acc[i][j] += sum_k a[ty + 16 i][k] b[tx + 16 j][k] over two chunks
+__device__ __forceinline__ void f32_abt(float (&acc)[4][4], const float* a, const float* b, int ty,
+                                        int tx) {
+#pragma unroll 8
+  for (int k = 0; k < 32; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(ty + 16 * i) * kChunkPitch + k];
+      bv[i] = b[(tx + 16 * i) * kChunkPitch + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+// acc[i][j] += sum_k p[ty + 16 i][k] v[k][tx + 16 j] over two square tiles
+__device__ __forceinline__ void f32_pv(float (&acc)[4][4], const float* p, const float* v, int ty,
+                                       int tx) {
+#pragma unroll 8
+  for (int k = 0; k < kFlashTile; ++k) {
+    float pv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pv[i] = p[(ty + 16 * i) * kSqPitch + k];
+      vv[i] = v[k * kSqPitch + tx + 16 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+  }
+}
+__device__ __forceinline__ void f32_zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+// s = a b^T over the whole head width (and, with `c`/`d`, dp = c d^T), the
+// rows of tile ra of heads a, c against those of tile rb of heads b, d
+template <bool TWO>
+__device__ __forceinline__ void f32_scores(float (&s)[4][4], float (&dp)[4][4], float* sm,
+                                           const float* a, long long sa, const float* b,
+                                           long long sb, const float* c, long long sc,
+                                           const float* d, long long sd, int ra, int rb, int D,
+                                           int ty, int tx) {
+  f32_zero(s);
+  if constexpr (TWO) f32_zero(dp);
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    __syncthreads();
+    f32_chunk(sm, a, sa, ra, c0);
+    f32_chunk(sm + kChunkFloats, b, sb, rb, c0);
+    if constexpr (TWO) {
+      f32_chunk(sm + 2 * kChunkFloats, c, sc, ra, c0);
+      f32_chunk(sm + 3 * kChunkFloats, d, sd, rb, c0);
+    }
+    __syncthreads();
+    f32_abt(s, sm, sm + kChunkFloats, ty, tx);
+    if constexpr (TWO) f32_abt(dp, sm + 2 * kChunkFloats, sm + 3 * kChunkFloats, ty, tx);
+  }
+}
+// a thread's 4 x 4 of a 64 x 64 output into rows r0 + ty + 16 i, columns
+// c0 + tx + 16 j of a (T, D) head
+__device__ __forceinline__ void f32_store(float* head, long long st, int r0, int c0,
+                                          const float (&acc)[4][4], int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) head[(r0 + ty + 16 * i) * st + c0 + tx + 16 * j] = acc[i][j];
+}
+
+// K7's scores of query tile qt against key tile kt, in log2 units, masked
+// past the diagonal
+__device__ __forceinline__ void f32_fwd_scores(float (&s)[4][4], float* sm, const float* qh,
+                                               const float* kh, const FlashLayout& lay, int qt,
+                                               int kt, int D, float scale_log2, int ty, int tx) {
+  float unused[4][4];
+  f32_scores<false>(s, unused, sm, qh, lay.s[0][2], kh, lay.s[1][2], nullptr, 0, nullptr, 0,
+                    qt * kFlashTile, kt * kFlashTile, D, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      s[i][j] = kt == qt && tx + 16 * j > ty + 16 * i ? -INFINITY : s[i][j] * scale_log2;
+}
+
+// K7, float32, wide heads
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   int H, int T, int D, FlashLayout lay, float scale_log2) {
+  extern __shared__ float fsm[];  // 2 chunks, then P and V's square tiles
+  float* ps = fsm + 2 * kChunkFloats;
+  float* vs = ps + kSqFloats;
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qh = head_ptr(q, lay, 0, b, h);
+  const float* kh = head_ptr(k, lay, 1, b, h);
+  const float* vh = head_ptr(v, lay, 2, b, h);
+  float s[4][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int kt = 0; kt <= qt; ++kt) {  // the row maxima and sums
+    f32_fwd_scores(s, fsm, qh, kh, lay, qt, kt, D, scale_log2, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float r = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, off));
+      const float mx = fmaxf(m[i], r);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += exp2f(s[i][j] - mx);
+      l[i] = l[i] * exp2f(m[i] - mx) + sum;
+      m[i] = mx;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    m[i] += log2f(l[i]);  // lse, log2 units
+    if (tx == 0) lse[(long long)bh * T + qt * kFlashTile + ty + 16 * i] = m[i] * kLn2;
+  }
+  float* oh = head_ptr(o, lay, 3, b, h);
+  for (int c0 = 0; c0 < D; c0 += 64) {
+    float acc[4][4];
+    f32_zero(acc);
+    for (int kt = 0; kt <= qt; ++kt) {
+      f32_fwd_scores(s, fsm, qh, kh, lay, qt, kt, D, scale_log2, ty, tx);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kSqPitch + tx + 16 * j] = exp2f(s[i][j] - m[i]);
+      f32_square(vs, vh, lay.s[2][2], kt * kFlashTile, c0);
+      __syncthreads();
+      f32_pv(acc, ps, vs, ty, tx);
+    }
+    f32_store(oh, lay.s[3][2], qt * kFlashTile, c0, acc, ty, tx);
+  }
+}
+
+// K8, float32, wide heads: rows are keys of tile kt, columns queries
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_bwd_dkv_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ di,
+                       float* __restrict__ dk, float* __restrict__ dv, int H, int T, int D,
+                       FlashLayout lay, float scale, float scale_log2) {
+  extern __shared__ float fsm[];  // 4 chunks, then P^T, dS^T, dO's and Q's square tiles
+  float* pts = fsm + 4 * kChunkFloats;
+  float* dss = pts + kSqFloats;
+  float* dos = dss + kSqFloats;
+  float* qs = dos + kSqFloats;
+  const int nt = T / kFlashTile, kt = (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qh = head_ptr(q, lay, 0, b, h);
+  const float* kh = head_ptr(k, lay, 1, b, h);
+  const float* vh = head_ptr(v, lay, 2, b, h);
+  const float* doh = head_ptr(dout, lay, 3, b, h);
+  for (int c0 = 0; c0 < D; c0 += 64) {
+    float dka[4][4], dva[4][4];
+    f32_zero(dka);
+    f32_zero(dva);
+    for (int qt = kt; qt < nt; ++qt) {
+      float sp[4][4], dp[4][4];
+      f32_scores<true>(sp, dp, fsm, kh, lay.s[1][2], qh, lay.s[0][2], vh, lay.s[2][2], doh,
+                       lay.s[3][2], kt * kFlashTile, qt * kFlashTile, D, ty, tx);
+      const long long r0 = (long long)bh * T + qt * kFlashTile;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j;
+        const float lq = lse[r0 + qc] * kLog2e, dd = di[r0 + qc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kr = ty + 16 * i;
+          const float p = qt == kt && qc < kr ? 0.f : exp2f(fmaf(sp[i][j], scale_log2, -lq));
+          pts[kr * kSqPitch + qc] = p;
+          dss[kr * kSqPitch + qc] = p * (dp[i][j] - dd) * scale;
+        }
+      }
+      f32_square(dos, doh, lay.s[3][2], qt * kFlashTile, c0);
+      f32_square(qs, qh, lay.s[0][2], qt * kFlashTile, c0);
+      __syncthreads();
+      f32_pv(dva, pts, dos, ty, tx);
+      f32_pv(dka, dss, qs, ty, tx);
+    }
+    f32_store(head_ptr(dk, lay, 4, b, h), lay.s[4][2], kt * kFlashTile, c0, dka, ty, tx);
+    f32_store(head_ptr(dv, lay, 5, b, h), lay.s[5][2], kt * kFlashTile, c0, dva, ty, tx);
+  }
+}
+
+// K9, float32, wide heads
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_bwd_dq_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ di,
+                      float* __restrict__ dq, int H, int T, int D, FlashLayout lay, float scale,
+                      float scale_log2) {
+  extern __shared__ float fsm[];  // 4 chunks, then dS's and K's square tiles
+  float* dss = fsm + 4 * kChunkFloats;
+  float* ks = dss + kSqFloats;
+  const int nt = T / kFlashTile, qt = nt - 1 - (int)(blockIdx.x % nt);
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qh = head_ptr(q, lay, 0, b, h);
+  const float* kh = head_ptr(k, lay, 1, b, h);
+  const float* vh = head_ptr(v, lay, 2, b, h);
+  const float* doh = head_ptr(dout, lay, 3, b, h);
+  const long long r0 = (long long)bh * T + qt * kFlashTile;
+  float lr[4], dr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lr[i] = lse[r0 + ty + 16 * i] * kLog2e;
+    dr[i] = di[r0 + ty + 16 * i];
+  }
+  for (int c0 = 0; c0 < D; c0 += 64) {
+    float acc[4][4];
+    f32_zero(acc);
+    for (int kt = 0; kt <= qt; ++kt) {
+      float s[4][4], dp[4][4];
+      f32_scores<true>(s, dp, fsm, qh, lay.s[0][2], kh, lay.s[1][2], doh, lay.s[3][2], vh,
+                       lay.s[2][2], qt * kFlashTile, kt * kFlashTile, D, ty, tx);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = kt == qt && tx + 16 * j > ty + 16 * i
+                              ? 0.f : exp2f(fmaf(s[i][j], scale_log2, -lr[i]));
+          dss[(ty + 16 * i) * kSqPitch + tx + 16 * j] = p * (dp[i][j] - dr[i]) * scale;
+        }
+      f32_square(ks, kh, lay.s[1][2], kt * kFlashTile, c0);
+      __syncthreads();
+      f32_pv(acc, dss, ks, ty, tx);
+    }
+    f32_store(head_ptr(dq, lay, 4, b, h), lay.s[4][2], qt * kFlashTile, c0, acc, ty, tx);
+  }
+}
+
 FlashLayout flash_layout(const long long* strides, int ops) {
   FlashLayout lay{};
   for (int i = 0; i < ops; ++i)
@@ -1413,40 +2200,39 @@ FlashLayout flash_layout(const long long* strides, int ops) {
   return lay;
 }
 
-// D 32, 64, 128 or 256; T a multiple of 64; the float32 grid's B * H * T /
-// 64 blocks within grid x
+// D 32, 64, 128 or 256, or a multiple of 128 above; T a multiple of 64;
+// the B * H * T / 64 blocks of the float32 and wide grids within grid x
 bool flash_shape_ok(int B, int H, int T, int d) {
-  return (d == 32 || d == 64 || d == 128 || d == 256) && T > 0 && T % kFlashTile == 0 &&
-         B > 0 && H > 0 && (long long)B * H * (T / kFlashTile) <= 0x7fffffffLL;
+  return (d == 32 || d == 64 || d == 128 || d % 128 == 0) && d > 0 && T > 0 &&
+         T % kFlashTile == 0 && B > 0 && H > 0 &&
+         (long long)B * H * (T / kFlashTile) <= 0x7fffffffLL;
 }
 
-// A 4-D map over (d, T, H, B) of a bf16 (B, H, T, D) operand whose batch,
+// A 4-D map over (d, T, H, B) of a bf16 (B, H, T, d) operand whose batch,
 // head and row strides (elements) are st[0..2], in boxes of a tile's 64
-// rows by min(D, 64) columns, swizzled for wgmma.
-template <int D>
-inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
+// rows by min(d, 64) columns, swizzled for wgmma (Tile<D>'s boxes; the
+// wide kernels' at any d above 256)
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int d, int B, int H, int T,
                             const long long* st) {
-  using L = Tile<D>;
   EncodeTiledFn encode;
   const cudaError_t err = tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)kFlashTile, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(d < 64 ? d : 64), (cuuint32_t)kFlashTile, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                            d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-inline cudaError_t head_maps(CUtensorMap* maps, const void* const* ptrs, int count, int B, int H,
-                             int T, const long long* strides) {
+inline cudaError_t head_maps(CUtensorMap* maps, const void* const* ptrs, int count, int d, int B,
+                             int H, int T, const long long* strides) {
   for (int i = 0; i < count; ++i) {
-    const cudaError_t err = head_map<D>(&maps[i], ptrs[i], B, H, T, strides + 3 * i);
+    const cudaError_t err = head_map(&maps[i], ptrs[i], d, B, H, T, strides + 3 * i);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1482,14 +2268,22 @@ cudaError_t flash_fwd(int dtype, const void* q, const void* k, const void* v, vo
   if (dtype == kBF16) {
     CUtensorMap maps[3];
     const void* ptrs[3] = {q, k, v};
-    cudaError_t err = head_maps<D>(maps, ptrs, 3, B, H, T, strides);
+    cudaError_t err = head_maps(maps, ptrs, 3, D, B, H, T, strides);
     int grid;
-    if (err == cudaSuccess)
-      err = persistent_grid(flash_fwd_hopper<D>, FwdCfg<D>::kSmem, B * H, &grid);
-    if (err != cudaSuccess) return err;
-    flash_fwd_hopper<D><<<grid, kHopperThreads, FwdCfg<D>::kSmem, stream>>>(
-        maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H, B * H,
-        T, scale_log2);
+    if constexpr (D == 256) {
+      if (err == cudaSuccess) err = persistent_grid(flash_fwd_d256, Fwd256Cfg::kSmem, B * H, &grid);
+      if (err != cudaSuccess) return err;
+      flash_fwd_d256<<<grid, kHopperThreads, Fwd256Cfg::kSmem, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H,
+          B * H, T, scale_log2);
+    } else {
+      if (err == cudaSuccess)
+        err = persistent_grid(flash_fwd_hopper<D>, FwdCfg<D>::kSmem, B * H, &grid);
+      if (err != cudaSuccess) return err;
+      flash_fwd_hopper<D><<<grid, kHopperThreads, FwdCfg<D>::kSmem, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H,
+          B * H, T, scale_log2);
+    }
     return cudaGetLastError();
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
@@ -1511,7 +2305,7 @@ cudaError_t flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v
   if (dtype == kBF16) {
     CUtensorMap maps[4];
     const void* ptrs[4] = {q, k, v, dout};
-    cudaError_t err = head_maps<D>(maps, ptrs, 4, B, H, T, strides);
+    cudaError_t err = head_maps(maps, ptrs, 4, D, B, H, T, strides);
     int grid;
     if (err == cudaSuccess)
       err = persistent_grid(flash_bwd_dkv_hopper<D>, DkvCfg<D>::kSmem, B * H, &grid);
@@ -1541,7 +2335,7 @@ cudaError_t flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   if (dtype == kBF16) {
     CUtensorMap maps[4];
     const void* ptrs[4] = {q, k, v, dout};
-    cudaError_t err = head_maps<D>(maps, ptrs, 4, B, H, T, strides);
+    cudaError_t err = head_maps(maps, ptrs, 4, D, B, H, T, strides);
     int grid;
     if (err == cudaSuccess)
       err = persistent_grid(flash_bwd_dq_hopper<D>, DqCfg<D>::kSmem, B * H, &grid);
@@ -1562,22 +2356,109 @@ cudaError_t flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The wide kernels' launchers: d a multiple of 128 above 256, one block a
+// 64-row tile of one (b, h) on grid x
+inline cudaError_t wide_smem(const void* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+cudaError_t flash_fwd_wide_at(int d, int dtype, const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int H, int T, const long long* strides,
+                              float scale_log2, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)B * H * (T / kFlashTile);
+  if (dtype == kBF16) {
+    CUtensorMap maps[3];
+    const void* ptrs[3] = {q, k, v};
+    cudaError_t err = head_maps(maps, ptrs, 3, d, B, H, T, strides);
+    if (err == cudaSuccess) err = wide_smem((const void*)flash_fwd_wide, kWideSmem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_wide<<<blocks, kWideThreads, kWideSmem, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, flash_layout(strides, 4), H, T, d,
+        scale_log2);
+    return cudaGetLastError();
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = (2 * kChunkFloats + 2 * kSqFloats) * sizeof(float);
+  const cudaError_t err = wide_smem((const void*)flash_fwd_f32_wide, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32_wide<<<blocks, kF32WideThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, T, d, flash_layout(strides, 4), scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t flash_bwd_dkv_wide_at(int d, int dtype, const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse, const float* di, void* dk,
+                                  void* dv, int B, int H, int T, const long long* strides,
+                                  float scale, float scale_log2, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)B * H * (T / kFlashTile);
+  if (dtype == kBF16) {
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, dout};
+    cudaError_t err = head_maps(maps, ptrs, 4, d, B, H, T, strides);
+    if (err == cudaSuccess) err = wide_smem((const void*)flash_bwd_dkv_wide, kWideSmem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_wide<<<blocks, kWideThreads, kWideSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse,
+        di, flash_layout(strides, 6), H, T, d, scale, scale_log2);
+    return cudaGetLastError();
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = (4 * kChunkFloats + 4 * kSqFloats) * sizeof(float);
+  const cudaError_t err = wide_smem((const void*)flash_bwd_dkv_f32_wide, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_f32_wide<<<blocks, kF32WideThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
+      H, T, d, flash_layout(strides, 6), scale, scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t flash_bwd_dq_wide_at(int d, int dtype, const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse, const float* di, void* dq,
+                                 int B, int H, int T, const long long* strides, float scale,
+                                 float scale_log2, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)B * H * (T / kFlashTile);
+  if (dtype == kBF16) {
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, dout};
+    cudaError_t err = head_maps(maps, ptrs, 4, d, B, H, T, strides);
+    if (err == cudaSuccess) err = wide_smem((const void*)flash_bwd_dq_wide, kWideSmem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wide<<<blocks, kWideThreads, kWideSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dq), lse, di,
+        flash_layout(strides, 5), H, T, d, scale, scale_log2);
+    return cudaGetLastError();
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const size_t smem = (4 * kChunkFloats + 2 * kSqFloats) * sizeof(float);
+  const cudaError_t err = wide_smem((const void*)flash_bwd_dq_f32_wide, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_wide<<<blocks, kF32WideThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, T, d,
+      flash_layout(strides, 5), scale, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace mnx
 
-// each launcher at the head width d (flash_shape_ok has taken it)
+// each launcher at the head width d (flash_shape_ok has taken it): the
+// templates to 256, the wide kernels above
 #define MNX_FLASH_AT_WIDTH(fn, ...)                                            \
   (d == 32    ? mnx::fn<32>(__VA_ARGS__)                                       \
    : d == 64  ? mnx::fn<64>(__VA_ARGS__)                                       \
    : d == 128 ? mnx::fn<128>(__VA_ARGS__)                                      \
-              : mnx::fn<256>(__VA_ARGS__))
+   : d == 256 ? mnx::fn<256>(__VA_ARGS__)                                      \
+              : mnx::fn##_wide_at(d, __VA_ARGS__))
 
 extern "C" {
 
 // q, k, v, o (B, H, T, d) in one dtype through their (batch, head, row)
 // strides in `strides` (4 x 3 elements), each row contiguous and every
 // stride and address 16-byte aligned; lse (B, H, T) float32 contiguous; d
-// 32, 64, 128 or 256, T a multiple of 64.  The wrapper checks these.  Returns a
-// cudaError_t code.
+// 32, 64, 128, or a multiple of 128; T a multiple of 64.  The wrapper
+// checks these.  Returns a cudaError_t code.
 int mnx_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                             float* lse, int B, int H, int T, int d, const long long* strides,
                             float sm_scale, void* stream) {

@@ -28,17 +28,18 @@ here a :class:`torch.autograd.Function`.
 * :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dkv`,
   :func:`flash_attention_bwd_dq` — K7, K8 and K9: hold their inputs to what
   the kernels take (one dtype, float32 or bfloat16; d up to 128, or 256; T
-  a multiple of 64) on every device, then dispatch on it: a CPU tensor runs
-  the plain version, any other launches ``csrc/flash_attention.cu``.  The
-  kernels are built for the head widths 32, 64, 128 and 256; any other d
-  up to 128 runs at the next of these through :func:`at_native_width`,
+  a multiple of 64, the float32 grid's B H T / 64 blocks within 2^31 - 1)
+  on every device, then dispatch on it: a CPU tensor runs the plain
+  version, any other launches ``csrc/flash_attention.cu``.  The kernels
+  are built for the head widths 32, 64, 128 and 256, and stream any wider
+  head through shared memory 64 columns at a time; any other d up to 128
+  runs at the next of the built widths through :func:`at_native_width`,
   which gives the operands zero columns and cuts the outputs back (exact:
   a zero column adds nothing to ``q k^T`` and gives zero columns of o, dq,
   dk and dv).  Above 128, JAX's library kernel takes the multiples of 128
-  only, so any other width is refused with its reason; of those the port
-  takes 256, the widest head PyTorch's own flash attention takes, and
-  refuses 384 and above naming that limit.  A width above 128 is never
-  padded: that would run where the library raises.
+  only, so any other width is refused with its reason, and every multiple
+  of 128 runs at its own width.  A width above 128 is never padded: that
+  would run where the library raises.
   The kernels read every operand through its batch, head and row strides,
   so the decoder's q, k and v are read in place from its qkv projection,
   and the outputs are views of ``(B, T, H, d)`` buffers, the layout the
@@ -57,10 +58,10 @@ from molnextr_tpu_torch.ops._launch import LAUNCHES, dtype_code
 
 # the library's mask value (flash_attention.py:29)
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
-NATIVE_WIDTHS = (32, 64, 128, 256)  # the head widths the kernels are built for
+NATIVE_WIDTHS = (32, 64, 128)  # the widths up to PAD_LIMIT that the kernels are built for
 PAD_LIMIT = 128  # a width up to this runs at the next native width; above, only at its own
-MAX_HEAD_DIM = NATIVE_WIDTHS[-1]
 TILE = 64  # rows of the kernels' query and key tiles: T is a multiple of it
+GRID_LIMIT = 2 ** 31 - 1  # blocks of a grid's x: the float32 and the wide kernels take B H T / 64
 
 
 def _no_autocast(t: torch.Tensor):
@@ -131,6 +132,10 @@ def _check(name: str, *ts) -> None:
         raise ValueError(f"{name}: {reason}")
     if t < TILE or t % TILE:
         raise ValueError(f"{name}: the kernels take T a multiple of their {TILE}-row tile, got {t}")
+    b, h = q.shape[:2]
+    if b * h * (t // TILE) > GRID_LIMIT:
+        raise ValueError(f"{name}: the kernels' grid takes B H T / {TILE} up to {GRID_LIMIT} "
+                         f"blocks, got {b * h * (t // TILE)}")
 
 
 def _width_refusal(d: int):
@@ -140,19 +145,17 @@ def _width_refusal(d: int):
     if d > PAD_LIMIT and d % 128:
         return (f"above {PAD_LIMIT} the head width must be a multiple of 128, as JAX's library "
                 f"flash attention requires, got {d}")
-    if d > MAX_HEAD_DIM:
-        return f"the kernels take head widths d up to {MAX_HEAD_DIM}, got {d}"
     return None
 
 
 def native_width(d: int) -> int:
-    """The head width the kernels run d at: d itself where they are built
-    for it, else, up to ``PAD_LIMIT``, the least of NATIVE_WIDTHS above it.
-    Raises ``ValueError`` for a width they do not take."""
+    """The head width the kernels run d at: up to ``PAD_LIMIT``, the least
+    of NATIVE_WIDTHS from d up; above it, d itself.  Raises ``ValueError``
+    for a width they do not take."""
     reason = _width_refusal(d)
     if reason:
         raise ValueError(reason)
-    return next(w for w in NATIVE_WIDTHS if d <= w)
+    return d if d > PAD_LIMIT else next(w for w in NATIVE_WIDTHS if d <= w)
 
 
 def at_native_width(run, heads, *rest):

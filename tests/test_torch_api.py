@@ -34,6 +34,8 @@ PORT_SCRIPTS = [os.path.join(ROOT, "scripts", "train_druglike_torch.py"),
                 os.path.join(ROOT, "scripts", "diagnose_errors_torch.py"),
                 os.path.join(ROOT, "scripts", "diagnose_chirality_torch.py"),
                 os.path.join(ROOT, "scripts", "bench_decode_torch.py"),
+                os.path.join(ROOT, "scripts", "flash_variants_torch.py"),
+                os.path.join(ROOT, "scripts", "flash_probe_torch.py"),
                 os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "examples", "predict_example_torch.py"),
                 os.path.join(ROOT, "examples", "visualize_example_torch.py")]

@@ -828,14 +828,15 @@ def test_flash_attention_kernel_edges(dev, dtype, b, h, t, strided):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 48, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("b,h,t,strided", [(1, 1, 128, False), (7, 19, 256, True),
                                            (1, 1, 1024, True), (7, 19, 128, False)])
 def test_flash_attention_kernel_widths(dev, dtype, d, b, h, t, strided):
     """Head widths other than the decoders' 32: 64, 128 and 256 (the
-    kernels' other widths; at 256 the two warpgroups split each tile's
-    columns) and 16 and 48 (given zero columns up to 32 and 64 by the
-    wrappers), each kernel against its plain version, one launch each; one
+    kernels' other widths; at 256 K8's and K9's two warpgroups split each
+    tile's columns), 16 and 48 (given zero columns up to 32 and 64 by the
+    wrappers), and 384, 512 and 1024 (the wide kernels, the head width
+    streamed), each kernel against its plain version, one launch each; one
     head and 133, T 128 to 1024, strided and contiguous operands."""
     _check_flash_kernels(dev, dtype, b, h, t, strided, d)
 
@@ -855,6 +856,12 @@ def test_flash_attention_kernels_take_many_heads_at_d256(dev, dtype, t):
     grid, each of one tile (T 64) or three (T 192, the split's rounds of one
     tile with one own slot); the float32 kernels at 512 threads a block."""
     _check_flash_kernels(dev, dtype, 1400, 10, t, True, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_stream_d2048(dev, dtype):
+    """The widest head timed nowhere else: d 2048 at B 1, H 2, T 256."""
+    _check_flash_kernels(dev, dtype, 1, 2, 256, True, 2048)
 
 
 def _check_flash_kernels(dev, dtype, b, h, t, strided, d=32):
@@ -903,8 +910,6 @@ def test_flash_attention_autograd_on_card(dev, dtype):
 
 def test_flash_kernels_refuse_bad_operands(dev):
     q = torch.zeros(2, 2, 128, 32, device=dev)
-    with pytest.raises(ValueError, match="head widths d up to 256, got 384"):
-        fl.flash_attention_fwd(*(torch.zeros(2, 2, 128, 384, device=dev),) * 3, 1.0)
     with pytest.raises(ValueError, match="multiple of 128.*got 192"):
         fl.flash_attention_fwd(*(torch.zeros(2, 2, 128, 192, device=dev),) * 3, 1.0)
     with pytest.raises(ValueError, match="64-row tile"):
@@ -942,11 +947,13 @@ def _flash_batch(cfg):
 @pytest.mark.parametrize("dtype_name,hidden", [
     pytest.param("float32", 64, id="float32"), pytest.param("bf16", 64, id="bf16"),
     pytest.param("float32", 128, id="float32-d64"), pytest.param("bf16", 128, id="bf16-d64"),
-    pytest.param("float32", 512, id="float32-d256"), pytest.param("bf16", 512, id="bf16-d256")])
+    pytest.param("float32", 512, id="float32-d256"), pytest.param("bf16", 512, id="bf16-d256"),
+    pytest.param("float32", 1024, id="float32-d512"), pytest.param("bf16", 1024, id="bf16-d512")])
 def test_flash_route_train_and_eval_steps_on_card(dev, dtype_name, hidden):
     """The train step (remat on) and the eval step of a model whose decoder
     takes the flash route, against the same model with the flag off, on the
-    card (head width 32, 64 at hidden 128 and 256 at 512): K7 twice a layer in a train
+    card (head width 32, 64 at hidden 128, 256 at 512 and 512, streamed, at
+    1024): K7 twice a layer in a train
     step (forward and remat recompute), K8 and K9 once, K7 once a layer in
     the eval step, none with the flag off."""
     from molnextr_tpu_torch.train.loop import _criterion

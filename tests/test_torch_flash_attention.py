@@ -7,9 +7,10 @@ against the JAX package and JAX's library kernel.
   the plain backward against ``jax.vjp`` of that function (its
   ``mha_reference`` raises for ``sm_scale != 1`` in the backward), float32
   within 1e-5 of each array's largest magnitude, at head widths 32, 16,
-  24, 64, 128 and 256; the wrappers' zero columns up to the kernels' width
-  (``at_native_width``) equal to the unpadded plain version exactly.
-* The route (at head widths 32, 16, 64 and 256): with ``use_flash_attention``
+  24, 64, 128, 256, 384 and 512; the wrappers' zero columns up to the
+  kernels' width (``at_native_width``) equal to the unpadded plain version
+  exactly.
+* The route (at head widths 32, 16, 64, 256 and 384): with ``use_flash_attention``
   and the route's device condition monkeypatched (on the CPU the JAX package does not take its flash path
   either), the port's decoder against the JAX decoder's masked path on
   non-PAD rows and its causal-only path on every row; the port's
@@ -19,8 +20,8 @@ against the JAX package and JAX's library kernel.
 * The route declines wherever the JAX package's ``MHA._can_flash`` does,
   shown by a spy on the dispatcher, and the kernels' wrappers refuse a head
   width or length they do not take (meta tensors): d above 128 but no
-  multiple of 128 (as JAX's library kernel does), d above 256, T not a
-  multiple of 64.
+  multiple of 128 (as JAX's library kernel does), T not a multiple of 64,
+  a grid past 2^31 - 1 blocks; every multiple of 128 is taken.
 
 The kernels themselves run on the card only: ``tests/test_torch_cuda.py``.
 """
@@ -64,10 +65,12 @@ REL = 1e-5  # float32, relative to the array's largest magnitude
 FMT = "chartok_coords"
 SHAPES = [(1, 1, 128), (2, 3, 128), (3, 8, 128), (1, 8, 256), (2, 2, 256), (3, 1, 256)]
 # (b, h, t, d): SHAPES at the decoders' d 32 under their own ids, and two
-# shapes at other widths JAX's library kernel takes: up to 128, and 256
+# shapes at other widths JAX's library kernel takes: up to 128, and the
+# multiples of 128 above (256 built, 384 and 512 streamed by the kernels)
 WIDE_SHAPES = ([pytest.param(b, h, t, 32, id=f"{b}-{h}-{t}") for b, h, t in SHAPES]
                + [pytest.param(b, h, t, d, id=f"{b}-{h}-{t}-d{d}")
-                  for d in (16, 24, 64, 128, 256) for b, h, t in ((2, 3, 128), (1, 2, 256))])
+                  for d in (16, 24, 64, 128, 256, 384, 512)
+                  for b, h, t in ((2, 3, 128), (1, 2, 256))])
 
 
 def _qkv(b, h, t, seed, d=32):
@@ -169,9 +172,10 @@ def test_dispatcher_under_checkpoint_and_bf16_autocast():
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Meta tensors: no data, the shape checks alone.  Above 128 a head
     width that is no multiple of 128 is refused with JAX's library kernel's
-    reason (129, 192, 255), and 384 and 512, which the library takes, with
-    the port's limit of 256; every d up to 128 is taken, and 256.  A width
-    above 128 is never padded up to 256."""
+    reason (129, 192, 255); every d up to 128 is taken, and every multiple
+    of 128 above it (256, 384, 512, 1024, 2048), which runs at its own
+    width: a width above 128 is never padded.  A grid of more than 2^31 - 1
+    blocks (B H T / 64) is refused naming the limit."""
     def meta(*shape, dtype=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dtype)
 
@@ -187,15 +191,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             fl.flash_attention_bwd_dq(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
         with pytest.raises(ValueError, match=f"{library}.*got {d}"):
             fl.native_width(d)
-    for d in (384, 512):
-        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
-            fl.flash_attention_fwd(*(meta(2, 2, 128, d),) * 3, SCALE)
-        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
-            fl.flash_attention_bwd_dkv(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
-        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
-            fl.flash_attention_bwd_dq(*(meta(1, 1, 128, d),) * 4, lse, lse, SCALE)
-        with pytest.raises(ValueError, match=f"head widths d up to 256, got {d}"):
-            fl.native_width(d)
+    for d in (256, 384, 512, 1024, 2048):
+        assert fl.native_width(d) == d
+        fl._check("k7", *(meta(2, 2, 128, d),) * 3)
+        fl._check("k8", *(meta(1, 1, 128, d),) * 4)
+    with pytest.raises(ValueError, match=f"grid takes B H T / 64 up to {2 ** 31 - 1} blocks, "
+                                         f"got {2 ** 25 * 33 * 2}"):
+        fl.flash_attention_fwd(*(meta(2 ** 25, 33, 128, 512),) * 3, SCALE)
+    with pytest.raises(ValueError, match="grid takes"):
+        fl.flash_attention_bwd_dq(*(meta(2 ** 25, 33, 128, 32),) * 4, meta(2 ** 25, 33, 128),
+                                  meta(2 ** 25, 33, 128), SCALE)
     with pytest.raises(ValueError, match="positive, got 0"):
         fl.flash_attention_fwd(*(meta(2, 2, 128, 0),) * 3, SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
@@ -205,8 +210,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                   SCALE)
     with pytest.raises(ValueError, match="64-row tile"):
         fl.flash_attention_fwd(*(meta(2, 2, 96, 256),) * 3, SCALE)
-    assert [fl.native_width(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128, 256)] == [
-        32, 32, 32, 64, 64, 64, 128, 128, 128, 256]
+    assert [fl.native_width(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128, 256, 384)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 384]
     with pytest.raises(TypeError):
         fl.flash_attention_fwd(*(meta(2, 2, 128, 32, dtype=torch.float16),) * 3, SCALE)
     with pytest.raises(NotImplementedError):
@@ -312,15 +317,16 @@ def _tokens(b, t, seed, pad_from=(None, 90, 40)):
 
 
 # 2 heads of hidden 64 (d 32, the decoders' width), 32 (d 16, the tiny
-# config's), 128 (d 64) and 512 (d 256, the widest head the kernels take)
+# config's), 128 (d 64), 512 (d 256, the widest head the kernels are built
+# for) and 768 (d 384, which they stream)
 HIDDEN = [pytest.param(64, id="d32"), pytest.param(32, id="d16"), pytest.param(128, id="d64"),
-          pytest.param(512, id="d256")]
+          pytest.param(512, id="d256"), pytest.param(768, id="d384")]
 
 
 @pytest.mark.parametrize("layers,hidden", [
     pytest.param(1, 64, id="1"), pytest.param(2, 64, id="2"),
     pytest.param(2, 32, id="2-d16"), pytest.param(2, 128, id="2-d64"),
-    pytest.param(2, 512, id="2-d256")])
+    pytest.param(2, 512, id="2-d256"), pytest.param(2, 768, id="2-d384")])
 def test_route_matches_jax_decoder(layers, hidden, spy, on_card):
     """Decoder.forward with the route taken: non-PAD rows equal the JAX
     decoder's (masked path, as it runs on the CPU); every row equals its
